@@ -1,0 +1,112 @@
+"""Build the CUDA kernels with nvcc and bind them through ctypes.
+
+All ``spgrid_torch/csrc/*.cu`` files are compiled by one nvcc call into one
+shared library with a plain C interface, at the first launch of any kernel:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o libspgrid_kernels.so csrc/*.cu
+
+The library goes to ``build/spgrid_torch/<hash of sources and flags>/`` under
+the repository root (git ignores ``build/``), with nvcc's output, including
+ptxas's register and shared-memory report, beside it in ``nvcc.log``. A
+source change gives a new hash and a new build. Every C entry point returns
+``cudaGetLastError()`` after its launch; ``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "spgrid_torch"
+LIB_NAME = "libspgrid_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+# C signatures: device pointers and the stream as void*, sizes as int.
+SIGNATURES = {
+    # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, stream
+    "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n, stream
+    "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, stream
+    "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+}
+
+
+class BuildError(RuntimeError):
+    """The CUDA kernels could not be built."""
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from $CUDA_HOME/bin (default /usr/local/cuda)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise BuildError(
+        "nvcc not found on PATH or in $CUDA_HOME/bin: the spgrid_torch CUDA "
+        "kernels are built with the CUDA toolkit for sm_90a (Hopper) at their "
+        "first launch")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library's path."""
+    out = build_dir()
+    lib = out / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
+                          capture_output=True, text=True, check=False)
+    (out / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernels, with argument types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.spgrid_error_string.argtypes = [ctypes.c_int]
+    lib.spgrid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = library().spgrid_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({code})")
