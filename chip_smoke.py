@@ -8,28 +8,45 @@ exits non-zero and never prints the final ``"ok": true`` line:
 
 0. set-up: a CUDA device is required (no CPU fallback); print the card's
    name and power limit from nvidia-smi; build the CUDA kernels from
-   ``spgrid_torch/csrc`` and print the build time.
+   ``spgrid_torch/csrc`` (one nvcc per source, all started together) and
+   print the build time.
 1. kernels: each CUDA kernel against its plain PyTorch version computed in
-   f64 on the card, at the main path's shapes, on a banded matrix with empty
-   block rows (bm=8), and at a larger shape; with each kernel's time and
-   the plain f32 version's time from CUDA events.
+   f64 on the card, at the shapes of the paths that run it, at an edge
+   shape and, for the block kernels, at a larger shape; with the kernel's
+   time, the plain f32 version's time and the time of one PyTorch library
+   call that computes the same function (``torch.sparse.mm``,
+   ``torch.sparse.sampled_addmm``; a yardstick the port never calls), all
+   from CUDA events around eager calls; the kernel's device time alone,
+   from CUDA-graph replay; and the kernel's bound: the larger of the bytes
+   the product needs on that matrix (each nnz, each dense operand and the
+   output once) over the card's memory rate and its operations (2 a nnz a
+   column) over its f32 rate.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line.
 3. flagship: one step of ``spgrid_torch.entry.entry`` (which must launch
    bsr_spmm 4 times and bsr_sddmm once), gated against ``gold_pipeline``,
    then ``run_pipeline`` on the same matrices, gated at eps 1e-3.
+4. CLI: ``python -m spgrid_torch.bench`` (its ``main``) on the minimum
+   end-to-end slice, the hypersparse matrix ``MAIN_LINE``: wcoo_cuda and
+   wcoo_bands_cuda at n=512, wrow_spmv_cuda and wcoo_spmv_cuda at n=1, each
+   row gated against the host f64 oracle at eps 1e-4.
 
-Then one JSON line of the kernels (launches counted over phases 2 and 3,
-errors and times from phase 1), and last
+The launch counts are set to 0 before phases 2-3 (the headline and
+flagship path) and before phase 4 (the CLI path), and read after each; a
+kernel of a path that was not launched there fails the run. Then one JSON
+line of the kernels (launches from their path, errors and times from phase
+1), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,8 +61,14 @@ REL_TOL = 1e-5
 SIGNIFICANT = 1e-4
 TIME_S = 0.2            # minimum timed seconds for each kernel time
 DEVICE = "cuda"
-LARGE = 4096            # side of the larger case of each kernel
-
+LARGE = 4096            # side of the larger case of each block kernel
+# The README's minimum end-to-end slice: a hypersparse 65535^2 matrix with
+# 5 nnz a row in a band of 5 % of the columns.
+MAIN_LINE = "65535 65535 5 1.6667 normal random 0.05 0 0.05 0.05 14"
+# Peaks of one H100 SXM (NVIDIA's data sheet): device memory and f32 FMA on
+# the CUDA cores, for each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 def card_line() -> str:
     out = subprocess.run(
@@ -57,7 +80,7 @@ def card_line() -> str:
 
 def positive(csr):
     """The same sparsity with values |v| + 0.1 (no cancellation)."""
-    from spgrid.formats.csr import CSRMatrix
+    from spgrid_torch.formats.csr import CSRMatrix
     return CSRMatrix(csr.row_ptr, csr.col_idx,
                      (np.abs(csr.values) + 0.1).astype(np.float32),
                      csr.shape, csr.name)
@@ -66,13 +89,31 @@ def positive(csr):
 def banded_with_empty_rows(m=1000, k=1000, seed=3):
     """A banded matrix whose block rows 1 and 2 (rows 8-23) are empty at
     bm=8."""
-    from spgrid.formats.csr import dense_to_csr
+    from spgrid_torch.formats.csr import dense_to_csr
     rng = np.random.default_rng(seed)
     i = np.arange(m)[:, None]
     j = np.arange(k)[None, :]
     d = np.where(np.abs(i - j) <= 40, rng.random((m, k)) + 0.5, 0.0)
     d[8:24] = 0.0
     return dense_to_csr(d.astype(np.float32), name="banded_empty_rows")
+
+
+def edge_matrix():
+    """~6 scattered nnz a row; rows 1024-2047 empty (an empty row block of
+    1024 rows and eight empty 128-row blocks); row 5 holds 250 nnz in the
+    last 250 columns, so it collides in each of the last three 128-column
+    windows; neither m nor k is a multiple of 128."""
+    from spgrid_torch.entry import hypersparse_edge
+    return hypersparse_edge(3000, 2000, density=0.003,
+                            empty=slice(1024, 2048), heavy_row=5,
+                            heavy_nnz=250)
+
+
+def main_matrix():
+    """The CSR matrix of ``MAIN_LINE``, as the CLI generates it."""
+    from spgrid_torch.gen import GenParams, artificial_matrix_generation
+    return artificial_matrix_generation(**GenParams.from_line(MAIN_LINE)
+                                        .kwargs())
 
 
 def rand(shape, seed):
@@ -88,10 +129,58 @@ def compare(out: torch.Tensor, ref: torch.Tensor):
     return rel.max().item(), diff.max().item()
 
 
+def device_ms(fn, *args, calls: int = 20, replays: int = 20) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    the graph replayed ``replays`` times between CUDA events, so the host's
+    cost to enqueue a call is left out. nan off the card."""
+    if DEVICE != "cuda":
+        return float("nan")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def csr_tensor(csr):
+    """``csr`` as a ``torch.sparse_csr_tensor`` on the card, for the library
+    yardsticks."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.row_ptr.astype(np.int64)),
+        torch.from_numpy(csr.col_idx.astype(np.int64)),
+        torch.from_numpy(csr.values.astype(np.float32)),
+        size=csr.shape).to(DEVICE)
+
+
 def phase_kernels() -> dict:
     """Phase 1. Returns, per kernel, the numbers of its main-path case."""
-    from spgrid.gen import create_mask
-    from spgrid.formats.csr import random_csr
+    from spgrid_torch.formats.csr import random_csr
+    from spgrid_torch.gen import create_mask
     from spgrid_torch.bench.headline import headline_matrix
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.entry import flagship_csrs
@@ -99,6 +188,14 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+    from spgrid_torch.ops.kernels.wcoo_spmm import (
+        DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
+    from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+        DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
+    from spgrid_torch.ops.kernels.wcoo_spmv import (
+        DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.wrow_spmv import (
+        DeviceWROW, wrow_spmv, wrow_spmv_plain)
     from spgrid_torch.ops.layouts import DeviceBSR
 
     def ms(fn, *args):
@@ -111,59 +208,148 @@ def phase_kernels() -> dict:
     big = positive(random_csr(LARGE, LARGE, 0.5, seed=7))
     big_mask = create_mask("band_and_random", LARGE, sparsity=0.95, seed=14)
     banded = banded_with_empty_rows()
+    hyper = main_matrix()
+    edge = edge_matrix()
 
-    def spmm_case(kernel, plain, a, n, seed):
+    # Each case: (kernel, plain, args, args in f64, library call and its
+    # args, bytes moved, flops). Bytes and flops are what the product needs
+    # on this matrix, whatever the layout holds: each nnz's value and column
+    # index once (``index_bytes``: the layout's own width where it stores
+    # one a slot, else CSR's int32), the dense operands read once and the
+    # output written once; 2 flops per nnz per column. Padding, dense block
+    # work and empty slots count for nothing.
+    def spmm_case(kernel, plain, a, csr, n, seed, index_bytes=4):
         x = rand((a.shape[1], n), seed)
-        return (kernel, plain, (a, x), (a, x.double()))
+        return (kernel, plain, (a, x), (a, x.double()), torch.sparse.mm,
+                (csr_tensor(csr), x),
+                csr.nnz * (4 + index_bytes) + nbytes(x) + 4 * a.shape[0] * n,
+                2.0 * csr.nnz * n)
 
-    def sddmm_case(m, d, seed):
+    def spmv_case(kernel, plain, a, csr, seed, index_bytes):
+        x = rand((a.shape[1],), seed)
+        return (kernel, plain, (a, x), (a, x.double()), torch.sparse.mm,
+                (csr_tensor(csr), x[:, None]),
+                csr.nnz * (4 + index_bytes) + nbytes(x) + 4 * a.shape[0],
+                2.0 * csr.nnz)
+
+    def bsr_case(csr, bm, n, seed):
+        a = DeviceBSR.from_csr(csr, bm=bm, bk=128, device=DEVICE)
+        return spmm_case(bsr_spmm, bsr_spmm_plain, a, csr, n, seed)
+
+    def panel_case(csr, n, seed):
+        a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
+        return spmm_case(panel_spmm, panel_spmm_plain, a, csr, n, seed)
+
+    def sddmm_case(m, bm, d, seed):
+        # reads Q, K and the mask's column indices; writes one value a
+        # mask nnz
+        a = DeviceBSR.from_csr(m, bm=bm, bk=128, device=DEVICE)
         q, k = rand((m.shape[0], d), seed), rand((m.shape[1], d), seed + 1)
-        return (bsr_sddmm, bsr_sddmm_plain, (m, q, k), (m, q.double(), k.double()))
+        return (bsr_sddmm, bsr_sddmm_plain, (a, q, k),
+                (a, q.double(), k.double()),
+                lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
+                                                             beta=0.0),
+                (csr_tensor(m), q, k.t().contiguous()),
+                m.nnz * (4 + 4) + nbytes(q, k), 2.0 * m.nnz * d)
 
-    def bsr(csr, bm):
-        return DeviceBSR.from_csr(csr, bm=bm, bk=128, device=DEVICE)
+    def layout_line(name, csr, a, units, count):
+        print(f"phase 1 layout: {name} of {csr.name} ({csr.nnz} nnz): "
+              f"{count} {units}, utilization {a.utilization:.4f}", flush=True)
 
-    def panels(csr):
-        return DevicePanels.from_csr(csr, bk=128, device=DEVICE)
+    def wcoo_case(csr, n, seed):
+        a = DeviceWCOO.from_csr(csr, device=DEVICE)
+        chunks = len(a.chunk_window)
+        layout_line("wcoo", csr, a, "chunks of 128 slots", chunks)
+        return spmm_case(wcoo_spmm, wcoo_spmm_plain, a, csr, n, seed,
+                         a.cols.element_size())
 
+    def bands_case(csr, n, seed):
+        a = DeviceWCOOBands.from_csr(csr, device=DEVICE)
+        layout_line("wcoo_bands", csr, a, "groups of 8x128 slots",
+                    len(a.block_groups))
+        return spmm_case(wcoo_spmm_aligned, wcoo_spmm_aligned_plain, a, csr,
+                         n, seed, a.cols.element_size())
+
+    def wcoo_spmv_case(csr, seed):
+        a = DeviceWCOOAligned.from_csr(csr, device=DEVICE)
+        layout_line("wcoo_aligned", csr, a, "groups of 8x128 slots",
+                    a.num_groups)
+        return spmv_case(wcoo_spmv, wcoo_spmv_plain, a, csr, seed,
+                         a.cols.element_size())
+
+    def wrow_case(csr, seed):
+        a = DeviceWROW.from_csr(csr, device=DEVICE)
+        layout_line("wrow", csr, a, "groups of 8 pieces of 128 slots",
+                    a.num_groups)
+        return spmv_case(wrow_spmv, wrow_spmv_plain, a, csr, seed,
+                         a.cols.element_size())
+
+    hyper_label = "MAIN_LINE {}x{} hypersparse".format(*hyper.shape)
+    edge_label = "3000x2000 empty row blocks, 250-nnz row, ragged k"
     cases = [
         ("bsr_spmm", "headline 512^2 bm=128 n=512", True,
-         spmm_case(bsr_spmm, bsr_spmm_plain, bsr(head, 128), 512, 1)),
+         lambda: bsr_case(head, 128, 512, 1)),
         ("bsr_spmm", "pipeline weight 512^2 bm=128 n=512", False,
-         spmm_case(bsr_spmm, bsr_spmm_plain, bsr(wk, 128), 512, 2)),
+         lambda: bsr_case(wk, 128, 512, 2)),
         ("bsr_spmm", "banded 1000^2 empty block rows bm=8 n=200", False,
-         spmm_case(bsr_spmm, bsr_spmm_plain, bsr(banded, 8), 200, 3)),
+         lambda: bsr_case(banded, 8, 200, 3)),
         ("bsr_spmm", "4096^2 50% bm=128 n=512", False,
-         spmm_case(bsr_spmm, bsr_spmm_plain, bsr(big, 128), 512, 4)),
+         lambda: bsr_case(big, 128, 512, 4)),
         ("panel_spmm", "headline 512^2 n=512", True,
-         spmm_case(panel_spmm, panel_spmm_plain, panels(head), 512, 1)),
+         lambda: panel_case(head, 512, 1)),
         ("panel_spmm", "banded 1000^2 empty rows n=200", False,
-         spmm_case(panel_spmm, panel_spmm_plain, panels(banded), 200, 3)),
+         lambda: panel_case(banded, 200, 3)),
         ("panel_spmm", "4096^2 50% n=512", False,
-         spmm_case(panel_spmm, panel_spmm_plain, panels(big), 512, 4)),
+         lambda: panel_case(big, 512, 4)),
         ("bsr_sddmm", "pipeline mask 512^2 s=0.9 bm=128 d=512", True,
-         sddmm_case(bsr(mask, 128), 512, 5)),
+         lambda: sddmm_case(mask, 128, 512, 5)),
         ("bsr_sddmm", "banded 1000^2 empty block rows bm=8 d=200", False,
-         sddmm_case(bsr(banded, 8), 200, 6)),
+         lambda: sddmm_case(banded, 8, 200, 6)),
         ("bsr_sddmm", "4096^2 band_and_random s=0.95 bm=128 d=512", False,
-         sddmm_case(bsr(big_mask, 128), 512, 7)),
+         lambda: sddmm_case(big_mask, 128, 512, 7)),
+        ("wcoo_spmm", f"{hyper_label} n=512", True,
+         lambda: wcoo_case(hyper, 512, 8)),
+        ("wcoo_spmm", f"{edge_label} n=200", False,
+         lambda: wcoo_case(edge, 200, 9)),
+        ("wcoo_spmm_aligned", f"{hyper_label} n=512", True,
+         lambda: bands_case(hyper, 512, 8)),
+        ("wcoo_spmm_aligned", f"{edge_label} n=200", False,
+         lambda: bands_case(edge, 200, 9)),
+        ("wrow_spmv", f"{hyper_label} n=1", True,
+         lambda: wrow_case(hyper, 10)),
+        ("wrow_spmv", f"{edge_label} n=1", False,
+         lambda: wrow_case(edge, 11)),
+        ("wcoo_spmv", f"{hyper_label} n=1", True,
+         lambda: wcoo_spmv_case(hyper, 10)),
+        ("wcoo_spmv", f"{edge_label} n=1", False,
+         lambda: wcoo_spmv_case(edge, 11)),
     ]
     main_path, failed = {}, []
-    for name, label, on_path, (kernel, plain, args, args64) in cases:
+    for name, label, on_path, make in cases:
+        (kernel, plain, args, args64, library, lib_args, bytes_moved,
+         flops) = make()
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args64)
         rel, err = compare(out, ref)
         del ref
         k_ms, p_ms = ms(kernel, *args), ms(plain, *args)
+        lib_ms = ms(library, *lib_args)
+        dev_ms = device_ms(kernel, *args)
+        b_ms, b_by = bound(bytes_moved, flops)
         ok = bool(torch.isfinite(out).all()) and rel <= REL_TOL
         print(f"phase 1 kernels: {name} [{label}] max_rel={rel:.3e} "
-              f"max_abs={err:.3e} kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
+              f"max_abs={err:.3e} kernel_ms={k_ms:.6f} "
+              f"kernel_device_ms={dev_ms:.6f} plain_ms={p_ms:.6f} "
+              f"library_ms={lib_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")
         if on_path:
-            main_path[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            main_path[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": lib_ms}
+        del out, args, args64, lib_args
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: {failed}")
     return main_path
@@ -227,6 +413,58 @@ def phase_flagship() -> None:
         raise RuntimeError("run_pipeline failed gold_pipeline at eps 1e-3")
 
 
+def phase_cli() -> None:
+    """Phase 4: the CLI on ``MAIN_LINE``; every row must pass its gate."""
+    import csv
+    from spgrid_torch.bench.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rows.csv")
+        for kernels, n in (("wcoo_cuda,wcoo_bands_cuda", "512"),
+                           ("wrow_spmv_cuda,wcoo_spmv_cuda", "1")):
+            code = cli_main(["--generate", MAIN_LINE, "--kernels", kernels,
+                             "--num-cols", n, "--out", out,
+                             "--platform", DEVICE])
+            if code != 0:
+                raise RuntimeError(f"the CLI exited {code} on {kernels}")
+        with open(out) as f:
+            rows = list(csv.DictReader(f))
+    for r in rows:
+        print(f"phase 4 cli: {r['kernel']} n={r['input_columns']} "
+              f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
+              f"iters={r['iters']} gbytes_per_s={r['gbytes_per_s']} "
+              f"max_ae={r['max_ae']} errors_passed={r['errors_passed']}",
+              flush=True)
+    if len(rows) != 4 or not all(r["errors_passed"] == "1" for r in rows):
+        raise RuntimeError(f"the CLI wrote {len(rows)} rows, not 4 gated ones")
+
+
+# kernel -> (source, the Pallas kernel it replaces)
+SOURCES = {
+    "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
+                 "spgrid/ops/pallas/bsr_spmm.py:44"),
+    "panel_spmm": ("spgrid_torch/csrc/panel_spmm.cu",
+                   "spgrid/ops/pallas/panel_spmm.py:126"),
+    "bsr_sddmm": ("spgrid_torch/csrc/sddmm.cu",
+                  "spgrid/ops/pallas/sddmm.py:31"),
+    "wcoo_spmm": ("spgrid_torch/csrc/wcoo_spmm.cu",
+                  "spgrid/ops/pallas/wcoo_spmm.py:39"),
+    "wcoo_spmm_aligned": ("spgrid_torch/csrc/wcoo_bands.cu",
+                          "spgrid/ops/pallas/wcoo_spmm_aligned.py:174"),
+    "wrow_spmv": ("spgrid_torch/csrc/wrow_spmv.cu",
+                  "spgrid/ops/pallas/wrow_spmv.py:167"),
+    "wcoo_spmv": ("spgrid_torch/csrc/wcoo_spmv.cu",
+                  "spgrid/ops/pallas/wcoo_spmv.py:40"),
+}
+# each path, with the kernels it must launch
+PATHS = (
+    ("headline and flagship", (phase_headline, phase_flagship),
+     ("bsr_spmm", "panel_spmm", "bsr_sddmm")),
+    ("CLI", (phase_cli,),
+     ("wcoo_spmm", "wcoo_spmm_aligned", "wrow_spmv", "wcoo_spmv")),
+)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -243,31 +481,28 @@ def main() -> int:
     print(f"phase 0 build: {time.perf_counter() - t0:.1f} s "
           f"({_build.build_dir()})", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"phase 0 ptxas: {line.strip()}", flush=True)
 
     main_path = phase_kernels()
 
-    reset_launch_counts()
-    phase_headline()
-    phase_flagship()
-    counts = launch_counts()
-    never = [k for k, c in counts.items() if c == 0]
-    if never:
-        raise RuntimeError(f"kernels never launched on the main path: {never}")
+    launches = {}
+    for path, phases, kernels in PATHS:
+        reset_launch_counts()
+        for phase in phases:
+            phase()
+        counts = launch_counts()
+        never = [k for k in kernels if counts[k] == 0]
+        if never:
+            raise RuntimeError(f"kernels never launched on the {path} path: "
+                               f"{never}")
+        print(f"launches on the {path} path: {counts}", flush=True)
+        launches.update({k: counts[k] for k in kernels})
 
-    sources = {
-        "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
-                     "spgrid/ops/pallas/bsr_spmm.py:44"),
-        "panel_spmm": ("spgrid_torch/csrc/panel_spmm.cu",
-                       "spgrid/ops/pallas/panel_spmm.py:126"),
-        "bsr_sddmm": ("spgrid_torch/csrc/sddmm.cu",
-                      "spgrid/ops/pallas/sddmm.py:31"),
-    }
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": launches[name],
                 **main_path[name]}
-               for name, (src, replaces) in sources.items()]
+               for name, (src, replaces) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

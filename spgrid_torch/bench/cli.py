@@ -1,0 +1,137 @@
+"""Benchmark CLI of the port: ``python -m spgrid_torch.bench ...``.
+
+The counterpart of ``python -m spgrid.bench`` (``spgrid/bench/cli.py``),
+with the same flags and the same CSV schema. It runs on the CUDA device;
+``--platform cpu`` runs the kernels' plain versions on the CPU instead.
+Without a CUDA device and without ``--platform cpu`` it exits non-zero. It
+also exits non-zero when a row fails its accuracy gate or its run.
+
+Examples:
+  # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
+  python -m spgrid_torch.bench --generate "65535 65535 5 1.6667 normal \
+      random 0.05 0 0.05 0.05 14" --kernel wcoo_cuda --num-cols 512
+
+  # parameter-file sweep with resume
+  python -m spgrid_torch.bench --param-file params.txt \
+      --kernels bsr_cuda,dense --num-cols 128,512 --out results.csv
+
+  # labels only
+  python -m spgrid_torch.bench --labels
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from spgrid_torch.bench.schema import BenchRow
+from spgrid_torch.bench.sweep import iter_matrices, run_sweep
+from spgrid_torch.core.config import BenchConfig
+from spgrid_torch.gen.params import GenParams, read_param_file
+from spgrid_torch.ops.dispatch import FORMATS
+
+NOT_PORTED = "not ported to spgrid_torch yet (ROADMAP.md, Queue 1)"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="spgrid_torch.bench",
+                                 description="CUDA sparse-kernel benchmark")
+    ap.add_argument("--labels", action="store_true",
+                    help="print the CSV header row and exit")
+    ap.add_argument("--generate", metavar="PARAMS",
+                    help="11-field artificial-matrix parameter line")
+    ap.add_argument("--param-file", help="file of 11-field parameter lines")
+    ap.add_argument("--limit", type=int, default=0,
+                    help="use only the first N param-file lines")
+    ap.add_argument("--skip", type=int, default=0,
+                    help="skip the first N param-file lines")
+    ap.add_argument("--stride", type=int, default=1,
+                    help="take every Nth param-file line")
+    ap.add_argument("--matrix", nargs="*", default=[],
+                    help=".mtx/.smtx file path(s)")
+    ap.add_argument("--pipeline", nargs=3, metavar=("WK", "WQ", "WV"),
+                    help=NOT_PORTED)
+    ap.add_argument("--sddmm", type=int, metavar="LENGTH", default=None,
+                    help=NOT_PORTED)
+    ap.add_argument("--xla-only", action="store_true", help=NOT_PORTED)
+    ap.add_argument("--kernel", default="bsr_cuda",
+                    help=f"one of {', '.join(FORMATS)}")
+    ap.add_argument("--kernels", help="comma list (overrides --kernel)")
+    ap.add_argument("--num-cols", default=None,
+                    help="dense width(s), comma list (default from env/512)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["float32", "bfloat16", "float64"],
+                    help="float32 only so far")
+    ap.add_argument("--out", help="CSV output path (append + resume)")
+    ap.add_argument("--no-check", action="store_true",
+                    help="skip the accuracy oracle")
+    ap.add_argument("--sparsity", type=float, default=None)
+    ap.add_argument("--band-size", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--reorder", default=None,
+                    choices=["rcm", "shuffle", "degsort"], help=NOT_PORTED)
+    ap.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default), or cpu for the kernels' plain "
+                         "versions")
+    args = ap.parse_args(argv)
+
+    if args.labels:
+        print(BenchRow.header())
+        return 0
+
+    for flag, given in (("--pipeline", args.pipeline),
+                        ("--sddmm", args.sddmm), ("--xla-only", args.xla_only),
+                        ("--reorder", args.reorder),
+                        ("--dtype " + str(args.dtype),
+                         args.dtype not in (None, "float32"))):
+        if given:
+            ap.error(f"{flag}: {NOT_PORTED}")
+    kernels = args.kernels.split(",") if args.kernels else [args.kernel]
+    unknown = [k for k in kernels if k not in FORMATS]
+    if unknown:
+        ap.error(f"unknown kernel(s) {unknown}; the port has "
+                 f"{', '.join(FORMATS)}")
+
+    if args.platform == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            print("spgrid_torch.bench: no CUDA device; pass --platform cpu "
+                  "to run the plain versions on the CPU", file=sys.stderr)
+            return 1
+
+    overrides = {}
+    if args.sparsity is not None:
+        overrides["sparsity"] = args.sparsity
+    if args.band_size is not None:
+        overrides["band_size"] = args.band_size
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+    config = BenchConfig.from_env(**overrides)
+    num_cols = ([int(v) for v in args.num_cols.split(",")]
+                if args.num_cols else [config.num_cols])
+
+    params = []
+    if args.generate:
+        params.append(GenParams.from_line(args.generate))
+    if args.param_file:
+        lines = read_param_file(args.param_file)
+        lines = lines[args.skip::max(args.stride, 1)]
+        params.extend(lines[: args.limit] if args.limit else lines)
+    if not params and not args.matrix:
+        ap.error("need --generate, --param-file or --matrix")
+
+    matrices = iter_matrices(params=params, paths=args.matrix,
+                             dtype=config.dtype)
+    rows = run_sweep(matrices, kernels=kernels, num_cols_list=num_cols,
+                     config=config, out_csv=args.out,
+                     check_accuracy=not args.no_check, device=args.platform)
+    failed = [(r.matrix_name, r.kernel, r.input_columns)
+              for r in rows if not r.errors_passed]
+    if failed:
+        print(f"spgrid_torch.bench: failed rows {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,8 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spgrid.formats.csr import CSRMatrix
-from spgrid.gen.masks import create_mask
+from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.gen.masks import create_mask
 from spgrid_torch.core.config import BenchConfig
 from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
 from spgrid_torch.core.roofline import (
@@ -32,9 +32,9 @@ from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
 
 
 def make_x(k: int, n: int, dtype: str, seed: int) -> np.ndarray:
-    """Deterministic dense operand in [0.5, 1.5) — a copy of
-    ``spgrid.bench.harness.make_x`` (which imports JAX), so the same seed
-    gives the same X in both packages."""
+    """Deterministic dense operand in [0.5, 1.5) — the port's copy of
+    ``spgrid.bench.harness.make_x``, so the same seed gives the same X in
+    both packages."""
     rng = np.random.default_rng(seed ^ 0x5EED)
     x = rng.random((k, n)) + 0.5
     return x.astype(dtype)

@@ -18,8 +18,8 @@ import sys
 
 import torch
 
-from spgrid.formats.csr import CSRMatrix
-from spgrid.gen import artificial_matrix_generation
+from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.gen import artificial_matrix_generation
 from spgrid_torch.bench.harness import run_spmm
 from spgrid_torch.core.config import BenchConfig
 

@@ -1,9 +1,17 @@
 """Benchmark configuration: the fields of ``spgrid.core.config.BenchConfig``
-that the port reads, with the same defaults."""
+that the port reads, with the same defaults and the same environment
+variables."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+
+# Reference names honored as ``NAME`` or ``SPGRID_NAME``, as in the JAX
+# package; every field is also read from ``SPGRID_<FIELD>``.
+_ENV_ALIASES = {"NUM_COLS": "num_cols", "BAND_SIZE": "band_size",
+                "SPARSITY": "sparsity",
+                "SPARSE_ATTENTION_TYPE": "sparse_attention_type"}
 
 
 @dataclasses.dataclass
@@ -37,3 +45,29 @@ class BenchConfig:
     @property
     def epsilon(self) -> float:
         return {"float32": 1e-7, "float64": 1e-10, "bfloat16": 3e-2}[self.dtype]
+
+    @classmethod
+    def from_env(cls, **overrides) -> "BenchConfig":
+        """A config from the environment, as ``spgrid.core.config.
+        BenchConfig.from_env`` reads it, then ``overrides``."""
+        types = {f.name: f.type for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for env_name, field in _ENV_ALIASES.items():
+            for name in ("SPGRID_" + env_name, env_name):
+                if name in os.environ:
+                    kwargs[field] = os.environ[name]
+                    break
+        for field in types:
+            if "SPGRID_" + field.upper() in os.environ:
+                kwargs[field] = os.environ["SPGRID_" + field.upper()]
+        kwargs = {f: _coerce(types[f], v) for f, v in kwargs.items()}
+        return cls(**{**kwargs, **overrides})
+
+
+def _coerce(annotation, value: str):
+    ann = str(annotation)
+    if "int" in ann:
+        return int(value)
+    if "float" in ann:
+        return float(value)
+    return value

@@ -1,11 +1,9 @@
 """The 8-metric error vector and the f64 host oracle (numpy).
 
-These are copies of ``ErrorMetrics``, ``error_metrics`` and
-``gold_spmm_fast`` from ``spgrid/core/metrics.py``. They are copied, not
-imported, because ``spgrid.core.__init__`` imports the JAX timing, roofline
-and profiling modules, so ``spgrid.core.metrics`` cannot be imported where
-JAX is not installed. ``tests/test_torch_harness.py`` pins the copies to the
-originals; they go once ``spgrid.core`` imports lazily.
+The port's own copies of ``ErrorMetrics``, ``error_metrics`` and
+``gold_spmm_fast`` from ``spgrid/core/metrics.py``: the port imports nothing
+of the JAX package. ``tests/test_torch_harness.py`` pins the copies to the
+originals.
 """
 
 from __future__ import annotations

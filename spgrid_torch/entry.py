@@ -17,7 +17,7 @@ from spgrid_torch.ops.attention import SparseAttention, attention_pipeline
 def flagship_csrs(m=512, k=512, density=0.5, mask_sparsity=0.9, seed=14):
     """W_K, W_Q, W_V and the mask, made by the same generator calls as
     ``__graft_entry__._flagship_csrs``."""
-    from spgrid.gen import artificial_matrix_generation, create_mask
+    from spgrid_torch.gen import artificial_matrix_generation, create_mask
 
     def weight(s):
         return artificial_matrix_generation(
@@ -28,6 +28,21 @@ def flagship_csrs(m=512, k=512, density=0.5, mask_sparsity=0.9, seed=14):
     mask = create_mask("band_and_random", m, sparsity=mask_sparsity,
                        band_size=16, seed=seed)
     return wk, wq, wv, mask
+
+
+def hypersparse_edge(m=700, k=1100, density=0.005, empty=slice(256, 512),
+                     heavy_row=3, heavy_nnz=200, seed=5):
+    """The slot kernels' edge matrix: scattered nnz at ``density``, the rows
+    ``empty`` empty (whole row blocks and 128-row blocks when they are
+    aligned so), and row ``heavy_row`` full in the last ``heavy_nnz``
+    columns, so that it collides in each of the last windows. Neither m nor
+    k need be a multiple of 128."""
+    from spgrid_torch.formats.csr import dense_to_csr
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((m, k)) < density, rng.random((m, k)) + 0.5, 0.0)
+    d[empty] = 0.0
+    d[heavy_row, k - heavy_nnz:] = rng.random(heavy_nnz) + 0.5
+    return dense_to_csr(d.astype(np.float32), name="hypersparse_edge")
 
 
 def flagship_x(k: int, n: int = 512) -> np.ndarray:

@@ -1,0 +1,24 @@
+"""Matrix files behind ``--matrix``: the port's own numpy readers of
+``.mtx`` and ``.smtx`` (the JAX package's ``spgrid.io`` without its native
+fast path)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from spgrid_torch.io.mtx import read_mtx
+from spgrid_torch.io.smtx import read_smtx
+
+
+def read_matrix(path: str, dtype="float32"):
+    """The CSR matrix of a ``.mtx`` or ``.smtx`` file, gzipped or not."""
+    p = str(path)
+    base = p[:-3] if p.endswith(".gz") else p
+    if base.endswith(".smtx"):
+        return read_smtx(path, dtype=np.dtype(dtype))
+    if base.endswith(".mtx"):
+        return read_mtx(path, dtype=np.dtype(dtype))
+    raise ValueError(f"unrecognized matrix file type: {path}")
+
+
+__all__ = ["read_matrix", "read_mtx", "read_smtx"]

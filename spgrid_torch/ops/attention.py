@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spgrid.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
 from spgrid_torch.ops.layouts import DeviceBSR
@@ -97,8 +97,8 @@ def gold_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
                   softmax: bool = False) -> np.ndarray:
     """float64 host oracle of the full 5-stage chain.
 
-    A copy of ``spgrid.ops.attention.gold_pipeline``, which cannot be
-    imported without JAX; ``tests/test_torch_pipeline.py`` pins the two."""
+    The port's copy of ``spgrid.ops.attention.gold_pipeline``;
+    ``tests/test_torch_pipeline.py`` pins the two."""
     x64 = np.asarray(x, dtype=np.float64)
     k = wk.astype(np.float64).to_dense() @ x64
     q = wq.astype(np.float64).to_dense() @ x64

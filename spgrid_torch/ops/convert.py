@@ -12,6 +12,10 @@ import torch
 
 from spgrid_torch.ops.attention import SparseAttention
 from spgrid_torch.ops.kernels.panel_spmm import DevicePanels
+from spgrid_torch.ops.kernels.wcoo_spmm import DeviceWCOO
+from spgrid_torch.ops.kernels.wcoo_spmm_aligned import DeviceWCOOBands
+from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned
+from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW
 from spgrid_torch.ops.layouts import DeviceBSR
 
 
@@ -51,6 +55,50 @@ def panels_from_jax(block_cols, panels, shape, nnz: int, num_panels: int,
             _band_counts(cols, vals, bands, max_p)).to(device),
         shape=tuple(shape), nnz=int(nnz), num_panels=int(num_panels),
         band_rows=int(band_rows), bands=int(bands), max_p=int(max_p))
+
+
+def wcoo_from_jax(cols, rows, values, chunk_window, chunk_rowblock,
+                  chunk_sub, chunk_first, shape, nnz: int, W: int, R: int,
+                  num_rowblocks: int, utilization: float, name: str, *,
+                  device) -> DeviceWCOO:
+    """``spgrid.ops.pallas.wcoo_spmm.DeviceWCOO`` → DeviceWCOO, with the
+    chunks of each 128-row tile indexed (``from_arrays`` refuses W other
+    than 128). ``chunk_first``, the TPU tile's zeroing flag, is dropped: a
+    CTA writes its whole tile."""
+    return DeviceWCOO.from_arrays(cols, rows, values, chunk_window,
+                                  chunk_rowblock, chunk_sub, shape, nnz, R,
+                                  utilization, name, device=device)
+
+
+def bands_from_jax(cols, values, g_sw, g_lb, shape, nnz: int,
+                   utilization: float, bands: int, mbb: int,
+                   steps_per_band: int, name: str, *,
+                   device) -> DeviceWCOOBands:
+    """``spgrid.ops.pallas.wcoo_spmm_aligned.DeviceWCOOBands`` →
+    DeviceWCOOBands, with the groups of each 128-row block indexed."""
+    return DeviceWCOOBands.from_arrays(cols, values, g_sw, g_lb, shape, nnz,
+                                       utilization, bands, mbb,
+                                       steps_per_band, name, device=device)
+
+
+def wcoo_aligned_from_jax(cols, values, g_sw, g_sub, shape, nnz: int,
+                          utilization: float, num_groups: int, name: str, *,
+                          device) -> DeviceWCOOAligned:
+    """``spgrid.ops.pallas.wcoo_spmv.DeviceWCOOAligned`` →
+    DeviceWCOOAligned, without the JAX layout's pad groups."""
+    return DeviceWCOOAligned.from_arrays(cols, values, g_sw, g_sub, shape,
+                                         nnz, utilization, num_groups, name,
+                                         device=device)
+
+
+def wrow_from_jax(cols, values, piece_w, group_sub, shape, nnz: int,
+                  utilization: float, num_groups: int, name: str, *,
+                  device) -> DeviceWROW:
+    """``spgrid.ops.pallas.wrow_spmv.DeviceWROW`` → DeviceWROW: the
+    metadata rows of 8 steps flattened and the pad groups dropped."""
+    return DeviceWROW.from_arrays(cols, values, piece_w, group_sub, shape,
+                                  nnz, utilization, num_groups, name,
+                                  device=device)
 
 
 def attention_from_jax(wk, wq, wv, mask, *, device) -> SparseAttention:

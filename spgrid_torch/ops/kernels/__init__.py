@@ -7,17 +7,42 @@ version only for CPU tensors.
 
 from __future__ import annotations
 
+import torch
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper, which carries its launch count, by name."""
+    from spgrid_torch.ops.kernels import (
+        bsr_spmm, panel_spmm, sddmm, wcoo_spmm, wcoo_spmm_aligned, wcoo_spmv,
+        wrow_spmv,
+    )
+    return {"bsr_spmm": bsr_spmm.bsr_spmm,
+            "panel_spmm": panel_spmm.panel_spmm,
+            "bsr_sddmm": sddmm.bsr_sddmm,
+            "wcoo_spmm": wcoo_spmm.wcoo_spmm,
+            "wcoo_spmm_aligned": wcoo_spmm_aligned.wcoo_spmm_aligned,
+            "wcoo_spmv": wcoo_spmv.wcoo_spmv,
+            "wrow_spmv": wrow_spmv.wrow_spmv}
+
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset, by kernel name."""
-    from spgrid_torch.ops.kernels import bsr_spmm, panel_spmm, sddmm
-    return {"bsr_spmm": bsr_spmm.bsr_spmm.launches,
-            "panel_spmm": panel_spmm.panel_spmm.launches,
-            "bsr_sddmm": sddmm.bsr_sddmm.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from spgrid_torch.ops.kernels import bsr_spmm, panel_spmm, sddmm
-    bsr_spmm.bsr_spmm.launches = 0
-    panel_spmm.panel_spmm.launches = 0
-    sddmm.bsr_sddmm.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def check_operands(kernel: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor, given as ``name=(tensor, dtype)``, has that
+    dtype, lies on ``device`` (the first operand's) and is contiguous: what
+    the kernels take."""
+    for name, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, operands on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")

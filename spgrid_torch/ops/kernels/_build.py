@@ -1,10 +1,13 @@
 """Build the CUDA kernels with nvcc and bind them through ctypes.
 
-All ``spgrid_torch/csrc/*.cu`` files are compiled by one nvcc call into one
-shared library with a plain C interface, at the first launch of any kernel:
+The ``spgrid_torch/csrc/*.cu`` files are built, at the first launch of any
+kernel, into one shared library with a plain C interface: one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libspgrid_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libspgrid_kernels.so *.o
 
 The library goes to ``build/spgrid_torch/<hash of sources and flags>/`` under
 the repository root (git ignores ``build/``), with nvcc's output, including
@@ -26,8 +29,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "spgrid_torch"
 LIB_NAME = "libspgrid_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -39,6 +43,15 @@ SIGNATURES = {
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    # tile_ptr, tile_chunks, chunk_win, cols, rows, vals, x, y,
+    # tiles, m, k, n, stream
+    "spgrid_wcoo_spmm": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+    # block_ptr, block_groups, g_sw, cols, vals, x, y, blocks, m, k, n, stream
+    "spgrid_wcoo_bands": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # block_ptr, piece_w, cols, vals, x, y, blocks, m, k, stream
+    "spgrid_wrow_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # block_ptr, g_sw, cols, vals, x, y, blocks, m, k, stream
+    "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
 }
 
 
@@ -80,15 +93,42 @@ def build() -> Path:
     nvcc = find_nvcc()
     out.mkdir(parents=True, exist_ok=True)
     tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True, check=False)
-    (out / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    objs, log, procs = [], [], []
+    try:
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = out / f"{src.stem}.{os.getpid()}.o"
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:
+            text = proc.communicate()[0]
+            log.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{name} (exit code {proc.returncode}):\n{text}")
+        if not failed:
+            proc = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                check=False)
+            log.append(f"== link\n{proc.stdout}")
+            if proc.returncode != 0:
+                failed.append(f"link (exit code {proc.returncode}):\n"
+                              f"{proc.stdout}")
+        (out / "nvcc.log").write_text("".join(log))
+        if failed:
+            raise BuildError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, lib)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise BuildError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -9,23 +9,17 @@ from __future__ import annotations
 
 import torch
 
-from spgrid_torch.ops.kernels import _build
+from spgrid_torch.ops.kernels import _build, check_operands
 from spgrid_torch.ops.layouts import DeviceBSR
 
 
 def _check(a: DeviceBSR, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    for name, t, dtype in (("x", x, torch.float32),
-                           ("blocks", a.blocks, torch.float32),
-                           ("block_cols", a.block_cols, torch.int32),
-                           ("row_ptr", a.row_ptr, torch.int32)):
-        if t.dtype != dtype:
-            raise TypeError(f"bsr_spmm: {name} must be {dtype}, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"bsr_spmm: {name} on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"bsr_spmm: {name} must be contiguous")
+    check_operands("bsr_spmm", x.device, x=(x, torch.float32),
+                   blocks=(a.blocks, torch.float32),
+                   block_cols=(a.block_cols, torch.int32),
+                   row_ptr=(a.row_ptr, torch.int32))
 
 
 def bsr_spmm(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:

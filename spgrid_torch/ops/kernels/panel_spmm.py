@@ -13,8 +13,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid.formats.csr import CSRMatrix
-from spgrid_torch.ops.kernels import _build
+from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.ops.kernels import _build, check_operands
 from spgrid_torch.ops.layouts import round_up
 
 
@@ -102,16 +102,10 @@ class DevicePanels:
 def _check(a: DevicePanels, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    for name, t, dtype in (("x", x, torch.float32),
-                           ("panels", a.panels, torch.float32),
-                           ("block_cols", a.block_cols, torch.int32),
-                           ("counts", a.counts, torch.int32)):
-        if t.dtype != dtype:
-            raise TypeError(f"panel_spmm: {name} must be {dtype}, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"panel_spmm: {name} on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"panel_spmm: {name} must be contiguous")
+    check_operands("panel_spmm", x.device, x=(x, torch.float32),
+                   panels=(a.panels, torch.float32),
+                   block_cols=(a.block_cols, torch.int32),
+                   counts=(a.counts, torch.int32))
 
 
 def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:

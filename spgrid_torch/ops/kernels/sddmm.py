@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from spgrid_torch.ops.kernels import _build
+from spgrid_torch.ops.kernels import _build, check_operands
 from spgrid_torch.ops.layouts import DeviceBSR
 
 
@@ -18,16 +18,11 @@ def _check(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor) -> None:
     if q.dim() != 2 or k.dim() != 2 or q.shape[1] != k.shape[1]:
         raise ValueError(f"q (mq, d) and k (mk, d) must share d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    for name, t, dtype in (("q", q, torch.float32), ("k", k, torch.float32),
-                           ("mask blocks", mask.blocks, torch.float32),
-                           ("block_rows", mask.block_rows, torch.int32),
-                           ("block_cols", mask.block_cols, torch.int32)):
-        if t.dtype != dtype:
-            raise TypeError(f"bsr_sddmm: {name} must be {dtype}, got {t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"bsr_sddmm: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"bsr_sddmm: {name} must be contiguous")
+    check_operands("bsr_sddmm", q.device, q=(q, torch.float32),
+                   k=(k, torch.float32),
+                   mask_blocks=(mask.blocks, torch.float32),
+                   block_rows=(mask.block_rows, torch.int32),
+                   block_cols=(mask.block_cols, torch.int32))
 
 
 def bsr_sddmm(mask: DeviceBSR, q: torch.Tensor,

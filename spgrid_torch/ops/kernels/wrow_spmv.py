@@ -1,0 +1,185 @@
+"""Window-row packed SpMV: y = A @ x with A in DeviceWROW layout.
+
+Counterpart of ``spgrid/ops/pallas/wrow_spmv.py`` (format ``wrow_spmv``, its
+default variant v1); the CUDA kernel is ``spgrid_torch/csrc/wrow_spmv.cu``.
+``wrow_spmv`` takes x (k,) and returns y (m,), x unpadded. It launches the
+kernel for CUDA tensors and takes ``wrow_spmv_plain`` only for CPU tensors.
+
+A piece is one 128-lane row of slots holding the nnz of one (128-row target
+block, 128-column window, depth), lane = row within the block; a group is
+8 pieces of one target block, and a block's groups are consecutive.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.layouts import group_ptr, to_device
+
+LANE = 128
+GROUP_PIECES = 8
+
+
+def csr_to_wrow(csr):
+    """Pack a CSR matrix into WROW pieces and groups, as ``spgrid.ops.pallas.
+    wrow_spmv.csr_to_wrow`` does.
+
+    Returns (cols int8 (P, 128), vals (P, 128), piece_w (P,), group_sub (G,),
+    num_groups, utilization); P == 8 G, pieces padded per target block to a
+    multiple of 8 (window 0, zero values)."""
+    m, k = csr.shape
+    nnz = csr.nnz
+    if nnz == 0:
+        return (np.zeros((8, LANE), np.int8),
+                np.zeros((8, LANE), csr.values.dtype), np.zeros(8, np.int32),
+                np.zeros(1, np.int32), 1, 0.0)
+    rows = np.repeat(np.arange(m, dtype=np.int64), csr.degrees)
+    cols = csr.col_idx.astype(np.int64)
+    sub = rows // LANE
+    win = cols // LANE
+    lane = rows % LANE
+    cw = (cols % LANE).astype(np.int8)
+
+    # depth = occurrence index among nnz sharing (sub, win, lane)
+    nwin = -(-k // LANE)
+    poskey = (sub * nwin + win) * LANE + lane
+    order = np.argsort(poskey, kind="stable")
+    pk = poskey[order]
+    first = np.empty(nnz, dtype=bool)
+    first[0] = True
+    first[1:] = pk[1:] != pk[:-1]
+    start = np.maximum.accumulate(
+        np.where(first, np.arange(nnz, dtype=np.int64), 0))
+    depth = np.arange(nnz, dtype=np.int64) - start
+
+    # piece id = dense rank of (sub, win, depth)
+    pkey = (sub[order] * nwin + win[order]) * (depth.max() + 1) + depth
+    uniq, pid = np.unique(pkey, return_inverse=True)
+    P0 = len(uniq)
+    p_sub = (uniq // (depth.max() + 1) // nwin).astype(np.int64)
+    p_win = (uniq // (depth.max() + 1) % nwin).astype(np.int32)
+
+    counts = np.bincount(p_sub, minlength=int(sub.max()) + 1)
+    tot = counts + (-counts) % GROUP_PIECES
+    G = int(tot.sum()) // GROUP_PIECES
+    starts_out = np.concatenate([[0], np.cumsum(tot)])
+    starts_in = np.concatenate([[0], np.cumsum(counts)])
+    dest = starts_out[p_sub] + (np.arange(P0) - starts_in[p_sub])
+
+    cols_p = np.zeros((G * GROUP_PIECES, LANE), np.int8)
+    vals_p = np.zeros((G * GROUP_PIECES, LANE), csr.values.dtype)
+    piece_w = np.zeros(G * GROUP_PIECES, np.int32)
+    piece_w[dest] = p_win
+    cols_p[dest[pid], lane[order]] = cw[order]
+    vals_p[dest[pid], lane[order]] = csr.values[order]
+    group_sub = np.repeat(np.arange(len(tot), dtype=np.int32),
+                          tot // GROUP_PIECES)
+    util = nnz / (G * GROUP_PIECES * LANE)
+    return cols_p, vals_p, piece_w, group_sub, G, util
+
+
+@dataclasses.dataclass
+class DeviceWROW:
+    """``csr_to_wrow``'s flat arrays on a torch device, plus ``block_ptr``:
+    the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``.
+    (The JAX layout pads groups to 128 and reshapes the metadata into rows
+    of 8 steps for the TPU's scalar memory; the port keeps neither.)"""
+
+    cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
+    values: torch.Tensor      # (P, 128), 0 in pad slots
+    piece_w: torch.Tensor     # (P,) int32, window of each piece
+    group_sub: torch.Tensor   # (G,) int32, target block of each group, sorted
+    block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
+    shape: Tuple[int, int]
+    nnz: int
+    utilization: float
+    num_groups: int
+    name: str = ""
+
+    @property
+    def blocks(self) -> int:
+        return len(self.block_ptr) - 1
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.cols, self.values, self.piece_w, self.block_ptr))
+
+    @classmethod
+    def from_arrays(cls, cols, values, piece_w, group_sub, shape, nnz: int,
+                    utilization: float, num_groups: int, name: str = "", *,
+                    device) -> "DeviceWROW":
+        """Flat host arrays → device layout; groups past ``num_groups`` (the
+        JAX layout's padding) are dropped."""
+        G = int(num_groups)
+        sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
+        if np.any(np.diff(sub) < 0):
+            raise ValueError("wrow: groups must be sorted by target block")
+        ptr, _ = group_ptr(sub, max(-(-shape[0] // LANE), 1))
+        P = G * GROUP_PIECES
+        return cls(cols=to_device(np.asarray(cols)[:P], device, np.int8),
+                   values=to_device(np.asarray(values)[:P], device),
+                   piece_w=to_device(np.asarray(piece_w).reshape(-1)[:P],
+                                     device, np.int32),
+                   group_sub=to_device(sub, device, np.int32),
+                   block_ptr=to_device(ptr, device), shape=tuple(shape),
+                   nnz=int(nnz), utilization=float(utilization),
+                   num_groups=G, name=name)
+
+    @classmethod
+    def from_csr(cls, csr, *, device) -> "DeviceWROW":
+        cols, vals, pw, gsub, G, util = csr_to_wrow(csr)
+        return cls.from_arrays(cols, vals, pw, gsub, csr.shape, csr.nnz,
+                               util, G, csr.name, device=device)
+
+
+def wrow_spmv(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) f32 = A @ x for f32 x (k,)."""
+    if x.dim() != 1 or x.shape[0] != a.shape[1]:
+        raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
+    check_operands("wrow_spmv", x.device, x=(x, torch.float32),
+                   values=(a.values, torch.float32), cols=(a.cols, torch.int8),
+                   piece_w=(a.piece_w, torch.int32),
+                   block_ptr=(a.block_ptr, torch.int32))
+    if x.device.type == "cpu":
+        return wrow_spmv_plain(a, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"wrow_spmv: no kernel for device {x.device}")
+    m, k = a.shape
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.spgrid_wrow_spmv(
+            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
+            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m, k,
+            stream)
+    _build.check(code, "wrow_spmv")
+    wrow_spmv.launches += 1
+    return y
+
+
+wrow_spmv.launches = 0
+
+
+def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
+    """The same product in plain torch, in x's dtype: slot t of piece p adds
+    value · x[128 piece_w[p] + col] to row 128 group_sub[p // 8] + t
+    (``index_add_``), for slots whose value is not 0 and x index lies
+    inside x."""
+    m, k = a.shape
+    lane = torch.arange(LANE, device=x.device)
+    sub = a.group_sub.long().repeat_interleave(GROUP_PIECES)
+    row = (sub[:, None] * LANE + lane).expand(-1, LANE)
+    xi = a.piece_w.long()[:, None] * LANE + a.cols.long()
+    live = (a.values != 0) & (xi < k)
+    y = torch.zeros((m,), dtype=x.dtype, device=x.device)
+    y.index_add_(0, row[live], a.values[live].to(x.dtype) * x[xi[live]])
+    return y

@@ -20,12 +20,30 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid.formats.bsr import csr_to_bsr
-from spgrid.formats.csr import CSRMatrix
+from spgrid_torch.formats.bsr import csr_to_bsr
+from spgrid_torch.formats.csr import CSRMatrix
 
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device``. ``np.array`` copies: leaves
+    of JAX arrays are read-only views."""
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def group_ptr(owner: np.ndarray, owners: int):
+    """(ptr, members): the indices of the entries of ``owner`` that hold each
+    value 0 .. owners-1, in index order, as ``members[ptr[o]:ptr[o + 1]]``.
+    Entries whose owner lies outside that range belong to none."""
+    owner = np.asarray(owner, np.int64)
+    idx = np.flatnonzero((owner >= 0) & (owner < owners))
+    members = idx[np.argsort(owner[idx], kind="stable")].astype(np.int32)
+    counts = np.bincount(owner[idx], minlength=owners)
+    return (np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            members)
 
 
 def block_row_ptr(block_rows: np.ndarray, mb: int) -> np.ndarray:
@@ -109,17 +127,12 @@ class DeviceBSR:
         ``block_rows``."""
         mb = len(row_starts) - 1
         ptr = block_row_ptr(block_rows, mb)
-
-        def put(a, dtype=None):
-            # np.array copies: leaves of JAX arrays are read-only views
-            return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
-
         return cls(
-            block_rows=put(block_rows, np.int32),
-            block_cols=put(block_cols, np.int32),
-            row_starts=put(row_starts, np.int32),
-            row_ptr=put(ptr),
-            blocks=put(blocks),
+            block_rows=to_device(block_rows, device, np.int32),
+            block_cols=to_device(block_cols, device, np.int32),
+            row_starts=to_device(row_starts, device, np.int32),
+            row_ptr=to_device(ptr, device),
+            blocks=to_device(blocks, device),
             shape=tuple(shape),
             nnz=int(nnz),
             num_blocks=int(num_blocks),

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions on the card.
 
 Needs a CUDA device with the CUDA toolkit (sm_90a); every test here skips
-without one. The file imports no JAX, so it also runs where JAX is not
-installed:
+without one. The file imports nothing of JAX or the JAX package, so it also
+runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -14,15 +14,27 @@ import numpy as np
 import pytest
 import torch
 
-from spgrid.formats import random_csr
-from spgrid.formats.csr import CSRMatrix, dense_to_csr
-from spgrid.gen import create_mask
+from spgrid_torch.entry import hypersparse_edge
+from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
+from spgrid_torch.gen import artificial_matrix_generation, create_mask
 from spgrid_torch.ops.kernels import launch_counts
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_plain,
 )
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+from spgrid_torch.ops.kernels.wcoo_spmm import (
+    DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
+)
+from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+    DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain,
+)
+from spgrid_torch.ops.kernels.wcoo_spmv import (
+    DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
+)
+from spgrid_torch.ops.kernels.wrow_spmv import (
+    DeviceWROW, wrow_spmv, wrow_spmv_plain,
+)
 from spgrid_torch.ops.layouts import DeviceBSR
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +123,62 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         bsr_spmm(a, operand((48, 16), 1, cuda).double())
     with pytest.raises(ValueError):
         bsr_spmm(a, operand((48, 16), 1, "cpu"))
+
+
+SLOT_MATRICES = {
+    "edge": hypersparse_edge,
+    "hypersparse": lambda: artificial_matrix_generation(
+        5000, 6000, 5, 1.6667, "normal", seed=14, placement="random",
+        bw=0.05, name="hyper"),
+}
+SLOT_SPMM = {
+    "wcoo_spmm": (lambda c, d: DeviceWCOO.from_csr(c, R=256, device=d),
+                  wcoo_spmm, wcoo_spmm_plain),
+    "wcoo_spmm_aligned": (
+        lambda c, d: DeviceWCOOBands.from_csr(c, band_rows=256, device=d),
+        wcoo_spmm_aligned, wcoo_spmm_aligned_plain),
+}
+SLOT_SPMV = {
+    "wcoo_spmv": (lambda c, d: DeviceWCOOAligned.from_csr(c, device=d),
+                  wcoo_spmv, wcoo_spmv_plain),
+    "wrow_spmv": (lambda c, d: DeviceWROW.from_csr(c, device=d), wrow_spmv,
+                  wrow_spmv_plain),
+}
+
+
+@pytest.mark.parametrize("n", [1, 70])
+@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
+@pytest.mark.parametrize("kernel", sorted(SLOT_SPMM))
+def test_slot_spmm_kernel(cuda, kernel, matrix, n):
+    layout, fn, plain = SLOT_SPMM[kernel]
+    csr = SLOT_MATRICES[matrix]()
+    a = layout(csr, cuda)
+    x = operand((csr.k, n), 9, cuda)
+    before = launch_counts()[kernel]
+    got = fn(a, x)
+    assert launch_counts()[kernel] == before + 1
+    assert_close(got, plain(a, x.double()))
+
+
+@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
+@pytest.mark.parametrize("kernel", sorted(SLOT_SPMV))
+def test_slot_spmv_kernel(cuda, kernel, matrix):
+    layout, fn, plain = SLOT_SPMV[kernel]
+    csr = SLOT_MATRICES[matrix]()
+    a = layout(csr, cuda)
+    x = operand((csr.k,), 10, cuda)
+    before = launch_counts()[kernel]
+    got = fn(a, x)
+    assert launch_counts()[kernel] == before + 1
+    assert_close(got, plain(a, x.double()))
+
+
+def test_slot_wrappers_raise_instead_of_falling_back(cuda):
+    csr = hypersparse_edge()
+    for kernel, (layout, fn, _) in {**SLOT_SPMM, **SLOT_SPMV}.items():
+        a = layout(csr, cuda)
+        shape = (csr.k,) if kernel in SLOT_SPMV else (csr.k, 8)
+        with pytest.raises(TypeError):
+            fn(a, operand(shape, 1, cuda).double())
+        with pytest.raises(ValueError):
+            fn(a, operand(shape, 1, "cpu"))

@@ -143,9 +143,11 @@ def test_dispatch_formats_and_jax_names():
     assert set(dispatch.FORMATS) == set(dispatch.JAX_NAME)
     assert set(dispatch.JAX_NAME.values()) <= set(jax_dispatch.FORMATS)
     csr = random_csr(40, 30, 0.3, seed=2)
-    x = torch.from_numpy(make_x(30, 8, "float32", 1))
-    want = csr.to_dense().astype(np.float64) @ x.numpy().astype(np.float64)
+    x8 = torch.from_numpy(make_x(30, 8, "float32", 1))
     for fmt in dispatch.FORMATS:
+        # the SpMV formats take a (k, 1) operand only
+        x = x8[:, :1] if fmt.endswith("spmv_cuda") else x8
+        want = csr.to_dense().astype(np.float64) @ x.numpy().astype(np.float64)
         y = dispatch.spmm_fn(fmt)(dispatch.build(csr, fmt, device="cpu"), x)
         np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
@@ -178,19 +180,20 @@ def test_headline_line_takes_best_passing_row():
         headline_line(rows[:1], "card")
 
 
-BLOCK_JAX = """
+BLOCKED = ("jax", "jaxlib", "spgrid")
+BLOCK_JAX = f"""
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import spgrid_torch, chip_smoke
 names = [m.name for m in pkgutil.walk_packages(spgrid_torch.__path__,
                                                "spgrid_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in {BLOCKED!r} for m in sys.modules)
 print(len(names))
 """
 
