@@ -31,10 +31,18 @@ exits non-zero and never prints the final ``"ok": true`` line:
    end-to-end slice, the hypersparse matrix ``MAIN_LINE``: wcoo_cuda and
    wcoo_bands_cuda at n=512, wrow_spmv_cuda and wcoo_spmv_cuda at n=1, each
    row gated against the host f64 oracle at eps 1e-4.
+5. scattered and block-grid CLI: the CLI on the matrices the JAX package
+   ran these kernels on: ``LINE_B`` (8192^2, 316 blocks of 128^2) with
+   bsrc_cuda and bsr_cuda at n=512, ``LINE_S`` (100000^2, 2.1M scattered
+   nnz) with dgell_cuda at n=512 and wpack_spmv_cuda and wrow_spmv_cuda at
+   n=1, each row gated at eps 1e-4; then the WROW v1/v2 A/B on ``LINE_S``
+   (``scripts/exp_wrow_v2.py``'s check): each variant against the host f64
+   product, with both times.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
-flagship path) and before phase 4 (the CLI path), and read after each; a
-kernel of a path that was not launched there fails the run. Then one JSON
+flagship path), before phase 4 (the CLI path) and before phase 5 (the
+scattered and block-grid path), and read after each; a kernel of a path
+that was not launched there fails the run. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
 1), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -65,6 +73,12 @@ LARGE = 4096            # side of the larger case of each block kernel
 # The README's minimum end-to-end slice: a hypersparse 65535^2 matrix with
 # 5 nnz a row in a band of 5 % of the columns.
 MAIN_LINE = "65535 65535 5 1.6667 normal random 0.05 0 0.05 0.05 14"
+# The matrices the JAX package ran the last four kernels on: its
+# bsrc_pallas smoke configuration (scripts/run_pallas_smoke.py) and the
+# fully scattered SpMV configuration synth_100k_a20_b0.9
+# (scripts/exp_wpack.py).
+LINE_B = "8192 8192 50 10 normal random 0.05 0 0.05 0.05 14"
+LINE_S = "100000 100000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory and f32 FMA on
 # the CUDA cores, for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -109,11 +123,10 @@ def edge_matrix():
                             heavy_nnz=250)
 
 
-def main_matrix():
-    """The CSR matrix of ``MAIN_LINE``, as the CLI generates it."""
+def line_matrix(line: str):
+    """The CSR matrix of a parameter line, as the CLI generates it."""
     from spgrid_torch.gen import GenParams, artificial_matrix_generation
-    return artificial_matrix_generation(**GenParams.from_line(MAIN_LINE)
-                                        .kwargs())
+    return artificial_matrix_generation(**GenParams.from_line(line).kwargs())
 
 
 def rand(shape, seed):
@@ -185,6 +198,10 @@ def phase_kernels() -> dict:
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.entry import flagship_csrs
     from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
+    from spgrid_torch.ops.kernels.dgell import (
+        DeviceDGELL, dgell_spmm, dgell_spmm_plain)
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
@@ -194,8 +211,10 @@ def phase_kernels() -> dict:
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.wpack_spmv import (
+        DeviceWPACK, wpack_spmv, wpack_spmv_plain)
     from spgrid_torch.ops.kernels.wrow_spmv import (
-        DeviceWROW, wrow_spmv, wrow_spmv_plain)
+        DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2)
     from spgrid_torch.ops.layouts import DeviceBSR
 
     def ms(fn, *args):
@@ -208,8 +227,10 @@ def phase_kernels() -> dict:
     big = positive(random_csr(LARGE, LARGE, 0.5, seed=7))
     big_mask = create_mask("band_and_random", LARGE, sparsity=0.95, seed=14)
     banded = banded_with_empty_rows()
-    hyper = main_matrix()
+    hyper = line_matrix(MAIN_LINE)
     edge = edge_matrix()
+    line_b = line_matrix(LINE_B)
+    line_s = line_matrix(LINE_S)
 
     # Each case: (kernel, plain, args, args in f64, library call and its
     # args, bytes moved, flops). Bytes and flops are what the product needs
@@ -256,6 +277,36 @@ def phase_kernels() -> dict:
         print(f"phase 1 layout: {name} of {csr.name} ({csr.nnz} nnz): "
               f"{count} {units}, utilization {a.utilization:.4f}", flush=True)
 
+    def bsrc_case(csr, n, seed, bm=128, band_rows=2048):
+        a = DeviceBSRCol.from_csr(csr, bm=bm, bk=128, band_rows=band_rows,
+                                  device=DEVICE)
+        print(f"phase 1 layout: bsrc of {csr.name} ({csr.nnz} nnz): "
+              f"{a.num_blocks} blocks of {bm}x128 in {a.bands} bands of "
+              f"{a.band_rows} rows, at most {a.max_nb} a band", flush=True)
+        return spmm_case(bsr_spmm_cstat, bsr_spmm_cstat_plain, a, csr, n,
+                         seed)
+
+    def dgell_case(csr, n, seed):
+        a = DeviceDGELL.from_csr(csr, device=DEVICE)
+        print(f"phase 1 layout: dgell of {csr.name} ({csr.nnz} nnz): "
+              f"{a.slots} slots a row, {a.tail_rows.numel()} nnz in the "
+              f"tail", flush=True)
+        return spmm_case(dgell_spmm, dgell_spmm_plain, a, csr, n, seed)
+
+    def wpack_case(csr, seed):
+        a = DeviceWPACK.from_csr(csr, device=DEVICE)
+        layout_line("wpack", csr, a, f"groups of 8 pieces (wsel {a.wsel})",
+                    a.num_groups)
+        return spmv_case(wpack_spmv, wpack_spmv_plain, a, csr, seed,
+                         a.cols.element_size())
+
+    def wrow_v2_case(csr, seed):
+        a = DeviceWROW.from_csr(csr, device=DEVICE)
+        layout_line("wrow", csr, a, "groups of 8 pieces of 128 slots",
+                    a.num_groups)
+        return spmv_case(wrow_spmv_v2, wrow_spmv_plain, a, csr, seed,
+                         a.cols.element_size())
+
     def wcoo_case(csr, n, seed):
         a = DeviceWCOO.from_csr(csr, device=DEVICE)
         chunks = len(a.chunk_window)
@@ -286,6 +337,9 @@ def phase_kernels() -> dict:
 
     hyper_label = "MAIN_LINE {}x{} hypersparse".format(*hyper.shape)
     edge_label = "3000x2000 empty row blocks, 250-nnz row, ragged k"
+    b_label = "LINE_B {}x{} {} nnz".format(*line_b.shape, line_b.nnz)
+    s_label = "LINE_S {}x{} scattered {} nnz".format(*line_s.shape,
+                                                     line_s.nnz)
     cases = [
         ("bsr_spmm", "headline 512^2 bm=128 n=512", True,
          lambda: bsr_case(head, 128, 512, 1)),
@@ -323,6 +377,26 @@ def phase_kernels() -> dict:
          lambda: wcoo_spmv_case(hyper, 10)),
         ("wcoo_spmv", f"{edge_label} n=1", False,
          lambda: wcoo_spmv_case(edge, 11)),
+        ("bsr_spmm_cstat", f"{b_label} n=512", True,
+         lambda: bsrc_case(line_b, 512, 12)),
+        ("bsr_spmm_cstat", "headline 512^2 one band n=512", False,
+         lambda: bsrc_case(head, 512, 1)),
+        ("bsr_spmm_cstat", "banded 1000^2 empty block rows bm=8 R=256 n=200",
+         False, lambda: bsrc_case(banded, 200, 3, bm=8, band_rows=256)),
+        ("bsr_spmm_cstat", "4096^2 50% n=512", False,
+         lambda: bsrc_case(big, 512, 4)),
+        ("dgell", f"{s_label} n=512", True,
+         lambda: dgell_case(line_s, 512, 13)),
+        ("dgell", f"{edge_label} n=200", False,
+         lambda: dgell_case(edge, 200, 9)),
+        ("wpack_spmv", f"{s_label} n=1", True,
+         lambda: wpack_case(line_s, 14)),
+        ("wpack_spmv", f"{edge_label} n=1", False,
+         lambda: wpack_case(edge, 11)),
+        ("wrow_spmv_v2", f"{s_label} n=1", True,
+         lambda: wrow_v2_case(line_s, 14)),
+        ("wrow_spmv_v2", f"{edge_label} n=1", False,
+         lambda: wrow_v2_case(edge, 11)),
     ]
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
@@ -413,16 +487,17 @@ def phase_flagship() -> None:
         raise RuntimeError("run_pipeline failed gold_pipeline at eps 1e-3")
 
 
-def phase_cli() -> None:
-    """Phase 4: the CLI on ``MAIN_LINE``; every row must pass its gate."""
+def cli_rows(phase: str, runs) -> list:
+    """``python -m spgrid_torch.bench`` (its ``main``) once for each
+    (line, kernels, n) of ``runs`` into one CSV; every row must pass its
+    gate. Returns the rows."""
     import csv
     from spgrid_torch.bench.cli import main as cli_main
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rows.csv")
-        for kernels, n in (("wcoo_cuda,wcoo_bands_cuda", "512"),
-                           ("wrow_spmv_cuda,wcoo_spmv_cuda", "1")):
-            code = cli_main(["--generate", MAIN_LINE, "--kernels", kernels,
+        for line, kernels, n in runs:
+            code = cli_main(["--generate", line, "--kernels", kernels,
                              "--num-cols", n, "--out", out,
                              "--platform", DEVICE])
             if code != 0:
@@ -430,13 +505,60 @@ def phase_cli() -> None:
         with open(out) as f:
             rows = list(csv.DictReader(f))
     for r in rows:
-        print(f"phase 4 cli: {r['kernel']} n={r['input_columns']} "
+        print(f"{phase}: {r['kernel']} n={r['input_columns']} "
               f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
               f"iters={r['iters']} gbytes_per_s={r['gbytes_per_s']} "
               f"max_ae={r['max_ae']} errors_passed={r['errors_passed']}",
               flush=True)
-    if len(rows) != 4 or not all(r["errors_passed"] == "1" for r in rows):
-        raise RuntimeError(f"the CLI wrote {len(rows)} rows, not 4 gated ones")
+    want = sum(len(kernels.split(",")) for _, kernels, _ in runs)
+    if len(rows) != want or not all(r["errors_passed"] == "1" for r in rows):
+        raise RuntimeError(f"the CLI wrote {len(rows)} rows, not {want} "
+                           f"gated ones")
+    return rows
+
+
+def phase_cli() -> None:
+    """Phase 4: the CLI on ``MAIN_LINE``."""
+    cli_rows("phase 4 cli", [(MAIN_LINE, "wcoo_cuda,wcoo_bands_cuda", "512"),
+                             (MAIN_LINE, "wrow_spmv_cuda,wcoo_spmv_cuda",
+                              "1")])
+
+
+def phase_scattered_cli() -> None:
+    """Phase 5: the CLI on ``LINE_B`` and ``LINE_S``, then the WROW v1/v2
+    A/B on ``LINE_S`` as ``scripts/exp_wrow_v2.py`` runs it: x standard
+    normal, each variant's max |y - gold| over max |gold| below 1e-4
+    against the host f64 product."""
+    from spgrid_torch.core.metrics import gold_spmm_fast
+    from spgrid_torch.core.timing import time_kernel
+    from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
+
+    cli_rows("phase 5 cli", [(LINE_B, "bsrc_cuda,bsr_cuda", "512"),
+                             (LINE_S, "dgell_cuda", "512"),
+                             (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1")])
+    csr = line_matrix(LINE_S)
+    a = DeviceWROW.from_csr(csr, device=DEVICE)
+    x = np.random.default_rng(0).standard_normal(csr.k).astype(np.float32)
+    gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values, x)
+    xd = torch.from_numpy(x).to(DEVICE)
+    failed = []
+    for variant in ("v1", "v2"):
+        y = wrow_spmv(a, xd, variant=variant).cpu().numpy()
+        err = np.abs(y - gold).max() / max(np.abs(gold).max(), 1e-30)
+        t = time_kernel(lambda v=variant: wrow_spmv(a, xd, variant=v),
+                        device=DEVICE, warmup_iters=5, min_time_s=TIME_S,
+                        min_iters=20).time_per_iter_s
+        dev = device_ms(lambda v=variant: wrow_spmv(a, xd, variant=v))
+        ok = bool(np.isfinite(y).all()) and err < 1e-4
+        print(f"phase 5 wrow A/B: {variant} m={csr.m} nnz={csr.nnz} "
+              f"groups={a.num_groups} util={a.utilization:.3f} "
+              f"max_rel~{err:.2e} ms={t * 1e3:.6f} device_ms={dev:.6f} "
+              f"gflops={2.0 * csr.nnz / t / 1e9:.3f} "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(variant)
+    if failed:
+        raise RuntimeError(f"WROW A/B failed for {failed}")
 
 
 # kernel -> (source, the Pallas kernel it replaces)
@@ -455,6 +577,13 @@ SOURCES = {
                   "spgrid/ops/pallas/wrow_spmv.py:167"),
     "wcoo_spmv": ("spgrid_torch/csrc/wcoo_spmv.cu",
                   "spgrid/ops/pallas/wcoo_spmv.py:40"),
+    "bsr_spmm_cstat": ("spgrid_torch/csrc/bsr_spmm_cstat.cu",
+                       "spgrid/ops/pallas/bsr_spmm_cstat.py:127"),
+    "dgell": ("spgrid_torch/csrc/dgell.cu", "spgrid/ops/pallas/dgell.py:141"),
+    "wpack_spmv": ("spgrid_torch/csrc/wpack_spmv.cu",
+                   "spgrid/ops/pallas/wpack_spmv.py:238"),
+    "wrow_spmv_v2": ("spgrid_torch/csrc/wrow_spmv_v2.cu",
+                     "spgrid/ops/pallas/wrow_spmv.py:226"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -462,6 +591,8 @@ PATHS = (
      ("bsr_spmm", "panel_spmm", "bsr_sddmm")),
     ("CLI", (phase_cli,),
      ("wcoo_spmm", "wcoo_spmm_aligned", "wrow_spmv", "wcoo_spmv")),
+    ("scattered and block-grid CLI", (phase_scattered_cli,),
+     ("bsr_spmm_cstat", "dgell", "wpack_spmv", "wrow_spmv_v2")),
 )
 
 

@@ -11,10 +11,13 @@ import numpy as np
 import torch
 
 from spgrid_torch.ops.attention import SparseAttention
+from spgrid_torch.ops.kernels.bsr_spmm_cstat import DeviceBSRCol
+from spgrid_torch.ops.kernels.dgell import DeviceDGELL
 from spgrid_torch.ops.kernels.panel_spmm import DevicePanels
 from spgrid_torch.ops.kernels.wcoo_spmm import DeviceWCOO
 from spgrid_torch.ops.kernels.wcoo_spmm_aligned import DeviceWCOOBands
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned
+from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW
 from spgrid_torch.ops.layouts import DeviceBSR
 
@@ -99,6 +102,42 @@ def wrow_from_jax(cols, values, piece_w, group_sub, shape, nnz: int,
     return DeviceWROW.from_arrays(cols, values, piece_w, group_sub, shape,
                                   nnz, utilization, num_groups, name,
                                   device=device)
+
+
+def bsrc_from_jax(local_rows, block_cols, blocks, shape, nnz: int,
+                  num_blocks: int, band_rows: int, bands: int, max_nb: int, *,
+                  device) -> DeviceBSRCol:
+    """``spgrid.ops.pallas.bsr_spmm_cstat.DeviceBSRCol`` → DeviceBSRCol,
+    with each band's real-slot count recovered from the slots."""
+    return DeviceBSRCol.from_arrays(local_rows, block_cols, blocks, shape,
+                                    nnz, num_blocks, band_rows, bands, max_nb,
+                                    device=device)
+
+
+def dgell_from_jax(cols, values, tail_rows, tail_cols, tail_vals, shape,
+                   nnz: int, slots: int, rb: int, name: str, *,
+                   device) -> DeviceDGELL:
+    """``spgrid.ops.pallas.dgell.DeviceDGELL`` → DeviceDGELL: the columns'
+    slot-major steps of ``rb`` rows undone, the 128-lane value padding and
+    the pad rows dropped."""
+    m = shape[0]
+    steps = -(-max(m, 1) // rb)
+    cols = (np.asarray(cols)[:steps].reshape(steps, slots, rb)
+            .transpose(0, 2, 1).reshape(steps * rb, slots)[:m])
+    values = np.asarray(values)[:m, :slots]
+    return DeviceDGELL.from_arrays(cols, values, tail_rows, tail_cols,
+                                   tail_vals, shape, nnz, slots, name,
+                                   device=device)
+
+
+def wpack_from_jax(cols, values, ends, starts, sel, piece_w, group_sub,
+                   shape, nnz: int, utilization: float, num_groups: int,
+                   wsel: int, name: str, *, device) -> DeviceWPACK:
+    """``spgrid.ops.pallas.wpack_spmv.DeviceWPACK`` → DeviceWPACK: the
+    metadata rows of 8 steps flattened and the pad groups dropped."""
+    return DeviceWPACK.from_arrays(cols, values, ends, starts, sel, piece_w,
+                                   group_sub, shape, nnz, utilization,
+                                   num_groups, wsel, name, device=device)
 
 
 def attention_from_jax(wk, wq, wv, mask, *, device) -> SparseAttention:

@@ -2,7 +2,7 @@
 function.
 
 ``JAX_NAME`` maps each format to its counterpart in ``spgrid.ops.dispatch``.
-The two SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
+The three SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
 package's bench adapters do; a wider operand raises.
 """
 
@@ -15,36 +15,45 @@ import torch
 from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.dense import spmm_dense
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
+from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+    DeviceBSRCol, bsr_spmm_cstat,
+)
+from spgrid_torch.ops.kernels.dgell import DeviceDGELL, dgell_spmm
 from spgrid_torch.ops.kernels.panel_spmm import DevicePanels, panel_spmm
 from spgrid_torch.ops.kernels.wcoo_spmm import DeviceWCOO, wcoo_spmm
 from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
     DeviceWCOOBands, wcoo_spmm_aligned,
 )
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned, wcoo_spmv
+from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK, wpack_spmv
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 from spgrid_torch.ops.layouts import DeviceBSR
 
 JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "panel_cuda": "panel_pallas", "wcoo_cuda": "wcoo_pallas",
             "wcoo_bands_cuda": "wcoo_bands", "wcoo_spmv_cuda": "wcoo_spmv",
-            "wrow_spmv_cuda": "wrow_spmv"}
+            "wrow_spmv_cuda": "wrow_spmv", "bsrc_cuda": "bsrc_pallas",
+            "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv"}
 FORMATS = tuple(JAX_NAME)
 
 
 def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
           bk: int = 128):
     """The device operand of ``csr`` for format ``fmt``; bm defaults to 128
-    for the BSR kernel, as ``spgrid.ops.dispatch.build`` does for
-    ``bsr_pallas``."""
+    for the block kernels, as ``spgrid.ops.dispatch.build`` does for
+    ``bsr_pallas`` and ``bsrc_pallas``."""
     if fmt == "dense":
         return torch.from_numpy(csr.to_dense()).to(device)
     if fmt == "bsr_cuda":
         return DeviceBSR.from_csr(csr, bm=bm or 128, bk=bk, device=device)
+    if fmt == "bsrc_cuda":
+        return DeviceBSRCol.from_csr(csr, bm=bm or 128, bk=bk, device=device)
     if fmt == "panel_cuda":
         return DevicePanels.from_csr(csr, bk=bk, device=device)
     layout = {"wcoo_cuda": DeviceWCOO, "wcoo_bands_cuda": DeviceWCOOBands,
               "wcoo_spmv_cuda": DeviceWCOOAligned,
-              "wrow_spmv_cuda": DeviceWROW}.get(fmt)
+              "wrow_spmv_cuda": DeviceWROW, "dgell_cuda": DeviceDGELL,
+              "wpack_spmv_cuda": DeviceWPACK}.get(fmt)
     if layout is None:
         raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
     return layout.from_csr(csr, device=device)
@@ -66,7 +75,9 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "panel_cuda": panel_spmm, "wcoo_cuda": wcoo_spmm,
          "wcoo_bands_cuda": wcoo_spmm_aligned,
          "wcoo_spmv_cuda": _spmv_2d(wcoo_spmv, "wcoo_spmv_cuda"),
-         "wrow_spmv_cuda": _spmv_2d(wrow_spmv, "wrow_spmv_cuda")}
+         "wrow_spmv_cuda": _spmv_2d(wrow_spmv, "wrow_spmv_cuda"),
+         "bsrc_cuda": bsr_spmm_cstat, "dgell_cuda": dgell_spmm,
+         "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda")}
 
 
 def spmm_fn(fmt: str) -> Callable:

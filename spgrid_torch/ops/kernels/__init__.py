@@ -12,8 +12,8 @@ import torch
 def _wrappers() -> dict:
     """Each kernel's wrapper, which carries its launch count, by name."""
     from spgrid_torch.ops.kernels import (
-        bsr_spmm, panel_spmm, sddmm, wcoo_spmm, wcoo_spmm_aligned, wcoo_spmv,
-        wrow_spmv,
+        bsr_spmm, bsr_spmm_cstat, dgell, panel_spmm, sddmm, wcoo_spmm,
+        wcoo_spmm_aligned, wcoo_spmv, wpack_spmv, wrow_spmv,
     )
     return {"bsr_spmm": bsr_spmm.bsr_spmm,
             "panel_spmm": panel_spmm.panel_spmm,
@@ -21,7 +21,11 @@ def _wrappers() -> dict:
             "wcoo_spmm": wcoo_spmm.wcoo_spmm,
             "wcoo_spmm_aligned": wcoo_spmm_aligned.wcoo_spmm_aligned,
             "wcoo_spmv": wcoo_spmv.wcoo_spmv,
-            "wrow_spmv": wrow_spmv.wrow_spmv}
+            "wrow_spmv": wrow_spmv.wrow_spmv,
+            "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
+            "dgell": dgell.dgell_spmm,
+            "wpack_spmv": wpack_spmv.wpack_spmv,
+            "wrow_spmv_v2": wrow_spmv.wrow_spmv_v2}
 
 
 def launch_counts() -> dict:

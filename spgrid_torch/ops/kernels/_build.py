@@ -52,6 +52,17 @@ SIGNATURES = {
     "spgrid_wrow_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
     # block_ptr, g_sw, cols, vals, x, y, blocks, m, k, stream
     "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,
+    # m, k, n, stream
+    "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # cols, vals, x, y, m, slots, n, stream
+    "spgrid_dgell": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, blocks, m, k,
+    # stream
+    "spgrid_wpack_spmv": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # group_sub, block_ptr, piece_w, cols, vals, x, y, carry, num_groups,
+    # groups_per_cta, blocks, m, k, stream
+    "spgrid_wrow_spmv_v2": [_PTR] * 8 + [_INT] * 5 + [_PTR],
 }
 
 

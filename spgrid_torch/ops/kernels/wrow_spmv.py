@@ -1,9 +1,12 @@
 """Window-row packed SpMV: y = A @ x with A in DeviceWROW layout.
 
-Counterpart of ``spgrid/ops/pallas/wrow_spmv.py`` (format ``wrow_spmv``, its
-default variant v1); the CUDA kernel is ``spgrid_torch/csrc/wrow_spmv.cu``.
-``wrow_spmv`` takes x (k,) and returns y (m,), x unpadded. It launches the
-kernel for CUDA tensors and takes ``wrow_spmv_plain`` only for CPU tensors.
+Counterpart of ``spgrid/ops/pallas/wrow_spmv.py`` (format ``wrow_spmv``).
+Its two variants are two CUDA kernels: v1, the default,
+``spgrid_torch/csrc/wrow_spmv.cu`` (one CTA per target block), and v2,
+``spgrid_torch/csrc/wrow_spmv_v2.cu`` (``wrow_spmv_v2``: equal ranges of
+groups per CTA, an accumulator carried across a range). ``wrow_spmv``
+takes x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
+tensors and takes ``wrow_spmv_plain`` only for CPU tensors.
 
 A piece is one 128-lane row of slots holding the nnz of one (128-row target
 block, 128-column window, depth), lane = row within the block; a group is
@@ -138,18 +141,30 @@ class DeviceWROW:
                                util, G, csr.name, device=device)
 
 
-def wrow_spmv(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,)."""
+def _check(kernel: str, a: DeviceWROW, x: torch.Tensor) -> None:
     if x.dim() != 1 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
-    check_operands("wrow_spmv", x.device, x=(x, torch.float32),
+    check_operands(kernel, x.device, x=(x, torch.float32),
                    values=(a.values, torch.float32), cols=(a.cols, torch.int8),
                    piece_w=(a.piece_w, torch.int32),
+                   group_sub=(a.group_sub, torch.int32),
                    block_ptr=(a.block_ptr, torch.int32))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: no kernel for device {x.device}")
+
+
+def wrow_spmv(a: DeviceWROW, x: torch.Tensor,
+              variant: str = "v1") -> torch.Tensor:
+    """y (m,) f32 = A @ x for f32 x (k,); ``variant`` "v1" (the default) or
+    "v2" (``wrow_spmv_v2``), as the JAX ``wrow_spmv`` takes it."""
+    if variant == "v2":
+        return wrow_spmv_v2(a, x)
+    if variant != "v1":
+        raise ValueError(f"wrow_spmv: variant must be 'v1' or 'v2', got "
+                         f"{variant!r}")
+    _check("wrow_spmv", a, x)
     if x.device.type == "cpu":
         return wrow_spmv_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"wrow_spmv: no kernel for device {x.device}")
     m, k = a.shape
     y = torch.empty((m,), dtype=torch.float32, device=x.device)
     if m == 0:
@@ -168,12 +183,49 @@ def wrow_spmv(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
 
 wrow_spmv.launches = 0
 
+# v2's range of groups a CTA: ~2,600 CTAs of 128 threads at the 82,634
+# groups of a 100000^2 scattered matrix, against v1's 782 (one a block)
+GROUPS_PER_CTA = 32
+
+
+def wrow_spmv_v2(a: DeviceWROW, x: torch.Tensor,
+                 groups_per_cta: int = GROUPS_PER_CTA) -> torch.Tensor:
+    """y (m,) f32 = A @ x for f32 x (k,), variant v2: each CTA walks
+    ``groups_per_cta`` consecutive groups; blocks that straddle two CTAs'
+    ranges are combined by a second pass (the same y as v1)."""
+    _check("wrow_spmv_v2", a, x)
+    if groups_per_cta < 1:
+        raise ValueError(f"groups_per_cta must be >= 1, got {groups_per_cta}")
+    if x.device.type == "cpu":
+        return wrow_spmv_plain(a, x)
+    m, k = a.shape
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    ctas = -(-a.num_groups // groups_per_cta)
+    carry = torch.empty((max(ctas, 1), 2, LANE), dtype=torch.float32,
+                        device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.spgrid_wrow_spmv_v2(
+            a.group_sub.data_ptr(), a.block_ptr.data_ptr(),
+            a.piece_w.data_ptr(), a.cols.data_ptr(), a.values.data_ptr(),
+            x.data_ptr(), y.data_ptr(), carry.data_ptr(), a.num_groups,
+            groups_per_cta, a.blocks, m, k, stream)
+    _build.check(code, "wrow_spmv_v2")
+    wrow_spmv_v2.launches += 1
+    return y
+
+
+wrow_spmv_v2.launches = 0
+
 
 def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
-    """The same product in plain torch, in x's dtype: slot t of piece p adds
-    value · x[128 piece_w[p] + col] to row 128 group_sub[p // 8] + t
-    (``index_add_``), for slots whose value is not 0 and x index lies
-    inside x."""
+    """The same product in plain torch, in x's dtype, for both variants:
+    slot t of piece p adds value · x[128 piece_w[p] + col] to row
+    128 group_sub[p // 8] + t (``index_add_``), for slots whose value is
+    not 0 and x index lies inside x."""
     m, k = a.shape
     lane = torch.arange(LANE, device=x.device)
     sub = a.group_sub.long().repeat_interleave(GROUP_PIECES)

@@ -1,6 +1,6 @@
 """The port's benchmark CLI (``python -m spgrid_torch.bench``) on the CPU:
-the JAX package's CSV schema, the four slot formats gated on a small
-parameter line, resume, and the refusals."""
+the JAX package's CSV schema, the slot, block-grid and scattered formats
+gated on small parameter lines, resume, and the refusals."""
 
 import csv
 import os
@@ -67,6 +67,38 @@ def test_generate_on_cpu_passes_the_gate(kernels, n, tmp_path):
         assert r["csr_m"] == "700" and r["csr_k"] == "1100"
         assert float(r["max_ae"]) < 1e-4 and float(r["gflops"]) > 0
         assert r["matrix_name"].startswith("art_700_1100_5")
+
+
+# small counterparts of the block-grid and scattered lines (the JAX
+# package's bsrc_pallas smoke line and synth_100k_a20_b0.9)
+LINE_B = "1024 1024 50 10 normal random 0.05 0 0.05 0.05 14"
+LINE_S = "3000 3000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
+
+
+@pytest.mark.parametrize("line,kernels,n", [
+    (LINE_B, "bsrc_cuda,bsr_cuda", "24"),
+    (LINE_S, "dgell_cuda", "1,24"),
+    (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1")])
+def test_new_formats_on_cpu_pass_the_gate(line, kernels, n, tmp_path):
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--generate", line, "--kernels", kernels, "--num-cols",
+                     n, "--out", str(out), "--platform", "cpu"]) == 0
+    rows = read_rows(out)
+    want = [(k, c) for k in kernels.split(",") for c in n.split(",")]
+    assert [(r["kernel"], r["input_columns"]) for r in rows] == want
+    for r in rows:
+        assert r["errors_passed"] == "1" and r["device"] == "cpu"
+        assert float(r["max_ae"]) < 1e-4 and float(r["gflops"]) > 0
+        assert float(r["fmt_mem_footprint_mb"]) > 0
+
+
+def test_wpack_at_n_2_writes_a_failed_row(tmp_path):
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--generate", LINE_S, "--kernel", "wpack_spmv_cuda",
+                     "--num-cols", "2", "--out", str(out),
+                     "--platform", "cpu"]) == 1
+    (row,) = read_rows(out)
+    assert row["errors_passed"] == "0" and row["input_columns"] == "2"
 
 
 def test_matrix_files_run_through_the_sweep(tmp_path):

@@ -19,6 +19,12 @@ from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
 from spgrid_torch.gen import artificial_matrix_generation, create_mask
 from spgrid_torch.ops.kernels import launch_counts
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+    DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain,
+)
+from spgrid_torch.ops.kernels.dgell import (
+    DeviceDGELL, dgell_spmm, dgell_spmm_plain,
+)
 from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_plain,
 )
@@ -32,8 +38,11 @@ from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
 from spgrid_torch.ops.kernels.wcoo_spmv import (
     DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
 )
+from spgrid_torch.ops.kernels.wpack_spmv import (
+    DeviceWPACK, wpack_spmv, wpack_spmv_plain,
+)
 from spgrid_torch.ops.kernels.wrow_spmv import (
-    DeviceWROW, wrow_spmv, wrow_spmv_plain,
+    DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
 )
 from spgrid_torch.ops.layouts import DeviceBSR
 
@@ -178,6 +187,112 @@ def test_slot_wrappers_raise_instead_of_falling_back(cuda):
     for kernel, (layout, fn, _) in {**SLOT_SPMM, **SLOT_SPMV}.items():
         a = layout(csr, cuda)
         shape = (csr.k,) if kernel in SLOT_SPMV else (csr.k, 8)
+        with pytest.raises(TypeError):
+            fn(a, operand(shape, 1, cuda).double())
+        with pytest.raises(ValueError):
+            fn(a, operand(shape, 1, "cpu"))
+
+
+def bands_with_gaps():
+    d = positive(random_csr(300, 260, 0.1, seed=2)).to_dense()
+    d[64:128] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="bands_with_gaps")
+
+
+BSRC = {
+    # name: (matrix, bm, band_rows, n)
+    "gaps_bm8_short_last_band": (bands_with_gaps, 8, 64, 20),
+    "one_band_bm128_ragged_n": (
+        lambda: positive(random_csr(300, 260, 0.3, seed=2)), 128, 2048, 33),
+    "bands_bm128": (lambda: positive(artificial_matrix_generation(
+        1024, 1024, 50, 10, "normal", seed=14, placement="random", bw=0.05)),
+        128, 256, 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BSRC))
+def test_bsr_spmm_cstat_kernel(cuda, case):
+    make, bm, band_rows, n = BSRC[case]
+    csr = make()
+    a = DeviceBSRCol.from_csr(csr, bm=bm, bk=128, band_rows=band_rows,
+                              device=cuda)
+    x = operand((csr.k, n), 12, cuda)
+    before = launch_counts()["bsr_spmm_cstat"]
+    got = bsr_spmm_cstat(a, x)
+    assert launch_counts()["bsr_spmm_cstat"] == before + 1
+    assert_close(got, bsr_spmm_cstat_plain(a, x.double()))
+
+
+def test_bsr_spmm_cstat_raises_for_what_it_cannot_take(cuda):
+    csr = positive(random_csr(600, 64, 0.05, seed=1))
+    with pytest.raises(ValueError, match="bm"):
+        bsr_spmm_cstat(DeviceBSRCol.from_csr(csr, bm=256, device=cuda),
+                       operand((64, 8), 1, cuda))
+    # a 4096-row slab of 16 columns is more shared memory than a CTA has
+    big = DeviceBSRCol.from_csr(positive(random_csr(5000, 64, 0.01, seed=1)),
+                                band_rows=4096, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        bsr_spmm_cstat(big, operand((64, 8), 1, cuda))
+
+
+def misaligned(shape, seed, device):
+    """A contiguous operand whose data starts 4 bytes past an aligned
+    address, so the kernel cannot read it as float4."""
+    x = operand((int(np.prod(shape)) + 1,), seed, device)[1:]
+    return x.view(shape)
+
+
+@pytest.mark.parametrize("n,layout", [(1, "plain"), (64, "plain"),
+                                      (70, "plain"), (64, "misaligned")])
+@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
+def test_dgell_kernel(cuda, matrix, n, layout):
+    csr = SLOT_MATRICES[matrix]()
+    a = DeviceDGELL.from_csr(csr, device=cuda)
+    assert a.tail_rows.numel() > 0
+    x = (operand((csr.k, n), 13, cuda) if layout == "plain"
+         else misaligned((csr.k, n), 13, cuda))
+    before = launch_counts()["dgell"]
+    got = dgell_spmm(a, x)
+    assert launch_counts()["dgell"] == before + 1
+    assert_close(got, dgell_spmm_plain(a, x.double()))
+
+
+@pytest.mark.parametrize("wsel", [None, 1, 2, 4])
+@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
+def test_wpack_spmv_kernel(cuda, matrix, wsel):
+    csr = SLOT_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, wsel, device=cuda)
+    x = operand((csr.k,), 14, cuda)
+    before = launch_counts()["wpack_spmv"]
+    got = wpack_spmv(a, x)
+    assert launch_counts()["wpack_spmv"] == before + 1
+    assert_close(got, wpack_spmv_plain(a, x.double()))
+
+
+@pytest.mark.parametrize("groups_per_cta", [1, 3, 32, 1 << 20])
+@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
+def test_wrow_spmv_v2_kernel(cuda, matrix, groups_per_cta):
+    csr = SLOT_MATRICES[matrix]()
+    a = DeviceWROW.from_csr(csr, device=cuda)
+    x = operand((csr.k,), 15, cuda)
+    before = launch_counts()["wrow_spmv_v2"]
+    got = wrow_spmv_v2(a, x, groups_per_cta=groups_per_cta)
+    assert launch_counts()["wrow_spmv_v2"] == before + 1
+    assert_close(got, wrow_spmv_plain(a, x.double()))
+    torch.testing.assert_close(wrow_spmv(a, x, variant="v2"),
+                               wrow_spmv(a, x), rtol=1e-5, atol=1e-5)
+
+
+def test_new_wrappers_raise_instead_of_falling_back(cuda):
+    csr = hypersparse_edge()
+    cases = [
+        (DeviceBSRCol.from_csr(csr, device=cuda), bsr_spmm_cstat,
+         (csr.k, 8)),
+        (DeviceDGELL.from_csr(csr, device=cuda), dgell_spmm, (csr.k, 8)),
+        (DeviceWPACK.from_csr(csr, device=cuda), wpack_spmv, (csr.k,)),
+        (DeviceWROW.from_csr(csr, device=cuda), wrow_spmv_v2, (csr.k,)),
+    ]
+    for a, fn, shape in cases:
         with pytest.raises(TypeError):
             fn(a, operand(shape, 1, cuda).double())
         with pytest.raises(ValueError):
