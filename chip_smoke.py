@@ -15,12 +15,17 @@ exits non-zero and never prints the final ``"ok": true`` line:
    shape and, for the block kernels, at a larger shape; with the kernel's
    time, the plain f32 version's time and the time of one PyTorch library
    call that computes the same function (``torch.sparse.mm``,
-   ``torch.sparse.sampled_addmm``; a yardstick the port never calls), all
-   from CUDA events around eager calls; the kernel's device time alone,
-   from CUDA-graph replay; and the kernel's bound: the larger of the bytes
-   the product needs on that matrix (each nnz, each dense operand and the
-   output once) over the card's memory rate and its operations (2 a nnz a
-   column) over its f32 rate.
+   ``torch.sparse.sampled_addmm``, ``torch.take_along_dim``,
+   ``torch.index_select``; a yardstick the port never calls; none for the
+   shuffle chain and the wrong-by-design ablation variants), all from CUDA
+   events around eager calls; the kernel's device time alone, from
+   CUDA-graph replay; and the kernel's bound: the larger of the bytes the
+   function needs on these inputs (each nnz, each dense operand, each
+   gathered row and the output once) over the card's memory rate and its
+   operations (2 a nnz a column) over its f32 rate. The probe gathers and
+   the shuffle chain are held to their plain versions in f32, bit for bit;
+   the ablation variants to theirs in f64, within 1e-5 where each row is
+   written once and within ``ATOMIC_TOL`` where blocks sum with atomics.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line.
@@ -38,11 +43,18 @@ exits non-zero and never prints the final ``"ok": true`` line:
    n=1, each row gated at eps 1e-4; then the WROW v1/v2 A/B on ``LINE_S``
    (``scripts/exp_wrow_v2.py``'s check): each variant against the host f64
    product, with both times.
+6. probes: the three probe drivers of ``spgrid_torch.scripts``
+   (``exp_spmv_ablate``, ``exp_pallas_gather``, ``exp_lanegather``: the
+   ports of the JAX package's TPU probes under ``scripts/``), each its
+   ``main`` at the JAX script's default sizes on the card; a non-zero exit
+   (a gather not exact, a form that fails, WROW v1 off its f64 product)
+   fails the run.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
-flagship path), before phase 4 (the CLI path) and before phase 5 (the
-scattered and block-grid path), and read after each; a kernel of a path
-that was not launched there fails the run. Then one JSON
+flagship path), before phase 4 (the CLI path), before phase 5 (the
+scattered and block-grid path) and before phase 6 (the probe path), and
+read after each; a kernel of a path that was not launched there fails the
+run. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
 1), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -50,6 +62,7 @@ line of the kernels (launches from their path, errors and times from phase
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -67,6 +80,13 @@ import torch
 # difference below that).
 REL_TOL = 1e-5
 SIGNIFICANT = 1e-4
+# spmv_ablate's normw and empty: each thread sums its block's pieces in f32
+# and adds the sum to y[t] with atomicAdd, in any order of the 782 blocks
+# of the probe's matrix. A sum of positive f32 terms is off by at most
+# (terms in its chain) * 2^-24 relative: (782 block sums + a block's
+# pieces) * 6e-8 < 1e-4 while a block holds fewer than ~880 pieces (at
+# most 160 there).
+ATOMIC_TOL = 1e-4
 TIME_S = 0.2            # minimum timed seconds for each kernel time
 DEVICE = "cuda"
 LARGE = 4096            # side of the larger case of each block kernel
@@ -79,6 +99,10 @@ MAIN_LINE = "65535 65535 5 1.6667 normal random 0.05 0 0.05 0.05 14"
 # (scripts/exp_wpack.py).
 LINE_B = "8192 8192 50 10 normal random 0.05 0 0.05 0.05 14"
 LINE_S = "100000 100000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
+# The probes' default sizes (scripts/exp_spmv_ablate.py: m avg bw;
+# scripts/exp_pallas_gather.py: X rows, columns and gather steps).
+ABLATE = (100000, 20.0, 0.05)
+GATHER = (65536, 512, 384)
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory and f32 FMA on
 # the CUDA cores, for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -148,15 +172,8 @@ def device_ms(fn, *args, calls: int = 20, replays: int = 20) -> float:
     cost to enqueue a call is left out. nan off the card."""
     if DEVICE != "cuda":
         return float("nan")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn(*args)
+    from spgrid_torch.scripts import cuda_graph
+    graph = cuda_graph(lambda: fn(*args), calls)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -202,6 +219,12 @@ def phase_kernels() -> dict:
         DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
     from spgrid_torch.ops.kernels.dgell import (
         DeviceDGELL, dgell_spmm, dgell_spmm_plain)
+    from spgrid_torch.ops.kernels.lanegather import (
+        lanegather, lanegather_plain)
+    from spgrid_torch.ops.kernels.pallas_gather import (
+        dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain)
+    from spgrid_torch.ops.kernels.spmv_ablate import (
+        VARIANTS, spmv_ablate, spmv_ablate_plain)
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
@@ -216,6 +239,8 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.wrow_spmv import (
         DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2)
     from spgrid_torch.ops.layouts import DeviceBSR
+    from spgrid_torch.scripts.exp_lanegather import forms
+    from spgrid_torch.scripts.exp_spmv_ablate import ablate_matrix
 
     def ms(fn, *args):
         return time_kernel(fn, *args, device=DEVICE, warmup_iters=5,
@@ -231,6 +256,8 @@ def phase_kernels() -> dict:
     edge = edge_matrix()
     line_b = line_matrix(LINE_B)
     line_s = line_matrix(LINE_S)
+    ablate = ablate_matrix(*ABLATE)
+    ablate_small = ablate_matrix(1000, *ABLATE[1:])
 
     # Each case: (kernel, plain, args, args in f64, library call and its
     # args, bytes moved, flops). Bytes and flops are what the product needs
@@ -335,6 +362,66 @@ def phase_kernels() -> dict:
         return spmv_case(wrow_spmv, wrow_spmv_plain, a, csr, seed,
                          a.cols.element_size())
 
+    # The probe kernels. A gather needs each gathered element or row read
+    # once (at most the index's count, distinct rows for dma_gather), the
+    # index and the output; the shuffle chain its three tiles and one add
+    # an element a step; an ablation variant its nnz's values (and columns
+    # where it reads them), the x entries it reads and the y it writes.
+    def lanegather_case(src, idx, axis):
+        s, i = (torch.from_numpy(v).to(DEVICE) for v in (src, idx))
+        return (lanegather, lanegather_plain, (s, i, axis), (s, i, axis),
+                torch.take_along_dim, (s, i.long(), axis),
+                4 * min(s.numel(), i.numel()) + 8 * i.numel(), 0.0, 0.0)
+
+    def gather_x(k, n, seed):
+        x = np.random.default_rng(seed).standard_normal((k, n))
+        return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+
+    def dma_case(x, steps, G, seed):
+        k, n = x.shape
+        idx2 = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, k, (steps, G)).astype(np.int32)).to(DEVICE)
+        distinct = torch.unique(idx2).numel()
+        return (dma_gather, lambda x_, i_, _g: dma_gather_plain(x_, i_),
+                (x, idx2, G), (x, idx2, G), torch.index_select,
+                (x, 0, idx2.reshape(-1)),
+                4 * n * (distinct + steps * G) + nbytes(idx2), 0.0, 0.0)
+
+    def shuffle_case(reps, seed):
+        rng = np.random.default_rng(seed)
+        src = torch.from_numpy(rng.standard_normal((256, 128)).astype(
+            np.float32)).to(DEVICE)
+        idx = torch.from_numpy(rng.integers(0, 128, (256, 128)).astype(
+            np.int32)).to(DEVICE)
+        return (shuffle_bench, shuffle_bench_plain, (src, idx, reps),
+                (src, idx, reps), None, (), 3 * nbytes(src),
+                float(reps * src.numel()), 0.0)
+
+    def ablate_case(a, csr, variant, seed):
+        m, k = a.shape
+        x = rand((k,), seed)
+        x_bytes = {"empty": 0, "noload": 4 * min(k, 1024)}.get(variant, 4 * k)
+        col_bytes = 0 if variant in ("nogather", "empty") else 1
+        y_bytes = 4 * (min(m, 128) if variant in ("normw", "empty") else m)
+        library = ((torch.sparse.mm, (csr_tensor(csr), x[:, None]))
+                   if variant == "full" else (None, ()))
+        return (spmv_ablate, spmv_ablate_plain, (a, x, variant),
+                (a, x.double(), variant), *library,
+                csr.nnz * (4 + col_bytes) + x_bytes + y_bytes,
+                (1.0 if variant == "empty" else 2.0) * csr.nnz,
+                ATOMIC_TOL if variant in ("normw", "empty") else REL_TOL)
+
+    ablate_wrow = DeviceWROW.from_csr(ablate, device=DEVICE)
+    ablate_small_wrow = DeviceWROW.from_csr(ablate_small, device=DEVICE)
+    layout_line("wrow", ablate, ablate_wrow,
+                "groups of 8 pieces of 128 slots", ablate_wrow.num_groups)
+    print(f"phase 1 layout: wrow of {ablate.name}: {ablate_wrow.blocks} "
+          f"blocks, at most "
+          f"{8 * int(torch.diff(ablate_wrow.block_ptr).max())} pieces a "
+          f"block (ATOMIC_TOL holds below ~880)", flush=True)
+    g_k, g_n, g_steps = GATHER
+    x_gather = gather_x(g_k, g_n, 16)
+
     hyper_label = "MAIN_LINE {}x{} hypersparse".format(*hyper.shape)
     edge_label = "3000x2000 empty row blocks, 250-nnz row, ragged k"
     b_label = "LINE_B {}x{} {} nnz".format(*line_b.shape, line_b.nnz)
@@ -398,24 +485,49 @@ def phase_kernels() -> dict:
         ("wrow_spmv_v2", f"{edge_label} n=1", False,
          lambda: wrow_v2_case(edge, 11)),
     ]
+    for i, (form, src, idx, axis) in enumerate(
+            forms(np.random.default_rng(0))):
+        cases.append(("lanegather", form, i == 0,
+                      functools.partial(lanegather_case, src, idx, axis)))
+    for G in (64, 256):
+        cases.append(("dma_gather", f"X {g_k}x{g_n} {g_steps} steps G={G}",
+                      G == 64,
+                      functools.partial(dma_case, x_gather, g_steps, G, 17)))
+    cases.append(("dma_gather", "X 300x201 (4-byte copies) 3 steps G=6",
+                  False, lambda: dma_case(gather_x(300, 201, 18), 3, 6, 19)))
+    for reps in (64, 256):
+        cases.append(("shuffle_bench", f"(256,128) reps={reps}", reps == 256,
+                      functools.partial(shuffle_case, reps, 20)))
+    for a, csr in ((ablate_wrow, ablate), (ablate_small_wrow, ablate_small)):
+        for variant in VARIANTS:
+            cases.append((
+                "spmv_ablate", "{}x{} bw={} {} nnz {}".format(
+                    *csr.shape, ABLATE[2], csr.nnz, variant),
+                a is ablate_wrow and variant == "full",
+                functools.partial(ablate_case, a, csr, variant, 21)))
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
         (kernel, plain, args, args64, library, lib_args, bytes_moved,
-         flops) = make()
+         flops, *tol) = make()
+        tol = tol[0] if tol else REL_TOL
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args64)
+        if out.shape != ref.shape:
+            raise RuntimeError(f"{name} [{label}]: shape {tuple(out.shape)}, "
+                               f"plain {tuple(ref.shape)}")
         rel, err = compare(out, ref)
         del ref
         k_ms, p_ms = ms(kernel, *args), ms(plain, *args)
-        lib_ms = ms(library, *lib_args)
+        lib_ms = None if library is None else ms(library, *lib_args)
         dev_ms = device_ms(kernel, *args)
         b_ms, b_by = bound(bytes_moved, flops)
-        ok = bool(torch.isfinite(out).all()) and rel <= REL_TOL
+        ok = bool(torch.isfinite(out).all()) and rel <= tol
         print(f"phase 1 kernels: {name} [{label}] max_rel={rel:.3e} "
-              f"max_abs={err:.3e} kernel_ms={k_ms:.6f} "
+              f"(tol {tol:g}) max_abs={err:.3e} kernel_ms={k_ms:.6f} "
               f"kernel_device_ms={dev_ms:.6f} plain_ms={p_ms:.6f} "
-              f"library_ms={lib_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"library_ms={'—' if lib_ms is None else f'{lib_ms:.6f}'} "
+              f"bound_ms={b_ms:.6f} ({b_by}) "
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")
@@ -561,6 +673,26 @@ def phase_scattered_cli() -> None:
         raise RuntimeError(f"WROW A/B failed for {failed}")
 
 
+def phase_probes() -> None:
+    """Phase 6: the probe drivers' ``main`` at the JAX scripts' default
+    sizes (``ABLATE``, ``GATHER``); each must exit 0."""
+    from spgrid_torch.scripts import (
+        exp_lanegather, exp_pallas_gather, exp_spmv_ablate)
+    k, n, steps = GATHER
+    runs = (("exp_spmv_ablate", exp_spmv_ablate.main,
+             [str(v) for v in ABLATE]),
+            ("exp_pallas_gather", exp_pallas_gather.main,
+             ["--k", str(k), "--n", str(n), "--steps", str(steps)]),
+            ("exp_lanegather", exp_lanegather.main, []))
+    for name, main, argv in runs:
+        argv = argv + ["--platform", DEVICE]
+        print(f"phase 6 probes: python -m spgrid_torch.scripts.{name} "
+              f"{' '.join(argv)}", flush=True)
+        code = main(argv)
+        if code != 0:
+            raise RuntimeError(f"{name} exited {code}")
+
+
 # kernel -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
@@ -584,6 +716,14 @@ SOURCES = {
                    "spgrid/ops/pallas/wpack_spmv.py:238"),
     "wrow_spmv_v2": ("spgrid_torch/csrc/wrow_spmv_v2.cu",
                      "spgrid/ops/pallas/wrow_spmv.py:226"),
+    "lanegather": ("spgrid_torch/csrc/lanegather.cu",
+                   "scripts/exp_lanegather.py:47"),
+    "dma_gather": ("spgrid_torch/csrc/pallas_gather.cu",
+                   "scripts/exp_pallas_gather.py:28"),
+    "shuffle_bench": ("spgrid_torch/csrc/pallas_gather.cu",
+                      "scripts/exp_pallas_gather.py:78"),
+    "spmv_ablate": ("spgrid_torch/csrc/spmv_ablate.cu",
+                    "scripts/exp_spmv_ablate.py:41"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -593,6 +733,8 @@ PATHS = (
      ("wcoo_spmm", "wcoo_spmm_aligned", "wrow_spmv", "wcoo_spmv")),
     ("scattered and block-grid CLI", (phase_scattered_cli,),
      ("bsr_spmm_cstat", "dgell", "wpack_spmv", "wrow_spmv_v2")),
+    ("probes", (phase_probes,),
+     ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate")),
 )
 
 

@@ -12,8 +12,9 @@ import torch
 def _wrappers() -> dict:
     """Each kernel's wrapper, which carries its launch count, by name."""
     from spgrid_torch.ops.kernels import (
-        bsr_spmm, bsr_spmm_cstat, dgell, panel_spmm, sddmm, wcoo_spmm,
-        wcoo_spmm_aligned, wcoo_spmv, wpack_spmv, wrow_spmv,
+        bsr_spmm, bsr_spmm_cstat, dgell, lanegather, pallas_gather,
+        panel_spmm, sddmm, spmv_ablate, wcoo_spmm, wcoo_spmm_aligned,
+        wcoo_spmv, wpack_spmv, wrow_spmv,
     )
     return {"bsr_spmm": bsr_spmm.bsr_spmm,
             "panel_spmm": panel_spmm.panel_spmm,
@@ -25,7 +26,11 @@ def _wrappers() -> dict:
             "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
             "dgell": dgell.dgell_spmm,
             "wpack_spmv": wpack_spmv.wpack_spmv,
-            "wrow_spmv_v2": wrow_spmv.wrow_spmv_v2}
+            "wrow_spmv_v2": wrow_spmv.wrow_spmv_v2,
+            "lanegather": lanegather.lanegather,
+            "dma_gather": pallas_gather.dma_gather,
+            "shuffle_bench": pallas_gather.shuffle_bench,
+            "spmv_ablate": spmv_ablate.spmv_ablate}
 
 
 def launch_counts() -> dict:

@@ -63,6 +63,14 @@ SIGNATURES = {
     # group_sub, block_ptr, piece_w, cols, vals, x, y, carry, num_groups,
     # groups_per_cta, blocks, m, k, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 8 + [_INT] * 5 + [_PTR],
+    # src, idx, out, s0, s1, i0, i1, axis, stream
+    "spgrid_lanegather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    # x, idx, out, k, n, steps, G, stream
+    "spgrid_dma_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # src, idx, out, rows, reps, stream
+    "spgrid_shuffle_bench": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    # block_ptr, piece_w, cols, vals, x, y, variant, blocks, m, k, stream
+    "spgrid_spmv_ablate": [_PTR] * 6 + [_INT] * 4 + [_PTR],
 }
 
 

@@ -7,7 +7,11 @@ runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: the kernels sum in f32 in another order than the plain version
-in f64; with positive operands that stays below 1e-5 relative.
+in f64; with positive operands that stays below 1e-5 relative. The probe
+kernels' gathers and shuffle chain are copies and the same f32 additions,
+so they match their plain versions bit for bit; the ablation variants
+normw and empty add every block's sum to y[0:128] with atomics, in any
+order: within 1e-4.
 """
 
 import numpy as np
@@ -24,6 +28,13 @@ from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
 )
 from spgrid_torch.ops.kernels.dgell import (
     DeviceDGELL, dgell_spmm, dgell_spmm_plain,
+)
+from spgrid_torch.ops.kernels.lanegather import lanegather, lanegather_plain
+from spgrid_torch.ops.kernels.pallas_gather import (
+    dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain,
+)
+from spgrid_torch.ops.kernels.spmv_ablate import (
+    VARIANTS, spmv_ablate, spmv_ablate_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_plain,
@@ -45,6 +56,9 @@ from spgrid_torch.ops.kernels.wrow_spmv import (
     DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
 )
 from spgrid_torch.ops.layouts import DeviceBSR
+from spgrid_torch.scripts import (
+    exp_lanegather, exp_pallas_gather, exp_spmv_ablate,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +311,125 @@ def test_new_wrappers_raise_instead_of_falling_back(cuda):
             fn(a, operand(shape, 1, cuda).double())
         with pytest.raises(ValueError):
             fn(a, operand(shape, 1, "cpu"))
+
+
+FORMS = exp_lanegather.forms(np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("form", range(len(FORMS)),
+                         ids=[f[0] for f in FORMS])
+def test_lanegather_kernel(cuda, form):
+    _, src, idx, axis = FORMS[form]
+    s, i = torch.from_numpy(src).to(cuda), torch.from_numpy(idx).to(cuda)
+    before = launch_counts()["lanegather"]
+    got = lanegather(s, i, axis)
+    assert launch_counts()["lanegather"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanegather_plain(s, i, axis))
+
+
+def gather_operands(k, n, steps, G, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    idx2 = rng.integers(0, k, (steps, G)).astype(np.int32)
+    return x.to(device), torch.from_numpy(idx2).to(device)
+
+
+@pytest.mark.parametrize("k,n,steps,G,layout", [
+    (300, 201, 3, 6, "plain"),          # n % 4 != 0: 4-byte copies
+    (1000, 256, 8, 64, "plain"),        # bulk copies, 2 chunks a step
+    (2000, 512, 2, 256, "plain"),       # 16 chunks of 16 rows a step
+    (1000, 256, 8, 64, "misaligned"),   # x not 16-byte aligned
+    (40, 16384, 2, 3, "plain"),         # one 64 KB row a chunk
+])
+def test_dma_gather_kernel(cuda, k, n, steps, G, layout):
+    x, idx2 = gather_operands(k, n, steps, G, 22, cuda)
+    if layout == "misaligned":
+        x = misaligned((k, n), 22, cuda)
+    before = launch_counts()["dma_gather"]
+    got = dma_gather(x, idx2, G)
+    assert launch_counts()["dma_gather"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, dma_gather_plain(x, idx2))
+
+
+def test_dma_gather_reads_no_row_outside_x(cuda):
+    x, _ = gather_operands(10, 8, 1, 4, 23, cuda)
+    idx2 = torch.tensor([[0, 10, -3, 9]], dtype=torch.int32, device=cuda)
+    got = dma_gather(x, idx2, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[[0, 3]], x[[0, 9]])
+    assert not got[1:3].any()
+
+
+@pytest.mark.parametrize("rows,reps", [(256, 0), (256, 3), (256, 64),
+                                       (256, 256), (7, 11)])
+def test_shuffle_bench_kernel(cuda, rows, reps):
+    rng = np.random.default_rng(24)
+    src = torch.from_numpy(rng.standard_normal((rows, 128)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(
+        np.int32)).to(cuda)
+    before = launch_counts()["shuffle_bench"]
+    got = shuffle_bench(src, idx, reps)
+    assert launch_counts()["shuffle_bench"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, shuffle_bench_plain(src, idx, reps))
+
+
+ABLATE_MATRICES = {
+    "probe_1000": lambda: exp_spmv_ablate.ablate_matrix(1000, 20.0, 0.05),
+    "m_below_128": lambda: exp_spmv_ablate.ablate_matrix(100, 20.0, 0.5),
+    "edge": hypersparse_edge,
+}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("matrix", sorted(ABLATE_MATRICES))
+def test_spmv_ablate_kernel(cuda, matrix, variant):
+    csr = ABLATE_MATRICES[matrix]()
+    a = DeviceWROW.from_csr(csr, device=cuda)
+    x = operand((csr.k,), 25, cuda)
+    before = launch_counts()["spmv_ablate"]
+    got = spmv_ablate(a, x, variant)
+    assert launch_counts()["spmv_ablate"] == before + 1
+    torch.cuda.synchronize()
+    tol = 1e-4 if variant in ("normw", "empty") else 1e-5
+    torch.testing.assert_close(got.double(),
+                               spmv_ablate_plain(a, x.double(), variant),
+                               rtol=tol, atol=tol)
+    if variant == "full":     # WROW v1's arithmetic in v1's order
+        assert torch.equal(got, wrow_spmv(a, x))
+
+
+def test_probe_wrappers_raise_instead_of_falling_back(cuda):
+    x, idx2 = gather_operands(50, 16, 2, 4, 26, cuda)
+    a = DeviceWROW.from_csr(hypersparse_edge(), device=cuda)
+    lane_idx = torch.zeros((50, 3), dtype=torch.int32, device=cuda)
+    calls = [
+        (lambda t: lanegather(t, lane_idx, 1), x),
+        (lambda t: dma_gather(t, idx2, 4), x),
+        (lambda t: spmv_ablate(a, t, "full"), operand((a.shape[1],), 1, cuda)),
+    ]
+    for fn, t in calls:
+        with pytest.raises(TypeError):
+            fn(t.double())
+        with pytest.raises(ValueError):
+            fn(t.cpu())
+    src = operand((8, 128), 1, cuda)
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        shuffle_bench(src.double(), idx, 1)
+    with pytest.raises(ValueError):
+        shuffle_bench(src, idx.cpu(), 1)
+
+
+@pytest.mark.parametrize("driver,argv", [
+    (exp_spmv_ablate, ["2000", "5", "0.05"]),
+    (exp_pallas_gather, ["--k", "3000", "--n", "512", "--steps", "8"]),
+    (exp_lanegather, []),
+])
+def test_probe_drivers_run_on_the_card(cuda, driver, argv, capsys):
+    assert driver.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and "False" not in out
