@@ -19,16 +19,24 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``torch.index_select``; a yardstick the port never calls; none for the
    shuffle chain and the wrong-by-design ablation variants), all from CUDA
    events around eager calls; the kernel's device time alone, from
-   CUDA-graph replay; and the kernel's bound: the larger of the bytes the
+   CUDA-graph replay (and, for the main-path case, the library call's,
+   where it can be captured in a graph); and the kernel's bound: the larger
+   of the bytes the
    function needs on these inputs (each nnz, each dense operand, each
    gathered row and the output once) over the card's memory rate and its
    operations (2 a nnz a column) over its f32 rate. The probe gathers and
    the shuffle chain are held to their plain versions in f32, bit for bit;
    the ablation variants to theirs in f64, within 1e-5 where each row is
    written once and within ``ATOMIC_TOL`` where blocks sum with atomics.
+   The WPACK ablation's five variants (``wpack_spmv(a, x, ablate=,
+   prefix=)``) run on ``exp_wpack_ablate``'s matrix at its own wsel (2) and
+   on the edge matrix at wsel 1 and 4, each held to its f64 plain version
+   within 1e-5.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
-   oracle at eps 1e-4, then the headline JSON line.
+   oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
+   carry the harness's time: device time from CUDA-graph replays (its
+   ``timing_protocol`` "graph").
 3. flagship: one step of ``spgrid_torch.entry.entry`` (which must launch
    bsr_spmm 4 times and bsr_sddmm once), gated against ``gold_pipeline``,
    then ``run_pipeline`` on the same matrices, gated at eps 1e-3.
@@ -43,12 +51,15 @@ exits non-zero and never prints the final ``"ok": true`` line:
    n=1, each row gated at eps 1e-4; then the WROW v1/v2 A/B on ``LINE_S``
    (``scripts/exp_wrow_v2.py``'s check): each variant against the host f64
    product, with both times.
-6. probes: the three probe drivers of ``spgrid_torch.scripts``
-   (``exp_spmv_ablate``, ``exp_pallas_gather``, ``exp_lanegather``: the
-   ports of the JAX package's TPU probes under ``scripts/``), each its
-   ``main`` at the JAX script's default sizes on the card; a non-zero exit
-   (a gather not exact, a form that fails, WROW v1 off its f64 product)
-   fails the run.
+6. probes: the four probe drivers of ``spgrid_torch.scripts``
+   (``exp_spmv_ablate``, ``exp_pallas_gather``, ``exp_lanegather``,
+   ``exp_wpack_ablate``: the ports of the JAX package's TPU probes under
+   ``scripts/``), each its ``main`` at the JAX script's default sizes on the
+   card; a non-zero exit (a gather not exact, a form that fails, WROW v1 or
+   a full WPACK form off its f64 product) fails the run.
+7. only with ``--eager-ab``: the headline and CLI rows of phases 2, 4 and
+   5 once more under the eager protocol (CUDA events around eager calls),
+   without their gates, printed on one line: the A/B of the two protocols.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
 flagship path), before phase 4 (the CLI path), before phase 5 (the
@@ -99,9 +110,11 @@ MAIN_LINE = "65535 65535 5 1.6667 normal random 0.05 0 0.05 0.05 14"
 # (scripts/exp_wpack.py).
 LINE_B = "8192 8192 50 10 normal random 0.05 0 0.05 0.05 14"
 LINE_S = "100000 100000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
-# The probes' default sizes (scripts/exp_spmv_ablate.py: m avg bw;
-# scripts/exp_pallas_gather.py: X rows, columns and gather steps).
+# The probes' default sizes (scripts/exp_spmv_ablate.py and
+# scripts/exp_wpack_ablate.py: m avg bw; scripts/exp_pallas_gather.py: X
+# rows, columns and gather steps).
 ABLATE = (100000, 20.0, 0.05)
+WPACK_ABLATE = (100000, 20.0, 0.05)
 GATHER = (65536, 512, 384)
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory and f32 FMA on
 # the CUDA cores, for each kernel's bound.
@@ -172,17 +185,26 @@ def device_ms(fn, *args, calls: int = 20, replays: int = 20) -> float:
     cost to enqueue a call is left out. nan off the card."""
     if DEVICE != "cuda":
         return float("nan")
-    from spgrid_torch.scripts import cuda_graph
-    graph = cuda_graph(lambda: fn(*args), calls)
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+    from spgrid_torch.core.timing import time_kernel_graph
+    return time_kernel_graph(fn, *args, device=DEVICE, calls=calls,
+                             warmup_iters=0, min_time_s=0.0,
+                             min_iters=calls * replays).time_per_iter_s * 1e3
+
+
+def show_ms(v) -> str:
+    return "—" if v is None else f"{v:.6f}"
+
+
+def library_device_ms(fn, *args):
+    """``device_ms`` of a library call, or None where the call cannot be
+    captured in a CUDA graph (its eager time is kept all the same)."""
+    try:
+        return device_ms(fn, *args)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"phase 1 library call not captured: {str(e)[:120]}",
+              flush=True)
+        return None
 
 
 def nbytes(*tensors) -> int:
@@ -241,6 +263,7 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.layouts import DeviceBSR
     from spgrid_torch.scripts.exp_lanegather import forms
     from spgrid_torch.scripts.exp_spmv_ablate import ablate_matrix
+    from spgrid_torch.scripts.exp_wpack_ablate import FORMS, wpack_matrix
 
     def ms(fn, *args):
         return time_kernel(fn, *args, device=DEVICE, warmup_iters=5,
@@ -258,6 +281,7 @@ def phase_kernels() -> dict:
     line_s = line_matrix(LINE_S)
     ablate = ablate_matrix(*ABLATE)
     ablate_small = ablate_matrix(1000, *ABLATE[1:])
+    wpack_ab = wpack_matrix(*WPACK_ABLATE)
 
     # Each case: (kernel, plain, args, args in f64, library call and its
     # args, bytes moved, flops). Bytes and flops are what the product needs
@@ -411,6 +435,17 @@ def phase_kernels() -> dict:
                 (1.0 if variant == "empty" else 2.0) * csr.nnz,
                 ATOMIC_TOL if variant in ("normw", "empty") else REL_TOL)
 
+    # A WPACK ablation variant needs, as the product, each nnz's value and
+    # column once, x and y; only the full forms have a library call.
+    def wpack_ablate_case(a, csr, knobs, seed):
+        x = rand((a.shape[1],), seed)
+        library = ((torch.sparse.mm, (csr_tensor(csr), x[:, None]))
+                   if "ablate" not in knobs else (None, ()))
+        return (lambda a_, x_: wpack_spmv(a_, x_, **knobs),
+                lambda a_, x_: wpack_spmv_plain(a_, x_, **knobs), (a, x),
+                (a, x.double()), *library,
+                csr.nnz * (4 + 1) + nbytes(x) + 4 * a.shape[0], 2.0 * csr.nnz)
+
     ablate_wrow = DeviceWROW.from_csr(ablate, device=DEVICE)
     ablate_small_wrow = DeviceWROW.from_csr(ablate_small, device=DEVICE)
     layout_line("wrow", ablate, ablate_wrow,
@@ -505,6 +540,19 @@ def phase_kernels() -> dict:
                     *csr.shape, ABLATE[2], csr.nnz, variant),
                 a is ablate_wrow and variant == "full",
                 functools.partial(ablate_case, a, csr, variant, 21)))
+    wpack_layouts = ((DeviceWPACK.from_csr(wpack_ab, device=DEVICE),
+                      wpack_ab),
+                     (DeviceWPACK.from_csr(edge, 1, device=DEVICE), edge),
+                     (DeviceWPACK.from_csr(edge, 4, device=DEVICE), edge))
+    for a, csr in wpack_layouts:
+        layout_line("wpack", csr, a, f"groups of 8 pieces (wsel {a.wsel})",
+                    a.num_groups)
+        for tag, knobs in FORMS[:-1]:      # full/direct is wpack_spmv's case
+            cases.append((
+                "wpack_ablate", "{}x{} wsel {} {}".format(*csr.shape, a.wsel,
+                                                           tag),
+                csr is wpack_ab and tag == "full/roll",
+                functools.partial(wpack_ablate_case, a, csr, knobs, 14)))
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
         (kernel, plain, args, args64, library, lib_args, bytes_moved,
@@ -521,12 +569,17 @@ def phase_kernels() -> dict:
         k_ms, p_ms = ms(kernel, *args), ms(plain, *args)
         lib_ms = None if library is None else ms(library, *lib_args)
         dev_ms = device_ms(kernel, *args)
+        # the main-path case's library call in device time too, where it
+        # can be captured in a graph: the factor rule-2 work is judged by
+        lib_dev = (library_device_ms(library, *lib_args)
+                   if on_path and library is not None else None)
         b_ms, b_by = bound(bytes_moved, flops)
         ok = bool(torch.isfinite(out).all()) and rel <= tol
         print(f"phase 1 kernels: {name} [{label}] max_rel={rel:.3e} "
               f"(tol {tol:g}) max_abs={err:.3e} kernel_ms={k_ms:.6f} "
               f"kernel_device_ms={dev_ms:.6f} plain_ms={p_ms:.6f} "
-              f"library_ms={'—' if lib_ms is None else f'{lib_ms:.6f}'} "
+              f"library_ms={show_ms(lib_ms)} "
+              f"library_device_ms={show_ms(lib_dev)} "
               f"bound_ms={b_ms:.6f} ({b_by}) "
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -629,11 +682,17 @@ def cli_rows(phase: str, runs) -> list:
     return rows
 
 
+# (line, kernels, n) of the CLI's runs in phases 4 and 5
+CLI_RUNS = ((MAIN_LINE, "wcoo_cuda,wcoo_bands_cuda", "512"),
+            (MAIN_LINE, "wrow_spmv_cuda,wcoo_spmv_cuda", "1"))
+SCATTERED_RUNS = ((LINE_B, "bsrc_cuda,bsr_cuda", "512"),
+                  (LINE_S, "dgell_cuda", "512"),
+                  (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1"))
+
+
 def phase_cli() -> None:
     """Phase 4: the CLI on ``MAIN_LINE``."""
-    cli_rows("phase 4 cli", [(MAIN_LINE, "wcoo_cuda,wcoo_bands_cuda", "512"),
-                             (MAIN_LINE, "wrow_spmv_cuda,wcoo_spmv_cuda",
-                              "1")])
+    cli_rows("phase 4 cli", CLI_RUNS)
 
 
 def phase_scattered_cli() -> None:
@@ -645,9 +704,7 @@ def phase_scattered_cli() -> None:
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 
-    cli_rows("phase 5 cli", [(LINE_B, "bsrc_cuda,bsr_cuda", "512"),
-                             (LINE_S, "dgell_cuda", "512"),
-                             (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1")])
+    cli_rows("phase 5 cli", SCATTERED_RUNS)
     csr = line_matrix(LINE_S)
     a = DeviceWROW.from_csr(csr, device=DEVICE)
     x = np.random.default_rng(0).standard_normal(csr.k).astype(np.float32)
@@ -675,15 +732,17 @@ def phase_scattered_cli() -> None:
 
 def phase_probes() -> None:
     """Phase 6: the probe drivers' ``main`` at the JAX scripts' default
-    sizes (``ABLATE``, ``GATHER``); each must exit 0."""
+    sizes (``ABLATE``, ``GATHER``, ``WPACK_ABLATE``); each must exit 0."""
     from spgrid_torch.scripts import (
-        exp_lanegather, exp_pallas_gather, exp_spmv_ablate)
+        exp_lanegather, exp_pallas_gather, exp_spmv_ablate, exp_wpack_ablate)
     k, n, steps = GATHER
     runs = (("exp_spmv_ablate", exp_spmv_ablate.main,
              [str(v) for v in ABLATE]),
             ("exp_pallas_gather", exp_pallas_gather.main,
              ["--k", str(k), "--n", str(n), "--steps", str(steps)]),
-            ("exp_lanegather", exp_lanegather.main, []))
+            ("exp_lanegather", exp_lanegather.main, []),
+            ("exp_wpack_ablate", exp_wpack_ablate.main,
+             [str(v) for v in WPACK_ABLATE]))
     for name, main, argv in runs:
         argv = argv + ["--platform", DEVICE]
         print(f"phase 6 probes: python -m spgrid_torch.scripts.{name} "
@@ -691,6 +750,35 @@ def phase_probes() -> None:
         code = main(argv)
         if code != 0:
             raise RuntimeError(f"{name} exited {code}")
+
+
+def phase_eager_ab() -> None:
+    """Phase 7 (``--eager-ab``): ``run_spmm`` on the headline rows of phase
+    2 and the CLI rows of phases 4 and 5 under the eager protocol, without
+    the gates those phases held; one line of seconds a call by row."""
+    import dataclasses
+    from spgrid_torch.bench.harness import run_spmm
+    from spgrid_torch.bench.headline import (
+        KERNELS, headline_config, headline_matrix)
+    from spgrid_torch.core.config import BenchConfig
+
+    runs = [(headline_matrix(), kernel,
+             dataclasses.replace(headline_config(), timing_protocol="eager"))
+            for kernel in KERNELS]
+    matrices = {}
+    for line, kernels, n in CLI_RUNS + SCATTERED_RUNS:
+        if line not in matrices:
+            matrices[line] = line_matrix(line)
+        csr = matrices[line]
+        config = BenchConfig.from_env(num_cols=int(n),
+                                      timing_protocol="eager")
+        runs += [(csr, kernel, config) for kernel in kernels.split(",")]
+    eager = {}
+    for csr, kernel, config in runs:
+        row = run_spmm(csr, kernel, config, device=DEVICE,
+                       check_accuracy=False)
+        eager[f"{csr.m}x{csr.k} {kernel} n={config.num_cols}"] = row["time"]
+    print(f"phase 7 eager A/B: time_s {json.dumps(eager)}", flush=True)
 
 
 # kernel -> (source, the Pallas kernel it replaces)
@@ -724,6 +812,8 @@ SOURCES = {
                       "scripts/exp_pallas_gather.py:78"),
     "spmv_ablate": ("spgrid_torch/csrc/spmv_ablate.cu",
                     "scripts/exp_spmv_ablate.py:41"),
+    "wpack_ablate": ("spgrid_torch/csrc/wpack_spmv.cu",
+                     "spgrid/ops/pallas/wpack_spmv.py:272"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -734,7 +824,8 @@ PATHS = (
     ("scattered and block-grid CLI", (phase_scattered_cli,),
      ("bsr_spmm_cstat", "dgell", "wpack_spmv", "wrow_spmv_v2")),
     ("probes", (phase_probes,),
-     ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate")),
+     ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate",
+      "wpack_ablate")),
 )
 
 
@@ -771,6 +862,8 @@ def main() -> int:
                                f"{never}")
         print(f"launches on the {path} path: {counts}", flush=True)
         launches.update({k: counts[k] for k in kernels})
+    if "--eager-ab" in sys.argv[1:]:
+        phase_eager_ab()
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],

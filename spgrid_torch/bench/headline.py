@@ -8,12 +8,19 @@ Runs ``bench.py``'s matrix and configuration — the 512 x 512 DLMC twin
 gates each against the host f64 oracle (eps 1e-4), and prints the best
 passing row as ``spmm_dlmc_n512_f32_gflops``. ``vs_baseline`` divides by
 251.0 GFLOPS, the reference's MKL CSR row on a 24-thread AMD EPYC
-(BASELINE.md). Exits non-zero, printing no result, without a CUDA device.
+(BASELINE.md). Times are the harness's: device time from CUDA-graph
+replays unless ``SPGRID_TIMING_PROTOCOL=eager``.
+
+As ``bench.py`` does, a kernel that raises is reported on stderr and
+skipped; when no kernel passes its gate, the line carries ``"value": 0.0``
+and ``"error": "all_kernels_failed"`` and the exit code is 1. Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 
 import torch
@@ -35,13 +42,18 @@ def headline_matrix() -> CSRMatrix:
 
 
 def headline_config() -> BenchConfig:
+    """``bench.py``'s configuration; of the environment only
+    ``SPGRID_TIMING_PROTOCOL`` is read."""
     return BenchConfig(num_cols=512, dtype="float32", min_time_s=1.0,
-                       warmup_iters=5)
+                       warmup_iters=5,
+                       timing_protocol=os.environ.get(
+                           "SPGRID_TIMING_PROTOCOL",
+                           BenchConfig.timing_protocol))
 
 
-def run_headline(device) -> list:
-    """One row per kernel of ``KERNELS``."""
-    csr, config = headline_matrix(), headline_config()
+def run_headline(device, config: BenchConfig | None = None) -> list:
+    """One row per kernel of ``KERNELS``; a kernel that raises raises."""
+    csr, config = headline_matrix(), config or headline_config()
     return [run_spmm(csr, kernel, config, device=device) for kernel in KERNELS]
 
 
@@ -60,8 +72,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("spgrid_torch.bench.headline: no CUDA device", file=sys.stderr)
         return 1
-    rows = run_headline("cuda")
-    print(json.dumps(headline_line(rows, torch.cuda.get_device_name(0))))
+    csr, config = headline_matrix(), headline_config()
+    rows = []
+    for kernel in KERNELS:
+        try:
+            rows.append(run_spmm(csr, kernel, config, device="cuda"))
+        except Exception as e:  # noqa: BLE001 - reported, as bench.py does
+            print(f"kernel {kernel} failed: {e}", file=sys.stderr)
+    try:
+        line = headline_line(rows, torch.cuda.get_device_name(0))
+    except RuntimeError:
+        print(json.dumps({"metric": METRIC, "value": 0.0, "unit": "GFLOPS",
+                          "vs_baseline": 0.0,
+                          "error": "all_kernels_failed"}))
+        return 1
+    print(json.dumps(line))
     return 0
 
 

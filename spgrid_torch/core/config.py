@@ -12,6 +12,7 @@ import os
 _ENV_ALIASES = {"NUM_COLS": "num_cols", "BAND_SIZE": "band_size",
                 "SPARSITY": "sparsity",
                 "SPARSE_ATTENTION_TYPE": "sparse_attention_type"}
+TIMING_PROTOCOLS = ("graph", "eager")
 
 
 @dataclasses.dataclass
@@ -27,6 +28,16 @@ class BenchConfig:
       band_size     — half-width of the mask's dense diagonal band
       sparse_attention_type — 'band_and_random' | 'band_and_decay'
       seed          — seed of the host dense operand (``make_x``)
+      timing_protocol — how the harness times a call on the card:
+                      'graph' (calls captured in a CUDA graph and replayed,
+                      so the time is the device's alone, as the JAX
+                      harness's fused chained loop measures it) or 'eager'
+                      (CUDA events around eager calls, so a call shorter
+                      than the host's enqueue reads the enqueue). On the
+                      CPU the harness times eager calls on the host clock
+                      whatever this says. The JAX field's 'dynamic' and
+                      'static' choose how a jitted loop counts its trips,
+                      which has no counterpart on the card.
     """
 
     num_cols: int = 512
@@ -35,12 +46,19 @@ class BenchConfig:
     warmup_iters: int = 10
     min_time_s: float = 0.5
     min_iters: int = 32
+    timing_protocol: str = "graph"
 
     sparsity: float = 0.9
     band_size: int = 64
     sparse_attention_type: str = "band_and_random"
 
     seed: int = 14
+
+    def __post_init__(self):
+        if self.timing_protocol not in TIMING_PROTOCOLS:
+            raise ValueError(f"timing_protocol must be one of "
+                             f"{TIMING_PROTOCOLS}, got "
+                             f"{self.timing_protocol!r}")
 
     @property
     def epsilon(self) -> float:

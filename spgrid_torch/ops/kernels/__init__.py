@@ -30,7 +30,8 @@ def _wrappers() -> dict:
             "lanegather": lanegather.lanegather,
             "dma_gather": pallas_gather.dma_gather,
             "shuffle_bench": pallas_gather.shuffle_bench,
-            "spmv_ablate": spmv_ablate.spmv_ablate}
+            "spmv_ablate": spmv_ablate.spmv_ablate,
+            "wpack_ablate": wpack_spmv.wpack_ablate}
 
 
 def launch_counts() -> dict:

@@ -60,6 +60,9 @@ SIGNATURES = {
     # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, blocks, m, k,
     # stream
     "spgrid_wpack_spmv": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, variant,
+    # blocks, m, k, stream
+    "spgrid_wpack_ablate": [_PTR] * 9 + [_INT] * 4 + [_PTR],
     # group_sub, block_ptr, piece_w, cols, vals, x, y, carry, num_groups,
     # groups_per_cta, blocks, m, k, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 8 + [_INT] * 5 + [_PTR],

@@ -1,9 +1,18 @@
 """Multi-row packed SpMV: y = A @ x with A in DeviceWPACK layout.
 
 Counterpart of ``spgrid/ops/pallas/wpack_spmv.py`` (format ``wpack_spmv``);
-the CUDA kernel is ``spgrid_torch/csrc/wpack_spmv.cu``. ``wpack_spmv``
-takes x (k,) and returns y (m,), x unpadded. It launches the kernel for
-CUDA tensors and takes ``wpack_spmv_plain`` only for CPU tensors.
+the CUDA kernels are in ``spgrid_torch/csrc/wpack_spmv.cu``. ``wpack_spmv``
+takes x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
+tensors and takes ``wpack_spmv_plain`` only for CPU tensors.
+
+Its ``ablate``/``prefix`` knobs are the JAX wrapper's, for the timing
+ablation of ``scripts/exp_wpack_ablate.py``. ``prefix="direct"``, the
+default and the only form the dispatch format ``wpack_spmv_cuda`` uses, is
+the card's own design: each row's segment summed directly. ``"pad"`` and
+``"roll"`` are the TPU's: the lane prefix P of the products p and the
+difference P[end] - (P - p)[start] (``wpack_ablate``, counted under its own
+name). ``ablate="noseg"`` adds p and ``"nogather"`` adds P at every lane,
+wrong by design.
 
 A piece is up to 128 nnz of one (128-row target block, wsel·128-column
 window), in lanes sorted by target row; ``starts``/``ends`` give, for each
@@ -197,8 +206,27 @@ class DeviceWPACK:
                                device=device)
 
 
-def wpack_spmv(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,)."""
+ABLATE = ("", "noseg", "nogather")
+PREFIX = ("direct", "pad", "roll")
+# kernel variant of each (ablate, prefix) but the direct product
+VARIANTS = {("noseg", "pad"): 0, ("noseg", "roll"): 0, ("noseg", "direct"): 0,
+            ("nogather", "pad"): 1, ("nogather", "roll"): 2,
+            ("", "pad"): 3, ("", "roll"): 4}
+
+
+def _check_knobs(ablate: str, prefix: str) -> None:
+    if ablate not in ABLATE:
+        raise ValueError(f"wpack_spmv: ablate must be one of {ABLATE}, got "
+                         f"{ablate!r}")
+    if prefix not in PREFIX:
+        raise ValueError(f"wpack_spmv: prefix must be one of {PREFIX}, got "
+                         f"{prefix!r}")
+    if ablate == "nogather" and prefix == "direct":
+        raise ValueError("wpack_spmv: ablate='nogather' keeps the lane "
+                         "prefix; give prefix='pad' or 'roll'")
+
+
+def _check(a: DeviceWPACK, x: torch.Tensor) -> None:
     if x.dim() != 1 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
     check_operands("wpack_spmv", x.device, x=(x, torch.float32),
@@ -206,47 +234,104 @@ def wpack_spmv(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
                    ends=(a.ends, torch.int8), starts=(a.starts, torch.int8),
                    sel=(a.sel, torch.int8), piece_w=(a.piece_w, torch.int32),
                    block_ptr=(a.block_ptr, torch.int32))
-    if x.device.type == "cpu":
-        return wpack_spmv_plain(a, x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wpack_spmv: no kernel for device {x.device}")
-    m, k = a.shape
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wpack_spmv(
-            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
-            a.sel.data_ptr(), a.starts.data_ptr(), a.ends.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m, k,
-            stream)
-    _build.check(code, "wpack_spmv")
-    wpack_spmv.launches += 1
-    return y
+
+
+def wpack_spmv(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
+               prefix: str = "direct") -> torch.Tensor:
+    """y (m,) f32 = A @ x for f32 x (k,); other ``ablate``/``prefix`` knobs
+    than the default as the module says (the JAX wrapper's default prefix,
+    "roll", has "direct" in its place here)."""
+    _check_knobs(ablate, prefix)
+    _check(a, x)
+    if x.device.type == "cpu":
+        return wpack_spmv_plain(a, x, ablate=ablate, prefix=prefix)
+    if (ablate, prefix) != ("", "direct"):
+        return _launch(wpack_ablate, a, x, VARIANTS[ablate, prefix])
+    return _launch(wpack_spmv, a, x)
 
 
 wpack_spmv.launches = 0
 
 
-def wpack_spmv_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
-    """The same product in plain torch, in x's dtype, without the prefix
-    difference: each lane's row is the last present row whose first lane
-    is at or before it (rows rise with the lane), and each live slot adds
-    value · x[index] to that row (``index_add_``). A slot is live when its
-    value is not 0, its x index lies inside x and a row owns it."""
+def wpack_ablate(a: DeviceWPACK, x: torch.Tensor,
+                 variant: int) -> torch.Tensor:
+    """Ablation ``variant`` (``VARIANTS``) of the WPACK body on CUDA
+    operands that ``wpack_spmv`` has checked; its launches are counted
+    apart from the product's."""
+    return _launch(wpack_ablate, a, x, variant)
+
+
+wpack_ablate.launches = 0
+
+
+def _launch(wrapper, a: DeviceWPACK, x: torch.Tensor, *variant):
+    """Launch ``spgrid_<wrapper's name>`` (with ``variant`` where given)
+    into a new y and count the launch on ``wrapper``."""
     m, k = a.shape
-    P = a.cols.shape[0]
-    starts, ends = a.starts.long(), a.ends.long()
-    piece, row = torch.nonzero(starts <= ends, as_tuple=True)
-    mark = torch.full((P, LANE), -1, dtype=torch.long, device=x.device)
-    mark[piece, starts[piece, row]] = row
-    owner = torch.cummax(mark, dim=1).values
-    sub = a.group_sub.long().repeat_interleave(GROUP_PIECES)
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    name = wrapper.__name__
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"spgrid_{name}")(
+            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
+            a.sel.data_ptr(), a.starts.data_ptr(), a.ends.data_ptr(),
+            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), *variant,
+            a.blocks, m, k, stream)
+    _build.check(code, name)
+    wrapper.launches += 1
+    return y
+
+
+def _products(a: DeviceWPACK, x: torch.Tensor):
+    """(p (P, 128): value · x at each slot, 0 where the value is 0 or the x
+    index lies past k; each piece's target block (P,))."""
+    k = a.shape[1]
     xi = (a.piece_w.long()[:, None] + a.sel.long()) * LANE + a.cols.long()
-    live = (a.values != 0) & (xi < k) & (owner >= 0)
+    live = (a.values != 0) & (xi < k)
+    p = torch.zeros(a.cols.shape, dtype=x.dtype, device=x.device)
+    p[live] = a.values[live].to(x.dtype) * x[xi[live]]
+    return p, a.group_sub.long().repeat_interleave(GROUP_PIECES)
+
+
+def wpack_spmv_plain(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
+                     prefix: str = "direct") -> torch.Tensor:
+    """The same function in plain torch, in x's dtype.
+
+    p is value · x[index] at each slot, 0 where the value is 0 or the x
+    index lies at or past k. With the default knobs, the product without
+    the prefix difference: each lane's row is the last present row whose
+    first lane is at or before it (rows rise with the lane), and each slot
+    a row owns adds p to that row (``index_add_``). Otherwise, the TPU
+    body: p, its lane prefix P (``torch.cumsum``), and per piece and lane j
+    the term p[j] (noseg), P[j] (nogather) or P[ends[j]] - (P - p)[starts[j]]
+    (``take_along_dim``), summed into row 128 b + j of the piece's block b;
+    rows past m are dropped."""
+    _check_knobs(ablate, prefix)
+    m = a.shape[0]
     y = torch.zeros((m,), dtype=x.dtype, device=x.device)
-    y.index_add_(0, (sub[:, None] * LANE + owner)[live],
-                 a.values[live].to(x.dtype) * x[xi[live]])
+    p, sub = _products(a, x)
+    if (ablate, prefix) == ("", "direct"):
+        starts, ends = a.starts.long(), a.ends.long()
+        piece, row = torch.nonzero(starts <= ends, as_tuple=True)
+        mark = torch.full(p.shape, -1, dtype=torch.long, device=x.device)
+        mark[piece, starts[piece, row]] = row
+        owner = torch.cummax(mark, dim=1).values
+        owned = owner >= 0
+        y.index_add_(0, (sub[:, None] * LANE + owner)[owned], p[owned])
+        return y
+    if ablate == "noseg":
+        term = p
+    else:
+        P = torch.cumsum(p, dim=1)
+        term = P if ablate == "nogather" else (
+            torch.take_along_dim(P, a.ends.long(), dim=1)
+            - torch.take_along_dim(P - p, a.starts.long(), dim=1))
+    row = sub[:, None] * LANE + torch.arange(LANE, device=x.device)
+    keep = row < m
+    y.index_add_(0, row[keep], term[keep])
     return y

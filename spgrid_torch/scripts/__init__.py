@@ -4,6 +4,7 @@
     python -m spgrid_torch.scripts.exp_spmv_ablate [m avg bw]
     python -m spgrid_torch.scripts.exp_pallas_gather [xla] [dma] [shuffle]
     python -m spgrid_torch.scripts.exp_lanegather
+    python -m spgrid_torch.scripts.exp_wpack_ablate [m avg bw]
 
 Each runs its CUDA kernels on the card at the JAX script's default sizes;
 ``--platform cpu`` runs the kernels' plain versions on the CPU instead.
@@ -27,7 +28,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from spgrid_torch.core.timing import time_kernel
+from spgrid_torch.core.timing import cuda_graph, time_kernel
 
 REPEATS = 3
 MIN_TIME_S = 0.3        # each repeat's timed seconds on the card, as the
@@ -52,21 +53,6 @@ def device_of(prog: str, platform: str) -> Optional[torch.device]:
               f"versions on the CPU", file=sys.stderr)
         return None
     return torch.device(platform)
-
-
-def cuda_graph(fn: Callable, calls: int) -> "torch.cuda.CUDAGraph":
-    """``calls`` calls of ``fn()`` captured in one CUDA graph (after one
-    call on a side stream, as capture asks)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return graph
 
 
 def timed(fn: Callable, *args,

@@ -11,7 +11,8 @@ in f64; with positive operands that stays below 1e-5 relative. The probe
 kernels' gathers and shuffle chain are copies and the same f32 additions,
 so they match their plain versions bit for bit; the ablation variants
 normw and empty add every block's sum to y[0:128] with atomics, in any
-order: within 1e-4.
+order: within 1e-4. The WPACK ablation's pad and roll prefixes make the
+same f32 additions in the same order, so they agree bit for bit.
 """
 
 import numpy as np
@@ -57,7 +58,7 @@ from spgrid_torch.ops.kernels.wrow_spmv import (
 )
 from spgrid_torch.ops.layouts import DeviceBSR
 from spgrid_torch.scripts import (
-    exp_lanegather, exp_pallas_gather, exp_spmv_ablate,
+    exp_lanegather, exp_pallas_gather, exp_spmv_ablate, exp_wpack_ablate,
 )
 
 pytestmark = pytest.mark.cuda
@@ -424,10 +425,60 @@ def test_probe_wrappers_raise_instead_of_falling_back(cuda):
         shuffle_bench(src, idx.cpu(), 1)
 
 
+WPACK_ABLATE_MATRICES = {
+    "probe_3000": lambda: exp_wpack_ablate.wpack_matrix(3000, 20.0, 0.05),
+    "m_below_128": lambda: exp_wpack_ablate.wpack_matrix(100, 20.0, 0.5),
+    "edge": hypersparse_edge,
+}
+
+
+@pytest.mark.parametrize("wsel", [1, 2, 4])
+@pytest.mark.parametrize("matrix", sorted(WPACK_ABLATE_MATRICES))
+@pytest.mark.parametrize("tag", [t for t, _ in exp_wpack_ablate.FORMS[:-1]])
+def test_wpack_ablate_kernel(cuda, tag, matrix, wsel):
+    knobs = dict(exp_wpack_ablate.FORMS)[tag]
+    csr = WPACK_ABLATE_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, wsel, device=cuda)
+    x = operand((csr.k,), 27, cuda)
+    before = launch_counts()
+    got = wpack_spmv(a, x, **knobs)
+    after = launch_counts()
+    assert after["wpack_ablate"] == before["wpack_ablate"] + 1
+    assert after["wpack_spmv"] == before["wpack_spmv"]
+    assert_close(got, wpack_spmv_plain(a, x.double(), **knobs))
+
+
+@pytest.mark.parametrize("matrix", sorted(WPACK_ABLATE_MATRICES))
+def test_wpack_pad_and_roll_prefixes_agree_bit_for_bit(cuda, matrix):
+    csr = WPACK_ABLATE_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, device=cuda)
+    x = operand((csr.k,), 28, cuda)
+    for ablate in ("", "nogather"):
+        pad = wpack_spmv(a, x, ablate=ablate, prefix="pad")
+        roll = wpack_spmv(a, x, ablate=ablate, prefix="roll")
+        torch.cuda.synchronize()
+        assert torch.equal(pad, roll), ablate
+    # the full forms are the product, up to the prefix difference's rounding
+    torch.testing.assert_close(wpack_spmv(a, x, prefix="roll"),
+                               wpack_spmv(a, x), rtol=1e-5, atol=1e-5)
+
+
+def test_wpack_ablate_raises_instead_of_falling_back(cuda):
+    a = DeviceWPACK.from_csr(hypersparse_edge(), device=cuda)
+    x = operand((a.shape[1],), 1, cuda)
+    with pytest.raises(TypeError):
+        wpack_spmv(a, x.double(), prefix="pad")
+    with pytest.raises(ValueError):
+        wpack_spmv(a, x.cpu(), prefix="roll")
+    with pytest.raises(ValueError, match="nogather"):
+        wpack_spmv(a, x, ablate="nogather")
+
+
 @pytest.mark.parametrize("driver,argv", [
     (exp_spmv_ablate, ["2000", "5", "0.05"]),
     (exp_pallas_gather, ["--k", "3000", "--n", "512", "--steps", "8"]),
     (exp_lanegather, []),
+    (exp_wpack_ablate, ["3000", "20", "0.05"]),
 ])
 def test_probe_drivers_run_on_the_card(cuda, driver, argv, capsys):
     assert driver.main(argv) == 0

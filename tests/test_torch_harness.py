@@ -22,11 +22,12 @@ import spgrid.ops.dispatch as jax_dispatch
 from spgrid.bench.schema import BenchRow
 from spgrid.formats.csr import dense_to_csr, random_csr
 from spgrid.gen import artificial_matrix_generation, create_mask
+from spgrid_torch.bench import harness, headline
 from spgrid_torch.bench.harness import make_x, run_pipeline, run_spmm
 from spgrid_torch.bench.headline import headline_line
 from spgrid_torch.core import metrics, roofline
 from spgrid_torch.core.config import BenchConfig
-from spgrid_torch.core.timing import time_kernel
+from spgrid_torch.core.timing import time_kernel, time_kernel_graph
 from spgrid_torch.ops import dispatch
 from spgrid_torch.ops.dense import gemm, spmm_dense
 from spgrid_torch.ops.kernels import _build
@@ -81,6 +82,11 @@ def test_config_defaults_match_original():
     want = jax_config.BenchConfig()
     got = BenchConfig()
     for f in dataclasses.fields(got):
+        if f.name == "timing_protocol":
+            # the same field, the card's own protocols (JAX: jit trip counts)
+            assert want.timing_protocol in ("dynamic", "static")
+            assert got.timing_protocol == "graph"
+            continue
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     for dtype in ("float32", "float64", "bfloat16"):
         assert (BenchConfig(dtype=dtype).epsilon
@@ -119,6 +125,7 @@ def test_run_spmm_cpu_passes_gate(kernel):
     row = run_spmm(csr, kernel, FAST, device="cpu")
     assert row["errors_passed"] == 1 and row["mae"] < 1e-4
     assert row["device"] == "cpu" and math.isnan(row["sol_time"])
+    assert math.isnan(row["roofline_frac"])
     assert row["gflops"] > 0 and row["iters"] >= FAST.min_iters
     assert set(row) <= set(BenchRow.columns())
 
@@ -242,3 +249,104 @@ def test_chip_smoke_fails_without_cuda(where, tmp_path):
     for line in proc.stdout.splitlines():
         with pytest.raises(json.JSONDecodeError):
             json.loads(line)
+
+
+def test_timing_protocol_default_env_and_bad_value(monkeypatch):
+    assert BenchConfig().timing_protocol == "graph"
+    monkeypatch.setenv("SPGRID_TIMING_PROTOCOL", "eager")
+    assert BenchConfig.from_env().timing_protocol == "eager"
+    assert headline.headline_config().timing_protocol == "eager"
+    monkeypatch.setenv("SPGRID_TIMING_PROTOCOL", "dynamic")
+    with pytest.raises(ValueError, match="timing_protocol"):
+        BenchConfig.from_env()
+    with pytest.raises(ValueError, match="timing_protocol"):
+        BenchConfig(timing_protocol="static")
+
+
+def test_time_kernel_graph_needs_a_cuda_device():
+    calls = []
+    with pytest.raises(ValueError, match="CUDA graph"):
+        time_kernel_graph(lambda: calls.append(1), device="cpu")
+    assert calls == []
+
+
+def test_graph_calls_keep_outputs_within_budget():
+    assert harness.graph_calls(4 * 512 * 512) == harness.GRAPH_CALLS
+    # LINE_S at n=512: a 205 MB Y a call
+    assert harness.graph_calls(4 * 100000 * 512) == 10
+    assert harness.graph_calls(10 * harness.GRAPH_BYTES) == 2
+    for out in (1, 4e6, 2.05e8, 1e9, 1e12):
+        calls = harness.graph_calls(out)
+        assert calls == 2 or calls * out <= harness.GRAPH_BYTES
+
+
+@pytest.mark.parametrize("protocol", ["graph", "eager"])
+def test_time_call_takes_the_protocol_on_the_card(monkeypatch, protocol):
+    seen = []
+    monkeypatch.setattr(harness, "time_kernel_graph",
+                        lambda *a, **kw: seen.append(("graph", kw)))
+    monkeypatch.setattr(harness, "time_kernel",
+                        lambda *a, **kw: seen.append(("eager", kw)))
+    config = dataclasses.replace(FAST, timing_protocol=protocol)
+    harness.time_call(torch.add, 1, 2, config=config,
+                      device=torch.device("cuda"), out_bytes=4 * 100000 * 512)
+    harness.time_call(torch.add, 1, 2, config=config,
+                      device=torch.device("cpu"), out_bytes=4)
+    assert [s[0] for s in seen] == [protocol, "eager"]
+    if protocol == "graph":
+        assert seen[0][1]["calls"] == 10
+    assert all(kw["min_iters"] == FAST.min_iters for _, kw in seen)
+
+
+def test_roofline_frac_is_capped(monkeypatch):
+    slow = roofline.ChipSpec(name="slow_card", hbm_gbytes_per_s=1e-6,
+                             peak_bf16_tflops=1e-9, peak_f32_tflops=1e-9)
+    monkeypatch.setattr(harness, "_device_fields",
+                        lambda device: (slow.name, slow))
+    csr = random_csr(64, 48, 0.2, seed=1)
+    row = run_spmm(csr, "bsr_cuda", FAST, device="cpu",
+                   check_accuracy=False)
+    assert row["sol_time"] / row["time"] > 9.99
+    assert row["roofline_frac"] == 9.99
+    assert row["device"] == "slow_card"
+
+
+def headline_main(monkeypatch, capsys, run):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "card")
+    monkeypatch.setattr(headline, "run_spmm", run)
+    code = headline.main()
+    out = capsys.readouterr()
+    lines = out.out.splitlines()
+    assert len(lines) == 1
+    return code, json.loads(lines[0]), out.err
+
+
+def test_headline_skips_a_kernel_that_raises(monkeypatch, capsys):
+    def run(csr, kernel, config, *, device):
+        assert device == "cuda" and config.num_cols == 512
+        if kernel == "dense":
+            raise RuntimeError("no cuBLAS today")
+        return {"kernel": kernel, "errors_passed": 1,
+                "gflops": {"panel_cuda": 3.0, "bsr_cuda": 7.0}[kernel]}
+
+    code, line, err = headline_main(monkeypatch, capsys, run)
+    assert code == 0
+    assert line["value"] == 7.0 and line["kernel"] == "bsr_cuda"
+    assert "error" not in line
+    assert "kernel dense failed: no cuBLAS today" in err
+
+
+def test_headline_prints_the_error_line_when_none_passes(monkeypatch,
+                                                         capsys):
+    def run(csr, kernel, config, *, device):
+        if kernel == "panel_cuda":
+            raise RuntimeError("launch failed")
+        return {"kernel": kernel, "errors_passed": 0, "gflops": 9.0}
+
+    code, line, err = headline_main(monkeypatch, capsys, run)
+    assert code == 1
+    assert line == {"metric": "spmm_dlmc_n512_f32_gflops", "value": 0.0,
+                    "unit": "GFLOPS", "vs_baseline": 0.0,
+                    "error": "all_kernels_failed"}
+    assert "kernel panel_cuda failed" in err
