@@ -18,9 +18,12 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``torch.sparse.sampled_addmm``, ``torch.take_along_dim``,
    ``torch.index_select``; a yardstick the port never calls; none for the
    shuffle chain and the wrong-by-design ablation variants), all from CUDA
-   events around eager calls; the kernel's device time alone, from
-   CUDA-graph replay (and, for the main-path case, the library call's,
-   where it can be captured in a graph); and the kernel's bound: the larger
+   events around eager calls; for bsr_spmm_cstat also its grid (CTAs,
+   column tile, row slice) and the floor of its 3xTF32 tensor-core work
+   (three products of the blocks' dense flops at 495 TFLOP/s); the
+   kernel's device time alone, from CUDA-graph replay (and, for the
+   main-path case, the library call's, where it can be captured in a
+   graph); and the kernel's bound: the larger
    of the bytes the
    function needs on these inputs (each nnz, each dense operand, each
    gathered row and the output once) over the card's memory rate and its
@@ -120,6 +123,9 @@ GATHER = (65536, 512, 384)
 # the CUDA cores, for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# TF32 on the tensor cores, dense: the floor of bsr_spmm_cstat's 3xTF32
+# block products (three products for each of the blocks' dense flops).
+TF32_FLOPS_PER_S = 495e12
 
 def card_line() -> str:
     out = subprocess.run(
@@ -238,7 +244,7 @@ def phase_kernels() -> dict:
     from spgrid_torch.entry import flagship_csrs
     from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
     from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
-        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
+        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain, launch_grid)
     from spgrid_torch.ops.kernels.dgell import (
         DeviceDGELL, dgell_spmm, dgell_spmm_plain)
     from spgrid_torch.ops.kernels.lanegather import (
@@ -334,8 +340,13 @@ def phase_kernels() -> dict:
         print(f"phase 1 layout: bsrc of {csr.name} ({csr.nnz} nnz): "
               f"{a.num_blocks} blocks of {bm}x128 in {a.bands} bands of "
               f"{a.band_rows} rows, at most {a.max_nb} a band", flush=True)
+        ctas, tile, rows = launch_grid(a, n)
+        tensor_ms = (3 * 2.0 * a.num_blocks * a.bm * a.bk * n
+                     / TF32_FLOPS_PER_S * 1e3)
+        note = (f"grid={ctas} CTAs column_tile={tile} row_slice={rows} "
+                f"tensor_floor_ms={tensor_ms:.6f} (3xTF32)")
         return spmm_case(bsr_spmm_cstat, bsr_spmm_cstat_plain, a, csr, n,
-                         seed)
+                         seed) + (REL_TOL, note)
 
     def dgell_case(csr, n, seed):
         a = DeviceDGELL.from_csr(csr, device=DEVICE)
@@ -556,8 +567,9 @@ def phase_kernels() -> dict:
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
         (kernel, plain, args, args64, library, lib_args, bytes_moved,
-         flops, *tol) = make()
-        tol = tol[0] if tol else REL_TOL
+         flops, *tail) = make()
+        tol = tail[0] if tail else REL_TOL
+        note = f"{tail[1]} " if len(tail) > 1 else ""
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args64)
@@ -580,7 +592,7 @@ def phase_kernels() -> dict:
               f"kernel_device_ms={dev_ms:.6f} plain_ms={p_ms:.6f} "
               f"library_ms={show_ms(lib_ms)} "
               f"library_device_ms={show_ms(lib_dev)} "
-              f"bound_ms={b_ms:.6f} ({b_by}) "
+              f"bound_ms={b_ms:.6f} ({b_by}) {note}"
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")

@@ -9,7 +9,10 @@
 // the right slice and one broadcast word of the left slice.
 //
 // No tensor cores: TF32 `mma` keeps about three decimal digits and would
-// miss the f32 accuracy gate (1e-4 relative against the f64 oracle).
+// miss the f32 accuracy gate (1e-4 relative against the f64 oracle). That
+// holds for one TF32 product only: the 3xTF32 split (hi and lo parts, three
+// products) keeps f32's accuracy on the tensor cores, as
+// csrc/bsr_spmm_cstat.cu does, and is the route for redesigning this tile.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,139 +1,578 @@
 // C-stationary block-sparse SpMM, Y = A @ X with A in DeviceBSRCol layout.
 //
-// Replaces: spgrid/ops/pallas/bsr_spmm_cstat.py, _kernel / _bsr_spmm_cstat
-// (the Pallas TPU kernel behind `bsrc_pallas`). What the TPU kernel keeps
-// out of device memory: each band's output slab (R + bm rows x 512 columns,
-// ~4.5 MB of VMEM) is accumulated on chip and written once, and each X tile
-// is read once per distinct block column of a band, because a band's blocks
-// are sorted by (block column, block row).
+// Replaces: spgrid/ops/pallas/bsr_spmm_cstat.py:127, _kernel (called by
+// _bsr_spmm_cstat; the Pallas TPU kernel behind `bsrc_pallas`). What the TPU
+// kernel keeps out of device memory: each band's output slab is accumulated
+// on chip and written once, and a band's blocks are sorted by (block column,
+// block row), so blocks of one column share their X tile.
 //
-// Bound on the H100: at the main path's 8192^2 matrix with 316 blocks of
-// 128^2 and n = 512, the product needs its 413,698 nnz, X and Y once
-// (~37 MB, ~11 us at 3.35 TB/s); its 0.42 GFLOP on the f32 CUDA cores take
-// ~6 us. A dense-block kernel does the blocks' full work (5.3 GFLOP, ~79 us
-// at 67 TFLOP/s), and this one re-reads each block once per column tile.
+// Bound on the H100: at the main path's 8192^2 matrix (316 blocks of 128^2,
+// n = 512) the product needs its 413,698 nnz, X and Y once: ~37 MB, 11 us at
+// 3.35 TB/s. A dense-block kernel does the blocks' full work, 316 x 128^2 x
+// 512 x 2 = 5.30 GFLOP: 79 us on the f32 CUDA cores at 67 TFLOP/s, so it
+// goes to the tensor cores. Plain TF32 keeps ~3 digits; the 3xTF32 split
+// keeps f32's accuracy for 3 x 5.30 = 15.9 GFLOP, 32 us at 495 TFLOP/s. The
+// blocks and X slices it stages come through L2: each block once for each
+// column tile (83 MB at n = 512 in 128-column tiles) and an X slice for
+// each block and tile (83 MB).
 //
-// Design: the slab does not fit a CTA's 227 KB of shared memory at 512
-// columns, so the idea is kept with a narrower tile: one CTA per (band,
-// NT = 16 output columns) holds the band's R x NT slab in shared memory
-// (128 KB at R = 2048), starts it at zero, walks the band's real slots
-// (counts[band] of them; pad slots are never read), restages the bk x NT
-// X tile only when the block column changes, and writes the slab once to
-// the rows of the band that lie below m. Each block is staged TK columns
-// at a time; thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and columns
-// 2 tx, 2 tx + 1 of every block, sums them in registers over the block and
-// adds them to the slab rows of the block's window, which no other thread
-// touches: no atomics. X rows >= k and columns >= n read as zeros. Few
-// CTAs (bands x n / 16: 128 at the main path, 64 at 4096^2), one CTA an
-// SM (the slab), and a block re-read per column tile are the known costs
-// of this first version: its time is set by the latency of staging each
-// block's slices from L2, which no other CTA on the SM hides.
+// Design:
+// - Tensor cores, 3xTF32, by wgmma. v = hi + lo with hi = tf32(v) and lo =
+//   tf32(v - hi), both rounded by cvt.rna.tf32.f32; for each 8 columns of a
+//   block the products A_lo X_hi, then A_hi X_lo, then A_hi X_hi go into f32
+//   accumulators (the dropped A_lo X_lo term is ~2^-22 of the product). Each
+//   warpgroup issues wgmma.mma_async m64nNTk8 (tf32 in, f32 out) with A in
+//   registers: its fragments are loaded from the staged block and split in
+//   registers, each element by one thread. B must be K-major in shared
+//   memory for tf32, so each step's X slice is split once, by all threads,
+//   into X_hi and X_lo tiles of 8 x 16-byte core matrices (no swizzle): the
+//   X slice transposed. With mma.sync m16n8k8 each warp splits its own copy
+//   of the fragments (the X fragments four times over), and that split,
+//   more than the tensor cores, limits the kernel (PERF.md, section 6).
+// - The slab split across CTAs. One CTA per (band, row slice, NT output
+//   columns): a row slice is P = 128 / bm whole block rows (R_s = P bm <=
+//   128 rows; one block row at bm = 128). NT = 128 where that grid fills the
+//   card at one CTA an SM (each block is then read n / 128 times); else NT =
+//   64, two CTAs an SM, so that a small grid spreads over more SMs. At the
+//   main path: 4 bands x 16 slices x 4 column tiles = 256 CTAs at NT = 128.
+//   A CTA walks its band's counts[band] real slots, 32 local rows at a time
+//   with a warp ballot, and takes those of its slice, in the layout's
+//   (column, row) order. Two warpgroups cover a 128 x NT tile of a block's
+//   product, 64 rows each (NT / 2 accumulators a thread). A thread keeps the
+//   same (row, column) positions of every block, so the accumulators carry
+//   over the blocks of one block row in registers, and when the slice's
+//   block row changes (P > 1) they are added into the R_s x NT slab in
+//   shared memory at the block's window, which no other thread touches: no
+//   barrier, no atomics, an order fixed by the layout. At P = 1 there is no
+//   slab: the accumulators are written once at the end. Every output
+//   element of the slice is written once, zeros included (an empty band or
+//   slice writes zeros); rows >= m and columns >= n are never written, and X
+//   rows >= k read as zero. The tensor cores' f32 accumulate truncates, so
+//   a step's products go to fresh accumulators (see multiply).
+// - Asynchronous staging. A step is TK = 32 columns of one block and the
+//   matching 32 x NT X slice; a ring of 4 steps at NT = 128 (175 KB with the
+//   split X slice, one CTA an SM) or 3 at NT = 64 (99 KB, two CTAs an SM),
+//   2 when the slab takes its room, keeps the next steps in flight with
+//   cp.async while one is split and multiplied. Blocks are contiguous (bm,
+//   bk) f32, staged 16 B a thread with neighbouring threads on neighbouring
+//   addresses (cp.async.cg, through L2 only). X is staged the same way when
+//   n % 4 == 0 and X starts on 16 B; otherwise (a ragged n, an operand at
+//   an odd float) by 4-byte cp.async copies in the same kernel, as blocks
+//   are when bk % 4 != 0. What a step does not copy (block rows >= bm that
+//   the warpgroups read, columns past bk, X rows past the block or >= k,
+//   columns >= n) is stored as zeros, so no step reads past a block and a bm
+//   or bk off the wgmma shape multiplies by zero. Row strides of TK + 4 and
+//   NT + 8 floats keep the fragment loads and the split's reads on distinct
+//   banks.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int NT = 16;           // output columns per CTA
-constexpr int TK = 32;           // block columns staged per step
-constexpr int BM_MAX = 128;      // rows of a block the CTA covers
-constexpr int THREADS = 256;     // 32 row groups x 8 column pairs
-constexpr int ROWS = BM_MAX / 32;  // 4 rows a thread
-constexpr int COLS = NT / 8;       // 2 columns a thread
-constexpr int AS_LD = BM_MAX + 4;  // A slice row stride (16-byte aligned)
+constexpr int BM_MAX = 128;    // rows of a block (and of a row slice)
+constexpr int TK = 32;         // block columns a step
+constexpr int THREADS = 256;   // 2 warpgroups, 64 rows each
+constexpr int A_LD = TK + 4;   // row stride of a step's block slice
+constexpr int A_FLOATS = BM_MAX * A_LD;
+constexpr unsigned LBO_BYTES = 128;           // core matrices along K
+constexpr unsigned SBO_BYTES = TK / 4 * 128;  // along N, 8 columns on
 
-size_t smem_bytes(int band_rows, int bk) {
-  return sizeof(float) * (static_cast<size_t>(band_rows) * NT +
-                          static_cast<size_t>(bk) * NT +
-                          static_cast<size_t>(TK) * AS_LD);
+// What depends on the column tile NT (64 or 128, see spgrid_bsr_spmm_cstat).
+template <int NT>
+struct Tile {
+  static constexpr int X_LD = NT + 8;  // row stride of a step's X slice
+  static constexpr int S_LD = NT + 8;  // row stride of the slab
+  static constexpr int STAGE_FLOATS = A_FLOATS + TK * X_LD;
+  // A step's split X slice, X_hi then X_lo, K-major in 8 x 16-byte core
+  // matrices: [8 columns of X][TK / 4][8][4 rows of X].
+  static constexpr int SB_FLOATS = NT * TK;
+  static constexpr int ACC = NT / 2;          // accumulators a thread
+  static constexpr int CTAS = 128 / NT;       // CTAs an SM
+  static constexpr int STAGES = NT == 128 ? 4 : 3;  // 2 when there is a slab
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// All but the newest `pending` commit groups of this thread have landed.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+// Orders this thread's generic stores to shared memory before the
+// tensor cores' (asynchronous-proxy) reads of it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// All but the newest `pending` committed wgmma groups have completed.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(pending) : "memory");
+}
+
+// Keeps the compiler from moving or reusing a register across the
+// asynchronous wgmma that reads or writes it.
+__device__ __forceinline__ void fence_operand(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t& v) {
+  asm volatile("" : "+r"(v)::"memory");
+}
+
+// Shared-memory descriptor of a K-major operand without swizzle, starting
+// at p (16-byte aligned): core matrices at p, p + LBO (next 4 along K) and
+// p + SBO (next 8 along N).
+__device__ __forceinline__ uint64_t descriptor(const float* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(LBO_BYTES >> 4) << 16 |
+         static_cast<uint64_t>(SBO_BYTES >> 4) << 32;
+}
+
+// d (64 x N, f32) = a (64 x 8, tf32 fragments in registers) * b (8 x N,
+// tf32 in shared memory) + (accumulate ? d : 0), N = 64 or 128;
+// warpgroup-collective and asynchronous until wgmma_wait.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// The first slot in [s, end) whose local block row lies in [r0, r0 + per);
+// end if none. Warp-collective: every lane gets the same answer.
+__device__ __forceinline__ int next_slot(const int* __restrict__ lrows, int s,
+                                         int end, int r0, int per) {
+  const int lane = threadIdx.x % 32;
+  for (; s < end; s += 32) {
+    const bool hit = s + lane < end &&
+                     static_cast<unsigned>(lrows[s + lane] - r0) <
+                         static_cast<unsigned>(per);
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (mask != 0) return s + __ffs(mask) - 1;
+  }
+  return end;
+}
+
+// Coordinates of a thread: warpgroup wg owns rows 64 wg .. + 63 of the
+// tile, its warp w rows 16 w .. + 15 of those (g = lane / 4, q = lane % 4).
+// Accumulator 4 j + 2 h + c holds row 64 wg + 16 w + 8 h + g, column 8 j +
+// 2 q + c, as wgmma's m64nNk8 f32 fragment lays them out; the A fragment
+// holds rows + g, + g + 8 and columns q, q + 4 of each 8.
+struct Frag {
+  int wg, w, g, q;
+};
+
+// The step's X slice, split once into X_hi and X_lo core matrices. Eight
+// neighbouring threads read 8 neighbouring columns of X and write one
+// 128-byte core matrix.
+template <int NT>
+__device__ __forceinline__ void split_x(const float* __restrict__ xs,
+                                        float* __restrict__ sb) {
+  using T = Tile<NT>;
+  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
+    const int r = e % 8;
+    const int grp = e / 8 % (NT / 8);
+    const int k4 = e / NT;
+    const float* p = xs + 4 * k4 * T::X_LD + 8 * grp + r;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) split(p[u * T::X_LD], hi[u], lo[u]);
+    const int off = ((grp * (TK / 4) + k4) * 8 + r) * 4;
+    *reinterpret_cast<uint4*>(sb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(sb + T::SB_FLOATS + off) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// acc += the warpgroup's 64 rows of the step's block slice times its X
+// slice: for each 8 columns, A_lo X_hi, A_hi X_lo, then A_hi X_hi, one
+// wgmma group. The A fragments of two groups are live at a time: a group's
+// are rewritten only after the group two before has completed. The tensor
+// cores' f32 accumulate truncates, so a long chain of products on one
+// accumulator drifts low; the step's 12 products go to fresh accumulators,
+// and the step's sum is added to acc on the CUDA cores, rounding to
+// nearest.
+template <int NT>
+__device__ __forceinline__ void multiply(float (&acc)[Tile<NT>::ACC],
+                                         const float* __restrict__ as,
+                                         const float* __restrict__ sb,
+                                         const Frag& f) {
+  const float* p = as + (64 * f.wg + 16 * f.w + f.g) * A_LD + f.q;
+  const uint64_t b_hi = descriptor(sb);
+  const uint64_t b_lo = descriptor(sb + Tile<NT>::SB_FLOATS);
+  uint32_t ah[2][4], al[2][4];
+  float d[Tile<NT>::ACC];
+#pragma unroll
+  for (int s = 0; s < TK / 8; ++s) {
+    const int b = s % 2;
+    if (s >= 2) {
+      wgmma_wait<1>();  // group s - 2 has read ah[b], al[b]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(ah[b][e]);
+        fence_operand(al[b][e]);
+      }
+    }
+    split(p[8 * s], ah[b][0], al[b][0]);
+    split(p[8 * A_LD + 8 * s], ah[b][1], al[b][1]);
+    split(p[8 * s + 4], ah[b][2], al[b][2]);
+    split(p[8 * A_LD + 8 * s + 4], ah[b][3], al[b][3]);
+    wgmma_fence();
+    const uint64_t next = 2 * 128 / 16 * s;  // two core matrices on, >> 4
+    wgmma_tf32(d, al[b], b_hi + next, s > 0);
+    wgmma_tf32(d, ah[b], b_lo + next, 1);
+    wgmma_tf32(d, ah[b], b_hi + next, 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(ah[b][e]);
+      fence_operand(al[b][e]);
+    }
+#pragma unroll
+  for (int e = 0; e < Tile<NT>::ACC; ++e) {
+    fence_operand(d[e]);
+    acc[e] += d[e];
+  }
+}
+
+// slab rows window * bm + r (r < bm) get the accumulators (added, or stored
+// when `add` is false); the accumulators restart at zero.
+template <int NT>
+__device__ __forceinline__ void flush(float (&acc)[Tile<NT>::ACC],
+                                      float* slab, int window, int bm,
+                                      bool add, const Frag& f) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * f.wg + 16 * f.w + 8 * h + f.g;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      acc[4 * j + 2 * h] = acc[4 * j + 2 * h + 1] = 0.0f;
+      if (r >= bm) continue;
+      float2* p = reinterpret_cast<float2*>(
+          slab + (window * bm + r) * Tile<NT>::S_LD + 8 * j + 2 * f.q);
+      if (add) {
+        v.x += p->x;
+        v.y += p->y;
+      }
+      *p = v;
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, Tile<NT>::CTAS)
 bsr_spmm_cstat_kernel(const int* __restrict__ counts,
                       const int* __restrict__ lrows,
                       const int* __restrict__ cols,
                       const float* __restrict__ blocks,
                       const float* __restrict__ x, float* __restrict__ y,
                       int max_nb, int band_rows, int bm, int bk, int m, int k,
-                      int n) {
+                      int n, int per, int slices, bool a16, bool x16,
+                      bool y16) {
+  using T = Tile<NT>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* as = smem;                    // TK x AS_LD, depth-major A slice
-  float* xs = as + TK * AS_LD;         // bk x NT X tile
-  float* slab = xs + bk * NT;          // band_rows x NT
-  const int band = blockIdx.x;
+  float* sb = reinterpret_cast<float*>(smem4);  // split X slice
+  float* ring = sb + 2 * T::SB_FLOATS;
+  __shared__ int meta[Tile<128>::STAGES];  // window of each step's block; -1: none
+  const int stages = per > 1 ? 2 : T::STAGES;
+  const int band = blockIdx.x / slices;
+  const int r0 = (blockIdx.x % slices) * per;  // first block row of the slice
   const int n0 = blockIdx.y * NT;
   const int ncols = min(NT, n - n0);
   const int t = threadIdx.x;
-  const int ty = t / 8;
-  const int tx = t % 8;
+  const Frag f{t / 128, t / 32 % 4, t % 32 / 4, t % 4};
+  const int rows_used = min(BM_MAX, (bm + 63) / 64 * 64);  // rows wgmma reads
+  const int nq = (bk + TK - 1) / TK;                        // steps a block
+  const int end = band * max_nb + counts[band];
+  float* slab = per > 1 ? ring + stages * T::STAGE_FLOATS : ring;
+  if (per > 1) {
+    for (int e = t; e < per * bm * T::S_LD; e += THREADS) slab[e] = 0.0f;
+  }
 
-  for (int e = t; e < band_rows * NT; e += THREADS) slab[e] = 0.0f;
-  const int begin = band * max_nb;
-  const int end = begin + counts[band];
-  int staged = -1;
-  for (int s = begin; s < end; ++s) {
-    const int c = cols[s];  // the same for every thread of the CTA
-    if (c != staged) {
-      __syncthreads();  // every thread is done with the previous tile
-      const long long xr0 = static_cast<long long>(c) * bk;
-      for (int e = t; e < bk * NT; e += THREADS) {
-        const int kk = e / NT;
-        const int j = e % NT;
-        xs[e] = (xr0 + kk < k && j < ncols)
-                    ? x[static_cast<size_t>(xr0 + kk) * n + n0 + j]
-                    : 0.0f;
-      }
-      staged = c;
+  // The loads' cursor: slot ls, its step lq. Every thread keeps the same.
+  int ls = next_slot(lrows, band * max_nb, end, r0, per);
+  int lq = 0;
+  auto issue = [&](int stage) {
+    float* as = ring + stage * T::STAGE_FLOATS;
+    float* xs = as + A_FLOATS;
+    if (ls >= end) {
+      if (t == 0) meta[stage] = -1;
+      return;
     }
-    float acc[ROWS][COLS] = {};
-    const float* blk = blocks + static_cast<size_t>(s) * bm * bk;
-    for (int k0 = 0; k0 < bk; k0 += TK) {
-      const int depth = min(TK, bk - k0);
-      __syncthreads();  // the last slice is consumed; the X tile is staged
-      for (int e = t; e < bm * TK; e += THREADS) {
-        const int kk = e % TK;
-        const int i = e / TK;
-        as[kk * AS_LD + i] =
-            kk < depth ? blk[static_cast<size_t>(i) * bk + k0 + kk] : 0.0f;
+    const int k0 = lq * TK;
+    const int depth = min(TK, bk - k0);
+    const float* blk = blocks + static_cast<size_t>(ls) * bm * bk + k0;
+    const long long xr0 = static_cast<long long>(cols[ls]) * bk + k0;
+    if (a16) {
+      for (int e = t; e < rows_used * (TK / 4); e += THREADS) {
+        const int i = e / (TK / 4);
+        const int c = e % (TK / 4) * 4;
+        float* dst = as + i * A_LD + c;
+        if (i < bm && c < depth) {
+          cp_async16(dst, blk + static_cast<size_t>(i) * bk + c);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < depth; ++kk) {
-        // rows >= bm hold stale values; their sums are never stored
-        const float4 av = *reinterpret_cast<const float4*>(
-            as + kk * AS_LD + ROWS * ty);
-        const float2 xv = *reinterpret_cast<const float2*>(
-            xs + (k0 + kk) * NT + COLS * tx);
-        const float a[ROWS] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          acc[r][0] = fmaf(a[r], xv.x, acc[r][0]);
-          acc[r][1] = fmaf(a[r], xv.y, acc[r][1]);
+    } else {
+      for (int e = t; e < rows_used * TK; e += THREADS) {
+        const int i = e / TK;
+        const int c = e % TK;
+        float* dst = as + i * A_LD + c;
+        if (i < bm && c < depth) {
+          cp_async4(dst, blk + static_cast<size_t>(i) * bk + c);
+        } else {
+          *dst = 0.0f;
         }
       }
     }
-    float* win = slab + static_cast<size_t>(lrows[s]) * bm * NT;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int i = ROWS * ty + r;
-      if (i >= bm) break;
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) win[i * NT + COLS * tx + cc] += acc[r][cc];
+    if (x16) {
+      for (int e = t; e < TK * (NT / 4); e += THREADS) {
+        const int kk = e / (NT / 4);
+        const int j = e % (NT / 4) * 4;
+        float* dst = xs + kk * T::X_LD + j;
+        if (kk < depth && xr0 + kk < k && j < ncols) {
+          cp_async16(dst, x + static_cast<size_t>(xr0 + kk) * n + n0 + j);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      for (int e = t; e < TK * NT; e += THREADS) {
+        const int kk = e / NT;
+        const int j = e % NT;
+        float* dst = xs + kk * T::X_LD + j;
+        if (kk < depth && xr0 + kk < k && j < ncols) {
+          cp_async4(dst, x + static_cast<size_t>(xr0 + kk) * n + n0 + j);
+        } else {
+          *dst = 0.0f;
+        }
+      }
     }
+    if (t == 0) meta[stage] = lrows[ls] - r0;
+    if (++lq == nq) {
+      lq = 0;
+      ls = next_slot(lrows, ls + 1, end, r0, per);
+    }
+  };
+
+  for (int s = 0; s < stages - 1; ++s) {
+    issue(s);
+    cp_async_commit();
+  }
+  float acc[T::ACC] = {};
+  int window = -1;  // the block row the accumulators belong to
+  for (int it = 0;; ++it) {
+    if (stages == 4) {
+      cp_async_wait<2>();
+    } else if (stages == 3) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step it has landed; step it - 1 is consumed
+    const int stage = it % stages;
+    const int w = meta[stage];
+    if (w < 0) break;  // the same for every thread of the CTA
+    issue((it + stages - 1) % stages);
+    cp_async_commit();
+    if (w != window) {
+      if (window >= 0) flush<NT>(acc, slab, window, bm, true, f);
+      window = w;
+    }
+    const float* as = ring + stage * T::STAGE_FLOATS;
+    split_x<NT>(as + A_FLOATS, sb);
+    fence_proxy_async();
+    __syncthreads();  // the split X slice is in place
+    if (64 * f.wg < bm) multiply<NT>(acc, as, sb, f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free (at per == 1 it becomes the slab)
+  if (per == 1) {
+    flush<NT>(acc, slab, 0, bm, false, f);
+  } else if (window >= 0) {
+    flush<NT>(acc, slab, window, bm, true, f);
   }
   __syncthreads();
-  const long long row0 = static_cast<long long>(band) * band_rows;
+
+  const long long row0 = static_cast<long long>(band) * band_rows +
+                         static_cast<long long>(r0) * bm;
   const long long left = static_cast<long long>(m) - row0;
-  const int rows = left < band_rows ? static_cast<int>(left) : band_rows;
-  for (int e = t; e < rows * NT; e += THREADS) {
-    const int i = e / NT;
-    const int j = e % NT;
-    if (j < ncols) y[static_cast<size_t>(row0 + i) * n + n0 + j] = slab[e];
+  const int slice_rows = min(per, band_rows / bm - r0) * bm;
+  const int rows = left < slice_rows ? static_cast<int>(left) : slice_rows;
+  if (y16) {  // ncols % 4 == 0
+    for (int e = t; e < rows * (NT / 4); e += THREADS) {
+      const int i = e / (NT / 4);
+      const int j = e % (NT / 4) * 4;
+      if (j < ncols) {
+        *reinterpret_cast<float4*>(y + static_cast<size_t>(row0 + i) * n +
+                                   n0 + j) =
+            *reinterpret_cast<const float4*>(slab + i * T::S_LD + j);
+      }
+    }
+  } else {
+    for (int e = t; e < rows * NT; e += THREADS) {
+      const int i = e / NT;
+      const int j = e % NT;
+      if (j < ncols) {
+        y[static_cast<size_t>(row0 + i) * n + n0 + j] = slab[i * T::S_LD + j];
+      }
+    }
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The launch's shape: {CTAs, NT, rows of a slice}. NT = 128 where its grid
+// fills the card at one CTA an SM: each block is then read half as often.
+// Else NT = 64, two CTAs an SM, so a small grid spreads over more SMs.
+void launch_shape(int bands, int band_rows, int bm, int n, int (&shape)[3]) {
+  int device = 0;
+  int sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int per = BM_MAX / bm;  // block rows a slice
+  const int ctas = bands * ((band_rows / bm + per - 1) / per);
+  const int nt = ctas * ((n + 127) / 128) >= sms ? 128 : 64;
+  shape[0] = ctas * ((n + nt - 1) / nt);
+  shape[1] = nt;
+  shape[2] = per * bm;
+}
+
+template <int NT>
+int launch(const void* counts, const void* lrows, const void* cols,
+           const void* blocks, const void* x, void* y, int bands, int max_nb,
+           int band_rows, int bm, int bk, int m, int k, int n, void* stream) {
+  using T = Tile<NT>;
+  const int per = BM_MAX / bm;
+  const int slices = (band_rows / bm + per - 1) / per;
+  const int stages = per > 1 ? 2 : T::STAGES;  // as the kernel sets it
+  const size_t smem =
+      sizeof(float) *
+      (2 * T::SB_FLOATS + stages * static_cast<size_t>(T::STAGE_FLOATS) +
+       (per > 1 ? static_cast<size_t>(per) * bm * T::S_LD : 0));
+  const cudaError_t attr = cudaFuncSetAttribute(
+      bsr_spmm_cstat_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch's check is clean
+    return static_cast<int>(attr);
+  }
+  const dim3 grid(bands * slices, (n + NT - 1) / NT);
+  bsr_spmm_cstat_kernel<NT><<<grid, THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), static_cast<const int*>(lrows),
+      static_cast<const int*>(cols), static_cast<const float*>(blocks),
+      static_cast<const float*>(x), static_cast<float*>(y), max_nb, band_rows,
+      bm, bk, m, k, n, per, slices, bk % 4 == 0 && aligned16(blocks),
+      n % 4 == 0 && aligned16(x), n % 4 == 0 && aligned16(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// out (int[3]) = {CTAs, output columns a CTA, rows a CTA's slice} of the
+// launch spgrid_bsr_spmm_cstat makes for these sizes.
+extern "C" int spgrid_bsr_spmm_cstat_shape(int bands, int band_rows, int bm,
+                                           int n, void* out) {
+  if (bm > BM_MAX || bm <= 0 || band_rows % bm != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch_shape(bands, band_rows, bm, n, *static_cast<int(*)[3]>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int spgrid_bsr_spmm_cstat(const void* counts, const void* lrows,
                                      const void* cols, const void* blocks,
@@ -141,23 +580,15 @@ extern "C" int spgrid_bsr_spmm_cstat(const void* counts, const void* lrows,
                                      int max_nb, int band_rows, int bm,
                                      int bk, int m, int k, int n,
                                      void* stream) {
-  if (bm > BM_MAX || bm <= 0 || band_rows % bm != 0) {
+  if (bm > BM_MAX || bm <= 0 || bk <= 0 || band_rows % bm != 0 ||
+      (n + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(band_rows, bk);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      bsr_spmm_cstat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that the next launch's check is clean
-    return static_cast<int>(attr);
-  }
-  const dim3 grid(bands, (n + NT - 1) / NT);
-  bsr_spmm_cstat_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(counts), static_cast<const int*>(lrows),
-      static_cast<const int*>(cols), static_cast<const float*>(blocks),
-      static_cast<const float*>(x), static_cast<float*>(y), max_nb, band_rows,
-      bm, bk, m, k, n);
-  return static_cast<int>(cudaGetLastError());
+  int shape[3];
+  launch_shape(bands, band_rows, bm, n, shape);
+  return shape[1] == 128
+             ? launch<128>(counts, lrows, cols, blocks, x, y, bands, max_nb,
+                           band_rows, bm, bk, m, k, n, stream)
+             : launch<64>(counts, lrows, cols, blocks, x, y, bands, max_nb,
+                          band_rows, bm, bk, m, k, n, stream);
 }

@@ -55,6 +55,8 @@ SIGNATURES = {
     # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,
     # m, k, n, stream
     "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # bands, band_rows, bm, n, out (int[3]: CTAs, column tile, slice rows)
+    "spgrid_bsr_spmm_cstat_shape": [_INT] * 4 + [_PTR],
     # cols, vals, x, y, m, slots, n, stream
     "spgrid_dgell": [_PTR] * 4 + [_INT] * 3 + [_PTR],
     # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, blocks, m, k,

@@ -7,11 +7,15 @@ Counterpart of ``spgrid/ops/pallas/bsr_spmm_cstat.py`` (format
 
 Rows are split into bands of R rows; a band's (bm, bk) blocks are sorted by
 (block column, block row), so consecutive blocks share their X tile, and
-each block adds into a window of the band's output slab.
+each block adds into a window of the band's output slab. The kernel splits
+each band's slab across CTAs: one CTA a (band, row slice of 128 // bm block
+rows, 64 or 128 output columns), multiplying on the tensor cores in 3xTF32
+(``launch_grid`` gives its grid).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -22,7 +26,7 @@ from spgrid_torch.formats.bsr import csr_to_bsr
 from spgrid_torch.ops.kernels import _build, check_operands
 from spgrid_torch.ops.layouts import round_up, to_device
 
-BM_MAX = 128  # the kernel's rows per block (csrc/bsr_spmm_cstat.cu)
+BM_MAX = 128  # rows of a block and of a row slice (csrc/bsr_spmm_cstat.cu)
 
 
 def bsrc_arrays(csr, bm: int = 128, bk: int = 128, band_rows: int = 2048):
@@ -128,6 +132,18 @@ def _check(a: DeviceBSRCol, x: torch.Tensor) -> None:
                    block_cols=(a.block_cols, torch.int32),
                    local_rows=(a.local_rows, torch.int32),
                    counts=(a.counts, torch.int32))
+
+
+def launch_grid(a: DeviceBSRCol, n: int) -> Tuple[int, int, int]:
+    """(CTAs, output columns a CTA, rows a CTA's slice) of the kernel's
+    launch for ``a`` at n columns on the current card, as
+    ``spgrid_bsr_spmm_cstat`` sets it (the column tile depends on the card's
+    SM count)."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.library().spgrid_bsr_spmm_cstat_shape(
+        a.bands, a.band_rows, a.bm, n, ctypes.addressof(shape)),
+        "bsr_spmm_cstat")
+    return tuple(shape)
 
 
 def bsr_spmm_cstat(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 version against the JAX package: host arrays element for element, the
 output against the Pallas kernel in interpret mode on one shape (computed
 once in a module fixture: interpret mode runs every grid step on the host),
-and edge cases against the f64 dense product.
+and edge cases against the f64 dense product; and a numpy emulation of the
+CUDA kernel's 3xTF32 tensor-core arithmetic, which the card alone runs.
 
 Tolerance: rtol 1e-5, atol 1e-6 (f32 sums in another order); the matrices
 hold positive values, so no sum cancels below its terms' rounding.
@@ -202,6 +203,96 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
               "ndim": (x[:, 0], ValueError)}[bad]
     with pytest.raises(err):
         bsr_spmm_cstat(a, x)
+
+
+def tf32(v):
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bits: what ``cvt.rna.tf32.f32`` gives."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def to_f32_toward_zero(v):
+    """f64 to f32, rounded toward zero: an mma's f32 accumulate."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def tensor_core_product(a, x, split=True):
+    """The CUDA kernel's arithmetic in numpy, at bm = 128 (a row slice is
+    one block row), in slot order. For each 8 columns of a block, the
+    products A_lo X_hi, A_hi X_lo and A_hi X_hi (A_hi X_hi alone without
+    ``split``), each summed exactly and truncated to f32 into a step's
+    accumulators; after each 32 columns (a step) these are added to the
+    slice's accumulators in f32, rounding to nearest."""
+    assert a.bm == 128
+    lrows, cols = a.local_rows.numpy(), a.block_cols.numpy()
+    blocks, counts = a.blocks.numpy(), a.counts.numpy()
+    (m, k), n, bk, R = a.shape, x.shape[1], a.bk, a.band_rows
+    xp = np.zeros((-(-k // bk) * bk, n), np.float32)
+    xp[:k] = x
+    y = np.zeros((a.bands * R, n), np.float32)
+    for band in range(a.bands):
+        slots = range(band * a.max_nb, band * a.max_nb + counts[band])
+        for r in range(R // 128):
+            acc = np.zeros((128, n), np.float32)
+            for s in (s for s in slots if lrows[s] == r):
+                blk, xs = blocks[s], xp[cols[s] * bk:(cols[s] + 1) * bk]
+                a_hi, x_hi = tf32(blk), tf32(xs)
+                a_lo, x_lo = tf32(blk - a_hi), tf32(xs - x_hi)
+                terms = ([(a_lo, x_hi), (a_hi, x_lo), (a_hi, x_hi)] if split
+                         else [(a_hi, x_hi)])
+                for k0 in range(0, bk, 32):
+                    part = np.zeros((128, n), np.float32)
+                    for kk in range(k0, min(k0 + 32, bk), 8):
+                        for p, q in terms:
+                            part = to_f32_toward_zero(
+                                part + p[:, kk:kk + 8].astype(np.float64)
+                                @ q[kk:kk + 8].astype(np.float64))
+                    acc = acc + part
+            y[band * R + r * 128:band * R + (r + 1) * 128] = acc
+    return y[:m]
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)   # TF32's unit in the last place at 1
+    got = tf32(np.array([one + ulp / 4, one + ulp / 2, -(one + ulp / 2),
+                         one + 3 * ulp / 4], np.float32))
+    np.testing.assert_array_equal(got, [one, one + ulp, -(one + ulp),
+                                        one + ulp])
+
+
+@pytest.mark.parametrize("values", ["positive", "signed"])
+def test_3xtf32_keeps_f32_accuracy_where_tf32_does_not(values):
+    """The split's error, |y - ref| over |A| @ |X| (the scale each output's
+    rounding error is bound by; for positive operands it is |ref|, the
+    check of the card tests and phase 1), where that exceeds 1e-4: within
+    1e-5 with the split, above 1e-4 with one TF32 product."""
+    csr = CASES["banded_bm128"][0]()
+    rng = np.random.default_rng(11)
+    x = operand(csr.k, 40)
+    if values == "signed":
+        csr = CSRMatrix(csr.row_ptr, csr.col_idx, (csr.values * rng.choice(
+            [-1, 1], csr.nnz)).astype(np.float32), csr.shape, csr.name)
+        x = rng.standard_normal((csr.k, 40)).astype(np.float32)
+    a = DeviceBSRCol.from_csr(csr, bm=128, bk=128, band_rows=256,
+                              device="cpu")
+    d = csr.to_dense().astype(np.float64)
+    ref = d @ x.astype(np.float64)
+    scale = np.abs(d) @ np.abs(x.astype(np.float64))
+    sig = scale > 1e-4
+
+    def err(y):
+        diff = np.abs(y - ref)
+        return float(np.where(sig, diff / np.where(sig, scale, 1.0),
+                              diff).max())
+
+    assert err(tensor_core_product(a, x)) <= 1e-5
+    assert err(tensor_core_product(a, x, split=False)) > 1e-4
 
 
 def test_takes_the_jax_csr():

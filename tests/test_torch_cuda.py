@@ -214,24 +214,55 @@ def bands_with_gaps():
     return dense_to_csr(d.astype(np.float32), name="bands_with_gaps")
 
 
+def misaligned(shape, seed, device):
+    """A contiguous operand whose data starts 4 bytes past an aligned
+    address, so the kernel cannot read it as float4."""
+    x = operand((int(np.prod(shape)) + 1,), seed, device)[1:]
+    return x.view(shape)
+
+
+def bsrc_bands():
+    return positive(artificial_matrix_generation(
+        1024, 1024, 50, 10, "normal", seed=14, placement="random", bw=0.05))
+
+
 BSRC = {
-    # name: (matrix, bm, band_rows, n)
-    "gaps_bm8_short_last_band": (bands_with_gaps, 8, 64, 20),
+    # name: (matrix, bm, bk, band_rows, n, x layout)
+    "gaps_bm8_short_last_band": (bands_with_gaps, 8, 128, 64, 20, "plain"),
     "one_band_bm128_ragged_n": (
-        lambda: positive(random_csr(300, 260, 0.3, seed=2)), 128, 2048, 33),
-    "bands_bm128": (lambda: positive(artificial_matrix_generation(
-        1024, 1024, 50, 10, "normal", seed=14, placement="random", bw=0.05)),
-        128, 256, 40),
+        lambda: positive(random_csr(300, 260, 0.3, seed=2)), 128, 128, 2048,
+        33, "plain"),
+    "bands_bm128": (bsrc_bands, 128, 128, 256, 40, "plain"),
+    "bands_bm128_n1": (bsrc_bands, 128, 128, 256, 1, "plain"),
+    "bands_bm128_n33": (bsrc_bands, 128, 128, 256, 33, "plain"),
+    "bands_bm128_n70": (bsrc_bands, 128, 128, 256, 70, "plain"),
+    # x 4 bytes past 16-byte alignment: staged by 4-byte copies
+    "misaligned_x_n64": (bsrc_bands, 128, 128, 256, 64, "misaligned"),
+    "misaligned_x_n70": (bsrc_bands, 128, 128, 256, 70, "misaligned"),
+    "bm64": (bsrc_bands, 64, 128, 256, 40, "plain"),
+    # a bm and bk off the wgmma shape, blocks staged by 4-byte copies
+    "bm24_bk100": (lambda: positive(random_csr(300, 260, 0.2, seed=5)), 24,
+                   100, 96, 36, "plain"),
+    "bm100_bk30": (lambda: positive(random_csr(300, 260, 0.2, seed=6)), 100,
+                   30, 200, 12, "plain"),
+    "band_4096_rows": (lambda: positive(random_csr(5000, 64, 0.01, seed=1)),
+                       128, 128, 4096, 8, "plain"),
+    "band_with_no_block": (
+        lambda: with_empty_rows(300, 200, 4, slice(128, 256)), 128, 128, 128,
+        24, "plain"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(BSRC))
 def test_bsr_spmm_cstat_kernel(cuda, case):
-    make, bm, band_rows, n = BSRC[case]
+    make, bm, bk, band_rows, n, layout = BSRC[case]
     csr = make()
-    a = DeviceBSRCol.from_csr(csr, bm=bm, bk=128, band_rows=band_rows,
+    a = DeviceBSRCol.from_csr(csr, bm=bm, bk=bk, band_rows=band_rows,
                               device=cuda)
-    x = operand((csr.k, n), 12, cuda)
+    if case == "band_with_no_block":
+        assert a.counts[1] == 0
+    x = (operand((csr.k, n), 12, cuda) if layout == "plain"
+         else misaligned((csr.k, n), 12, cuda))
     before = launch_counts()["bsr_spmm_cstat"]
     got = bsr_spmm_cstat(a, x)
     assert launch_counts()["bsr_spmm_cstat"] == before + 1
@@ -243,18 +274,6 @@ def test_bsr_spmm_cstat_raises_for_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="bm"):
         bsr_spmm_cstat(DeviceBSRCol.from_csr(csr, bm=256, device=cuda),
                        operand((64, 8), 1, cuda))
-    # a 4096-row slab of 16 columns is more shared memory than a CTA has
-    big = DeviceBSRCol.from_csr(positive(random_csr(5000, 64, 0.01, seed=1)),
-                                band_rows=4096, device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        bsr_spmm_cstat(big, operand((64, 8), 1, cuda))
-
-
-def misaligned(shape, seed, device):
-    """A contiguous operand whose data starts 4 bytes past an aligned
-    address, so the kernel cannot read it as float4."""
-    x = operand((int(np.prod(shape)) + 1,), seed, device)[1:]
-    return x.view(shape)
 
 
 @pytest.mark.parametrize("n,layout", [(1, "plain"), (64, "plain"),
