@@ -34,7 +34,13 @@ exits non-zero and never prints the final ``"ok": true`` line:
    The WPACK ablation's five variants (``wpack_spmv(a, x, ablate=,
    prefix=)``) run on ``exp_wpack_ablate``'s matrix at its own wsel (2) and
    on the edge matrix at wsel 1 and 4, each held to its f64 plain version
-   within 1e-5.
+   within 1e-5. The two live-slot stream kernels (``wrow_spmv_v2``,
+   ``wpack_spmv``; ``slots_per_cta`` live slots a CTA) run on LINE_S and
+   the edge matrix, and also on a 4096^2 matrix whose one 128-row block
+   holds ~256 CTAs' ranges of slots, on a banded matrix with empty target
+   blocks and on MAIN_LINE; each line gives the bytes of the stream they
+   read beside the padded pieces' bytes, the live slots, the grid and S,
+   and the host seconds the layout took to build (set-up, not timed work).
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -143,16 +149,30 @@ def positive(csr):
                      csr.shape, csr.name)
 
 
-def banded_with_empty_rows(m=1000, k=1000, seed=3):
-    """A banded matrix whose block rows 1 and 2 (rows 8-23) are empty at
-    bm=8."""
+def banded_with_empty_rows(m=1000, k=1000, seed=3, empty=slice(8, 24)):
+    """A banded matrix whose rows ``empty`` hold no nnz: by default rows
+    8-23, block rows 1 and 2 at bm=8; ``slice(128, 384)`` empties 128-row
+    target blocks 1 and 2."""
     from spgrid_torch.formats.csr import dense_to_csr
     rng = np.random.default_rng(seed)
     i = np.arange(m)[:, None]
     j = np.arange(k)[None, :]
     d = np.where(np.abs(i - j) <= 40, rng.random((m, k)) + 0.5, 0.0)
-    d[8:24] = 0.0
+    d[empty] = 0.0
     return dense_to_csr(d.astype(np.float32), name="banded_empty_rows")
+
+
+def straddling_band(n=4096, seed=21):
+    """n x n, ~0.2 % scattered, and target block 8 (rows 1024-1151) half
+    dense over all n columns: ~262K live slots in one 128-row block, ~256
+    times the SpMV stream kernels' range of 1,024 slots at this size, so the
+    block straddles many CTAs' ranges."""
+    from spgrid_torch.formats.csr import dense_to_csr
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((n, n)) < 0.002, rng.random((n, n)) + 0.5, 0.0)
+    band = rng.random((128, n))
+    d[1024:1152] = np.where(band < 0.5, band + 0.5, 0.0)
+    return dense_to_csr(d.astype(np.float32), name="straddling_band")
 
 
 def edge_matrix():
@@ -262,6 +282,7 @@ def phase_kernels() -> dict:
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
         DeviceWPACK, wpack_spmv, wpack_spmv_plain)
     from spgrid_torch.ops.kernels.wrow_spmv import (
@@ -281,6 +302,8 @@ def phase_kernels() -> dict:
     big = positive(random_csr(LARGE, LARGE, 0.5, seed=7))
     big_mask = create_mask("band_and_random", LARGE, sparsity=0.95, seed=14)
     banded = banded_with_empty_rows()
+    empty_blocks = banded_with_empty_rows(empty=slice(128, 384))
+    straddle = straddling_band()
     hyper = line_matrix(MAIN_LINE)
     edge = edge_matrix()
     line_b = line_matrix(LINE_B)
@@ -355,19 +378,41 @@ def phase_kernels() -> dict:
               f"tail", flush=True)
         return spmm_case(dgell_spmm, dgell_spmm_plain, a, csr, n, seed)
 
+    # The live-slot stream kernels: what they read of the layout (the
+    # stream) beside the padded pieces, and their grid: CTAs of S =
+    # slots_per_cta live slots, the wrappers' default for this card.
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if DEVICE == "cuda" else 132)
+
+    def stream_note(a, layout_s):
+        per_cta = default_slots_per_cta(a.num_slots, sms)
+        padded = nbytes(a.values, a.cols, a.piece_w) + (
+            nbytes(a.sel, a.starts, a.ends) if hasattr(a, "sel") else 0)
+        return (f"stream_bytes={a.stream_nbytes} padded_bytes={padded} "
+                f"live_slots={a.num_slots} grid={-(-a.num_slots // per_cta)} "
+                f"CTAs S={per_cta} layout_build_s={layout_s:.3f} (host: "
+                f"pieces, stream, copy to the card)")
+
+    def timed_layout(cls, csr):
+        t0 = time.perf_counter()
+        a = cls.from_csr(csr, device=DEVICE)
+        return a, time.perf_counter() - t0
+
     def wpack_case(csr, seed):
-        a = DeviceWPACK.from_csr(csr, device=DEVICE)
+        a, layout_s = timed_layout(DeviceWPACK, csr)
         layout_line("wpack", csr, a, f"groups of 8 pieces (wsel {a.wsel})",
                     a.num_groups)
         return spmv_case(wpack_spmv, wpack_spmv_plain, a, csr, seed,
-                         a.cols.element_size())
+                         a.cols.element_size()) + (
+            REL_TOL, stream_note(a, layout_s))
 
     def wrow_v2_case(csr, seed):
-        a = DeviceWROW.from_csr(csr, device=DEVICE)
+        a, layout_s = timed_layout(DeviceWROW, csr)
         layout_line("wrow", csr, a, "groups of 8 pieces of 128 slots",
                     a.num_groups)
         return spmv_case(wrow_spmv_v2, wrow_spmv_plain, a, csr, seed,
-                         a.cols.element_size())
+                         a.cols.element_size()) + (
+            REL_TOL, stream_note(a, layout_s))
 
     def wcoo_case(csr, n, seed):
         a = DeviceWCOO.from_csr(csr, device=DEVICE)
@@ -531,6 +576,16 @@ def phase_kernels() -> dict:
         ("wrow_spmv_v2", f"{edge_label} n=1", False,
          lambda: wrow_v2_case(edge, 11)),
     ]
+    # the stream kernels' own edges: one block over many ranges, empty
+    # target blocks, and the CLI slice's matrix
+    for label, csr, seed in (
+            ("4096^2 straddling band (262K slots in one block)", straddle, 22),
+            ("banded 1000^2 empty target blocks 1-2", empty_blocks, 3),
+            (hyper_label, hyper, 10)):
+        cases += [("wpack_spmv", f"{label} n=1", False,
+                   functools.partial(wpack_case, csr, seed)),
+                  ("wrow_spmv_v2", f"{label} n=1", False,
+                   functools.partial(wrow_v2_case, csr, seed))]
     for i, (form, src, idx, axis) in enumerate(
             forms(np.random.default_rng(0))):
         cases.append(("lanegather", form, i == 0,

@@ -9,63 +9,38 @@
 //
 // Bound on the H100: device-memory bytes. At the main path's 100000^2
 // scattered matrix (2.1M nnz) the product needs each nnz's value and int8
-// column once plus x and y (~11.3 MB, ~3.4 us at 3.35 TB/s). The pieces
-// hold 10x more slots than nnz there (utilization 0.105), each slot 8
-// bytes (value, column, sel, start, end), so reading them dominates.
+// column once plus x and y (~11.3 MB, ~3.4 us at 3.35 TB/s). The padded
+// pieces hold 10x more slots than nnz there (utilization 0.105), each slot
+// 8 bytes (value, column, sel, start, end: 160 MB, >= 48 us to stream), so
+// the default kernel does not read them: it reads the layout's live-slot
+// stream (DeviceWPACK.slot_*: value, x index and row, 9 bytes a live slot,
+// ~18.9 MB there). A piece's live slots are its lanes 0 .. c-1 (lane =
+// packing order), sorted by target row.
 //
-// Design: one CTA of 128 threads per 128-row target block walks the
-// block's groups (block_ptr; a block's groups are consecutive). For each
-// group, thread t puts lane t's product of each of the 8 pieces into
-// shared memory; after a barrier, thread r adds lanes starts[r] .. ends[r]
-// of each piece, the lanes of its own row (an absent row has start 1, end
-// 0 and adds nothing). Segments are disjoint, so no atomics; summing the
-// segment directly avoids the cancellation of the prefix difference. Each
-// thread writes its element of y once, 0 for a block with no group. Lanes
-// whose value is 0 or whose x index, (piece_w + sel) * 128 + col, lies at
-// or past k add nothing: x is not padded to the window.
+// Design: the shared spgrid::slot_stream walk (slot_stream.cuh) with
+// SEGMENT: equal ranges of `slots_per_cta` live slots a CTA of 256
+// threads, a 128-float shared-memory accumulator for the open target
+// block, blocks that straddle ranges summed by a second kernel in range
+// order, every row of y written. Within a warp's 32 consecutive slots each
+// run of one (piece, row) is summed by a segmented shuffle scan and added
+// to the accumulator by one shared-memory atomicAdd. The segment is summed
+// directly, from its own terms: the TPU's prefix difference P[end] - (P -
+// p)[start] rounds with the size of the piece's whole prefix, not of the
+// row's sum, and cancels (the ablation forms below keep it). The x index,
+// (piece_w + sel) * 128 + col, is stored whole; slots whose value is 0 or
+// whose x index lies at or past k were dropped when the stream was built:
+// x is not padded. The result is not bit-reproducible from run to run (the
+// order of the shared-memory atomics).
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "slot_stream.cuh"
 
 namespace {
 
 constexpr int LANE = 128;
 constexpr int GROUP_PIECES = 8;
-
-__global__ void __launch_bounds__(LANE)
-wpack_spmv_kernel(const int* __restrict__ block_ptr,
-                  const int* __restrict__ piece_w,
-                  const unsigned char* __restrict__ cols,
-                  const signed char* __restrict__ sel,
-                  const signed char* __restrict__ starts,
-                  const signed char* __restrict__ ends,
-                  const float* __restrict__ vals, const float* __restrict__ x,
-                  float* __restrict__ y, int m, int k) {
-  __shared__ float prod[GROUP_PIECES][LANE];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  float acc = 0.0f;
-  for (int g = block_ptr[b]; g < block_ptr[b + 1]; ++g) {
-#pragma unroll
-    for (int r = 0; r < GROUP_PIECES; ++r) {
-      const size_t p = static_cast<size_t>(g) * GROUP_PIECES + r;
-      const size_t q = p * LANE + t;
-      const float v = vals[q];
-      const int xi = (piece_w[p] + sel[q]) * LANE + cols[q];
-      prod[r][t] = (v != 0.0f && xi < k) ? v * __ldg(x + xi) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < GROUP_PIECES; ++r) {
-      const size_t q = (static_cast<size_t>(g) * GROUP_PIECES + r) * LANE + t;
-      const int e = ends[q];
-      for (int l = starts[q]; l <= e; ++l) acc += prod[r][l];
-    }
-    __syncthreads();  // prod is rewritten by the next group
-  }
-  const long long row = static_cast<long long>(b) * LANE + t;
-  if (row < m) y[row] = acc;
-}
 
 // ---------------------------------------------------------------------------
 // The ablation variants: the TPU group body's own segmented reduce.
@@ -82,7 +57,7 @@ wpack_spmv_kernel(const int* __restrict__ block_ptr,
 //
 // An absent row (start 1, end 0) adds p[0] - (P[1] - p[1]), zero up to
 // rounding, as on the TPU. Only FULL computes the product; it differs from
-// the direct kernel above by the rounding of the prefix difference, whose
+// the direct segment sum of the default kernel above by the rounding of the prefix difference, whose
 // error grows with the piece's whole prefix and not with the row's sum.
 //
 // The prefix, in two forms with the same additions in the same order (so
@@ -98,14 +73,15 @@ wpack_spmv_kernel(const int* __restrict__ block_ptr,
 //   ROLL  each in-warp shift by __shfl_up_sync, no barrier (the
 //         counterpart of pltpu.roll)
 //
-// Design: one CTA of 128 threads per 128-row target block, as above, and
+// Design: these read the padded pieces, as the TPU body does: one CTA of
+// 128 threads per 128-row target block, thread j for row and lane j, and
 // each thread keeps its lane of all 8 pieces of a group in registers, so
 // one barrier (or one shuffle instruction a piece) serves the 8 pieces of
 // a shift; scanning the pieces one after another would take 8 times the
 // barriers. FULL then stores P and P - p of the group in shared memory for
 // the two boundary reads. Each thread writes its row of y once: no atomics.
-// Bound: as the direct kernel, bytes; every variant streams the same slots
-// (FULL and NOGATHER also the starts and ends).
+// Bound: as the default kernel, bytes; every variant streams the same
+// padded slots (FULL and NOGATHER also the starts and ends).
 
 enum AblateBody { NOSEG = 0, NOGATHER = 1, FULL = 2 };
 constexpr int WARP = 32;
@@ -224,19 +200,16 @@ void launch_ablate(const void* block_ptr, const void* piece_w,
 
 }  // namespace
 
-extern "C" int spgrid_wpack_spmv(const void* block_ptr, const void* piece_w,
-                                 const void* cols, const void* sel,
-                                 const void* starts, const void* ends,
-                                 const void* vals, const void* x, void* y,
-                                 int blocks, int m, int k, void* stream) {
-  wpack_spmv_kernel<<<blocks, LANE, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(block_ptr), static_cast<const int*>(piece_w),
-      static_cast<const unsigned char*>(cols),
-      static_cast<const signed char*>(sel),
-      static_cast<const signed char*>(starts),
-      static_cast<const signed char*>(ends), static_cast<const float*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), m, k);
-  return static_cast<int>(cudaGetLastError());
+// block_slot, vals, cols (int32 x index), rows (uint8), x, y, carry,
+// num_slots, slots_per_cta, blocks, m, stream
+extern "C" int spgrid_wpack_spmv(const void* block_slot, const void* vals,
+                                 const void* cols, const void* rows,
+                                 const void* x, void* y, void* carry,
+                                 int num_slots, int slots_per_cta,
+                                 int blocks, int m, void* stream) {
+  return spgrid::slot_stream::launch<true>(block_slot, vals, cols, rows, x, y,
+                                           carry, num_slots, slots_per_cta,
+                                           blocks, m, stream);
 }
 
 // variant: 0 noseg, 1 nogather/pad, 2 nogather/roll, 3 full/pad,

@@ -59,15 +59,15 @@ SIGNATURES = {
     "spgrid_bsr_spmm_cstat_shape": [_INT] * 4 + [_PTR],
     # cols, vals, x, y, m, slots, n, stream
     "spgrid_dgell": [_PTR] * 4 + [_INT] * 3 + [_PTR],
-    # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, blocks, m, k,
-    # stream
-    "spgrid_wpack_spmv": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
+    # blocks, m, stream
+    "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, variant,
     # blocks, m, k, stream
     "spgrid_wpack_ablate": [_PTR] * 9 + [_INT] * 4 + [_PTR],
-    # group_sub, block_ptr, piece_w, cols, vals, x, y, carry, num_groups,
-    # groups_per_cta, blocks, m, k, stream
-    "spgrid_wrow_spmv_v2": [_PTR] * 8 + [_INT] * 5 + [_PTR],
+    # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
+    # blocks, m, stream
+    "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     # src, idx, out, s0, s1, i0, i1, axis, stream
     "spgrid_lanegather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
     # x, idx, out, k, n, steps, G, stream

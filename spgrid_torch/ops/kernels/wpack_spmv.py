@@ -5,6 +5,13 @@ the CUDA kernels are in ``spgrid_torch/csrc/wpack_spmv.cu``. ``wpack_spmv``
 takes x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
 tensors and takes ``wpack_spmv_plain`` only for CPU tensors.
 
+The default kernel reads the layout's live-slot stream
+(``DeviceWPACK.slot_*``, ``ops/kernels/slot_stream.py``): piece by piece,
+the live lanes (value not 0, x index inside x), which are the piece's first
+lanes in packing order, sorted by target row; each with its value, its x
+index and its row in the block. ``wpack_stream_plain`` is the product over
+it. The ablation kernels read the padded pieces.
+
 Its ``ablate``/``prefix`` knobs are the JAX wrapper's, for the timing
 ablation of ``scripts/exp_wpack_ablate.py``. ``prefix="direct"``, the
 default and the only form the dispatch format ``wpack_spmv_cuda`` uses, is
@@ -32,6 +39,9 @@ import numpy as np
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.slot_stream import (
+    check_stream, launch_stream, live_slot_stream, row_bytes,
+    stream_product)
 from spgrid_torch.ops.layouts import group_ptr, to_device
 
 LANE = 128
@@ -141,9 +151,10 @@ def csr_to_wpack(csr, wsel: int | None = None):
 @dataclasses.dataclass
 class DeviceWPACK:
     """``csr_to_wpack``'s flat arrays on a torch device, plus ``block_ptr``:
-    the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``.
-    (The JAX layout pads groups to 128 and reshapes the metadata into rows
-    of 8 steps for the TPU's scalar memory; the port keeps neither.)"""
+    the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``,
+    and the live-slot stream that the default kernel reads. (The JAX layout
+    pads groups to 128 and reshapes the metadata into rows of 8 steps for
+    the TPU's scalar memory; the port keeps neither.)"""
 
     cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
     values: torch.Tensor      # (P, 128), 0 in pad slots
@@ -153,6 +164,12 @@ class DeviceWPACK:
     piece_w: torch.Tensor     # (P,) int32, first window of each piece
     group_sub: torch.Tensor   # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
+    # the live-slot stream: S live slots in piece, then lane order
+    slot_ptr: torch.Tensor    # (P + 1,) int32, piece p's live slots
+    block_slot: torch.Tensor  # (blocks + 1,) int32, block b's live slots
+    slot_vals: torch.Tensor   # (S,) value of each live slot
+    slot_cols: torch.Tensor   # (S,) int32, x index of each live slot
+    slot_rows: torch.Tensor   # (S,) uint8, row in the block | PIECE_START
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -165,35 +182,66 @@ class DeviceWPACK:
         return len(self.block_ptr) - 1
 
     @property
-    def nbytes(self) -> int:
+    def num_slots(self) -> int:
+        return len(self.slot_vals)
+
+    @property
+    def stream_nbytes(self) -> int:
+        """Bytes of what the default kernel reads of the layout: the
+        stream's values, x indices, rows and block pointer."""
         return sum(t.numel() * t.element_size() for t in (
-            self.cols, self.values, self.ends, self.starts, self.sel,
-            self.piece_w, self.block_ptr))
+            self.block_slot, self.slot_vals, self.slot_cols, self.slot_rows))
+
+    @property
+    def nbytes(self) -> int:
+        return self.stream_nbytes + sum(
+            t.numel() * t.element_size() for t in (
+                self.cols, self.values, self.ends, self.starts, self.sel,
+                self.piece_w, self.block_ptr, self.slot_ptr))
 
     @classmethod
     def from_arrays(cls, cols, values, ends, starts, sel, piece_w, group_sub,
                     shape, nnz: int, utilization: float, num_groups: int,
                     wsel: int, name: str = "", *, device) -> "DeviceWPACK":
         """Flat host arrays → device layout; groups past ``num_groups`` (the
-        JAX layout's padding) are dropped."""
+        JAX layout's padding) are dropped. The live-slot stream is built
+        here, on the host, from the padded pieces: a live lane's row is the
+        last present row whose first lane is at or before it (rows rise
+        with the lane)."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
             raise ValueError("wpack: groups must be sorted by target block")
         ptr, _ = group_ptr(sub, max(-(-shape[0] // LANE), 1))
         P = G * GROUP_PIECES
+        cols, values, ends, starts, sel = (
+            np.asarray(t)[:P] for t in (cols, values, ends, starts, sel))
+        piece_w = np.asarray(piece_w).reshape(-1)[:P]
+        colsel = sel.astype(np.int16) * LANE + cols
+        piece, lane, x_index, slot_ptr, block_slot = live_slot_stream(
+            values, colsel, piece_w, ptr, shape[1], GROUP_PIECES)
+        # each present row's first lane, keyed by piece: rows, and so their
+        # first lanes, rise within a piece
+        seg_piece, seg_row = np.nonzero(starts <= ends)
+        seg_key = seg_piece * LANE + starts[seg_piece, seg_row]
+        seg = np.searchsorted(seg_key, piece * LANE + lane, side="right") - 1
+        rows = seg_row[np.maximum(seg, 0)]
 
         def slots(a):
-            return to_device(np.asarray(a)[:P], device, np.int8)
+            return to_device(a, device, np.int8)
 
-        return cls(cols=slots(cols), values=to_device(np.asarray(values)[:P],
-                                                      device),
+        return cls(cols=slots(cols), values=to_device(values, device),
                    ends=slots(ends), starts=slots(starts), sel=slots(sel),
-                   piece_w=to_device(np.asarray(piece_w).reshape(-1)[:P],
-                                     device, np.int32),
+                   piece_w=to_device(piece_w, device, np.int32),
                    group_sub=to_device(sub, device, np.int32),
-                   block_ptr=to_device(ptr, device), shape=tuple(shape),
-                   nnz=int(nnz), utilization=float(utilization), num_groups=G,
+                   block_ptr=to_device(ptr, device),
+                   slot_ptr=to_device(slot_ptr, device),
+                   block_slot=to_device(block_slot, device),
+                   slot_vals=to_device(values[piece, lane], device),
+                   slot_cols=to_device(x_index, device, np.int32),
+                   slot_rows=to_device(row_bytes(rows, slot_ptr), device),
+                   shape=tuple(shape), nnz=int(nnz),
+                   utilization=float(utilization), num_groups=G,
                    wsel=int(wsel), name=name)
 
     @classmethod
@@ -239,17 +287,22 @@ def _check(a: DeviceWPACK, x: torch.Tensor) -> None:
 
 
 def wpack_spmv(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
-               prefix: str = "direct") -> torch.Tensor:
+               prefix: str = "direct",
+               slots_per_cta: int | None = None) -> torch.Tensor:
     """y (m,) f32 = A @ x for f32 x (k,); other ``ablate``/``prefix`` knobs
     than the default as the module says (the JAX wrapper's default prefix,
-    "roll", has "direct" in its place here)."""
+    "roll", has "direct" in its place here). The default kernel gives each
+    CTA ``slots_per_cta`` consecutive live slots (None: one wave of the
+    card, ``slot_stream.default_slots_per_cta``); the ablation kernels do
+    not read it."""
     _check_knobs(ablate, prefix)
     _check(a, x)
+    check_stream("wpack_spmv", a, x, slots_per_cta)
     if x.device.type == "cpu":
         return wpack_spmv_plain(a, x, ablate=ablate, prefix=prefix)
     if (ablate, prefix) != ("", "direct"):
-        return _launch(wpack_ablate, a, x, VARIANTS[ablate, prefix])
-    return _launch(wpack_spmv, a, x)
+        return wpack_ablate(a, x, VARIANTS[ablate, prefix])
+    return launch_stream(wpack_spmv, a, x, slots_per_cta)
 
 
 wpack_spmv.launches = 0
@@ -257,34 +310,33 @@ wpack_spmv.launches = 0
 
 def wpack_ablate(a: DeviceWPACK, x: torch.Tensor,
                  variant: int) -> torch.Tensor:
-    """Ablation ``variant`` (``VARIANTS``) of the WPACK body on CUDA
-    operands that ``wpack_spmv`` has checked; its launches are counted
-    apart from the product's."""
-    return _launch(wpack_ablate, a, x, variant)
+    """Ablation ``variant`` (``VARIANTS``) of the WPACK body, over the
+    padded pieces, on CUDA operands that ``wpack_spmv`` has checked; its
+    launches are counted apart from the product's."""
+    m, k = a.shape
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.spgrid_wpack_ablate(
+            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
+            a.sel.data_ptr(), a.starts.data_ptr(), a.ends.data_ptr(),
+            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), variant,
+            a.blocks, m, k, stream)
+    _build.check(code, "wpack_ablate")
+    wpack_ablate.launches += 1
+    return y
 
 
 wpack_ablate.launches = 0
 
 
-def _launch(wrapper, a: DeviceWPACK, x: torch.Tensor, *variant):
-    """Launch ``spgrid_<wrapper's name>`` (with ``variant`` where given)
-    into a new y and count the launch on ``wrapper``."""
-    m, k = a.shape
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    name = wrapper.__name__
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, f"spgrid_{name}")(
-            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
-            a.sel.data_ptr(), a.starts.data_ptr(), a.ends.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), *variant,
-            a.blocks, m, k, stream)
-    _build.check(code, name)
-    wrapper.launches += 1
-    return y
+def wpack_stream_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
+    """The product in plain torch over the live-slot stream, which the
+    default kernel reads, in x's dtype."""
+    return stream_product(a, x)
 
 
 def _products(a: DeviceWPACK, x: torch.Tensor):

@@ -2,15 +2,20 @@
 
 Counterpart of ``spgrid/ops/pallas/wrow_spmv.py`` (format ``wrow_spmv``).
 Its two variants are two CUDA kernels: v1, the default,
-``spgrid_torch/csrc/wrow_spmv.cu`` (one CTA per target block), and v2,
-``spgrid_torch/csrc/wrow_spmv_v2.cu`` (``wrow_spmv_v2``: equal ranges of
-groups per CTA, an accumulator carried across a range). ``wrow_spmv``
-takes x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
+``spgrid_torch/csrc/wrow_spmv.cu`` (one CTA per target block, reading the
+padded pieces), and v2, ``spgrid_torch/csrc/wrow_spmv_v2.cu``
+(``wrow_spmv_v2``: equal ranges of live slots per CTA, an accumulator
+carried across a range, reading the live-slot stream). ``wrow_spmv`` takes
+x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
 tensors and takes ``wrow_spmv_plain`` only for CPU tensors.
 
 A piece is one 128-lane row of slots holding the nnz of one (128-row target
 block, 128-column window, depth), lane = row within the block; a group is
-8 pieces of one target block, and a block's groups are consecutive.
+8 pieces of one target block, and a block's groups are consecutive. The
+live-slot stream (``DeviceWROW.slot_*``, ``ops/kernels/slot_stream.py``)
+keeps, piece by piece, only the slots whose value is not 0 and whose x
+index lies inside x, each with its value, its x index and its row (lane)
+in the block; ``wrow_stream_plain`` is the product over it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ import numpy as np
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.slot_stream import (
+    check_stream, launch_stream, live_slot_stream, row_bytes,
+    stream_product)
 from spgrid_torch.ops.layouts import group_ptr, to_device
 
 LANE = 128
@@ -89,15 +97,22 @@ def csr_to_wrow(csr):
 @dataclasses.dataclass
 class DeviceWROW:
     """``csr_to_wrow``'s flat arrays on a torch device, plus ``block_ptr``:
-    the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``.
-    (The JAX layout pads groups to 128 and reshapes the metadata into rows
-    of 8 steps for the TPU's scalar memory; the port keeps neither.)"""
+    the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``,
+    and the live-slot stream that v2 reads. (The JAX layout pads groups to
+    128 and reshapes the metadata into rows of 8 steps for the TPU's scalar
+    memory; the port keeps neither.)"""
 
     cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
     values: torch.Tensor      # (P, 128), 0 in pad slots
     piece_w: torch.Tensor     # (P,) int32, window of each piece
     group_sub: torch.Tensor   # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
+    # the live-slot stream: S live slots in piece, then lane order
+    slot_ptr: torch.Tensor    # (P + 1,) int32, piece p's live slots
+    block_slot: torch.Tensor  # (blocks + 1,) int32, block b's live slots
+    slot_vals: torch.Tensor   # (S,) value of each live slot
+    slot_cols: torch.Tensor   # (S,) int32, x index of each live slot
+    slot_rows: torch.Tensor   # (S,) uint8, row (lane) | PIECE_START
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -109,30 +124,53 @@ class DeviceWROW:
         return len(self.block_ptr) - 1
 
     @property
-    def nbytes(self) -> int:
+    def num_slots(self) -> int:
+        return len(self.slot_vals)
+
+    @property
+    def stream_nbytes(self) -> int:
+        """Bytes of what v2 reads of the layout: the stream's values, x
+        indices, rows and block pointer."""
         return sum(t.numel() * t.element_size() for t in (
-            self.cols, self.values, self.piece_w, self.block_ptr))
+            self.block_slot, self.slot_vals, self.slot_cols, self.slot_rows))
+
+    @property
+    def nbytes(self) -> int:
+        return self.stream_nbytes + sum(
+            t.numel() * t.element_size() for t in (
+                self.cols, self.values, self.piece_w, self.block_ptr,
+                self.slot_ptr))
 
     @classmethod
     def from_arrays(cls, cols, values, piece_w, group_sub, shape, nnz: int,
                     utilization: float, num_groups: int, name: str = "", *,
                     device) -> "DeviceWROW":
         """Flat host arrays → device layout; groups past ``num_groups`` (the
-        JAX layout's padding) are dropped."""
+        JAX layout's padding) are dropped. The live-slot stream is built
+        here, on the host, from the padded pieces."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
             raise ValueError("wrow: groups must be sorted by target block")
         ptr, _ = group_ptr(sub, max(-(-shape[0] // LANE), 1))
         P = G * GROUP_PIECES
-        return cls(cols=to_device(np.asarray(cols)[:P], device, np.int8),
-                   values=to_device(np.asarray(values)[:P], device),
-                   piece_w=to_device(np.asarray(piece_w).reshape(-1)[:P],
-                                     device, np.int32),
+        cols = np.asarray(cols)[:P]
+        values = np.asarray(values)[:P]
+        piece_w = np.asarray(piece_w).reshape(-1)[:P]
+        piece, lane, x_index, slot_ptr, block_slot = live_slot_stream(
+            values, cols, piece_w, ptr, shape[1], GROUP_PIECES)
+        return cls(cols=to_device(cols, device, np.int8),
+                   values=to_device(values, device),
+                   piece_w=to_device(piece_w, device, np.int32),
                    group_sub=to_device(sub, device, np.int32),
-                   block_ptr=to_device(ptr, device), shape=tuple(shape),
-                   nnz=int(nnz), utilization=float(utilization),
-                   num_groups=G, name=name)
+                   block_ptr=to_device(ptr, device),
+                   slot_ptr=to_device(slot_ptr, device),
+                   block_slot=to_device(block_slot, device),
+                   slot_vals=to_device(values[piece, lane], device),
+                   slot_cols=to_device(x_index, device, np.int32),
+                   slot_rows=to_device(row_bytes(lane, slot_ptr), device),
+                   shape=tuple(shape), nnz=int(nnz),
+                   utilization=float(utilization), num_groups=G, name=name)
 
     @classmethod
     def from_csr(cls, csr, *, device) -> "DeviceWROW":
@@ -183,42 +221,27 @@ def wrow_spmv(a: DeviceWROW, x: torch.Tensor,
 
 wrow_spmv.launches = 0
 
-# v2's range of groups a CTA: ~2,600 CTAs of 128 threads at the 82,634
-# groups of a 100000^2 scattered matrix, against v1's 782 (one a block)
-GROUPS_PER_CTA = 32
-
-
 def wrow_spmv_v2(a: DeviceWROW, x: torch.Tensor,
-                 groups_per_cta: int = GROUPS_PER_CTA) -> torch.Tensor:
+                 slots_per_cta: int | None = None) -> torch.Tensor:
     """y (m,) f32 = A @ x for f32 x (k,), variant v2: each CTA walks
-    ``groups_per_cta`` consecutive groups; blocks that straddle two CTAs'
-    ranges are combined by a second pass (the same y as v1)."""
+    ``slots_per_cta`` consecutive slots of the live-slot stream (None: one
+    wave of the card, ``slot_stream.default_slots_per_cta``); blocks that
+    straddle two CTAs' ranges are combined by a second pass (the same y as
+    v1, to f32 rounding)."""
     _check("wrow_spmv_v2", a, x)
-    if groups_per_cta < 1:
-        raise ValueError(f"groups_per_cta must be >= 1, got {groups_per_cta}")
+    check_stream("wrow_spmv_v2", a, x, slots_per_cta)
     if x.device.type == "cpu":
         return wrow_spmv_plain(a, x)
-    m, k = a.shape
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    ctas = -(-a.num_groups // groups_per_cta)
-    carry = torch.empty((max(ctas, 1), 2, LANE), dtype=torch.float32,
-                        device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wrow_spmv_v2(
-            a.group_sub.data_ptr(), a.block_ptr.data_ptr(),
-            a.piece_w.data_ptr(), a.cols.data_ptr(), a.values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), carry.data_ptr(), a.num_groups,
-            groups_per_cta, a.blocks, m, k, stream)
-    _build.check(code, "wrow_spmv_v2")
-    wrow_spmv_v2.launches += 1
-    return y
+    return launch_stream(wrow_spmv_v2, a, x, slots_per_cta)
 
 
 wrow_spmv_v2.launches = 0
+
+
+def wrow_stream_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
+    """The product in plain torch over the live-slot stream, which v2's
+    kernel reads, in x's dtype."""
+    return stream_product(a, x)
 
 
 def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:

@@ -303,14 +303,68 @@ def test_wpack_spmv_kernel(cuda, matrix, wsel):
     assert_close(got, wpack_spmv_plain(a, x.double()))
 
 
-@pytest.mark.parametrize("groups_per_cta", [1, 3, 32, 1 << 20])
-@pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
-def test_wrow_spmv_v2_kernel(cuda, matrix, groups_per_cta):
-    csr = SLOT_MATRICES[matrix]()
+def straddle():
+    """1200 x 1000, ~1 % scattered, and target block 2 (rows 256-383) half
+    dense: ~64K live slots in one block, across many ranges of slots."""
+    rng = np.random.default_rng(30)
+    d = np.where(rng.random((1200, 1000)) < 0.01,
+                 rng.random((1200, 1000)) + 0.5, 0.0)
+    band = rng.random((128, 1000))
+    d[256:384] = np.where(band < 0.5, band + 0.5, 0.0)
+    return dense_to_csr(d.astype(np.float32), name="straddle")
+
+
+def empty_blocks():
+    """Banded 1000 x 1000 whose target blocks 1 and 2 and ragged last block
+    (rows 128-383 and 896-999) hold no nnz."""
+    i, j = np.ogrid[:1000, :1000]
+    d = np.where(np.abs(i - j) <= 40,
+                 np.random.default_rng(31).random((1000, 1000)) + 0.5, 0.0)
+    d[128:384] = 0.0
+    d[896:] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="empty_blocks")
+
+
+# the live-slot stream kernels (wrow_spmv_v2, wpack_spmv): one CTA a range
+# of slots_per_cta live slots, blocks that straddle ranges combined
+STREAM_MATRICES = {**SLOT_MATRICES, "straddle": straddle,
+                   "empty_blocks": empty_blocks}
+SLOTS_PER_CTA = [1, 7, 128, 2048, 1 << 20]
+
+
+@pytest.mark.parametrize("slots_per_cta", [7, 2048])
+@pytest.mark.parametrize("matrix", sorted(STREAM_MATRICES))
+def test_wpack_spmv_stream_ranges(cuda, matrix, slots_per_cta):
+    csr = STREAM_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, device=cuda)
+    x = operand((csr.k,), 16, cuda)
+    before = launch_counts()["wpack_spmv"]
+    got = wpack_spmv(a, x, slots_per_cta=slots_per_cta)
+    assert launch_counts()["wpack_spmv"] == before + 1
+    assert_close(got, wpack_spmv_plain(a, x.double()))
+
+
+@pytest.mark.parametrize("slots_per_cta", SLOTS_PER_CTA)
+@pytest.mark.parametrize("matrix", ["straddle", "empty_blocks"])
+def test_wpack_spmv_kernel_on_range_edges(cuda, matrix, slots_per_cta):
+    csr = STREAM_MATRICES[matrix]()
+    for wsel in (1, 4):
+        a = DeviceWPACK.from_csr(csr, wsel, device=cuda)
+        x = operand((csr.k,), 17, cuda)
+        before = launch_counts()["wpack_spmv"]
+        got = wpack_spmv(a, x, slots_per_cta=slots_per_cta)
+        assert launch_counts()["wpack_spmv"] == before + 1
+        assert_close(got, wpack_spmv_plain(a, x.double()))
+
+
+@pytest.mark.parametrize("slots_per_cta", SLOTS_PER_CTA)
+@pytest.mark.parametrize("matrix", sorted(STREAM_MATRICES))
+def test_wrow_spmv_v2_kernel(cuda, matrix, slots_per_cta):
+    csr = STREAM_MATRICES[matrix]()
     a = DeviceWROW.from_csr(csr, device=cuda)
     x = operand((csr.k,), 15, cuda)
     before = launch_counts()["wrow_spmv_v2"]
-    got = wrow_spmv_v2(a, x, groups_per_cta=groups_per_cta)
+    got = wrow_spmv_v2(a, x, slots_per_cta=slots_per_cta)
     assert launch_counts()["wrow_spmv_v2"] == before + 1
     assert_close(got, wrow_spmv_plain(a, x.double()))
     torch.testing.assert_close(wrow_spmv(a, x, variant="v2"),

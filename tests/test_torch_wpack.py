@@ -3,7 +3,10 @@ the JAX package: host arrays element for element (through
 ``convert.wpack_from_jax``), the plain versions against the Pallas kernels
 in interpret mode on one shape each (computed once in a module fixture:
 the kernels' unrolled group loops compile for seconds), and edge cases
-against the f64 dense product.
+against the f64 dense product. The live-slot stream that the two CUDA
+kernels read: against the padded pieces it was built from, its product
+against the Pallas kernels, and a numpy emulation of the kernels' work
+split (equal slot ranges, carry and combine) against the plain product.
 
 Tolerance: rtol 1e-5, atol 1e-6 (f32 sums in another order); the matrices
 hold positive values, so no sum cancels below its terms' rounding.
@@ -23,11 +26,15 @@ from spgrid.ops.pallas import wrow_spmv as jax_wrow
 from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.ops import convert, dispatch
 from spgrid_torch.ops.kernels import launch_counts
+from spgrid_torch.ops.kernels.slot_stream import (
+    PIECE_START, default_slots_per_cta,
+)
 from spgrid_torch.ops.kernels.wpack_spmv import (
     DeviceWPACK, csr_to_wpack, pick_wsel, wpack_spmv, wpack_spmv_plain,
+    wpack_stream_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
-    DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
+    DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2, wrow_stream_plain,
 )
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
@@ -144,7 +151,7 @@ def test_wrow_v2_on_cpu_matches_dense_product(name):
     x = vector(csr.k, seed=3)
     want = dense_product(csr, x)
     for got in (wrow_spmv(a, torch.from_numpy(x), variant="v2"),
-                wrow_spmv_v2(a, torch.from_numpy(x), groups_per_cta=1)):
+                wrow_spmv_v2(a, torch.from_numpy(x), slots_per_cta=1)):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
@@ -242,7 +249,10 @@ def test_dispatch_format_takes_one_column_only():
     with pytest.raises(ValueError, match="n must be 1"):
         fn(a, x)
     assert a.nbytes == (4 * a.cols.numel() + a.values.numel() * 4
-                        + 4 * a.piece_w.numel() + 4 * a.block_ptr.numel())
+                        + 4 * a.piece_w.numel() + 4 * a.block_ptr.numel()
+                        + 4 * a.slot_ptr.numel() + 4 * a.block_slot.numel()
+                        + 9 * a.num_slots)
+    assert a.stream_nbytes == 4 * a.block_slot.numel() + 9 * a.num_slots
 
 
 def test_cpu_path_counts_no_launch():
@@ -276,6 +286,222 @@ def test_wrow_variant_is_v1_or_v2():
     x = torch.from_numpy(vector(csr.k))
     with pytest.raises(ValueError, match="variant"):
         wrow_spmv(a, x, variant="v3")
-    with pytest.raises(ValueError, match="groups_per_cta"):
-        wrow_spmv_v2(a, x, groups_per_cta=0)
+    with pytest.raises(ValueError, match="slots_per_cta"):
+        wrow_spmv_v2(a, x, slots_per_cta=0)
     assert torch.equal(wrow_spmv(a, x), wrow_spmv(a, x, variant="v1"))
+
+
+# --- the live-slot stream (``ops/kernels/slot_stream.py``) -----------------
+
+def explicit_zeros():
+    """A scattered CSR in which every third stored value is 0.0: the packers
+    give those nnz lanes, the stream drops them."""
+    csr = MATRICES["scattered"]()
+    values = csr.values.copy()
+    values[::3] = 0.0
+    return CSRMatrix(csr.row_ptr, csr.col_idx, values, csr.shape,
+                     "explicit_zeros")
+
+
+def straddle():
+    """700 x 600, ~1 % scattered, and target block 1 (rows 128-255) dense
+    over columns 0-79: 10,240 slots in one block, which spans many ranges
+    of a few slots or 128."""
+    rng = np.random.default_rng(5)
+    d = np.where(rng.random((700, 600)) < 0.01, rng.random((700, 600)) + 0.5,
+                 0.0)
+    d[128:256, :80] = rng.random((128, 80)) + 0.5
+    return dense_to_csr(d.astype(np.float32), name="straddle")
+
+
+def empty_blocks():
+    """1000 x 1000 banded; target blocks 1 and 2 (rows 128-383) and the
+    ragged last block (rows 896-999) hold no nnz."""
+    i, j = np.ogrid[:1000, :1000]
+    rng = np.random.default_rng(6)
+    d = np.where(np.abs(i - j) <= 40, rng.random((1000, 1000)) + 0.5, 0.0)
+    d[128:384] = 0.0
+    d[896:] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="empty_blocks")
+
+
+STREAM_MATRICES = {**MATRICES, "explicit_zeros": explicit_zeros}
+SPLIT_MATRICES = {"edge": edge, "straddle": straddle,
+                  "empty_blocks": empty_blocks}
+
+
+def live_mask(values, xoff, piece_w, k):
+    return (values != 0) & (piece_w[:, None].astype(np.int64) * 128
+                            + xoff.astype(np.int64) < k)
+
+
+def check_pointers(a, live):
+    np.testing.assert_array_equal(
+        a.slot_ptr.numpy(), np.concatenate([[0], np.cumsum(live.sum(1))]))
+    np.testing.assert_array_equal(a.block_slot.numpy(),
+                                  a.slot_ptr.numpy()[8 * a.block_ptr.numpy()])
+    assert a.num_slots == int(live.sum())
+    # the row byte flags each piece's first live slot
+    counts = live.sum(1)
+    first = np.zeros(a.num_slots, bool)
+    first[a.slot_ptr.numpy()[:-1][counts > 0]] = True
+    np.testing.assert_array_equal(a.slot_rows.numpy() >= PIECE_START, first)
+    assert a.slot_cols.dtype == torch.int32
+    assert a.slot_rows.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_MATRICES))
+def test_wrow_stream_expands_to_the_padded_pieces(name):
+    csr = STREAM_MATRICES[name]()
+    a = DeviceWROW.from_csr(csr, device="cpu")
+    values, cols = a.values.numpy(), a.cols.numpy()
+    piece_w = a.piece_w.numpy()
+    live = live_mask(values, cols, piece_w, csr.k)
+    check_pointers(a, live)
+    # lane = row: put each slot back at its piece and row
+    piece = np.repeat(np.arange(len(a.piece_w)), np.diff(a.slot_ptr.numpy()))
+    rows = a.slot_rows.numpy().astype(np.int64) & 127
+    got_v, got_c = np.zeros_like(values), np.zeros_like(cols)
+    got_v[piece, rows] = a.slot_vals.numpy()
+    got_c[piece, rows] = a.slot_cols.numpy() - 128 * piece_w[piece]
+    np.testing.assert_array_equal(got_v, np.where(live, values, 0))
+    np.testing.assert_array_equal(got_c, np.where(live, cols, 0))
+    x = vector(csr.k, seed=3)
+    np.testing.assert_allclose(
+        wrow_stream_plain(a, torch.from_numpy(x)).numpy(),
+        dense_product(csr, x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("wsel", (1, 2, 4))
+@pytest.mark.parametrize("name", sorted(STREAM_MATRICES))
+def test_wpack_stream_expands_to_the_padded_pieces(name, wsel):
+    csr = STREAM_MATRICES[name]()
+    a = DeviceWPACK.from_csr(csr, wsel, device="cpu")
+    values = a.values.numpy()
+    colsel = a.sel.numpy().astype(np.int64) * 128 + a.cols.numpy()
+    piece_w = a.piece_w.numpy()
+    live = live_mask(values, colsel, piece_w, csr.k)
+    check_pointers(a, live)
+    # each lane's row from the start/end maps
+    starts, ends = (t.numpy().astype(np.int64) for t in (a.starts, a.ends))
+    owner = np.full(values.shape, -1)
+    for p, r in zip(*np.nonzero(starts <= ends)):
+        owner[p, starts[p, r]:ends[p, r] + 1] = r
+    # the stream is the live lanes, in piece and lane order
+    x_index = piece_w[:, None].astype(np.int64) * 128 + colsel
+    np.testing.assert_array_equal(a.slot_vals.numpy(), values[live])
+    np.testing.assert_array_equal(a.slot_cols.numpy(), x_index[live])
+    np.testing.assert_array_equal(a.slot_rows.numpy() & 127, owner[live])
+    if name != "explicit_zeros":   # no dropped nnz: live lanes are 0 .. c-1
+        c = live.sum(1)
+        np.testing.assert_array_equal(live, np.arange(128) < c[:, None])
+    x = vector(csr.k, seed=3)
+    np.testing.assert_allclose(
+        wpack_stream_plain(a, torch.from_numpy(x)).numpy(),
+        dense_product(csr, x), rtol=RTOL, atol=ATOL)
+
+
+def test_stream_product_matches_pallas(jax_outputs):
+    x, want = jax_outputs
+    csr = MATRICES[JAX_MATRIX]()
+    xt = torch.from_numpy(x)
+    np.testing.assert_allclose(
+        wpack_stream_plain(DeviceWPACK.from_csr(csr, device="cpu"),
+                           xt).numpy(), want["wpack"], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        wrow_stream_plain(DeviceWROW.from_csr(csr, device="cpu"), xt).numpy(),
+        want["wrow_v2"], rtol=RTOL, atol=ATOL)
+
+
+def emulate_stream_walk(a, x, per_cta, segment):
+    """numpy emulation of ``csrc/slot_stream.cuh``: CTA c takes the slots
+    [c S, (c + 1) S); with ``segment`` each run of one row within a piece
+    (a piece starts at a slot flagged ``PIECE_START``) inside a 32-slot run
+    aligned to the range start is summed first; each block the
+    CTA opens is summed into a 128-row accumulator and flushed to y when all
+    its slots lie in the range, else to carry slot 1 (it continues past the
+    range) or 0 (it ends in it); then the combine adds each straddling
+    block's partials in range order and writes 0 for a block with no slot.
+    y and carry start as NaN, so a row or a carry never written shows."""
+    m = a.shape[0]
+    n = a.num_slots
+    block_slot = a.block_slot.numpy()
+    starts_piece = a.slot_rows.numpy() >= PIECE_START
+    prod = a.slot_vals.numpy() * x[a.slot_cols.numpy()]
+    rows = a.slot_rows.numpy().astype(np.int64) & 127
+    y = np.full(m, np.nan, np.float32)
+    ctas = -(-n // per_cta)
+    carry = np.full((max(ctas, 1), 2, 128), np.nan, np.float32)
+
+    def put(b, acc):
+        r = np.arange(b * 128, min(m, b * 128 + 128))
+        y[r] = acc[:len(r)]
+
+    for c in range(ctas):
+        s0, s1 = c * per_cta, min(n, (c + 1) * per_cta)
+        idx = np.arange(s0, s1)
+        r, v = rows[idx], prod[idx]
+        if segment:
+            head = ((idx - s0) % 32 == 0) | starts_piece[idx]
+            head[1:] |= r[1:] != r[:-1]
+            run = np.cumsum(head) - 1
+            v = np.bincount(run, weights=v).astype(np.float32)
+            tail = np.flatnonzero(np.append(head[1:], True))
+            idx, r = idx[tail], r[tail]
+        b_first = np.searchsorted(block_slot, s0, side="right") - 1
+        b_last = np.searchsorted(block_slot, s1 - 1, side="right") - 1
+        for b in range(b_first, b_last + 1):
+            lo, hi = block_slot[b], block_slot[b + 1]
+            if lo == hi:
+                continue
+            mine = (idx >= lo) & (idx < hi)
+            acc = np.zeros(128, np.float32)
+            np.add.at(acc, r[mine], v[mine])
+            if lo >= s0 and hi <= s1:
+                put(b, acc)
+            else:
+                carry[c, int(hi > s1)] = acc
+    for b in range(a.blocks):
+        lo, hi = block_slot[b], block_slot[b + 1]
+        if lo == hi:
+            put(b, np.zeros(128, np.float32))
+            continue
+        c0, c1 = lo // per_cta, (hi - 1) // per_cta
+        if c0 != c1:
+            acc = np.zeros(128, np.float32)
+            for c in range(c0, c1):
+                acc += carry[c, 1]
+            put(b, acc + carry[c1, 0])
+    return y
+
+
+@pytest.mark.parametrize("per_cta", [1, 7, 128, None])
+@pytest.mark.parametrize("name", sorted(SPLIT_MATRICES))
+@pytest.mark.parametrize("layout", ["wrow", "wpack"])
+def test_range_split_with_carry_gives_the_plain_product(layout, name,
+                                                        per_cta):
+    csr = SPLIT_MATRICES[name]()
+    a = (DeviceWROW if layout == "wrow" else DeviceWPACK).from_csr(
+        csr, device="cpu")
+    per_cta = per_cta or a.num_slots
+    x = vector(csr.k, seed=8)
+    b = a.block_slot.numpy()
+    if name == "straddle":     # block 1 spans ranges, whole and partial
+        assert b[2] - b[1] > 2 * per_cta or per_cta == a.num_slots
+    if name == "empty_blocks":
+        assert b[1] == b[3] and b[-2] == b[-1]
+    got = emulate_stream_walk(a, x, per_cta, segment=layout == "wpack")
+    assert np.isfinite(got).all()
+    plain = (wrow_spmv_plain if layout == "wrow" else wpack_spmv_plain)
+    np.testing.assert_allclose(got, plain(a, torch.from_numpy(x)).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_default_range_is_one_wave_of_whole_tiles():
+    # the H100's 132 SMs: LINE_S's and MAIN_LINE's live slots
+    assert default_slots_per_cta(2_099_796, 132) == 2048
+    assert default_slots_per_cta(392_149, 132) == 1024
+    for n in (0, 1, 10 ** 5, 3 * 10 ** 6, 10 ** 8):
+        per_cta = default_slots_per_cta(n, 132)
+        assert per_cta >= 1024 and per_cta % 512 == 0
+        assert -(-n // per_cta) <= 8 * 132
