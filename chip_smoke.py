@@ -41,6 +41,13 @@ exits non-zero and never prints the final ``"ok": true`` line:
    blocks and on MAIN_LINE; each line gives the bytes of the stream they
    read beside the padded pieces' bytes, the live slots, the grid and S,
    and the host seconds the layout took to build (set-up, not timed work).
+   The two slot SpMMs (``wcoo_spmm``, ``wcoo_spmm_aligned``) walk a
+   row-ordered live-slot stream, a warp a row: they run on MAIN_LINE at
+   n=512 and at n=77 (the walk's scalar form), on the edge matrix at n=200
+   and on the banded matrix with empty target blocks at n=128; each line
+   gives the stream's bytes beside the padded layout's, the live slots, the
+   grid (a warp a row, 8 rows a CTA), C, U, the rows of more than
+   ``LONG_ROW`` slots (a CTA each) and the layout's build seconds.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -282,6 +289,7 @@ def phase_kernels() -> dict:
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.slot_rows import walk_shape
     from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
         DeviceWPACK, wpack_spmv, wpack_spmv_plain)
@@ -414,19 +422,40 @@ def phase_kernels() -> dict:
                          a.cols.element_size()) + (
             REL_TOL, stream_note(a, layout_s))
 
-    def wcoo_case(csr, n, seed):
-        a = DeviceWCOO.from_csr(csr, device=DEVICE)
-        chunks = len(a.chunk_window)
-        layout_line("wcoo", csr, a, "chunks of 128 slots", chunks)
-        return spmm_case(wcoo_spmm, wcoo_spmm_plain, a, csr, n, seed,
-                         a.cols.element_size())
+    # The slot SpMMs walk the row-ordered live-slot stream: what they read
+    # of the layout beside its padded arrays and the walk's shape (CTAs of 8
+    # rows, column slabs of 128 C, U slots in flight).
+    row_layouts = {}
 
-    def bands_case(csr, n, seed):
-        a = DeviceWCOOBands.from_csr(csr, device=DEVICE)
-        layout_line("wcoo_bands", csr, a, "groups of 8x128 slots",
-                    len(a.block_groups))
-        return spmm_case(wcoo_spmm_aligned, wcoo_spmm_aligned_plain, a, csr,
-                         n, seed, a.cols.element_size())
+    def row_layout(cls, csr):
+        if (cls, id(csr)) not in row_layouts:
+            a, layout_s = timed_layout(cls, csr)
+            if cls is DeviceWCOO:
+                layout_line("wcoo", csr, a, "chunks of 128 slots",
+                            len(a.chunk_window))
+            else:
+                layout_line("wcoo_bands", csr, a, "groups of 8x128 slots",
+                            len(a.block_groups))
+            row_layouts[cls, id(csr)] = a, layout_s
+        return row_layouts[cls, id(csr)]
+
+    def rows_case(cls, kernel, plain, csr, n, seed):
+        a, layout_s = row_layout(cls, csr)
+        grid_x, grid_y, c, u = walk_shape(a.shape[0], n)
+        note = (f"stream_bytes={a.stream_nbytes} "
+                f"padded_bytes={a.nbytes - a.stream_nbytes} "
+                f"live_slots={a.num_slots} grid={grid_x}x{grid_y} CTAs "
+                f"C={c} U={u} long_rows={len(a.long_rows)} "
+                f"form={'float4' if n % 4 == 0 else 'scalar'} "
+                f"layout_build_s={layout_s:.3f} (host: padded layout, "
+                f"stream, copy to the card)")
+        return spmm_case(kernel, plain, a, csr, n, seed,
+                         a.cols.element_size()) + (REL_TOL, note)
+
+    wcoo_case = functools.partial(rows_case, DeviceWCOO, wcoo_spmm,
+                                  wcoo_spmm_plain)
+    bands_case = functools.partial(rows_case, DeviceWCOOBands,
+                                   wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
 
     def wcoo_spmv_case(csr, seed):
         a = DeviceWCOOAligned.from_csr(csr, device=DEVICE)
@@ -515,6 +544,7 @@ def phase_kernels() -> dict:
 
     hyper_label = "MAIN_LINE {}x{} hypersparse".format(*hyper.shape)
     edge_label = "3000x2000 empty row blocks, 250-nnz row, ragged k"
+    empty_label = "banded 1000^2 empty target blocks 1-2"
     b_label = "LINE_B {}x{} {} nnz".format(*line_b.shape, line_b.nnz)
     s_label = "LINE_S {}x{} scattered {} nnz".format(*line_s.shape,
                                                      line_s.nnz)
@@ -543,10 +573,18 @@ def phase_kernels() -> dict:
          lambda: wcoo_case(hyper, 512, 8)),
         ("wcoo_spmm", f"{edge_label} n=200", False,
          lambda: wcoo_case(edge, 200, 9)),
+        ("wcoo_spmm", f"{hyper_label} n=77 (scalar form)", False,
+         lambda: wcoo_case(hyper, 77, 23)),
+        ("wcoo_spmm", f"{empty_label} n=128", False,
+         lambda: wcoo_case(empty_blocks, 128, 24)),
         ("wcoo_spmm_aligned", f"{hyper_label} n=512", True,
          lambda: bands_case(hyper, 512, 8)),
         ("wcoo_spmm_aligned", f"{edge_label} n=200", False,
          lambda: bands_case(edge, 200, 9)),
+        ("wcoo_spmm_aligned", f"{hyper_label} n=77 (scalar form)", False,
+         lambda: bands_case(hyper, 77, 23)),
+        ("wcoo_spmm_aligned", f"{empty_label} n=128", False,
+         lambda: bands_case(empty_blocks, 128, 24)),
         ("wrow_spmv", f"{hyper_label} n=1", True,
          lambda: wrow_case(hyper, 10)),
         ("wrow_spmv", f"{edge_label} n=1", False,
@@ -580,7 +618,7 @@ def phase_kernels() -> dict:
     # target blocks, and the CLI slice's matrix
     for label, csr, seed in (
             ("4096^2 straddling band (262K slots in one block)", straddle, 22),
-            ("banded 1000^2 empty target blocks 1-2", empty_blocks, 3),
+            (empty_label, empty_blocks, 3),
             (hyper_label, hyper, 10)):
         cases += [("wpack_spmv", f"{label} n=1", False,
                    functools.partial(wpack_case, csr, seed)),

@@ -2,7 +2,10 @@
 
 Each module holds a kernel's wrapper, its plain PyTorch version and a launch
 count. A wrapper launches its kernel for CUDA tensors and takes the plain
-version only for CPU tensors.
+version only for CPU tensors. The count is of the wrapper's launches: one for
+each call that runs the kernel on the card, however many CUDA kernels the
+call starts (a stream walk and its carry combine, a row walk and its
+long-row walk).
 """
 
 from __future__ import annotations

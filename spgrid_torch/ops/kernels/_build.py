@@ -43,11 +43,9 @@ SIGNATURES = {
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 6 + [_PTR],
-    # tile_ptr, tile_chunks, chunk_win, cols, rows, vals, x, y,
-    # tiles, m, k, n, stream
-    "spgrid_wcoo_spmm": [_PTR] * 8 + [_INT] * 4 + [_PTR],
-    # block_ptr, block_groups, g_sw, cols, vals, x, y, blocks, m, k, n, stream
-    "spgrid_wcoo_bands": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
+    "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # block_ptr, piece_w, cols, vals, x, y, blocks, m, k, stream
     "spgrid_wrow_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
     # block_ptr, g_sw, cols, vals, x, y, blocks, m, k, stream

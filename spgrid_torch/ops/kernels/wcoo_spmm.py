@@ -1,10 +1,12 @@
 """Windowed slot-chunk COO SpMM: Y = A @ X with A in DeviceWCOO layout.
 
 Counterpart of ``spgrid/ops/pallas/wcoo_spmm.py`` (format ``wcoo_pallas``);
-the CUDA kernel is ``spgrid_torch/csrc/wcoo_spmm.cu``. ``wcoo_spmm`` takes
-X (k, n) and returns Y (m, n): no transposed XT/YT and no padding of X.
-It launches the kernel for CUDA tensors and takes ``wcoo_spmm_plain`` only
-for CPU tensors.
+the CUDA kernel is ``spgrid_torch/csrc/wcoo_spmm.cu`` over the shared walk
+of ``csrc/slot_rows.cuh``. ``wcoo_spmm`` takes X (k, n) and returns Y
+(m, n): no transposed XT/YT and no padding of X. It launches the kernel for
+CUDA tensors, which reads the layout's row-ordered live-slot stream
+(``ops/kernels/slot_rows.py``), and takes ``wcoo_spmm_plain``, which reads
+the padded chunks, only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,17 +18,32 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.wcoo import LANE, WCOOMatrix, csr_to_wcoo
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels import check_operands
+from spgrid_torch.ops.kernels.slot_rows import (
+    RowStream, check_rows, launch_rows, row_stream, stream_tensors)
 from spgrid_torch.ops.layouts import group_ptr, to_device
 
 
+def wcoo_row_stream(cols, rows, values, chunk_window, chunk_tile, shape):
+    """The stream of a WCOO layout: slot s of chunk c (the chunk's pad rows
+    past ``len(chunk_window)`` are not read) adds to row 128 tile + rows
+    from X row 128 window + cols, in chunk and then slot order."""
+    nch = len(chunk_window)
+    xrows = (np.asarray(chunk_window, np.int64)[:, None] * LANE
+             + np.asarray(cols)[:nch].astype(np.int64))
+    out = (np.asarray(chunk_tile, np.int64)[:, None] * LANE
+           + np.asarray(rows)[:nch].astype(np.int64))
+    return row_stream(out, xrows, np.asarray(values)[:nch], *shape)
+
+
 @dataclasses.dataclass
-class DeviceWCOO:
+class DeviceWCOO(RowStream):
     """The slot arrays and chunk windows of
     ``spgrid.ops.pallas.wcoo_spmm.DeviceWCOO`` on a torch device, with
     ``tile_ptr``/``tile_chunks``, the chunks of each 128-row tile (a row
     block's chunks are consecutive, its subblocks are not), in place of the
-    chunks' row block, subblock and first-chunk flag."""
+    chunks' row block, subblock and first-chunk flag, and the row-ordered
+    live-slot stream that the kernel reads (``slot_rows.py``)."""
 
     cols: torch.Tensor            # (nchunks_pad8, 128) int32, col in window
     rows: torch.Tensor            # (nchunks_pad8, 128) int32, row in subblock
@@ -34,6 +51,11 @@ class DeviceWCOO:
     chunk_window: torch.Tensor    # (nchunks,) int32
     tile_ptr: torch.Tensor        # (tiles+1,) int32
     tile_chunks: torch.Tensor     # (nchunks,) int32
+    # the row stream: S live slots by output row, in chunk and slot order
+    row_slot: torch.Tensor        # (m + 1,) int32, row r's live slots
+    slot_vals: torch.Tensor       # (S,) value of each live slot
+    slot_xrows: torch.Tensor      # (S,) int32, X row of each live slot
+    long_rows: torch.Tensor       # (L,) int32, rows of > LONG_ROW slots
     shape: Tuple[int, int]
     nnz: int
     R: int                        # rows of a row block, a multiple of 128
@@ -61,9 +83,10 @@ class DeviceWCOO:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (
-            self.cols, self.rows, self.values, self.chunk_window,
-            self.tile_ptr, self.tile_chunks))
+        return self.stream_nbytes + sum(
+            t.numel() * t.element_size() for t in (
+                self.cols, self.rows, self.values, self.chunk_window,
+                self.tile_ptr, self.tile_chunks))
 
     @classmethod
     def from_arrays(cls, cols, rows, values, chunk_window, chunk_rowblock,
@@ -78,12 +101,14 @@ class DeviceWCOO:
         tile = (np.asarray(chunk_rowblock, np.int64) * subs
                 + np.asarray(chunk_sub, np.int64))
         ptr, order = group_ptr(tile, -(-shape[0] // R) * subs)
+        stream = wcoo_row_stream(cols, rows, values, chunk_window, tile, shape)
         return cls(cols=to_device(cols, device, np.int32),
                    rows=to_device(rows, device, np.int32),
                    values=to_device(values, device),
                    chunk_window=to_device(chunk_window, device, np.int32),
                    tile_ptr=to_device(ptr, device),
-                   tile_chunks=to_device(order, device), shape=tuple(shape),
+                   tile_chunks=to_device(order, device),
+                   **stream_tensors(stream, device), shape=tuple(shape),
                    nnz=int(nnz), R=int(R), utilization=float(utilization),
                    name=name)
 
@@ -109,26 +134,12 @@ def wcoo_spmm(a: DeviceWCOO, x: torch.Tensor) -> torch.Tensor:
                    chunk_window=(a.chunk_window, torch.int32),
                    tile_ptr=(a.tile_ptr, torch.int32),
                    tile_chunks=(a.tile_chunks, torch.int32))
+    check_rows("wcoo_spmm", a, x)
     if x.device.type == "cpu":
         return wcoo_spmm_plain(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"wcoo_spmm: no kernel for device {x.device}")
-    m, k = a.shape
-    n = x.shape[1]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wcoo_spmm(
-            a.tile_ptr.data_ptr(), a.tile_chunks.data_ptr(),
-            a.chunk_window.data_ptr(), a.cols.data_ptr(), a.rows.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), a.tiles, m, k,
-            n, stream)
-    _build.check(code, "wcoo_spmm")
-    wcoo_spmm.launches += 1
-    return y
+    return launch_rows(wcoo_spmm, "spgrid_wcoo_spmm", a, x)
 
 
 wcoo_spmm.launches = 0

@@ -1,10 +1,12 @@
 """Aligned-slot banded SpMM: Y = A @ X with A in DeviceWCOOBands layout.
 
 Counterpart of ``spgrid/ops/pallas/wcoo_spmm_aligned.py`` (format
-``wcoo_bands``); the CUDA kernel is ``spgrid_torch/csrc/wcoo_bands.cu``.
-``wcoo_spmm_aligned`` takes X (k, n) and returns Y (m, n), X unpadded. It
-launches the kernel for CUDA tensors and takes ``wcoo_spmm_aligned_plain``
-only for CPU tensors.
+``wcoo_bands``); the CUDA kernel is ``spgrid_torch/csrc/wcoo_bands.cu`` over
+the shared walk of ``csrc/slot_rows.cuh``. ``wcoo_spmm_aligned`` takes X
+(k, n) and returns Y (m, n), X unpadded. It launches the kernel for CUDA
+tensors, which reads the layout's row-ordered live-slot stream
+(``ops/kernels/slot_rows.py``), and takes ``wcoo_spmm_aligned_plain``,
+which reads the padded groups, only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.wcoo import LANE, csr_to_wcoo_aligned
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels import check_operands
+from spgrid_torch.ops.kernels.slot_rows import (
+    RowStream, check_rows, launch_rows, row_stream, stream_tensors)
 from spgrid_torch.ops.layouts import group_ptr, round_up, to_device
 
 G_STEP = 16          # groups of a step; a step's groups share its superwindow
@@ -95,13 +99,34 @@ def bands_arrays(csr, band_rows: int = 4096):
             steps_per_band)
 
 
+def bands_row_stream(cols, values, g_sw, block_ptr, block_groups, shape):
+    """The stream of a banded layout: slot (w, lane) of real group g of
+    block b adds to row 128 b + lane from X row 1024 sw + 128 w + col, sw
+    the superwindow of g's step and col read as an unsigned byte, in group
+    and then slot order. Pad groups and the sacrificial row block are in
+    no block's list and are never read."""
+    g = np.asarray(block_groups, np.int64)
+    ptr = np.asarray(block_ptr, np.int64)
+    block = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+    slots = (-1, GROUP_ROWS, LANE)
+    w = np.arange(GROUP_ROWS)[:, None]
+    col = np.asarray(cols, np.int8).view(np.uint8).reshape(slots)[g]
+    xrows = (np.asarray(g_sw, np.int64)[g // G_STEP][:, None, None]
+             * (GROUP_ROWS * LANE) + w * LANE + col)
+    out = np.broadcast_to(block[:, None, None] * LANE + np.arange(LANE),
+                          xrows.shape)
+    return row_stream(out, xrows, np.asarray(values).reshape(slots)[g],
+                      *shape)
+
+
 @dataclasses.dataclass
-class DeviceWCOOBands:
+class DeviceWCOOBands(RowStream):
     """The arrays of ``spgrid.ops.pallas.wcoo_spmm_aligned.DeviceWCOOBands``
     on a torch device, plus ``block_ptr``/``block_groups``: the groups of
     each 128-row block ``band * mbb + lb``, in group order (inside a band
     groups are sorted by superwindow first, so a block's are not
-    consecutive). Pad groups belong to no block."""
+    consecutive). Pad groups belong to no block. Also the row-ordered
+    live-slot stream that the kernel reads (``slot_rows.py``)."""
 
     cols: torch.Tensor          # (T*8, 128) int8, col % 128 of each slot
     values: torch.Tensor        # (T*8, 128), 0 in empty slots
@@ -109,6 +134,11 @@ class DeviceWCOOBands:
     g_lb: torch.Tensor          # (steps_pad8, G_STEP) int32, pad -> mbb
     block_ptr: torch.Tensor     # (bands*mbb + 1,) int32
     block_groups: torch.Tensor  # (real groups,) int32
+    # the row stream: S live slots by output row, in group and slot order
+    row_slot: torch.Tensor      # (m + 1,) int32, row r's live slots
+    slot_vals: torch.Tensor     # (S,) value of each live slot
+    slot_xrows: torch.Tensor    # (S,) int32, X row of each live slot
+    long_rows: torch.Tensor     # (L,) int32, rows of > LONG_ROW slots
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -123,9 +153,10 @@ class DeviceWCOOBands:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (
-            self.cols, self.values, self.g_sw, self.block_ptr,
-            self.block_groups))
+        return self.stream_nbytes + sum(
+            t.numel() * t.element_size() for t in (
+                self.cols, self.values, self.g_sw, self.block_ptr,
+                self.block_groups))
 
     @classmethod
     def from_arrays(cls, cols, values, g_sw, g_lb, shape, nnz: int,
@@ -137,12 +168,14 @@ class DeviceWCOOBands:
         band = np.arange(T) // (steps_per_band * G_STEP)
         ptr, groups = group_ptr(np.where(lb < mbb, band * mbb + lb, -1),
                                 bands * mbb)
+        stream = bands_row_stream(cols, values, g_sw, ptr, groups, shape)
         return cls(cols=to_device(cols, device, np.int8),
                    values=to_device(values, device),
                    g_sw=to_device(g_sw, device, np.int32),
                    g_lb=to_device(g_lb, device, np.int32),
                    block_ptr=to_device(ptr, device),
-                   block_groups=to_device(groups, device), shape=tuple(shape),
+                   block_groups=to_device(groups, device),
+                   **stream_tensors(stream, device), shape=tuple(shape),
                    nnz=int(nnz), utilization=float(utilization),
                    bands=int(bands), mbb=int(mbb),
                    steps_per_band=int(steps_per_band), name=name)
@@ -165,25 +198,12 @@ def wcoo_spmm_aligned(a: DeviceWCOOBands, x: torch.Tensor) -> torch.Tensor:
                    g_sw=(a.g_sw, torch.int32),
                    block_ptr=(a.block_ptr, torch.int32),
                    block_groups=(a.block_groups, torch.int32))
+    check_rows("wcoo_spmm_aligned", a, x)
     if x.device.type == "cpu":
         return wcoo_spmm_aligned_plain(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"wcoo_spmm_aligned: no kernel for device {x.device}")
-    m, k = a.shape
-    n = x.shape[1]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wcoo_bands(
-            a.block_ptr.data_ptr(), a.block_groups.data_ptr(),
-            a.g_sw.data_ptr(), a.cols.data_ptr(), a.values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), a.blocks, m, k, n, stream)
-    _build.check(code, "wcoo_spmm_aligned")
-    wcoo_spmm_aligned.launches += 1
-    return y
+    return launch_rows(wcoo_spmm_aligned, "spgrid_wcoo_bands", a, x)
 
 
 wcoo_spmm_aligned.launches = 0

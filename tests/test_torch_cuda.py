@@ -208,6 +208,57 @@ def test_slot_wrappers_raise_instead_of_falling_back(cuda):
             fn(a, operand(shape, 1, "cpu"))
 
 
+def empty_tail():
+    """300 x 260, ~5 % scattered; rows 10-39 and the last 100 rows empty."""
+    rng = np.random.default_rng(32)
+    d = np.where(rng.random((300, 260)) < 0.05, rng.random((300, 260)) + 0.5,
+                 0.0)
+    d[10:40] = 0.0
+    d[200:] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="empty_tail")
+
+
+# the slot SpMMs' row walk (csrc/slot_rows.cuh): the float4 form at n = 512
+# (C = 4) and 200 (C = 2, a ragged slab), the scalar form at n = 77 and 1
+# and on an X 4 bytes off alignment; long rows (the edge matrices' 200-,
+# 250- and 2000-nnz rows) go to the long-row walk
+ROW_WALK_MATRICES = {
+    **SLOT_MATRICES, "empty_tail": empty_tail,
+    "edge_250": lambda: hypersparse_edge(3000, 2000, density=0.003,
+                                         empty=slice(1024, 2048),
+                                         heavy_row=5, heavy_nnz=250),
+    "edge_2000": lambda: hypersparse_edge(3000, 2100, density=0.003,
+                                          empty=slice(1024, 2048),
+                                          heavy_row=5, heavy_nnz=2000),
+}
+
+
+@pytest.mark.parametrize("n", [512, 200, 77, 1])
+@pytest.mark.parametrize("matrix", sorted(ROW_WALK_MATRICES))
+@pytest.mark.parametrize("kernel", sorted(SLOT_SPMM))
+def test_slot_spmm_row_walk(cuda, kernel, matrix, n):
+    layout, fn, plain = SLOT_SPMM[kernel]
+    csr = ROW_WALK_MATRICES[matrix]()
+    a = layout(csr, cuda)
+    x = operand((csr.k, n), 19, cuda)
+    want = plain(a, x.double())
+    before = launch_counts()[kernel]
+    got = fn(a, x)
+    # one launch, with or without the long-row walk
+    assert launch_counts()[kernel] == before + 1
+    assert_close(got, want)
+    xm = misaligned((csr.k, n), 19, cuda)
+    assert_close(fn(a, xm), plain(a, xm.double()))
+
+
+def test_slot_spmm_refuse_a_non_contiguous_x(cuda):
+    csr = hypersparse_edge()
+    for layout, fn, _ in SLOT_SPMM.values():
+        a = layout(csr, cuda)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(a, operand((64, csr.k), 1, cuda).t())
+
+
 def bands_with_gaps():
     d = positive(random_csr(300, 260, 0.1, seed=2)).to_dense()
     d[64:128] = 0.0

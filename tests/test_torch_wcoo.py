@@ -28,6 +28,7 @@ from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.formats import wcoo as port_wcoo
 from spgrid_torch.ops import convert, dispatch
 from spgrid_torch.ops.kernels import launch_counts
+from spgrid_torch.ops.kernels.slot_rows import LONG_ROW, rows_product
 from spgrid_torch.ops.kernels.wcoo_spmm import (
     DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
 )
@@ -305,3 +306,129 @@ def test_spmv_formats_take_one_column_only():
                                    atol=ATOL)
         with pytest.raises(ValueError, match="n must be 1"):
             fn(a, x)
+
+
+# The row-ordered live-slot stream of the two slot SpMM layouts
+# (ops/kernels/slot_rows.py), held to the JAX package's padded arrays.
+
+def expected_stream(kind, jax_layout, csr):
+    """(row, X row, value) of each live slot of the JAX layout, read from
+    its padded arrays: in the layout's slot order (WCOO: chunk, slot;
+    bands: real group, window, lane), then stably by row."""
+    (leaves, aux), k = leaves_of(jax_layout), csr.k
+    if kind == "wcoo":
+        cols, rows, vals, win, rb, sub, _ = leaves
+        R = jax_layout.R
+        nch = len(win)
+        tile = rb.astype(np.int64) * (R // 128) + sub
+        out = tile[:, None] * 128 + rows[:nch]
+        xrow = win.astype(np.int64)[:, None] * 128 + cols[:nch]
+        vals = vals[:nch]
+    else:
+        cols, vals, g_sw, g_lb = leaves
+        b = jax_layout
+        T = b.bands * b.steps_per_band * 16
+        lb = g_lb.reshape(-1)[:T].astype(np.int64)
+        real = np.flatnonzero(lb < b.mbb)      # pad groups target mbb
+        block = real // (b.steps_per_band * 16) * b.mbb + lb[real]
+        out = np.broadcast_to(block[:, None, None] * 128 + np.arange(128),
+                              (len(real), 8, 128))
+        xrow = (g_sw.astype(np.int64)[real // 16][:, None, None] * 1024
+                + np.arange(8)[:, None] * 128
+                + cols.reshape(-1, 8, 128)[real].astype(np.uint8))
+        vals = vals.reshape(-1, 8, 128)[real]
+    out, xrow, vals = (v.reshape(-1) for v in (out, xrow, vals))
+    live = (vals != 0) & (xrow < k)
+    order = np.argsort(out[live], kind="stable")
+    return out[live][order], xrow[live][order], vals[live][order]
+
+
+def stream_of(a):
+    row_slot = a.row_slot.numpy()
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(row_slot))
+    return row_slot, rows, a.slot_xrows.numpy(), a.slot_vals.numpy()
+
+
+@pytest.mark.parametrize("source", ["csr", "jax"])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+def test_row_stream_holds_every_live_slot_once(kind, name, source):
+    csr = MATRICES[name]()
+    jaxl = jax_layouts(csr)[kind]
+    if source == "csr":
+        a = port_layouts(csr)[kind]
+    else:
+        leaves, aux = leaves_of(jaxl)
+        a = FROM_JAX[kind](*leaves, *aux, device="cpu")
+    row_slot, rows, xrows, vals = stream_of(a)
+    assert row_slot[0] == 0 and np.all(np.diff(row_slot) >= 0)
+    assert row_slot[-1] == a.num_slots == len(xrows) == len(vals)
+    assert a.row_slot.dtype == a.slot_xrows.dtype == torch.int32
+    want_rows, want_xrows, want_vals = expected_stream(kind, jaxl, csr)
+    np.testing.assert_array_equal(rows, want_rows)
+    np.testing.assert_array_equal(xrows, want_xrows)
+    np.testing.assert_array_equal(vals, want_vals)
+    assert np.all(vals != 0) and np.all(xrows < csr.k)
+    assert np.all(rows < csr.m)
+    np.testing.assert_array_equal(
+        a.long_rows.numpy(), np.flatnonzero(np.diff(row_slot) > LONG_ROW))
+    assert a.stream_nbytes == 4 * (csr.m + 1 + len(a.long_rows)) + (
+        8 * a.num_slots)
+    assert a.nbytes > a.stream_nbytes
+
+
+@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+def test_row_stream_never_reads_pad_groups_or_rows_past_k(kind):
+    """Values put into what the kernel must not read (the WCOO chunks past
+    the real ones, the banded pad groups of the sacrificial row block
+    ``mbb``, and slots whose X row lies at or past k) leave the stream as
+    it was."""
+    csr = MATRICES["edge"]()
+    jaxl = jax_layouts(csr)[kind]
+    leaves, aux = leaves_of(jaxl)
+    a = FROM_JAX[kind](*leaves, *aux, device="cpu")
+    poisoned = [np.array(v) for v in leaves]
+    if kind == "wcoo":
+        cols, vals, win = poisoned[0], poisoned[2], poisoned[3]
+        nch = len(win)
+        vals[nch:] = 7.0
+        past_k = (win.astype(np.int64)[:, None] * 128 + cols[:nch]) >= csr.k
+        vals[:nch][past_k] = 7.0
+        assert len(vals) > nch      # the chunks are padded to a multiple of 8
+    else:
+        cols, vals, g_sw, g_lb = poisoned
+        v = vals.reshape(-1, 8, 128)
+        lb = g_lb.reshape(-1)[:len(v)]
+        pad = lb == jaxl.mbb
+        assert pad.any()
+        v[pad] = 7.0
+        xrow = (g_sw.astype(np.int64)[np.arange(len(v)) // 16][:, None, None]
+                * 1024 + np.arange(8)[:, None] * 128
+                + cols.reshape(-1, 8, 128).astype(np.uint8))
+        assert (xrow >= csr.k).any()
+        v[xrow >= csr.k] = 7.0
+    b = FROM_JAX[kind](*poisoned, *aux, device="cpu")
+    for field in ("row_slot", "slot_xrows", "slot_vals", "long_rows"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+def test_stream_product_equals_plain_and_dense(kind, name):
+    csr = MATRICES[name]()
+    a = port_layouts(csr)[kind]
+    x = torch.from_numpy(operand(csr.k, 13, seed=5))
+    got = rows_product(a, x).numpy()
+    np.testing.assert_allclose(got, PLAIN[kind](a, x).numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got, dense_product(csr, x.numpy()),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_SHAPES))
+@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+def test_stream_product_matches_pallas(jax_outputs, kind, name):
+    x, want = jax_outputs[kind, name]
+    a = port_layouts(MATRICES[name]())[kind]
+    np.testing.assert_allclose(rows_product(a, torch.from_numpy(x)).numpy(),
+                               want, rtol=RTOL, atol=ATOL)
