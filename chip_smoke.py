@@ -20,14 +20,18 @@ exits non-zero and never prints the final ``"ok": true`` line:
    shuffle chain and the wrong-by-design ablation variants), all from CUDA
    events around eager calls; for bsr_spmm_cstat also its grid (CTAs,
    column tile, row slice) and the floor of its 3xTF32 tensor-core work
-   (three products of the blocks' dense flops at 495 TFLOP/s); the
+   (three products of the blocks' dense flops at 495 TFLOP/s); for
+   bsr_spmm and bsr_sddmm their grid (tiles, the cluster a tile's
+   contraction is split across, CTAs), ring depth and 3xTF32 floor, and on
+   their main-path case the device ms at each cluster size; the
    kernel's device time alone, from CUDA-graph replay (and, for the
    main-path case, the library call's, where it can be captured in a
    graph); and the kernel's bound: the larger
    of the bytes the
    function needs on these inputs (each nnz, each dense operand, each
    gathered row and the output once) over the card's memory rate and its
-   operations (2 a nnz a column) over its f32 rate. The probe gathers and
+   operations (2 a nnz a column) over its f32-accurate rate (3xTF32 on the
+   tensor cores, 165 TFLOP/s). The probe gathers and
    the shuffle chain are held to their plain versions in f32, bit for bit;
    the ablation variants to theirs in f64, within 1e-5 where each row is
    written once and within ``ATOMIC_TOL`` where blocks sum with atomics.
@@ -132,13 +136,15 @@ LINE_S = "100000 100000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
 ABLATE = (100000, 20.0, 0.05)
 WPACK_ABLATE = (100000, 20.0, 0.05)
 GATHER = (65536, 512, 384)
-# Peaks of one H100 SXM (NVIDIA's data sheet): device memory and f32 FMA on
-# the CUDA cores, for each kernel's bound.
+# Peaks of one H100 SXM (NVIDIA's data sheet): device memory, and TF32 on
+# the tensor cores, dense (the floor of the block kernels' 3xTF32 products:
+# three products for each of the blocks' dense flops).
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-# TF32 on the tensor cores, dense: the floor of bsr_spmm_cstat's 3xTF32
-# block products (three products for each of the blocks' dense flops).
 TF32_FLOPS_PER_S = 495e12
+# The card's fastest f32-accurate rate, for each kernel's bound: 3xTF32 on
+# the tensor cores (three TF32 products a flop, 165 TFLOP/s), above the
+# CUDA cores' 67 TFLOP/s of f32 FMA.
+F32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 def card_line() -> str:
     out = subprocess.run(
@@ -269,7 +275,9 @@ def phase_kernels() -> dict:
     from spgrid_torch.bench.headline import headline_matrix
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.entry import flagship_csrs
+    from spgrid_torch.ops.kernels import _build
     from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
     from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
         DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain, launch_grid)
     from spgrid_torch.ops.kernels.dgell import (
@@ -283,6 +291,7 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+    from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
     from spgrid_torch.ops.kernels.wcoo_spmm import (
         DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
@@ -341,25 +350,62 @@ def phase_kernels() -> dict:
                 csr.nnz * (4 + index_bytes) + nbytes(x) + 4 * a.shape[0],
                 2.0 * csr.nnz)
 
-    def bsr_case(csr, bm, n, seed):
+    def block_note(grid, flops, sweep=None):
+        """The block kernels' launch (grid, cluster, ring), the floor of
+        their 3xTF32 work (three products of the blocks' dense flops) and,
+        on a main-path case, the device ms at each cluster size."""
+        note = (f"{grid} tensor_floor_ms="
+                f"{3 * flops / TF32_FLOPS_PER_S * 1e3:.6f} (3xTF32)")
+        if sweep is not None:
+            note += " device_ms_by_cluster " + " ".join(
+                f"{c}:{device_ms(sweep, c):.6f}" for c in (1, 2, 4, 8))
+        return note
+
+    def bsr_case(csr, bm, n, seed, sweep=False):
         a = DeviceBSR.from_csr(csr, bm=bm, bk=128, device=DEVICE)
-        return spmm_case(bsr_spmm, bsr_spmm_plain, a, csr, n, seed)
+        case = spmm_case(bsr_spmm, bsr_spmm_plain, a, csr, n, seed)
+        x = case[2][1]
+        y = torch.empty((a.shape[0], n), device=DEVICE)
+
+        def at_cluster(c):
+            _build.check(_build.library().spgrid_bsr_spmm(
+                a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+                a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.mb,
+                a.bm, a.bk, *a.shape, n, c,
+                torch.cuda.current_stream().cuda_stream), "bsr_spmm")
+
+        return case + (REL_TOL, block_note(
+            bsr_grid(a, n), 2.0 * a.num_blocks * a.bm * a.bk * n,
+            at_cluster if sweep else None))
 
     def panel_case(csr, n, seed):
         a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
         return spmm_case(panel_spmm, panel_spmm_plain, a, csr, n, seed)
 
-    def sddmm_case(m, bm, d, seed):
+    def sddmm_case(m, bm, d, seed, sweep=False):
         # reads Q, K and the mask's column indices; writes one value a
         # mask nnz
         a = DeviceBSR.from_csr(m, bm=bm, bk=128, device=DEVICE)
         q, k = rand((m.shape[0], d), seed), rand((m.shape[1], d), seed + 1)
+        nb, bm, bk = a.blocks.shape
+        out = torch.empty((nb, bm, bk), device=DEVICE)
+
+        def at_cluster(c):
+            _build.check(_build.library().spgrid_bsr_sddmm(
+                a.block_rows.data_ptr(), a.block_cols.data_ptr(),
+                a.blocks.data_ptr(), q.data_ptr(), k.data_ptr(),
+                out.data_ptr(), nb, bm, bk, q.shape[0], k.shape[0], d, c,
+                torch.cuda.current_stream().cuda_stream), "bsr_sddmm")
+
         return (bsr_sddmm, bsr_sddmm_plain, (a, q, k),
                 (a, q.double(), k.double()),
                 lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
                                                              beta=0.0),
                 (csr_tensor(m), q, k.t().contiguous()),
-                m.nnz * (4 + 4) + nbytes(q, k), 2.0 * m.nnz * d)
+                m.nnz * (4 + 4) + nbytes(q, k), 2.0 * m.nnz * d, REL_TOL,
+                block_note(sddmm_grid(a),
+                           2.0 * a.num_blocks * bm * bk * d,
+                           at_cluster if sweep else None))
 
     def layout_line(name, csr, a, units, count):
         print(f"phase 1 layout: {name} of {csr.name} ({csr.nnz} nnz): "
@@ -550,7 +596,7 @@ def phase_kernels() -> dict:
                                                      line_s.nnz)
     cases = [
         ("bsr_spmm", "headline 512^2 bm=128 n=512", True,
-         lambda: bsr_case(head, 128, 512, 1)),
+         lambda: bsr_case(head, 128, 512, 1, sweep=True)),
         ("bsr_spmm", "pipeline weight 512^2 bm=128 n=512", False,
          lambda: bsr_case(wk, 128, 512, 2)),
         ("bsr_spmm", "banded 1000^2 empty block rows bm=8 n=200", False,
@@ -564,7 +610,7 @@ def phase_kernels() -> dict:
         ("panel_spmm", "4096^2 50% n=512", False,
          lambda: panel_case(big, 512, 4)),
         ("bsr_sddmm", "pipeline mask 512^2 s=0.9 bm=128 d=512", True,
-         lambda: sddmm_case(mask, 128, 512, 5)),
+         lambda: sddmm_case(mask, 128, 512, 5, sweep=True)),
         ("bsr_sddmm", "banded 1000^2 empty block rows bm=8 d=200", False,
          lambda: sddmm_case(banded, 8, 200, 6)),
         ("bsr_sddmm", "4096^2 band_and_random s=0.95 bm=128 d=512", False,

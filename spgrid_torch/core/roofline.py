@@ -18,17 +18,20 @@ class ChipSpec:
     hbm_gbytes_per_s: float       # device-memory bandwidth
     peak_bf16_tflops: float       # tensor cores, bf16 in / f32 accumulate
     peak_f32_tflops: float        # CUDA cores, f32 FMA (no tensor cores)
+    peak_tf32_tflops: float = 0.0  # tensor cores, TF32 in (0: none)
     l2_mbytes: float = 50.0
     hbm_gbytes: float = 80.0
 
 
 H100_SXM = ChipSpec(
     name="h100_sxm", hbm_gbytes_per_s=3350.0, peak_bf16_tflops=989.0,
-    peak_f32_tflops=67.0, l2_mbytes=50.0, hbm_gbytes=80.0,
+    peak_f32_tflops=67.0, peak_tf32_tflops=495.0, l2_mbytes=50.0,
+    hbm_gbytes=80.0,
 )
 H100_PCIE = ChipSpec(
     name="h100_pcie", hbm_gbytes_per_s=2000.0, peak_bf16_tflops=756.0,
-    peak_f32_tflops=51.0, l2_mbytes=50.0, hbm_gbytes=80.0,
+    peak_f32_tflops=51.0, peak_tf32_tflops=378.0, l2_mbytes=50.0,
+    hbm_gbytes=80.0,
 )
 
 
@@ -43,8 +46,12 @@ def chip_for_name(device_name: str) -> Optional[ChipSpec]:
 
 def roofline_time(flops: float, bytes_accessed: float, chip: ChipSpec,
                   dtype: str = "float32") -> float:
-    """Speed-of-light time (s): max of compute-bound and memory-bound time."""
-    peak = chip.peak_bf16_tflops if dtype == "bfloat16" else chip.peak_f32_tflops
+    """Speed-of-light time (s): max of compute-bound and memory-bound time.
+    f32 work goes at the card's fastest f32-accurate rate: the CUDA cores'
+    FMA or 3xTF32 on the tensor cores (three TF32 products a flop), the
+    larger."""
+    peak = (chip.peak_bf16_tflops if dtype == "bfloat16" else
+            max(chip.peak_f32_tflops, chip.peak_tf32_tflops / 3))
     t_compute = flops / (peak * 1e12) if flops else 0.0
     t_memory = bytes_accessed / (chip.hbm_gbytes_per_s * 1e9) if bytes_accessed else 0.0
     return max(t_compute, t_memory)

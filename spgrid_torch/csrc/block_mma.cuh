@@ -1,0 +1,370 @@
+// The 3xTF32 tensor-core tile that bsr_spmm.cu and sddmm.cu share.
+//
+// A CTA of two warpgroups owns a ROWS x NT (128 x 64) output tile and
+// computes a range of its contraction in steps of TK = 32: each step's A
+// slice (ROWS x TK, depth contiguous) and B slice (TK x NT, staged in the
+// layout its operand has in device memory) come in by cp.async through a
+// ring of STAGES steps, B is split once a step into TF32 hi and lo K-major
+// core matrices, and each warpgroup multiplies its 64 rows with wgmma
+// m64n64k8, A in registers, split there. A step's products go to fresh
+// accumulators that are then added to the running f32 sum: the tensor
+// cores truncate their accumulate.
+//
+// A tile's contraction may be split across a thread-block cluster of up to
+// CLUSTER_MAX CTAs, rank r taking steps [S r / C, S (r + 1) / C) of the
+// tile's S steps, so that a grid of few tiles still fills the card
+// (`cluster_for` picks C from the grid and the card's SMs). Each
+// CTA leaves its partial tile in its own shared memory; after a cluster
+// barrier, every output element is summed over the ranks' partial tiles in
+// rank order through distributed shared memory and stored once, by one
+// rank: no atomics, one fixed order, so two calls give the same bits.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+#include "tf32x3.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int ROWS = 128;       // tile rows, two warpgroups of 64
+constexpr int NT = 64;          // tile columns
+constexpr int THREADS = 256;
+constexpr int STAGES = 3;       // steps in the ring: two CTAs an SM
+constexpr int CLUSTER_MAX = 8;  // the portable cluster size
+constexpr int A_LD = TK + 4;    // row stride of a step's A slice
+constexpr int X_LD = NT + 8;    // row stride of a B slice staged N-major
+constexpr int A_FLOATS = ROWS * A_LD;
+// A step's B slice: NT rows of A_LD (K-major) or TK rows of X_LD (N-major).
+constexpr int B_FLOATS = NT * A_LD;
+static_assert(TK * X_LD == B_FLOATS, "both B layouts fill one slot");
+constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+// A step's split B, B_hi then B_lo, K-major in 8 x 16-byte core matrices:
+// [8 columns][TK / 4][8][4 depths].
+constexpr int SB_FLOATS = NT * TK;
+constexpr int RED_LD = NT + 8;  // row stride of the partial tile
+static_assert(ROWS * RED_LD <= STAGES * STAGE_FLOATS,
+              "the partial tile fits in the ring");
+constexpr size_t SMEM_BYTES =
+    sizeof(float) * (2 * SB_FLOATS + STAGES * STAGE_FLOATS);
+
+// Coordinates of a thread: warpgroup wg owns rows 64 wg .. + 63 of the
+// tile, its warp w rows 16 w .. + 15 of those (g = lane / 4, q = lane % 4).
+// Accumulator 4 j + 2 h + c holds row 64 wg + 16 w + 8 h + g, column 8 j +
+// 2 q + c, as wgmma's m64nNk8 f32 fragment lays them out; the A fragment
+// holds rows + g, + g + 8 and columns q, q + 4 of each 8.
+struct Frag {
+  int wg, w, g, q;
+};
+
+__device__ __forceinline__ Frag frag() {
+  const int t = threadIdx.x;
+  return Frag{t / 128, t / 32 % 4, t % 32 / 4, t % 4};
+}
+
+// dst[i][c] (row stride A_LD) = src[i * ld + c] for i < nrows and c <
+// depth, 0 elsewhere, for i < fill rows: 16-byte copies where `vec` (src
+// rows start on 16 B and depth % 4 == 0), else 4-byte ones.
+__device__ __forceinline__ void stage_kmajor(float* dst,
+                                             const float* __restrict__ src,
+                                             size_t ld, int nrows, int depth,
+                                             int fill, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < fill * (TK / 4); e += THREADS) {
+      const int i = e / (TK / 4);
+      const int c = e % (TK / 4) * 4;
+      float* d = dst + i * A_LD + c;
+      if (i < nrows && c < depth) {
+        cp_async16(d, src + i * ld + c);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < fill * TK; e += THREADS) {
+      const int i = e / TK;
+      const int c = e % TK;
+      float* d = dst + i * A_LD + c;
+      if (i < nrows && c < depth) {
+        cp_async4(d, src + i * ld + c);
+      } else {
+        *d = 0.0f;
+      }
+    }
+  }
+}
+
+// dst[kk][j] (row stride X_LD) = src[kk * ld + j] for kk < depth and j <
+// ncols, 0 elsewhere: 16-byte copies where `vec` (src rows start on 16 B
+// and ncols % 4 == 0), else 4-byte ones.
+__device__ __forceinline__ void stage_nmajor(float* dst,
+                                             const float* __restrict__ src,
+                                             size_t ld, int depth, int ncols,
+                                             bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < TK * (NT / 4); e += THREADS) {
+      const int kk = e / (NT / 4);
+      const int j = e % (NT / 4) * 4;
+      float* d = dst + kk * X_LD + j;
+      if (kk < depth && j < ncols) {
+        cp_async16(d, src + kk * ld + j);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < TK * NT; e += THREADS) {
+      const int kk = e / NT;
+      const int j = e % NT;
+      float* d = dst + kk * X_LD + j;
+      if (kk < depth && j < ncols) {
+        cp_async4(d, src + kk * ld + j);
+      } else {
+        *d = 0.0f;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_split(float* sb, int off,
+                                            const float (&v)[4]) {
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) split(v[u], hi[u], lo[u]);
+  *reinterpret_cast<uint4*>(sb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(sb + SB_FLOATS + off) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// A B slice staged K-major (NT rows of depth, stride A_LD) split into core
+// matrices: a core-matrix row is 4 neighbouring depths, one float4.
+__device__ __forceinline__ void split_kmajor(const float* __restrict__ bs,
+                                             float* __restrict__ sb) {
+  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
+    const int r = e % 8;
+    const int k4 = e / 8 % (TK / 4);
+    const int grp = e / (8 * (TK / 4));
+    const float4 v =
+        *reinterpret_cast<const float4*>(bs + (8 * grp + r) * A_LD + 4 * k4);
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    store_split(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
+  }
+}
+
+// A B slice staged N-major (TK rows of NT columns, stride X_LD), split and
+// transposed into core matrices. Eight neighbouring threads read 8
+// neighbouring columns and write one 128-byte core matrix.
+__device__ __forceinline__ void split_nmajor(const float* __restrict__ bs,
+                                             float* __restrict__ sb) {
+  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
+    const int r = e % 8;
+    const int grp = e / 8 % (NT / 8);
+    const int k4 = e / NT;
+    const float* p = bs + 4 * k4 * X_LD + 8 * grp + r;
+    const float w[4] = {p[0], p[X_LD], p[2 * X_LD], p[3 * X_LD]};
+    store_split(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
+  }
+}
+
+// acc += the warpgroup's 64 rows of the step's A slice times its split B:
+// for each 8 depths, A_lo B_hi, A_hi B_lo, then A_hi B_hi, one wgmma group.
+// The A fragments of two groups are live at a time: a group's are
+// rewritten only after the group two before has completed. The step's 12
+// products go to fresh accumulators, whose sum is added to acc on the CUDA
+// cores, rounding to nearest.
+__device__ __forceinline__ void multiply(float (&acc)[NT / 2],
+                                         const float* __restrict__ as,
+                                         const float* __restrict__ sb,
+                                         const Frag& f) {
+  const float* p = as + (64 * f.wg + 16 * f.w + f.g) * A_LD + f.q;
+  const uint64_t b_hi = descriptor(sb);
+  const uint64_t b_lo = descriptor(sb + SB_FLOATS);
+  uint32_t ah[2][4], al[2][4];
+  float d[NT / 2];
+#pragma unroll
+  for (int s = 0; s < TK / 8; ++s) {
+    const int b = s % 2;
+    if (s >= 2) {
+      wgmma_wait<1>();  // group s - 2 has read ah[b], al[b]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(ah[b][e]);
+        fence_operand(al[b][e]);
+      }
+    }
+    split(p[8 * s], ah[b][0], al[b][0]);
+    split(p[8 * A_LD + 8 * s], ah[b][1], al[b][1]);
+    split(p[8 * s + 4], ah[b][2], al[b][2]);
+    split(p[8 * A_LD + 8 * s + 4], ah[b][3], al[b][3]);
+    wgmma_fence();
+    const uint64_t next = 2 * 128 / 16 * s;  // two core matrices on, >> 4
+    wgmma_tf32(d, al[b], b_hi + next, s > 0);
+    wgmma_tf32(d, ah[b], b_lo + next, 1);
+    wgmma_tf32(d, ah[b], b_hi + next, 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(ah[b][e]);
+      fence_operand(al[b][e]);
+    }
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) {
+    fence_operand(d[e]);
+    acc[e] += d[e];
+  }
+}
+
+// The ring: `issue(it, stage)` stages step it of this CTA's range into a
+// stage (cp.async, zeros for what it does not copy), `split_b(b_slice, sb)`
+// splits a staged B slice. Every thread commits one group an iteration, so
+// the wait counts hold. Warpgroups whose rows lie past the tile's `rows`
+// stage and split with the others but do not multiply.
+template <class Issue, class SplitB>
+__device__ __forceinline__ void mainloop(float (&acc)[NT / 2], float* ring,
+                                         float* sb, int steps, int rows,
+                                         const Frag& f, Issue issue,
+                                         SplitB split_b) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) issue(s, ring + s * STAGE_FLOATS);
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step it has landed; step it - 1 is consumed
+    const int next = it + STAGES - 1;
+    if (next < steps) issue(next, ring + next % STAGES * STAGE_FLOATS);
+    cp_async_commit();
+    const float* as = ring + it % STAGES * STAGE_FLOATS;
+    split_b(as + A_FLOATS, sb);
+    fence_proxy_async();
+    __syncthreads();  // the split B slice is in place
+    if (64 * f.wg < rows) multiply(acc, as, sb, f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the partial tile
+}
+
+// Sums the cluster's partial tiles and stores each element of the tile's
+// rows x ncols once: `store(i, j, v)` gets v = the sums of columns j .. j
+// + 3 of row i (j % 4 == 0; columns >= ncols hold garbage).
+template <class Store>
+__device__ __forceinline__ void reduce_store(const float (&acc)[NT / 2],
+                                             float* ring, int rows, int ncols,
+                                             const Frag& f, Store store) {
+  float* part = ring;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * f.wg + 16 * f.w + 8 * h + f.g;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      *reinterpret_cast<float2*>(part + r * RED_LD + 8 * j + 2 * f.q) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's partial tile is in place
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int e = rank * THREADS + threadIdx.x; e < rows * (NT / 4);
+       e += ranks * THREADS) {
+    const int i = e / (NT / 4);
+    const int j = e % (NT / 4) * 4;
+    if (j >= ncols) continue;
+    const int at = i * RED_LD + j;
+    float4 v = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0) + at);
+    for (int q = 1; q < ranks; ++q) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, q) + at);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    store(i, j, v);
+  }
+  cluster.sync();  // no rank leaves while another reads its tile
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The cluster a launch of `tiles` tiles takes: the largest power of two up
+// to CLUSTER_MAX for which tiles x cluster CTAs still fit on the current
+// card's SMs, one an SM (1 when the tiles alone fill them).
+int cluster_for(long long tiles) {
+  int device = 0;
+  int sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int cluster = 1;
+  while (cluster < CLUSTER_MAX && tiles * cluster * 2 <= sms) cluster *= 2;
+  return cluster;
+}
+
+// out (int[6]) = {tiles, cluster, ROWS, NT, TK, STAGES}: the launch of
+// `tiles` tiles that launch_clusters makes at cluster 0.
+int report_shape(long long tiles, void* out) {
+  if (tiles < 1 || tiles > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* shape = static_cast<int*>(out);
+  shape[0] = static_cast<int>(tiles);
+  shape[1] = cluster_for(tiles);
+  shape[2] = ROWS;
+  shape[3] = NT;
+  shape[4] = TK;
+  shape[5] = STAGES;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches `kernel` on tiles x cluster CTAs in clusters of `cluster` along
+// x, SMEM_BYTES of dynamic shared memory each. Cluster 0 takes
+// `cluster_for`'s; 1, 2, 4 or 8 forces that size (for tests and sweeps).
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
+                    void* stream, Args... args) {
+  if (cluster == 0 && tiles >= 1) cluster = cluster_for(tiles);
+  if (cluster < 1 || cluster > CLUSTER_MAX || (cluster & (cluster - 1)) != 0 ||
+      tiles < 1 || tiles * cluster > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
+  if (attr != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch's check is clean
+    return static_cast<int>(attr);
+  }
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = cluster;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles * cluster));
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = SMEM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = dims;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

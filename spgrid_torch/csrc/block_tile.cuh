@@ -1,4 +1,6 @@
-// The register-tiled f32 product that the port's three kernels share.
+// The register-tiled f32 product of panel_spmm.cu, on the CUDA cores.
+// bsr_spmm.cu and sddmm.cu moved to the 3xTF32 tensor-core tile of
+// block_mma.cuh; panel_spmm is the next kernel to take it.
 //
 // One CTA of 256 threads owns a 64 x 64 output tile. The contraction runs in
 // steps of TK = 16: each step stages a (64 x 16) slice of the left operand
@@ -8,11 +10,9 @@
 // tx + 16 c, so the 16 threads of a half-warp read 16 neighbouring words of
 // the right slice and one broadcast word of the left slice.
 //
-// No tensor cores: TF32 `mma` keeps about three decimal digits and would
-// miss the f32 accuracy gate (1e-4 relative against the f64 oracle). That
-// holds for one TF32 product only: the 3xTF32 split (hi and lo parts, three
-// products) keeps f32's accuracy on the tensor cores, as
-// csrc/bsr_spmm_cstat.cu does, and is the route for redesigning this tile.
+// No tensor cores: one TF32 product keeps about three decimal digits and
+// would miss the f32 accuracy gate (1e-4 relative against the f64 oracle);
+// the 3xTF32 split of tf32x3.cuh keeps f32's accuracy.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,7 +76,7 @@ __device__ __forceinline__ void multiply(float (&acc)[MICRO][MICRO],
   }
 }
 
-// One CTA's tile of a row of blocks:
+// One CTA's tile of a band's panels (a row of blocks):
 //   Y[row0 + i0 + i, n0 + j] = sum_{b in [begin, end)}
 //       blocks[b][i0 + i, :] . X[cols[b] * bk + :, n0 + j]
 // with i0 = blockIdx.z * TILE and n0 = blockIdx.y * TILE. The CTA writes

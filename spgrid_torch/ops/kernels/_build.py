@@ -37,12 +37,17 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # C signatures: device pointers and the stream as void*, sizes as int.
 SIGNATURES = {
-    # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, stream
-    "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, cluster (0: the
+    # launch rule), stream
+    "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
     # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n, stream
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
-    # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, stream
-    "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
+    "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # mb, bm, n (SpMM) or nb, bm, bk (SDDMM), out (int[6]: tiles, cluster,
+    # tile rows, tile columns, step, ring stages)
+    "spgrid_bsr_spmm_shape": [_INT] * 3 + [_PTR],
+    "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],

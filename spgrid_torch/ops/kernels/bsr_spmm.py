@@ -3,6 +3,12 @@
 Counterpart of ``spgrid/ops/pallas/bsr_spmm.py``; the CUDA kernel is
 ``spgrid_torch/csrc/bsr_spmm.cu``. ``bsr_spmm`` launches it for CUDA
 tensors and takes ``bsr_spmm_plain`` only for CPU tensors.
+
+The kernel runs the tensor-core tile of ``csrc/block_mma.cuh``: one
+tile a (block row, 128-row slice of it, 64 columns of X), its contraction
+(the block row's blocks, 32 columns a step) split across a cluster where
+the tiles alone would leave the card idle (``launch_grid`` reports
+the launch).
 """
 
 from __future__ import annotations
@@ -10,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import DeviceBSR
 
 
@@ -20,6 +27,14 @@ def _check(a: DeviceBSR, x: torch.Tensor) -> None:
                    blocks=(a.blocks, torch.float32),
                    block_cols=(a.block_cols, torch.int32),
                    row_ptr=(a.row_ptr, torch.int32))
+
+
+def launch_grid(a: DeviceBSR, n: int) -> LaunchShape:
+    """The kernel's launch for ``a`` at n columns of X on the card ``a`` lies
+    on, as ``spgrid_bsr_spmm`` makes it (the cluster depends on the card's
+    SM count)."""
+    with torch.cuda.device(a.blocks.device):
+        return query("spgrid_bsr_spmm_shape", "bsr_spmm", a.mb, a.bm, n)
 
 
 def bsr_spmm(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +55,7 @@ def bsr_spmm(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
         code = lib.spgrid_bsr_spmm(
             a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
-            a.mb, a.bm, a.bk, m, k, n, stream)
+            a.mb, a.bm, a.bk, m, k, n, 0, stream)
     _build.check(code, "bsr_spmm")
     bsr_spmm.launches += 1
     return y

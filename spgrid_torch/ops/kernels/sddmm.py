@@ -4,6 +4,12 @@ mask.
 Counterpart of ``spgrid/ops/pallas/sddmm.py``; the CUDA kernel is
 ``spgrid_torch/csrc/sddmm.cu``. ``bsr_sddmm`` launches it for CUDA tensors
 and takes ``bsr_sddmm_plain`` only for CPU tensors.
+
+The kernel runs the tensor-core tile of ``csrc/block_mma.cuh``: one
+tile a (mask block, 128-row slice of it, 64 of its columns), its
+contraction (d, 32 a step) split across a cluster where the tiles alone
+would leave the card idle (``launch_grid`` reports the launch); the mask
+multiplies the summed tile once.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import DeviceBSR
 
 
@@ -23,6 +30,15 @@ def _check(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor) -> None:
                    mask_blocks=(mask.blocks, torch.float32),
                    block_rows=(mask.block_rows, torch.int32),
                    block_cols=(mask.block_cols, torch.int32))
+
+
+def launch_grid(mask: DeviceBSR) -> LaunchShape:
+    """The kernel's launch for ``mask``'s stored blocks (pad blocks
+    included) on the card ``mask`` lies on, as ``spgrid_bsr_sddmm`` makes it
+    (the cluster depends on the card's SM count)."""
+    nb, bm, bk = mask.blocks.shape
+    with torch.cuda.device(mask.blocks.device):
+        return query("spgrid_bsr_sddmm_shape", "bsr_sddmm", nb, bm, bk)
 
 
 def bsr_sddmm(mask: DeviceBSR, q: torch.Tensor,
@@ -45,7 +61,7 @@ def bsr_sddmm(mask: DeviceBSR, q: torch.Tensor,
             mask.block_rows.data_ptr(), mask.block_cols.data_ptr(),
             mask.blocks.data_ptr(), q.data_ptr(), k.data_ptr(),
             out.data_ptr(), nb, bm, bk, q.shape[0], k.shape[0], q.shape[1],
-            stream)
+            0, stream)
     _build.check(code, "bsr_sddmm")
     bsr_sddmm.launches += 1
     return out

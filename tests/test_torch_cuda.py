@@ -94,24 +94,47 @@ def assert_close(got, want):
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
 
 
+def misaligned(shape, seed, device):
+    """A contiguous operand whose data starts 4 bytes past an aligned
+    address, so the kernel cannot read it as float4."""
+    x = operand((int(np.prod(shape)) + 1,), seed, device)[1:]
+    return x.view(shape)
+
+
+# the block kernels' tensor-core tile (csrc/block_mma.cuh): bm below one
+# warpgroup (8, 16), one and two warpgroups (64, 128), slices of 128 rows
+# (200); empty block rows, pad blocks, ragged m and k
 SPMM = {
-    "bm8": (lambda: positive(random_csr(128, 96, 0.1, seed=1)), 8, 64, 1),
-    "bm128": (lambda: positive(random_csr(300, 260, 0.3, seed=2)), 128, 70, 1),
-    "empty_block_rows_pad": (lambda: with_empty_rows(100, 150, 3), 8, 70, 4),
-    "ragged": (lambda: positive(random_csr(70, 33, 0.3, seed=4)), 16, 5, 1),
+    "bm8": (lambda: positive(random_csr(128, 96, 0.1, seed=1)), 8, 1),
+    "bm16_ragged": (lambda: positive(random_csr(70, 33, 0.3, seed=4)), 16, 1),
+    "bm64": (lambda: positive(random_csr(300, 260, 0.3, seed=2)), 64, 1),
+    "bm128": (lambda: positive(random_csr(300, 260, 0.3, seed=2)), 128, 1),
+    "bm200_slices": (lambda: positive(random_csr(500, 300, 0.2, seed=6)),
+                     200, 3),
+    "empty_block_rows_pad": (lambda: with_empty_rows(100, 150, 3), 8, 4),
 }
 
 
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 77, 200, 512])
 @pytest.mark.parametrize("case", sorted(SPMM))
-def test_bsr_spmm_kernel(cuda, case):
-    make, bm, n, pad = SPMM[case]
+def test_bsr_spmm_kernel(cuda, case, n, x_layout):
+    make, bm, pad = SPMM[case]
     csr = make()
     a = DeviceBSR.from_csr(csr, bm=bm, bk=128, pad_multiple=pad, device=cuda)
-    x = operand((csr.k, n), 5, cuda)
+    x = (operand((csr.k, n), 5, cuda) if x_layout == "aligned"
+         else misaligned((csr.k, n), 5, cuda))
     before = launch_counts()["bsr_spmm"]
     got = bsr_spmm(a, x)
     assert launch_counts()["bsr_spmm"] == before + 1
     assert_close(got, bsr_spmm_plain(a, x.double()))
+
+
+def test_bsr_spmm_kernel_4096(cuda):
+    csr = positive(random_csr(4096, 4096, 0.05, seed=7))
+    a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda)
+    x = operand((csr.k, 512), 5, cuda)
+    assert_close(bsr_spmm(a, x), bsr_spmm_plain(a, x.double()))
 
 
 @pytest.mark.parametrize("case", ["one_band", "bands64", "empty_band"])
@@ -129,15 +152,97 @@ def test_panel_spmm_kernel(cuda, case):
     assert_close(got, panel_spmm_plain(a, x.double()))
 
 
-@pytest.mark.parametrize("bm,pad", [(8, 8), (128, 2)])
-def test_bsr_sddmm_kernel(cuda, bm, pad):
+@pytest.mark.parametrize("qk_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("d", [1, 8, 70, 512])
+@pytest.mark.parametrize("bm", [8, 16, 64, 128, 200])
+def test_bsr_sddmm_kernel(cuda, bm, d, qk_layout):
+    # the 200^2 mask is ragged against every bm and bk = 128; pad blocks
+    # (pad_multiple 4) give zero blocks
     mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14)
-    a = DeviceBSR.from_csr(mask, bm=bm, bk=128, pad_multiple=pad, device=cuda)
-    q, k = operand((200, 70), 7, cuda), operand((200, 70), 8, cuda)
+    a = DeviceBSR.from_csr(mask, bm=bm, bk=128, pad_multiple=4, device=cuda)
+    make = operand if qk_layout == "aligned" else misaligned
+    q, k = make((200, d), 7, cuda), make((200, d), 8, cuda)
     before = launch_counts()["bsr_sddmm"]
     got = bsr_sddmm(a, q, k)
     assert launch_counts()["bsr_sddmm"] == before + 1
     assert_close(got, bsr_sddmm_plain(a, q.double(), k.double()))
+
+
+def test_bsr_sddmm_kernel_4096(cuda):
+    mask = create_mask("band_and_random", 4096, 0.95, seed=14)
+    a = DeviceBSR.from_csr(mask, bm=128, bk=128, device=cuda)
+    q, k = operand((4096, 512), 7, cuda), operand((4096, 512), 8, cuda)
+    assert_close(bsr_sddmm(a, q, k), bsr_sddmm_plain(a, q.double(),
+                                                     k.double()))
+
+
+def flagship_layouts(device):
+    from spgrid_torch.entry import flagship_csrs
+    wk, _, _, mask = flagship_csrs()
+    return (DeviceBSR.from_csr(wk, bm=128, bk=128, device=device),
+            DeviceBSR.from_csr(mask, bm=128, bk=128, device=device))
+
+
+def test_block_kernels_give_the_same_bits_twice(cuda):
+    """The cluster sums its partial tiles in rank order, with no atomics:
+    two calls give bit-identical outputs."""
+    w, mask = flagship_layouts(cuda)
+    x = operand((512, 512), 3, cuda)
+    assert torch.equal(bsr_spmm(w, x), bsr_spmm(w, x))
+    q, k = operand((512, 512), 4, cuda), operand((512, 512), 5, cuda)
+    assert torch.equal(bsr_sddmm(mask, q, k), bsr_sddmm(mask, q, k))
+
+
+def test_block_kernels_launch_grid(cuda):
+    """What ``launch_grid`` reports on this card, from the C side's launch
+    rule: the flagship's few tiles of 128 x 64 (32 for the SpMM, 26 for the
+    SDDMM) split across the largest cluster that keeps the grid on the
+    card's SMs; bm = 200 as two row slices; many tiles at cluster 1."""
+    from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as spmm_grid
+    from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    w, mask = flagship_layouts(cuda)
+    for grid, tiles in ((spmm_grid(w, 512), 32), (sddmm_grid(mask), 26)):
+        assert (grid.rows, grid.cols, grid.step) == (128, 64, 32)
+        assert grid.tiles == tiles
+        assert grid.cluster in (1, 2, 4, 8)
+        assert grid.ctas <= sms or grid.cluster == 1
+        assert grid.cluster == 8 or 2 * grid.ctas > sms
+    if sms == 132:
+        assert spmm_grid(w, 512).cluster == sddmm_grid(mask).cluster == 4
+    tall = DeviceBSR.from_csr(positive(random_csr(500, 300, 0.2, seed=9)),
+                              bm=200, bk=128, device=cuda)
+    assert spmm_grid(tall, 70).tiles == 3 * 2 * 2
+    assert spmm_grid(w, 64 * sms).cluster == 1
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_block_kernels_at_every_cluster_size(cuda, cluster):
+    """The C entry points at each cluster size the launch rule may pick, and
+    at cluster 0 (the rule itself), on ragged shapes (bm = 200 in two row
+    slices, n = 77, d = 70)."""
+    from spgrid_torch.ops.kernels import _build
+    lib = _build.library()
+    csr = positive(random_csr(500, 300, 0.2, seed=6))
+    a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3, device=cuda)
+    x = operand((300, 77), 5, cuda)
+    y = torch.empty((500, 77), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(lib.spgrid_bsr_spmm(
+        a.row_ptr.data_ptr(), a.block_cols.data_ptr(), a.blocks.data_ptr(),
+        x.data_ptr(), y.data_ptr(), a.mb, a.bm, a.bk, 500, 300, 77, cluster,
+        stream), "bsr_spmm")
+    assert_close(y, bsr_spmm_plain(a, x.double()))
+    mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14)
+    m = DeviceBSR.from_csr(mask, bm=200, bk=128, pad_multiple=4, device=cuda)
+    q, k = operand((200, 70), 7, cuda), operand((200, 70), 8, cuda)
+    nb, bm, bk = m.blocks.shape
+    out = torch.empty((nb, bm, bk), device=cuda)
+    _build.check(lib.spgrid_bsr_sddmm(
+        m.block_rows.data_ptr(), m.block_cols.data_ptr(), m.blocks.data_ptr(),
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
+        cluster, stream), "bsr_sddmm")
+    assert_close(out, bsr_sddmm_plain(m, q.double(), k.double()))
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
@@ -263,13 +368,6 @@ def bands_with_gaps():
     d = positive(random_csr(300, 260, 0.1, seed=2)).to_dense()
     d[64:128] = 0.0
     return dense_to_csr(d.astype(np.float32), name="bands_with_gaps")
-
-
-def misaligned(shape, seed, device):
-    """A contiguous operand whose data starts 4 bytes past an aligned
-    address, so the kernel cannot read it as float4."""
-    x = operand((int(np.prod(shape)) + 1,), seed, device)[1:]
-    return x.view(shape)
 
 
 def bsrc_bands():
