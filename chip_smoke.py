@@ -21,9 +21,10 @@ exits non-zero and never prints the final ``"ok": true`` line:
    events around eager calls; for bsr_spmm_cstat also its grid (CTAs,
    column tile, row slice) and the floor of its 3xTF32 tensor-core work
    (three products of the blocks' dense flops at 495 TFLOP/s); for
-   bsr_spmm and bsr_sddmm their grid (tiles, the cluster a tile's
-   contraction is split across, CTAs), ring depth and 3xTF32 floor, and on
-   their main-path case the device ms at each cluster size; the
+   bsr_spmm, panel_spmm and bsr_sddmm their grid (tiles, the cluster a
+   tile's contraction is split across, CTAs; panel_spmm's from its own
+   shape query), ring depth and 3xTF32 floor, and on their main-path case
+   the device ms at each cluster size; the
    kernel's device time alone, from CUDA-graph replay (and, for the
    main-path case, the library call's, where it can be captured in a
    graph); and the kernel's bound: the larger
@@ -51,7 +52,13 @@ exits non-zero and never prints the final ``"ok": true`` line:
    and on the banded matrix with empty target blocks at n=128; each line
    gives the stream's bytes beside the padded layout's, the live slots, the
    grid (a warp a row, 8 rows a CTA), C, U, the rows of more than
-   ``LONG_ROW`` slots (a CTA each) and the layout's build seconds.
+   ``LONG_ROW`` slots (a CTA each) and the layout's build seconds. WROW v1
+   (``wrow_spmv``, a CTA a 128-row target block reading the row-ordered
+   live-slot stream) runs on MAIN_LINE, the edge matrix, LINE_S (with its
+   library call's device time too: the case where the padded kernel lost
+   to it), the 4096^2 straddling band and the banded matrix with empty
+   target blocks; each line gives the row stream's bytes beside the padded
+   pieces', the live slots, the grid and the layout's build seconds.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -136,6 +143,9 @@ LINE_S = "100000 100000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
 ABLATE = (100000, 20.0, 0.05)
 WPACK_ABLATE = (100000, 20.0, 0.05)
 GATHER = (65536, 512, 384)
+# A phase-1 case off the main path whose library call is timed on the
+# device too (its ``on_path`` entry).
+LIBRARY_TOO = "library device ms"
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory, and TF32 on
 # the tensor cores, dense (the floor of the block kernels' 3xTF32 products:
 # three products for each of the blocks' dense flops).
@@ -290,6 +300,7 @@ def phase_kernels() -> dict:
         VARIANTS, spmv_ablate, spmv_ablate_plain)
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
+    from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
     from spgrid_torch.ops.kernels.wcoo_spmm import (
@@ -298,7 +309,7 @@ def phase_kernels() -> dict:
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
-    from spgrid_torch.ops.kernels.slot_rows import walk_shape
+    from spgrid_torch.ops.kernels.slot_rows import row_stream, walk_shape
     from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
         DeviceWPACK, wpack_spmv, wpack_spmv_plain)
@@ -378,9 +389,23 @@ def phase_kernels() -> dict:
             bsr_grid(a, n), 2.0 * a.num_blocks * a.bm * a.bk * n,
             at_cluster if sweep else None))
 
-    def panel_case(csr, n, seed):
+    def panel_case(csr, n, seed, sweep=False):
         a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
-        return spmm_case(panel_spmm, panel_spmm_plain, a, csr, n, seed)
+        case = spmm_case(panel_spmm, panel_spmm_plain, a, csr, n, seed)
+        x = case[2][1]
+        y = torch.empty((a.shape[0], n), device=DEVICE)
+
+        def at_cluster(c):
+            _build.check(_build.library().spgrid_panel_spmm(
+                a.counts.data_ptr(), a.block_cols.data_ptr(),
+                a.panels.data_ptr(), x.data_ptr(), y.data_ptr(), a.bands,
+                a.max_p, a.band_rows, a.bk, *a.shape, n, c,
+                torch.cuda.current_stream().cuda_stream), "panel_spmm")
+
+        note = block_note(panel_grid(a, n),
+                          2.0 * a.num_panels * a.band_rows * a.bk * n,
+                          at_cluster if sweep else None)
+        return case + (REL_TOL, f"R={a.band_rows} bands={a.bands} {note}")
 
     def sddmm_case(m, bm, d, seed, sweep=False):
         # reads Q, K and the mask's column indices; writes one value a
@@ -510,12 +535,30 @@ def phase_kernels() -> dict:
         return spmv_case(wcoo_spmv, wcoo_spmv_plain, a, csr, seed,
                          a.cols.element_size())
 
+    # WROW v1 reads the row-ordered stream, a CTA a 128-row target block.
+    def row_stream_s(a):
+        """Host seconds of the row stream's build alone: ``row_stream`` on
+        the layout's piece-ordered stream, as ``from_arrays`` calls it."""
+        block = torch.repeat_interleave(
+            torch.arange(a.blocks), torch.diff(a.block_slot.cpu().long()))
+        rows = (block * 128 + (a.slot_rows.cpu().long() & 127)).numpy()
+        cols, vals = a.slot_cols.cpu().numpy(), a.slot_vals.cpu().numpy()
+        t0 = time.perf_counter()
+        row_stream(rows, cols, vals, *a.shape)
+        return time.perf_counter() - t0
+
     def wrow_case(csr, seed):
-        a = DeviceWROW.from_csr(csr, device=DEVICE)
+        a, layout_s = timed_layout(DeviceWROW, csr)
         layout_line("wrow", csr, a, "groups of 8 pieces of 128 slots",
                     a.num_groups)
+        note = (f"row_stream_bytes={a.row_nbytes} padded_bytes="
+                f"{nbytes(a.values, a.cols, a.piece_w, a.block_ptr)} "
+                f"live_slots={a.num_slots} grid={a.blocks} CTAs of 128 rows "
+                f"layout_build_s={layout_s:.3f} (host: pieces, both streams, "
+                f"copy to the card; the row stream alone "
+                f"{row_stream_s(a):.3f})")
         return spmv_case(wrow_spmv, wrow_spmv_plain, a, csr, seed,
-                         a.cols.element_size())
+                         a.cols.element_size()) + (REL_TOL, note)
 
     # The probe kernels. A gather needs each gathered element or row read
     # once (at most the index's count, distinct rows for dma_gather), the
@@ -604,7 +647,7 @@ def phase_kernels() -> dict:
         ("bsr_spmm", "4096^2 50% bm=128 n=512", False,
          lambda: bsr_case(big, 128, 512, 4)),
         ("panel_spmm", "headline 512^2 n=512", True,
-         lambda: panel_case(head, 512, 1)),
+         lambda: panel_case(head, 512, 1, sweep=True)),
         ("panel_spmm", "banded 1000^2 empty rows n=200", False,
          lambda: panel_case(banded, 200, 3)),
         ("panel_spmm", "4096^2 50% n=512", False,
@@ -635,6 +678,8 @@ def phase_kernels() -> dict:
          lambda: wrow_case(hyper, 10)),
         ("wrow_spmv", f"{edge_label} n=1", False,
          lambda: wrow_case(edge, 11)),
+        ("wrow_spmv", f"{s_label} n=1", LIBRARY_TOO,
+         lambda: wrow_case(line_s, 14)),
         ("wcoo_spmv", f"{hyper_label} n=1", True,
          lambda: wcoo_spmv_case(hyper, 10)),
         ("wcoo_spmv", f"{edge_label} n=1", False,
@@ -670,6 +715,9 @@ def phase_kernels() -> dict:
                    functools.partial(wpack_case, csr, seed)),
                   ("wrow_spmv_v2", f"{label} n=1", False,
                    functools.partial(wrow_v2_case, csr, seed))]
+        if csr is not hyper:       # v1's MAIN_LINE case is above
+            cases.append(("wrow_spmv", f"{label} n=1", False,
+                          functools.partial(wrow_case, csr, seed)))
     for i, (form, src, idx, axis) in enumerate(
             forms(np.random.default_rng(0))):
         cases.append(("lanegather", form, i == 0,
@@ -735,7 +783,7 @@ def phase_kernels() -> dict:
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")
-        if on_path:
+        if on_path is True:
             main_path[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by,
                                "library_ms": lib_ms}

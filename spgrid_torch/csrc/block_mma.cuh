@@ -1,4 +1,5 @@
-// The 3xTF32 tensor-core tile that bsr_spmm.cu and sddmm.cu share.
+// The 3xTF32 tensor-core tile that bsr_spmm.cu, panel_spmm.cu and sddmm.cu
+// share.
 //
 // A CTA of two warpgroups owns a ROWS x NT (128 x 64) output tile and
 // computes a range of its contraction in steps of TK = 32: each step's A
@@ -6,9 +7,10 @@
 // layout its operand has in device memory) come in by cp.async through a
 // ring of STAGES steps, B is split once a step into TF32 hi and lo K-major
 // core matrices, and each warpgroup multiplies its 64 rows with wgmma
-// m64n64k8, A in registers, split there. A step's products go to fresh
-// accumulators that are then added to the running f32 sum: the tensor
-// cores truncate their accumulate.
+// m64n64k8, A in registers, split there (`split_nmajor` and `multiply` of
+// tf32x3.cuh, which bsr_spmm_cstat.cu runs at NT = 64 and 128). A step's
+// products go to fresh accumulators that are then added to the running f32
+// sum: the tensor cores truncate their accumulate.
 //
 // A tile's contraction may be split across a thread-block cluster of up to
 // CLUSTER_MAX CTAs, rank r taking steps [S r / C, S (r + 1) / C) of the
@@ -34,11 +36,9 @@ namespace cg = cooperative_groups;
 
 constexpr int ROWS = 128;       // tile rows, two warpgroups of 64
 constexpr int NT = 64;          // tile columns
-constexpr int THREADS = 256;
 constexpr int STAGES = 3;       // steps in the ring: two CTAs an SM
 constexpr int CLUSTER_MAX = 8;  // the portable cluster size
-constexpr int A_LD = TK + 4;    // row stride of a step's A slice
-constexpr int X_LD = NT + 8;    // row stride of a B slice staged N-major
+constexpr int X_LD = n_major_ld<NT>;  // row stride of a B slice, N-major
 constexpr int A_FLOATS = ROWS * A_LD;
 // A step's B slice: NT rows of A_LD (K-major) or TK rows of X_LD (N-major).
 constexpr int B_FLOATS = NT * A_LD;
@@ -52,20 +52,6 @@ static_assert(ROWS * RED_LD <= STAGES * STAGE_FLOATS,
               "the partial tile fits in the ring");
 constexpr size_t SMEM_BYTES =
     sizeof(float) * (2 * SB_FLOATS + STAGES * STAGE_FLOATS);
-
-// Coordinates of a thread: warpgroup wg owns rows 64 wg .. + 63 of the
-// tile, its warp w rows 16 w .. + 15 of those (g = lane / 4, q = lane % 4).
-// Accumulator 4 j + 2 h + c holds row 64 wg + 16 w + 8 h + g, column 8 j +
-// 2 q + c, as wgmma's m64nNk8 f32 fragment lays them out; the A fragment
-// holds rows + g, + g + 8 and columns q, q + 4 of each 8.
-struct Frag {
-  int wg, w, g, q;
-};
-
-__device__ __forceinline__ Frag frag() {
-  const int t = threadIdx.x;
-  return Frag{t / 128, t / 32 % 4, t % 32 / 4, t % 4};
-}
 
 // dst[i][c] (row stride A_LD) = src[i * ld + c] for i < nrows and c <
 // depth, 0 elsewhere, for i < fill rows: 16-byte copies where `vec` (src
@@ -131,16 +117,6 @@ __device__ __forceinline__ void stage_nmajor(float* dst,
   }
 }
 
-__device__ __forceinline__ void store_split(float* sb, int off,
-                                            const float (&v)[4]) {
-  uint32_t hi[4], lo[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) split(v[u], hi[u], lo[u]);
-  *reinterpret_cast<uint4*>(sb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-  *reinterpret_cast<uint4*>(sb + SB_FLOATS + off) =
-      make_uint4(lo[0], lo[1], lo[2], lo[3]);
-}
-
 // A B slice staged K-major (NT rows of depth, stride A_LD) split into core
 // matrices: a core-matrix row is 4 neighbouring depths, one float4.
 __device__ __forceinline__ void split_kmajor(const float* __restrict__ bs,
@@ -152,74 +128,7 @@ __device__ __forceinline__ void split_kmajor(const float* __restrict__ bs,
     const float4 v =
         *reinterpret_cast<const float4*>(bs + (8 * grp + r) * A_LD + 4 * k4);
     const float w[4] = {v.x, v.y, v.z, v.w};
-    store_split(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
-  }
-}
-
-// A B slice staged N-major (TK rows of NT columns, stride X_LD), split and
-// transposed into core matrices. Eight neighbouring threads read 8
-// neighbouring columns and write one 128-byte core matrix.
-__device__ __forceinline__ void split_nmajor(const float* __restrict__ bs,
-                                             float* __restrict__ sb) {
-  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
-    const int r = e % 8;
-    const int grp = e / 8 % (NT / 8);
-    const int k4 = e / NT;
-    const float* p = bs + 4 * k4 * X_LD + 8 * grp + r;
-    const float w[4] = {p[0], p[X_LD], p[2 * X_LD], p[3 * X_LD]};
-    store_split(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
-  }
-}
-
-// acc += the warpgroup's 64 rows of the step's A slice times its split B:
-// for each 8 depths, A_lo B_hi, A_hi B_lo, then A_hi B_hi, one wgmma group.
-// The A fragments of two groups are live at a time: a group's are
-// rewritten only after the group two before has completed. The step's 12
-// products go to fresh accumulators, whose sum is added to acc on the CUDA
-// cores, rounding to nearest.
-__device__ __forceinline__ void multiply(float (&acc)[NT / 2],
-                                         const float* __restrict__ as,
-                                         const float* __restrict__ sb,
-                                         const Frag& f) {
-  const float* p = as + (64 * f.wg + 16 * f.w + f.g) * A_LD + f.q;
-  const uint64_t b_hi = descriptor(sb);
-  const uint64_t b_lo = descriptor(sb + SB_FLOATS);
-  uint32_t ah[2][4], al[2][4];
-  float d[NT / 2];
-#pragma unroll
-  for (int s = 0; s < TK / 8; ++s) {
-    const int b = s % 2;
-    if (s >= 2) {
-      wgmma_wait<1>();  // group s - 2 has read ah[b], al[b]
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        fence_operand(ah[b][e]);
-        fence_operand(al[b][e]);
-      }
-    }
-    split(p[8 * s], ah[b][0], al[b][0]);
-    split(p[8 * A_LD + 8 * s], ah[b][1], al[b][1]);
-    split(p[8 * s + 4], ah[b][2], al[b][2]);
-    split(p[8 * A_LD + 8 * s + 4], ah[b][3], al[b][3]);
-    wgmma_fence();
-    const uint64_t next = 2 * 128 / 16 * s;  // two core matrices on, >> 4
-    wgmma_tf32(d, al[b], b_hi + next, s > 0);
-    wgmma_tf32(d, ah[b], b_lo + next, 1);
-    wgmma_tf32(d, ah[b], b_hi + next, 1);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int b = 0; b < 2; ++b)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      fence_operand(ah[b][e]);
-      fence_operand(al[b][e]);
-    }
-#pragma unroll
-  for (int e = 0; e < NT / 2; ++e) {
-    fence_operand(d[e]);
-    acc[e] += d[e];
+    store_split<NT>(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
   }
 }
 
@@ -248,7 +157,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[NT / 2], float* ring,
     split_b(as + A_FLOATS, sb);
     fence_proxy_async();
     __syncthreads();  // the split B slice is in place
-    if (64 * f.wg < rows) multiply(acc, as, sb, f);
+    if (64 * f.wg < rows) multiply<NT>(acc, as, sb, f);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for the partial tile
@@ -294,6 +203,93 @@ __device__ __forceinline__ void reduce_store(const float (&acc)[NT / 2],
     store(i, j, v);
   }
   cluster.sync();  // no rank leaves while another reads its tile
+}
+
+// A tile of a row-tiled product (bsr_spmm.cu, panel_spmm.cu): row of
+// blocks r, its rows i0 .. i0 + 127, X's columns n0 .. n0 + NT - 1; the
+// tiles run along X's columns first, then a row's slices, then the rows,
+// each on the `cluster` CTAs of one cluster.
+struct RowTile {
+  int r, i0, n0;
+};
+
+__device__ __forceinline__ RowTile row_tile(int slices, int col_tiles) {
+  const int tile =
+      blockIdx.x / static_cast<int>(cg::this_cluster().num_blocks());
+  return RowTile{tile / col_tiles / slices,
+                 tile / col_tiles % slices * ROWS, tile % col_tiles * NT};
+}
+
+// The tiles of a row-tiled launch: rows of blocks x 128-row slices of a
+// block's bm rows x 64-column tiles of n.
+long long row_tiles(int rows_of_blocks, int bm, int n) {
+  return static_cast<long long>(rows_of_blocks) * ((bm + ROWS - 1) / ROWS) *
+         ((n + NT - 1) / NT);
+}
+
+// This CTA's share of row tile t of Y = A @ X, A's row t.r made of the
+// (bm, bk) blocks begin .. end - 1 of `blocks`, block b at block column
+// cols[b]:
+//   Y[t.r bm + t.i0 + i, t.n0 + j] =
+//       sum_b blocks[b][t.i0 + i, :] . X[cols[b] bk + :, t.n0 + j].
+// The tile's steps (its blocks times TK of each block's bk columns) are
+// split across the cluster, rank r taking [S r / C, S (r + 1) / C); a step
+// stages the block's (rows x 32) slice and X's (32 x 64) slice (N-major in
+// device memory, split into K-major core matrices). Every element of the
+// tile inside the block's rows and inside Y (row < m, column < n) is
+// written once, zeros included (a row with no block writes zeros); X rows
+// >= k read as zero. Blocks and X are staged by 16-byte cp.async where
+// `a16` (bk % 4 == 0, blocks on 16 B) and `x16` (n % 4 == 0, X on 16 B),
+// else by 4-byte copies; `y16` (n % 4 == 0, Y on 16 B) stores float4s.
+__device__ __forceinline__ void row_tile_spmm(
+    const RowTile& t, int begin, int end, const int* __restrict__ cols,
+    const float* __restrict__ blocks, const float* __restrict__ x,
+    float* __restrict__ y, int bm, int bk, int m, int k, int n, bool a16,
+    bool x16, bool y16) {
+  extern __shared__ float4 smem4[];
+  float* sb = reinterpret_cast<float*>(smem4);  // split X slice
+  float* ring = sb + 2 * SB_FLOATS;
+  const Frag f = frag();
+  const int ranks = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int rows = min(ROWS, bm - t.i0);
+  const int ncols = min(NT, n - t.n0);
+  const int nq = (bk + TK - 1) / TK;  // steps a block
+  const long long total = static_cast<long long>(end - begin) * nq;
+  const long long s0 = total * rank / ranks;
+  const int steps = static_cast<int>(total * (rank + 1) / ranks - s0);
+
+  auto issue = [&](int it, float* as) {
+    const long long s = s0 + it;
+    const int b = begin + static_cast<int>(s / nq);
+    const int k0 = static_cast<int>(s % nq) * TK;
+    const long long xr0 = static_cast<long long>(cols[b]) * bk + k0;
+    const long long x_left = static_cast<long long>(k) - xr0;
+    const int depth = min(TK, bk - k0);
+    const int x_depth = x_left < depth ? static_cast<int>(max(x_left, 0LL))
+                                       : depth;
+    stage_kmajor(as, blocks + (static_cast<size_t>(b) * bm + t.i0) * bk + k0,
+                 bk, rows, depth, rows > 64 ? ROWS : 64, a16);
+    stage_nmajor(as + A_FLOATS, x + static_cast<size_t>(xr0) * n + t.n0, n,
+                 x_depth, ncols, x16);
+  };
+  float acc[NT / 2] = {};
+  mainloop(acc, ring, sb, steps, rows, f, issue,
+           [](const float* xs, float* to) { split_nmajor<NT>(xs, to); });
+
+  const long long row0 = static_cast<long long>(t.r) * bm + t.i0;
+  const int out_rows = static_cast<int>(
+      min(static_cast<long long>(rows), static_cast<long long>(m) - row0));
+  reduce_store(acc, ring, out_rows, ncols, f,
+               [&](int i, int j, const float4& v) {
+                 float* p = y + static_cast<size_t>(row0 + i) * n + t.n0 + j;
+                 if (y16) {  // ncols % 4 == 0
+                   *reinterpret_cast<float4*>(p) = v;
+                   return;
+                 }
+                 const float w[4] = {v.x, v.y, v.z, v.w};
+                 for (int c = 0; c < 4 && j + c < ncols; ++c) p[c] = w[c];
+               });
 }
 
 bool aligned16(const void* p) {

@@ -48,7 +48,9 @@
 //   element of the slice is written once, zeros included (an empty band or
 //   slice writes zeros); rows >= m and columns >= n are never written, and X
 //   rows >= k read as zero. The tensor cores' f32 accumulate truncates, so
-//   a step's products go to fresh accumulators (see multiply).
+//   a step's products go to fresh accumulators (see `multiply` in
+//   tf32x3.cuh, the step that block_mma.cuh's tile runs at NT = 64; the X
+//   slice's split is its `split_nmajor`).
 // - Asynchronous staging. A step is TK = 32 columns of one block and the
 //   matching 32 x NT X slice; a ring of 4 steps at NT = 128 (175 KB with the
 //   split X slice, one CTA an SM) or 3 at NT = 64 (99 KB, two CTAs an SM),
@@ -72,14 +74,12 @@
 namespace {
 
 constexpr int BM_MAX = 128;    // rows of a block (and of a row slice)
-constexpr int THREADS = 256;   // 2 warpgroups, 64 rows each
-constexpr int A_LD = TK + 4;   // row stride of a step's block slice
 constexpr int A_FLOATS = BM_MAX * A_LD;
 
 // What depends on the column tile NT (64 or 128, see spgrid_bsr_spmm_cstat).
 template <int NT>
 struct Tile {
-  static constexpr int X_LD = NT + 8;  // row stride of a step's X slice
+  static constexpr int X_LD = n_major_ld<NT>;  // row stride of an X slice
   static constexpr int S_LD = NT + 8;  // row stride of the slab
   static constexpr int STAGE_FLOATS = A_FLOATS + TK * X_LD;
   // A step's split X slice, X_hi then X_lo, K-major in 8 x 16-byte core
@@ -103,92 +103,6 @@ __device__ __forceinline__ int next_slot(const int* __restrict__ lrows, int s,
     if (mask != 0) return s + __ffs(mask) - 1;
   }
   return end;
-}
-
-// Coordinates of a thread: warpgroup wg owns rows 64 wg .. + 63 of the
-// tile, its warp w rows 16 w .. + 15 of those (g = lane / 4, q = lane % 4).
-// Accumulator 4 j + 2 h + c holds row 64 wg + 16 w + 8 h + g, column 8 j +
-// 2 q + c, as wgmma's m64nNk8 f32 fragment lays them out; the A fragment
-// holds rows + g, + g + 8 and columns q, q + 4 of each 8.
-struct Frag {
-  int wg, w, g, q;
-};
-
-// The step's X slice, split once into X_hi and X_lo core matrices. Eight
-// neighbouring threads read 8 neighbouring columns of X and write one
-// 128-byte core matrix.
-template <int NT>
-__device__ __forceinline__ void split_x(const float* __restrict__ xs,
-                                        float* __restrict__ sb) {
-  using T = Tile<NT>;
-  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
-    const int r = e % 8;
-    const int grp = e / 8 % (NT / 8);
-    const int k4 = e / NT;
-    const float* p = xs + 4 * k4 * T::X_LD + 8 * grp + r;
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) split(p[u * T::X_LD], hi[u], lo[u]);
-    const int off = ((grp * (TK / 4) + k4) * 8 + r) * 4;
-    *reinterpret_cast<uint4*>(sb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(sb + T::SB_FLOATS + off) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-// acc += the warpgroup's 64 rows of the step's block slice times its X
-// slice: for each 8 columns, A_lo X_hi, A_hi X_lo, then A_hi X_hi, one
-// wgmma group. The A fragments of two groups are live at a time: a group's
-// are rewritten only after the group two before has completed. The tensor
-// cores' f32 accumulate truncates, so a long chain of products on one
-// accumulator drifts low; the step's 12 products go to fresh accumulators,
-// and the step's sum is added to acc on the CUDA cores, rounding to
-// nearest.
-template <int NT>
-__device__ __forceinline__ void multiply(float (&acc)[Tile<NT>::ACC],
-                                         const float* __restrict__ as,
-                                         const float* __restrict__ sb,
-                                         const Frag& f) {
-  const float* p = as + (64 * f.wg + 16 * f.w + f.g) * A_LD + f.q;
-  const uint64_t b_hi = descriptor(sb);
-  const uint64_t b_lo = descriptor(sb + Tile<NT>::SB_FLOATS);
-  uint32_t ah[2][4], al[2][4];
-  float d[Tile<NT>::ACC];
-#pragma unroll
-  for (int s = 0; s < TK / 8; ++s) {
-    const int b = s % 2;
-    if (s >= 2) {
-      wgmma_wait<1>();  // group s - 2 has read ah[b], al[b]
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        fence_operand(ah[b][e]);
-        fence_operand(al[b][e]);
-      }
-    }
-    split(p[8 * s], ah[b][0], al[b][0]);
-    split(p[8 * A_LD + 8 * s], ah[b][1], al[b][1]);
-    split(p[8 * s + 4], ah[b][2], al[b][2]);
-    split(p[8 * A_LD + 8 * s + 4], ah[b][3], al[b][3]);
-    wgmma_fence();
-    const uint64_t next = 2 * 128 / 16 * s;  // two core matrices on, >> 4
-    wgmma_tf32(d, al[b], b_hi + next, s > 0);
-    wgmma_tf32(d, ah[b], b_lo + next, 1);
-    wgmma_tf32(d, ah[b], b_hi + next, 1);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int b = 0; b < 2; ++b)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      fence_operand(ah[b][e]);
-      fence_operand(al[b][e]);
-    }
-#pragma unroll
-  for (int e = 0; e < Tile<NT>::ACC; ++e) {
-    fence_operand(d[e]);
-    acc[e] += d[e];
-  }
 }
 
 // slab rows window * bm + r (r < bm) get the accumulators (added, or stored
@@ -237,7 +151,7 @@ bsr_spmm_cstat_kernel(const int* __restrict__ counts,
   const int n0 = blockIdx.y * NT;
   const int ncols = min(NT, n - n0);
   const int t = threadIdx.x;
-  const Frag f{t / 128, t / 32 % 4, t % 32 / 4, t % 4};
+  const Frag f = frag();
   const int rows_used = min(BM_MAX, (bm + 63) / 64 * 64);  // rows wgmma reads
   const int nq = (bk + TK - 1) / TK;                        // steps a block
   const int end = band * max_nb + counts[band];
@@ -338,7 +252,7 @@ bsr_spmm_cstat_kernel(const int* __restrict__ counts,
       window = w;
     }
     const float* as = ring + stage * T::STAGE_FLOATS;
-    split_x<NT>(as + A_FLOATS, sb);
+    split_nmajor<NT>(as + A_FLOATS, sb);
     fence_proxy_async();
     __syncthreads();  // the split X slice is in place
     if (64 * f.wg < bm) multiply<NT>(acc, as, sb, f);

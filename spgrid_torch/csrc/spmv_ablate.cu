@@ -26,10 +26,12 @@
 // kernel that reads every slot cannot beat ~22 us, and the values alone
 // (58.3 MB) take ~17 us: the floor of "empty".
 //
-// Design: v1's own (csrc/wrow_spmv.cu): one CTA of 128 threads per 128-row
-// target block, thread t for lane t, the block's groups walked in order and
-// the sum kept in a register; the variant is a template parameter, so each
-// variant is v1 with one stage compiled out. On this design what each
+// Design: v1's padded walk (which csrc/wrow_spmv.cu ran before it moved to
+// the row-ordered live-slot stream, summing each row in the same order, so
+// "full" still gives its bits): one CTA of 128 threads per 128-row target
+// block, thread t for lane t, the block's groups walked in order and the
+// sum kept in a register; the variant is a template parameter, so each
+// variant is that walk with one stage compiled out. On this design what each
 // variant removes is: nogather the scattered access within a window, noload
 // the x traffic (its 1,024 entries stay in L1), normw only the final write
 // (v1 has no per-group read-modify-write: a control), empty everything but

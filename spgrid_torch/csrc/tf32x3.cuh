@@ -1,8 +1,10 @@
 // The 3xTF32 tensor-core helpers that the block kernels share
-// (bsr_spmm_cstat.cu, bsr_spmm.cu, sddmm.cu): cp.async staging, the TF32
-// split v = hi + lo (both rounded by cvt.rna.tf32.f32), and wgmma m64nNk8
-// with tf32 operands, A in registers and B K-major in shared memory in
-// 8 x 16-byte core matrices without swizzle.
+// (bsr_spmm_cstat.cu, and bsr_spmm.cu, panel_spmm.cu and sddmm.cu through
+// block_mma.cuh): cp.async staging, the TF32 split v = hi + lo (both
+// rounded by cvt.rna.tf32.f32), wgmma m64nNk8 with tf32 operands, A in
+// registers and B K-major in shared memory in 8 x 16-byte core matrices
+// without swizzle, and the step of a tile NT columns wide (NT = 64 or 128)
+// that both tiles run: B's N-major split and the warpgroups' multiply.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +14,8 @@
 namespace {
 
 constexpr int TK = 32;  // contraction depth a step
+constexpr int THREADS = 256;  // two warpgroups, 64 rows each
+constexpr int A_LD = TK + 4;  // row stride of a step's A slice
 constexpr unsigned LBO_BYTES = 128;           // core matrices along K
 constexpr unsigned SBO_BYTES = TK / 4 * 128;  // along N, 8 columns on
 
@@ -143,6 +147,110 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
       : "memory");
+}
+
+// Row stride of a B slice staged N-major, NT columns wide.
+template <int NT>
+constexpr int n_major_ld = NT + 8;
+
+// Coordinates of a thread: warpgroup wg owns rows 64 wg .. + 63 of the
+// tile, its warp w rows 16 w .. + 15 of those (g = lane / 4, q = lane % 4).
+// Accumulator 4 j + 2 h + c holds row 64 wg + 16 w + 8 h + g, column 8 j +
+// 2 q + c, as wgmma's m64nNk8 f32 fragment lays them out; the A fragment
+// holds rows + g, + g + 8 and columns q, q + 4 of each 8.
+struct Frag {
+  int wg, w, g, q;
+};
+
+__device__ __forceinline__ Frag frag() {
+  const int t = threadIdx.x;
+  return Frag{t / 128, t / 32 % 4, t % 32 / 4, t % 4};
+}
+
+// A step's split B, B_hi then B_lo (NT * TK floats each), K-major in 8 x
+// 16-byte core matrices: [NT / 8 column groups][TK / 4][8][4 depths]. One
+// core-matrix row, 4 depths of one column, goes to `off`.
+template <int NT>
+__device__ __forceinline__ void store_split(float* sb, int off,
+                                            const float (&v)[4]) {
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) split(v[u], hi[u], lo[u]);
+  *reinterpret_cast<uint4*>(sb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(sb + NT * TK + off) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// A B slice staged N-major (TK rows of NT columns, stride n_major_ld<NT>),
+// split and transposed into core matrices. Eight neighbouring threads read
+// 8 neighbouring columns and write one 128-byte core matrix.
+template <int NT>
+__device__ __forceinline__ void split_nmajor(const float* __restrict__ bs,
+                                             float* __restrict__ sb) {
+  constexpr int LD = n_major_ld<NT>;
+  for (int e = threadIdx.x; e < NT * (TK / 4); e += THREADS) {
+    const int r = e % 8;
+    const int grp = e / 8 % (NT / 8);
+    const int k4 = e / NT;
+    const float* p = bs + 4 * k4 * LD + 8 * grp + r;
+    const float w[4] = {p[0], p[LD], p[2 * LD], p[3 * LD]};
+    store_split<NT>(sb, ((grp * (TK / 4) + k4) * 8 + r) * 4, w);
+  }
+}
+
+// acc += the warpgroup's 64 rows of the step's A slice (row stride A_LD)
+// times its split B: for each 8 depths, A_lo B_hi, A_hi B_lo, then A_hi
+// B_hi, one wgmma group. The A fragments of two groups are live at a time:
+// a group's are rewritten only after the group two before has completed.
+// The tensor cores' f32 accumulate truncates, so a long chain of products
+// on one accumulator drifts low: the step's 12 products go to fresh
+// accumulators, whose sum is added to acc on the CUDA cores, rounding to
+// nearest.
+template <int NT>
+__device__ __forceinline__ void multiply(float (&acc)[NT / 2],
+                                         const float* __restrict__ as,
+                                         const float* __restrict__ sb,
+                                         const Frag& f) {
+  const float* p = as + (64 * f.wg + 16 * f.w + f.g) * A_LD + f.q;
+  const uint64_t b_hi = descriptor(sb);
+  const uint64_t b_lo = descriptor(sb + NT * TK);
+  uint32_t ah[2][4], al[2][4];
+  float d[NT / 2];
+#pragma unroll
+  for (int s = 0; s < TK / 8; ++s) {
+    const int b = s % 2;
+    if (s >= 2) {
+      wgmma_wait<1>();  // group s - 2 has read ah[b], al[b]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(ah[b][e]);
+        fence_operand(al[b][e]);
+      }
+    }
+    split(p[8 * s], ah[b][0], al[b][0]);
+    split(p[8 * A_LD + 8 * s], ah[b][1], al[b][1]);
+    split(p[8 * s + 4], ah[b][2], al[b][2]);
+    split(p[8 * A_LD + 8 * s + 4], ah[b][3], al[b][3]);
+    wgmma_fence();
+    const uint64_t next = 2 * 128 / 16 * s;  // two core matrices on, >> 4
+    wgmma_tf32(d, al[b], b_hi + next, s > 0);
+    wgmma_tf32(d, ah[b], b_lo + next, 1);
+    wgmma_tf32(d, ah[b], b_hi + next, 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(ah[b][e]);
+      fence_operand(al[b][e]);
+    }
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) {
+    fence_operand(d[e]);
+    acc[e] += d[e];
+  }
 }
 
 }  // namespace

@@ -40,19 +40,22 @@ SIGNATURES = {
     # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, cluster (0: the
     # launch rule), stream
     "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
-    # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n, stream
-    "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n,
+    # cluster (0: the launch rule), stream
+    "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
-    # mb, bm, n (SpMM) or nb, bm, bk (SDDMM), out (int[6]: tiles, cluster,
-    # tile rows, tile columns, step, ring stages)
+    # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk
+    # (SDDMM), out (int[6]: tiles, cluster, tile rows, tile columns, step,
+    # ring stages)
     "spgrid_bsr_spmm_shape": [_INT] * 3 + [_PTR],
+    "spgrid_panel_spmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    # block_ptr, piece_w, cols, vals, x, y, blocks, m, k, stream
-    "spgrid_wrow_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # row_slot, vals, cols, x, y, blocks, m, stream
+    "spgrid_wrow_spmv": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     # block_ptr, g_sw, cols, vals, x, y, blocks, m, k, stream
     "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
     # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,

@@ -1,6 +1,6 @@
 """The launch shape of the block kernels' shared tensor-core tile.
 
-``bsr_spmm`` and ``bsr_sddmm`` run on the tile of
+``bsr_spmm``, ``panel_spmm`` and ``bsr_sddmm`` run on the tile of
 ``spgrid_torch/csrc/block_mma.cuh``: a CTA of two warpgroups owns a tile of
 outputs and multiplies in 3xTF32 on the tensor cores, a step of the
 contraction at a time, through a ``cp.async`` ring. Where the grid of tiles

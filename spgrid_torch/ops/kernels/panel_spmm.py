@@ -3,6 +3,13 @@
 Counterpart of ``spgrid/ops/pallas/panel_spmm.py``; the CUDA kernel is
 ``spgrid_torch/csrc/panel_spmm.cu``. ``panel_spmm`` launches it for CUDA
 tensors and takes ``panel_spmm_plain`` only for CPU tensors.
+
+The kernel runs the tensor-core tile of ``csrc/block_mma.cuh`` as
+``bsr_spmm`` does, a band being a row of blocks whose blocks are its panel
+slots: one tile a (band, 128-row slice of it, 64 columns of X), its
+contraction (the band's real panels, 32 columns a step) split across a
+cluster where the tiles alone would leave the card idle (``launch_grid``
+reports the launch).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import round_up
 
 
@@ -108,6 +116,15 @@ def _check(a: DevicePanels, x: torch.Tensor) -> None:
                    counts=(a.counts, torch.int32))
 
 
+def launch_grid(a: DevicePanels, n: int) -> LaunchShape:
+    """The kernel's launch for ``a`` at n columns of X on the card ``a`` lies
+    on, as ``spgrid_panel_spmm`` makes it (the cluster depends on the card's
+    SM count)."""
+    with torch.cuda.device(a.panels.device):
+        return query("spgrid_panel_spmm_shape", "panel_spmm", a.bands,
+                     a.band_rows, n)
+
+
 def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
     """Y (m, n) f32 = A @ X for f32 X (k, n)."""
     _check(a, x)
@@ -126,7 +143,7 @@ def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
         code = lib.spgrid_panel_spmm(
             a.counts.data_ptr(), a.block_cols.data_ptr(),
             a.panels.data_ptr(), x.data_ptr(), y.data_ptr(),
-            a.bands, a.max_p, a.band_rows, a.bk, m, k, n, stream)
+            a.bands, a.max_p, a.band_rows, a.bk, m, k, n, 0, stream)
     _build.check(code, "panel_spmm")
     panel_spmm.launches += 1
     return y

@@ -2,20 +2,26 @@
 
 Counterpart of ``spgrid/ops/pallas/wrow_spmv.py`` (format ``wrow_spmv``).
 Its two variants are two CUDA kernels: v1, the default,
-``spgrid_torch/csrc/wrow_spmv.cu`` (one CTA per target block, reading the
-padded pieces), and v2, ``spgrid_torch/csrc/wrow_spmv_v2.cu``
-(``wrow_spmv_v2``: equal ranges of live slots per CTA, an accumulator
-carried across a range, reading the live-slot stream). ``wrow_spmv`` takes
-x (k,) and returns y (m,), x unpadded. It launches a kernel for CUDA
-tensors and takes ``wrow_spmv_plain`` only for CPU tensors.
+``spgrid_torch/csrc/wrow_spmv.cu`` (one CTA per target block, a thread a
+row, reading the row-ordered live-slot stream), and v2,
+``spgrid_torch/csrc/wrow_spmv_v2.cu`` (``wrow_spmv_v2``: equal ranges of
+live slots per CTA, an accumulator carried across a range, reading the
+piece-ordered live-slot stream). ``wrow_spmv`` takes x (k,) and returns y
+(m,), x unpadded. It launches a kernel for CUDA tensors and takes
+``wrow_spmv_plain`` only for CPU tensors.
 
 A piece is one 128-lane row of slots holding the nnz of one (128-row target
 block, 128-column window, depth), lane = row within the block; a group is
-8 pieces of one target block, and a block's groups are consecutive. The
-live-slot stream (``DeviceWROW.slot_*``, ``ops/kernels/slot_stream.py``)
-keeps, piece by piece, only the slots whose value is not 0 and whose x
-index lies inside x, each with its value, its x index and its row (lane)
-in the block; ``wrow_stream_plain`` is the product over it.
+8 pieces of one target block, and a block's groups are consecutive. Both
+streams keep only the live slots, those whose value is not 0 and whose x
+index lies inside x. v2's (``DeviceWROW.slot_*``,
+``ops/kernels/slot_stream.py``) keeps them piece by piece, each with its
+value, its x index and its row (lane) in the block; ``wrow_stream_plain``
+is the product over it. v1's (``DeviceWROW.row_*``, built by
+``slot_rows.row_stream``) keeps them by output row and, within a row, in
+piece order (the order in which the padded pieces sum the row), each with
+its value and its x index, ``row_slot`` pointing at each row's;
+``wrow_rows_plain`` is the product over it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.slot_rows import row_stream
 from spgrid_torch.ops.kernels.slot_stream import (
     check_stream, launch_stream, live_slot_stream, row_bytes,
     stream_product)
@@ -98,9 +105,10 @@ def csr_to_wrow(csr):
 class DeviceWROW:
     """``csr_to_wrow``'s flat arrays on a torch device, plus ``block_ptr``:
     the groups of target block b are ``block_ptr[b]:block_ptr[b + 1]``,
-    and the live-slot stream that v2 reads. (The JAX layout pads groups to
-    128 and reshapes the metadata into rows of 8 steps for the TPU's scalar
-    memory; the port keeps neither.)"""
+    the live-slot stream that v2 reads and the row-ordered one that v1
+    reads. (The JAX layout pads groups to 128 and reshapes the metadata
+    into rows of 8 steps for the TPU's scalar memory; the port keeps
+    neither.)"""
 
     cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
     values: torch.Tensor      # (P, 128), 0 in pad slots
@@ -113,6 +121,10 @@ class DeviceWROW:
     slot_vals: torch.Tensor   # (S,) value of each live slot
     slot_cols: torch.Tensor   # (S,) int32, x index of each live slot
     slot_rows: torch.Tensor   # (S,) uint8, row (lane) | PIECE_START
+    # the row-ordered stream: the same S slots by row, then piece
+    row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
+    row_vals: torch.Tensor    # (S,) value of each live slot
+    row_cols: torch.Tensor    # (S,) int32, x index of each live slot
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -135,8 +147,15 @@ class DeviceWROW:
             self.block_slot, self.slot_vals, self.slot_cols, self.slot_rows))
 
     @property
+    def row_nbytes(self) -> int:
+        """Bytes of what v1 reads of the layout: the row stream's values, x
+        indices and row pointer."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.row_slot, self.row_vals, self.row_cols))
+
+    @property
     def nbytes(self) -> int:
-        return self.stream_nbytes + sum(
+        return self.stream_nbytes + self.row_nbytes + sum(
             t.numel() * t.element_size() for t in (
                 self.cols, self.values, self.piece_w, self.block_ptr,
                 self.slot_ptr))
@@ -146,8 +165,9 @@ class DeviceWROW:
                     utilization: float, num_groups: int, name: str = "", *,
                     device) -> "DeviceWROW":
         """Flat host arrays → device layout; groups past ``num_groups`` (the
-        JAX layout's padding) are dropped. The live-slot stream is built
-        here, on the host, from the padded pieces."""
+        JAX layout's padding) are dropped. The live-slot streams are built
+        here, on the host, from the padded pieces: the row stream is the
+        piece-ordered one stably sorted by output row."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
@@ -159,6 +179,10 @@ class DeviceWROW:
         piece_w = np.asarray(piece_w).reshape(-1)[:P]
         piece, lane, x_index, slot_ptr, block_slot = live_slot_stream(
             values, cols, piece_w, ptr, shape[1], GROUP_PIECES)
+        slot_vals = values[piece, lane]
+        row_slot, row_vals, row_cols, _ = row_stream(
+            sub[piece // GROUP_PIECES] * LANE + lane, x_index, slot_vals,
+            shape[0], shape[1])
         return cls(cols=to_device(cols, device, np.int8),
                    values=to_device(values, device),
                    piece_w=to_device(piece_w, device, np.int32),
@@ -166,9 +190,12 @@ class DeviceWROW:
                    block_ptr=to_device(ptr, device),
                    slot_ptr=to_device(slot_ptr, device),
                    block_slot=to_device(block_slot, device),
-                   slot_vals=to_device(values[piece, lane], device),
+                   slot_vals=to_device(slot_vals, device),
                    slot_cols=to_device(x_index, device, np.int32),
                    slot_rows=to_device(row_bytes(lane, slot_ptr), device),
+                   row_slot=to_device(row_slot, device),
+                   row_vals=to_device(row_vals, device),
+                   row_cols=to_device(row_cols, device),
                    shape=tuple(shape), nnz=int(nnz),
                    utilization=float(utilization), num_groups=G, name=name)
 
@@ -194,16 +221,20 @@ def _check(kernel: str, a: DeviceWROW, x: torch.Tensor) -> None:
 def wrow_spmv(a: DeviceWROW, x: torch.Tensor,
               variant: str = "v1") -> torch.Tensor:
     """y (m,) f32 = A @ x for f32 x (k,); ``variant`` "v1" (the default) or
-    "v2" (``wrow_spmv_v2``), as the JAX ``wrow_spmv`` takes it."""
+    "v2" (``wrow_spmv_v2``), as the JAX ``wrow_spmv`` takes it. v1's
+    kernel reads the row stream, a thread a row."""
     if variant == "v2":
         return wrow_spmv_v2(a, x)
     if variant != "v1":
         raise ValueError(f"wrow_spmv: variant must be 'v1' or 'v2', got "
                          f"{variant!r}")
     _check("wrow_spmv", a, x)
+    check_operands("wrow_spmv", x.device, row_slot=(a.row_slot, torch.int32),
+                   row_vals=(a.row_vals, torch.float32),
+                   row_cols=(a.row_cols, torch.int32))
     if x.device.type == "cpu":
         return wrow_spmv_plain(a, x)
-    m, k = a.shape
+    m = a.shape[0]
     y = torch.empty((m,), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
@@ -211,8 +242,8 @@ def wrow_spmv(a: DeviceWROW, x: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.spgrid_wrow_spmv(
-            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m, k,
+            a.row_slot.data_ptr(), a.row_vals.data_ptr(),
+            a.row_cols.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m,
             stream)
     _build.check(code, "wrow_spmv")
     wrow_spmv.launches += 1
@@ -242,6 +273,18 @@ def wrow_stream_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
     """The product in plain torch over the live-slot stream, which v2's
     kernel reads, in x's dtype."""
     return stream_product(a, x)
+
+
+def wrow_rows_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
+    """The product in plain torch over the row stream, which v1's kernel
+    reads, in x's dtype: each live slot adds value · x[its x index] to its
+    row (``index_add_``)."""
+    m = a.shape[0]
+    row = torch.repeat_interleave(torch.arange(m, device=x.device),
+                                  torch.diff(a.row_slot.long()))
+    y = torch.zeros((m,), dtype=x.dtype, device=x.device)
+    y.index_add_(0, row, a.row_vals.to(x.dtype) * x[a.row_cols.long()])
+    return y
 
 
 def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:

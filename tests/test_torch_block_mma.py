@@ -1,6 +1,6 @@
 """A numpy emulation of the block kernels' tensor-core tile
-(``spgrid_torch/csrc/block_mma.cuh``, run by ``bsr_spmm`` and ``bsr_sddmm``
-on the card alone), against the f64 product.
+(``spgrid_torch/csrc/block_mma.cuh``, run by ``bsr_spmm``, ``panel_spmm``
+and ``bsr_sddmm`` on the card alone), against the f64 product.
 
 The emulation follows the kernels' work split, with the tile's geometry
 read from the headers: the grid of 128 x 64 tiles and a cluster of 1, 2, 4
@@ -22,11 +22,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from spgrid_torch.bench.headline import headline_matrix
 from spgrid_torch.entry import flagship_csrs
 from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
 from spgrid_torch.gen import create_mask
+from spgrid_torch.ops.kernels.panel_spmm import DevicePanels
 from spgrid_torch.ops.layouts import DeviceBSR
 
 CSRC = Path(__file__).resolve().parents[1] / "spgrid_torch" / "csrc"
@@ -119,26 +121,26 @@ def store_units(rows, ncols, cluster):
             np.concatenate([j for _, j in out]))
 
 
-def emulate_bsr_spmm(a: DeviceBSR, x: np.ndarray, cluster: int):
-    """(Y, write counts) as the kernel computes them."""
-    m, k = a.shape
-    n = x.shape[1]
-    bm, bk = a.bm, a.bk
-    row_ptr, cols = a.row_ptr.numpy(), a.block_cols.numpy()
-    blocks = a.blocks.numpy()
+def emulate_row_tiles(blocks, cols, ranges, m, x, cluster):
+    """(Y, write counts) of a row-tiled launch (``row_tile_spmm``) as the
+    kernel computes them: row of blocks r is made of the (bm, bk) blocks
+    ``ranges[r][0] .. ranges[r][1] - 1`` of ``blocks``, block b at block
+    column ``cols[b]``; X rows past k read as zeros."""
+    k, n = x.shape
+    _, bm, bk = blocks.shape
     slices, col_tiles, nq = cdiv(bm, ROWS), cdiv(n, NT), cdiv(bk, TK)
     xp = np.zeros((max(k, (cols.max(initial=0) + 1) * bk), n), np.float32)
     xp[:k] = x
     y = np.full((m, n), np.nan, np.float32)
     writes = np.zeros((m, n), np.int64)
     sums = {}
-    for tile in range(a.mb * slices * col_tiles):
+    for tile in range(len(ranges) * slices * col_tiles):
         n0 = tile % col_tiles * NT
         i0 = tile // col_tiles % slices * ROWS
         r = tile // col_tiles // slices
         rows = min(ROWS, bm - i0)
         if (r, i0) not in sums:
-            begin = row_ptr[r]
+            begin, end = ranges[r]
 
             def a_step(s, begin=begin, i0=i0, rows=rows):
                 b, k0 = begin + s // nq, s % nq * TK
@@ -149,13 +151,32 @@ def emulate_bsr_spmm(a: DeviceBSR, x: np.ndarray, cluster: int):
                 x0 = cols[b] * bk + k0
                 return xp[x0:x0 + min(TK, bk - k0)]
 
-            sums[r, i0] = cluster_sum((row_ptr[r + 1] - begin) * nq,
-                                      cluster, a_step, b_step, (rows, n))
+            sums[r, i0] = cluster_sum((end - begin) * nq, cluster, a_step,
+                                      b_step, (rows, n))
         row0 = r * bm + i0
         i, j = store_units(min(rows, m - row0), min(NT, n - n0), cluster)
         writes[row0 + i, n0 + j] += 1
         y[row0 + i, n0 + j] = sums[r, i0][i, n0 + j]
     return y, writes
+
+
+def emulate_bsr_spmm(a: DeviceBSR, x: np.ndarray, cluster: int):
+    """(Y, write counts) as ``bsr_spmm``'s kernel computes them: block row
+    r's blocks are ``row_ptr[r] .. row_ptr[r + 1] - 1``."""
+    row_ptr = a.row_ptr.numpy()
+    return emulate_row_tiles(a.blocks.numpy(), a.block_cols.numpy(),
+                             list(zip(row_ptr[:-1], row_ptr[1:])),
+                             a.shape[0], x, cluster)
+
+
+def emulate_panel_spmm(a: DevicePanels, x: np.ndarray, cluster: int):
+    """(Y, write counts) as ``panel_spmm``'s kernel computes them: band b's
+    blocks are its real panels, slots ``b max_p .. b max_p + counts[b] -
+    1``; its pad slots are never read."""
+    starts = np.arange(a.bands) * a.max_p
+    return emulate_row_tiles(a.panels.numpy(), a.block_cols.numpy(),
+                             list(zip(starts, starts + a.counts.numpy())),
+                             a.shape[0], x, cluster)
 
 
 def emulate_bsr_sddmm(mask: DeviceBSR, q: np.ndarray, kmat: np.ndarray,
@@ -321,3 +342,51 @@ def test_every_cluster_size_gives_the_product(kernel, cluster):
     else:
         mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14)
         check_sddmm(mask, 200, 70, 200, 200, pad=4, cluster=cluster)
+
+
+def panel_matrix():
+    """2500 x 300, 5 % dense: bands of 2048 rows (the layout's default R)
+    are two, the second ragged; rows 208-311 are empty (an empty band at R =
+    104, a part-empty one at R = 8), and the second band holds no nnz in
+    block column 2, so it has a pad slot (k = 300: three block columns, the
+    last ragged)."""
+    d = positive(random_csr(2500, 300, 0.05, seed=11)).to_dense()
+    d[208:312] = 0.0
+    d[2048:, 256:] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="panel_matrix")
+
+
+# band rows R -> (matrix, band_rows asked of the layout)
+PANELS = {
+    8: (empty_rows_matrix, 8),          # bands of one 8-row slice
+    40: (lambda: positive(random_csr(40, 300, 0.2, seed=12)), 2048),
+    104: (panel_matrix, 104),           # R not a multiple of 64
+    1000: (lambda: positive(random_csr(1000, 300, 0.05, seed=13)), 2048),
+    2048: (panel_matrix, 2048),         # 16 slices of 128
+}
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("R", sorted(PANELS))
+def test_panel_spmm_emulation_gives_the_f64_product(R, cluster):
+    """The panel launch: a band is a row of blocks whose blocks are its
+    real panels; bands of R rows run as slices of 128 (R = 1000: the last
+    of 104 rows; R = 40 and 8: one warpgroup); pad slots, filled with NaN
+    here, are never read; each output element is written once, an empty
+    band's as zeros."""
+    make, band_rows = PANELS[R]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows, device="cpu")
+    assert a.band_rows == R
+    counts = a.counts.numpy()
+    pad = np.arange(a.max_p)[None, :] >= counts[:, None]
+    if R in (104, 2048):
+        assert pad.any()
+    a.panels.view(a.bands, a.max_p, R, -1)[torch.from_numpy(pad)] = np.nan
+    x = operand((csr.k, 70), 5)
+    y, writes = emulate_panel_spmm(a, x, cluster)
+    np.testing.assert_array_equal(writes, 1)
+    d = csr.to_dense().astype(np.float64)
+    ref = d @ x.astype(np.float64)
+    scale = np.abs(d) @ np.abs(x.astype(np.float64))
+    assert relative_to_scale(y, ref, scale) <= 1e-5

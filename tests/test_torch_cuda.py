@@ -137,19 +137,50 @@ def test_bsr_spmm_kernel_4096(cuda):
     assert_close(bsr_spmm(a, x), bsr_spmm_plain(a, x.double()))
 
 
-@pytest.mark.parametrize("case", ["one_band", "bands64", "empty_band"])
-def test_panel_spmm_kernel(cuda, case):
-    csr, band_rows = {
-        "one_band": (positive(random_csr(300, 260, 0.3, seed=2)), 2048),
-        "bands64": (positive(random_csr(200, 150, 0.1, seed=3)), 64),
-        "empty_band": (with_empty_rows(300, 200, 4, slice(64, 128)), 64),
-    }[case]
+def tall_bands():
+    """2500 x 300: two bands of the default R = 2048 (16 row slices each,
+    the second ragged), the second without block column 2 (a pad slot),
+    rows 208-311 empty."""
+    d = positive(random_csr(2500, 300, 0.05, seed=11)).to_dense()
+    d[208:312] = 0.0
+    d[2048:, 256:] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="tall_bands")
+
+
+# the panel kernel on the same tile: R = 300 (three slices, the last of
+# 44 rows), bands of 64 and 104 rows (pad slots, an empty band), R = 40
+# (one warpgroup), R = 2048 (16 slices)
+PANELS = {
+    "one_band": (lambda: positive(random_csr(300, 260, 0.3, seed=2)), 2048),
+    "bands64": (lambda: positive(random_csr(200, 150, 0.1, seed=3)), 64),
+    "empty_band": (lambda: with_empty_rows(300, 200, 4, slice(64, 128)), 64),
+    "r40": (lambda: positive(random_csr(40, 300, 0.2, seed=12)), 2048),
+    "r104": (tall_bands, 104),
+    "r2048": (tall_bands, 2048),
+}
+
+
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 70, 512])
+@pytest.mark.parametrize("case", sorted(PANELS))
+def test_panel_spmm_kernel(cuda, case, n, x_layout):
+    make, band_rows = PANELS[case]
+    csr = make()
     a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows, device=cuda)
-    x = operand((csr.k, 70), 6, cuda)
+    x = (operand if x_layout == "aligned" else misaligned)((csr.k, n), 6,
+                                                           cuda)
     before = launch_counts()["panel_spmm"]
     got = panel_spmm(a, x)
     assert launch_counts()["panel_spmm"] == before + 1
     assert_close(got, panel_spmm_plain(a, x.double()))
+
+
+def test_panel_spmm_kernel_4096(cuda):
+    # the default R = 2048: two bands of 16 slices, 32 panels each
+    csr = positive(random_csr(4096, 4096, 0.05, seed=7))
+    a = DevicePanels.from_csr(csr, bk=128, device=cuda)
+    x = operand((csr.k, 512), 5, cuda)
+    assert_close(panel_spmm(a, x), panel_spmm_plain(a, x.double()))
 
 
 @pytest.mark.parametrize("qk_layout", ["aligned", "misaligned"])
@@ -185,12 +216,20 @@ def flagship_layouts(device):
 
 def test_block_kernels_give_the_same_bits_twice(cuda):
     """The cluster sums its partial tiles in rank order, with no atomics:
-    two calls give bit-identical outputs."""
+    two calls give bit-identical outputs (and so does WROW v1, a thread a
+    row in a fixed order)."""
+    from spgrid_torch.bench.headline import headline_matrix
     w, mask = flagship_layouts(cuda)
     x = operand((512, 512), 3, cuda)
     assert torch.equal(bsr_spmm(w, x), bsr_spmm(w, x))
     q, k = operand((512, 512), 4, cuda), operand((512, 512), 5, cuda)
     assert torch.equal(bsr_sddmm(mask, q, k), bsr_sddmm(mask, q, k))
+    p = DevicePanels.from_csr(headline_matrix(), bk=128, device=cuda)
+    assert torch.equal(panel_spmm(p, x), panel_spmm(p, x))
+    csr = scattered_line()
+    a = DeviceWROW.from_csr(csr, device=cuda)
+    v = operand((csr.k,), 6, cuda)
+    assert torch.equal(wrow_spmv(a, v), wrow_spmv(a, v))
 
 
 def test_block_kernels_launch_grid(cuda):
@@ -214,6 +253,22 @@ def test_block_kernels_launch_grid(cuda):
                               bm=200, bk=128, device=cuda)
     assert spmm_grid(tall, 70).tiles == 3 * 2 * 2
     assert spmm_grid(w, 64 * sms).cluster == 1
+
+
+def test_panel_spmm_launch_grid(cuda):
+    """The headline's panels (one band of 512 rows, four panels) take
+    ``bsr_spmm``'s grid: 4 slices x 8 column tiles, the same cluster;
+    R = 2048 runs as 16 slices a band."""
+    from spgrid_torch.bench.headline import headline_matrix
+    from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as spmm_grid
+    from spgrid_torch.ops.kernels.panel_spmm import launch_grid
+    head = headline_matrix()
+    grid = launch_grid(DevicePanels.from_csr(head, bk=128, device=cuda), 512)
+    assert (grid.tiles, grid.rows, grid.cols, grid.step) == (32, 128, 64, 32)
+    assert grid == spmm_grid(DeviceBSR.from_csr(head, bm=128, bk=128,
+                                                device=cuda), 512)
+    tall = DevicePanels.from_csr(tall_bands(), bk=128, device=cuda)
+    assert launch_grid(tall, 70).tiles == 2 * 16 * 2
 
 
 @pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
@@ -243,6 +298,26 @@ def test_block_kernels_at_every_cluster_size(cuda, cluster):
         q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
         cluster, stream), "bsr_sddmm")
     assert_close(out, bsr_sddmm_plain(m, q.double(), k.double()))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["r104", "r2048", "r40"])
+def test_panel_spmm_at_every_cluster_size(cuda, case, cluster):
+    """The panel C entry point at each cluster size the launch rule may
+    pick, and at 0 (the rule), on bands of 104, 2048 and 40 rows with pad
+    slots and an empty band, n = 77 (4-byte X copies)."""
+    from spgrid_torch.ops.kernels import _build
+    make, band_rows = PANELS[case]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows, device=cuda)
+    x = operand((csr.k, 77), 5, cuda)
+    y = torch.full((csr.m, 77), float("nan"), device=cuda)
+    _build.check(_build.library().spgrid_panel_spmm(
+        a.counts.data_ptr(), a.block_cols.data_ptr(), a.panels.data_ptr(),
+        x.data_ptr(), y.data_ptr(), a.bands, a.max_p, a.band_rows, a.bk,
+        csr.m, csr.k, 77, cluster, torch.cuda.current_stream().cuda_stream),
+        "panel_spmm")
+    assert_close(y, panel_spmm_plain(a, x.double()))
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
@@ -300,6 +375,51 @@ def test_slot_spmv_kernel(cuda, kernel, matrix):
     got = fn(a, x)
     assert launch_counts()[kernel] == before + 1
     assert_close(got, plain(a, x.double()))
+
+
+def scattered_line():
+    """LINE_S's generator line at 20000^2: ~20 scattered nnz a row in 90 %
+    of the columns, each piece ~2.5 % full."""
+    return artificial_matrix_generation(
+        20000, 20000, 20, 6.6667, "normal", seed=14, placement="random",
+        bw=0.9, name="scattered_line")
+
+
+def long_rows():
+    """3000 x 5000, ~0.2 % scattered; rows 1024-1151 hold ~2,500 nnz each
+    (a target block of ~320K live slots, 79 rounds of its kernel) and row
+    2999, the last of a ragged block, 700."""
+    rng = np.random.default_rng(21)
+    d = np.where(rng.random((3000, 5000)) < 0.002,
+                 rng.random((3000, 5000)) + 0.5, 0.0)
+    band = rng.random((128, 5000))
+    d[1024:1152] = np.where(band < 0.5, band + 0.5, 0.0)
+    d[2999, :700] = rng.random(700) + 0.5
+    return dense_to_csr(d.astype(np.float32), name="long_rows")
+
+
+WROW_MATRICES = {
+    "scattered_line": scattered_line,
+    "long_rows": long_rows,
+    "edge": hypersparse_edge,
+    "empty": lambda: dense_to_csr(np.zeros((130, 70), np.float32)),
+    "empty_blocks": lambda: with_empty_rows(1000, 900, 5, slice(128, 384)),
+}
+
+
+@pytest.mark.parametrize("matrix", sorted(WROW_MATRICES))
+def test_wrow_spmv_v1_kernel(cuda, matrix):
+    """WROW v1 on the row stream: against the f64 plain version, every row
+    written (y starts as whatever torch.empty holds), and bit for bit the
+    padded pieces' sum, which spmv_ablate's full form still computes."""
+    csr = WROW_MATRICES[matrix]()
+    a = DeviceWROW.from_csr(csr, device=cuda)
+    x = operand((csr.k,), 12, cuda)
+    before = launch_counts()["wrow_spmv"]
+    got = wrow_spmv(a, x)
+    assert launch_counts()["wrow_spmv"] == before + 1
+    assert_close(got, wrow_spmv_plain(a, x.double()))
+    assert torch.equal(got, spmv_ablate(a, x, "full"))
 
 
 def test_slot_wrappers_raise_instead_of_falling_back(cuda):

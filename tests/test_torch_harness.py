@@ -229,7 +229,7 @@ def test_build_dir_keys_on_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert d == _build.build_dir()
     assert {p.name for p in _build.sources()} >= {
-        "bsr_spmm.cu", "panel_spmm.cu", "sddmm.cu", "block_tile.cuh"}
+        "bsr_spmm.cu", "panel_spmm.cu", "sddmm.cu", "block_mma.cuh"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -39,7 +39,7 @@ from spgrid_torch.ops.kernels.wcoo_spmv import (
     DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
-    DeviceWROW, csr_to_wrow, wrow_spmv, wrow_spmv_plain,
+    DeviceWROW, csr_to_wrow, wrow_rows_plain, wrow_spmv, wrow_spmv_plain,
 )
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
@@ -432,3 +432,13 @@ def test_stream_product_matches_pallas(jax_outputs, kind, name):
     a = port_layouts(MATRICES[name]())[kind]
     np.testing.assert_allclose(rows_product(a, torch.from_numpy(x)).numpy(),
                                want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_SHAPES))
+def test_wrow_row_stream_product_matches_pallas_v1(jax_outputs, name):
+    """WROW v1's row-ordered live-slot stream, what its CUDA kernel reads,
+    against the JAX package's v1 kernel in interpret mode."""
+    x, want = jax_outputs["wrow", name]
+    a = port_layouts(MATRICES[name]())["wrow"]
+    got = wrow_rows_plain(a, torch.from_numpy(x[:, 0].copy())).numpy()
+    np.testing.assert_allclose(got[:, None], want, rtol=RTOL, atol=ATOL)

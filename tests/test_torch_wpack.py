@@ -7,12 +7,17 @@ against the f64 dense product. The live-slot stream that the two CUDA
 kernels read: against the padded pieces it was built from, its product
 against the Pallas kernels, and a numpy emulation of the kernels' work
 split (equal slot ranges, carry and combine) against the plain product.
+WROW v1's row-ordered live-slot stream: against the padded pieces, and a
+numpy emulation of its kernel's rounds against the padded kernel's sum,
+bit for bit.
 
 Tolerance: rtol 1e-5, atol 1e-6 (f32 sums in another order); the matrices
 hold positive values, so no sum cancels below its terms' rounding.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +39,8 @@ from spgrid_torch.ops.kernels.wpack_spmv import (
     wpack_stream_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
-    DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2, wrow_stream_plain,
+    DeviceWROW, wrow_rows_plain, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
+    wrow_stream_plain,
 )
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
@@ -505,3 +511,123 @@ def test_default_range_is_one_wave_of_whole_tiles():
         per_cta = default_slots_per_cta(n, 132)
         assert per_cta >= 1024 and per_cta % 512 == 0
         assert -(-n // per_cta) <= 8 * 132
+
+
+# --- WROW v1's row-ordered live-slot stream (``DeviceWROW.row_*``) --------
+
+WROW_CU = (Path(__file__).resolve().parents[1] / "spgrid_torch" / "csrc"
+           / "wrow_spmv.cu").read_text()
+# slots of each row a round of the kernel stages (one a lane)
+DEPTH = int(re.search(r"constexpr int DEPTH = (\d+);", WROW_CU).group(1))
+ROW_MATRICES = {**STREAM_MATRICES, "straddle": straddle,
+                "empty_blocks": empty_blocks}
+
+
+def padded_slots(a, k):
+    """(row, piece, x index, value) of each live slot of the padded pieces,
+    in piece and lane order."""
+    values, cols = a.values.numpy(), a.cols.numpy()
+    piece_w = a.piece_w.numpy()
+    live = live_mask(values, cols, piece_w, k)
+    piece, lane = np.nonzero(live)
+    sub = a.group_sub.numpy().astype(np.int64)[piece // 8]
+    return (sub * 128 + lane, piece,
+            piece_w[piece].astype(np.int64) * 128 + cols[piece, lane],
+            values[piece, lane])
+
+
+def fma32(a, b, c):
+    """f32 a * b + c, the exact product rounded once (in f64, then f32)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def padded_v1_sum(a, x):
+    """y as the padded kernel summed it: thread t of target block b walks
+    the block's pieces in order, an fma a live slot from 0.0."""
+    row, piece, xi, vals = padded_slots(a, len(x))
+    y = np.zeros(a.shape[0], np.float32)
+    bounds = np.flatnonzero(np.diff(piece)) + 1
+    for rows, xs, vs in zip(*(np.split(v, bounds) for v in (row, xi, vals))):
+        y[rows] = fma32(vs, x[xs], y[rows])  # one piece: distinct rows
+    return y
+
+
+def emulate_row_walk(a, x):
+    """numpy emulation of ``csrc/wrow_spmv.cu``: a CTA a 128-row target
+    block, a warp 32 of its rows; round i of a warp (as many as its longest
+    row needs) stages slot i DEPTH + j of each row whose length exceeds it,
+    lane j, value and x side by side in a (32, DEPTH) buffer that starts as
+    NaN each round (a slot read but not staged shows); then lane l sums
+    min(DEPTH, len - i DEPTH) of its row's, an fma each from 0.0. Returns y
+    (NaN where never written) and the write count of each row."""
+    m = a.shape[0]
+    row_slot = a.row_slot.numpy().astype(np.int64)
+    vals, cols = a.row_vals.numpy(), a.row_cols.numpy()
+    y = np.full(m, np.nan, np.float32)
+    writes = np.zeros(m, np.int64)
+    for b in range(a.blocks):
+        for w in range(4):
+            rows = b * 128 + w * 32 + np.arange(32)
+            inside = rows < m
+            r = np.minimum(rows, m)
+            begin = np.where(inside, row_slot[r], 0)
+            length = np.where(inside, row_slot[np.minimum(r + 1, m)] - begin,
+                              0)
+            acc = np.zeros(32, np.float32)
+            for i in range(-(-length.max() // DEPTH)):
+                sv = np.full((32, DEPTH), np.nan, np.float32)
+                sx = np.full((32, DEPTH), np.nan, np.float32)
+                at = i * DEPTH + np.arange(DEPTH)
+                for q in range(32):
+                    live = at < length[q]
+                    s = begin[q] + at[live]
+                    sv[q, live] = vals[s]
+                    sx[q, live] = x[cols[s]]
+                here = np.minimum(DEPTH, length - i * DEPTH)
+                for j in range(DEPTH):
+                    on = j < here
+                    acc[on] = fma32(sv[on, j], sx[on, j], acc[on])
+            y[rows[inside]] = acc[inside]
+            writes[rows[inside]] += 1
+    return y, writes
+
+
+@pytest.mark.parametrize("name", sorted(ROW_MATRICES))
+def test_wrow_row_stream_is_the_live_slots_by_row_then_piece(name):
+    csr = ROW_MATRICES[name]()
+    a = DeviceWROW.from_csr(csr, device="cpu")
+    row, piece, xi, vals = padded_slots(a, csr.k)
+    order = np.lexsort((piece, row))       # by row, then piece order
+    row_slot = a.row_slot.numpy()
+    np.testing.assert_array_equal(
+        row_slot, np.concatenate([[0], np.cumsum(np.bincount(
+            row, minlength=csr.m))]))
+    np.testing.assert_array_equal(a.row_cols.numpy(), xi[order])
+    np.testing.assert_array_equal(a.row_vals.numpy(), vals[order])
+    assert a.row_slot.dtype == a.row_cols.dtype == torch.int32
+    assert a.row_vals.dtype == torch.float32
+    assert len(a.row_vals) == a.num_slots
+    assert a.row_nbytes == 4 * (csr.m + 1) + 8 * a.num_slots
+    # each block's row-stream slots are its piece-ordered stream's
+    bs = a.block_slot.numpy()
+    np.testing.assert_array_equal(row_slot[np.minimum(128 * np.arange(
+        a.blocks + 1), csr.m)], bs)
+    x = vector(csr.k, seed=3)
+    np.testing.assert_allclose(
+        wrow_rows_plain(a, torch.from_numpy(x)).numpy(),
+        dense_product(csr, x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(ROW_MATRICES))
+def test_wrow_v1_walk_gives_the_padded_sum_bit_for_bit(name):
+    """The row stream keeps each row's slots in piece order, so the new
+    kernel's rounds sum each row as the padded kernel did: the same bits;
+    every row written once (straddle: rows of 80 slots, three rounds)."""
+    csr = ROW_MATRICES[name]()
+    a = DeviceWROW.from_csr(csr, device="cpu")
+    x = vector(csr.k, seed=9)
+    got, writes = emulate_row_walk(a, x)
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_array_equal(got, padded_v1_sum(a, x))
+    np.testing.assert_allclose(got, dense_product(csr, x), rtol=RTOL,
+                               atol=ATOL)
