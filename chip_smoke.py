@@ -35,7 +35,15 @@ exits non-zero and never prints the final ``"ok": true`` line:
    tensor cores, 165 TFLOP/s). The probe gathers and
    the shuffle chain are held to their plain versions in f32, bit for bit;
    the ablation variants to theirs in f64, within 1e-5 where each row is
-   written once and within ``ATOMIC_TOL`` where blocks sum with atomics.
+   written once and within ``ATOMIC_TOL`` where blocks sum with atomics;
+   the ablation (WROW v1's row walk with one stage compiled out) prints the
+   bytes of the row stream it reads beside the padded pieces'. dgell (X in
+   column slabs that stay in L2, the tail summed in the same pass) prints
+   the slab width its rule picks on this card, the slab count and the bytes
+   it moves from device memory if each slab stays in L2, and on its
+   main-path case the device ms at slab widths 16, 32, 64, 128 and n; it
+   runs on LINE_S at n=512 and n=100 (a ragged last slab) and on the edge
+   matrix at n=200 and n=77 (the scalar form).
    The WPACK ablation's five variants (``wpack_spmv(a, x, ablate=,
    prefix=)``) run on ``exp_wpack_ablate``'s matrix at its own wsel (2) and
    on the edge matrix at wsel 1 and 4, each held to its f64 plain version
@@ -118,12 +126,12 @@ import torch
 # difference below that).
 REL_TOL = 1e-5
 SIGNIFICANT = 1e-4
-# spmv_ablate's normw and empty: each thread sums its block's pieces in f32
-# and adds the sum to y[t] with atomicAdd, in any order of the 782 blocks
-# of the probe's matrix. A sum of positive f32 terms is off by at most
-# (terms in its chain) * 2^-24 relative: (782 block sums + a block's
-# pieces) * 6e-8 < 1e-4 while a block holds fewer than ~880 pieces (at
-# most 160 there).
+# spmv_ablate's normw and empty: each thread sums its row's live slots in
+# f32 and adds the sum to y[t] with atomicAdd, in any order of the 782
+# blocks of the probe's matrix and of LINE_S. A sum of positive f32 terms is
+# off by at most (terms in its chain) * 2^-24 relative: (782 block sums + a
+# row's slots) * 6e-8 < 1e-4 while the two together stay below ~1,670 (a
+# row holds at most ~60 live slots there).
 ATOMIC_TOL = 1e-4
 TIME_S = 0.2            # minimum timed seconds for each kernel time
 DEVICE = "cuda"
@@ -292,6 +300,8 @@ def phase_kernels() -> dict:
         DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain, launch_grid)
     from spgrid_torch.ops.kernels.dgell import (
         DeviceDGELL, dgell_spmm, dgell_spmm_plain)
+    from spgrid_torch.ops.kernels.dgell import launch as dgell_launch
+    from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
     from spgrid_torch.ops.kernels.lanegather import (
         lanegather, lanegather_plain)
     from spgrid_torch.ops.kernels.pallas_gather import (
@@ -450,12 +460,31 @@ def phase_kernels() -> dict:
         return spmm_case(bsr_spmm_cstat, bsr_spmm_cstat_plain, a, csr, n,
                          seed) + (REL_TOL, note)
 
-    def dgell_case(csr, n, seed):
+    def dgell_case(csr, n, seed, sweep=False):
+        """The slab the kernel's rule picks on this card, its slab count,
+        the bytes it moves from device memory if each slab of X stays in
+        L2 (X and Y once, the ELL arrays and the tail once a slab) and, on
+        a main-path case, the device ms at each slab width."""
         a = DeviceDGELL.from_csr(csr, device=DEVICE)
         print(f"phase 1 layout: dgell of {csr.name} ({csr.nnz} nnz): "
               f"{a.slots} slots a row, {a.tail_rows.numel()} nnz in the "
               f"tail", flush=True)
-        return spmm_case(dgell_spmm, dgell_spmm_plain, a, csr, n, seed)
+        case = spmm_case(dgell_spmm, dgell_spmm_plain, a, csr, n, seed)
+        x = case[2][1]
+        m, k = a.shape
+        shape = dgell_shape(k, n, 0, n % 4 == 0)
+        per_slab = nbytes(a.cols, a.values, a.tail_cols, a.tail_vals,
+                          a.tail_ptr)
+        note = (f"slab={shape.slab} slabs={shape.slabs} rows_a_cta="
+                f"{shape.rows} lanes_a_row={shape.lanes} hbm_bytes="
+                f"{nbytes(x) + 4 * m * n + shape.slabs * per_slab} (X and Y "
+                f"once, ELL and tail once a slab)")
+        if sweep:
+            y = torch.empty((m, n), device=DEVICE)
+            note += " device_ms_by_slab " + " ".join(
+                f"{c}:{device_ms(dgell_launch, a, x, y, c):.6f}"
+                for c in sorted({16, 32, 64, 128, n}))
+        return case + (REL_TOL, note)
 
     # The live-slot stream kernels: what they read of the layout (the
     # stream) beside the padded pieces, and their grid: CTAs of S =
@@ -603,11 +632,19 @@ def phase_kernels() -> dict:
         y_bytes = 4 * (min(m, 128) if variant in ("normw", "empty") else m)
         library = ((torch.sparse.mm, (csr_tensor(csr), x[:, None]))
                    if variant == "full" else (None, ()))
+        # what the walk reads of the layout (the row stream, and the piece
+        # byte for noload) beside the padded pieces the old walk read
+        stream = a.row_nbytes + (nbytes(a.row_piece)
+                                 if variant == "noload" else 0)
+        note = (f"stream_bytes={stream} padded_bytes="
+                f"{nbytes(a.values, a.cols, a.piece_w, a.block_ptr)} "
+                f"live_slots={a.num_slots} grid={a.blocks} CTAs of 128 rows")
         return (spmv_ablate, spmv_ablate_plain, (a, x, variant),
                 (a, x.double(), variant), *library,
                 csr.nnz * (4 + col_bytes) + x_bytes + y_bytes,
                 (1.0 if variant == "empty" else 2.0) * csr.nnz,
-                ATOMIC_TOL if variant in ("normw", "empty") else REL_TOL)
+                ATOMIC_TOL if variant in ("normw", "empty") else REL_TOL,
+                note)
 
     # A WPACK ablation variant needs, as the product, each nnz's value and
     # column once, x and y; only the full forms have a library call.
@@ -620,14 +657,18 @@ def phase_kernels() -> dict:
                 (a, x.double()), *library,
                 csr.nnz * (4 + 1) + nbytes(x) + 4 * a.shape[0], 2.0 * csr.nnz)
 
-    ablate_wrow = DeviceWROW.from_csr(ablate, device=DEVICE)
-    ablate_small_wrow = DeviceWROW.from_csr(ablate_small, device=DEVICE)
-    layout_line("wrow", ablate, ablate_wrow,
-                "groups of 8 pieces of 128 slots", ablate_wrow.num_groups)
-    print(f"phase 1 layout: wrow of {ablate.name}: {ablate_wrow.blocks} "
-          f"blocks, at most "
-          f"{8 * int(torch.diff(ablate_wrow.block_ptr).max())} pieces a "
-          f"block (ATOMIC_TOL holds below ~880)", flush=True)
+    # the probe's matrix, a small one, and LINE_S: v1's walk on a band of 5 %
+    # of the columns and on fully scattered ones
+    ablations = [(DeviceWROW.from_csr(csr, device=DEVICE), csr, bw)
+                 for csr, bw in ((ablate, ABLATE[2]),
+                                 (ablate_small, ABLATE[2]), (line_s, 0.9))]
+    for a, csr, _ in ablations:
+        layout_line("wrow", csr, a, "groups of 8 pieces of 128 slots",
+                    a.num_groups)
+        print(f"phase 1 layout: wrow of {csr.name}: {a.blocks} blocks, at "
+              f"most {int(torch.diff(a.row_slot).max())} live slots a row "
+              f"(ATOMIC_TOL holds while blocks + that stay below ~1,670)",
+              flush=True)
     g_k, g_n, g_steps = GATHER
     x_gather = gather_x(g_k, g_n, 16)
 
@@ -693,9 +734,13 @@ def phase_kernels() -> dict:
         ("bsr_spmm_cstat", "4096^2 50% n=512", False,
          lambda: bsrc_case(big, 512, 4)),
         ("dgell", f"{s_label} n=512", True,
-         lambda: dgell_case(line_s, 512, 13)),
+         lambda: dgell_case(line_s, 512, 13, sweep=True)),
+        ("dgell", f"{s_label} n=100 (ragged last slab)", False,
+         lambda: dgell_case(line_s, 100, 25)),
         ("dgell", f"{edge_label} n=200", False,
          lambda: dgell_case(edge, 200, 9)),
+        ("dgell", f"{edge_label} n=77 (scalar form)", False,
+         lambda: dgell_case(edge, 77, 26)),
         ("wpack_spmv", f"{s_label} n=1", True,
          lambda: wpack_case(line_s, 14)),
         ("wpack_spmv", f"{edge_label} n=1", False,
@@ -731,12 +776,12 @@ def phase_kernels() -> dict:
     for reps in (64, 256):
         cases.append(("shuffle_bench", f"(256,128) reps={reps}", reps == 256,
                       functools.partial(shuffle_case, reps, 20)))
-    for a, csr in ((ablate_wrow, ablate), (ablate_small_wrow, ablate_small)):
+    for a, csr, bw in ablations:
         for variant in VARIANTS:
             cases.append((
                 "spmv_ablate", "{}x{} bw={} {} nnz {}".format(
-                    *csr.shape, ABLATE[2], csr.nnz, variant),
-                a is ablate_wrow and variant == "full",
+                    *csr.shape, bw, csr.nnz, variant),
+                csr is ablate and variant == "full",
                 functools.partial(ablate_case, a, csr, variant, 21)))
     wpack_layouts = ((DeviceWPACK.from_csr(wpack_ab, device=DEVICE),
                       wpack_ab),

@@ -63,8 +63,11 @@ SIGNATURES = {
     "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     # bands, band_rows, bm, n, out (int[3]: CTAs, column tile, slice rows)
     "spgrid_bsr_spmm_cstat_shape": [_INT] * 4 + [_PTR],
-    # cols, vals, x, y, m, slots, n, stream
-    "spgrid_dgell": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # cols, vals, tail_ptr, tail_cols, tail_vals, x, y, m, k, slots, n,
+    # slab (0: the slab rule), stream
+    "spgrid_dgell": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # k, n, slab, vec, out (int[4]: slab, slabs, rows a CTA, lanes a row)
+    "spgrid_dgell_shape": [_INT] * 4 + [_PTR],
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],
@@ -80,7 +83,7 @@ SIGNATURES = {
     "spgrid_dma_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     # src, idx, out, rows, reps, stream
     "spgrid_shuffle_bench": [_PTR] * 3 + [_INT] * 2 + [_PTR],
-    # block_ptr, piece_w, cols, vals, x, y, variant, blocks, m, k, stream
+    # row_slot, vals, cols, pieces, x, y, variant, blocks, m, k, stream
     "spgrid_spmv_ablate": [_PTR] * 6 + [_INT] * 4 + [_PTR],
 }
 

@@ -6,15 +6,19 @@ kernel is ``spgrid_torch/csrc/dgell.cu``. ``dgell_spmm`` launches it for
 CUDA tensors and takes ``dgell_spmm_plain`` only for CPU tensors.
 
 Each row keeps its first ``slots`` nnz in ELL slots; the nnz at positions
->= slots within a row form the COO tail, which the wrapper adds after the
-kernel with ``index_add_`` on the same stream, as the JAX package combines
-it in XLA outside its Pallas kernel.
+>= slots within a row form the COO tail, sorted by row, ``tail_ptr``
+pointing at each row's. The kernel sums a row's slots and then its tail nnz
+in one pass and writes each element of Y once (the JAX package adds the
+tail in XLA outside its Pallas kernel). It walks X in column slabs that
+stay in L2, the slab width C chosen on the card from k, n and its L2 size
+(``launch_shape`` reports it).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -65,9 +69,10 @@ class DeviceDGELL:
 
     cols: torch.Tensor        # (m, slots) int32
     values: torch.Tensor      # (m, slots) f32, 0 in empty slots
-    tail_rows: torch.Tensor   # (t,) int32
+    tail_rows: torch.Tensor   # (t,) int32, sorted
     tail_cols: torch.Tensor   # (t,) int32
     tail_vals: torch.Tensor   # (t,) f32
+    tail_ptr: torch.Tensor    # (m + 1,) int32, row r's tail nnz
     shape: Tuple[int, int]
     nnz: int
     slots: int
@@ -77,17 +82,29 @@ class DeviceDGELL:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
             self.cols, self.values, self.tail_rows, self.tail_cols,
-            self.tail_vals))
+            self.tail_vals, self.tail_ptr))
 
     @classmethod
     def from_arrays(cls, cols, values, tail_rows, tail_cols, tail_vals,
                     shape, nnz: int, slots: int, name: str = "", *,
                     device) -> "DeviceDGELL":
+        """Host arrays → device layout; the tail is sorted by row (stably,
+        so each row's nnz keep their order) and ``tail_ptr`` built here."""
+        m = int(shape[0])
+        rows = np.asarray(tail_rows, np.int64).reshape(-1)
+        if rows.size and (rows.min() < 0 or rows.max() >= m):
+            raise ValueError(f"dgell: a tail row lies outside 0..{m - 1}")
+        order = np.argsort(rows, kind="stable")
+        tail_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+            rows, minlength=m))])
         return cls(cols=to_device(cols, device, np.int32),
                    values=to_device(values, device, np.float32),
-                   tail_rows=to_device(tail_rows, device, np.int32),
-                   tail_cols=to_device(tail_cols, device, np.int32),
-                   tail_vals=to_device(tail_vals, device, np.float32),
+                   tail_rows=to_device(rows[order], device, np.int32),
+                   tail_cols=to_device(np.asarray(tail_cols).reshape(-1)[
+                       order], device, np.int32),
+                   tail_vals=to_device(np.asarray(tail_vals).reshape(-1)[
+                       order], device, np.float32),
+                   tail_ptr=to_device(tail_ptr, device, np.int32),
                    shape=tuple(shape), nnz=int(nnz), slots=int(slots),
                    name=name)
 
@@ -105,11 +122,49 @@ def _check(a: DeviceDGELL, x: torch.Tensor) -> None:
                    cols=(a.cols, torch.int32), values=(a.values, torch.float32),
                    tail_rows=(a.tail_rows, torch.int32),
                    tail_cols=(a.tail_cols, torch.int32),
-                   tail_vals=(a.tail_vals, torch.float32))
+                   tail_vals=(a.tail_vals, torch.float32),
+                   tail_ptr=(a.tail_ptr, torch.int32))
+
+
+class SlabShape(NamedTuple):
+    """A launch of the kernel: X's columns in ``slabs`` slabs of ``slab``
+    (the last may be narrower), CTAs of ``rows`` rows, ``lanes`` lanes a
+    row."""
+
+    slab: int
+    slabs: int
+    rows: int
+    lanes: int
+
+
+def launch_shape(k: int, n: int, slab: int = 0,
+                 vec: bool = True) -> SlabShape:
+    """The launch the kernel makes on the current card for X (k, n) at
+    ``slab`` (0: its rule from k, n and the card's L2), in the float4 form
+    (``vec``) or the scalar one."""
+    shape = (ctypes.c_int * 4)()
+    _build.check(_build.library().spgrid_dgell_shape(
+        k, n, slab, int(vec), ctypes.addressof(shape)), "dgell_spmm")
+    return SlabShape(*shape)
+
+
+def launch(a: DeviceDGELL, x: torch.Tensor, y: torch.Tensor,
+           slab: int = 0) -> None:
+    """One launch of the kernel into ``y`` at slab width ``slab`` (0: the
+    kernel's rule; a power of two from 8 to 512, or n, for sweeps and
+    tests), uncounted; ``dgell_spmm`` is the entry point."""
+    m, k = a.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_dgell(
+            a.cols.data_ptr(), a.values.data_ptr(), a.tail_ptr.data_ptr(),
+            a.tail_cols.data_ptr(), a.tail_vals.data_ptr(), x.data_ptr(),
+            y.data_ptr(), m, k, a.slots, x.shape[1], slab, stream)
+    _build.check(code, "dgell_spmm")
 
 
 def dgell_spmm(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) f32 = A @ X for f32 X (k, n)."""
+    """Y (m, n) f32 = A @ X for f32 X (k, n): one launch, slots and tail."""
     _check(a, x)
     if x.device.type == "cpu":
         return dgell_spmm_plain(a, x)
@@ -120,17 +175,8 @@ def dgell_spmm(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_dgell(a.cols.data_ptr(), a.values.data_ptr(),
-                                x.data_ptr(), y.data_ptr(), m, a.slots, n,
-                                stream)
-        _build.check(code, "dgell_spmm")
-        dgell_spmm.launches += 1
-        if a.tail_rows.numel():
-            y.index_add_(0, a.tail_rows,
-                         a.tail_vals[:, None] * x[a.tail_cols])
+    launch(a, x, y)
+    dgell_spmm.launches += 1
     return y
 
 
@@ -155,4 +201,23 @@ def dgell_spmm_plain(a: DeviceDGELL, x: torch.Tensor,
         y.index_add_(0, a.tail_rows.long(),
                      a.tail_vals.to(x.dtype)[:, None]
                      * x[a.tail_cols.long()])
+    return y
+
+
+def dgell_rows_plain(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
+    """The product in plain torch in the kernel's order, in x's dtype: each
+    row's ELL slots in slot order, then its tail nnz in order
+    (``tail_ptr``), one position at a time for every row."""
+    m, _ = a.shape
+    y = torch.zeros((m, x.shape[1]), dtype=x.dtype, device=x.device)
+    vals = a.values.to(x.dtype)
+    for s in range(a.slots):
+        y += vals[:, s, None] * x[a.cols[:, s].long()]
+    ptr = a.tail_ptr.long()
+    count = ptr[1:] - ptr[:-1]
+    tail_vals = a.tail_vals.to(x.dtype)
+    for t in range(int(count.max()) if m else 0):
+        rows = torch.nonzero(count > t).squeeze(1)
+        at = ptr[rows] + t
+        y[rows] += tail_vals[at, None] * x[a.tail_cols[at].long()]
     return y

@@ -35,26 +35,35 @@ UNROLL_LOADS = 4     # U C 16-byte X loads in flight a lane: U = 4 / C
 LONG_ROW = 128       # rows of more slots go to the long-row walk
 
 
-def row_stream(rows, xrows, values, m: int, k: int):
-    """(row_slot (m + 1,) int32, values (S,), X rows (S,) int32, long rows
-    (L,) int32) of the live slots among slots given in the layout's order,
-    each with its output row and X row: stably sorted by output row."""
+def stream_order(rows, xrows, values, m: int, k: int):
+    """(order, row_slot (m + 1,) int32): the indices of the live slots
+    among slots given in the layout's order, each with its output row and
+    X row, stably sorted by output row (the stream's order), and where
+    each row's begin there."""
     rows = np.asarray(rows, np.int64).reshape(-1)
     xrows = np.asarray(xrows, np.int64).reshape(-1)
     values = np.asarray(values).reshape(-1)
-    live = (values != 0) & (xrows < k)
-    rows, xrows, values = rows[live], xrows[live], values[live]
-    if rows.size >= MAX_SLOTS:
+    live = np.flatnonzero((values != 0) & (xrows < k))
+    if live.size >= MAX_SLOTS:
         raise ValueError("row stream: too many slots for int32")
+    rows = rows[live]
     if rows.size and (rows.min() < 0 or rows.max() >= m):
         raise ValueError(f"row stream: a live slot's row lies outside "
                          f"0..{m - 1}")
-    order = np.argsort(rows, kind="stable")
     counts = np.bincount(rows, minlength=m)
-    row_slot = np.concatenate([[0], np.cumsum(counts)])
-    return (row_slot.astype(np.int32), values[order],
-            xrows[order].astype(np.int32),
-            np.flatnonzero(counts > LONG_ROW).astype(np.int32))
+    return (live[np.argsort(rows, kind="stable")],
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+
+
+def row_stream(rows, xrows, values, m: int, k: int):
+    """(row_slot (m + 1,) int32, values (S,), X rows (S,) int32, long rows
+    (L,) int32) of the live slots among slots given in the layout's order,
+    each with its output row and X row: stably sorted by output row
+    (``stream_order``)."""
+    order, row_slot = stream_order(rows, xrows, values, m, k)
+    return (row_slot, np.asarray(values).reshape(-1)[order],
+            np.asarray(xrows).reshape(-1)[order].astype(np.int32),
+            np.flatnonzero(np.diff(row_slot) > LONG_ROW).astype(np.int32))
 
 
 STREAM_FIELDS = ("row_slot", "slot_vals", "slot_xrows", "long_rows")

@@ -18,10 +18,11 @@ index lies inside x. v2's (``DeviceWROW.slot_*``,
 ``ops/kernels/slot_stream.py``) keeps them piece by piece, each with its
 value, its x index and its row (lane) in the block; ``wrow_stream_plain``
 is the product over it. v1's (``DeviceWROW.row_*``, built by
-``slot_rows.row_stream``) keeps them by output row and, within a row, in
+``slot_rows.stream_order``) keeps them by output row and, within a row, in
 piece order (the order in which the padded pieces sum the row), each with
-its value and its x index, ``row_slot`` pointing at each row's;
-``wrow_rows_plain`` is the product over it.
+its value and its x index, ``row_slot`` pointing at each row's, and
+``row_piece``, each slot's piece's place in its group (0..7), which only
+the ``spmv_ablate`` probe reads; ``wrow_rows_plain`` is the product over it.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
-from spgrid_torch.ops.kernels.slot_rows import row_stream
+from spgrid_torch.ops.kernels.slot_rows import stream_order
 from spgrid_torch.ops.kernels.slot_stream import (
     check_stream, launch_stream, live_slot_stream, row_bytes,
     stream_product)
@@ -125,6 +126,7 @@ class DeviceWROW:
     row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
     row_vals: torch.Tensor    # (S,) value of each live slot
     row_cols: torch.Tensor    # (S,) int32, x index of each live slot
+    row_piece: torch.Tensor   # (S,) uint8, its piece's place in its group
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -158,7 +160,7 @@ class DeviceWROW:
         return self.stream_nbytes + self.row_nbytes + sum(
             t.numel() * t.element_size() for t in (
                 self.cols, self.values, self.piece_w, self.block_ptr,
-                self.slot_ptr))
+                self.slot_ptr, self.row_piece))
 
     @classmethod
     def from_arrays(cls, cols, values, piece_w, group_sub, shape, nnz: int,
@@ -180,7 +182,7 @@ class DeviceWROW:
         piece, lane, x_index, slot_ptr, block_slot = live_slot_stream(
             values, cols, piece_w, ptr, shape[1], GROUP_PIECES)
         slot_vals = values[piece, lane]
-        row_slot, row_vals, row_cols, _ = row_stream(
+        order, row_slot = stream_order(
             sub[piece // GROUP_PIECES] * LANE + lane, x_index, slot_vals,
             shape[0], shape[1])
         return cls(cols=to_device(cols, device, np.int8),
@@ -194,8 +196,10 @@ class DeviceWROW:
                    slot_cols=to_device(x_index, device, np.int32),
                    slot_rows=to_device(row_bytes(lane, slot_ptr), device),
                    row_slot=to_device(row_slot, device),
-                   row_vals=to_device(row_vals, device),
-                   row_cols=to_device(row_cols, device),
+                   row_vals=to_device(slot_vals[order], device),
+                   row_cols=to_device(x_index[order], device, np.int32),
+                   row_piece=to_device(piece[order] % GROUP_PIECES, device,
+                                       np.uint8),
                    shape=tuple(shape), nnz=int(nnz),
                    utilization=float(utilization), num_groups=G, name=name)
 

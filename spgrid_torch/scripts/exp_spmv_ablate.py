@@ -9,14 +9,17 @@ placement="random", bw=bw)``, by default 100000 20 0.05) and the same x
 (``default_rng(0).standard_normal(m)``). It prints the WROW layout and the
 production ``wrow_spmv`` (v1) against the host f64 product, as
 ``max |y - gold| / max |gold|``, then one line a variant of the
-``spmv_ablate`` kernel, each WROW v1 with one stage of the group body
-deleted: its time, its rate on 2 · nnz flops and its time a group.
+``spmv_ablate`` kernel, each WROW v1's own row walk (its row-ordered
+live-slot stream, ``csrc/wrow_rows.cuh``) with one stage deleted: its time,
+its rate on 2 · nnz flops and its time a group of the padded layout.
 
-    full      v1's group body: x loads, the gather, FMA, y write
+    full      v1's kernel: the stream, the staged x gather, FMA, y write
     nogather  x read at 128 w + t, not at the slot's column
     noload    x read at 128 r + c: 1,024 fixed entries, no x traffic
     normw     every block's sum added to y[0:128] (v1 writes y once)
     empty     the values summed: streaming the slots and nothing else
+
+``full`` less ``noload`` is the time v1 spends gathering x.
 
 The exit code is 1 if v1 misses the f64 product by 1e-4 or more.
 """

@@ -28,14 +28,15 @@ from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
     DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain,
 )
 from spgrid_torch.ops.kernels.dgell import (
-    DeviceDGELL, dgell_spmm, dgell_spmm_plain,
+    DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
+    dgell_spmm_plain, launch, launch_shape,
 )
 from spgrid_torch.ops.kernels.lanegather import lanegather, lanegather_plain
 from spgrid_torch.ops.kernels.pallas_gather import (
     dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain,
 )
 from spgrid_torch.ops.kernels.spmv_ablate import (
-    VARIANTS, spmv_ablate, spmv_ablate_plain,
+    VARIANTS, spmv_ablate, spmv_ablate_plain, spmv_ablate_rows_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_plain,
@@ -560,6 +561,100 @@ def test_dgell_kernel(cuda, matrix, n, layout):
     assert_close(got, dgell_spmm_plain(a, x.double()))
 
 
+def tail_only(csr, device):
+    """``csr``'s DGELL layout with every third row's slots moved into the
+    tail: those rows hold tail nnz only."""
+    cols, vals, t_rows, t_cols, t_vals, slots = dgell_arrays(csr)
+    moved = np.arange(0, csr.m, 3)
+    live = vals[moved] != 0
+    t_rows = np.concatenate([t_rows, np.repeat(moved, live.sum(1))])
+    t_cols = np.concatenate([t_cols, cols[moved][live]])
+    t_vals = np.concatenate([t_vals, vals[moved][live]])
+    cols[moved], vals[moved] = 0, 0.0
+    return DeviceDGELL.from_arrays(cols, vals, t_rows, t_cols, t_vals,
+                                   csr.shape, csr.nnz, slots, device=device)
+
+
+def wide_k():
+    """2000 x 150000, ~20 scattered nnz a row: at n = 96 the slab rule
+    takes several slabs of X (150000 x C floats each)."""
+    return artificial_matrix_generation(
+        2000, 150000, 20, 6.6667, "normal", seed=14, placement="random",
+        bw=0.9, name="wide_k")
+
+
+# the dgell kernel's slabs (csrc/dgell.cu): several slabs by its rule, the
+# scalar form (n % 4 != 0), a misaligned X, rows whose nnz are all in the
+# tail, fewer rows than one CTA's
+DGELL = {
+    "wide_k_n96": (lambda d: DeviceDGELL.from_csr(wide_k(), device=d), 96,
+                   "plain"),
+    "edge_n77": (lambda d: DeviceDGELL.from_csr(hypersparse_edge(), device=d),
+                 77, "plain"),
+    "edge_misaligned": (lambda d: DeviceDGELL.from_csr(hypersparse_edge(),
+                                                       device=d), 200,
+                        "misaligned"),
+    "tail_only_n64": (lambda d: tail_only(hypersparse_edge(), d), 64,
+                      "plain"),
+    "tail_only_n13": (lambda d: tail_only(hypersparse_edge(), d), 13,
+                      "misaligned"),
+    "m5": (lambda d: DeviceDGELL.from_csr(positive(random_csr(
+        5, 300, 0.2, seed=2)), device=d), 40, "plain"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DGELL))
+def test_dgell_kernel_cases(cuda, case):
+    """The kernel against its f64 plain version and the product in its own
+    order (slots, then the row's tail), the same bits on two calls."""
+    make, n, layout = DGELL[case]
+    a = make(cuda)
+    k = a.shape[1]
+    x = (operand((k, n), 14, cuda) if layout == "plain"
+         else misaligned((k, n), 14, cuda))
+    if case.startswith("wide_k"):
+        assert launch_shape(k, n).slabs > 1
+    before = launch_counts()["dgell"]
+    got = dgell_spmm(a, x)
+    assert launch_counts()["dgell"] == before + 1
+    assert_close(got, dgell_spmm_plain(a, x.double()))
+    assert_close(got, dgell_rows_plain(a, x.double()))
+    assert torch.equal(got, dgell_spmm(a, x))
+
+
+@pytest.mark.parametrize("slab", [0, 8, 16, 32, 64, 128, 512, "n"])
+@pytest.mark.parametrize("n,layout", [(96, "plain"), (77, "plain"),
+                                      (200, "misaligned")])
+def test_dgell_kernel_at_every_slab(cuda, slab, n, layout):
+    """The C entry point at each slab width (0: the rule; n) on the edge
+    matrix: every slab of Y written (it starts as NaN), the same bits on
+    two calls."""
+    csr = hypersparse_edge()
+    a = DeviceDGELL.from_csr(csr, device=cuda)
+    x = (operand((csr.k, n), 15, cuda) if layout == "plain"
+         else misaligned((csr.k, n), 15, cuda))
+    slab = n if slab == "n" else slab
+    y = torch.full((csr.m, n), float("nan"), device=cuda)
+    launch(a, x, y, slab)
+    assert_close(y, dgell_spmm_plain(a, x.double()))
+    again = torch.full_like(y, float("nan"))
+    launch(a, x, again, slab)
+    assert torch.equal(y, again)
+    shape = launch_shape(csr.k, n, slab, layout == "plain" and n % 4 == 0)
+    assert shape.slabs == -(-n // shape.slab)
+    assert shape.slab == (n if slab in (0, 512, n) or slab >= n else slab)
+
+
+def test_dgell_refuses_a_slab_it_cannot_take(cuda):
+    csr = hypersparse_edge()
+    a = DeviceDGELL.from_csr(csr, device=cuda)
+    x = operand((csr.k, 64), 1, cuda)
+    y = torch.empty((csr.m, 64), device=cuda)
+    for slab in (4, 24, 1024):
+        with pytest.raises(RuntimeError):
+            launch(a, x, y, slab)
+
+
 @pytest.mark.parametrize("wsel", [None, 1, 2, 4])
 @pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
 def test_wpack_spmv_kernel(cuda, matrix, wsel):
@@ -724,6 +819,8 @@ ABLATE_MATRICES = {
     "probe_1000": lambda: exp_spmv_ablate.ablate_matrix(1000, 20.0, 0.05),
     "m_below_128": lambda: exp_spmv_ablate.ablate_matrix(100, 20.0, 0.5),
     "edge": hypersparse_edge,
+    "straddle": straddle,
+    "empty_blocks": empty_blocks,
 }
 
 
@@ -741,7 +838,10 @@ def test_spmv_ablate_kernel(cuda, matrix, variant):
     torch.testing.assert_close(got.double(),
                                spmv_ablate_plain(a, x.double(), variant),
                                rtol=tol, atol=tol)
-    if variant == "full":     # WROW v1's arithmetic in v1's order
+    torch.testing.assert_close(got.double(),
+                               spmv_ablate_rows_plain(a, x.double(), variant),
+                               rtol=tol, atol=tol)
+    if variant == "full":     # WROW v1's kernel: the same walk, the same bits
         assert torch.equal(got, wrow_spmv(a, x))
 
 

@@ -22,7 +22,8 @@ from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.ops import convert, dispatch
 from spgrid_torch.ops.kernels import launch_counts
 from spgrid_torch.ops.kernels.dgell import (
-    DeviceDGELL, dgell_arrays, dgell_spmm, dgell_spmm_plain, pick_slots,
+    DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
+    dgell_spmm_plain, pick_slots,
 )
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
@@ -98,6 +99,71 @@ def jax_output():
     return x, np.asarray(y)
 
 
+def tail_only(csr):
+    """``csr``'s DGELL arrays with every third row's slots moved into the
+    tail (those rows hold no slot, only tail nnz), appended after the
+    other rows' tail: ``from_arrays`` sorts the tail by row."""
+    cols, vals, t_rows, t_cols, t_vals, slots = dgell_arrays(csr)
+    moved = np.arange(0, csr.m, 3)
+    live = vals[moved] != 0
+    rows = np.repeat(moved, live.sum(1)).astype(np.int32)
+    t_rows = np.concatenate([t_rows, rows])
+    t_cols = np.concatenate([t_cols, cols[moved][live]])
+    t_vals = np.concatenate([t_vals, vals[moved][live]])
+    cols[moved], vals[moved] = 0, 0.0
+    return DeviceDGELL.from_arrays(cols, vals, t_rows, t_cols, t_vals,
+                                   csr.shape, csr.nnz, slots, "tail_only",
+                                   device="cpu")
+
+
+def layouts(name):
+    """(from_csr's layout, the layout through the JAX leaves, a layout with
+    tail-only rows) of MATRICES[name]."""
+    csr = MATRICES[name]()
+    leaves, aux = leaves_of(jax_dgell.DeviceDGELL.from_csr(csr))
+    return {"csr": DeviceDGELL.from_csr(csr, device="cpu"),
+            "jax": convert.dgell_from_jax(*leaves, *aux, device="cpu"),
+            "tail_only": tail_only(csr)}
+
+
+@pytest.mark.parametrize("source", ["csr", "jax", "tail_only"])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_tail_ptr_points_at_each_rows_tail(name, source):
+    a = layouts(name)[source]
+    m = a.shape[0]
+    rows = a.tail_rows.numpy()
+    assert a.tail_ptr.dtype == torch.int32 and a.tail_ptr.shape == (m + 1,)
+    assert np.all(np.diff(rows) >= 0)
+    np.testing.assert_array_equal(a.tail_ptr.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(rows, minlength=m))]))
+    # rows with no slot, empty rows and rows with no tail all have their
+    # place: the ELL part and the tail hold every nnz once
+    assert int((a.values != 0).sum()) + len(rows) == a.nnz
+    if source == "tail_only" and a.nnz:
+        moved = np.arange(0, m, 3)
+        assert not a.values[moved].any()
+        counts = np.diff(a.tail_ptr.numpy())
+        assert (counts[moved] > 0).any()
+
+
+@pytest.mark.parametrize("source", ["csr", "jax", "tail_only"])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_rows_plain_is_the_plain_product(name, source):
+    """The product over the row-ordered tail (the kernel's order) is the
+    plain version's and the dense product's."""
+    a = layouts(name)[source]
+    csr = MATRICES[name]()
+    x = operand(csr.k, 13, seed=5)
+    want = csr.to_dense().astype(np.float64) @ x.astype(np.float64)
+    got = dgell_rows_plain(a, torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        dgell_rows_plain(a, torch.from_numpy(x).double()).numpy(),
+        dgell_spmm_plain(a, torch.from_numpy(x).double()).numpy(),
+        rtol=1e-12, atol=1e-12)
+
+
 def test_plain_matches_pallas(jax_output):
     x, want = jax_output
     a = DeviceDGELL.from_csr(MATRICES[JAX_MATRIX](), device="cpu")
@@ -106,6 +172,9 @@ def test_plain_matches_pallas(jax_output):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(dgell_spmm(a, torch.from_numpy(x)).numpy(),
                                   got.numpy())
+    np.testing.assert_allclose(
+        dgell_rows_plain(a, torch.from_numpy(x)).numpy(), want, rtol=RTOL,
+        atol=ATOL)
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -182,7 +251,8 @@ def test_dispatch_format():
     want = csr.to_dense().astype(np.float64) @ x.numpy().astype(np.float64)
     np.testing.assert_allclose(dispatch.spmm_fn("dgell_cuda")(a, x).numpy(),
                                want, rtol=RTOL, atol=ATOL)
-    assert a.nbytes == 8 * a.cols.numel() + 12 * a.tail_rows.numel()
+    assert a.nbytes == (8 * a.cols.numel() + 12 * a.tail_rows.numel()
+                        + 4 * (a.shape[0] + 1))
 
 
 def test_cpu_path_counts_no_launch():

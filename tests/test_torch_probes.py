@@ -30,7 +30,7 @@ from spgrid_torch.ops.kernels.pallas_gather import (
     MAX_N, dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain,
 )
 from spgrid_torch.ops.kernels.spmv_ablate import (
-    VARIANTS, spmv_ablate, spmv_ablate_plain,
+    VARIANTS, spmv_ablate, spmv_ablate_plain, spmv_ablate_rows_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 from spgrid_torch.scripts import (
@@ -158,6 +158,52 @@ def test_spmv_ablate_with_fewer_than_128_rows(variant):
         spmv_ablate(a, torch.from_numpy(x), variant).numpy(),
         numpy_ablation(a, x.astype(np.float64), variant), rtol=RTOL,
         atol=ATOL)
+
+
+def stream_layout(jax_ablate, source):
+    """The ablation's layouts: the JAX probe's (through its leaves) at
+    m = 1000, and the port's own at m = 100, below one target block."""
+    if source == "jax_1000":
+        _, leaves, aux, *_ = jax_ablate
+        return convert.wrow_from_jax(*leaves, *aux, device="cpu")
+    return DeviceWROW.from_csr(exp_spmv_ablate.ablate_matrix(100, 8.0, 0.5),
+                               device="cpu")
+
+
+@pytest.mark.parametrize("source", ["jax_1000", "own_100"])
+def test_row_piece_is_each_slots_place_in_its_group(jax_ablate, source):
+    a = stream_layout(jax_ablate, source)
+    m, k = a.shape
+    values, cols = a.values.numpy(), a.cols.numpy().astype(np.uint8)
+    xi = a.piece_w.numpy()[:, None] * 128 + cols
+    piece, lane = np.nonzero((values != 0) & (xi < k))
+    row = a.group_sub.numpy().astype(np.int64)[piece // 8] * 128 + lane
+    order = np.lexsort((piece, row))      # the stream: by row, then piece
+    assert a.row_piece.dtype == torch.uint8
+    np.testing.assert_array_equal(a.row_piece.numpy(), piece[order] % 8)
+    np.testing.assert_array_equal(a.row_cols.numpy(), xi[piece, lane][order])
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("source", ["jax_1000", "own_100"])
+def test_row_stream_ablation_is_the_variant_table(jax_ablate, source,
+                                                  variant):
+    """The variant table over the row stream that the kernel reads (with
+    its piece byte) is the table over the padded pieces, slot by slot; on
+    the JAX probe's layout it is the JAX probe's output."""
+    a = stream_layout(jax_ablate, source)
+    m = a.shape[0]
+    x = positive_vector(a.shape[1], 8) if source == "own_100" else \
+        jax_ablate[3]
+    want = numpy_ablation(a, x.astype(np.float64), variant)
+    got = spmv_ablate_rows_plain(a, torch.from_numpy(x).double(), variant)
+    assert got.dtype == torch.float64 and got.shape == (m,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    got32 = spmv_ablate_rows_plain(a, torch.from_numpy(x), variant)
+    np.testing.assert_allclose(got32.numpy(), want, rtol=RTOL, atol=ATOL)
+    if source == "jax_1000":
+        np.testing.assert_allclose(got32.numpy(), jax_ablate[4][variant],
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.fixture(scope="module")

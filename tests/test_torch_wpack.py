@@ -516,7 +516,7 @@ def test_default_range_is_one_wave_of_whole_tiles():
 # --- WROW v1's row-ordered live-slot stream (``DeviceWROW.row_*``) --------
 
 WROW_CU = (Path(__file__).resolve().parents[1] / "spgrid_torch" / "csrc"
-           / "wrow_spmv.cu").read_text()
+           / "wrow_rows.cuh").read_text()
 # slots of each row a round of the kernel stages (one a lane)
 DEPTH = int(re.search(r"constexpr int DEPTH = (\d+);", WROW_CU).group(1))
 ROW_MATRICES = {**STREAM_MATRICES, "straddle": straddle,
@@ -553,7 +553,7 @@ def padded_v1_sum(a, x):
 
 
 def emulate_row_walk(a, x):
-    """numpy emulation of ``csrc/wrow_spmv.cu``: a CTA a 128-row target
+    """numpy emulation of ``csrc/wrow_rows.cuh``: a CTA a 128-row target
     block, a warp 32 of its rows; round i of a warp (as many as its longest
     row needs) stages slot i DEPTH + j of each row whose length exceeds it,
     lane j, value and x side by side in a (32, DEPTH) buffer that starts as
