@@ -43,7 +43,15 @@ exits non-zero and never prints the final ``"ok": true`` line:
    it moves from device memory if each slab stays in L2, and on its
    main-path case the device ms at slab widths 16, 32, 64, 128 and n; it
    runs on LINE_S at n=512 and n=100 (a ragged last slab) and on the edge
-   matrix at n=200 and n=77 (the scalar form).
+   matrix at n=200 and n=77 (the scalar form). wcoo_spmv (the aligned
+   layout's row-ordered live-slot stream in row tiles, a CTA a tile) prints
+   the stream's bytes beside the padded groups', its tiles, its longest row
+   and the layout's build seconds, and on MAIN_LINE the device ms at each
+   TILE_SLOTS; it also runs on the edge matrix and on a matrix with a
+   3,000-slot row and 400 empty rows. dma_gather (a ring of TMA bulk copies
+   both ways) prints the ring its rule picks and the CTAs launched, and at
+   G = 64 the device ms and TB/s over the bound's bytes at each ring of S
+   2, 4, 6 by R 8, 16, 32 that the kernel takes.
    The WPACK ablation's five variants (``wpack_spmv(a, x, ablate=,
    prefix=)``) run on ``exp_wpack_ablate``'s matrix at its own wsel (2) and
    on the edge matrix at wsel 1 and 4, each held to its f64 plain version
@@ -217,6 +225,15 @@ def edge_matrix():
                             heavy_nnz=250)
 
 
+def long_row_matrix():
+    """1000 x 3200, ~0.3 % scattered; rows 100-499 empty (400 in a row) and
+    row 700 full in its last 3,000 columns, longer than wcoo_spmv's tiles of
+    2,048 slots; m is not a multiple of 128."""
+    from spgrid_torch.entry import hypersparse_edge
+    return hypersparse_edge(1000, 3200, density=0.003, empty=slice(100, 500),
+                            heavy_row=700, heavy_nnz=3000, seed=31)
+
+
 def line_matrix(line: str):
     """The CSR matrix of a parameter line, as the CLI generates it."""
     from spgrid_torch.gen import GenParams, artificial_matrix_generation
@@ -305,7 +322,9 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.lanegather import (
         lanegather, lanegather_plain)
     from spgrid_torch.ops.kernels.pallas_gather import (
-        dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain)
+        dma_gather, dma_gather_plain, ring_shape, shuffle_bench,
+        shuffle_bench_plain)
+    from spgrid_torch.ops.kernels.pallas_gather import launch as gather_launch
     from spgrid_torch.ops.kernels.spmv_ablate import (
         VARIANTS, spmv_ablate, spmv_ablate_plain)
     from spgrid_torch.ops.kernels.panel_spmm import (
@@ -318,7 +337,8 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
-        DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+        TILE_CHOICES, DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.wcoo_spmv import launch as wcoo_spmv_launch
     from spgrid_torch.ops.kernels.slot_rows import row_stream, walk_shape
     from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
@@ -557,12 +577,30 @@ def phase_kernels() -> dict:
     bands_case = functools.partial(rows_case, DeviceWCOOBands,
                                    wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
 
-    def wcoo_spmv_case(csr, seed):
-        a = DeviceWCOOAligned.from_csr(csr, device=DEVICE)
+    # wcoo_spmv reads the row-ordered live-slot stream in row tiles of at
+    # most TILE_SLOTS slots, a CTA a tile: what it reads beside the padded
+    # groups, its tiles and, on the main-path case, the device ms at each
+    # TILE_SLOTS.
+    def wcoo_spmv_case(csr, seed, sweep=False):
+        a, layout_s = timed_layout(DeviceWCOOAligned, csr)
         layout_line("wcoo_aligned", csr, a, "groups of 8x128 slots",
                     a.num_groups)
-        return spmv_case(wcoo_spmv, wcoo_spmv_plain, a, csr, seed,
+        case = spmv_case(wcoo_spmv, wcoo_spmv_plain, a, csr, seed,
                          a.cols.element_size())
+        note = (f"stream_bytes={a.stream_nbytes + nbytes(a.tile_row)} "
+                f"padded_bytes={nbytes(a.cols, a.values, a.g_sw, a.block_ptr)}"
+                f" live_slots={a.num_slots} tile_slots={a.tile_slots} "
+                f"grid={a.tiles} CTAs of 256 threads longest_row="
+                f"{int(torch.diff(a.row_slot).max()) if csr.m else 0} "
+                f"layout_build_s={layout_s:.3f} (host: groups, stream, "
+                f"tiles, copy to the card)")
+        if sweep:
+            x, y = case[2][1], torch.empty((a.shape[0],), device=DEVICE)
+            tiled = [a.tiled(t) for t in TILE_CHOICES]
+            note += " device_ms_by_tile_slots(CTAs) " + " ".join(
+                f"{b.tile_slots}:{device_ms(wcoo_spmv_launch, b, x, y):.6f}"
+                f"({b.tiles})" for b in tiled)
+        return case + (REL_TOL, note)
 
     # WROW v1 reads the row-ordered stream, a CTA a 128-row target block.
     def row_stream_s(a):
@@ -604,15 +642,40 @@ def phase_kernels() -> dict:
         x = np.random.default_rng(seed).standard_normal((k, n))
         return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
 
-    def dma_case(x, steps, G, seed):
+    def dma_case(x, steps, G, seed, sweep=False):
+        """The ring the rule picks (S stages of R rows, the CTAs launched)
+        and, on the main-path case, the device ms and rate over the bound's
+        bytes at each ring of S 2, 4, 6 and R 8, 16, 32 that the kernel
+        takes."""
         k, n = x.shape
         idx2 = torch.from_numpy(np.random.default_rng(seed).integers(
             0, k, (steps, G)).astype(np.int32)).to(DEVICE)
         distinct = torch.unique(idx2).numel()
+        bytes_moved = 4 * n * (distinct + steps * G) + nbytes(idx2)
+        out = torch.empty((steps * G, n), device=DEVICE)
+        if n % 4:
+            note = f"4-byte path, grid={steps} CTAs (a CTA a step)"
+        else:
+            ring = ring_shape(n, steps, G)
+            note = (f"bulk path, ring S={ring.stages} R={ring.chunk_rows} "
+                    f"grid={ring.ctas} CTAs")
+        if sweep:
+            def takes(s_, r_):
+                try:
+                    ring_shape(n, steps, G, s_, r_)
+                except RuntimeError:    # the ring does not fit
+                    return False
+                return True
+
+            def point(s_, r_):
+                t = device_ms(gather_launch, x, idx2, out, s_, r_)
+                return f"S{s_}R{r_}:{t:.6f}({bytes_moved / t / 1e9:.3f}TB/s)"
+            note += " device_ms_by_ring " + " ".join(
+                point(s_, r_) for s_ in (2, 4, 6) for r_ in (8, 16, 32)
+                if takes(s_, r_))
         return (dma_gather, lambda x_, i_, _g: dma_gather_plain(x_, i_),
                 (x, idx2, G), (x, idx2, G), torch.index_select,
-                (x, 0, idx2.reshape(-1)),
-                4 * n * (distinct + steps * G) + nbytes(idx2), 0.0, 0.0)
+                (x, 0, idx2.reshape(-1)), bytes_moved, 0.0, 0.0, note)
 
     def shuffle_case(reps, seed):
         rng = np.random.default_rng(seed)
@@ -722,9 +785,11 @@ def phase_kernels() -> dict:
         ("wrow_spmv", f"{s_label} n=1", LIBRARY_TOO,
          lambda: wrow_case(line_s, 14)),
         ("wcoo_spmv", f"{hyper_label} n=1", True,
-         lambda: wcoo_spmv_case(hyper, 10)),
+         lambda: wcoo_spmv_case(hyper, 10, sweep=True)),
         ("wcoo_spmv", f"{edge_label} n=1", False,
          lambda: wcoo_spmv_case(edge, 11)),
+        ("wcoo_spmv", "1000x3200 a 3000-slot row, 400 empty rows n=1", False,
+         lambda: wcoo_spmv_case(long_row_matrix(), 27)),
         ("bsr_spmm_cstat", f"{b_label} n=512", True,
          lambda: bsrc_case(line_b, 512, 12)),
         ("bsr_spmm_cstat", "headline 512^2 one band n=512", False,
@@ -770,7 +835,8 @@ def phase_kernels() -> dict:
     for G in (64, 256):
         cases.append(("dma_gather", f"X {g_k}x{g_n} {g_steps} steps G={G}",
                       G == 64,
-                      functools.partial(dma_case, x_gather, g_steps, G, 17)))
+                      functools.partial(dma_case, x_gather, g_steps, G, 17,
+                                        sweep=G == 64)))
     cases.append(("dma_gather", "X 300x201 (4-byte copies) 3 steps G=6",
                   False, lambda: dma_case(gather_x(300, 201, 18), 3, 6, 19)))
     for reps in (64, 256):
@@ -1091,6 +1157,9 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"phase 0 ptxas: {line.strip()}", flush=True)
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            print(f"phase 0 ptxas: entry {entry}", flush=True)
 
     main_path = phase_kernels()
 

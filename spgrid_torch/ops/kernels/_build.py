@@ -56,8 +56,8 @@ SIGNATURES = {
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # row_slot, vals, cols, x, y, blocks, m, stream
     "spgrid_wrow_spmv": [_PTR] * 5 + [_INT] * 2 + [_PTR],
-    # block_ptr, g_sw, cols, vals, x, y, blocks, m, k, stream
-    "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # tile_row, row_slot, vals, xidx, x, y, tiles, tile_slots, stream
+    "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 2 + [_PTR],
     # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,
     # m, k, n, stream
     "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
@@ -79,8 +79,11 @@ SIGNATURES = {
     "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     # src, idx, out, s0, s1, i0, i1, axis, stream
     "spgrid_lanegather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
-    # x, idx, out, k, n, steps, G, stream
-    "spgrid_dma_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # x, idx, out, k, n, steps, G, stages, chunk_rows (0: the rule's), grid
+    # (int* or NULL: the CTAs launched), stream
+    "spgrid_dma_gather": [_PTR] * 3 + [_INT] * 6 + [_PTR] * 2,
+    # n, steps, G, stages, chunk_rows, out (int[3]: S, R, CTAs)
+    "spgrid_dma_gather_shape": [_INT] * 5 + [_PTR],
     # src, idx, out, rows, reps, stream
     "spgrid_shuffle_bench": [_PTR] * 3 + [_INT] * 2 + [_PTR],
     # row_slot, vals, cols, pieces, x, y, variant, blocks, m, k, stream

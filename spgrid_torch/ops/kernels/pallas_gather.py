@@ -8,9 +8,15 @@ Counterparts of the Pallas probes ``dma_gather`` and ``shuffle_bench`` of
 for CUDA tensors and takes its plain version only for CPU tensors.
 Indices must lie inside x (``dma_gather``) or the row (``shuffle_bench``):
 the plain versions raise on one that does not, the kernels read 0.
+``dma_gather``'s output is one contiguous range of rows whatever G is; its
+kernel walks it in chunks of R rows through a ring of S stages, by the rule
+that ``csrc/pallas_gather.cu`` holds (``ring_shape`` reports it).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,7 +24,27 @@ from spgrid_torch.ops.kernels import _build, check_operands
 
 LANE = 128
 # a row must fit one stage of the kernel's shared memory, two stages a CTA
+# (a 64 KB row: R = 1, S = 3)
 MAX_N = 16384
+
+
+class Ring(NamedTuple):
+    """dma_gather's bulk launch: S stages of R rows, its persistent CTAs."""
+    stages: int
+    chunk_rows: int
+    ctas: int
+
+
+def ring_shape(n: int, steps: int, G: int, stages: int = 0,
+               chunk_rows: int = 0) -> Ring:
+    """The bulk path's launch for steps · G rows of n f32 (n % 4 == 0) on
+    the current card, as the kernel makes it at S = ``stages`` and R =
+    ``chunk_rows`` (0: the rule's); raises for a ring it cannot take."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.library().spgrid_dma_gather_shape(
+        n, steps, G, stages, chunk_rows, ctypes.addressof(shape)),
+        "dma_gather")
+    return Ring(*shape)
 
 
 def _device(kernel: str, t: torch.Tensor) -> None:
@@ -45,19 +71,32 @@ def dma_gather(x: torch.Tensor, idx2: torch.Tensor, G: int) -> torch.Tensor:
     _device("dma_gather", x)
     if x.device.type == "cpu":
         return dma_gather_plain(x, idx2)
-    steps = idx2.shape[0]
-    out = torch.empty((steps * G, n), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_dma_gather(x.data_ptr(), idx2.data_ptr(),
-                                     out.data_ptr(), k, n, steps, G, stream)
-    _build.check(code, "dma_gather")
+    out = torch.empty((idx2.shape[0] * G, n), dtype=torch.float32,
+                      device=x.device)
+    launch(x, idx2, out)
     dma_gather.launches += 1
     return out
 
 
 dma_gather.launches = 0
+
+
+def launch(x: torch.Tensor, idx2: torch.Tensor, out: torch.Tensor,
+           stages: int = 0, chunk_rows: int = 0) -> int:
+    """One launch of the kernel into ``out``, uncounted, with the bulk
+    path's ring at S = ``stages`` and R = ``chunk_rows`` (0: the rule's),
+    for sweeps and tests; returns the CTAs launched. ``dma_gather`` is the
+    entry point."""
+    steps, G = idx2.shape
+    k, n = x.shape
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_dma_gather(
+            x.data_ptr(), idx2.data_ptr(), out.data_ptr(), k, n, steps, G,
+            stages, chunk_rows, ctypes.addressof(grid), stream)
+    _build.check(code, "dma_gather")
+    return grid.value
 
 
 def dma_gather_plain(x: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:

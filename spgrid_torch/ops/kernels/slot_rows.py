@@ -70,7 +70,10 @@ STREAM_FIELDS = ("row_slot", "slot_vals", "slot_xrows", "long_rows")
 
 
 class RowStream:
-    """What the layouts that carry a row stream (``STREAM_FIELDS``) share."""
+    """What the layouts that carry a row stream (``stream_fields``, all of
+    ``STREAM_FIELDS`` unless a layout says otherwise) share."""
+
+    stream_fields = STREAM_FIELDS
 
     @property
     def num_slots(self) -> int:
@@ -80,12 +83,13 @@ class RowStream:
     def stream_nbytes(self) -> int:
         """Bytes of what the kernel reads of the layout: the row stream."""
         return sum(getattr(self, f).numel() * getattr(self, f).element_size()
-                   for f in STREAM_FIELDS)
+                   for f in self.stream_fields)
 
 
-def stream_tensors(stream, device) -> dict:
-    """``row_stream``'s arrays as the layout's fields on ``device``."""
-    return {f: to_device(a, device) for f, a in zip(STREAM_FIELDS, stream)}
+def stream_tensors(stream, device, fields=STREAM_FIELDS) -> dict:
+    """``row_stream``'s arrays as the layout's ``fields`` (its first ones)
+    on ``device``."""
+    return {f: to_device(a, device) for f, a in zip(fields, stream)}
 
 
 def walk_shape(m: int, n: int):
@@ -96,12 +100,11 @@ def walk_shape(m: int, n: int):
 
 
 def check_rows(kernel: str, a, x: torch.Tensor) -> None:
-    """Raise unless the row stream of ``a`` (DeviceWCOO or DeviceWCOOBands)
-    is what the walk takes."""
-    check_operands(kernel, x.device, row_slot=(a.row_slot, torch.int32),
-                   slot_vals=(a.slot_vals, torch.float32),
-                   slot_xrows=(a.slot_xrows, torch.int32),
-                   long_rows=(a.long_rows, torch.int32))
+    """Raise unless the row stream of ``a`` (its ``stream_fields``) is what
+    the kernel takes: f32 values, int32 otherwise."""
+    check_operands(kernel, x.device, **{
+        f: (getattr(a, f), torch.float32 if f == "slot_vals" else torch.int32)
+        for f in a.stream_fields})
 
 
 def launch_rows(wrapper, symbol: str, a, x: torch.Tensor) -> torch.Tensor:

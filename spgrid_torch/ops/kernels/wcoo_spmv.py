@@ -2,8 +2,11 @@
 
 Counterpart of ``spgrid/ops/pallas/wcoo_spmv.py`` (format ``wcoo_spmv``); the
 CUDA kernel is ``spgrid_torch/csrc/wcoo_spmv.cu``. ``wcoo_spmv`` takes x (k,)
-and returns y (m,), x unpadded. It launches the kernel for CUDA tensors and
-takes ``wcoo_spmv_plain`` only for CPU tensors.
+and returns y (m,), x unpadded. It launches the kernel for CUDA tensors,
+which reads the layout's row-ordered live-slot stream
+(``ops/kernels/slot_rows.py``) in row tiles of equal work (``row_tiles``),
+and takes ``wcoo_spmv_plain``, which reads the padded groups, only for CPU
+tensors.
 
 A group is (8, 128) slots: row w = window within the group's 1024-column
 superwindow, lane = row within its 128-row target block
@@ -20,44 +23,112 @@ import torch
 
 from spgrid_torch.formats.wcoo import LANE, csr_to_wcoo_aligned
 from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels.slot_rows import (
+    STREAM_FIELDS, RowStream, check_rows, row_stream, rows_product,
+    stream_tensors)
 from spgrid_torch.ops.layouts import group_ptr, to_device
 
 GROUP_ROWS = 8       # windows of a superwindow == slot rows of a group
+# The kernel (csrc/wcoo_spmv.cu): a CTA of THREADS threads a row tile, a
+# thread a row; a tile holds at most TILE_SLOTS live slots, staged in shared
+# memory, unless it is one longer row. TILE_SLOTS is the rule, the fastest
+# of phase 1's sweep over TILE_CHOICES on MAIN_LINE (PERF.md §6); the kernel
+# takes any of TILE_CHOICES.
+THREADS = 256
+TILE_CHOICES = (512, 1024, 2048)
+TILE_SLOTS = 2048
+
+
+def row_tiles(row_slot, tile_slots: int = TILE_SLOTS) -> np.ndarray:
+    """tile_row (T + 1,) int32: tile i is rows ``tile_row[i]:tile_row[i +
+    1]``, whole rows taken greedily in order while the tile holds at most
+    ``tile_slots`` live slots and ``THREADS`` rows; a row of more slots is a
+    tile of its own. Every row lies in one tile; m = 0 gives no tile."""
+    if tile_slots not in TILE_CHOICES:
+        raise ValueError(f"wcoo_spmv: tile_slots must be one of "
+                         f"{TILE_CHOICES}, got {tile_slots}")
+    ptr = np.asarray(row_slot, np.int64)
+    m = len(ptr) - 1
+    tiles = [0]
+    r = 0
+    while r < m:
+        end = int(np.searchsorted(ptr, ptr[r] + tile_slots, "right")) - 1
+        r = max(min(end, r + THREADS, m), r + 1)
+        tiles.append(r)
+    return np.asarray(tiles, np.int32)
+
+
+def aligned_row_stream(cols, values, g_sw, g_sub, shape):
+    """The stream of an aligned layout: slot (w, lane) of group g adds to
+    row 128 g_sub + lane from x index 1024 g_sw + 128 w + col, col read as
+    an unsigned byte, in group, window and lane order (the order in which
+    the padded walk summed each row)."""
+    slots = (-1, GROUP_ROWS, LANE)
+    w = np.arange(GROUP_ROWS)[:, None]
+    col = np.asarray(cols, np.int8).view(np.uint8).reshape(slots)
+    xrows = (np.asarray(g_sw, np.int64)[:, None, None] * (GROUP_ROWS * LANE)
+             + w * LANE + col)
+    out = np.broadcast_to(np.asarray(g_sub, np.int64)[:, None, None] * LANE
+                          + np.arange(LANE), xrows.shape)
+    return row_stream(out, xrows, np.asarray(values).reshape(slots), *shape)
 
 
 @dataclasses.dataclass
-class DeviceWCOOAligned:
+class DeviceWCOOAligned(RowStream):
     """``csr_to_wcoo_aligned``'s groups on a torch device, plus
     ``block_ptr``: the groups of target block b are ``block_ptr[b]:
     block_ptr[b + 1]``. (The JAX layout pads the groups to a multiple of 256
-    for its grid; the port does not.)"""
+    for its grid; the port does not.) Also the row-ordered live-slot stream
+    that the kernel reads (``slot_rows.py``) and its row tiles at
+    ``tile_slots`` (``row_tiles``). The stream has no ``long_rows``: the
+    kernel takes a row past a tile's slots as a tile of its own."""
+
+    stream_fields = STREAM_FIELDS[:3]
 
     cols: torch.Tensor        # (G*8, 128) int8, col % 128 of each slot
     values: torch.Tensor      # (G*8, 128), 0 in empty slots
     g_sw: torch.Tensor        # (G,) int32, superwindow of each group
     g_sub: torch.Tensor       # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
+    # the row stream: S live slots by output row, in group, window, lane order
+    row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
+    slot_vals: torch.Tensor   # (S,) value of each live slot
+    slot_xrows: torch.Tensor  # (S,) int32, x index of each live slot
+    tile_row: torch.Tensor    # (T + 1,) int32, the kernel's row tiles
     shape: Tuple[int, int]
     nnz: int
     utilization: float
     num_groups: int
     name: str = ""
+    tile_slots: int = TILE_SLOTS
 
     @property
     def blocks(self) -> int:
         return len(self.block_ptr) - 1
 
     @property
+    def tiles(self) -> int:
+        return len(self.tile_row) - 1
+
+    @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (
-            self.cols, self.values, self.g_sw, self.block_ptr))
+        return self.stream_nbytes + sum(t.numel() * t.element_size() for t in (
+            self.tile_row, self.cols, self.values, self.g_sw, self.block_ptr))
+
+    def tiled(self, tile_slots: int) -> "DeviceWCOOAligned":
+        """The same layout with its row tiles cut at ``tile_slots``."""
+        tiles = row_tiles(self.row_slot.cpu().numpy(), tile_slots)
+        return dataclasses.replace(
+            self, tile_row=to_device(tiles, self.row_slot.device),
+            tile_slots=tile_slots)
 
     @classmethod
     def from_arrays(cls, cols, values, g_sw, g_sub, shape, nnz: int,
                     utilization: float, num_groups: int, name: str = "", *,
                     device) -> "DeviceWCOOAligned":
         """Host arrays → device layout; groups past ``num_groups`` (the JAX
-        layout's padding) are dropped."""
+        layout's padding) are dropped. The row stream and its tiles are
+        built here, on the host, from the padded groups."""
         G = int(num_groups)
         sub = np.asarray(g_sub, np.int64)[:G]
         if np.any(np.diff(sub) < 0):
@@ -65,21 +136,38 @@ class DeviceWCOOAligned:
                              "block")
         ptr, _ = group_ptr(sub, max(-(-shape[0] // LANE), 1))
         rows = G * GROUP_ROWS
-        return cls(cols=to_device(np.asarray(cols).reshape(-1, LANE)[:rows],
-                                  device, np.int8),
-                   values=to_device(
-                       np.asarray(values).reshape(-1, LANE)[:rows], device),
-                   g_sw=to_device(np.asarray(g_sw)[:G], device, np.int32),
+        cols = np.asarray(cols).reshape(-1, LANE)[:rows]
+        values = np.asarray(values).reshape(-1, LANE)[:rows]
+        sw = np.asarray(g_sw)[:G]
+        stream = aligned_row_stream(cols, values, sw, sub, shape)
+        return cls(cols=to_device(cols, device, np.int8),
+                   values=to_device(values, device),
+                   g_sw=to_device(sw, device, np.int32),
                    g_sub=to_device(sub, device, np.int32),
-                   block_ptr=to_device(ptr, device), shape=tuple(shape),
-                   nnz=int(nnz), utilization=float(utilization),
-                   num_groups=G, name=name)
+                   block_ptr=to_device(ptr, device),
+                   **stream_tensors(stream, device, cls.stream_fields),
+                   tile_row=to_device(row_tiles(stream[0]), device),
+                   shape=tuple(shape), nnz=int(nnz),
+                   utilization=float(utilization), num_groups=G, name=name)
 
     @classmethod
     def from_csr(cls, csr, *, device) -> "DeviceWCOOAligned":
         cols, vals, g_sw, g_sub, G, util = csr_to_wcoo_aligned(csr)
         return cls.from_arrays(cols, vals, g_sw, g_sub, csr.shape, csr.nnz,
                                util, G, csr.name, device=device)
+
+
+def launch(a: DeviceWCOOAligned, x: torch.Tensor, y: torch.Tensor) -> None:
+    """One launch of the kernel into ``y`` over ``a``'s row tiles at
+    ``a.tile_slots``, uncounted (``a.tiled(s)`` for sweeps and tests);
+    ``wcoo_spmv`` is the entry point."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_wcoo_spmv(
+            a.tile_row.data_ptr(), a.row_slot.data_ptr(),
+            a.slot_vals.data_ptr(), a.slot_xrows.data_ptr(), x.data_ptr(),
+            y.data_ptr(), a.tiles, a.tile_slots, stream)
+    _build.check(code, "wcoo_spmv")
 
 
 def wcoo_spmv(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
@@ -89,23 +177,17 @@ def wcoo_spmv(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
     check_operands("wcoo_spmv", x.device, x=(x, torch.float32),
                    values=(a.values, torch.float32), cols=(a.cols, torch.int8),
                    g_sw=(a.g_sw, torch.int32),
-                   block_ptr=(a.block_ptr, torch.int32))
+                   block_ptr=(a.block_ptr, torch.int32),
+                   tile_row=(a.tile_row, torch.int32))
+    check_rows("wcoo_spmv", a, x)
     if x.device.type == "cpu":
         return wcoo_spmv_plain(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"wcoo_spmv: no kernel for device {x.device}")
-    m, k = a.shape
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if m == 0:
+    y = torch.empty((a.shape[0],), dtype=torch.float32, device=x.device)
+    if a.shape[0] == 0:
         return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wcoo_spmv(
-            a.block_ptr.data_ptr(), a.g_sw.data_ptr(), a.cols.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m, k,
-            stream)
-    _build.check(code, "wcoo_spmv")
+    launch(a, x, y)
     wcoo_spmv.launches += 1
     return y
 
@@ -130,3 +212,10 @@ def wcoo_spmv_plain(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((m,), dtype=x.dtype, device=x.device)
     y.index_add_(0, row[live], vals[live].to(x.dtype) * x[xi[live]])
     return y
+
+
+def wcoo_spmv_rows_plain(a: DeviceWCOOAligned,
+                         x: torch.Tensor) -> torch.Tensor:
+    """The same product over the row stream, what the kernel reads, in
+    plain torch and x's dtype (for tests)."""
+    return rows_product(a, x[:, None])[:, 0]

@@ -15,6 +15,8 @@ order: within 1e-4. The WPACK ablation's pad and roll prefixes make the
 same f32 additions in the same order, so they agree bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,8 +34,10 @@ from spgrid_torch.ops.kernels.dgell import (
     dgell_spmm_plain, launch, launch_shape,
 )
 from spgrid_torch.ops.kernels.lanegather import lanegather, lanegather_plain
+from spgrid_torch.ops.kernels import pallas_gather
 from spgrid_torch.ops.kernels.pallas_gather import (
-    dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain,
+    MAX_N, dma_gather, dma_gather_plain, ring_shape, shuffle_bench,
+    shuffle_bench_plain,
 )
 from spgrid_torch.ops.kernels.spmv_ablate import (
     VARIANTS, spmv_ablate, spmv_ablate_plain, spmv_ablate_rows_plain,
@@ -48,8 +52,10 @@ from spgrid_torch.ops.kernels.wcoo_spmm import (
 from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
     DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain,
 )
+from spgrid_torch.ops.kernels import wcoo_spmv as wcoo_spmv_module
 from spgrid_torch.ops.kernels.wcoo_spmv import (
-    DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
+    TILE_CHOICES, DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
+    wcoo_spmv_rows_plain,
 )
 from spgrid_torch.ops.kernels.wpack_spmv import (
     DeviceWPACK, wpack_spmv, wpack_spmv_plain,
@@ -376,6 +382,46 @@ def test_slot_spmv_kernel(cuda, kernel, matrix):
     got = fn(a, x)
     assert launch_counts()[kernel] == before + 1
     assert_close(got, plain(a, x.double()))
+
+
+def long_row():
+    """1000 x 3200, ~0.3 % scattered; rows 100-499 empty (400 in a row, past
+    a tile's 256 rows) and row 700 full in its last 3,000 columns, past
+    every TILE_SLOTS of the sweep; m is not a multiple of 128."""
+    return hypersparse_edge(1000, 3200, density=0.003, empty=slice(100, 500),
+                            heavy_row=700, heavy_nnz=3000, seed=31)
+
+
+WCOO_SPMV_MATRICES = {**SLOT_MATRICES, "long_row": long_row}
+
+
+@pytest.mark.parametrize("tile_slots", TILE_CHOICES)
+@pytest.mark.parametrize("matrix", sorted(WCOO_SPMV_MATRICES))
+def test_wcoo_spmv_at_every_tile_size(cuda, matrix, tile_slots):
+    """The row-tiled stream kernel at each TILE_SLOTS: every row written (y
+    starts as NaN), within 1e-5 of the padded plain version and of the
+    stream's, and the same bits on two calls (no atomics)."""
+    csr = WCOO_SPMV_MATRICES[matrix]()
+    a = DeviceWCOOAligned.from_csr(csr, device=cuda).tiled(tile_slots)
+    x = operand((csr.k,), 13, cuda)
+    y = torch.full((csr.m,), float("nan"), device=cuda)
+    wcoo_spmv_module.launch(a, x, y)
+    assert_close(y, wcoo_spmv_plain(a, x.double()))
+    assert_close(y, wcoo_spmv_rows_plain(a, x.double()))
+    again = torch.full_like(y, float("nan"))
+    wcoo_spmv_module.launch(a, x, again)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+
+
+def test_wcoo_spmv_refuses_a_tile_size_it_cannot_take(cuda):
+    a = DeviceWCOOAligned.from_csr(hypersparse_edge(), device=cuda)
+    x = operand((a.shape[1],), 1, cuda)
+    y = torch.empty((a.shape[0],), device=cuda)
+    for tile_slots in (0, 256, 1000, 4096):
+        with pytest.raises(RuntimeError):
+            wcoo_spmv_module.launch(
+                dataclasses.replace(a, tile_slots=tile_slots), x, y)
 
 
 def scattered_line():
@@ -789,6 +835,75 @@ def test_dma_gather_kernel(cuda, k, n, steps, G, layout):
     assert launch_counts()["dma_gather"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, dma_gather_plain(x, idx2))
+
+
+def test_dma_gather_takes_more_chunks_than_ctas(cuda):
+    """The probe's rows at G = 64 and 256 over a smaller X: 25,600 output
+    rows, 1,600 chunks of R = 16 rows, ~12 for each CTA of the persistent
+    grid, so every CTA walks its ring around twice or more."""
+    for G, steps in ((64, 400), (256, 100)):
+        x, idx2 = gather_operands(5000, 512, steps, G, 27, cuda)
+        out = torch.empty((steps * G, 512), device=cuda)
+        grid = pallas_gather.launch(x, idx2, out)
+        ring = ring_shape(512, steps, G)
+        assert grid == ring.ctas and 0 < grid < steps * G // ring.chunk_rows
+        torch.cuda.synchronize()
+        assert torch.equal(out, dma_gather_plain(x, idx2))
+
+
+def gather_with_outside_rows(k, n, steps, G, seed, device):
+    """x, idx2 with ~3 % of the indices outside x (negative or >= k), and
+    the rows the kernel must give: index_select with those rows zero."""
+    x, idx2 = gather_operands(k, n, steps, G, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    flat = idx2.reshape(-1).cpu().numpy()
+    bad = rng.random(flat.size) < 0.03
+    flat[bad] = rng.choice([-1, -7, k, k + 5], bad.sum())
+    idx2 = torch.from_numpy(flat.reshape(steps, G)).to(device)
+    want = x.index_select(0, idx2.reshape(-1).clamp(0, k - 1))
+    want[torch.from_numpy(bad).to(device)] = 0.0
+    return x, idx2, want
+
+
+@pytest.mark.parametrize("stages,chunk_rows", [
+    (2, 8), (2, 16), (2, 32), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_dma_gather_at_every_ring(cuda, stages, chunk_rows):
+    """The bulk path at each ring of the sweep that fits at n 512 (S stages
+    of R rows), with rows outside x (zero rows, filled in the stage before
+    its store): equal to index_select."""
+    x, idx2, want = gather_with_outside_rows(3000, 512, 37, 64, 28, cuda)
+    out = torch.full((37 * 64, 512), float("nan"), device=cuda)
+    assert pallas_gather.launch(x, idx2, out, stages, chunk_rows) > 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_dma_gather_refuses_a_ring_it_cannot_take(cuda):
+    x, idx2 = gather_operands(100, 512, 2, 64, 29, cuda)
+    out = torch.empty((128, 512), device=cuda)
+    for stages, chunk_rows in ((1, 16), (9, 1), (2, 33), (6, 32), (4, 32)):
+        with pytest.raises(RuntimeError):
+            pallas_gather.launch(x, idx2, out, stages, chunk_rows)
+        with pytest.raises(RuntimeError):
+            ring_shape(512, 2, 64, stages, chunk_rows)
+
+
+@pytest.mark.parametrize("n", [4, 8, 200, 512, 1000, 4096, 8192, MAX_N])
+def test_ring_rule_fits_shared_memory(cuda, n):
+    """The rule's ring (S stages of R rows of n floats) is one the kernel
+    takes: S 2-8, R 1-32 (a lane a row), within the H100's 227 KB of shared
+    memory for a CTA; a stage of about 32 KB where a row is at most 32 KB;
+    at most a CTA a chunk."""
+    S, R, ctas = ring_shape(n, 4, 64)
+    assert 2 <= S <= 8 and 1 <= R <= 32
+    assert S * R * 4 * n <= 227 * 1024
+    assert R == max(1, min(32, 32768 // (4 * n)))
+    assert 1 <= ctas <= -(-256 // R)
+    assert ring_shape(512, 4, 64)[:2] == (6, 16)
+    assert ring_shape(MAX_N, 4, 64)[:2] == (3, 1)
+    assert ring_shape(n, 4, 64, 2, 1)[:2] == (2, 1)
+    with pytest.raises(RuntimeError):        # no bulk path
+        ring_shape(n + 1, 4, 64)
 
 
 def test_dma_gather_reads_no_row_outside_x(cuda):

@@ -4,6 +4,9 @@ against the JAX Pallas kernels in interpret mode, on the same inputs.
 Tolerance rtol 1e-5, atol 1e-6: both are f32, summed in another order.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ from spgrid.ops.pallas.bsr_spmm import bsr_spmm as jax_bsr_spmm
 from spgrid.ops.pallas.panel_spmm import DevicePanels as JaxPanels
 from spgrid.ops.pallas.panel_spmm import panel_spmm as jax_panel_spmm
 from spgrid.ops.pallas.sddmm import bsr_sddmm as jax_bsr_sddmm
-from spgrid_torch.ops.kernels import launch_counts
+from spgrid_torch.ops.kernels import _build, launch_counts
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_plain,
@@ -156,3 +159,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
         panel_spmm(p, x)
     with pytest.raises(err):
         bsr_sddmm(a, q, torch.from_numpy(operand((64, 16), 3)))
+
+
+def c_entry_points() -> dict:
+    """{name: [ctypes type of each parameter]} of every ``extern "C"``
+    function of the CUDA sources: pointers as c_void_p, ints as c_int."""
+    kinds = {"int": ctypes.c_int, "void*": ctypes.c_void_p}
+    found = {}
+    for path in _build.sources():
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for name, params in re.findall(
+                r'extern "C" \S+ (spgrid_\w+)\(([^)]*)\)', text):
+            found[name] = [
+                kinds[re.sub(r"\s+", "", re.sub(r"\bconst\b|\w+$", "",
+                                                p.strip()))]
+                for p in params.split(",")]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signatures_match_the_c_entry_points(name):
+    """ctypes passes each argument as the library's declared type: a
+    pointer passed as an int is cut to 32 bits, a missing argument leaves
+    the stream undefined."""
+    assert c_entry_points()[name] == _build.SIGNATURES[name]

@@ -12,6 +12,7 @@ so no sum cancels below its terms' rounding).
 
 import functools
 import importlib.util
+import re
 import sys
 from pathlib import Path
 
@@ -475,3 +476,64 @@ def test_spmv_ablate_refuses_what_the_kernel_does_not_take(bad):
     }[bad]
     with pytest.raises(err):
         spmv_ablate(a, x, variant)
+
+
+def test_widest_row_fits_the_ring():
+    """The widest row the wrapper takes (MAX_N floats) fits the kernel's
+    ring of two stages of one row, and its 4-byte path's stage: the limits
+    as csrc/pallas_gather.cu states them."""
+    text = (_build.CSRC / "pallas_gather.cu").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+        return eval(expr, {"__builtins__": {}})     # digits, * and -
+
+    assert 2 * 4 * MAX_N <= const("MAX_RING_BYTES") <= 227 * 1024
+    assert 4 * MAX_N <= 2 * const("STAGE_BYTES")
+    assert const("MAX_STAGES") >= 2 and const("MAX_RING_ROWS") == 32
+
+
+def ring_schedule(total, R, S, grid):
+    """The bulk kernel's schedule, replayed in order for each CTA: chunk i
+    of CTA b is chunk b + i * grid of the output, loaded into stage i % S
+    (S at first, then chunk i - 1 + S after chunk i's store, once chunk
+    i - 1's store has read its stage: all but the newest bulk group),
+    awaited in phase (i / S) & 1. Returns the output rows each store
+    wrote, in order, and raises on a stage refilled under a store that
+    may still read it or a wait on a phase the stage never reached."""
+    chunks = -(-total // R)
+    stores = []
+    for b in range(min(grid, chunks)):
+        mine = (chunks - 1 - b) // grid + 1
+        stage_chunk, phases, pending = {}, [0] * S, []
+
+        def load(i):
+            s = i % S
+            if s in stage_chunk:              # the previous occupant
+                assert stage_chunk[s] not in pending, "refill under a store"
+            stage_chunk[s] = i
+            phases[s] += 1
+
+        for i in range(min(S, mine)):
+            load(i)
+        for i in range(mine):
+            s = i % S
+            assert stage_chunk[s] == i and phases[s] == i // S + 1
+            assert (phases[s] - 1) & 1 == (i // S) & 1
+            r0 = (b + i * grid) * R
+            stores.append(range(r0, min(r0 + R, total)))
+            pending.append(i)
+            if i >= 1 and i - 1 + S < mine:
+                del pending[:-1]              # wait_group.read 1
+                load(i - 1 + S)
+    return stores
+
+
+@pytest.mark.parametrize("total,R,S,grid", [
+    (24576, 16, 6, 132), (24576, 8, 2, 924), (98304, 16, 6, 132),
+    (6, 32, 6, 3), (37 * 64, 1, 3, 7), (1000, 32, 8, 5), (17, 4, 2, 64)])
+def test_ring_schedule_writes_each_row_once(total, R, S, grid):
+    written = np.zeros(total, np.int64)
+    for rows in ring_schedule(total, R, S, grid):
+        written[rows.start:rows.stop] += 1
+    assert np.all(written == 1)

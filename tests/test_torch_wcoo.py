@@ -36,7 +36,8 @@ from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
     DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain,
 )
 from spgrid_torch.ops.kernels.wcoo_spmv import (
-    DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
+    THREADS, TILE_CHOICES, TILE_SLOTS, DeviceWCOOAligned, row_tiles,
+    wcoo_spmv, wcoo_spmv_plain, wcoo_spmv_rows_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
     DeviceWROW, csr_to_wrow, wrow_rows_plain, wrow_spmv, wrow_spmv_plain,
@@ -308,15 +309,27 @@ def test_spmv_formats_take_one_column_only():
             fn(a, x)
 
 
-# The row-ordered live-slot stream of the two slot SpMM layouts
-# (ops/kernels/slot_rows.py), held to the JAX package's padded arrays.
+# The row-ordered live-slot stream of the two slot SpMM layouts and the
+# aligned SpMV layout (ops/kernels/slot_rows.py), held to the JAX package's
+# padded arrays.
+STREAM_KINDS = ["wcoo", "bands", "wcoo_spmv"]
+
 
 def expected_stream(kind, jax_layout, csr):
     """(row, X row, value) of each live slot of the JAX layout, read from
     its padded arrays: in the layout's slot order (WCOO: chunk, slot;
-    bands: real group, window, lane), then stably by row."""
+    bands and wcoo_spmv: real group, window, lane), then stably by row."""
     (leaves, aux), k = leaves_of(jax_layout), csr.k
-    if kind == "wcoo":
+    if kind == "wcoo_spmv":
+        cols, vals, g_sw, g_sub = leaves
+        G = jax_layout.num_groups
+        out = np.broadcast_to(g_sub.reshape(-1)[:G].astype(np.int64)[
+            :, None, None] * 128 + np.arange(128), (G, 8, 128))
+        xrow = (g_sw.reshape(-1)[:G].astype(np.int64)[:, None, None] * 1024
+                + np.arange(8)[:, None] * 128
+                + cols.reshape(-1, 8, 128)[:G].astype(np.uint8))
+        vals = vals.reshape(-1, 8, 128)[:G]
+    elif kind == "wcoo":
         cols, rows, vals, win, rb, sub, _ = leaves
         R = jax_layout.R
         nch = len(win)
@@ -351,7 +364,7 @@ def stream_of(a):
 
 @pytest.mark.parametrize("source", ["csr", "jax"])
 @pytest.mark.parametrize("name", sorted(MATRICES))
-@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+@pytest.mark.parametrize("kind", STREAM_KINDS)
 def test_row_stream_holds_every_live_slot_once(kind, name, source):
     csr = MATRICES[name]()
     jaxl = jax_layouts(csr)[kind]
@@ -370,25 +383,40 @@ def test_row_stream_holds_every_live_slot_once(kind, name, source):
     np.testing.assert_array_equal(vals, want_vals)
     assert np.all(vals != 0) and np.all(xrows < csr.k)
     assert np.all(rows < csr.m)
-    np.testing.assert_array_equal(
-        a.long_rows.numpy(), np.flatnonzero(np.diff(row_slot) > LONG_ROW))
-    assert a.stream_nbytes == 4 * (csr.m + 1 + len(a.long_rows)) + (
-        8 * a.num_slots)
+    if kind == "wcoo_spmv":             # its kernel takes no long-row list
+        assert not hasattr(a, "long_rows")
+        num_long = 0
+    else:
+        np.testing.assert_array_equal(
+            a.long_rows.numpy(), np.flatnonzero(np.diff(row_slot) > LONG_ROW))
+        num_long = len(a.long_rows)
+    assert a.stream_nbytes == 4 * (csr.m + 1 + num_long) + 8 * a.num_slots
     assert a.nbytes > a.stream_nbytes
 
 
-@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+@pytest.mark.parametrize("kind", STREAM_KINDS)
 def test_row_stream_never_reads_pad_groups_or_rows_past_k(kind):
     """Values put into what the kernel must not read (the WCOO chunks past
     the real ones, the banded pad groups of the sacrificial row block
-    ``mbb``, and slots whose X row lies at or past k) leave the stream as
-    it was."""
+    ``mbb``, the aligned layout's groups past ``num_groups``, and slots
+    whose X row lies at or past k) leave the stream as it was."""
     csr = MATRICES["edge"]()
     jaxl = jax_layouts(csr)[kind]
     leaves, aux = leaves_of(jaxl)
     a = FROM_JAX[kind](*leaves, *aux, device="cpu")
     poisoned = [np.array(v) for v in leaves]
-    if kind == "wcoo":
+    if kind == "wcoo_spmv":
+        cols, vals, g_sw = poisoned[0], poisoned[1], poisoned[2]
+        G = jaxl.num_groups
+        v = vals.reshape(-1, 8, 128)
+        assert len(v) > G           # the groups are padded for the grid
+        v[G:] = 7.0
+        xrow = (g_sw.reshape(-1)[:len(v)].astype(np.int64)[:, None, None]
+                * 1024 + np.arange(8)[:, None] * 128
+                + cols.reshape(-1, 8, 128).astype(np.uint8))
+        assert (xrow[:G] >= csr.k).any()
+        v[xrow >= csr.k] = 7.0
+    elif kind == "wcoo":
         cols, vals, win = poisoned[0], poisoned[2], poisoned[3]
         nch = len(win)
         vals[nch:] = 7.0
@@ -408,30 +436,132 @@ def test_row_stream_never_reads_pad_groups_or_rows_past_k(kind):
         assert (xrow >= csr.k).any()
         v[xrow >= csr.k] = 7.0
     b = FROM_JAX[kind](*poisoned, *aux, device="cpu")
-    for field in ("row_slot", "slot_xrows", "slot_vals", "long_rows"):
+    fields = list(a.stream_fields)
+    for field in fields + (["tile_row"] if kind == "wcoo_spmv" else []):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
 
 
+def stream_product(kind, a, x):
+    """The product over the row stream of ``a``: the slot SpMMs' for X (k,
+    n), ``wcoo_spmv_rows_plain`` column by column for the SpMV."""
+    if kind == "wcoo_spmv":
+        return torch.stack([wcoo_spmv_rows_plain(a, x[:, j].contiguous())
+                            for j in range(x.shape[1])], 1)
+    return rows_product(a, x)
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
-@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+@pytest.mark.parametrize("kind", STREAM_KINDS)
 def test_stream_product_equals_plain_and_dense(kind, name):
     csr = MATRICES[name]()
     a = port_layouts(csr)[kind]
     x = torch.from_numpy(operand(csr.k, 13, seed=5))
-    got = rows_product(a, x).numpy()
-    np.testing.assert_allclose(got, PLAIN[kind](a, x).numpy(), rtol=RTOL,
-                               atol=ATOL)
+    got = stream_product(kind, a, x).numpy()
+    if kind == "wcoo_spmv":
+        plain = torch.stack([wcoo_spmv_plain(a, x[:, j].contiguous())
+                             for j in range(13)], 1)
+    else:
+        plain = PLAIN[kind](a, x)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, dense_product(csr, x.numpy()),
                                rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("name", sorted(JAX_SHAPES))
-@pytest.mark.parametrize("kind", ["wcoo", "bands"])
+@pytest.mark.parametrize("kind", STREAM_KINDS)
 def test_stream_product_matches_pallas(jax_outputs, kind, name):
     x, want = jax_outputs[kind, name]
     a = port_layouts(MATRICES[name]())[kind]
-    np.testing.assert_allclose(rows_product(a, torch.from_numpy(x)).numpy(),
-                               want, rtol=RTOL, atol=ATOL)
+    got = stream_product(kind, a, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def long_row_matrix():
+    """1000 x 3200, ~0.3 % scattered; rows 100-499 empty (more than a
+    tile's THREADS rows in a row) and row 700 full in its last 3,000
+    columns, longer than every tile of TILE_CHOICES."""
+    e = hypersparse_edge(1000, 3200, density=0.003, empty=slice(100, 500),
+                         heavy_row=700, heavy_nnz=3000, seed=31)
+    return CSRMatrix(e.row_ptr, e.col_idx, e.values, e.shape, "long_row")
+
+
+TILE_MATRICES = {**MATRICES, "long_row": long_row_matrix}
+
+
+@pytest.mark.parametrize("tile_slots", TILE_CHOICES)
+@pytest.mark.parametrize("name", sorted(TILE_MATRICES))
+def test_row_tiles_cover_every_row_once(name, tile_slots):
+    """Each row lies in one tile; a tile holds at most ``tile_slots`` live
+    slots and ``THREADS`` rows, or is one longer row; the tiles are taken
+    greedily (a tile ends where the next row would break a limit)."""
+    csr = TILE_MATRICES[name]()
+    a = DeviceWCOOAligned.from_csr(csr, device="cpu")
+    assert a.tile_slots == TILE_SLOTS
+    np.testing.assert_array_equal(a.tile_row.numpy(),
+                                  row_tiles(a.row_slot.numpy()))
+    a = a.tiled(tile_slots)
+    tiles = a.tile_row.numpy().astype(np.int64)
+    ptr = a.row_slot.numpy().astype(np.int64)
+    assert a.tile_row.dtype == torch.int32 and a.tile_slots == tile_slots
+    assert tiles[0] == 0 and tiles[-1] == csr.m
+    assert a.tiles == (len(tiles) - 1 if csr.m else 0)
+    rows = np.diff(tiles)
+    slots = ptr[tiles[1:]] - ptr[tiles[:-1]]
+    assert np.all(rows >= 1) and np.all(rows <= THREADS)
+    assert np.all((slots <= tile_slots) | (rows == 1))
+    nxt = tiles[1:-1]           # the first row of each following tile
+    grown = ptr[nxt + 1] - ptr[tiles[:-2]]
+    assert np.all((grown > tile_slots) | (rows[:-1] == THREADS))
+    if name == "long_row":
+        r, length = 700, ptr[701] - ptr[700]
+        assert 3000 <= length < 3200
+        assert (length > tile_slots) == (r in tiles and r + 1 in tiles)
+        assert ptr[500] == ptr[100]        # 400 empty rows
+    with pytest.raises(ValueError, match="tile_slots"):
+        a.tiled(1000)
+
+
+@pytest.mark.parametrize("tile_slots", TILE_CHOICES)
+@pytest.mark.parametrize("name", ["long_row", "edge", "empty", "tiny"])
+def test_tile_walk_emulation_gives_the_product(name, tile_slots):
+    """The kernel's index arithmetic in numpy, in f64: a CTA a tile stages
+    its slots' (value, x) pairs at their place from the tile's first slot
+    (y starts as NaN), thread r sums row r's from there; a tile of one row
+    past ``tile_slots`` sums strided partials a thread, then a warp tree
+    and the warps in order. Every row is written once."""
+    csr = TILE_MATRICES[name]()
+    a = DeviceWCOOAligned.from_csr(csr, device="cpu").tiled(tile_slots)
+    x = operand(csr.k, 1, seed=3)[:, 0].astype(np.float64)
+    ptr, vals = a.row_slot.numpy(), a.slot_vals.numpy().astype(np.float64)
+    xidx, tiles = a.slot_xrows.numpy(), a.tile_row.numpy()
+    y = np.full(csr.m, np.nan)
+    writes = np.zeros(csr.m, np.int64)
+    for b in range(a.tiles):
+        r0, r1 = tiles[b], tiles[b + 1]
+        s0, count = ptr[r0], ptr[r1] - ptr[r0]
+        if count > tile_slots:
+            assert r1 == r0 + 1
+            part = np.zeros(THREADS)
+            for t in range(THREADS):
+                j = np.arange(t, count, THREADS)
+                part[t] = np.sum(vals[s0 + j] * x[xidx[s0 + j]])
+            warps = part.reshape(-1, 32)
+            for off in (16, 8, 4, 2, 1):
+                warps[:, :32 - off] += warps[:, off:]
+            y[r0] = np.sum(warps[:, 0])
+            writes[r0] += 1
+            continue
+        pairs = np.full((tile_slots, 2), np.nan)
+        j = np.arange(count)
+        pairs[j] = np.stack([vals[s0 + j], x[xidx[s0 + j]]], 1)
+        for t in range(min(THREADS, r1 - r0)):
+            row = r0 + t
+            begin, end = ptr[row] - s0, ptr[row + 1] - s0
+            y[row] = np.sum(pairs[begin:end, 0] * pairs[begin:end, 1])
+            writes[row] += 1
+    assert np.all(writes == 1)
+    np.testing.assert_allclose(y, dense_product(csr, x[:, None])[:, 0],
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("name", sorted(JAX_SHAPES))
