@@ -53,9 +53,16 @@ exits non-zero and never prints the final ``"ok": true`` line:
    G = 64 the device ms and TB/s over the bound's bytes at each ring of S
    2, 4, 6 by R 8, 16, 32 that the kernel takes.
    The WPACK ablation's five variants (``wpack_spmv(a, x, ablate=,
-   prefix=)``) run on ``exp_wpack_ablate``'s matrix at its own wsel (2) and
-   on the edge matrix at wsel 1 and 4, each held to its f64 plain version
-   within 1e-5. The two live-slot stream kernels (``wrow_spmv_v2``,
+   prefix=)``; a warp a piece, W warps a CTA) run on ``exp_wpack_ablate``'s
+   matrix at its own wsel (2) and on the edge matrix at wsel 1 and 4, each
+   held to its f64 plain version within 1e-5 at the rule's W and at W 4, 8
+   and 16, the pad forms equal to the roll forms; each line gives the
+   layout's bytes the kernel reads (live quarters, starts and ends) beside
+   the padded pieces', W and the CTAs, and the device ms at each W (full/
+   roll also on MAIN_LINE, whose 512 blocks the rule gives 8 warps). The
+   shuffle chain (a CTA of one warp a row) runs at 256 rows and at 1 row,
+   64 and 256 steps, and prints the device ns and SM cycles a step at
+   each. The two live-slot stream kernels (``wrow_spmv_v2``,
    ``wpack_spmv``; ``slots_per_cta`` live slots a CTA) run on LINE_S and
    the edge matrix, and also on a 4096^2 matrix whose one 128-row block
    holds ~256 CTAs' ranges of slots, on a banded matrix with empty target
@@ -342,12 +349,15 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.slot_rows import row_stream, walk_shape
     from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
-        DeviceWPACK, wpack_spmv, wpack_spmv_plain)
+        DeviceWPACK, launch_warps, wpack_spmv, wpack_spmv_plain)
+    from spgrid_torch.ops.kernels.wpack_spmv import VARIANTS as WPACK_VARIANTS
+    from spgrid_torch.ops.kernels.wpack_spmv import launch as wpack_launch
     from spgrid_torch.ops.kernels.wrow_spmv import (
         DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2)
     from spgrid_torch.ops.layouts import DeviceBSR
     from spgrid_torch.scripts.exp_lanegather import forms
     from spgrid_torch.scripts.exp_spmv_ablate import ablate_matrix
+    from spgrid_torch.scripts import sm_clock_mhz
     from spgrid_torch.scripts.exp_wpack_ablate import FORMS, wpack_matrix
 
     def ms(fn, *args):
@@ -677,15 +687,30 @@ def phase_kernels() -> dict:
                 (x, idx2, G), (x, idx2, G), torch.index_select,
                 (x, 0, idx2.reshape(-1)), bytes_moved, 0.0, 0.0, note)
 
-    def shuffle_case(reps, seed):
+    def shuffle_case(rows, reps, seed, step=False):
+        """The chain on ``rows`` rows, a CTA of one warp a row; with
+        ``step``, the device time a step: the difference of the device
+        times at 64 and 256 steps over the 192 more, in ns and in cycles of
+        the SM clock that nvidia-smi reads after it."""
         rng = np.random.default_rng(seed)
-        src = torch.from_numpy(rng.standard_normal((256, 128)).astype(
+        src = torch.from_numpy(rng.standard_normal((rows, 128)).astype(
             np.float32)).to(DEVICE)
-        idx = torch.from_numpy(rng.integers(0, 128, (256, 128)).astype(
+        idx = torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(
             np.int32)).to(DEVICE)
+        note = f"grid={rows} CTAs of one warp (a row each)"
+        if step:
+            t64, t256 = (device_ms(shuffle_bench, src, idx, r)
+                         for r in (64, 256))
+            per_ns = (t256 - t64) / 192 * 1e6
+            clock = sm_clock_mhz() if DEVICE == "cuda" else None
+            note += (f" step_ns={per_ns:.3f} (device ms {t64:.6f} at 64 "
+                     f"steps, {t256:.6f} at 256)")
+            if clock:
+                note += (f" step_cycles={per_ns * clock * 1e-3:.1f} at "
+                         f"{clock:.0f} MHz")
         return (shuffle_bench, shuffle_bench_plain, (src, idx, reps),
                 (src, idx, reps), None, (), 3 * nbytes(src),
-                float(reps * src.numel()), 0.0)
+                float(reps * src.numel()), 0.0, note)
 
     def ablate_case(a, csr, variant, seed):
         m, k = a.shape
@@ -711,14 +736,60 @@ def phase_kernels() -> dict:
 
     # A WPACK ablation variant needs, as the product, each nnz's value and
     # column once, x and y; only the full forms have a library call.
-    def wpack_ablate_case(a, csr, knobs, seed):
+    wpack_warps = (4, 8, 16)
+
+    def wpack_ablate_case(a, csr, knobs, seed, sweep=False):
+        """Also: the layout's bytes the kernel reads (the live quarters'
+        values, columns and sel, piece_w of the pieces it reads, every
+        piece_lanes, block_ptr, and for the full forms starts and ends of
+        the pieces it reads) beside the padded pieces' bytes of the same
+        arrays, W and the CTAs; the kernel at every W held to the f64 plain
+        version, and the pad form equal to the roll form; with ``sweep``,
+        the device ms at each W."""
         x = rand((a.shape[1],), seed)
         library = ((torch.sparse.mm, (csr_tensor(csr), x[:, None]))
                    if "ablate" not in knobs else (None, ()))
+        variant = WPACK_VARIANTS[knobs.get("ablate", ""),
+                                 knobs.get("prefix", "direct")]
+        full = knobs.get("ablate", "") == ""
+        lanes = a.piece_lanes.long()
+        read = int((lanes > 0).sum())
+        read_bytes = (int(((lanes + 31) // 32).sum()) * 32 * (4 + 1 + 1)
+                      + 4 * read + nbytes(a.piece_lanes, a.block_ptr)
+                      + (2 * 128 * read if full else 0))
+        padded = nbytes(a.values, a.cols, a.sel, a.piece_w, a.block_ptr,
+                        *((a.starts, a.ends) if full else ()))
+        ref = wpack_spmv_plain(a, x.double(), **knobs)
+        y = torch.empty((a.shape[0],), device=DEVICE)
+        errs = []
+        for w in wpack_warps if DEVICE == "cuda" else ():
+            wpack_launch(a, x, y, variant, w)
+            torch.cuda.synchronize()
+            rel, _ = compare(y, ref)
+            if not bool(torch.isfinite(y).all()) or rel > REL_TOL:
+                raise RuntimeError(f"wpack_ablate variant {variant} at W {w}"
+                                   f": max_rel {rel:.3e} > {REL_TOL}")
+            errs.append(f"W{w}:{rel:.3e}")
+        if knobs.get("prefix") == "roll":
+            pad = wpack_spmv(a, x, **dict(knobs, prefix="pad"))
+            if not torch.equal(pad, wpack_spmv(a, x, **knobs)):
+                raise RuntimeError(f"wpack_ablate: pad and roll forms of "
+                                   f"{knobs} differ")
+        note = (f"read_bytes={read_bytes} padded_bytes={padded} "
+                f"pieces_read={read} of {a.piece_lanes.numel()} "
+                f"W={launch_warps(a) if DEVICE == 'cuda' else '-'} "
+                f"grid={a.blocks} CTAs (a warp a piece) "
+                f"max_rel_by_W {' '.join(errs)}"
+                + (" pad==roll" if knobs.get("prefix") == "roll" else ""))
+        if sweep and DEVICE == "cuda":
+            note += " device_ms_by_W " + " ".join(
+                f"W{w}:{device_ms(wpack_launch, a, x, y, variant, w):.6f}"
+                for w in wpack_warps)
         return (lambda a_, x_: wpack_spmv(a_, x_, **knobs),
                 lambda a_, x_: wpack_spmv_plain(a_, x_, **knobs), (a, x),
                 (a, x.double()), *library,
-                csr.nnz * (4 + 1) + nbytes(x) + 4 * a.shape[0], 2.0 * csr.nnz)
+                csr.nnz * (4 + 1) + nbytes(x) + 4 * a.shape[0], 2.0 * csr.nnz,
+                REL_TOL, note)
 
     # the probe's matrix, a small one, and LINE_S: v1's walk on a band of 5 %
     # of the columns and on fully scattered ones
@@ -839,9 +910,12 @@ def phase_kernels() -> dict:
                                         sweep=G == 64)))
     cases.append(("dma_gather", "X 300x201 (4-byte copies) 3 steps G=6",
                   False, lambda: dma_case(gather_x(300, 201, 18), 3, 6, 19)))
-    for reps in (64, 256):
-        cases.append(("shuffle_bench", f"(256,128) reps={reps}", reps == 256,
-                      functools.partial(shuffle_case, reps, 20)))
+    for rows in (256, 1):
+        for reps in (64, 256):
+            cases.append(("shuffle_bench", f"({rows},128) reps={reps}",
+                          rows == 256 and reps == 256,
+                          functools.partial(shuffle_case, rows, reps, 20,
+                                            step=reps == 256)))
     for a, csr, bw in ablations:
         for variant in VARIANTS:
             cases.append((
@@ -861,7 +935,14 @@ def phase_kernels() -> dict:
                 "wpack_ablate", "{}x{} wsel {} {}".format(*csr.shape, a.wsel,
                                                            tag),
                 csr is wpack_ab and tag == "full/roll",
-                functools.partial(wpack_ablate_case, a, csr, knobs, 14)))
+                functools.partial(wpack_ablate_case, a, csr, knobs, 14,
+                                  sweep=True)))
+    # a grid between the probe's 782 blocks and the edge's 24: MAIN_LINE's
+    # 512, where the rule takes 8 warps a CTA on 132 SMs
+    cases.append(("wpack_ablate", f"{hyper_label} full/roll", False,
+                  lambda: wpack_ablate_case(
+                      DeviceWPACK.from_csr(hyper, device=DEVICE), hyper,
+                      dict(FORMS)["full/roll"], 14, sweep=True)))
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
         (kernel, plain, args, args64, library, lib_args, bytes_moved,

@@ -44,12 +44,18 @@
 //   at 256 x 128 and 256 steps, ~0.13 us at 67 TFLOP/s) against 0.4 MB of
 //   src, idx and out (~0.1 us). The chain is serial: its latency, not
 //   either bound, sets the time, which is what the probe measures.
-//   Design: the rows are independent (the gather runs along axis 1), so one
-//   warp owns a 128-wide row, 4 elements a lane, its indices held in
-//   registers, and ping-pongs the row between two 128-float buffers in
-//   shared memory with __syncwarp() between steps. All steps run inside one
-//   launch. The result is exact: the same f32 additions in the same order.
-//   An index outside the row reads 0.
+//   Design: the rows are independent (the gather runs along axis 1), so a
+//   CTA is one warp and owns one row, and the 256 rows of the probe spread
+//   over every SM (at most 2 chains an SM). The row lives in registers:
+//   lane t holds elements t + 32q, q = 0..3, and its indices, split into
+//   the source lane (idx & 31) and register (idx >> 5). A step gathers each
+//   of its 4 elements by one __shfl_sync of every register from the source
+//   lane (16 shuffles) and a select by register, then adds 1.0: no shared
+//   memory, no store and no barrier on the chain. Each step still gathers
+//   from the one before: composing the index map would give the same bits
+//   without the dependent gathers the probe exists to time. All steps run
+//   inside one launch. The result is exact: the same f32 additions in the
+//   same order. An index outside the row reads 0.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -67,7 +73,6 @@ constexpr int RING_STAGES = 6;          // the rule's S where it fits
 constexpr int MAX_RING_ROWS = 32;       // a lane a row of a chunk
 constexpr int MAX_RING_BYTES = 232448 - 1024;  // 227 KB less static
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SHUFFLE_WARPS = 4;        // rows a shuffle_bench CTA
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -301,44 +306,43 @@ dma_gather_ring(const float* __restrict__ x, const int* __restrict__ idx,
   if (lane == 0) bulk_wait_all();
 }
 
-__global__ void __launch_bounds__(32 * SHUFFLE_WARPS)
+__global__ void __launch_bounds__(32)
 shuffle_bench_kernel(const float* __restrict__ src,
                      const int* __restrict__ idx, float* __restrict__ out,
-                     int rows, int reps) {
-  __shared__ float buf[SHUFFLE_WARPS][2][LANE];
-  const int w = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long row = static_cast<long long>(blockIdx.x) * SHUFFLE_WARPS + w;
-  if (row >= rows) return;  // the whole warp: no CTA-wide barrier below
-  const float* s = src + row * LANE;
-  const int* ix = idx + row * LANE;
-  int id[4];
+                     int reps) {
+  const int lane = threadIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.x) * LANE;
+  float r[4];    // acc[lane + 32 q]
+  int from[4];   // the lane that holds acc[idx], in register reg
+  int reg[4];
   bool ok[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int j = lane + 32 * q;
-    buf[w][0][j] = s[j];
-    id[q] = ix[j];
-    ok[q] = id[q] >= 0 && id[q] < LANE;
-    if (!ok[q]) id[q] = 0;
+    r[q] = src[row + j];
+    const int id = idx[row + j];
+    ok[q] = id >= 0 && id < LANE;
+    from[q] = id & 31;
+    reg[q] = ok[q] ? id >> 5 : 0;
   }
-  __syncwarp();
-  int cur = 0;
-  for (int r = 0; r < reps; ++r) {
+  for (int step = 0; step < reps; ++step) {
     float v[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      v[q] = (ok[q] ? buf[w][cur][id[q]] : 0.0f) + 1.0f;
+      float s[4];
+#pragma unroll
+      for (int q2 = 0; q2 < 4; ++q2) {
+        s[q2] = __shfl_sync(FULL, r[q2], from[q]);
+      }
+      const float g = reg[q] < 2 ? (reg[q] == 0 ? s[0] : s[1])
+                                 : (reg[q] == 2 ? s[2] : s[3]);
+      v[q] = (ok[q] ? g : 0.0f) + 1.0f;
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) buf[w][cur ^ 1][lane + 32 * q] = v[q];
-    __syncwarp();
-    cur ^= 1;
+    for (int q = 0; q < 4; ++q) r[q] = v[q];
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    out[row * LANE + lane + 32 * q] = buf[w][cur][lane + 32 * q];
-  }
+  for (int q = 0; q < 4; ++q) out[row + lane + 32 * q] = r[q];
 }
 
 // The BULK path's launch: S stages of R rows, its shared memory and CTAs.
@@ -461,10 +465,8 @@ extern "C" int spgrid_shuffle_bench(const void* src, const void* idx,
                                     void* stream) {
   if (reps < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (rows + SHUFFLE_WARPS - 1) / SHUFFLE_WARPS;
-  shuffle_bench_kernel<<<blocks, 32 * SHUFFLE_WARPS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  shuffle_bench_kernel<<<rows, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, reps);
+      static_cast<float*>(out), reps);
   return static_cast<int>(cudaGetLastError());
 }

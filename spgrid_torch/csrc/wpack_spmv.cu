@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "slot_stream.cuh"
 
@@ -49,7 +50,7 @@ constexpr int GROUP_PIECES = 8;
 // prefix and _lane_prefix (the timing variants of the WPACK group body that
 // scripts/exp_wpack_ablate.py runs). With p[r][l] = value * x at lane l of
 // piece r, P the inclusive lane prefix of p and P - p the exclusive one,
-// thread j adds, for each group of its block, the sum over the 8 pieces of
+// row j of a target block gets, from each piece r of the block,
 //
 //   NOSEG     p[r][j]                                (wrong by design)
 //   NOGATHER  P[r][j]                                (wrong by design)
@@ -57,145 +58,295 @@ constexpr int GROUP_PIECES = 8;
 //
 // An absent row (start 1, end 0) adds p[0] - (P[1] - p[1]), zero up to
 // rounding, as on the TPU. Only FULL computes the product; it differs from
-// the direct segment sum of the default kernel above by the rounding of the prefix difference, whose
-// error grows with the piece's whole prefix and not with the row's sum.
+// the direct segment sum of the default kernel above by the rounding of the
+// prefix difference, whose error grows with the piece's whole prefix and
+// not with the row's sum.
 //
-// The prefix, in two forms with the same additions in the same order (so
-// they agree bit for bit; products are __fmul_rn so no form contracts one
-// into an FMA): a Hillis-Steele scan with shifts 1, 2, 4, 8 and 16 inside
-// each 32-lane warp, then the 4 warps' totals exchanged through shared
-// memory and their own Hillis-Steele (shifts of 32 and 64 lanes) added as
-// each warp's carry. The TPU's 7 shift-adds run over all 128 lanes; a warp
-// shuffle cannot reach across warps, so both forms split at the warp.
+// Bound: as the default kernel, bytes. What sets the pace is each warp's
+// walk of its pieces (loads, x gathers, then the scan's and the boundary
+// reads' instructions), so the walk is spread over as many warps as keep
+// the card in one wave.
 //
-//   PAD   each in-warp shift through shared memory, two barriers a shift
-//         (the counterpart of jnp.pad, which materialises each shift)
-//   ROLL  each in-warp shift by __shfl_up_sync, no barrier (the
-//         counterpart of pltpu.roll)
+// Design: a warp a piece. One CTA of W warps per 128-row target block; warp
+// w takes the block's pieces w, w + W, ... in order. W (4, 8 or 16) comes
+// from the grid (warps_for). Thread t holds lanes t + 32q (q = 0..3) of
+// its piece in registers. piece_lanes (each piece's
+// last live lane + 1, built on the host from the live rule: value not 0, x
+// index below k) bounds what is read: a piece of 0 is not read at all (all
+// its terms are 0, absent rows included), a 32-lane quarter wholly past it
+// is not loaded (its p is 0), and starts/ends are read only for pieces that
+// are. A warp reads the piece_lanes and piece_w of 32 of its pieces at
+// once, a lane each, and hands them out by shuffles; a piece's loads start
+// one piece ahead (AHEAD), into registers that are read in place.
 //
-// Design: these read the padded pieces, as the TPU body does: one CTA of
-// 128 threads per 128-row target block, thread j for row and lane j, and
-// each thread keeps its lane of all 8 pieces of a group in registers, so
-// one barrier (or one shuffle instruction a piece) serves the 8 pieces of
-// a shift; scanning the pieces one after another would take 8 times the
-// barriers. FULL then stores P and P - p of the group in shared memory for
-// the two boundary reads. Each thread writes its row of y once: no atomics.
-// Bound: as the default kernel, bytes; every variant streams the same
-// padded slots (FULL and NOGATHER also the starts and ends).
+// The prefix is _lane_prefix's own: P += shift(P, sh) for sh = 1, 2, 4, 8,
+// 16, 32, 64 over the piece's 128 lanes, the same additions in the same
+// order, so P is the TPU's bit for bit and the two forms agree bit for bit
+// (products are __fmul_rn so no form contracts one into an FMA):
+//
+//   ROLL  sh <= 16: one __shfl_sync(P[q], (t - sh) & 31) a register; lane
+//         t >= sh takes its register q's value, lane t < sh register q - 1's
+//         (lane t - sh + 32 of the row before), register 0 takes 0 (the
+//         counterpart of pltpu.roll and its mask)
+//   PAD   sh <= 16: through the warp's 128-float shared buffer between two
+//         __syncwarp() (the counterpart of jnp.pad, which materialises each
+//         shift)
+//
+// and shifts of 32 and 64 lanes are whole registers, added in the thread.
+// FULL then stores P and P - p in the warp's shared memory, and thread t
+// adds P[ends] - (P - p)[starts] for its rows 4t .. 4t + 3 (a word of
+// starts and of ends): no CTA barrier inside the piece loop. Thread t sums
+// its rows (t + 32q, or FULL's 4t + q) in registers over its pieces; at
+// the end the W warps' sums go through shared memory and are added in warp
+// order, each row of y written once (zeros for a block with no group, rows
+// past m dropped): no atomics, the same bits every call.
 
 enum AblateBody { NOSEG = 0, NOGATHER = 1, FULL = 2 };
 constexpr int WARP = 32;
-constexpr int WARPS = LANE / WARP;
+constexpr int QUARTERS = LANE / WARP;
+constexpr unsigned ALL_LANES = 0xffffffffu;
+// The rule's warps an SM (warps_for). At 16 on 132 SMs, the 782 blocks of
+// scripts/exp_wpack_ablate.py's matrix take 4 warps a CTA, MAIN_LINE's 512
+// take 8 and the 24 of chip_smoke.py's edge matrix 16: the fastest of 4, 8
+// and 16 on each (PERF.md §6, row 10a).
+constexpr int WARPS_PER_SM = 16;
+// Pieces whose loads are in flight while a warp sums one; a deeper ring
+// costs registers (one ahead keeps every form at 64 or fewer).
+constexpr int AHEAD = 1;
 
-template <int BODY, bool ROLL>
-__global__ void __launch_bounds__(LANE)
-wpack_ablate_kernel(const int* __restrict__ block_ptr,
-                    const int* __restrict__ piece_w,
-                    const unsigned char* __restrict__ cols,
-                    const signed char* __restrict__ sel,
-                    const signed char* __restrict__ starts,
-                    const signed char* __restrict__ ends,
-                    const float* __restrict__ vals,
-                    const float* __restrict__ x, float* __restrict__ y, int m,
-                    int k) {
-  __shared__ float scan[GROUP_PIECES][LANE];  // PAD's shifts; FULL's P
-  __shared__ float pex[GROUP_PIECES][LANE];   // FULL's P - p
-  __shared__ float total[GROUP_PIECES][WARPS];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t % WARP;
-  const int warp = t / WARP;
-  float acc = 0.0f;
-  for (int g = block_ptr[b]; g < block_ptr[b + 1]; ++g) {
-    const size_t q0 = static_cast<size_t>(g) * GROUP_PIECES * LANE + t;
-    float p[GROUP_PIECES];
+struct AblateArgs {
+  const int* __restrict__ block_ptr;
+  const int* __restrict__ piece_w;
+  const unsigned char* __restrict__ piece_lanes;
+  const unsigned char* __restrict__ cols;
+  const signed char* __restrict__ sel;
+  const signed char* __restrict__ starts;
+  const signed char* __restrict__ ends;
+  const float* __restrict__ vals;
+  const float* __restrict__ x;
+  float* __restrict__ y;
+  int m, k;
+};
+
+// What thread t holds of a piece before its x gathers: lanes t + 32q.
+struct Quarters {
+  int lanes;                // the piece's piece_lanes
+  float v[QUARTERS];        // values; 0 in a quarter that is not loaded
+  int xi[QUARTERS];         // x indices
+  unsigned s, e;            // FULL: starts and ends of rows 4t .. 4t + 3
+};
+
+template <int BODY>
+__device__ __forceinline__ Quarters fetch(const AblateArgs& a,
+                                          long long piece, int lanes,
+                                          int window, int t) {
+  Quarters f;
+  f.lanes = lanes;
+  const size_t base = static_cast<size_t>(piece) * LANE;
 #pragma unroll
-    for (int r = 0; r < GROUP_PIECES; ++r) {
-      const size_t q = q0 + static_cast<size_t>(r) * LANE;
-      const float v = vals[q];
-      const int xi = (piece_w[static_cast<size_t>(g) * GROUP_PIECES + r] +
-                      sel[q]) * LANE + cols[q];
-      p[r] = (v != 0.0f && xi < k) ? __fmul_rn(v, __ldg(x + xi)) : 0.0f;
+  for (int q = 0; q < QUARTERS; ++q) {
+    const size_t i = base + t + WARP * q;
+    f.v[q] = 0.0f;
+    f.xi[q] = 0;
+    if (WARP * q < lanes) {
+      f.v[q] = a.vals[i];
+      f.xi[q] = (window + a.sel[i]) * LANE + a.cols[i];
     }
-    float c = 0.0f;
+  }
+  f.s = 0;
+  f.e = 0;
+  if (BODY == FULL && lanes > 0) {
+    f.s = reinterpret_cast<const unsigned*>(a.starts + base)[t];
+    f.e = reinterpret_cast<const unsigned*>(a.ends + base)[t];
+  }
+  return f;
+}
+
+// The warp's pieces' piece_lanes and piece_w, 32 at a time: lane i holds
+// those of its piece 32 c + i (0 past the block's end).
+struct Meta {
+  int lanes, window;
+};
+
+__device__ __forceinline__ Meta meta_chunk(const AblateArgs& a,
+                                           long long first, long long end,
+                                           int W, int c, int t) {
+  const long long p = first + static_cast<long long>(32 * c + t) * W;
+  if (p >= end) return Meta{0, 0};
+  return Meta{static_cast<int>(a.piece_lanes[p]), a.piece_w[p]};
+}
+
+template <int BODY, bool ROLL, int W>
+__global__ void __launch_bounds__(WARP * W)
+wpack_ablate_kernel(const AblateArgs a) {
+  __shared__ float part[W][LANE];     // each warp's sums of the block's rows
+  __shared__ float scan[W][2][LANE];  // a warp's PAD shifts; FULL's P, P - p
+  const int b = blockIdx.x;
+  const int t = threadIdx.x % WARP;
+  const int w = threadIdx.x / WARP;
+  float* const buf = scan[w][0];
+  float* const pex = scan[w][1];
+  const long long end =
+      static_cast<long long>(a.block_ptr[b + 1]) * GROUP_PIECES;
+  const long long first =
+      static_cast<long long>(a.block_ptr[b]) * GROUP_PIECES + w;
+  const int n = first < end ? static_cast<int>((end - first + W - 1) / W) : 0;
+  Meta chunk = meta_chunk(a, first, end, W, 0, t);
+  // the loads of the warp's piece f
+  auto load_piece = [&](int f) {
+    if (f > 0 && (f & 31) == 0) {
+      chunk = meta_chunk(a, first, end, W, f / 32, t);
+    }
+    const int lanes = __shfl_sync(ALL_LANES, chunk.lanes, f & 31);
+    const int window = __shfl_sync(ALL_LANES, chunk.window, f & 31);
+    return fetch<BODY>(a, first + static_cast<long long>(f) * W, lanes,
+                       window, t);
+  };
+  // rows t + 32q (FULL: rows 4t + q) over the warp's pieces
+  float acc[QUARTERS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto add_piece = [&](const Quarters& cur) {
+    if (cur.lanes == 0) return;  // the same for the whole warp
+    float p[QUARTERS];
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      p[q] = (cur.v[q] != 0.0f && cur.xi[q] < a.k)
+                 ? __fmul_rn(cur.v[q], __ldg(a.x + cur.xi[q]))
+                 : 0.0f;
+    }
     if (BODY == NOSEG) {
 #pragma unroll
-      for (int r = 0; r < GROUP_PIECES; ++r) c += p[r];
-    } else {
-      float P[GROUP_PIECES];
+      for (int q = 0; q < QUARTERS; ++q) acc[q] += p[q];
+      return;
+    }
+    float P[QUARTERS];
 #pragma unroll
-      for (int r = 0; r < GROUP_PIECES; ++r) P[r] = p[r];
+    for (int q = 0; q < QUARTERS; ++q) P[q] = p[q];
 #pragma unroll
-      for (int sh = 1; sh < WARP; sh *= 2) {
-        if (ROLL) {
+    for (int sh = 1; sh < WARP; sh *= 2) {
+      float u[QUARTERS];
+      if (ROLL) {
+        float s[QUARTERS];
 #pragma unroll
-          for (int r = 0; r < GROUP_PIECES; ++r) {
-            const float u = __shfl_up_sync(0xffffffffu, P[r], sh);
-            if (lane >= sh) P[r] += u;
-          }
-        } else {
-#pragma unroll
-          for (int r = 0; r < GROUP_PIECES; ++r) scan[r][t] = P[r];
-          __syncthreads();
-#pragma unroll
-          for (int r = 0; r < GROUP_PIECES; ++r)
-            if (lane >= sh) P[r] += scan[r][t - sh];
-          __syncthreads();
+        for (int q = 0; q < QUARTERS; ++q) {
+          s[q] = __shfl_sync(ALL_LANES, P[q], (t - sh) & (WARP - 1));
         }
-      }
-      if (lane == WARP - 1) {
 #pragma unroll
-        for (int r = 0; r < GROUP_PIECES; ++r) total[r][warp] = P[r];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < GROUP_PIECES; ++r) {
-        // Hillis-Steele over the warps' totals: shifts of 1 and 2 warps
-        float s1[WARPS], s2[WARPS];
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w)
-          s1[w] = w >= 1 ? total[r][w] + total[r][w - 1] : total[r][w];
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w)
-          s2[w] = w >= 2 ? s1[w] + s1[w - 2] : s1[w];
-        if (warp >= 1) P[r] += s2[warp - 1];
-      }
-      if (BODY == NOGATHER) {
-#pragma unroll
-        for (int r = 0; r < GROUP_PIECES; ++r) c += P[r];
+        for (int q = 0; q < QUARTERS; ++q) {
+          const float below = s[(q + QUARTERS - 1) % QUARTERS];
+          u[q] = t >= sh ? s[q] : (q > 0 ? below : 0.0f);
+        }
       } else {
 #pragma unroll
-        for (int r = 0; r < GROUP_PIECES; ++r) {
-          scan[r][t] = P[r];
-          pex[r][t] = P[r] - p[r];
-        }
-        __syncthreads();
+        for (int q = 0; q < QUARTERS; ++q) buf[t + WARP * q] = P[q];
+        __syncwarp();
 #pragma unroll
-        for (int r = 0; r < GROUP_PIECES; ++r) {
-          const size_t q = q0 + static_cast<size_t>(r) * LANE;
-          c += scan[r][ends[q]] - pex[r][starts[q]];
+        for (int q = 0; q < QUARTERS; ++q) {
+          const int j = t + WARP * q;
+          u[q] = j >= sh ? buf[j - sh] : 0.0f;
         }
+        __syncwarp();
       }
-      __syncthreads();  // scan, pex and total are rewritten by the next group
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) P[q] += u[q];
     }
-    acc += c;
+    // shifts of 32 and 64 lanes: registers q - 1 and q - 2, added from the
+    // last register down so each adds the value before the shift
+#pragma unroll
+    for (int sh = 1; sh < QUARTERS; sh *= 2) {
+#pragma unroll
+      for (int q = QUARTERS - 1; q >= 0; --q) {
+        P[q] += q >= sh ? P[(q + QUARTERS - sh) % QUARTERS] : 0.0f;
+      }
+    }
+    if (BODY == NOGATHER) {
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) acc[q] += P[q];
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      buf[t + WARP * q] = P[q];
+      pex[t + WARP * q] = P[q] - p[q];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      const int first_lane = (cur.s >> (8 * q)) & 0x7f;
+      const int last_lane = (cur.e >> (8 * q)) & 0x7f;
+      acc[q] += buf[last_lane] - pex[first_lane];
+    }
+    __syncwarp();  // the next piece rewrites buf and pex
+  };
+  // AHEAD + 1 buffers, the loop unrolled by AHEAD + 1 so that a buffer is
+  // loaded and read in place (a copy of a buffer would wait for its loads):
+  // piece i + AHEAD's loads go into the buffer piece i - 1 left, and piece
+  // i's, started AHEAD pieces earlier, are read.
+  constexpr int D = AHEAD;
+  Quarters ring[D + 1];
+#pragma unroll
+  for (int d = 0; d < D; ++d) ring[d] = load_piece(d);
+  for (int i0 = 0; i0 < n; i0 += D + 1) {
+#pragma unroll
+    for (int d = 0; d <= D; ++d) {
+      if (i0 + d >= n) break;
+      ring[(d + D) % (D + 1)] = load_piece(i0 + d + D);
+      add_piece(ring[d]);
+    }
   }
-  const long long row = static_cast<long long>(b) * LANE + t;
-  if (row < m) y[row] = acc;
+#pragma unroll
+  for (int q = 0; q < QUARTERS; ++q) {
+    part[w][BODY == FULL ? QUARTERS * t + q : t + WARP * q] = acc[q];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < LANE; j += WARP * W) {
+    float sum = part[0][j];
+#pragma unroll
+    for (int u = 1; u < W; ++u) sum += part[u][j];
+    const long long row = static_cast<long long>(b) * LANE + j;
+    if (row < a.m) a.y[row] = sum;
+  }
 }
 
 template <int BODY, bool ROLL>
-void launch_ablate(const void* block_ptr, const void* piece_w,
-                   const void* cols, const void* sel, const void* starts,
-                   const void* ends, const void* vals, const void* x, void* y,
-                   int blocks, int m, int k, cudaStream_t stream) {
-  wpack_ablate_kernel<BODY, ROLL><<<blocks, LANE, 0, stream>>>(
-      static_cast<const int*>(block_ptr), static_cast<const int*>(piece_w),
-      static_cast<const unsigned char*>(cols),
-      static_cast<const signed char*>(sel),
-      static_cast<const signed char*>(starts),
-      static_cast<const signed char*>(ends), static_cast<const float*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), m, k);
+cudaError_t launch_ablate(const AblateArgs& a, int warps, int blocks,
+                          cudaStream_t stream) {
+  switch (warps) {
+    case 4:
+      wpack_ablate_kernel<BODY, ROLL, 4><<<blocks, WARP * 4, 0, stream>>>(a);
+      break;
+    case 8:
+      wpack_ablate_kernel<BODY, ROLL, 8><<<blocks, WARP * 8, 0, stream>>>(a);
+      break;
+    case 16:
+      wpack_ablate_kernel<BODY, ROLL, 16><<<blocks, WARP * 16, 0, stream>>>(
+          a);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// W, the warps a CTA, for `warps` (0: the rule's) on a grid of `blocks`
+// CTAs on the current card; 0 where the kernel has no such form. The rule:
+// the fewest warps (4, 8, 16) that give every SM WARPS_PER_SM of them, so
+// a grid of many blocks runs in one wave of short CTAs and a grid of few
+// blocks spreads each block's pieces over more warps.
+int warps_for(int warps, int blocks) {
+  if (warps != 0) return warps == 4 || warps == 8 || warps == 16 ? warps : 0;
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch checks clean
+    return 0;
+  }
+  int W = 4;
+  while (W < 16 && static_cast<long long>(blocks) * W <
+                       static_cast<long long>(WARPS_PER_SM) * sms) {
+    W *= 2;
+  }
+  return W;
 }
 
 }  // namespace
@@ -213,37 +364,53 @@ extern "C" int spgrid_wpack_spmv(const void* block_slot, const void* vals,
 }
 
 // variant: 0 noseg, 1 nogather/pad, 2 nogather/roll, 3 full/pad,
-// 4 full/roll.
+// 4 full/roll; warps: W, the warps a CTA (4, 8 or 16; 0: the rule's);
+// starts and ends 4-byte aligned.
 extern "C" int spgrid_wpack_ablate(const void* block_ptr, const void* piece_w,
-                                   const void* cols, const void* sel,
-                                   const void* starts, const void* ends,
-                                   const void* vals, const void* x, void* y,
-                                   int variant, int blocks, int m, int k,
+                                   const void* piece_lanes, const void* cols,
+                                   const void* sel, const void* starts,
+                                   const void* ends, const void* vals,
+                                   const void* x, void* y, int variant,
+                                   int warps, int blocks, int m, int k,
                                    void* stream) {
+  const AblateArgs a{static_cast<const int*>(block_ptr),
+                     static_cast<const int*>(piece_w),
+                     static_cast<const unsigned char*>(piece_lanes),
+                     static_cast<const unsigned char*>(cols),
+                     static_cast<const signed char*>(sel),
+                     static_cast<const signed char*>(starts),
+                     static_cast<const signed char*>(ends),
+                     static_cast<const float*>(vals),
+                     static_cast<const float*>(x),
+                     static_cast<float*>(y),
+                     m,
+                     k};
+  const int W = warps_for(warps, blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
+  // the full forms read starts and ends 4 rows a word
+  const bool aligned = (reinterpret_cast<uintptr_t>(starts) |
+                        reinterpret_cast<uintptr_t>(ends)) % 4 == 0;
+  switch (W == 0 || !aligned ? -1 : variant) {
     case 0:
-      launch_ablate<NOSEG, false>(block_ptr, piece_w, cols, sel, starts, ends,
-                                  vals, x, y, blocks, m, k, s);
-      break;
+      return static_cast<int>(launch_ablate<NOSEG, false>(a, W, blocks, s));
     case 1:
-      launch_ablate<NOGATHER, false>(block_ptr, piece_w, cols, sel, starts,
-                                     ends, vals, x, y, blocks, m, k, s);
-      break;
+      return static_cast<int>(launch_ablate<NOGATHER, false>(a, W, blocks, s));
     case 2:
-      launch_ablate<NOGATHER, true>(block_ptr, piece_w, cols, sel, starts,
-                                    ends, vals, x, y, blocks, m, k, s);
-      break;
+      return static_cast<int>(launch_ablate<NOGATHER, true>(a, W, blocks, s));
     case 3:
-      launch_ablate<FULL, false>(block_ptr, piece_w, cols, sel, starts, ends,
-                                 vals, x, y, blocks, m, k, s);
-      break;
+      return static_cast<int>(launch_ablate<FULL, false>(a, W, blocks, s));
     case 4:
-      launch_ablate<FULL, true>(block_ptr, piece_w, cols, sel, starts, ends,
-                                vals, x, y, blocks, m, k, s);
-      break;
+      return static_cast<int>(launch_ablate<FULL, true>(a, W, blocks, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// out (int[1]) = W: the warps a CTA that spgrid_wpack_ablate launches at
+// `warps` (0: the rule's) on a grid of `blocks` CTAs on the current card.
+extern "C" int spgrid_wpack_ablate_warps(int warps, int blocks, void* out) {
+  const int W = warps_for(warps, blocks);
+  if (W == 0) return static_cast<int>(cudaErrorInvalidValue);
+  *static_cast<int*>(out) = W;
+  return static_cast<int>(cudaSuccess);
 }

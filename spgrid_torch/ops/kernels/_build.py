@@ -71,9 +71,11 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # block_ptr, piece_w, cols, sel, starts, ends, vals, x, y, variant,
-    # blocks, m, k, stream
-    "spgrid_wpack_ablate": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    # block_ptr, piece_w, piece_lanes, cols, sel, starts, ends, vals, x, y,
+    # variant, warps (0: the rule's), blocks, m, k, stream
+    "spgrid_wpack_ablate": [_PTR] * 10 + [_INT] * 5 + [_PTR],
+    # warps (0: the rule's), blocks, out (int[1]: W)
+    "spgrid_wpack_ablate_warps": [_INT, _INT, _PTR],
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],

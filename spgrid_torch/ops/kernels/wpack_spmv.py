@@ -10,7 +10,10 @@ The default kernel reads the layout's live-slot stream
 the live lanes (value not 0, x index inside x), which are the piece's first
 lanes in packing order, sorted by target row; each with its value, its x
 index and its row in the block. ``wpack_stream_plain`` is the product over
-it. The ablation kernels read the padded pieces.
+it. The ablation kernels read the padded pieces up to each piece's last
+live lane (``DeviceWPACK.piece_lanes``), a warp a piece, with W warps a CTA
+(``launch_warps``; the rule, from the grid and the card's SMs, is held in
+``csrc/wpack_spmv.cu``).
 
 Its ``ablate``/``prefix`` knobs are the JAX wrapper's, for the timing
 ablation of ``scripts/exp_wpack_ablate.py``. ``prefix="direct"``, the
@@ -32,6 +35,7 @@ consecutive.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -162,6 +166,7 @@ class DeviceWPACK:
     starts: torch.Tensor      # (P, 128) int8, first lane of each row
     sel: torch.Tensor         # (P, 128) int8, sub-window of each slot
     piece_w: torch.Tensor     # (P,) int32, first window of each piece
+    piece_lanes: torch.Tensor  # (P,) uint8, last live lane + 1 (0: none)
     group_sub: torch.Tensor   # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
     # the live-slot stream: S live slots in piece, then lane order
@@ -197,7 +202,8 @@ class DeviceWPACK:
         return self.stream_nbytes + sum(
             t.numel() * t.element_size() for t in (
                 self.cols, self.values, self.ends, self.starts, self.sel,
-                self.piece_w, self.block_ptr, self.slot_ptr))
+                self.piece_w, self.piece_lanes, self.block_ptr,
+                self.slot_ptr))
 
     @classmethod
     def from_arrays(cls, cols, values, ends, starts, sel, piece_w, group_sub,
@@ -207,7 +213,9 @@ class DeviceWPACK:
         JAX layout's padding) are dropped. The live-slot stream is built
         here, on the host, from the padded pieces: a live lane's row is the
         last present row whose first lane is at or before it (rows rise
-        with the lane)."""
+        with the lane); and from it ``piece_lanes``, each piece's last live
+        lane + 1 (0 for a piece with none), which bounds what the ablation
+        kernels read."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
@@ -226,6 +234,9 @@ class DeviceWPACK:
         seg_key = seg_piece * LANE + starts[seg_piece, seg_row]
         seg = np.searchsorted(seg_key, piece * LANE + lane, side="right") - 1
         rows = seg_row[np.maximum(seg, 0)]
+        filled = np.diff(slot_ptr) > 0
+        piece_lanes = np.zeros(P, np.uint8)
+        piece_lanes[filled] = lane[slot_ptr[1:][filled] - 1] + 1
 
         def slots(a):
             return to_device(a, device, np.int8)
@@ -233,6 +244,7 @@ class DeviceWPACK:
         return cls(cols=slots(cols), values=to_device(values, device),
                    ends=slots(ends), starts=slots(starts), sel=slots(sel),
                    piece_w=to_device(piece_w, device, np.int32),
+                   piece_lanes=to_device(piece_lanes, device),
                    group_sub=to_device(sub, device, np.int32),
                    block_ptr=to_device(ptr, device),
                    slot_ptr=to_device(slot_ptr, device),
@@ -281,6 +293,7 @@ def _check(a: DeviceWPACK, x: torch.Tensor) -> None:
                    values=(a.values, torch.float32), cols=(a.cols, torch.int8),
                    ends=(a.ends, torch.int8), starts=(a.starts, torch.int8),
                    sel=(a.sel, torch.int8), piece_w=(a.piece_w, torch.int32),
+                   piece_lanes=(a.piece_lanes, torch.uint8),
                    block_ptr=(a.block_ptr, torch.int32))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wpack_spmv: no kernel for device {x.device}")
@@ -311,26 +324,44 @@ wpack_spmv.launches = 0
 def wpack_ablate(a: DeviceWPACK, x: torch.Tensor,
                  variant: int) -> torch.Tensor:
     """Ablation ``variant`` (``VARIANTS``) of the WPACK body, over the
-    padded pieces, on CUDA operands that ``wpack_spmv`` has checked; its
-    launches are counted apart from the product's."""
-    m, k = a.shape
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wpack_ablate(
-            a.block_ptr.data_ptr(), a.piece_w.data_ptr(), a.cols.data_ptr(),
-            a.sel.data_ptr(), a.starts.data_ptr(), a.ends.data_ptr(),
-            a.values.data_ptr(), x.data_ptr(), y.data_ptr(), variant,
-            a.blocks, m, k, stream)
-    _build.check(code, "wpack_ablate")
-    wpack_ablate.launches += 1
+    padded pieces' live extent, on CUDA operands that ``wpack_spmv`` has
+    checked; its launches are counted apart from the product's."""
+    y = torch.empty((a.shape[0],), dtype=torch.float32, device=x.device)
+    if a.shape[0]:
+        launch(a, x, y, variant)
+        wpack_ablate.launches += 1
     return y
 
 
 wpack_ablate.launches = 0
+
+
+def launch(a: DeviceWPACK, x: torch.Tensor, y: torch.Tensor, variant: int,
+           warps: int = 0) -> None:
+    """One launch of the ablation kernel into ``y``, uncounted, at W =
+    ``warps`` warps a CTA (4, 8 or 16; 0: the rule's), for sweeps and
+    tests; ``wpack_spmv`` is the entry point."""
+    m, k = a.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_wpack_ablate(
+            a.block_ptr.data_ptr(), a.piece_w.data_ptr(),
+            a.piece_lanes.data_ptr(), a.cols.data_ptr(), a.sel.data_ptr(),
+            a.starts.data_ptr(), a.ends.data_ptr(), a.values.data_ptr(),
+            x.data_ptr(), y.data_ptr(), variant, warps, a.blocks, m, k,
+            stream)
+    _build.check(code, "wpack_ablate")
+
+
+def launch_warps(a: DeviceWPACK, warps: int = 0) -> int:
+    """W, the warps a CTA (a warp a piece) that the ablation kernel takes
+    for ``a`` at ``warps`` on the current card (0: the rule's, held in
+    ``csrc/wpack_spmv.cu``: the fewest that give each SM 16 warps); raises
+    for a W it has no form for."""
+    out = ctypes.c_int(0)
+    _build.check(_build.library().spgrid_wpack_ablate_warps(
+        warps, a.blocks, ctypes.addressof(out)), "wpack_ablate")
+    return out.value
 
 
 def wpack_stream_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,7 @@ from spgrid_torch.ops.kernels.wcoo_spmv import (
     TILE_CHOICES, DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain,
     wcoo_spmv_rows_plain,
 )
+from spgrid_torch.ops.kernels import wpack_spmv as wpack_module
 from spgrid_torch.ops.kernels.wpack_spmv import (
     DeviceWPACK, wpack_spmv, wpack_spmv_plain,
 )
@@ -1029,6 +1030,116 @@ def test_wpack_ablate_raises_instead_of_falling_back(cuda):
         wpack_spmv(a, x.cpu(), prefix="roll")
     with pytest.raises(ValueError, match="nogather"):
         wpack_spmv(a, x, ablate="nogather")
+
+
+WPACK_WARPS = (4, 8, 16)
+
+
+@pytest.mark.parametrize("warps", WPACK_WARPS)
+@pytest.mark.parametrize("matrix", sorted(WPACK_ABLATE_MATRICES))
+@pytest.mark.parametrize("tag", [t for t, _ in exp_wpack_ablate.FORMS[:-1]])
+def test_wpack_ablate_at_every_warp_form(cuda, tag, matrix, warps):
+    """The kernel at W = 4, 8 and 16 warps a CTA, uncounted: within 1e-5
+    of the f64 plain version, and the same bits from two calls (no
+    atomics)."""
+    knobs = dict(exp_wpack_ablate.FORMS)[tag]
+    variant = wpack_module.VARIANTS[knobs.get("ablate", ""),
+                                    knobs.get("prefix", "direct")]
+    csr = WPACK_ABLATE_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, 2, device=cuda)
+    x = operand((csr.k,), 29, cuda)
+    before = launch_counts()["wpack_ablate"]
+    y1 = torch.full((csr.m,), float("nan"), device=cuda)
+    y2 = torch.full((csr.m,), float("nan"), device=cuda)
+    wpack_module.launch(a, x, y1, variant, warps)
+    wpack_module.launch(a, x, y2, variant, warps)
+    assert launch_counts()["wpack_ablate"] == before
+    assert_close(y1, wpack_spmv_plain(a, x.double(), **knobs))
+    assert torch.equal(y1, y2)
+
+
+def test_wpack_ablate_warps_rule(cuda):
+    """The fewest warps a CTA (4, 8, 16) that give every SM 16 warps: 16
+    for the edge matrix's 24 blocks, 4 for the probe's 782 on a card of at
+    most 195 SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    a = DeviceWPACK.from_csr(hypersparse_edge(), device=cuda)
+    for blocks in (1, 24, 100, 300, 600, 782, 5000):
+        b = dataclasses.replace(a, block_ptr=torch.zeros(
+            blocks + 1, dtype=torch.int32, device=cuda))
+        want = next((w for w in WPACK_WARPS if blocks * w >= 16 * sms), 16)
+        assert wpack_module.launch_warps(b) == want, blocks
+        assert [wpack_module.launch_warps(b, w) for w in WPACK_WARPS] == list(
+            WPACK_WARPS)
+    for w in (1, 2, 3, 32):
+        with pytest.raises(RuntimeError):
+            wpack_module.launch_warps(a, w)
+    x = operand((a.shape[1],), 1, cuda)
+    y = torch.empty((a.shape[0],), device=cuda)
+    with pytest.raises(RuntimeError):
+        wpack_module.launch(a, x, y, 4, 32)
+    with pytest.raises(RuntimeError):
+        wpack_module.launch(a, x, y, 5, 0)
+
+
+@pytest.mark.parametrize("wsel", [1, 4])
+@pytest.mark.parametrize("matrix", sorted(WPACK_ABLATE_MATRICES))
+def test_wpack_ablate_reads_no_dead_piece_or_quarter(cuda, matrix, wsel):
+    """Values of pieces with piece_lanes 0 and of quarters wholly past it,
+    set to NaN after piece_lanes was built, are never read: every form at
+    every W gives the unpoisoned layout's bits."""
+    csr = WPACK_ABLATE_MATRICES[matrix]()
+    a = DeviceWPACK.from_csr(csr, wsel, device=cuda)
+    lanes = a.piece_lanes.long()
+    dead = torch.arange(4, device=cuda)[None, :] * 32 >= lanes[:, None]
+    assert dead[lanes > 0].any()
+    # its 16 pieces make two whole groups: no group padding
+    assert (lanes == 0).any() or matrix == "m_below_128"
+    values = a.values.clone()
+    values[dead.repeat_interleave(32, dim=1)] = float("nan")
+    bad = dataclasses.replace(a, values=values)
+    x = operand((csr.k,), 30, cuda)
+    for variant in range(5):
+        for warps in WPACK_WARPS:
+            clean = torch.empty((csr.m,), device=cuda)
+            got = torch.empty((csr.m,), device=cuda)
+            wpack_module.launch(a, x, clean, variant, warps)
+            wpack_module.launch(bad, x, got, variant, warps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, clean), (variant, warps)
+    for tag, knobs in exp_wpack_ablate.FORMS[:-1]:
+        assert_close(wpack_spmv(bad, x, **knobs),
+                     wpack_spmv_plain(a, x.double(), **knobs))
+
+
+@pytest.mark.parametrize("rows", [1, 133, 300])
+def test_shuffle_bench_kernel_at_more_rows(cuda, rows):
+    """A CTA a row: one row alone, a grid past the 132 SMs and past 256."""
+    rng = np.random.default_rng(32)
+    src = torch.from_numpy(rng.standard_normal((rows, 128)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(
+        np.int32)).to(cuda)
+    for reps in (1, 64):
+        got = shuffle_bench(src, idx, reps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, shuffle_bench_plain(src, idx, reps))
+
+
+def test_shuffle_bench_reads_0_outside_the_row(cuda):
+    rng = np.random.default_rng(33)
+    src = rng.standard_normal((5, 128)).astype(np.float32)
+    idx = rng.integers(0, 128, (5, 128)).astype(np.int32)
+    idx[:, ::9] = 128
+    idx[1, :4] = (-1, -128, 300, 2 ** 30)
+    ok = (idx >= 0) & (idx < 128)
+    want = src
+    for _ in range(9):
+        want = np.where(ok, np.take_along_axis(want, np.clip(idx, 0, 127), 1),
+                        np.float32(0)) + np.float32(1.0)
+    got = shuffle_bench(torch.from_numpy(src).to(cuda),
+                        torch.from_numpy(idx).to(cuda), 9)
+    assert np.array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("driver,argv", [

@@ -537,3 +537,44 @@ def test_ring_schedule_writes_each_row_once(total, R, S, grid):
     for rows in ring_schedule(total, R, S, grid):
         written[rows.start:rows.stop] += 1
     assert np.all(written == 1)
+
+
+def register_chain(src, idx, reps):
+    """The shuffle_bench kernel's chain, emulated in numpy: element t + 32q
+    of a row in register q of lane t; a step shuffles every register from
+    the source lane (idx & 31), selects register idx >> 5, reads 0 for an
+    index outside the row, and adds 1.0."""
+    rows = src.shape[0]
+    R = src.astype(np.float32).reshape(rows, 4, 32)         # [row, q, t]
+    ix = idx.reshape(rows, 4, 32)
+    ok = (ix >= 0) & (ix < 128)
+    lane = np.broadcast_to((ix & 31)[:, :, None, :], (rows, 4, 4, 32))
+    reg = np.where(ok, ix >> 5, 0)[:, :, None, :]
+    for _ in range(reps):
+        # s[row, q, q2, t]: register q2 of lane (idx & 31) for element q
+        s = np.take_along_axis(np.broadcast_to(R[:, None], lane.shape),
+                               lane, axis=3)
+        g = np.take_along_axis(s, reg, axis=2)[:, :, 0]
+        R = np.where(ok, g, np.float32(0)) + np.float32(1.0)
+    return R.reshape(rows, 128)
+
+
+@pytest.mark.parametrize("case", ["in_row", "past_the_row"])
+def test_shuffle_chain_emulation_is_the_plain_chain(case):
+    rng = np.random.default_rng(31)
+    src = rng.standard_normal((9, 128)).astype(np.float32)
+    idx = rng.integers(0, 128, (9, 128)).astype(np.int32)
+    if case == "in_row":
+        want = shuffle_bench_plain(torch.from_numpy(src),
+                                   torch.from_numpy(idx), 7).numpy()
+    else:
+        idx[rng.random(idx.shape) < 0.05] = 128
+        idx[0, :3] = (-1, 130, 1000)
+        ok = (idx >= 0) & (idx < 128)
+        want = src
+        for _ in range(7):
+            want = np.where(ok, np.take_along_axis(want, np.clip(idx, 0, 127),
+                                                   1), np.float32(0)) \
+                + np.float32(1.0)
+    got = register_chain(src, idx, 7)
+    assert got.dtype == np.float32 and got.tobytes() == want.tobytes()

@@ -255,7 +255,8 @@ def test_dispatch_format_takes_one_column_only():
     with pytest.raises(ValueError, match="n must be 1"):
         fn(a, x)
     assert a.nbytes == (4 * a.cols.numel() + a.values.numel() * 4
-                        + 4 * a.piece_w.numel() + 4 * a.block_ptr.numel()
+                        + 4 * a.piece_w.numel() + a.piece_lanes.numel()
+                        + 4 * a.block_ptr.numel()
                         + 4 * a.slot_ptr.numel() + 4 * a.block_slot.numel()
                         + 9 * a.num_slots)
     assert a.stream_nbytes == 4 * a.block_slot.numel() + 9 * a.num_slots

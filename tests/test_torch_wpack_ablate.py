@@ -220,3 +220,163 @@ def test_from_arrays_keeps_the_jax_arrays(jax_tags):
         g, w = getattr(a, f.name), getattr(b, f.name)
         if isinstance(w, torch.Tensor):
             assert torch.equal(g, w), f.name
+
+
+# --- the warp-a-piece kernel (csrc/wpack_spmv.cu, wpack_ablate_kernel),
+# emulated in numpy: its index arithmetic and its f32 additions in its order
+
+QUARTERS = 4
+
+
+def live_lanes(a):
+    """(P, 128) bool: value not 0 and x index inside x, the live rule."""
+    xi = ((a.piece_w.long()[:, None] + a.sel.long()) * wpack_mod.LANE
+          + a.cols.long())
+    return ((a.values != 0) & (xi < a.shape[1])).numpy()
+
+
+def last_live_lane_plus_one(a):
+    live = live_lanes(a)
+    lanes = np.arange(1, wpack_mod.LANE + 1)
+    return np.where(live, lanes, 0).max(axis=1)
+
+
+def with_zeros_inside_pieces(csr):
+    """csr with every 7th value set to 0: explicit zeros that the layout
+    keeps as dead lanes between live ones."""
+    values = csr.values.copy()
+    values[::7] = 0
+    return dataclasses.replace(csr, values=values)
+
+
+@pytest.mark.parametrize("source", ["from_csr", "jax_leaves"])
+def test_piece_lanes_is_each_pieces_last_live_lane(jax_tags, source):
+    csr, _, a, _ = jax_tags
+    if source == "from_csr":
+        csr = with_zeros_inside_pieces(csr)
+        a = DeviceWPACK.from_csr(csr, 2, device="cpu")
+    assert a.piece_lanes.dtype == torch.uint8
+    want = last_live_lane_plus_one(a)
+    np.testing.assert_array_equal(a.piece_lanes.numpy(), want)
+    # the group padding's pieces hold no slot and read 0
+    pad = ~a.values.numpy().any(axis=1)
+    assert pad.any() and not a.piece_lanes.numpy()[pad].any()
+    if source == "from_csr":
+        # a dead lane below a piece's last live one keeps the extent
+        live = live_lanes(a)
+        lanes = np.arange(wpack_mod.LANE)
+        inside = (~live) & (lanes < a.piece_lanes.numpy()[:, None].astype(
+            int))
+        assert inside.any()
+
+
+def warp_prefix(p, form):
+    """The kernel's lane prefix of each piece (rows of p, f32): lane t + 32q
+    in register q of thread t; shifts 1-16 by the rotated shuffle and the
+    select of register q or q - 1 (roll) or through the warp's 128-float
+    buffer (pad); shifts 32 and 64 by whole registers."""
+    R = p.astype(np.float32).reshape(-1, QUARTERS, 32)      # [piece, q, t]
+    t = np.arange(32)
+    zero = np.float32(0)
+    for sh in (1, 2, 4, 8, 16):
+        if form == "roll":
+            s = R[:, :, (t - sh) & 31]        # __shfl_sync from lane t - sh
+            below = np.concatenate([np.zeros_like(s[:, :1]), s[:, :-1]], 1)
+            u = np.where(t >= sh, s, below)
+        else:
+            buf = R.reshape(-1, wpack_mod.LANE)
+            j = np.arange(wpack_mod.LANE)
+            u = np.where(j >= sh, buf[:, (j - sh) % wpack_mod.LANE],
+                         zero).reshape(R.shape)
+        R = R + u
+    for sh in (1, 2):                          # 32 and 64 lanes
+        R = R + np.concatenate([np.zeros_like(R[:, :sh]), R[:, :-sh]], 1)
+    assert R.dtype == np.float32
+    return R.reshape(-1, wpack_mod.LANE)
+
+
+def short_extent_piece(rng):
+    p = np.zeros((8, wpack_mod.LANE), np.float32)
+    p[:, :37] = rng.standard_normal((8, 37))
+    p[3, 36] = -0.0
+    return p
+
+
+@pytest.mark.parametrize("case", ["random", "short_extent"])
+@pytest.mark.parametrize("form", ["roll", "pad"])
+def test_warp_scan_emulation_is_the_tpu_lane_prefix(case, form):
+    rng = np.random.default_rng(5)
+    p = (rng.standard_normal((8, wpack_mod.LANE)).astype(np.float32)
+         if case == "random" else short_extent_piece(rng))
+    want = np.asarray(jax_wpack._lane_prefix(jnp.asarray(p), "pad"))
+    got = warp_prefix(p, form)
+    assert got.tobytes() == want.tobytes()
+
+
+def emulate_walk(a, x, tag, warps):
+    """y (m,) f32 as the kernel makes it at W = ``warps``: warp w of block
+    b sums its pieces w, w + W, ... in order in f32, pieces of piece_lanes
+    0 are skipped and quarters past it never loaded; the warps' sums are
+    added in warp order."""
+    knobs = TAGS[tag]
+    m, k = a.shape
+    L = wpack_mod.LANE
+    lanes = a.piece_lanes.numpy().astype(np.int64)
+    loaded = (np.arange(QUARTERS)[None, :] * 32 < lanes[:, None])
+    loaded = np.repeat(loaded, 32, axis=1)        # [piece, lane]
+    vals = np.where(loaded, a.values.numpy(), np.float32(0))
+    xi = ((a.piece_w.numpy().astype(np.int64)[:, None]
+           + a.sel.numpy().astype(np.int64)) * L
+           + a.cols.numpy().astype(np.int64))
+    live = (vals != 0) & (xi < k)
+    p = np.where(live, vals * x[np.where(live, xi, 0)], np.float32(0))
+    if knobs.get("ablate") == "noseg":
+        term = p
+    else:
+        P = warp_prefix(p, knobs["prefix"])
+        if knobs.get("ablate") == "nogather":
+            term = P
+        else:
+            term = (np.take_along_axis(P, a.ends.numpy().astype(int), 1)
+                    - np.take_along_axis(P - p, a.starts.numpy().astype(int),
+                                         1))
+    term = np.where(lanes[:, None] > 0, term, np.float32(0))
+    y = np.zeros(a.blocks * L, np.float32)
+    ptr = a.block_ptr.numpy().astype(np.int64) * wpack_mod.GROUP_PIECES
+    for b in range(a.blocks):
+        part = np.zeros((warps, L), np.float32)
+        for w in range(warps):
+            for piece in range(ptr[b] + w, ptr[b + 1], warps):
+                if lanes[piece]:
+                    part[w] = part[w] + term[piece]
+        total = part[0]
+        for w in range(1, warps):
+            total = total + part[w]
+        y[b * L:(b + 1) * L] = total
+    return y[:m]
+
+
+def poisoned(a):
+    """a with the values of its unread pieces and quarters set to NaN."""
+    lanes = a.piece_lanes.long()
+    dead = (torch.arange(QUARTERS)[None, :] * 32 >= lanes[:, None])
+    values = a.values.clone()
+    values[dead.repeat_interleave(32, dim=1)] = float("nan")
+    return dataclasses.replace(a, values=values)
+
+
+@pytest.mark.parametrize("wsel", [1, 2, 4])
+def test_piece_walk_emulation_gives_each_tags_plain(wsel):
+    csr = matrix()
+    a = DeviceWPACK.from_csr(with_zeros_inside_pieces(csr), wsel,
+                             device="cpu")
+    x = (np.random.default_rng(3).random(csr.k) + 0.5).astype(np.float32)
+    bad = poisoned(a)
+    assert torch.isnan(bad.values).any()
+    for tag in TAGS:
+        want = wpack_spmv_plain(a, torch.from_numpy(x).double(),
+                                **TAGS[tag]).numpy()
+        for warps in (4, 8, 16):
+            got = emulate_walk(bad, x, tag, warps)
+            assert np.isfinite(got).all(), (tag, warps)
+            assert scaled_err(got, want) <= TOL, (tag, warps)
