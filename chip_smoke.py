@@ -62,7 +62,14 @@ exits non-zero and never prints the final ``"ok": true`` line:
    roll also on MAIN_LINE, whose 512 blocks the rule gives 8 warps). The
    shuffle chain (a CTA of one warp a row) runs at 256 rows and at 1 row,
    64 and 256 steps, and prints the device ns and SM cycles a step at
-   each. The two live-slot stream kernels (``wrow_spmv_v2``,
+   each. lanegather runs the probe's six forms: its rule's path (direct)
+   as the entry point takes it, then the A/B of its two paths, the staged
+   one (a CTA's tile of src in shared memory) and the direct one (a
+   thread an element), each held to the plain version bit for bit, with
+   each path's launch as the card plans it and its device ms printed
+   beside the launch floor, an empty kernel's device ms timed the same
+   way. The
+   two live-slot stream kernels (``wrow_spmv_v2``,
    ``wpack_spmv``; ``slots_per_cta`` live slots a CTA) run on LINE_S and
    the edge matrix, and also on a 4096^2 matrix whose one 128-row block
    holds ~256 CTAs' ranges of slots, on a banded matrix with empty target
@@ -92,8 +99,11 @@ exits non-zero and never prints the final ``"ok": true`` line:
    then ``run_pipeline`` on the same matrices, gated at eps 1e-3.
 4. CLI: ``python -m spgrid_torch.bench`` (its ``main``) on the minimum
    end-to-end slice, the hypersparse matrix ``MAIN_LINE``: wcoo_cuda and
-   wcoo_bands_cuda at n=512, wrow_spmv_cuda and wcoo_spmv_cuda at n=1, each
-   row gated against the host f64 oracle at eps 1e-4.
+   wcoo_bands_cuda at n=512, wrow_spmv_cuda and wcoo_spmv_cuda at n=1, and
+   the torch-op formats coo, sell, merge, gell, gell16 and cv_gell at
+   n=512; then coo, sell, merge and gell on ``LINE_B`` at n=512; each row
+   gated against the host f64 oracle at eps 1e-4, gell16 and cv_gell on
+   the X they gather (their gate class, printed with each row).
 5. scattered and block-grid CLI: the CLI on the matrices the JAX package
    ran these kernels on: ``LINE_B`` (8192^2, 316 blocks of 128^2) with
    bsrc_cuda and bsr_cuda at n=512, ``LINE_S`` (100000^2, 2.1M scattered
@@ -327,7 +337,9 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.dgell import launch as dgell_launch
     from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
     from spgrid_torch.ops.kernels.lanegather import (
-        lanegather, lanegather_plain)
+        DIRECT, STAGED, card_plan, lanegather, lanegather_plain,
+        launch_floor)
+    from spgrid_torch.ops.kernels.lanegather import launch as lane_launch
     from spgrid_torch.ops.kernels.pallas_gather import (
         dma_gather, dma_gather_plain, ring_shape, shuffle_bench,
         shuffle_bench_plain)
@@ -637,16 +649,48 @@ def phase_kernels() -> dict:
         return spmv_case(wrow_spmv, wrow_spmv_plain, a, csr, seed,
                          a.cols.element_size()) + (REL_TOL, note)
 
+    # the card's launch floor: an empty kernel, timed as every row is
+    floor_ms = device_ms(launch_floor, DEVICE)
+    print(f"phase 1 launch floor: empty kernel (1 CTA of 32 threads) "
+          f"device_ms={floor_ms:.6f}", flush=True)
+    path_names = {DIRECT: "direct", STAGED: "staged"}
+
     # The probe kernels. A gather needs each gathered element or row read
     # once (at most the index's count, distinct rows for dma_gather), the
     # index and the output; the shuffle chain its three tiles and one add
     # an element a step; an ablation variant its nnz's values (and columns
     # where it reads them), the x entries it reads and the y it writes.
     def lanegather_case(src, idx, axis):
+        """Also: the card's plan for the rule (path, CTAs) and for the
+        staged path (tile, CTAs); each path held to the plain version bit
+        for bit, and its device ms beside the launch floor."""
         s, i = (torch.from_numpy(v).to(DEVICE) for v in (src, idx))
+        shape = (*s.shape, *i.shape, axis)
+        note = f"source_bytes={nbytes(s)}"
+        if DEVICE == "cuda":
+            rule, staged = card_plan(*shape), card_plan(*shape, STAGED)
+            note = (f"rule={path_names[rule.path]} ctas={rule.ctas} "
+                    f"staged_tile={staged.tile} staged_ctas={staged.ctas} "
+                    + note)
+            want = lanegather_plain(s, i, axis)
+            out = torch.empty_like(want)
+            times = []
+            for path in (DIRECT, STAGED):
+                out.fill_(float("nan"))
+                lane_launch(s, i, out, axis, path)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"lanegather {path_names[path]} path "
+                                       f"differs from its plain version at "
+                                       f"{shape}")
+                t = device_ms(lane_launch, s, i, out, axis, path)
+                times.append(f"{path_names[path]}:{t:.6f}")
+            note += (" both paths equal the plain version; device_ms_by_path "
+                     + " ".join(times) + f" floor:{floor_ms:.6f}")
         return (lanegather, lanegather_plain, (s, i, axis), (s, i, axis),
                 torch.take_along_dim, (s, i.long(), axis),
-                4 * min(s.numel(), i.numel()) + 8 * i.numel(), 0.0, 0.0)
+                4 * min(s.numel(), i.numel()) + 8 * i.numel(), 0.0, 0.0,
+                note)
 
     def gather_x(k, n, seed):
         x = np.random.default_rng(seed).standard_normal((k, n))
@@ -1049,6 +1093,7 @@ def cli_rows(phase: str, runs) -> list:
     gate. Returns the rows."""
     import csv
     from spgrid_torch.bench.cli import main as cli_main
+    from spgrid_torch.bench.harness import gold_class
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rows.csv")
@@ -1064,8 +1109,9 @@ def cli_rows(phase: str, runs) -> list:
         print(f"{phase}: {r['kernel']} n={r['input_columns']} "
               f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
               f"iters={r['iters']} gbytes_per_s={r['gbytes_per_s']} "
-              f"max_ae={r['max_ae']} errors_passed={r['errors_passed']}",
-              flush=True)
+              f"sol_time={r['sol_time']} max_ae={r['max_ae']} "
+              f"gate={gold_class(r['kernel'])} "
+              f"errors_passed={r['errors_passed']}", flush=True)
     want = sum(len(kernels.split(",")) for _, kernels, _ in runs)
     if len(rows) != want or not all(r["errors_passed"] == "1" for r in rows):
         raise RuntimeError(f"the CLI wrote {len(rows)} rows, not {want} "
@@ -1075,14 +1121,18 @@ def cli_rows(phase: str, runs) -> list:
 
 # (line, kernels, n) of the CLI's runs in phases 4 and 5
 CLI_RUNS = ((MAIN_LINE, "wcoo_cuda,wcoo_bands_cuda", "512"),
-            (MAIN_LINE, "wrow_spmv_cuda,wcoo_spmv_cuda", "1"))
+            (MAIN_LINE, "wrow_spmv_cuda,wcoo_spmv_cuda", "1"),
+            (MAIN_LINE, "coo,sell,merge,gell,gell16,cv_gell", "512"),
+            (LINE_B, "coo,sell,merge,gell", "512"))
 SCATTERED_RUNS = ((LINE_B, "bsrc_cuda,bsr_cuda", "512"),
                   (LINE_S, "dgell_cuda", "512"),
                   (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1"))
 
 
 def phase_cli() -> None:
-    """Phase 4: the CLI on ``MAIN_LINE``."""
+    """Phase 4: the CLI on ``MAIN_LINE`` (the slot kernels, and the torch-op
+    formats coo, sell, merge and gell in its three modes) and the torch-op
+    formats on ``LINE_B``."""
     cli_rows("phase 4 cli", CLI_RUNS)
 
 

@@ -33,6 +33,7 @@ from spgrid_torch.core.roofline import (
 from spgrid_torch.core.timing import time_kernel, time_kernel_graph
 from spgrid_torch.features import matrix_features, value_features
 from spgrid_torch.ops import dispatch
+from spgrid_torch.ops.gell import gathered_x
 from spgrid_torch.ops.attention import (
     SparseAttention, attention_pipeline, gold_pipeline,
 )
@@ -73,6 +74,23 @@ def _gate_fields(m) -> dict:
 def _f32_only(config: BenchConfig) -> None:
     if config.dtype != "float32":
         raise ValueError(f"the port's kernels are f32 only, got {config.dtype}")
+
+
+def gold_class(fmt: str) -> str:
+    """The row's gate class, as the JAX harness names it: ``gell16`` and
+    ``cv_gell`` gate on the X they gather; every other format is
+    ``exact``."""
+    return fmt if fmt in dispatch.GELL_MODE and fmt != "gell" else "exact"
+
+
+def gate_x(x: np.ndarray, fmt: str) -> np.ndarray:
+    """The X a row's f64 gold multiplies: X itself for the exact class;
+    for ``gell16`` and ``cv_gell`` the X their mode gathers (the JAX
+    harness's transformed X), formed by torch on the CPU."""
+    if gold_class(fmt) == "exact":
+        return x
+    return gathered_x(torch.from_numpy(np.ascontiguousarray(x, np.float32)),
+                      dispatch.GELL_MODE[fmt]).numpy()
 
 
 def graph_calls(out_bytes: float) -> int:
@@ -161,7 +179,8 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
              config: Optional[BenchConfig] = None, *, device,
              check_accuracy: bool = True) -> dict:
     """Time Y = A @ X for one format and gate it against the host f64 oracle
-    (eps 1e-4 at f32, as the JAX harness)."""
+    (eps 1e-4 at f32, as the JAX harness), on the X of the format's gate
+    class (``gate_x``)."""
     config = config or BenchConfig()
     _f32_only(config)
     device = torch.device(device)
@@ -197,7 +216,8 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
         **feature_fields(csr),
     )
     if check_accuracy:
-        gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values, x)
+        gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values,
+                              gate_x(x, kernel))
         test = fn(a, xd).cpu().numpy()
         m = error_metrics(gold, test, epsilon=1e-4)
         row.update(_gate_fields(m))

@@ -1,2 +1,2 @@
-"""Host formats (numpy): the port's own copies of the JAX package's CSR, BSR
-and WCOO packers."""
+"""Host formats (numpy): the port's own copies of the JAX package's CSR, BSR,
+WCOO and SELL-C-sigma packers."""

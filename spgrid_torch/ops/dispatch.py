@@ -3,7 +3,9 @@ function.
 
 ``JAX_NAME`` maps each format to its counterpart in ``spgrid.ops.dispatch``.
 The three SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
-package's bench adapters do; a wider operand raises.
+package's bench adapters do; a wider operand raises. ``coo``, ``sell``,
+``merge`` and the GELL formats are torch ops (the JAX package's XLA
+compositions); the ``_cuda`` formats and ``dense``'s matmul run on kernels.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.dense import spmm_dense
+from spgrid_torch.ops.gell import DeviceGELL, gell_spmm
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
     DeviceBSRCol, bsr_spmm_cstat,
@@ -27,14 +30,20 @@ from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned, wcoo_spmv
 from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK, wpack_spmv
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
-from spgrid_torch.ops.layouts import DeviceBSR
+from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
+from spgrid_torch.ops.merge import DeviceMerge, merge_spmm
+from spgrid_torch.ops.xla import spmm_coo, spmm_sell
 
 JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "panel_cuda": "panel_pallas", "wcoo_cuda": "wcoo_pallas",
             "wcoo_bands_cuda": "wcoo_bands", "wcoo_spmv_cuda": "wcoo_spmv",
             "wrow_spmv_cuda": "wrow_spmv", "bsrc_cuda": "bsrc_pallas",
-            "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv"}
+            "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv",
+            "coo": "coo", "sell": "sell", "merge": "merge", "gell": "gell",
+            "gell16": "gell16", "cv_gell": "cv_gell"}
 FORMATS = tuple(JAX_NAME)
+# the GELL formats' modes (spgrid_torch/ops/gell.py)
+GELL_MODE = {"gell": "f32", "gell16": "split16", "cv_gell": "bf16"}
 
 
 def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
@@ -50,10 +59,13 @@ def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
         return DeviceBSRCol.from_csr(csr, bm=bm or 128, bk=bk, device=device)
     if fmt == "panel_cuda":
         return DevicePanels.from_csr(csr, bk=bk, device=device)
+    if fmt in GELL_MODE:
+        return DeviceGELL.from_csr(csr, mode=GELL_MODE[fmt], device=device)
     layout = {"wcoo_cuda": DeviceWCOO, "wcoo_bands_cuda": DeviceWCOOBands,
               "wcoo_spmv_cuda": DeviceWCOOAligned,
               "wrow_spmv_cuda": DeviceWROW, "dgell_cuda": DeviceDGELL,
-              "wpack_spmv_cuda": DeviceWPACK}.get(fmt)
+              "wpack_spmv_cuda": DeviceWPACK, "coo": DeviceCOO,
+              "sell": DeviceSELL, "merge": DeviceMerge}.get(fmt)
     if layout is None:
         raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
     return layout.from_csr(csr, device=device)
@@ -77,7 +89,9 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "wcoo_spmv_cuda": _spmv_2d(wcoo_spmv, "wcoo_spmv_cuda"),
          "wrow_spmv_cuda": _spmv_2d(wrow_spmv, "wrow_spmv_cuda"),
          "bsrc_cuda": bsr_spmm_cstat, "dgell_cuda": dgell_spmm,
-         "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda")}
+         "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda"),
+         "coo": spmm_coo, "sell": spmm_sell, "merge": merge_spmm,
+         "gell": gell_spmm, "gell16": gell_spmm, "cv_gell": gell_spmm}
 
 
 def spmm_fn(fmt: str) -> Callable:

@@ -79,8 +79,13 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # src, idx, out, s0, s1, i0, i1, axis, stream
-    "spgrid_lanegather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    # src, idx, out, s0, s1, i0, i1, axis, path (0: the rule's, 1: direct,
+    # 2: staged), stream
+    "spgrid_lanegather": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+    # s0, s1, i0, i1, axis, path, out (int[3]: path, tile, CTAs)
+    "spgrid_lanegather_shape": [_INT] * 6 + [_PTR],
+    # stream: an empty kernel, the launch floor
+    "spgrid_launch_floor": [_PTR],
     # x, idx, out, k, n, steps, G, stages, chunk_rows (0: the rule's), grid
     # (int* or NULL: the CTAs launched), stream
     "spgrid_dma_gather": [_PTR] * 3 + [_INT] * 6 + [_PTR] * 2,

@@ -10,6 +10,10 @@ stores as it is. It does not count the coverage blocks, so wherever a block
 row is empty it no longer indexes ``blocks``; the JAX kernels never read it.
 It is kept only as the counterpart of the JAX field. Kernels walk
 ``row_ptr``, which is rebuilt from ``block_rows``.
+
+``DeviceCOO`` and ``DeviceSELL`` hold the same arrays as their counterparts
+in ``spgrid/ops/layouts.py``, padding included; ``spgrid_torch/ops/xla.py``
+multiplies with them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from spgrid_torch.formats.bsr import csr_to_bsr
 from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.sell import csr_to_sell
 
 
 def round_up(x: int, m: int) -> int:
@@ -145,3 +150,77 @@ class DeviceBSR:
             csr, bm, bk, pad_multiple)
         return cls.from_arrays(rows, cols, row_starts, blocks, csr.shape,
                                csr.nnz, nb, device=device)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@dataclasses.dataclass
+class DeviceCOO:
+    """Row-sorted COO on a torch device, padded to a multiple of
+    ``pad_multiple`` entries with row m, column 0 and value 0: a pad entry
+    adds 0 to the sacrificial row m."""
+
+    rows: torch.Tensor     # (nnz_pad,) int32
+    cols: torch.Tensor     # (nnz_pad,) int32
+    values: torch.Tensor   # (nnz_pad,)
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.rows, self.cols, self.values)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, pad_multiple: int = 128, *,
+                 device) -> "DeviceCOO":
+        nnz_pad = round_up(max(csr.nnz, 1), pad_multiple)
+        rows = np.full(nnz_pad, csr.m, dtype=np.int32)
+        cols = np.zeros(nnz_pad, dtype=np.int32)
+        vals = np.zeros(nnz_pad, dtype=csr.values.dtype)
+        rows[: csr.nnz] = np.repeat(np.arange(csr.m, dtype=np.int32),
+                                    csr.degrees)
+        cols[: csr.nnz] = csr.col_idx
+        vals[: csr.nnz] = csr.values
+        return cls(to_device(rows, device), to_device(cols, device),
+                   to_device(vals, device), tuple(csr.shape), csr.nnz)
+
+
+@dataclasses.dataclass
+class DeviceSELL:
+    """SELL-C-sigma on a torch device: each width bucket's (s, C, w) columns
+    and values and its slices' first slots, and ``perm`` (m_pad,): the
+    original row of slot i. Pad slots m .. m_pad-1 hold the unique rows
+    m .. m_pad-1, so the unpermute never collides with a real row. The
+    buckets' slices cover every slot once."""
+
+    perm: torch.Tensor              # (m_pad,) int32
+    bucket_cols: tuple              # of (s, C, w) int32
+    bucket_vals: tuple              # of (s, C, w)
+    bucket_slice_rows: tuple        # of (s,) int32, a slice's first slot
+    shape: Tuple[int, int]
+    nnz: int
+    C: int
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.perm, *self.bucket_cols, *self.bucket_vals,
+                      *self.bucket_slice_rows)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, C: int = 8, sigma: int = 256, *,
+                 device) -> "DeviceSELL":
+        sell = csr_to_sell(csr, C=C, sigma=sigma)
+        m_pad = round_up(csr.m, C)
+        perm = np.arange(m_pad, dtype=np.int32)
+        perm[: csr.m] = sell.perm
+        return cls(
+            perm=to_device(perm, device),
+            bucket_cols=tuple(to_device(b.cols, device)
+                              for b in sell.buckets),
+            bucket_vals=tuple(to_device(b.values, device)
+                              for b in sell.buckets),
+            bucket_slice_rows=tuple(to_device(b.slice_rows, device)
+                                    for b in sell.buckets),
+            shape=tuple(csr.shape), nnz=csr.nnz, C=C)

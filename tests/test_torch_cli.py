@@ -78,7 +78,9 @@ LINE_S = "3000 3000 20 6.6667 normal random 0.9 0 0.05 0.05 14"
 @pytest.mark.parametrize("line,kernels,n", [
     (LINE_B, "bsrc_cuda,bsr_cuda", "24"),
     (LINE_S, "dgell_cuda", "1,24"),
-    (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1")])
+    (LINE_S, "wpack_spmv_cuda,wrow_spmv_cuda", "1"),
+    (LINE, "coo,sell,merge,gell,gell16,cv_gell", "1,24"),
+    (LINE_B, "coo,sell,merge,gell", "24")])
 def test_new_formats_on_cpu_pass_the_gate(line, kernels, n, tmp_path):
     out = tmp_path / "rows.csv"
     assert cli.main(["--generate", line, "--kernels", kernels, "--num-cols",

@@ -33,7 +33,10 @@ from spgrid_torch.ops.kernels.dgell import (
     DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
     dgell_spmm_plain, launch, launch_shape,
 )
-from spgrid_torch.ops.kernels.lanegather import lanegather, lanegather_plain
+from spgrid_torch.ops.kernels import lanegather as lanegather_module
+from spgrid_torch.ops.kernels.lanegather import (
+    DIRECT, STAGED, lanegather, lanegather_plain, walk_plain,
+)
 from spgrid_torch.ops.kernels import pallas_gather
 from spgrid_torch.ops.kernels.pallas_gather import (
     MAX_N, dma_gather, dma_gather_plain, ring_shape, shuffle_bench,
@@ -811,6 +814,90 @@ def test_lanegather_kernel(cuda, form):
     assert launch_counts()["lanegather"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, lanegather_plain(s, i, axis))
+
+
+@pytest.mark.parametrize("path", [DIRECT, STAGED], ids=["direct", "staged"])
+@pytest.mark.parametrize("form", range(len(FORMS)),
+                         ids=[f[0] for f in FORMS])
+def test_lanegather_paths(cuda, form, path):
+    """Each path on each form equals the plain version bit for bit; the
+    rule takes the direct path on every form (a thread an output), and a
+    staged tile fits each form."""
+    _, src, idx, axis = FORMS[form]
+    s, i = torch.from_numpy(src).to(cuda), torch.from_numpy(idx).to(cuda)
+    shape = (*s.shape, *i.shape, axis)
+    assert lanegather_module.card_plan(*shape) == lanegather_module.Plan(
+        DIRECT, 0, -(-i.numel() // 256))
+    staged = lanegather_module.card_plan(*shape, STAGED)
+    along = s.shape[0] if axis == 1 else s.shape[1]
+    assert staged.path == STAGED and staged.tile > 0
+    assert staged.ctas == -(-along // staged.tile)
+    out = torch.full(i.shape, float("nan"), device=cuda)
+    lanegather_module.launch(s, i, out, axis, path)
+    torch.cuda.synchronize()
+    assert torch.equal(out, lanegather_plain(s, i, axis))
+
+
+@pytest.mark.parametrize("path", [DIRECT, STAGED], ids=["direct", "staged"])
+@pytest.mark.parametrize("case", [
+    "ragged_rows", "ragged_slab", "scalar_axis1", "scalar_axis0",
+    "misaligned", "outside"])
+def test_lanegather_path_edges(cuda, case, path):
+    """Ragged last tiles, the 4-byte forms (n % 4 != 0, a misaligned
+    pointer) and indices outside src (read as 0) on both paths, against
+    the walk's plain version."""
+    rng = np.random.default_rng(40)
+    shapes = {"ragged_rows": ((300, 100), (300, 36), 1),
+              "ragged_slab": ((200, 84), (5, 84), 0),
+              "scalar_axis1": ((9, 131), (9, 7), 1),
+              "scalar_axis0": ((70, 13), (6, 13), 0),
+              "misaligned": ((16, 64), (16, 64), 1),
+              "outside": ((40, 64), (40, 32), 1)}
+    (s0, s1), ishape, axis = shapes[case]
+    src = torch.from_numpy(rng.standard_normal((s0 * s1 + 1,)).astype(
+        np.float32))
+    src = (src[1:] if case == "misaligned" else src[:-1]).reshape(s0, s1)
+    high = (s0, s1)[axis]
+    idx = rng.integers(-3 if case == "outside" else 0,
+                       high + (3 if case == "outside" else 0), ishape)
+    idx = torch.from_numpy(idx.astype(np.int32))
+    tile = (0 if path == DIRECT else lanegather_module.card_plan(
+        s0, s1, *ishape, axis, STAGED).tile)
+    want = walk_plain(src, idx, axis, tile)
+    s, i = src.to(cuda), idx.to(cuda)
+    if case == "misaligned":
+        s = torch.empty(s0 * s1 + 1, device=cuda)[1:].view(s0, s1)
+        s.copy_(src.to(cuda))
+    out = torch.full(ishape, float("nan"), device=cuda)
+    lanegather_module.launch(s, i, out, axis, path)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+
+
+TORCH_OP_FORMATS = ("coo", "sell", "merge", "gell", "gell16", "cv_gell")
+
+
+@pytest.mark.parametrize("n", [1, 24])
+@pytest.mark.parametrize("fmt", TORCH_OP_FORMATS)
+def test_torch_op_formats_on_the_card(cuda, fmt, n):
+    """The torch-op formats on the card give their CPU results (the same
+    ops, summed in another order), are captured in a CUDA graph (nothing
+    on their path waits for the host), and SELL gives the same bits every
+    call."""
+    from spgrid_torch.core.timing import time_kernel_graph
+    from spgrid_torch.ops import dispatch
+    csr = hypersparse_edge()
+    x = operand((csr.k, n), 41, cuda)
+    a = dispatch.build(csr, fmt, device=cuda)
+    fn = dispatch.spmm_fn(fmt)
+    got = fn(a, x)
+    want = fn(dispatch.build(csr, fmt, device="cpu"), x.cpu())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    time_kernel_graph(fn, a, x, device=cuda, calls=2, warmup_iters=1,
+                      min_time_s=0.0, min_iters=2)
+    if fmt == "sell":
+        assert torch.equal(fn(a, x), got)
 
 
 def gather_operands(k, n, steps, G, seed, device):

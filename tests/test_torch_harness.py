@@ -154,7 +154,14 @@ def test_dispatch_formats_and_jax_names():
     for fmt in dispatch.FORMATS:
         # the SpMV formats take a (k, 1) operand only
         x = x8[:, :1] if fmt.endswith("spmv_cuda") else x8
-        want = csr.to_dense().astype(np.float64) @ x.numpy().astype(np.float64)
+        # gell16 and cv_gell multiply the X the JAX harness gates them on
+        # by the values split to 16 bits (hi + lo, as the JAX modes split
+        # their values, and as the JAX harness splits X for gell16)
+        a = csr.to_dense()
+        if fmt in ("gell16", "cv_gell"):
+            a = jax_harness._xg_host(a, "gell16")
+        want = (a.astype(np.float64)
+                @ jax_harness._xg_host(x.numpy(), fmt).astype(np.float64))
         y = dispatch.spmm_fn(fmt)(dispatch.build(csr, fmt, device="cpu"), x)
         np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):

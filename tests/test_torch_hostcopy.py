@@ -14,11 +14,12 @@ import torch
 import spgrid.bench.schema as jax_schema
 import spgrid.formats.bsr as jax_bsr
 import spgrid.formats.csr as jax_csr
+import spgrid.formats.sell as jax_sell
 import spgrid.gen as jax_gen
 import spgrid.io.mtx as jax_mtx
 import spgrid.io.smtx as jax_smtx
 from spgrid_torch.bench import schema
-from spgrid_torch.formats import bsr, csr
+from spgrid_torch.formats import bsr, csr, sell
 from spgrid_torch.gen import artificial, masks, params
 from spgrid_torch.io import read_matrix
 
@@ -97,6 +98,44 @@ def test_csr_to_bsr_equals_jax(bm, bk):
                                       getattr(want, f.name), err_msg=f.name)
 
 
+def skewed_with_empty_rows():
+    """205 rows (not a multiple of C): rows 30-59 empty, row 100 with 150
+    nnz, so slices fall into several width buckets."""
+    d = jax_csr.random_csr(205, 180, 0.03, seed=8).to_dense()
+    d[30:60] = 0.0
+    d[100, 10:160] = 1.5
+    return jax_csr.dense_to_csr(d.astype(np.float32), name="skewed_empty")
+
+
+@pytest.mark.parametrize("make,C,sigma,quantum", [
+    (lambda: jax_csr.random_csr(300, 260, 0.05, seed=4), 8, 256, 4),
+    (skewed_with_empty_rows, 8, 256, 4),
+    (skewed_with_empty_rows, 4, 32, 2),
+])
+def test_csr_to_sell_equals_jax(make, C, sigma, quantum):
+    a = make()
+    got = sell.csr_to_sell(a, C=C, sigma=sigma, width_quantum=quantum)
+    want = jax_sell.csr_to_sell(a, C=C, sigma=sigma, width_quantum=quantum)
+    for name in ("perm", "inv_perm"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert len(got.buckets) == len(want.buckets) > (make is not
+                                                    skewed_with_empty_rows)
+    for gb, wb in zip(got.buckets, want.buckets):
+        for f in dataclasses.fields(wb):
+            g, w = getattr(gb, f.name), getattr(wb, f.name)
+            assert g.dtype == w.dtype, f.name
+            np.testing.assert_array_equal(g, w, err_msg=f.name)
+    assert ((got.C, got.sigma, got.shape, got.nnz, got.name)
+            == (want.C, want.sigma, want.shape, want.nnz, want.name))
+    assert got.mem_footprint == want.mem_footprint
+    assert got.padding_ratio == want.padding_ratio
+    np.testing.assert_array_equal(sell.sell_to_dense(got),
+                                  jax_sell.sell_to_dense(want))
+    np.testing.assert_array_equal(sell.sell_to_dense(got), a.to_dense())
+
+
 def test_csr_helpers_equal_jax():
     assert csr.IDX_DTYPE == jax_csr.IDX_DTYPE
     assert_same_csr(csr.random_csr(90, 70, 0.1, seed=2),
@@ -146,7 +185,9 @@ def test_matrix_readers_equal_jax(tmp_path):
         read_matrix(str(tmp_path / "a.txt"))
 
 
-FORBIDDEN = ("spgrid", "jax", "jaxlib", "__graft_entry__", "bench")
+# ml_dtypes too: the machine with the card does not have it
+FORBIDDEN = ("spgrid", "jax", "jaxlib", "__graft_entry__", "bench",
+             "ml_dtypes")
 
 
 def imported_roots(path: Path):

@@ -26,7 +26,9 @@ from jax.experimental.pallas import tpu as pltpu
 from spgrid.ops.pallas import wrow_spmv as jax_wrow
 from spgrid_torch.ops import convert
 from spgrid_torch.ops.kernels import _build, _wrappers, launch_counts
-from spgrid_torch.ops.kernels.lanegather import lanegather, lanegather_plain
+from spgrid_torch.ops.kernels.lanegather import (
+    lanegather, lanegather_plain, walk_plain,
+)
 from spgrid_torch.ops.kernels.pallas_gather import (
     MAX_N, dma_gather, dma_gather_plain, shuffle_bench, shuffle_bench_plain,
 )
@@ -274,6 +276,52 @@ def test_lanegather_forms_match_the_jax_probe_bit_for_bit(jax_forms):
             np.testing.assert_array_equal(idx, inputs[1])
         got = lanegather(torch.from_numpy(src), torch.from_numpy(idx), axis)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+LANE_FORMS = exp_lanegather.forms(np.random.default_rng(0))
+
+
+# staged tiles of rows (axis 1) or columns (axis 0): the kernel's own
+# tile on each probe form (``card_plan``: 8, 2, 1 and 8 rows, 8 columns)
+# is among them, and a ragged last tile shows at 3 rows and 12 columns
+TILES = {1: (1, 2, 3, 8), 0: (4, 8, 12, 32)}
+
+
+@pytest.mark.parametrize("walk", ["direct", 0, 1, 2, 3], ids=[
+    "direct", "staged_tile0", "staged_tile1", "staged_tile2",
+    "staged_tile3"])
+@pytest.mark.parametrize("form", range(len(LANE_FORMS)),
+                         ids=[f[0] for f in LANE_FORMS])
+def test_lanegather_walks_are_take_along_axis(form, walk):
+    """Each path's walk (the staged one CTA tile by tile) on each probe
+    form gives np.take_along_axis exactly."""
+    _, src, idx, axis = LANE_FORMS[form]
+    tile = 0 if walk == "direct" else TILES[axis][walk]
+    got = walk_plain(torch.from_numpy(src), torch.from_numpy(idx), axis,
+                     tile)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.take_along_axis(src, idx, axis))
+
+
+@pytest.mark.parametrize("walk", ["direct", 0, 3], ids=[
+    "direct", "staged_tile0", "staged_tile3"])
+@pytest.mark.parametrize("shape", [((300, 100), (300, 36), 1),
+                                   ((200, 84), (5, 84), 0),
+                                   ((70, 13), (6, 13), 0)])
+def test_lanegather_walks_read_zero_outside_src(shape, walk):
+    """Ragged last tiles, and indices outside src read as 0."""
+    (s0, s1), ishape, axis = shape
+    rng = np.random.default_rng(41)
+    src = rng.standard_normal((s0, s1)).astype(np.float32)
+    high = (s0, s1)[axis]
+    idx = rng.integers(-3, high + 3, ishape).astype(np.int32)
+    inside = (idx >= 0) & (idx < high)
+    want = np.where(inside, np.take_along_axis(src, np.where(inside, idx, 0),
+                                               axis), 0.0)
+    tile = 0 if walk == "direct" else TILES[axis][walk]
+    got = walk_plain(torch.from_numpy(src), torch.from_numpy(idx), axis,
+                     tile)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def run_driver(capsys, main, argv):
