@@ -117,15 +117,31 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``scripts/``), each its ``main`` at the JAX script's default sizes on the
    card; a non-zero exit (a gather not exact, a form that fails, WROW v1 or
    a full WPACK form off its f64 product) fails the run.
-7. only with ``--eager-ab``: the headline and CLI rows of phases 2, 4 and
+7. dispatch: cost-model dispatch (``ops/costmodel.py``, ``ops/rbh.py``,
+   ``dispatch.select_format``/``autotune_spmm``) on the headline's twin,
+   ``LINE_B``, ``MAIN_LINE`` and the mac_econ twin at n=512: rbh's split on each (its SplitStats, residual format and
+   coverage blocks), then ``run_spmm`` for every AUTO candidate the cost
+   model finds applicable, auto and autotune (auto_tol on MAIN_LINE,
+   gemm_bound on the twin), each row gated and printed with its predicted
+   time beside its measured one, and auto's and autotune's picks; then
+   ``fit_constants`` over the fixed formats' rows (the fitted ``fudge``),
+   ``dispatch_accuracy`` (tol 0.10, no cv_*) over the matrices and the
+   phase's seconds; then, after the path's launches are read, the
+   calibration: each ``H100Constants`` field measured on the card by graph
+   replay and printed beside the committed value (and ``auto_threshold``
+   at both).
+8. only with ``--eager-ab``: the headline and CLI rows of phases 2, 4 and
    5 once more under the eager protocol (CUDA events around eager calls),
    without their gates, printed on one line: the A/B of the two protocols.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
 flagship path), before phase 4 (the CLI path), before phase 5 (the
-scattered and block-grid path) and before phase 6 (the probe path), and
-read after each; a kernel of a path that was not launched there fails the
-run. Then one JSON
+scattered and block-grid path), before phase 6 (the probe path) and before
+phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
+bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), and read after
+each; a kernel of a path that was not
+launched there fails the run, and a kernel's launches are summed over its
+paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
 1), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -133,6 +149,7 @@ line of the kernels (launches from their path, errors and times from phase
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -1110,7 +1127,7 @@ def cli_rows(phase: str, runs) -> list:
               f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
               f"iters={r['iters']} gbytes_per_s={r['gbytes_per_s']} "
               f"sol_time={r['sol_time']} max_ae={r['max_ae']} "
-              f"gate={gold_class(r['kernel'])} "
+              f"fmt={r['fmt']} gate={gold_class(r['fmt'])} "
               f"errors_passed={r['errors_passed']}", flush=True)
     want = sum(len(kernels.split(",")) for _, kernels, _ in runs)
     if len(rows) != want or not all(r["errors_passed"] == "1" for r in rows):
@@ -1194,7 +1211,7 @@ def phase_probes() -> None:
 
 
 def phase_eager_ab() -> None:
-    """Phase 7 (``--eager-ab``): ``run_spmm`` on the headline rows of phase
+    """Phase 8 (``--eager-ab``): ``run_spmm`` on the headline rows of phase
     2 and the CLI rows of phases 4 and 5 under the eager protocol, without
     the gates those phases held; one line of seconds a call by row."""
     import dataclasses
@@ -1219,7 +1236,276 @@ def phase_eager_ab() -> None:
         row = run_spmm(csr, kernel, config, device=DEVICE,
                        check_accuracy=False)
         eager[f"{csr.m}x{csr.k} {kernel} n={config.num_cols}"] = row["time"]
-    print(f"phase 7 eager A/B: time_s {json.dumps(eager)}", flush=True)
+    print(f"phase 8 eager A/B: time_s {json.dumps(eager)}", flush=True)
+
+
+# The dispatch phase's matrices: the headline's DLMC twin, LINE_B,
+# MAIN_LINE, and the mac_econ twin the JAX package ran rbh on
+# (scripts/exp_reorder.py:61), each at n = 512. The r3_scat_393k twin
+# (scripts/exp_reorder.py:43) is left out: the host's f64 gate of its
+# 393215 x 512 rows took 228 s of the phase on an H100 (PERF.md).
+MAC_ECON = ("206500 206500 6.16653 4.43586 normal random 0.00191 6.13529 "
+            "0.17669 0.33051 14")
+DISPATCH_LINES = (("headline", None), ("LINE_B", LINE_B),
+                  ("MAIN_LINE", MAIN_LINE), ("mac_econ_fwd500_twin", MAC_ECON))
+DISPATCH_ROWS: list = []     # the dispatch path's rows, for the calibration
+DISPATCH_N = 512
+DISPATCH_TIME_S = 0.1   # the rows' minimum timed seconds
+# the calibration's sizes: the copy's bytes, the matmul's side, the rows
+# gathered from a 32 MB and a 512 MB X of 2 KB rows, the GELL slot sum's
+# rows (8 slots of 2 KB)
+CALIBRATION = dict(copy_bytes=1 << 30, matmul=8192, gathered=1 << 18,
+                   x_small=1 << 14, x_big=1 << 18, combine_rows=1 << 16)
+
+
+def dispatch_kernels(label: str, f) -> list:
+    """Every AUTO candidate the cost model finds applicable (the port's
+    names), then auto and autotune; auto_tol on MAIN_LINE and gemm_bound
+    on the headline's twin."""
+    from spgrid_torch.ops import costmodel
+    from spgrid_torch.ops.dispatch import PORT_NAME
+    kernels = [PORT_NAME[c] for c in costmodel.AUTO_CANDIDATES
+               if np.isfinite(costmodel.estimate_spmm_time(f, c,
+                                                           DISPATCH_N))]
+    kernels += ["auto", "autotune"]
+    if label == "MAIN_LINE":
+        kernels.append("auto_tol")
+    if label == "headline":
+        kernels.append("gemm_bound")
+    return kernels
+
+
+def rbh_line(csr) -> str:
+    """rbh's split on ``csr`` at the committed constants: its SplitStats,
+    residual format and the block part's coverage blocks."""
+    from spgrid_torch.ops.rbh import DeviceRBH
+    t0 = time.perf_counter()
+    a = DeviceRBH.from_csr(csr, n_hint=DISPATCH_N, device=DEVICE)
+    st = a.stats
+    return (f"method={st.method} threshold={st.threshold} "
+            f"hi_frac={st.hi_frac:.4f} hi_blocks={st.hi_blocks} "
+            f"hi_fill={st.hi_fill:.5f} hi_nnz={st.hi_nnz} "
+            f"lo_nnz={st.lo_nnz} residual={a.res_fmt} "
+            f"coverage_blocks={a.coverage_blocks} "
+            f"inspect_s={time.perf_counter() - t0:.2f}")
+
+
+def dispatch_rows() -> list:
+    """(b): ``run_spmm`` on each matrix of ``DISPATCH_LINES`` for each of
+    its ``dispatch_kernels``; every row must pass its gate. Prints rbh's
+    split, each row's predicted time beside its measured one, and auto's
+    and autotune's picks."""
+    from spgrid_torch.bench.harness import run_spmm
+    from spgrid_torch.bench.headline import headline_matrix
+    from spgrid_torch.core.config import BenchConfig
+    from spgrid_torch.features import matrix_features
+    from spgrid_torch.ops import costmodel
+
+    config = BenchConfig(num_cols=DISPATCH_N, min_time_s=DISPATCH_TIME_S,
+                         warmup_iters=3)
+    rows = []
+    for label, line in DISPATCH_LINES:
+        t0 = time.perf_counter()
+        csr = headline_matrix() if line is None else line_matrix(line)
+        f = matrix_features(csr)
+        csr._spgrid_torch_feats = f      # the harness's cache
+        print(f"phase 7 dispatch: {label} {csr.m}x{csr.k} nnz={csr.nnz} "
+              f"host_s={time.perf_counter() - t0:.1f} rbh {rbh_line(csr)}",
+              flush=True)
+        for kernel in dispatch_kernels(label, f):
+            row = run_spmm(csr, kernel, config, device=DEVICE)
+            pred = costmodel.estimate_spmm_time(f, row["fmt"], DISPATCH_N)
+            print(f"phase 7 dispatch: {label} {kernel} fmt={row['fmt']} "
+                  f"time_s={row['time']:.9f} predicted_s={pred:.9f} "
+                  f"measured/predicted={row['time'] / pred:.3f} "
+                  f"gflops={row['gflops']:.3f} max_ae={row['max_ae']:.3e} "
+                  f"errors_passed={row['errors_passed']}", flush=True)
+            if not row["errors_passed"]:
+                raise RuntimeError(f"dispatch row {label} {kernel} "
+                                   f"({row['fmt']}) failed its gate")
+            rows.append(dict(row, label=label))
+        picks = {r["kernel"]: r["fmt"] for r in rows
+                 if r["label"] == label and r["kernel"] in (
+                     "auto", "autotune", "auto_tol")}
+        print(f"phase 7 dispatch: {label} picks {json.dumps(picks)} "
+              f"matrix_s={time.perf_counter() - t0:.1f}", flush=True)
+    return rows
+
+
+def two_term_fit(a1, b1, t1, a2, b2, t2):
+    """(c_a, c_b) >= 0 with c_a a + c_b b = t on both rows: the 2 x 2
+    solution where both terms come out non-negative, else the one-term
+    least-squares fit that is."""
+    det = a1 * b2 - a2 * b1
+    if det:
+        ca, cb = (t1 * b2 - t2 * b1) / det, (a1 * t2 - a2 * t1) / det
+        if ca >= 0 and cb >= 0:
+            return ca, cb
+    one_a = (a1 * t1 + a2 * t2) / (a1 * a1 + a2 * a2)
+    one_b = (b1 * t1 + b2 * t2) / (b1 * b1 + b2 * b2)
+    err_a = (t1 - one_a * a1) ** 2 + (t2 - one_a * a2) ** 2
+    err_b = (t1 - one_b * b1) ** 2 + (t2 - one_b * b2) ** 2
+    return (max(one_a, 0.0), 0.0) if err_a <= err_b else (0.0,
+                                                          max(one_b, 0.0))
+
+
+def block_part(blocks_per_row: int, mb: int = 64):
+    """A DeviceBSR of ``mb`` block rows of ``blocks_per_row`` dense 128^2
+    blocks each (columns spread over 64 block columns)."""
+    from spgrid_torch.ops.layouts import DeviceBSR
+    rng = np.random.default_rng(blocks_per_row)
+    rows = np.repeat(np.arange(mb, dtype=np.int32), blocks_per_row)
+    cols = np.concatenate([np.sort(rng.choice(64, blocks_per_row,
+                                              replace=False))
+                           for _ in range(mb)]).astype(np.int32)
+    blocks = rng.random((rows.size, 128, 128)).astype(np.float32) + 0.5
+    starts = np.arange(0, rows.size + 1, blocks_per_row, dtype=np.int32)
+    return DeviceBSR.from_arrays(rows, cols, starts, blocks,
+                                 (mb * 128, 64 * 128), rows.size * 16384,
+                                 rows.size, device=DEVICE)
+
+
+def calibrate(rows) -> dict:
+    """(a): each ``H100Constants`` field measured on the card, every time
+    by graph replay (``device_ms``)."""
+    from spgrid_torch.bench.headline import headline_matrix
+    from spgrid_torch.ops import costmodel
+    from spgrid_torch.ops.dense import full_f32
+    from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
+    from spgrid_torch.ops.kernels.lanegather import launch_floor
+    from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+        DeviceWCOOBands, wcoo_spmm_aligned)
+    from spgrid_torch.ops.layouts import DeviceCOO
+    from spgrid_torch.ops.xla import segment_sum
+    from spgrid_torch.features import matrix_features
+
+    n = DISPATCH_N
+    cal = CALIBRATION
+    got = {}
+    src = torch.empty(cal["copy_bytes"] // 4, device=DEVICE).fill_(1.0)
+    dst = torch.empty_like(src)
+    got["eff_bw"] = 2 * cal["copy_bytes"] / (device_ms(
+        dst.copy_, src, calls=5, replays=10) * 1e-3)
+    del src, dst
+    full_f32()
+    side = cal["matmul"]
+    for field, dtype in (("mxu_f32", torch.float32),
+                         ("mxu_bf16", torch.bfloat16)):
+        a = rand((side, side), 1).to(dtype)
+        b = rand((side, side), 2).to(dtype)
+        ms = device_ms(torch.matmul, a, b, calls=3, replays=3)
+        got[field] = 2 * side ** 3 / (ms * 1e-3)
+    del a, b
+    for field, k in (("gather_fast", cal["x_small"]),
+                     ("gather_slow", cal["x_big"])):
+        x = rand((k, n), 3)
+        idx = torch.randint(0, k, (cal["gathered"],), device=DEVICE)
+        ms = device_ms(x.index_select, 0, idx, calls=4, replays=10)
+        got[field] = cal["gathered"] / (ms * 1e-3)
+    del x, idx
+    g = torch.ones((cal["combine_rows"], 8, n), device=DEVICE)
+    vals = torch.ones((cal["combine_rows"], 8, 1), device=DEVICE)
+    out = torch.empty((cal["combine_rows"], n), device=DEVICE)
+    ms = device_ms(lambda: torch.sum(g.mul_(vals), dim=1, out=out),
+                   calls=5, replays=10)
+    got["combine_bw"] = (3 * g.numel() + out.numel()) * 4 / (ms * 1e-3)
+    del g, vals, out
+    few, many = block_part(1), block_part(16)
+    x = rand((64 * 128, n), 4)
+    t_few = device_ms(bsr_spmm, few, x) * 1e-3
+    t_many = device_ms(bsr_spmm, many, x) * 1e-3
+    slope = (t_many - t_few) / (many.num_blocks - few.num_blocks)
+    term = max(128 * n * 4 / got["eff_bw"],
+               2.0 * 128 * 128 * n / got["mxu_f32"])
+    got["grid_step"] = max(slope - term, 0.0)
+    print(f"phase 7 calibration: bsr_cuda {few.num_blocks} blocks "
+          f"{t_few * 1e3:.6f} ms, {many.num_blocks} blocks "
+          f"{t_many * 1e3:.6f} ms: {slope * 1e9:.2f} ns a block, the "
+          f"product/copy term {term * 1e9:.2f} ns", flush=True)
+    del few, many, x
+    got["dispatch"] = device_ms(launch_floor, DEVICE) * 1e-3
+    fit = []
+    for line in (MAIN_LINE, LINE_B):
+        csr = line_matrix(line)
+        f = matrix_features(csr)
+        a = DeviceWCOOBands.from_csr(csr, device=DEVICE)
+        x = rand((csr.k, n), 5)
+        t = device_ms(wcoo_spmm_aligned, a, x) * 1e-3
+        fit.append((costmodel._wcoo_bands_slots(f), float(csr.nnz),
+                    t - csr.m * n * 4 / got["eff_bw"]))
+        print(f"phase 7 calibration: wcoo_bands_cuda {csr.m}x{csr.k} "
+              f"{t * 1e3:.6f} ms, predicted slots {fit[-1][0]:.0f}, "
+              f"nnz {csr.nnz}", flush=True)
+    (s1, z1, t1), (s2, z2, t2) = fit
+    got["wcoo_slot"], got["wcoo_nnz"] = two_term_fit(s1, z1, t1, s2, z2, t2)
+    csr = line_matrix(MAIN_LINE)
+    coo = DeviceCOO.from_csr(csr, device=DEVICE)
+    x = rand((csr.k, n), 6)
+    prods = x.index_select(0, coo.cols[:csr.nnz]).mul_(
+        coo.values[:csr.nnz, None])
+    ms = device_ms(segment_sum, prods, coo.row_ptr)
+    got["scoo_scatter"] = ms * 1e-3 / csr.nnz
+    del coo, x, prods
+    mac = [r for r in rows if r["label"] == "mac_econ_fwd500_twin"
+           and r["kernel"] in ("sell", "gell")]
+    got["residual_nnz"] = (min(r["time"] for r in mac) / mac[0]["csr_nnz"]
+                           * (512.0 / n))
+    committed = dataclasses.asdict(costmodel.C)
+    for field, value in got.items():
+        print(f"phase 7 calibration: {field} measured={value:.6g} "
+              f"committed={committed[field]:.6g}", flush=True)
+    return got
+
+
+def phase_dispatch() -> None:
+    """Phase 7, the dispatch path: (b) the dispatch rows, then
+    ``fit_constants`` over the fixed formats' rows and
+    ``dispatch_accuracy`` over the matrices. The rows are kept in
+    ``DISPATCH_ROWS`` for ``phase_calibration``."""
+    from spgrid_torch.ops import costmodel, rbh
+    from spgrid_torch.ops.dispatch import FORMATS
+    from spgrid_torch.viz.dataset import dispatch_accuracy
+
+    t0 = time.perf_counter()
+    committed = costmodel.C
+    print(f"phase 7 dispatch: auto_threshold(512)={rbh.auto_threshold(512)} "
+          f"at the committed constants", flush=True)
+    rows = dispatch_rows()
+    DISPATCH_ROWS[:] = rows
+    fixed = [r for r in rows if r["kernel"] in FORMATS]
+    fudge_before = dict(committed.fudge)
+    fitted = costmodel.fit_constants(fixed, min_rows=3)
+    print(f"phase 7 fit: ratios {json.dumps(fitted)} fudge "
+          f"{json.dumps(fudge_before)} -> {json.dumps(committed.fudge)}",
+          flush=True)
+    committed.fudge.clear()
+    committed.fudge.update(fudge_before)
+    acc, records = dispatch_accuracy(
+        [r for r in rows if r["kernel"] in FORMATS or r["kernel"] == "auto"],
+        tol=0.10, include_lossy=False)
+    print(f"phase 7 dispatch_accuracy: {acc:.3f} over {len(records)} "
+          f"matrices {json.dumps(records)}", flush=True)
+    print(f"phase 7 dispatch: {len(rows)} rows, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_calibration() -> None:
+    """Phase 7, after its path's launches are read: (a) the calibration of
+    ``H100Constants`` beside the committed values, and ``auto_threshold``
+    at the measured ones."""
+    from spgrid_torch.ops import costmodel, rbh
+
+    t0 = time.perf_counter()
+    committed = costmodel.C
+    measured = calibrate(DISPATCH_ROWS)
+    if all(np.isfinite(v) for v in measured.values()):
+        costmodel.C = dataclasses.replace(committed, **measured)
+        print(f"phase 7 calibration: auto_threshold(512)="
+              f"{rbh.auto_threshold(512)} at the measured constants",
+              flush=True)
+        costmodel.C = committed
+    print(f"phase 7 calibration: H100Constants {json.dumps(measured)} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # kernel -> (source, the Pallas kernel it replaces)
@@ -1267,6 +1553,7 @@ PATHS = (
     ("probes", (phase_probes,),
      ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate",
       "wpack_ablate")),
+    ("dispatch", (phase_dispatch,), ("bsr_spmm", "panel_spmm")),
 )
 
 
@@ -1305,7 +1592,9 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the {path} path: "
                                f"{never}")
         print(f"launches on the {path} path: {counts}", flush=True)
-        launches.update({k: counts[k] for k in kernels})
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+    phase_calibration()
     if "--eager-ab" in sys.argv[1:]:
         phase_eager_ab()
 

@@ -11,6 +11,11 @@ Examples:
   python -m spgrid_torch.bench --generate "65535 65535 5 1.6667 normal \
       random 0.05 0 0.05 0.05 14" --kernel wcoo_cuda --num-cols 512
 
+  # the cost model's pick, the fastest measured format, the hybrid
+  python -m spgrid_torch.bench --generate "206500 206500 6.16653 4.43586 \
+      normal random 0.00191 6.13529 0.17669 0.33051 14" \
+      --kernels rbh,auto,autotune --num-cols 512
+
   # parameter-file sweep with resume
   python -m spgrid_torch.bench --param-file params.txt \
       --kernels bsr_cuda,dense --num-cols 128,512 --out results.csv
@@ -28,7 +33,7 @@ from spgrid_torch.bench.schema import BenchRow
 from spgrid_torch.bench.sweep import iter_matrices, run_sweep
 from spgrid_torch.core.config import BenchConfig
 from spgrid_torch.gen.params import GenParams, read_param_file
-from spgrid_torch.ops.dispatch import FORMATS
+from spgrid_torch.bench.harness import KERNELS
 
 NOT_PORTED = "not ported to spgrid_torch yet (ROADMAP.md, Queue 1)"
 
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
                     help=NOT_PORTED)
     ap.add_argument("--xla-only", action="store_true", help=NOT_PORTED)
     ap.add_argument("--kernel", default="bsr_cuda",
-                    help=f"one of {', '.join(FORMATS)}")
+                    help=f"one of {', '.join(KERNELS)}")
     ap.add_argument("--kernels", help="comma list (overrides --kernel)")
     ap.add_argument("--num-cols", default=None,
                     help="dense width(s), comma list (default from env/512)")
@@ -87,10 +92,10 @@ def main(argv=None) -> int:
         if given:
             ap.error(f"{flag}: {NOT_PORTED}")
     kernels = args.kernels.split(",") if args.kernels else [args.kernel]
-    unknown = [k for k in kernels if k not in FORMATS]
+    unknown = [k for k in kernels if k not in KERNELS]
     if unknown:
         ap.error(f"unknown kernel(s) {unknown}; the port has "
-                 f"{', '.join(FORMATS)}")
+                 f"{', '.join(KERNELS)}")
 
     if args.platform == "cuda":
         import torch

@@ -6,6 +6,15 @@ field names, for the fields the port fills. ``device`` is 'cuda' for a
 measurement on the card or 'cpu' for the port's CPU path; the row's
 ``device`` field names the hardware the time was taken on.
 
+A kernel name is a format of ``ops.dispatch`` or one of the JAX harness's
+dispatch kernels (``KERNELS``): ``gemm_bound`` (``dense`` with the dense
+flop count), ``auto`` and ``auto_tol`` (the cost model's pick, without and
+with the value-compressed candidates) and ``autotune`` (the fastest measured
+candidate). A row writes ``kernel`` as given and ``fmt`` as the JAX package
+names the format that ran (``dispatch.JAX_NAME``), so the CSV joins the JAX
+package's on ``fmt`` and the cost model can fit it; the gate's class is the
+format's, whatever the kernel's name.
+
 On the card a call is timed by the config's ``timing_protocol``: 'graph'
 (the default) replays calls captured in a CUDA graph, so the time is the
 device's, as the JAX harness's fused chained loop measures it; 'eager'
@@ -28,11 +37,11 @@ from spgrid_torch.gen.masks import create_mask
 from spgrid_torch.core.config import BenchConfig
 from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
 from spgrid_torch.core.roofline import (
-    chip_for_name, csr_bytes, roofline_time, spmm_flops,
+    chip_for_name, csr_bytes, gemm_flops, roofline_time, spmm_flops,
 )
 from spgrid_torch.core.timing import time_kernel, time_kernel_graph
 from spgrid_torch.features import matrix_features, value_features
-from spgrid_torch.ops import dispatch
+from spgrid_torch.ops import costmodel, dispatch
 from spgrid_torch.ops.gell import gathered_x
 from spgrid_torch.ops.attention import (
     SparseAttention, attention_pipeline, gold_pipeline,
@@ -45,6 +54,14 @@ GRAPH_CALLS = 20            # calls captured in one graph, at most
 GRAPH_BYTES = 2 << 30       # their outputs' bytes, at most (2 calls apart)
 ROOFLINE_FRAC_CAP = 9.99    # as the JAX harness writes roofline_frac
 VALUE_SAMPLE = 1 << 20      # values the value features read, at most
+GOLD_CACHE = 2              # f64 golds kept a matrix (m n 8 bytes each)
+
+# kernel name -> the port's format it runs; None where dispatch picks it
+KERNELS = {**{fmt: fmt for fmt in dispatch.FORMATS},
+           "gemm_bound": "dense",     # dense GEMM bound (dense flop count)
+           "auto": None,              # the cost model's pick
+           "auto_tol": None,          # the same, cv_* formats offered
+           "autotune": None}          # the fastest measured candidate
 
 
 def make_x(k: int, n: int, dtype: str, seed: int) -> np.ndarray:
@@ -175,26 +192,76 @@ def feature_fields(csr) -> dict:
         val_kmeans_rel_error_8=vf.kmeans_rel_error_8)
 
 
+def _cached_gold(csr, fmt: str, x: np.ndarray, key_base) -> np.ndarray:
+    """The f64 gold of ``fmt``'s gate class on ``x`` (``gate_x``), cached on
+    the matrix object a (n, dtype, seed, class): every format of a class
+    on one matrix and X has the same gold. At most ``GOLD_CACHE`` are kept,
+    the oldest dropped first (the JAX harness's ``_cached_gold``)."""
+    cache = getattr(csr, "_spgrid_torch_gold", None)
+    if cache is None:
+        cache = {}
+        csr._spgrid_torch_gold = cache
+    key = (*key_base, gold_class(fmt))
+    gold = cache.get(key)
+    if gold is None:
+        gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values,
+                              gate_x(x, fmt))
+        if len(cache) >= GOLD_CACHE:
+            cache.pop(next(iter(cache)))
+        cache[key] = gold
+    return gold
+
+
+def _cached_x(csr, n: int, dtype: str, seed: int, device: torch.device):
+    """(X on the host, X on ``device``), made once a matrix object for the
+    last (n, dtype, seed, device) asked: a sweep runs every kernel on the
+    same X (the JAX harness's one-entry ``_XD_CACHE``). No format writes
+    into X."""
+    key = (n, dtype, seed, str(device))
+    hit = getattr(csr, "_spgrid_torch_x", None)
+    if hit is None or hit[0] != key:
+        x = make_x(csr.k, n, dtype, seed)
+        hit = (key, x, torch.from_numpy(x).to(device))
+        csr._spgrid_torch_x = hit
+    return hit[1], hit[2]
+
+
+def kernel_format(csr, kernel: str, n: int, xd: torch.Tensor) -> str:
+    """The port's format that ``kernel`` runs on ``csr`` at n columns."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; the port has "
+                         f"{tuple(KERNELS)}")
+    fmt = KERNELS[kernel]
+    if fmt is not None:
+        return fmt
+    if kernel == "autotune":
+        return dispatch.autotune_spmm(
+            csr, xd, features=_cached_features(csr)).best
+    tol = costmodel.CV_TOLERANCE if kernel == "auto_tol" else 0.0
+    return dispatch.select_format(_cached_features(csr), n, tolerance=tol)
+
+
 def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
              config: Optional[BenchConfig] = None, *, device,
              check_accuracy: bool = True) -> dict:
-    """Time Y = A @ X for one format and gate it against the host f64 oracle
-    (eps 1e-4 at f32, as the JAX harness), on the X of the format's gate
-    class (``gate_x``)."""
+    """Time Y = A @ X for one kernel (``KERNELS``) and gate it against the
+    host f64 oracle (eps 1e-4 at f32, as the JAX harness), on the X of the
+    gate class of the format that ran (``gate_x``)."""
     config = config or BenchConfig()
     _f32_only(config)
     device = torch.device(device)
     n = config.num_cols
     csr = _as_dtype(csr, config.dtype)
-    x = make_x(csr.k, n, config.dtype, config.seed)
-    xd = torch.from_numpy(x).to(device)
-    a = dispatch.build(csr, kernel, device=device)
-    fn = dispatch.spmm_fn(kernel)
+    x, xd = _cached_x(csr, n, config.dtype, config.seed, device)
+    fmt = kernel_format(csr, kernel, n, xd)
+    a = dispatch.build(csr, fmt, device=device)
+    fn = dispatch.spmm_fn(fmt)
 
-    flops = spmm_flops(csr.nnz, n)
+    flops = (gemm_flops(csr.m, csr.k, n) if kernel == "gemm_bound"
+             else spmm_flops(csr.nnz, n))
     vb = np.dtype(config.dtype).itemsize
     bytes_accessed = (float((csr.m * csr.k + (csr.k + csr.m) * n) * vb)
-                      if kernel == "dense"
+                      if fmt == "dense"
                       else csr_bytes(csr.nnz, csr.m, n, csr.k, val_bytes=vb))
     timed = time_call(fn, a, xd, config=config, device=device,
                       out_bytes=csr.m * n * vb, flops=flops,
@@ -202,10 +269,11 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
     name, chip = _device_fields(device)
     sol = (roofline_time(flops, bytes_accessed, chip, config.dtype)
            if chip else math.nan)
-    fmt_bytes = (a.numel() * a.element_size() if kernel == "dense"
+    fmt_bytes = (a.numel() * a.element_size() if fmt == "dense"
                  else a.nbytes)
     row = dict(
-        matrix_name=csr.name, kernel=kernel, fmt=kernel, dtype=config.dtype,
+        matrix_name=csr.name, kernel=kernel, fmt=dispatch.JAX_NAME[fmt],
+        dtype=config.dtype,
         device=name, num_devices=1, input_columns=n, csr_m=csr.m,
         csr_k=csr.k, csr_nnz=csr.nnz,
         csr_mem_footprint_mb=csr.mem_footprint / (1 << 20),
@@ -216,13 +284,12 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
         **feature_fields(csr),
     )
     if check_accuracy:
-        gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values,
-                              gate_x(x, kernel))
-        test = fn(a, xd).cpu().numpy()
-        m = error_metrics(gold, test, epsilon=1e-4)
+        key = (n, config.dtype, config.seed)
+        gold = _cached_gold(csr, fmt, x, key)
+        m = error_metrics(gold, fn(a, xd).cpu().numpy(), epsilon=1e-4)
         row.update(_gate_fields(m))
         if not m.passed:
-            print(f"Test failed! {csr.name} {kernel}: "
+            print(f"Test failed! {csr.name} {kernel} ({fmt}): "
                   f"max_rel_diff={m.max_rel_diff:.3e}")
     return row
 

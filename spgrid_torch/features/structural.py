@@ -235,3 +235,16 @@ def _avg_diag_dev(csr) -> float:
     centers = sums[nz] / d[nz]
     diag = np.arange(csr.m, dtype=np.float64)[nz] * (csr.k / max(csr.m, 1))
     return float(np.abs(centers - diag).mean())
+
+
+def twin_params(csr, name: str | None = None, seed: int = 14) -> str:
+    """Emit the 11-field generator parameter line for this matrix's twin —
+    exactly the ``csr_matrix_features_validation`` print format
+    (csr_util_gen.c:963-980): bw normalized by n, skew=(max-avg)/avg."""
+    f = matrix_features(csr, name)
+    return (
+        f"{f.m} {f.n} {f.avg_nnz_per_row:.4f} {f.std_nnz_per_row:.4f} "
+        f"normal random {f.avg_bw_scaled:.4f} {f.skew:.4f} "
+        f"{f.avg_num_neighbours:.4f} {f.cross_row_similarity:.4f} {seed}"
+        + (f" {f.name}" if f.name else "")
+    )

@@ -125,6 +125,11 @@ def coo_to_csr(coo: COOMatrix, *, sum_duplicates: bool = True,
     return CSRMatrix(row_ptr.astype(IDX_DTYPE), cols, vals, coo.shape, coo.name)
 
 
+def csr_to_coo(csr: CSRMatrix) -> COOMatrix:
+    rows = np.repeat(np.arange(csr.m, dtype=IDX_DTYPE), csr.degrees)
+    return COOMatrix(rows, csr.col_idx.copy(), csr.values.copy(), csr.shape, csr.name)
+
+
 def dense_to_csr(a: np.ndarray, name: str = "dense") -> CSRMatrix:
     rows, cols = np.nonzero(a)
     return coo_to_csr(

@@ -18,6 +18,7 @@ from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
 from spgrid_torch.ops.layouts import DeviceBSR
+from spgrid_torch.ops.xla import segment_sum
 
 
 @dataclasses.dataclass
@@ -55,6 +56,8 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
 
     Pad blocks (block_row == mb) fold into segment mb, which is dropped.
     Mask zeros inside stored blocks are excluded through the mask values.
+    A block row's sum is ``xla.segment_sum`` over the row-sorted blocks at
+    ``row_ptr``, so the sums give the same bits on every call.
     """
     mb, bm = mask.mb, mask.bm
     rows = mask.block_rows.long()
@@ -70,7 +73,7 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
                     torch.zeros_like(s_blocks))
     row_sum = torch.zeros((mb + 1, bm), dtype=s_blocks.dtype,
                           device=s_blocks.device)
-    row_sum.index_add_(0, rows, e.sum(dim=2))
+    row_sum[:mb] = segment_sum(e.sum(dim=2), mask.row_ptr.long())
     return e / torch.clamp(row_sum[rows], min=1e-30)[:, :, None]
 
 

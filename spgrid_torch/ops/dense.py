@@ -12,18 +12,19 @@ from __future__ import annotations
 import torch
 
 
-def _full_f32() -> None:
+def full_f32() -> None:
+    """TF32 off for cuBLAS and cuDNN: f32 products in full f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
 def gemm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    _full_f32()
+    full_f32()
     return torch.matmul(a, x)
 
 
 def spmm_dense(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The sparse matrix materialized dense; flops are still counted sparse
     (2*nnz*n) by the harness."""
-    _full_f32()
+    full_f32()
     return torch.matmul(a_dense, x)

@@ -1,20 +1,31 @@
 """Format names of the port: build the device operand, pick the SpMM
-function.
+function, and pick the format (``select_format``, the cost model's choice;
+``autotune_spmm``, the fastest measured) — the counterpart of
+``spgrid/ops/dispatch.py``.
 
-``JAX_NAME`` maps each format to its counterpart in ``spgrid.ops.dispatch``.
+``JAX_NAME`` maps each format to its counterpart in ``spgrid.ops.dispatch``,
+the name the cost model and a row's ``fmt`` column speak; ``PORT_NAME`` maps
+back.
 The three SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
 package's bench adapters do; a wider operand raises. ``coo``, ``sell``,
 ``merge`` and the GELL formats are torch ops (the JAX package's XLA
-compositions); the ``_cuda`` formats and ``dense``'s matmul run on kernels.
+compositions); the ``_cuda`` formats and ``dense``'s matmul run on kernels;
+``rbh`` runs ``bsr_spmm`` on its block part and a torch-op format on the
+rest.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from spgrid_torch.features import MatrixFeatures, matrix_features
 from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.ops import costmodel
 from spgrid_torch.ops.dense import spmm_dense
 from spgrid_torch.ops.gell import DeviceGELL, gell_spmm
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
@@ -32,6 +43,7 @@ from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK, wpack_spmv
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
 from spgrid_torch.ops.merge import DeviceMerge, merge_spmm
+from spgrid_torch.ops.rbh import DeviceRBH, rbh_spmm
 from spgrid_torch.ops.xla import spmm_coo, spmm_sell
 
 JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
@@ -40,7 +52,8 @@ JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "wrow_spmv_cuda": "wrow_spmv", "bsrc_cuda": "bsrc_pallas",
             "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv",
             "coo": "coo", "sell": "sell", "merge": "merge", "gell": "gell",
-            "gell16": "gell16", "cv_gell": "cv_gell"}
+            "gell16": "gell16", "cv_gell": "cv_gell", "rbh": "rbh"}
+PORT_NAME = {jax: port for port, jax in JAX_NAME.items()}
 FORMATS = tuple(JAX_NAME)
 # the GELL formats' modes (spgrid_torch/ops/gell.py)
 GELL_MODE = {"gell": "f32", "gell16": "split16", "cv_gell": "bf16"}
@@ -61,6 +74,8 @@ def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
         return DevicePanels.from_csr(csr, bk=bk, device=device)
     if fmt in GELL_MODE:
         return DeviceGELL.from_csr(csr, mode=GELL_MODE[fmt], device=device)
+    if fmt == "rbh":
+        return DeviceRBH.from_csr(csr, device=device)
     layout = {"wcoo_cuda": DeviceWCOO, "wcoo_bands_cuda": DeviceWCOOBands,
               "wcoo_spmv_cuda": DeviceWCOOAligned,
               "wrow_spmv_cuda": DeviceWROW, "dgell_cuda": DeviceDGELL,
@@ -91,10 +106,82 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "bsrc_cuda": bsr_spmm_cstat, "dgell_cuda": dgell_spmm,
          "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda"),
          "coo": spmm_coo, "sell": spmm_sell, "merge": merge_spmm,
-         "gell": gell_spmm, "gell16": gell_spmm, "cv_gell": gell_spmm}
+         "gell": gell_spmm, "gell16": gell_spmm, "cv_gell": gell_spmm,
+         "rbh": rbh_spmm}
 
 
 def spmm_fn(fmt: str) -> Callable:
     if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
     return _SPMM[fmt]
+
+
+def select_format(f: MatrixFeatures, n: int = 512,
+                  tolerance: float = 0.0) -> str:
+    """The port's format for ``auto`` dispatch, as
+    ``spgrid.ops.dispatch.select_format`` picks it: for an SpMV (n = 1)
+    below 5 % density the WROW SpMV; otherwise the cost model's argmin
+    (``costmodel.select_format_cost``) under the card's constants. At a
+    ``tolerance`` of ``costmodel.CV_TOLERANCE`` or more the value-compressed
+    candidates join."""
+    if n == 1 and f.density < 0.05:
+        return "wrow_spmv_cuda"
+    return PORT_NAME[costmodel.select_format_cost(f, n,
+                                                  tolerance=tolerance)]
+
+
+@dataclasses.dataclass
+class AutotuneResult:
+    best: str                   # the port's format name
+    times: Dict[str, float]     # seconds a call (inf = skipped or out of
+                                # device memory)
+
+
+def autotune_spmm(csr: CSRMatrix, x: torch.Tensor, candidates=None, *,
+                  features: Optional[MatrixFeatures] = None,
+                  warmup_iters: int = 3, min_time_s: float = 0.05,
+                  min_iters: int = 5,
+                  dense_limit: int = 1 << 26) -> AutotuneResult:
+    """Time each candidate on ``x``'s device and return the fastest: the
+    JAX package's ``autotune_spmm``. Candidates default to the port's names
+    of ``costmodel.AUTO_CANDIDATES``; a format the cost model calls
+    inapplicable (an infinite estimate), or ``dense`` past ``dense_limit``
+    elements, is skipped without being built. A call is timed by the
+    harness's ``time_call``: by CUDA-graph replay on the card, on the host
+    clock on the CPU. A candidate that fails to build or to run raises:
+    nothing hides a kernel that did not launch. Only a candidate that
+    runs out of device memory is left out (its time inf), and a call
+    raises when no candidate ran."""
+    from spgrid_torch.bench.harness import time_call
+    from spgrid_torch.core.config import BenchConfig
+    if candidates is None:
+        candidates = tuple(PORT_NAME[c] for c in costmodel.AUTO_CANDIDATES)
+    feats = features if features is not None else matrix_features(csr)
+    n = x.shape[1] if x.dim() == 2 else 1
+    config = BenchConfig(warmup_iters=warmup_iters, min_time_s=min_time_s,
+                         min_iters=min_iters)
+    times: Dict[str, float] = {}
+    for fmt in candidates:
+        if fmt == "dense" and csr.m * csr.k > dense_limit:
+            times[fmt] = math.inf
+            continue
+        if not np.isfinite(costmodel.estimate_spmm_time(
+                feats, JAX_NAME[fmt], n)):
+            times[fmt] = math.inf
+            continue
+        try:
+            a = build(csr, fmt, device=x.device)
+            times[fmt] = time_call(spmm_fn(fmt), a, x, config=config,
+                                   device=x.device,
+                                   out_bytes=csr.m * n * x.element_size()
+                                   ).time_per_iter_s
+        except torch.OutOfMemoryError as e:
+            print(f"autotune: {fmt} ran out of device memory: {e}")
+            times[fmt] = math.inf
+    best = min(times, key=times.get) if times else None
+    if best is None or times[best] == math.inf:
+        # returning one anyway would make the caller build a format
+        # autotune refused to measure
+        raise RuntimeError(
+            f"autotune: no runnable candidate among {list(times)}")
+    return AutotuneResult(best=best, times=times)

@@ -11,8 +11,9 @@ cliff and define no numeric class.
 
 A call gathers the X rows of a chunk of rows' slots (``_chunk_rows``, under
 the JAX package's 3 GB budget less the resident operands), multiplies them
-in place by the slot values and sums over the slots in f32, then adds the
-tail by ``index_add_`` into m + 1 rows. The gather is f32 in every mode, 4
+in place by the slot values and sums over the slots in f32, then sums the
+tail's products a row (``xla.segment_sum`` at ``tail_ptr``) and adds each
+row's sum to its row once. The gather is f32 in every mode, 4
 bytes an element (the JAX package gathers bf16 planes), so a chunk holds
 as many rows as the budget takes at 4n bytes a slot. The modes carry the JAX modes' numeric
 classes, not their bf16 planes:
@@ -24,10 +25,9 @@ classes, not their bf16 planes:
 - ``bf16`` (``cv_gell``): X' = X rounded to bf16, the values split as in
   ``split16``.
 
-The tail multiplies its f32 values by X', as ``_add_tail`` does. The slot
-sums give the same bits every call; on a CUDA device the tail's
-``index_add_`` adds with atomics, so rows with two or more tail nnz may
-differ in the last bits from call to call.
+The tail multiplies its f32 values by X', as ``_add_tail`` does. No
+element takes two adds in one launch, so a call gives the same bits every
+time.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.ops.layouts import nbytes, round_up, to_device
+from spgrid_torch.ops.xla import segment_sum
 
 MODES = ("f32", "split16", "bf16")
 _CHUNK_BUDGET = 3 << 30     # bytes of gathered intermediate a chunk
@@ -76,12 +77,16 @@ def gell_arrays(csr: CSRMatrix, slots: Optional[int] = None):
 
 @dataclasses.dataclass
 class DeviceGELL:
-    """ELL slots (m_pad, S) and a COO tail on a torch device (see the
-    module docstring); ``mode`` is one of ``MODES``."""
+    """ELL slots (m_pad, S) and a row-sorted COO tail on a torch device
+    (see the module docstring); ``mode`` is one of ``MODES``. The tail's
+    rows are held as the rows that have a tail (``tail_keys``) and the
+    pointer of their runs (``tail_ptr``): the JAX ``tail_rows`` are
+    ``np.repeat(tail_keys, diff(tail_ptr))``."""
 
     cols: torch.Tensor        # (m_pad, S) int32
     values: torch.Tensor      # (m_pad, S) f32
-    tail_rows: torch.Tensor   # (t,) int32, sorted
+    tail_keys: torch.Tensor   # (r,) int64, ascending
+    tail_ptr: torch.Tensor    # (r+1,) int64
     tail_cols: torch.Tensor   # (t,) int32
     tail_vals: torch.Tensor   # (t,) f32
     shape: Tuple[int, int]
@@ -92,8 +97,8 @@ class DeviceGELL:
 
     @property
     def nbytes(self) -> int:
-        return nbytes(self.cols, self.values, self.tail_rows, self.tail_cols,
-                      self.tail_vals)
+        return nbytes(self.cols, self.values, self.tail_keys, self.tail_ptr,
+                      self.tail_cols, self.tail_vals)
 
     @classmethod
     def from_csr(cls, csr: CSRMatrix, slots: Optional[int] = None,
@@ -102,8 +107,11 @@ class DeviceGELL:
             raise ValueError(f"gell: mode must be one of {MODES}, got "
                              f"{mode!r}")
         cols, vals, trows, tcols, tvals, slots = gell_arrays(csr, slots)
-        return cls(*(to_device(a, device)
-                     for a in (cols, vals, trows, tcols, tvals)),
+        keys, starts = np.unique(trows, return_index=True)
+        ptr = np.append(starts, trows.size)
+        return cls(*(to_device(a, device, dtype) for a, dtype in (
+                       (cols, None), (vals, None), (keys, np.int64),
+                       (ptr, np.int64), (tcols, None), (tvals, None))),
                    shape=tuple(csr.shape), nnz=csr.nnz, slots=slots,
                    mode=mode, name=csr.name)
 
@@ -170,10 +178,8 @@ def gell_spmm(a: DeviceGELL, x: torch.Tensor) -> torch.Tensor:
             r1 - r0, S, n)
         torch.sum(g.mul_(vals[r0:r1, :, None]), dim=1, out=y[r0:r1])
     y = y[:m]
-    if a.tail_rows.numel():
-        tail = torch.zeros((m + 1, n), dtype=torch.float32, device=x.device)
-        tail.index_add_(0, a.tail_rows, xg.index_select(
-            0, a.tail_cols).mul_(a.tail_vals[:, None]))
-        y = y + tail[:m]
+    if a.tail_cols.numel():
+        tail = xg.index_select(0, a.tail_cols).mul_(a.tail_vals[:, None])
+        y.index_add_(0, a.tail_keys, segment_sum(tail, a.tail_ptr))
     y = y.to(x.dtype)
     return y[:, 0] if squeeze else y

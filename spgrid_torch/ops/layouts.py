@@ -12,8 +12,9 @@ It is kept only as the counterpart of the JAX field. Kernels walk
 ``row_ptr``, which is rebuilt from ``block_rows``.
 
 ``DeviceCOO`` and ``DeviceSELL`` hold the same arrays as their counterparts
-in ``spgrid/ops/layouts.py``, padding included; ``spgrid_torch/ops/xla.py``
-multiplies with them.
+in ``spgrid/ops/layouts.py``, padding included (COO keeps the row of each
+nnz as ``row_ptr``, the form its row sums read);
+``spgrid_torch/ops/xla.py`` multiplies with them.
 """
 
 from __future__ import annotations
@@ -158,11 +159,13 @@ def nbytes(*tensors) -> int:
 
 @dataclasses.dataclass
 class DeviceCOO:
-    """Row-sorted COO on a torch device, padded to a multiple of
-    ``pad_multiple`` entries with row m, column 0 and value 0: a pad entry
-    adds 0 to the sacrificial row m."""
+    """Row-sorted COO on a torch device: columns and values padded to a
+    multiple of ``pad_multiple`` entries with column 0 and value 0 (the JAX
+    arrays, whose pad rows are the sacrificial row m), and the rows as
+    ``row_ptr``, the CSR pointer of the nnz (the JAX ``rows`` are
+    ``np.repeat(arange(m), diff(row_ptr))``, then m for each pad)."""
 
-    rows: torch.Tensor     # (nnz_pad,) int32
+    row_ptr: torch.Tensor  # (m+1,) int64
     cols: torch.Tensor     # (nnz_pad,) int32
     values: torch.Tensor   # (nnz_pad,)
     shape: Tuple[int, int]
@@ -170,21 +173,19 @@ class DeviceCOO:
 
     @property
     def nbytes(self) -> int:
-        return nbytes(self.rows, self.cols, self.values)
+        return nbytes(self.row_ptr, self.cols, self.values)
 
     @classmethod
     def from_csr(cls, csr: CSRMatrix, pad_multiple: int = 128, *,
                  device) -> "DeviceCOO":
         nnz_pad = round_up(max(csr.nnz, 1), pad_multiple)
-        rows = np.full(nnz_pad, csr.m, dtype=np.int32)
         cols = np.zeros(nnz_pad, dtype=np.int32)
         vals = np.zeros(nnz_pad, dtype=csr.values.dtype)
-        rows[: csr.nnz] = np.repeat(np.arange(csr.m, dtype=np.int32),
-                                    csr.degrees)
         cols[: csr.nnz] = csr.col_idx
         vals[: csr.nnz] = csr.values
-        return cls(to_device(rows, device), to_device(cols, device),
-                   to_device(vals, device), tuple(csr.shape), csr.nnz)
+        return cls(to_device(csr.row_ptr, device, np.int64),
+                   to_device(cols, device), to_device(vals, device),
+                   tuple(csr.shape), csr.nnz)
 
 
 @dataclasses.dataclass

@@ -8,14 +8,21 @@ local to the block's first row (pads: column 0, value 0, local 0); and
 ``out_rows``, the global row of each (block, local) pair, clipped to the
 sacrificial row m. Every block carries the same work whatever the skew.
 
-The JAX package reduces a block's gathered X rows into its 128-row strip
-by a value-weighted one-hot matmul, the TPU's way to scatter on its matrix
-unit; the port scatters the weighted rows into the strips directly
-(``index_add_``), then adds the strips into their global rows through
-``out_rows``, the merge-path carry fix-up, in chunks of blocks under the
-same ``_CHUNK_BYTES`` budget. Sums run in f32 (f64 for an f64 X). On a
-CUDA device ``index_add_`` adds with atomics, so the last bits may differ
-from call to call.
+A block's gathered X rows reduce into its 128-row strip by a
+value-weighted one-hot matmul, as the JAX package does (``torch.bmm``, TF32
+off), in chunks of blocks whose gathered rows and one-hot weights stay
+under 4 x ``_CHUNK_BYTES``; a chunk's strips and the strip rows its fix-up
+reads each take at most a quarter of its gathered rows (ROWS_CAP of
+block_nnz rows), and their sums the chunk's rows of Y. The merge-path carry fix-up then adds the
+strip rows into their global rows: the strip rows a block's nnz reach
+(locals 0 up to its last) ascend in global row block after block
+(``fix_rows``), so ``xla.segment_sum`` at ``row_ptr``, each global row's
+first among them, sums them into Y's rows, an empty row 0. In one chunk
+(every call at n = 512 up to 1,024 blocks) its result is Y; over several,
+each chunk writes the rows it reaches, and a row that a chunk edge cuts
+takes the later part as one add to the part written before. Sums run in
+f32 (f64 for an f64 X). No element takes two adds in one launch, so a call
+gives the same bits every time.
 """
 
 from __future__ import annotations
@@ -27,11 +34,12 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.ops.dense import full_f32
 from spgrid_torch.ops.layouts import nbytes, to_device
-from spgrid_torch.ops.xla import acc_dtype
+from spgrid_torch.ops.xla import acc_dtype, segment_sum
 
 ROWS_CAP = 128
-_CHUNK_BYTES = 1 << 28      # gathered-intermediate budget a chunk of blocks
+_CHUNK_BYTES = 1 << 28      # intermediate budget a chunk of blocks, over 4
 
 
 def merge_arrays(csr: CSRMatrix, block_nnz: int = 512):
@@ -85,19 +93,35 @@ class DeviceMerge:
     shape: Tuple[int, int]
     nnz: int
     block_nnz: int
+    fix_rows: torch.Tensor      # (F,) int64, the strip rows reached
+    row_ptr: torch.Tensor       # (m+1,) int64: each global row's first
+                                # entry of fix_rows
+    fix_ptr: np.ndarray         # (B+1,) host: block b's entries of fix_rows
+    row_ptr_host: np.ndarray    # host copy of row_ptr
     name: str = "merge"
 
     @property
     def nbytes(self) -> int:
-        return nbytes(self.cols, self.values, self.local_rows, self.out_rows)
+        return nbytes(self.cols, self.values, self.local_rows, self.out_rows,
+                      self.fix_rows, self.row_ptr)
 
     @classmethod
     def from_csr(cls, csr: CSRMatrix, block_nnz: int = 512, *,
                  device) -> "DeviceMerge":
         cols, vals, local_rows, out_rows = merge_arrays(csr, block_nnz)
+        # strip rows 0 .. last local of each block (pads are local 0)
+        reach = local_rows.max(axis=1, initial=0).astype(np.int64) + 1
+        fix_ptr = np.concatenate([[0], np.cumsum(reach)])
+        block = np.repeat(np.arange(len(reach), dtype=np.int64), reach)
+        strip = (block * ROWS_CAP + np.arange(block.size, dtype=np.int64)
+                 - np.repeat(fix_ptr[:-1], reach))
+        row_ptr = np.searchsorted(out_rows[strip],
+                                  np.arange(csr.m + 1)).astype(np.int64)
         return cls(to_device(cols, device), to_device(vals, device),
                    to_device(local_rows, device), to_device(out_rows, device),
-                   tuple(csr.shape), csr.nnz, block_nnz, csr.name)
+                   tuple(csr.shape), csr.nnz, block_nnz,
+                   to_device(strip, device), to_device(row_ptr, device),
+                   fix_ptr, row_ptr, csr.name)
 
 
 def merge_spmm(a: DeviceMerge, x: torch.Tensor) -> torch.Tensor:
@@ -108,20 +132,43 @@ def merge_spmm(a: DeviceMerge, x: torch.Tensor) -> torch.Tensor:
     m = a.shape[0]
     n = x2.shape[1]
     acc = acc_dtype(x2)
-    y = torch.zeros((m + 1, n), dtype=acc, device=x.device)
-    # blocks a chunk, as the JAX package cuts them: the gathered rows come
-    # to 4 x _CHUNK_BYTES at most (f32) and the strips to ROWS_CAP / T of
-    # that; the weights multiply the gathered rows in place
-    chunk = max(1, int(_CHUNK_BYTES // max(T * n * 4, 1)) * 4)
+    if B == 0:
+        y = torch.zeros((m, n), dtype=acc, device=x.device)
+        return (y[:, 0] if squeeze else y).to(x.dtype)
+    full_f32()
+    # blocks a chunk: the gathered rows (T n a block) and the one-hot
+    # weights (ROWS_CAP T) come to 4 x _CHUNK_BYTES at most
+    chunk = max(1, int(_CHUNK_BYTES // (T * max(n, ROWS_CAP) * 4)) * 4)
+    y = None if B <= chunk else torch.empty((m, n), dtype=acc,
+                                            device=x.device)
+    q0 = 0          # the first row of the chunk's sums
     for b0 in range(0, B, chunk):
         b1 = min(b0 + chunk, B)
-        weighted = x2.index_select(0, a.cols[b0:b1].reshape(-1)).to(
-            acc).mul_(a.values[b0:b1].reshape(-1, 1).to(acc))
-        strip = (a.local_rows[b0:b1] + ROWS_CAP * torch.arange(
-            b1 - b0, device=x.device)[:, None]).reshape(-1)
-        strips = torch.zeros(((b1 - b0) * ROWS_CAP, n), dtype=acc,
-                             device=x.device)
-        strips.index_add_(0, strip, weighted)
-        y.index_add_(0, a.out_rows[b0 * ROWS_CAP:b1 * ROWS_CAP], strips)
-    y = y[:m].to(x.dtype)
+        g = x2.index_select(0, a.cols[b0:b1].reshape(-1)).to(
+            acc).reshape(b1 - b0, T, n)
+        onehot = torch.zeros((b1 - b0, ROWS_CAP, T), dtype=acc,
+                             device=x.device).scatter_(
+            1, a.local_rows[b0:b1, None, :].long(),
+            a.values[b0:b1, None, :].to(acc))
+        strips = torch.bmm(onehot, g).view(-1, n)
+        del g, onehot
+        lo, hi = int(a.fix_ptr[b0]), int(a.fix_ptr[b1])
+        reached = strips.index_select(0, a.fix_rows[lo:hi] - b0 * ROWS_CAP)
+        del strips
+        # rows q0 .. q1: q1 holds the chunk's last reached strip row, or is
+        # the last row of Y
+        q1 = (m - 1 if b1 == B
+              else int(np.searchsorted(a.row_ptr_host, hi - 1, "right")) - 1)
+        sums = segment_sum(reached,
+                           a.row_ptr[q0:q1 + 2].clamp(lo, hi) - lo)
+        if y is None:
+            y = sums
+        elif b0 == 0:
+            y[:q1 + 1] = sums
+        else:
+            # row q0 was written by the chunk before
+            y[q0:q0 + 1].add_(sums[:1])
+            y[q0 + 1:q1 + 1] = sums[1:]
+        q0 = q1
+    y = y.to(x.dtype)
     return y[:, 0] if squeeze else y

@@ -4,14 +4,13 @@
 
 The JAX package leaves these to XLA (a gather, a weighted sum and a segment
 sum), outside any Pallas kernel, so the port leaves them to torch ops:
-``index_select`` for ``take`` and ``index_add_`` into m + 1 rows for
-``segment_sum`` (the pad entries add 0 to row m, which is sliced off). The
-products and sums run in f32 (f64 for an f64 X). Every size is known on the
-host, so a call can be captured in a CUDA graph.
+``index_select`` for ``take``; for COO's ``segment_sum``, ``segment_sum``
+below over the row-sorted products at the layout's ``row_ptr``; the pad
+entries take no part. The products and sums run in f32 (f64 for an f64 X).
+Every size is known on the host, so a call can be captured in a CUDA graph.
 
-Bits: on a CUDA device ``index_add_`` adds with atomics, so COO's sums may
-differ in the last bits from call to call. SELL writes each slot and each
-row once (``index_copy_``), and its bits are the same every call.
+Bits: COO and SELL write each row once and add no element twice in a
+launch, so both give the same bits on every call.
 """
 
 from __future__ import annotations
@@ -26,16 +25,26 @@ def acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def segment_sum(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(len(offsets) - 1, ...) sums of the runs ``data[offsets[i]:
+    offsets[i + 1]]`` along dim 0, an empty run 0. ``torch.segment_reduce``
+    adds each run in index order, one thread an output element, on the card
+    as on the CPU, so a call gives the same bits every time (an
+    ``index_add_`` on the card adds with atomics in any order);
+    ``unsafe=True`` skips its host-synchronising checks of ``offsets``, so
+    a call can be captured in a CUDA graph."""
+    return torch.segment_reduce(data, "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
 def spmm_coo(coo: DeviceCOO, x: torch.Tensor) -> torch.Tensor:
     """Y (m, n) = A @ X: each nnz's row of X, weighted by its value, added
     into its row."""
-    m = coo.shape[0]
     acc = acc_dtype(x)
-    prods = x.index_select(0, coo.cols).to(acc).mul_(
-        coo.values[:, None].to(acc))
-    y = torch.zeros((m + 1, x.shape[1]), dtype=acc, device=x.device)
-    y.index_add_(0, coo.rows, prods)
-    return y[:m].to(x.dtype)
+    nnz = coo.nnz
+    prods = x.index_select(0, coo.cols[:nnz]).to(acc).mul_(
+        coo.values[:nnz, None].to(acc))
+    return segment_sum(prods, coo.row_ptr).to(x.dtype)
 
 
 def spmv_coo(coo: DeviceCOO, x: torch.Tensor) -> torch.Tensor:

@@ -877,16 +877,42 @@ def test_lanegather_path_edges(cuda, case, path):
 TORCH_OP_FORMATS = ("coo", "sell", "merge", "gell", "gell16", "cv_gell")
 
 
+def captured(fn, *args):
+    """(graph, its output): ``fn(*args)`` captured in a CUDA graph after
+    one eager call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
+# the edge matrix's row of 250 nnz; a row of 3,000 nnz spans several
+# merge blocks of 512, so its carry fix-up sums four or more strip rows
+TORCH_OP_MATRICES = {
+    "edge": hypersparse_edge,
+    "long_row": lambda: hypersparse_edge(1000, 3200, density=0.003,
+                                         empty=slice(100, 500),
+                                         heavy_row=700, heavy_nnz=3000,
+                                         seed=31),
+}
+
+
+@pytest.mark.parametrize("matrix", TORCH_OP_MATRICES)
 @pytest.mark.parametrize("n", [1, 24])
 @pytest.mark.parametrize("fmt", TORCH_OP_FORMATS)
-def test_torch_op_formats_on_the_card(cuda, fmt, n):
+def test_torch_op_formats_on_the_card(cuda, fmt, n, matrix):
     """The torch-op formats on the card give their CPU results (the same
     ops, summed in another order), are captured in a CUDA graph (nothing
-    on their path waits for the host), and SELL gives the same bits every
-    call."""
+    on their path waits for the host), and give the same bits on every
+    call, eager and by graph replay."""
     from spgrid_torch.core.timing import time_kernel_graph
     from spgrid_torch.ops import dispatch
-    csr = hypersparse_edge()
+    csr = TORCH_OP_MATRICES[matrix]()
     x = operand((csr.k, n), 41, cuda)
     a = dispatch.build(csr, fmt, device=cuda)
     fn = dispatch.spmm_fn(fmt)
@@ -896,8 +922,12 @@ def test_torch_op_formats_on_the_card(cuda, fmt, n):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
     time_kernel_graph(fn, a, x, device=cuda, calls=2, warmup_iters=1,
                       min_time_s=0.0, min_iters=2)
-    if fmt == "sell":
-        assert torch.equal(fn(a, x), got)
+    assert torch.equal(fn(a, x), got)
+    graph, out = captured(fn, a, x)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
 
 
 def gather_operands(k, n, steps, G, seed, device):
@@ -1239,3 +1269,80 @@ def test_probe_drivers_run_on_the_card(cuda, driver, argv, capsys):
     assert driver.main(argv) == 0
     out = capsys.readouterr().out
     assert "FAIL" not in out and "False" not in out
+
+
+def sparse_block_rows(m=4096, full=(3, 17), seed=51):
+    """m x m, ~0.1 % scattered, and block rows ``full`` (128 rows each)
+    half dense in one 128-column window: their blocks clear any rbh
+    threshold below ~8,000 nnz, every other block holds ~16 nnz, so the
+    block part has 2 full block rows and m / 128 - 2 empty ones."""
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((m, m)) < 0.001, rng.random((m, m)) + 0.5, 0.0)
+    for b in full:
+        win = rng.random((128, 128))
+        d[b * 128:(b + 1) * 128, 1024:1152] = np.where(win < 0.5, win + 0.5,
+                                                      0.0)
+    return dense_to_csr(d.astype(np.float32), name="sparse_block_rows")
+
+
+@pytest.mark.parametrize("n", [1, 64, 512])
+def test_rbh_on_the_card(cuda, n):
+    """rbh's block part on the card (the bsr_spmm kernel over a DeviceBSR
+    whose empty block rows outnumber its full ones, their coverage blocks
+    included) and its residual give the CPU result, the same bits twice,
+    and one bsr_spmm launch a call."""
+    from spgrid_torch.ops.rbh import DeviceRBH, rbh_spmm
+    csr = sparse_block_rows()
+    a = DeviceRBH.from_csr(csr, threshold=64, device=cuda)
+    assert a.stats.hi_blocks == 2 and a.bsr.mb == 32
+    assert a.coverage_blocks == 30 > a.stats.hi_blocks
+    x = operand((csr.k, n), 52, cuda)
+    before = launch_counts()["bsr_spmm"]
+    got = rbh_spmm(a, x)
+    assert launch_counts()["bsr_spmm"] == before + 1
+    want = rbh_spmm(DeviceRBH.from_csr(csr, threshold=64, device="cpu"),
+                    x.cpu())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(rbh_spmm(a, x), got)
+
+
+def test_softmax_row_sum_gives_the_same_bits_twice(cuda):
+    """blocksparse_softmax's row sums (segment sums at row_ptr) on the
+    card: the CPU result, and the same bits on two calls and by graph
+    replay."""
+    from spgrid_torch.ops.attention import blocksparse_softmax
+    mask = create_mask("band_and_random", 1024, 0.9, seed=53)
+    bsr = DeviceBSR.from_csr(mask, bm=128, bk=128, device=cuda)
+    s = operand(tuple(bsr.blocks.shape), 54, cuda)
+    got = blocksparse_softmax(bsr, s)
+    want = blocksparse_softmax(
+        DeviceBSR.from_csr(mask, bm=128, bk=128, device="cpu"), s.cpu())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+    assert torch.equal(blocksparse_softmax(bsr, s), got)
+    graph, out = captured(blocksparse_softmax, bsr, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("matrix", TORCH_OP_MATRICES)
+def test_merge_chunks_on_the_card(cuda, matrix, monkeypatch):
+    """merge in chunks of 4 blocks (the long row's run of strip rows cut by
+    chunk edges, each part added in chunk order): the one-chunk result on
+    the card to 1e-5, and the same bits eager and by graph replay."""
+    from spgrid_torch.ops import merge
+    csr = TORCH_OP_MATRICES[matrix]()
+    a = merge.DeviceMerge.from_csr(csr, device=cuda)
+    x = operand((csr.k, 24), 55, cuda)
+    whole = merge.merge_spmm(a, x)
+    monkeypatch.setattr(merge, "_CHUNK_BYTES", 512 * merge.ROWS_CAP * 4)
+    got = merge.merge_spmm(a, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-6)
+    assert torch.equal(merge.merge_spmm(a, x), got)
+    graph, out = captured(merge.merge_spmm, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)

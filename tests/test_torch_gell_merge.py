@@ -199,11 +199,13 @@ def test_gell_layout_is_the_jax_one(cases, name):
     c = cases[name]
     j = c["gell_f32"]
     a = DeviceGELL.from_csr(c["csr"], device="cpu")
-    for field in ("cols", "values", "tail_rows", "tail_cols", "tail_vals"):
+    for field in ("cols", "values", "tail_cols", "tail_vals"):
         want = np.asarray(getattr(j, field))
         got = getattr(a, field).numpy()
         assert got.dtype == want.dtype, field
         np.testing.assert_array_equal(got, want, err_msg=field)
+    tail_rows = np.repeat(a.tail_keys.numpy(), np.diff(a.tail_ptr.numpy()))
+    np.testing.assert_array_equal(tail_rows, np.asarray(j.tail_rows))
     assert (a.slots, a.shape, a.nnz) == (j.slots, j.shape, j.nnz)
     assert a.cols.shape[0] % 8 == 0 and a.cols.shape[0] - c["csr"].m < 8
 
@@ -214,9 +216,11 @@ def test_gell_tails_hold_what_the_slots_do_not():
     for make in (MATRICES["skewed"], empty_and_dense_rows):
         csr = make()
         a = DeviceGELL.from_csr(csr, device="cpu")
-        assert a.tail_rows.numel() > 0
-        assert int((a.values != 0).sum()) + a.tail_rows.numel() == csr.nnz
-        assert bool((torch.diff(a.tail_rows) >= 0).all())
+        assert a.tail_cols.numel() > 0
+        assert int((a.values != 0).sum()) + a.tail_cols.numel() == csr.nnz
+        assert bool((torch.diff(a.tail_keys) > 0).all())
+        assert a.tail_ptr[-1] == a.tail_cols.numel()
+        assert bool((torch.diff(a.tail_ptr) > 0).all())
 
 
 def gate_x(x, mode):
@@ -322,20 +326,62 @@ def test_gell_chunk_holds_its_budget(cases, mode, monkeypatch):
 
 
 def test_merge_chunk_holds_its_budget(cases, monkeypatch):
-    """A chunk's gathered rows come to 4 x _CHUNK_BYTES at most, its strips
-    to ROWS_CAP / block_nnz of that, and the values multiply the gathered
-    rows in place."""
+    """A chunk's gathered rows and one-hot weights come to 4 x _CHUNK_BYTES
+    at most (here 4 blocks a chunk: N < ROWS_CAP, so the one-hot weights
+    set it), the values go into the one-hot weights (no multiply of the
+    gathered rows), the chunk's strips and the strip rows its fix-up reads
+    each take at most a quarter of its gathered rows, and its row sums the
+    chunk's rows of Y: every row once, and the row at each chunk edge
+    twice. Over all chunks each strip row a block's nnz reach is read
+    once."""
     c = cases["sparse_rows"]
     a = DeviceMerge.from_csr(c["csr"], device="cpu")
-    budget = 512 * N * 4
+    budget = 512 * ROWS_CAP * 4
     monkeypatch.setattr(merge, "_CHUNK_BYTES", budget)
     with Intermediates() as seen:
         merge_spmm(a, torch.from_numpy(c["x"]))
-    gathers = [b for name, _, b in seen.made if name == "index_select"]
-    assert a.cols.shape[0] > 4 and max(gathers) == 4 * budget
-    strips = [b for name, _, b in seen.made if name == "zeros"]
-    assert ROWS_CAP * 4 * N * 4 in strips
+    y_bytes = c["csr"].m * N * 4
+    floats = [(name, b) for name, dtype, b in seen.made
+              if dtype.is_floating_point and b != y_bytes]
+    gathered = 4 * 512 * N * 4
+    chunks = -(-a.cols.shape[0] // 4)
+    assert chunks > 2
+    assert max(b for name, b in floats if name == "zeros") == 4 * budget
+    gathers = [b for name, b in floats if name == "index_select"]
+    x_rows, fix_rows = gathers[0::2], gathers[1::2]
+    assert len(x_rows) == chunks and max(x_rows) == gathered
+    assert gathered <= 4 * budget
+    assert max(b for name, b in floats if name == "bmm") == gathered // 4
+    assert max(fix_rows) <= gathered // 4
+    assert sum(fix_rows) == a.fix_rows.numel() * N * 4
+    sums = [b for name, b in floats if name == "segment_reduce"]
+    assert len(sums) == chunks
+    assert sum(sums) == (c["csr"].m + chunks - 1) * N * 4
     assert float_products(seen.made) == []
+
+
+@pytest.mark.parametrize("name", ["monster", "sparse_rows", "generated"])
+def test_merge_runs_cut_by_chunk_edges(cases, name, monkeypatch):
+    """Chunks of 4 blocks (8 of the monster's 256-nnz blocks), whose edges
+    cut a row's run of strip rows (the monster row spans 16 blocks, cut at
+    block 8): each part is summed in its chunk and
+    added in chunk order, to the f64 product, and the same bits on a
+    second call."""
+    c = cases[name]
+    a = DeviceMerge.from_csr(c["csr"], BLOCK_NNZ.get(name, 512),
+                             device="cpu")
+    x = torch.from_numpy(c["x"])
+    monkeypatch.setattr(merge, "_CHUNK_BYTES", 512 * ROWS_CAP * 4)
+    chunk = 512 // a.block_nnz * 4      # blocks a chunk at N < ROWS_CAP
+    edges = a.fix_ptr[chunk:-1:chunk]
+    cut = np.isin(edges, a.row_ptr_host, invert=True)
+    if name == "monster":
+        assert cut.sum() >= 1
+    got = merge_spmm(a, x)
+    np.testing.assert_allclose(got.numpy(), gold(c["csr"], c["x"]),
+                               rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), c["merge_y"], rtol=RTOL)
+    assert torch.equal(merge_spmm(a, x), got)
 
 
 def ties_and_random(seed=9):

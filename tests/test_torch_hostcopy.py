@@ -5,6 +5,8 @@ readers; and a static check that no module of the port, nor
 
 import ast
 import dataclasses
+import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -185,9 +187,9 @@ def test_matrix_readers_equal_jax(tmp_path):
         read_matrix(str(tmp_path / "a.txt"))
 
 
-# ml_dtypes too: the machine with the card does not have it
+# ml_dtypes and pandas too: the machine with the card has neither
 FORBIDDEN = ("spgrid", "jax", "jaxlib", "__graft_entry__", "bench",
-             "ml_dtypes")
+             "ml_dtypes", "pandas")
 
 
 def imported_roots(path: Path):
@@ -218,3 +220,47 @@ def test_import_check_sees_nested_imports(tmp_path):
     f.write_text("import os\ndef g():\n    from spgrid.gen import x\n"
                  "    import jax.numpy\n")
     assert [r for _, r in imported_roots(f)] == ["os", "spgrid", "jax"]
+
+
+def function_sources(module):
+    """name -> source of each function defined in ``module``."""
+    return {name: inspect.getsource(obj) for name, obj in vars(module).items()
+            if inspect.isfunction(obj) and obj.__module__ == module.__name__}
+
+
+# (port module, JAX module, functions copied verbatim, literal replaced:
+# (JAX text, port text))
+COPIES = [
+    ("spgrid_torch.formats.reorder", "spgrid.formats.reorder",
+     ("permute", "rcm_order", "rcm", "first_use_col_order",
+      "centroid_col_order", "degree_sort_order", "shuffle_order"), None),
+    ("spgrid_torch.ops.costmodel", "spgrid.ops.costmodel",
+     ("_dense_time", "_bsr_occupied_blocks", "_bsr_time", "_panel_time",
+      "_gell_windowable", "_full_src_rate", "_unfloored_src_rate",
+      "_gather_rate", "_gell_slots_tail", "_gell_time", "_ell_time",
+      "_coo_time", "_wcoo_bands_slots", "_wcoo_bands_time", "_scoo_time",
+      "_merge_time", "_sell_time", "_rbh_time", "_fudged",
+      "estimate_spmm_time", "_finite_or_zero", "select_format_cost"),
+     ("29e-9", "C.residual_nnz")),
+    ("spgrid_torch.formats.csr", "spgrid.formats.csr", ("csr_to_coo",),
+     None),
+    ("spgrid_torch.features.structural", "spgrid.features.structural",
+     ("twin_params",), ("csr: CSRMatrix", "csr")),
+    ("spgrid_torch.ops.rbh", "spgrid.ops.rbh", ("_block_counts", "_hi_mask"),
+     None),
+]
+
+
+@pytest.mark.parametrize("port,jax,names,literal", COPIES,
+                         ids=[c[0] for c in COPIES])
+def test_copied_functions_equal_their_originals(port, jax, names, literal):
+    """The port's copies of the JAX package's host functions, source for
+    source; the cost model's formulas read ``C.residual_nnz`` where the
+    JAX package writes the literal 29e-9."""
+    got = function_sources(importlib.import_module(port))
+    want = function_sources(importlib.import_module(jax))
+    for name in names:
+        text = want[name]
+        if literal is not None:
+            text = text.replace(*literal)
+        assert got[name] == text, name

@@ -1,7 +1,9 @@
 """The COO and SELL-C-sigma formats of the port (``spgrid_torch.ops.xla``,
 ``DeviceCOO``, ``DeviceSELL``) against the JAX package's: the layouts array
 for array, and ``spmm_coo``, ``spmv_coo``, ``spmm_sell`` and ``spmv_sell``
-against the JAX functions (XLA on the CPU) and the f64 product.
+against the JAX functions (XLA on the CPU) and the f64 product; and
+``xla.segment_sum``, the run sum of COO, GELL's tail, merge's fix-up and
+the softmax, against the f64 and the in-order f32 sums.
 
 Tolerance: 1e-5 relative (f32 sums in another order); the matrices hold
 positive values and X lies in [0.5, 1.5), so no sum cancels below its
@@ -95,7 +97,7 @@ def cases():
 def test_coo_layout_is_the_jax_one(cases, name):
     c = cases[name]
     a = DeviceCOO.from_csr(c["csr"], device="cpu")
-    for field in ("rows", "cols", "values"):
+    for field in ("cols", "values"):
         want = np.asarray(getattr(c["coo"], field))
         got = getattr(a, field).numpy()
         assert got.dtype == want.dtype, field
@@ -103,8 +105,12 @@ def test_coo_layout_is_the_jax_one(cases, name):
     assert a.shape == c["coo"].shape and a.nnz == c["coo"].nnz
     # padding: to a multiple of 128 with row m, column 0 and value 0
     nnz, m = c["csr"].nnz, c["csr"].m
-    assert len(a.rows) % 128 == 0 and len(a.rows) - nnz < 128
-    assert (a.rows[nnz:] == m).all() and (a.cols[nnz:] == 0).all()
+    ptr = a.row_ptr.numpy()
+    rows = np.full(len(a.cols), m, np.int32)
+    rows[:nnz] = np.repeat(np.arange(m, dtype=np.int32), np.diff(ptr))
+    np.testing.assert_array_equal(rows, np.asarray(c["coo"].rows))
+    assert len(a.cols) % 128 == 0 and len(a.cols) - nnz < 128
+    assert ptr[-1] == nnz and (a.cols[nnz:] == 0).all()
     assert (a.values[nnz:] == 0).all()
 
 
@@ -172,3 +178,32 @@ def test_sums_run_in_f64_for_an_f64_operand(cases):
         got = spmm(layout.from_csr(c["csr"], device="cpu"), x)
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), gold(c, c["x"]), rtol=1e-12)
+
+
+# run lengths: empty runs among them, as COO's empty rows give
+RUNS = {
+    "singletons": [1] * 50,
+    "mixed": [1, 0, 2, 3, 0, 0, 4, 5, 7, 8, 9, 16, 17, 1, 31],
+    "one_long": [1000],
+    "skewed": [3] * 40 + [4097] + [0, 2] * 15,
+}
+
+
+@pytest.mark.parametrize("name", RUNS)
+def test_segment_sum_adds_each_run_in_order(name):
+    """``xla.segment_sum``: each run's sum (an empty run 0) against the f64
+    sum, and in f32 the left-to-right sum of its entries bit for bit."""
+    lengths = np.asarray(RUNS[name])
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    vals = (np.random.default_rng(1).random((offsets[-1], 3)) + 0.5).astype(
+        np.float32)
+    got = xla.segment_sum(torch.from_numpy(vals), torch.from_numpy(offsets))
+    assert got.shape == (len(lengths), 3)
+    want = np.stack([vals[a:b].astype(np.float64).sum(0)
+                     for a, b in zip(offsets[:-1], offsets[1:])])
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    ordered = np.zeros((len(lengths), 3), np.float32)
+    for i, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
+        for row in vals[a:b]:
+            ordered[i] += row
+    np.testing.assert_array_equal(got.numpy(), ordered)
