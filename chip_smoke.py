@@ -89,6 +89,10 @@ exits non-zero and never prints the final ``"ok": true`` line:
    to it), the 4096^2 straddling band and the banded matrix with empty
    target blocks; each line gives the row stream's bytes beside the padded
    pieces', the live slots, the grid and the layout's build seconds.
+   bsr_sddmm also runs at the SDDMM planner's other blockings (128x256,
+   128x512, 256x128, 256x256; ``SDDMM_BLOCKINGS``) on the 4096^2
+   band_and_decay mask at sparsity 0.95 and on a 1000^2 mask with pad
+   blocks, each printed with its grid, 3xTF32 floor and device ms.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -133,15 +137,26 @@ exits non-zero and never prints the final ``"ok": true`` line:
 8. only with ``--eager-ab``: the headline and CLI rows of phases 2, 4 and
    5 once more under the eager protocol (CUDA events around eager calls),
    without their gates, printed on one line: the A/B of the two protocols.
+9. SDDMM and the CLI's modes (run before phase 8): the SDDMM study
+   (``spgrid_torch.scripts.sddmm_study``'s ``main``) at its full grid, 4096^2
+   masks of both types at sparsities 0.5, 0.9, 0.95 and 0.98 and n = 512:
+   for each point the nnz, the 128^2 occupancy, the plan's blocking, its
+   predicted speedup over 128^2 beside the measured one, the device µs of
+   bsr_sddmm at all five blockings (graph replay) beside ``_est_time``'s,
+   and whether the plan's was the fastest; its rows gated at 1e-4 and its
+   six pipeline rows (512^2 DLMC twins) at 1e-3; then the CLI's
+   ``--sddmm 4096 --num-cols 512`` and ``--pipeline`` on three twins
+   written as .smtx (sparsity 0.9), each with and without ``--xla-only``,
+   one gated row each; then the phase's seconds.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
 flagship path), before phase 4 (the CLI path), before phase 5 (the
-scattered and block-grid path), before phase 6 (the probe path) and before
+scattered and block-grid path), before phase 6 (the probe path), before
 phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
-bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), and read after
-each; a kernel of a path that was not
-launched there fails the run, and a kernel's launches are summed over its
-paths. Then one JSON
+bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows) and before phase 9
+(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``), and read after each; a
+kernel of a path that was not launched there fails the run, and a
+kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
 1), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -178,6 +193,10 @@ ATOMIC_TOL = 1e-4
 TIME_S = 0.2            # minimum timed seconds for each kernel time
 DEVICE = "cuda"
 LARGE = 4096            # side of the larger case of each block kernel
+RAGGED = 1000           # side of the SDDMM case no blocking divides
+# the mask blockings the SDDMM planner can pick besides 128 x 128
+# (spgrid_torch/ops/sddmm_plan.py CANDIDATES)
+SDDMM_BLOCKINGS = ((128, 256), (128, 512), (256, 128), (256, 256))
 # The README's minimum end-to-end slice: a hypersparse 65535^2 matrix with
 # 5 nnz a row in a band of 5 % of the columns.
 MAIN_LINE = "65535 65535 5 1.6667 normal random 0.05 0 0.05 0.05 14"
@@ -398,6 +417,9 @@ def phase_kernels() -> dict:
     wk, _, _, mask = flagship_csrs()
     big = positive(random_csr(LARGE, LARGE, 0.5, seed=7))
     big_mask = create_mask("band_and_random", LARGE, sparsity=0.95, seed=14)
+    decay_mask = create_mask("band_and_decay", LARGE, sparsity=0.95, seed=14)
+    ragged_mask = create_mask("band_and_random", RAGGED, sparsity=0.9,
+                              seed=14)
     banded = banded_with_empty_rows()
     empty_blocks = banded_with_empty_rows(empty=slice(128, 384))
     straddle = straddling_band()
@@ -476,10 +498,11 @@ def phase_kernels() -> dict:
                           at_cluster if sweep else None)
         return case + (REL_TOL, f"R={a.band_rows} bands={a.bands} {note}")
 
-    def sddmm_case(m, bm, d, seed, sweep=False):
+    def sddmm_case(m, bm, d, seed, sweep=False, bk=128, pad_multiple=1):
         # reads Q, K and the mask's column indices; writes one value a
         # mask nnz
-        a = DeviceBSR.from_csr(m, bm=bm, bk=128, device=DEVICE)
+        a = DeviceBSR.from_csr(m, bm=bm, bk=bk, pad_multiple=pad_multiple,
+                               device=DEVICE)
         q, k = rand((m.shape[0], d), seed), rand((m.shape[1], d), seed + 1)
         nb, bm, bk = a.blocks.shape
         out = torch.empty((nb, bm, bk), device=DEVICE)
@@ -894,6 +917,21 @@ def phase_kernels() -> dict:
          lambda: sddmm_case(banded, 8, 200, 6)),
         ("bsr_sddmm", "4096^2 band_and_random s=0.95 bm=128 d=512", False,
          lambda: sddmm_case(big_mask, 128, 512, 7)),
+    ]
+    # the planner's other blockings (ops/sddmm_plan.py CANDIDATES): a ragged
+    # mask with empty far-band blocks, and one whose m and k are no
+    # multiple of 512 with pad blocks (block row mb)
+    for bm, bk in SDDMM_BLOCKINGS:
+        cases += [
+            ("bsr_sddmm", f"4096^2 band_and_decay s=0.95 bm={bm} bk={bk} "
+             f"d=512", False,
+             functools.partial(sddmm_case, decay_mask, bm, 512, 28, bk=bk)),
+            ("bsr_sddmm", f"{RAGGED}^2 band_and_random s=0.9 pad blocks "
+             f"bm={bm} bk={bk} d=512", False,
+             functools.partial(sddmm_case, ragged_mask, bm, 512, 29, bk=bk,
+                               pad_multiple=8)),
+        ]
+    cases += [
         ("wcoo_spmm", f"{hyper_label} n=512", True,
          lambda: wcoo_case(hyper, 512, 8)),
         ("wcoo_spmm", f"{edge_label} n=200", False,
@@ -1108,7 +1146,6 @@ def cli_rows(phase: str, runs) -> list:
     """``python -m spgrid_torch.bench`` (its ``main``) once for each
     (line, kernels, n) of ``runs`` into one CSV; every row must pass its
     gate. Returns the rows."""
-    import csv
     from spgrid_torch.bench.cli import main as cli_main
     from spgrid_torch.bench.harness import gold_class
 
@@ -1120,8 +1157,7 @@ def cli_rows(phase: str, runs) -> list:
                              "--platform", DEVICE])
             if code != 0:
                 raise RuntimeError(f"the CLI exited {code} on {kernels}")
-        with open(out) as f:
-            rows = list(csv.DictReader(f))
+        rows = read_csv(out)
     for r in rows:
         print(f"{phase}: {r['kernel']} n={r['input_columns']} "
               f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
@@ -1508,6 +1544,117 @@ def phase_calibration() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+PIPELINE_SPARSITY = 0.9     # the mask of phase 9's --pipeline rows
+
+
+def read_csv(path) -> list:
+    import csv
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def gated(phase: str, rows, eps: float) -> None:
+    """Print each row with its gate; raise unless every row passed."""
+    for r in rows:
+        print(f"{phase}: {r['matrix_name']} {r['kernel']} fmt={r['fmt']} "
+              f"n={r['input_columns']} nnz={r['csr_nnz']} "
+              f"time_s={r['time']} gflops={r['gflops']} "
+              f"max_ae={r['max_ae']} mape={r['mape']} gate eps={eps:g} "
+              f"errors_passed={r['errors_passed']}", flush=True)
+    failed = [r["matrix_name"] for r in rows if r["errors_passed"] != "1"]
+    if failed or not rows:
+        raise RuntimeError(f"{phase}: rows {failed} failed their gates "
+                           f"({len(rows)} rows)")
+
+
+def study_lines(tmp: str) -> None:
+    """Phase 9's study: ``sddmm_study.main`` at its full grid into ``tmp``;
+    for each point the nnz, the 128^2 occupancy, the plan, the predicted
+    speedup over 128^2 beside the measured one, and each blocking's device
+    µs (graph replay) beside ``_est_time``'s."""
+    from spgrid_torch.scripts import sddmm_study
+    code = sddmm_study.main(["--out-dir", tmp, "--platform", DEVICE])
+    if code != 0:
+        raise RuntimeError(f"sddmm_study exited {code}")
+    occ = read_csv(os.path.join(tmp, "sddmm_occupancy.csv"))
+    sweep = read_csv(os.path.join(tmp, "sddmm_blockings.csv"))
+    ab = {(r["mask_type"], r["sparsity"]): r for r in read_csv(
+        os.path.join(tmp, "sddmm_planner_ab.csv"))}
+    for o in occ:
+        point = (o["mask_type"], o["sparsity"])
+        times = [r for r in sweep if (r["mask_type"], r["sparsity"]) == point]
+        plan = next(r for r in times if r["plan"] == "True")
+        blockings = " ".join(
+            f"{r['bm']}x{r['bk']}:{float(r['time_s']) * 1e6:.3f}"
+            f"({float(r['est_time_s']) * 1e6:.3f})" for r in times)
+        print(f"phase 9 study: {o['mask_type']} sp={o['sparsity']} "
+              f"nnz={o['nnz']} occupancy_128={o['occupancy_128']} "
+              f"plan={o['bm']}x{o['bk']} est_speedup_vs_128="
+              f"{o['est_speedup_vs_128']} measured_speedup="
+              f"{ab[point]['measured_speedup']} device_us(est_us) "
+              f"{blockings} plan_fastest={plan['fastest']} plan_vs_fastest="
+              f"{float(plan['vs_fastest']):.4f}", flush=True)
+    rows = read_csv(os.path.join(tmp, "sddmm_study.csv"))
+    want = len(occ) + sum(o["bm"] + "x" + o["bk"] != "128x128" for o in occ)
+    if len(occ) != 8 or len(rows) != want:
+        raise RuntimeError(f"the study wrote {len(occ)} points and "
+                           f"{len(rows)} rows, not 8 and {want}")
+    gated("phase 9 study", rows, 1e-4)
+    pipe = read_csv(os.path.join(tmp, "pipeline.csv"))
+    if len(pipe) != 6:
+        raise RuntimeError(f"the study wrote {len(pipe)} pipeline rows")
+    gated("phase 9 study pipeline", pipe, 1e-3)
+
+
+def cli_mode_rows(tmp: str, args, want: dict, eps: float) -> None:
+    """The CLI's ``--sddmm`` or ``--pipeline`` with and without
+    ``--xla-only``: one gated row each, of the kernel and fmt ``want``
+    says (a fmt prefix)."""
+    from spgrid_torch.bench.cli import main as cli_main
+    from spgrid_torch.scripts.sddmm_study import N
+    for xla in (False, True):
+        out = os.path.join(tmp, f"cli_{args[0][2:]}_{int(xla)}.csv")
+        code = cli_main(args + ["--num-cols", str(N), "--out", out,
+                                "--platform", DEVICE]
+                        + (["--xla-only"] if xla else []))
+        if code != 0:
+            raise RuntimeError(f"the CLI exited {code} on {args} xla={xla}")
+        rows = read_csv(out)
+        kernel, fmt = want[xla]
+        if (len(rows) != 1 or rows[0]["kernel"] != kernel
+                or not rows[0]["fmt"].startswith(fmt)):
+            got = [(r["kernel"], r["fmt"]) for r in rows]
+            raise RuntimeError(f"the CLI wrote {got}, not one {kernel} "
+                               f"{fmt} row")
+        gated(f"phase 9 cli {' '.join(args[:1])}"
+              f"{' --xla-only' if xla else ''}", rows, eps)
+
+
+def phase_sddmm() -> None:
+    """Phase 9, SDDMM and the CLI's modes: the SDDMM study, then the CLI's
+    ``--sddmm`` at 4096 and ``--pipeline`` on three DLMC twins written as
+    .smtx, each with and without ``--xla-only``."""
+    from spgrid_torch.io import write_smtx
+    from spgrid_torch.scripts.sddmm_study import (
+        LENGTH, PIPELINE_LENGTH, weight)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        study_lines(tmp)
+        cli_mode_rows(tmp, ["--sddmm", str(LENGTH)],
+                      {False: ("sddmm_cuda", "bsr_pallas_"),
+                       True: ("sddmm_xla", "coo")}, 1e-4)
+        paths = []
+        for seed in (1, 2, 3):
+            paths.append(os.path.join(tmp, f"w{seed}.smtx"))
+            write_smtx(paths[-1], weight(PIPELINE_LENGTH, seed))
+        cli_mode_rows(tmp, ["--pipeline", *paths, "--sparsity",
+                            str(PIPELINE_SPARSITY)],
+                      {False: ("pipeline_cuda", "bsr"),
+                       True: ("pipeline_xla", "bsr")}, 1e-3)
+    print(f"phase 9 sddmm: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # kernel -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
@@ -1554,6 +1701,7 @@ PATHS = (
      ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate",
       "wpack_ablate")),
     ("dispatch", (phase_dispatch,), ("bsr_spmm", "panel_spmm")),
+    ("SDDMM and the CLI's modes", (phase_sddmm,), ("bsr_sddmm", "bsr_spmm")),
 )
 
 

@@ -5,6 +5,7 @@ with the same flags and the same CSV schema. It runs on the CUDA device;
 ``--platform cpu`` runs the kernels' plain versions on the CPU instead.
 Without a CUDA device and without ``--platform cpu`` it exits non-zero. It
 also exits non-zero when a row fails its accuracy gate or its run.
+``--reorder`` and a ``--dtype`` other than float32 are not ported yet.
 
 Examples:
   # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
@@ -15,6 +16,15 @@ Examples:
   python -m spgrid_torch.bench --generate "206500 206500 6.16653 4.43586 \
       normal random 0.00191 6.13529 0.17669 0.33051 14" \
       --kernels rbh,auto,autotune --num-cols 512
+
+  # standalone SDDMM on a 4096^2 attention mask, at the planner's blocking;
+  # --xla-only runs the COO baseline (torch ops) instead of the kernel
+  python -m spgrid_torch.bench --sddmm 4096 --num-cols 512
+
+  # attention pipeline on DLMC-style weights (.smtx/.mtx), kernels or
+  # --xla-only baselines
+  python -m spgrid_torch.bench --pipeline wk.smtx wq.smtx wv.smtx \
+      --sparsity 0.9
 
   # parameter-file sweep with resume
   python -m spgrid_torch.bench --param-file params.txt \
@@ -27,9 +37,10 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
-from spgrid_torch.bench.schema import BenchRow
+from spgrid_torch.bench.schema import BenchRow, CSVWriter
 from spgrid_torch.bench.sweep import iter_matrices, run_sweep
 from spgrid_torch.core.config import BenchConfig
 from spgrid_torch.gen.params import GenParams, read_param_file
@@ -55,10 +66,14 @@ def main(argv=None) -> int:
     ap.add_argument("--matrix", nargs="*", default=[],
                     help=".mtx/.smtx file path(s)")
     ap.add_argument("--pipeline", nargs=3, metavar=("WK", "WQ", "WV"),
-                    help=NOT_PORTED)
+                    help="run the sparse-attention pipeline on 3 weight "
+                         "files")
     ap.add_argument("--sddmm", type=int, metavar="LENGTH", default=None,
-                    help=NOT_PORTED)
-    ap.add_argument("--xla-only", action="store_true", help=NOT_PORTED)
+                    help="standalone SDDMM bench on a LENGTH^2 attention "
+                         "mask")
+    ap.add_argument("--xla-only", action="store_true",
+                    help="the JAX package's XLA baselines as torch ops in "
+                         "place of the kernels (--sddmm, --pipeline)")
     ap.add_argument("--kernel", default="bsr_cuda",
                     help=f"one of {', '.join(KERNELS)}")
     ap.add_argument("--kernels", help="comma list (overrides --kernel)")
@@ -84,13 +99,14 @@ def main(argv=None) -> int:
         print(BenchRow.header())
         return 0
 
-    for flag, given in (("--pipeline", args.pipeline),
-                        ("--sddmm", args.sddmm), ("--xla-only", args.xla_only),
-                        ("--reorder", args.reorder),
+    for flag, given in (("--reorder", args.reorder),
                         ("--dtype " + str(args.dtype),
                          args.dtype not in (None, "float32"))):
         if given:
             ap.error(f"{flag}: {NOT_PORTED}")
+    modes = bool(args.sddmm or args.pipeline)
+    if args.xla_only and not modes:
+        ap.error("--xla-only needs --sddmm or --pipeline")
     kernels = args.kernels.split(",") if args.kernels else [args.kernel]
     unknown = [k for k in kernels if k not in KERNELS]
     if unknown:
@@ -115,6 +131,42 @@ def main(argv=None) -> int:
     num_cols = ([int(v) for v in args.num_cols.split(",")]
                 if args.num_cols else [config.num_cols])
 
+    if modes:
+        rows = mode_rows(args, config, num_cols)
+    else:
+        rows = sweep_rows(ap, args, config, kernels, num_cols)
+    failed = [(r.matrix_name, r.kernel, r.input_columns)
+              for r in rows if not r.errors_passed]
+    if failed:
+        print(f"spgrid_torch.bench: failed rows {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def mode_rows(args, config: BenchConfig, num_cols) -> list:
+    """The rows of ``--sddmm`` or ``--pipeline``, one a width, each written
+    to ``--out`` and echoed to stderr."""
+    from spgrid_torch.bench.harness import run_pipeline, run_sddmm
+    from spgrid_torch.io import read_matrix
+    writer = CSVWriter(args.out, stream=sys.stderr)
+    if args.pipeline:
+        wk, wq, wv = (read_matrix(p, dtype=config.dtype)
+                      for p in args.pipeline)
+    kw = dict(device=args.platform, xla_only=args.xla_only,
+              check_accuracy=not args.no_check)
+    rows = []
+    for n in num_cols:
+        cfg = dataclasses.replace(config, num_cols=n)
+        row = BenchRow(**(run_sddmm(args.sddmm, cfg, **kw) if args.sddmm
+                          else run_pipeline(wk, wq, wv, config=cfg, **kw)))
+        writer.write(row)
+        rows.append(row)
+    return rows
+
+
+def sweep_rows(ap, args, config: BenchConfig, kernels, num_cols) -> list:
+    """The rows of the sweep over ``--generate``, ``--param-file`` and
+    ``--matrix``."""
     params = []
     if args.generate:
         params.append(GenParams.from_line(args.generate))
@@ -123,19 +175,14 @@ def main(argv=None) -> int:
         lines = lines[args.skip::max(args.stride, 1)]
         params.extend(lines[: args.limit] if args.limit else lines)
     if not params and not args.matrix:
-        ap.error("need --generate, --param-file or --matrix")
+        ap.error("need --generate, --param-file, --matrix, --sddmm or "
+                 "--pipeline")
 
     matrices = iter_matrices(params=params, paths=args.matrix,
                              dtype=config.dtype)
-    rows = run_sweep(matrices, kernels=kernels, num_cols_list=num_cols,
+    return run_sweep(matrices, kernels=kernels, num_cols_list=num_cols,
                      config=config, out_csv=args.out,
                      check_accuracy=not args.no_check, device=args.platform)
-    failed = [(r.matrix_name, r.kernel, r.input_columns)
-              for r in rows if not r.errors_passed]
-    if failed:
-        print(f"spgrid_torch.bench: failed rows {failed}", file=sys.stderr)
-        return 1
-    return 0
 
 
 if __name__ == "__main__":

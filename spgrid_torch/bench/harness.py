@@ -1,19 +1,20 @@
 """Single-run harness: build → time → gate → row.
 
-Counterpart of ``run_spmm`` and ``run_pipeline`` in
+Counterpart of ``run_spmm``, ``run_pipeline`` and ``run_sddmm`` in
 ``spgrid/bench/harness.py``. A row is a dict keyed by the JAX ``BenchRow``'s
 field names, for the fields the port fills. ``device`` is 'cuda' for a
 measurement on the card or 'cpu' for the port's CPU path; the row's
 ``device`` field names the hardware the time was taken on.
 
 A kernel name is a format of ``ops.dispatch`` or one of the JAX harness's
-dispatch kernels (``KERNELS``): ``gemm_bound`` (``dense`` with the dense
-flop count), ``auto`` and ``auto_tol`` (the cost model's pick, without and
-with the value-compressed candidates) and ``autotune`` (the fastest measured
-candidate). A row writes ``kernel`` as given and ``fmt`` as the JAX package
-names the format that ran (``dispatch.JAX_NAME``), so the CSV joins the JAX
-package's on ``fmt`` and the cost model can fit it; the gate's class is the
-format's, whatever the kernel's name.
+dispatch kernels (``KERNELS``): ``bsr_xla`` (the ``bsr`` format),
+``gemm_bound`` (``dense`` with the dense flop count), ``auto`` and
+``auto_tol`` (the cost model's pick, without and with the value-compressed
+candidates) and ``autotune`` (the fastest measured candidate). A row
+writes ``kernel`` as given and ``fmt`` as the JAX package names the format
+that ran (``dispatch.JAX_NAME``), so the CSV joins the JAX package's on
+``fmt`` and the cost model can fit it; the gate's class is the format's,
+whatever the kernel's name.
 
 On the card a call is timed by the config's ``timing_protocol``: 'graph'
 (the default) replays calls captured in a CUDA graph, so the time is the
@@ -44,10 +45,13 @@ from spgrid_torch.features import matrix_features, value_features
 from spgrid_torch.ops import costmodel, dispatch
 from spgrid_torch.ops.gell import gathered_x
 from spgrid_torch.ops.attention import (
-    SparseAttention, attention_pipeline, gold_pipeline,
+    SparseAttention, attention_pipeline, gold_pipeline, make_pipeline_step,
+    stage_ops,
 )
-from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
+from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO
+from spgrid_torch.ops.sddmm_plan import choose_sddmm_blocks
+from spgrid_torch.ops.xla import sddmm_coo
 
 
 GRAPH_CALLS = 20            # calls captured in one graph, at most
@@ -55,9 +59,11 @@ GRAPH_BYTES = 2 << 30       # their outputs' bytes, at most (2 calls apart)
 ROOFLINE_FRAC_CAP = 9.99    # as the JAX harness writes roofline_frac
 VALUE_SAMPLE = 1 << 20      # values the value features read, at most
 GOLD_CACHE = 2              # f64 golds kept a matrix (m n 8 bytes each)
+SDDMM_GOLD_BYTES = 1 << 28  # a block of rows' f64 scores in the SDDMM gold
 
 # kernel name -> the port's format it runs; None where dispatch picks it
 KERNELS = {**{fmt: fmt for fmt in dispatch.FORMATS},
+           "bsr_xla": "bsr",          # the batched block product, torch ops
            "gemm_bound": "dense",     # dense GEMM bound (dense flop count)
            "auto": None,              # the cost model's pick
            "auto_tol": None,          # the same, cv_* formats offered
@@ -297,11 +303,14 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
 def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
                  mask: Optional[CSRMatrix] = None,
                  config: Optional[BenchConfig] = None, *, device,
+                 xla_only: bool = False,
                  check_accuracy: bool = True) -> dict:
     """Time the 5-stage sparse-attention pipeline as one step and stage by
     stage (GFLOPS per stage), and gate the step against ``gold_pipeline``
     (eps 1e-3 at f32, as the JAX harness). Without ``mask`` the config's
-    mask is made, as in the JAX harness."""
+    mask is made, as in the JAX harness. ``xla_only`` runs the JAX
+    package's XLA baselines as torch ops in place of the kernels (kernel
+    ``pipeline_xla``)."""
     config = config or BenchConfig()
     _f32_only(config)
     device = torch.device(device)
@@ -314,32 +323,31 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     xd = torch.from_numpy(x).to(device)
     wk, wq, wv, mask = (c.astype(config.dtype) for c in (wk, wq, wv, mask))
     attn = SparseAttention.from_csr(wk, wq, wv, mask, device=device)
+    step = make_pipeline_step(attn, xla_only=xla_only)
+    spmm, sddmm = stage_ops(xla_only)
 
-    def step(at, xc):
-        return attention_pipeline(at, xc)[0]
-
-    _, stages = attention_pipeline(attn, xd)
+    _, stages = attention_pipeline(attn, xd, xla_only=xla_only)
     out_bytes = {s: t.numel() * t.element_size() for s, t in stages.items()}
 
     def timed(fn, *args, out, min_time_s=None, flops=None):
         return time_call(fn, *args, config=config, device=device,
                          out_bytes=out, min_time_s=min_time_s, flops=flops)
 
-    whole = timed(step, attn, xd, out=sum(out_bytes.values()),
+    whole = timed(step, xd, out=sum(out_bytes.values()),
                   flops=attn.flops_per_col * n)
 
     s_bsr = attn.mask.with_blocks(stages["S"])
     stage_min = min(0.2, config.min_time_s)
     stage_time = {
-        "K": timed(bsr_spmm, attn.wk, xd, out=out_bytes["K"],
+        "K": timed(spmm, attn.wk, xd, out=out_bytes["K"],
                    min_time_s=stage_min),
-        "Q": timed(bsr_spmm, attn.wq, xd, out=out_bytes["Q"],
+        "Q": timed(spmm, attn.wq, xd, out=out_bytes["Q"],
                    min_time_s=stage_min),
-        "V": timed(bsr_spmm, attn.wv, xd, out=out_bytes["V"],
+        "V": timed(spmm, attn.wv, xd, out=out_bytes["V"],
                    min_time_s=stage_min),
-        "S": timed(bsr_sddmm, attn.mask, stages["Q"], stages["K"],
+        "S": timed(sddmm, attn.mask, stages["Q"], stages["K"],
                    out=out_bytes["S"], min_time_s=stage_min),
-        "Y": timed(bsr_spmm, s_bsr, stages["V"], out=out_bytes["Y"],
+        "Y": timed(spmm, s_bsr, stages["V"], out=out_bytes["Y"],
                    min_time_s=stage_min),
     }
     stage_flops = {"K": spmm_flops(wk.nnz, n), "Q": spmm_flops(wq.nnz, n),
@@ -349,7 +357,8 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
           for s in stage_flops}
     name, _ = _device_fields(device)
     row = dict(
-        matrix_name=f"pipeline_{wk.name}", kernel="pipeline_cuda", fmt="bsr",
+        matrix_name=f"pipeline_{wk.name}",
+        kernel="pipeline_xla" if xla_only else "pipeline_cuda", fmt="bsr",
         dtype=config.dtype, device=name, num_devices=1, input_columns=n,
         csr_m=wk.m, csr_k=wk.k, csr_nnz=wk.nnz + wq.nnz + wv.nnz + mask.nnz,
         time=whole.time_per_iter_s, iters=whole.iters, gflops=whole.gflops,
@@ -358,9 +367,131 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     )
     if check_accuracy:
         gold = gold_pipeline(wk, wq, wv, mask, x)
-        test = step(attn, xd).cpu().numpy()
+        test = step(xd).cpu().numpy()
         m = error_metrics(gold, test, epsilon=1e-3)
         row.update(_gate_fields(m))
         if not m.passed:
             print(f"Test failed! pipeline: max_rel_diff={m.max_rel_diff:.3e}")
+    return row
+
+
+def sddmm_gold(mask: CSRMatrix, x: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """The f64 gold of mask ⊙ (X @ Zᵀ) at the mask's nnz, in CSR order: the
+    JAX harness's numbers (each nnz's f64 dot of its X and Z rows, times
+    its mask value), formed a block of rows at a time as one f64 product of
+    the block's X rows with Zᵀ (at most ``SDDMM_GOLD_BYTES`` of scores),
+    from which the block's nnz are read."""
+    x64 = np.asarray(x, np.float64)
+    zt = np.ascontiguousarray(np.asarray(z, np.float64).T)
+    ptr = np.asarray(mask.row_ptr, np.int64)
+    gold = np.empty(mask.nnz, dtype=np.float64)
+    rows = max(1, SDDMM_GOLD_BYTES // (8 * max(mask.k, 1)))
+    for r0 in range(0, mask.m, rows):
+        r1 = min(r0 + rows, mask.m)
+        s, e = ptr[r0], ptr[r1]
+        if s == e:
+            continue
+        local = np.repeat(np.arange(r1 - r0), np.diff(ptr[r0:r1 + 1]))
+        gold[s:e] = (x64[r0:r1] @ zt)[local, mask.col_idx[s:e]]
+    return gold * mask.values.astype(np.float64)
+
+
+def _cached_sddmm_gold(mask: CSRMatrix, x: np.ndarray, z: np.ndarray,
+                       key) -> np.ndarray:
+    """``sddmm_gold``, kept on the mask object for the last ``key`` asked:
+    the arms of a study point share one mask and X and Z."""
+    hit = getattr(mask, "_spgrid_torch_sddmm_gold", None)
+    if hit is None or hit[0] != key:
+        hit = (key, sddmm_gold(mask, x, z))
+        mask._spgrid_torch_sddmm_gold = hit
+    return hit[1]
+
+
+def _bsr_blocks_to_nnz(dev, blocks_out: np.ndarray, mask: CSRMatrix,
+                       rows_idx: np.ndarray) -> np.ndarray:
+    """Gather per-nnz values out of mask-aligned BSR value blocks."""
+    bm, bk = dev.bm, dev.bk
+    cols_idx = mask.col_idx
+    br = rows_idx.astype(np.int64) // bm
+    bc = cols_idx.astype(np.int64) // bk
+    # dense (block_row, block_col) -> block index lookup table
+    block_rows = dev.block_rows[: dev.num_blocks].cpu().numpy().astype(
+        np.int64)
+    block_cols = dev.block_cols[: dev.num_blocks].cpu().numpy().astype(
+        np.int64)
+    kb = -(-mask.k // bk)
+    lut = np.full((dev.mb + 1) * kb, -1, dtype=np.int64)
+    lut[block_rows * kb + block_cols] = np.arange(dev.num_blocks)
+    bi = lut[br * kb + bc]
+    assert (bi >= 0).all()
+    return blocks_out[bi, rows_idx % bm, cols_idx % bk]
+
+
+def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
+              xla_only: bool = False, check_accuracy: bool = True,
+              mask: Optional[CSRMatrix] = None,
+              blocks: Optional[tuple] = None) -> dict:
+    """The standalone SDDMM bench: the config's attention mask (or
+    ``mask``), dense X and Z filled with 0.1 as in the reference, values =
+    mask ⊙ (X @ Zᵀ) timed, and the values gated at the mask's nnz against
+    the f64 gold (eps 1e-4 at f32, as the JAX harness). The kernel runs at
+    the blocking ``choose_sddmm_blocks`` picks, or at ``blocks`` (bm, bk);
+    ``xla_only`` runs the COO baseline ``xla.sddmm_coo`` instead (kernel
+    ``sddmm_xla``, fmt ``coo``)."""
+    config = config or BenchConfig()
+    _f32_only(config)
+    device = torch.device(device)
+    n = config.num_cols
+    if mask is None:
+        mask = create_mask(config.sparse_attention_type, length,
+                           config.sparsity, config.band_size, config.seed,
+                           dtype=np.dtype(config.dtype))
+    x = np.full((mask.m, n), 0.1, dtype=config.dtype)
+    z = np.full((mask.k, n), 0.1, dtype=config.dtype)
+    xd, zd = torch.from_numpy(x).to(device), torch.from_numpy(z).to(device)
+
+    flops = spmm_flops(mask.nnz, n)
+    vb = np.dtype(config.dtype).itemsize
+    bytes_accessed = float(mask.nnz * (vb + 4) + (mask.m + mask.k) * n * vb)
+    if xla_only:
+        dev = DeviceCOO.from_csr(mask, device=device)
+        fn, kernel, fmt = sddmm_coo, "sddmm_xla", "coo"
+        out_bytes = dev.values.numel() * 4
+    else:
+        if blocks is None:
+            plan = choose_sddmm_blocks(mask, n)
+            blocks = (plan.bm, plan.bk)
+        bm, bk = blocks
+        dev = DeviceBSR.from_csr(mask, bm=bm, bk=bk, device=device)
+        fn, kernel, fmt = bsr_sddmm, "sddmm_cuda", f"bsr_pallas_{bm}x{bk}"
+        out_bytes = dev.blocks.numel() * 4
+    timed = time_call(fn, dev, xd, zd, config=config, device=device,
+                      out_bytes=out_bytes, flops=flops,
+                      bytes_accessed=bytes_accessed)
+    name, chip = _device_fields(device)
+    sol = (roofline_time(flops, bytes_accessed, chip, config.dtype)
+           if chip else math.nan)
+    row = dict(
+        matrix_name=mask.name or f"mask_{length}", kernel=kernel, fmt=fmt,
+        dtype=config.dtype, device=name, num_devices=1, input_columns=n,
+        csr_m=mask.m, csr_k=mask.k, csr_nnz=mask.nnz,
+        csr_mem_footprint_mb=mask.mem_footprint / (1 << 20),
+        fmt_mem_footprint_mb=dev.nbytes / (1 << 20),
+        time=timed.time_per_iter_s, iters=timed.iters, gflops=timed.gflops,
+        gbytes_per_s=timed.gbytes_per_s, sol_time=sol,
+        roofline_frac=min(sol / timed.time_per_iter_s, ROOFLINE_FRAC_CAP),
+    )
+    if check_accuracy:
+        gold = _cached_sddmm_gold(mask, x, z, (n, config.dtype))
+        out = fn(dev, xd, zd).cpu().numpy()
+        if xla_only:
+            test = out[: mask.nnz]
+        else:
+            rows_idx = np.repeat(np.arange(mask.m), mask.degrees)
+            test = _bsr_blocks_to_nnz(dev, out, mask, rows_idx)
+        m = error_metrics(gold, test.astype(np.float64), epsilon=1e-4)
+        row.update(_gate_fields(m))
+        if not m.passed:
+            print(f"Test failed! sddmm {mask.name}: "
+                  f"max_rel_diff={m.max_rel_diff:.3e}")
     return row

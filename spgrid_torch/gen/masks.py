@@ -127,3 +127,10 @@ def create_mask(
         raise ValueError(f"unknown attention type {attention_type!r}")
     csr = dense_to_csr(mask.astype(dtype), name=f"mask_{attention_type}_{length}_{sparsity:g}")
     return csr
+
+
+def mask_mem_footprint(length: int, sparsity: float, val_bytes: int = 4,
+                       idx_bytes: int = 4) -> float:
+    """(1-sparsity)*m^2*(val+idx) + (m+1)*idx  (sddmm_mask.h:260)."""
+    return ((1.0 - sparsity) * length * length * (val_bytes + idx_bytes)
+            + (length + 1) * idx_bytes)

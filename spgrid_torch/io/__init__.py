@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 
 from spgrid_torch.io.mtx import read_mtx
-from spgrid_torch.io.smtx import read_smtx
+from spgrid_torch.io.smtx import read_smtx, write_smtx
 
 
 def read_matrix(path: str, dtype="float32"):
@@ -21,4 +21,4 @@ def read_matrix(path: str, dtype="float32"):
     raise ValueError(f"unrecognized matrix file type: {path}")
 
 
-__all__ = ["read_matrix", "read_mtx", "read_smtx"]
+__all__ = ["read_matrix", "read_mtx", "read_smtx", "write_smtx"]

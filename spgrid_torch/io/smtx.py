@@ -1,4 +1,4 @@
-"""DLMC .smtx reader: the port's own copy of the numpy path of
+"""DLMC .smtx reader and writer: the port's own copy of the numpy path of
 ``spgrid/io/smtx.py``.
 
 Line 1 is "m, k, nnz", line 2 the m+1 row pointers, line 3 the nnz column
@@ -37,3 +37,10 @@ def read_smtx(path: str, dtype=np.float32, value_fill: str = "random",
         vals = np.full(nnz, float(value_fill), dtype=dtype)
     return CSRMatrix(row_ptr.astype(IDX_DTYPE), col_idx, vals, (m, k),
                      name=_basename(path))
+
+
+def write_smtx(path: str, csr: CSRMatrix) -> None:
+    with open(path, "w") as f:
+        f.write(f"{csr.m}, {csr.k}, {csr.nnz}\n")
+        f.write(" ".join(str(int(v)) for v in csr.row_ptr) + "\n")
+        f.write(" ".join(str(int(v)) for v in csr.col_idx) + "\n")

@@ -3,8 +3,10 @@
 Counterpart of ``spgrid/ops/attention.py``: the weights W_K, W_Q, W_V and the
 attention mask are DeviceBSRs, the three weight products and the final
 product run the BSR SpMM kernel and the masked scores run the SDDMM kernel.
-Softmax between SDDMM and the final SpMM exists and is off by default, as in
-the JAX package.
+With ``xla_only`` (the JAX package's ``use_pallas=False``, the CLI's
+``--xla-only``) they run the JAX package's XLA baselines as torch ops
+instead: ``xla.spmm_bsr`` and ``sddmm_bsr_xla``. Softmax between SDDMM and
+the final SpMM exists and is off by default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.ops.dense import full_f32
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
-from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
+from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
 from spgrid_torch.ops.layouts import DeviceBSR
-from spgrid_torch.ops.xla import segment_sum
+from spgrid_torch.ops.xla import acc_dtype, segment_sum, spmm_bsr
 
 
 @dataclasses.dataclass
@@ -77,22 +80,51 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
     return e / torch.clamp(row_sum[rows], min=1e-30)[:, :, None]
 
 
+def sddmm_bsr_xla(mask: DeviceBSR, q: torch.Tensor,
+                  k: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA baseline SDDMM on the mask's blocks
+    (``_sddmm_bsr_xla``): the Q and K row panels gathered by block
+    coordinates (a zero Q panel for the pad row mb), one batched product and
+    the mask, in f32 with TF32 off. It is the gather and product of the
+    SDDMM kernel's plain version, so the two are one function."""
+    full_f32()
+    acc = acc_dtype(q)
+    return bsr_sddmm_plain(mask, q.to(acc), k.to(acc))
+
+
+def stage_ops(xla_only: bool = False):
+    """(SpMM, SDDMM) of the pipeline: the kernels, or the JAX package's XLA
+    baselines as torch ops."""
+    return (spmm_bsr, sddmm_bsr_xla) if xla_only else (bsr_spmm, bsr_sddmm)
+
+
 def attention_pipeline(attn: SparseAttention, x: torch.Tensor, *,
-                       softmax: bool = False):
+                       xla_only: bool = False, softmax: bool = False):
     """Run the 5-stage pipeline; returns (y, stages dict).
 
       K = W_K @ X ; Q = W_Q @ X ; V = W_V @ X          (3x weight SpMM)
       S = mask ⊙ (Q @ K^T)                              (SDDMM)
       Y = S @ V                                         (final SpMM)
     """
-    k = bsr_spmm(attn.wk, x)
-    q = bsr_spmm(attn.wq, x)
-    v = bsr_spmm(attn.wv, x)
-    s_blocks = bsr_sddmm(attn.mask, q, k)
+    spmm, sddmm = stage_ops(xla_only)
+    k = spmm(attn.wk, x)
+    q = spmm(attn.wq, x)
+    v = spmm(attn.wv, x)
+    s_blocks = sddmm(attn.mask, q, k)
     if softmax:
         s_blocks = blocksparse_softmax(attn.mask, s_blocks)
-    y = bsr_spmm(attn.mask.with_blocks(s_blocks), v)
+    y = spmm(attn.mask.with_blocks(s_blocks), v)
     return y, {"K": k, "Q": q, "V": v, "S": s_blocks, "Y": y}
+
+
+def make_pipeline_step(attn: SparseAttention, *, xla_only: bool = False):
+    """The pipeline as one X -> Y callable: the step ``run_pipeline`` times
+    and gates."""
+
+    def step(x: torch.Tensor) -> torch.Tensor:
+        return attention_pipeline(attn, x, xla_only=xla_only)[0]
+
+    return step
 
 
 def gold_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,

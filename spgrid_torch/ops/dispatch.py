@@ -8,10 +8,11 @@ the name the cost model and a row's ``fmt`` column speak; ``PORT_NAME`` maps
 back.
 The three SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
 package's bench adapters do; a wider operand raises. ``coo``, ``sell``,
-``merge`` and the GELL formats are torch ops (the JAX package's XLA
-compositions); the ``_cuda`` formats and ``dense``'s matmul run on kernels;
-``rbh`` runs ``bsr_spmm`` on its block part and a torch-op format on the
-rest.
+``bsr``, ``merge`` and the GELL formats are torch ops (the JAX package's XLA
+compositions; ``bsr`` is the batched block product of ``xla.spmm_bsr``, not
+an AUTO candidate); the ``_cuda`` formats and ``dense``'s matmul run on
+kernels; ``rbh`` runs ``bsr_spmm`` on its block part and a torch-op format
+on the rest.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
 from spgrid_torch.ops.merge import DeviceMerge, merge_spmm
 from spgrid_torch.ops.rbh import DeviceRBH, rbh_spmm
-from spgrid_torch.ops.xla import spmm_coo, spmm_sell
+from spgrid_torch.ops.xla import spmm_bsr, spmm_coo, spmm_sell
 
 JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "panel_cuda": "panel_pallas", "wcoo_cuda": "wcoo_pallas",
@@ -52,7 +53,8 @@ JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "wrow_spmv_cuda": "wrow_spmv", "bsrc_cuda": "bsrc_pallas",
             "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv",
             "coo": "coo", "sell": "sell", "merge": "merge", "gell": "gell",
-            "gell16": "gell16", "cv_gell": "cv_gell", "rbh": "rbh"}
+            "gell16": "gell16", "cv_gell": "cv_gell", "rbh": "rbh",
+            "bsr": "bsr"}
 PORT_NAME = {jax: port for port, jax in JAX_NAME.items()}
 FORMATS = tuple(JAX_NAME)
 # the GELL formats' modes (spgrid_torch/ops/gell.py)
@@ -62,12 +64,15 @@ GELL_MODE = {"gell": "f32", "gell16": "split16", "cv_gell": "bf16"}
 def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
           bk: int = 128):
     """The device operand of ``csr`` for format ``fmt``; bm defaults to 128
-    for the block kernels, as ``spgrid.ops.dispatch.build`` does for
-    ``bsr_pallas`` and ``bsrc_pallas``."""
+    for the block kernels and to 8 for ``bsr``, as
+    ``spgrid.ops.dispatch.build`` does for ``bsr_pallas``, ``bsrc_pallas``
+    and ``bsr``."""
     if fmt == "dense":
         return torch.from_numpy(csr.to_dense()).to(device)
     if fmt == "bsr_cuda":
         return DeviceBSR.from_csr(csr, bm=bm or 128, bk=bk, device=device)
+    if fmt == "bsr":
+        return DeviceBSR.from_csr(csr, bm=bm or 8, bk=bk, device=device)
     if fmt == "bsrc_cuda":
         return DeviceBSRCol.from_csr(csr, bm=bm or 128, bk=bk, device=device)
     if fmt == "panel_cuda":
@@ -107,7 +112,7 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda"),
          "coo": spmm_coo, "sell": spmm_sell, "merge": merge_spmm,
          "gell": gell_spmm, "gell16": gell_spmm, "cv_gell": gell_spmm,
-         "rbh": rbh_spmm}
+         "rbh": rbh_spmm, "bsr": spmm_bsr}
 
 
 def spmm_fn(fmt: str) -> Callable:

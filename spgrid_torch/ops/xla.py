@@ -1,23 +1,36 @@
-"""COO and SELL-C-sigma SpMM and SpMV as torch ops — the counterparts of
-``spmm_coo``, ``spmv_coo``, ``spmm_sell`` and ``spmv_sell`` in
-``spgrid/ops/xla.py``.
+"""The JAX package's XLA compositions as torch ops: COO and SELL-C-sigma
+SpMM and SpMV (``spmm_coo``, ``spmv_coo``, ``spmm_sell``, ``spmv_sell``),
+the BSR baseline ``spmm_bsr`` (the ``bsr`` format, the ``--xla-only``
+pipeline's SpMM) and the SDDMM baselines ``sddmm_coo`` and ``sddmm_dense``
+(``--sddmm --xla-only``) — the counterparts of the functions of the same
+names in ``spgrid/ops/xla.py``.
 
 The JAX package leaves these to XLA (a gather, a weighted sum and a segment
 sum), outside any Pallas kernel, so the port leaves them to torch ops:
-``index_select`` for ``take``; for COO's ``segment_sum``, ``segment_sum``
-below over the row-sorted products at the layout's ``row_ptr``; the pad
-entries take no part. The products and sums run in f32 (f64 for an f64 X).
-Every size is known on the host, so a call can be captured in a CUDA graph.
+``index_select`` for ``take``; for COO's and BSR's ``segment_sum``,
+``segment_sum`` below over the row-sorted products at the layout's
+``row_ptr``; the pad entries take no part. The products and sums run in
+f32 (f64 for an f64 X), the matrix products with TF32 off. Every size is
+known on the host, so a call can be captured in a CUDA graph.
+
+``sddmm_coo`` runs chunk by chunk so that its gathered Q and K rows stay
+under ``SDDMM_CHUNK_BYTES``: unchunked, a 4096^2 mask at sparsity 0.5 (16.8M
+nnz) at d = 512 would gather 34 GB of each.
 
 Bits: COO and SELL write each row once and add no element twice in a
-launch, so both give the same bits on every call.
+launch, BSR sums a block row's products in block order, and SDDMM forms
+each value as one dot product, so every op gives the same bits on every
+call.
 """
 
 from __future__ import annotations
 
 import torch
 
-from spgrid_torch.ops.layouts import DeviceCOO, DeviceSELL
+from spgrid_torch.ops.dense import full_f32
+from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
+
+SDDMM_CHUNK_BYTES = 1 << 30   # gathered Q and K rows of a sddmm_coo chunk
 
 
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -79,3 +92,59 @@ def spmm_sell(sell: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
 def spmv_sell(sell: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
     """y (m,) = A @ x for x (k,)."""
     return spmm_sell(sell, x[:, None])[:, 0]
+
+
+def spmm_bsr(bsr: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X from the BSR blocks: each block's tile of X
+    gathered, one batched product, the products summed a block row
+    (``segment_sum`` at ``row_ptr``; the pad blocks lie past it)."""
+    full_f32()
+    nb = bsr.num_blocks
+    bk, mb = bsr.bk, bsr.mb
+    n = x.shape[1]
+    acc = acc_dtype(x)
+    kb = -(-x.shape[0] // bk)
+    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
+    xp[:x.shape[0]] = x
+    tiles = xp.view(kb, bk, n).index_select(0, bsr.block_cols[:nb])
+    prods = torch.bmm(bsr.blocks[:nb].to(acc), tiles)       # (nb, bm, n)
+    out = segment_sum(prods, bsr.row_ptr.long())             # (mb, bm, n)
+    return out.reshape(mb * bsr.bm, n)[:bsr.shape[0]].to(x.dtype)
+
+
+def sddmm_chunk(d: int) -> int:
+    """nnz a ``sddmm_coo`` chunk takes: its gathered f32 Q and K rows, 8d
+    bytes a nnz (the product is formed in place), within
+    ``SDDMM_CHUNK_BYTES``; at least 1."""
+    return max(1, SDDMM_CHUNK_BYTES // (8 * max(d, 1)))
+
+
+def sddmm_coo(mask: DeviceCOO, q: torch.Tensor,
+              k: torch.Tensor) -> torch.Tensor:
+    """values[p] = mask_val[p] * sum_d Q[row_p, d] * K[col_p, d] for each
+    of the mask's (padded) entries, pads 0: the taco-naive semantics, the
+    dot over the dense width scaled by the mask value. The rows of a chunk
+    (``sddmm_chunk``) come from ``row_ptr``."""
+    acc = acc_dtype(q)
+    out = torch.zeros(mask.values.shape[0], dtype=acc, device=q.device)
+    step = sddmm_chunk(q.shape[1])
+    for s in range(0, mask.nnz, step):
+        e = min(s + step, mask.nnz)
+        rows = torch.searchsorted(
+            mask.row_ptr, torch.arange(s, e, device=q.device),
+            right=True) - 1
+        g = q.index_select(0, rows).to(acc)
+        g.mul_(k.index_select(0, mask.cols[s:e]).to(acc))
+        torch.sum(g, dim=1, out=out[s:e])
+        out[s:e].mul_(mask.values[s:e].to(acc))
+    return out.to(q.dtype)
+
+
+def sddmm_dense(mask_dense: torch.Tensor, q: torch.Tensor,
+                k: torch.Tensor) -> torch.Tensor:
+    """mask ⊙ (Q @ K^T) as one dense product: the dense masked score
+    matrix."""
+    full_f32()
+    acc = acc_dtype(q)
+    scores = q.to(acc) @ k.to(acc).T
+    return (mask_dense.to(acc) * scores).to(q.dtype)

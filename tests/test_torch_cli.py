@@ -1,6 +1,7 @@
 """The port's benchmark CLI (``python -m spgrid_torch.bench``) on the CPU:
 the JAX package's CSV schema, the slot, block-grid and scattered formats
-gated on small parameter lines, resume, and the refusals."""
+gated on small parameter lines, resume, the ``--sddmm`` and ``--pipeline``
+modes with and without ``--xla-only``, and the refusals."""
 
 import csv
 import os
@@ -15,6 +16,7 @@ from spgrid.bench.schema import BenchRow
 from spgrid.formats.csr import random_csr
 from spgrid.io.smtx import write_smtx
 from spgrid_torch.bench import cli
+from spgrid_torch.io import write_smtx as port_write_smtx
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
 # a worker keeps these small CPU tensors from oversubscribing them.
@@ -145,8 +147,7 @@ def test_without_cuda_and_without_platform_cpu_exits_nonzero(monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pipeline", "a.smtx", "b.smtx", "c.smtx"], ["--sddmm", "256"],
-    ["--xla-only"], ["--reorder", "rcm"], ["--dtype", "bfloat16"],
+    ["--reorder", "rcm"], ["--dtype", "bfloat16"],
     ["--kernel", "wcoo_pallas"], []])
 def test_unported_flags_exit_nonzero(flags, capsys):
     args = (["--generate", LINE] if "--kernel" in flags else []) + flags
@@ -155,3 +156,62 @@ def test_unported_flags_exit_nonzero(flags, capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "ROADMAP" in err or "unknown kernel" in err or "need" in err
+
+
+def test_xla_only_without_a_mode_exits_nonzero(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--generate", LINE, "--xla-only", "--platform", "cpu"])
+    assert e.value.code != 0
+    assert "--xla-only needs --sddmm or --pipeline" in capsys.readouterr().err
+
+
+def pipeline_files(tmp_path):
+    """Three small weights written as .smtx by the port's ``write_smtx``."""
+    paths = []
+    for seed in (1, 2, 3):
+        paths.append(str(tmp_path / f"w{seed}.smtx"))
+        port_write_smtx(paths[-1], random_csr(96, 96, 0.3, seed=seed))
+    return paths
+
+
+# (mode flags, the kernel and fmt of its row)
+MODES = {
+    "sddmm": (["--sddmm", "128", "--num-cols", "16"], "sddmm_cuda",
+              "bsr_pallas_128x128"),
+    "sddmm_xla": (["--sddmm", "128", "--num-cols", "16", "--xla-only"],
+                  "sddmm_xla", "coo"),
+    "pipeline": (["--num-cols", "16", "--band-size", "4"], "pipeline_cuda",
+                 "bsr"),
+    "pipeline_xla": (["--num-cols", "16", "--band-size", "4", "--xla-only"],
+                     "pipeline_xla", "bsr"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_modes_on_cpu_write_a_gated_row(mode, tmp_path):
+    """``--sddmm`` and ``--pipeline`` (on .smtx weights), with and without
+    ``--xla-only``: one gated row of the mode's kernel and fmt, exit 0."""
+    flags, kernel, fmt = MODES[mode]
+    if mode.startswith("pipeline"):
+        flags = ["--pipeline", *pipeline_files(tmp_path)] + flags
+    out = tmp_path / "rows.csv"
+    assert cli.main(flags + ["--out", str(out), "--platform", "cpu"]) == 0
+    (row,) = read_rows(out)
+    assert (row["kernel"], row["fmt"]) == (kernel, fmt)
+    assert row["errors_passed"] == "1" and row["device"] == "cpu"
+    assert row["input_columns"] == "16" and float(row["gflops"]) > 0
+
+
+def test_mode_row_that_fails_its_gate_exits_nonzero(tmp_path, monkeypatch):
+    from spgrid_torch.bench import harness
+    from spgrid_torch.ops.kernels.sddmm import bsr_sddmm_plain
+
+    def off(mask, q, k):
+        return bsr_sddmm_plain(mask, q, k) * 1.01
+
+    monkeypatch.setattr(harness, "bsr_sddmm", off)
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--sddmm", "128", "--num-cols", "8", "--out", str(out),
+                     "--platform", "cpu"]) == 1
+    (row,) = read_rows(out)
+    assert row["errors_passed"] == "0" and row["kernel"] == "sddmm_cuda"

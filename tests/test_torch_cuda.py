@@ -68,6 +68,7 @@ from spgrid_torch.ops.kernels.wrow_spmv import (
     DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
 )
 from spgrid_torch.ops.layouts import DeviceBSR
+from spgrid_torch.ops.sddmm_plan import CANDIDATES
 from spgrid_torch.scripts import (
     exp_lanegather, exp_pallas_gather, exp_spmv_ablate, exp_wpack_ablate,
 )
@@ -216,6 +217,99 @@ def test_bsr_sddmm_kernel_4096(cuda):
     q, k = operand((4096, 512), 7, cuda), operand((4096, 512), 8, cuda)
     assert_close(bsr_sddmm(a, q, k), bsr_sddmm_plain(a, q.double(),
                                                      k.double()))
+
+
+def pad_one_block(csr, bm, bk, device):
+    """``csr``'s DeviceBSR at (bm, bk) with exactly one pad block (block
+    row mb) after its stored blocks."""
+    nb = DeviceBSR.from_csr(csr, bm=bm, bk=bk, device="cpu").num_blocks
+    a = DeviceBSR.from_csr(csr, bm=bm, bk=bk, pad_multiple=nb + 1,
+                           device=device)
+    assert a.blocks.shape[0] == a.num_blocks + 1
+    return a
+
+
+@pytest.mark.parametrize("d", [70, 512])
+@pytest.mark.parametrize("bm,bk", CANDIDATES)
+def test_bsr_sddmm_at_every_planner_blocking(cuda, bm, bk, d):
+    """The planner's blockings on a 1000 x 700 mask (no blocking divides mq
+    or mk; bm = 256 is two 128-row slices a block) with a pad block row,
+    random Q and K: within 1e-5 of the f64 plain version, the pad block
+    zero, and the same bits on two calls."""
+    mask = positive(random_csr(1000, 700, 0.02, seed=31))
+    a = pad_one_block(mask, bm, bk, cuda)
+    q, k = operand((1000, d), 32, cuda), operand((700, d), 33, cuda)
+    got = bsr_sddmm(a, q, k)
+    assert_close(got, bsr_sddmm_plain(a, q.double(), k.double()))
+    assert not got[a.num_blocks:].any()
+    assert torch.equal(bsr_sddmm(a, q, k), got)
+
+
+@pytest.mark.parametrize("bm,bk", CANDIDATES)
+def test_bsr_sddmm_4096_decay_at_every_planner_blocking(cuda, bm, bk):
+    """The study's ragged mask: 4096^2 band_and_decay at sparsity 0.95,
+    whose far-band blocks are empty, at d = 512."""
+    mask = create_mask("band_and_decay", 4096, 0.95, seed=14)
+    a = DeviceBSR.from_csr(mask, bm=bm, bk=bk, device=cuda)
+    q, k = operand((4096, 512), 34, cuda), operand((4096, 512), 35, cuda)
+    assert_close(bsr_sddmm(a, q, k), bsr_sddmm_plain(a, q.double(),
+                                                     k.double()))
+
+
+def test_sddmm_coo_holds_its_chunk_budget(cuda, monkeypatch):
+    """A 2048^2 mask at sparsity 0.5 (4.2M nnz) at d = 64 would gather 2.1
+    GB of Q and K rows unchunked; at a 64 MB budget a call's peak stays
+    within the budget, its output and the chunk's row indices. Its values
+    are the CPU's, and two calls give the same bits."""
+    from spgrid_torch.ops import xla
+    from spgrid_torch.ops.layouts import DeviceCOO
+    mask = create_mask("band_and_random", 2048, 0.5, seed=14)
+    q, k = operand((2048, 64), 42, cuda), operand((2048, 64), 43, cuda)
+    coo = DeviceCOO.from_csr(mask, device=cuda)
+    budget = 64 << 20
+    monkeypatch.setattr(xla, "SDDMM_CHUNK_BYTES", budget)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    got = xla.sddmm_coo(coo, q, k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    chunk = xla.sddmm_chunk(64)
+    assert -(-mask.nnz // chunk) >= 3
+    assert peak <= budget + got.numel() * 4 + 32 * chunk + (1 << 20)
+    want = xla.sddmm_coo(DeviceCOO.from_csr(mask, device="cpu"), q.cpu(),
+                         k.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert torch.equal(xla.sddmm_coo(coo, q, k), got)
+
+
+def test_sddmm_and_pipeline_rows_launch_the_kernels(cuda, monkeypatch):
+    """``run_sddmm`` and ``run_pipeline`` on the card launch ``bsr_sddmm``
+    and ``bsr_spmm`` and never their plain versions."""
+    from spgrid_torch.bench import harness
+    from spgrid_torch.core.config import BenchConfig
+    from spgrid_torch.ops.kernels import bsr_spmm as spmm_module
+    from spgrid_torch.ops.kernels import sddmm as sddmm_module
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(sddmm_module, "bsr_sddmm_plain", refuse)
+    monkeypatch.setattr(spmm_module, "bsr_spmm_plain", refuse)
+    cfg = BenchConfig(num_cols=64, min_time_s=0.01, min_iters=2,
+                      warmup_iters=1)
+    before = launch_counts()
+    row = harness.run_sddmm(512, cfg, device=cuda)
+    moved = launch_counts()["bsr_sddmm"] - before["bsr_sddmm"]
+    assert row["errors_passed"] == 1 and moved > 0
+    assert row["kernel"] == "sddmm_cuda"
+    w = positive(random_csr(256, 256, 0.3, seed=36))
+    before = launch_counts()
+    row = harness.run_pipeline(w, w, w, config=cfg, device=cuda)
+    after = launch_counts()
+    assert row["errors_passed"] == 1 and row["kernel"] == "pipeline_cuda"
+    assert after["bsr_spmm"] > before["bsr_spmm"]
+    assert after["bsr_sddmm"] > before["bsr_sddmm"]
 
 
 def flagship_layouts(device):

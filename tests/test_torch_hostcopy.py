@@ -18,12 +18,13 @@ import spgrid.formats.bsr as jax_bsr
 import spgrid.formats.csr as jax_csr
 import spgrid.formats.sell as jax_sell
 import spgrid.gen as jax_gen
+import spgrid.gen.masks as jax_masks
 import spgrid.io.mtx as jax_mtx
 import spgrid.io.smtx as jax_smtx
 from spgrid_torch.bench import schema
 from spgrid_torch.formats import bsr, csr, sell
 from spgrid_torch.gen import artificial, masks, params
-from spgrid_torch.io import read_matrix
+from spgrid_torch.io import read_matrix, smtx
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
 # a worker keeps these small CPU tensors from oversubscribing them.
@@ -170,6 +171,27 @@ def test_bench_row_schema_equals_jax(tmp_path):
             == (tmp_path / "jax.csv").read_text())
 
 
+def test_write_smtx_equals_jax(tmp_path):
+    """The same file, byte for byte, and read back as written."""
+    a = jax_csr.random_csr(50, 40, 0.1, seed=6)
+    smtx.write_smtx(str(tmp_path / "port.smtx"), a)
+    jax_smtx.write_smtx(str(tmp_path / "jax.smtx"), a)
+    assert ((tmp_path / "port.smtx").read_bytes()
+            == (tmp_path / "jax.smtx").read_bytes())
+    back = read_matrix(str(tmp_path / "port.smtx"))
+    np.testing.assert_array_equal(back.row_ptr, a.row_ptr)
+    np.testing.assert_array_equal(back.col_idx, a.col_idx)
+
+
+@pytest.mark.parametrize("length,sparsity,val_bytes,idx_bytes", [
+    (4096, 0.5, 4, 4), (4096, 0.98, 4, 4), (333, 0.9, 2, 8)])
+def test_mask_mem_footprint_equals_jax(length, sparsity, val_bytes,
+                                       idx_bytes):
+    assert (masks.mask_mem_footprint(length, sparsity, val_bytes, idx_bytes)
+            == jax_masks.mask_mem_footprint(length, sparsity, val_bytes,
+                                            idx_bytes))
+
+
 def test_matrix_readers_equal_jax(tmp_path):
     a = jax_csr.random_csr(50, 40, 0.1, seed=6)
     jax_mtx.write_mtx(str(tmp_path / "a.mtx"), a)
@@ -248,6 +270,10 @@ COPIES = [
      ("twin_params",), ("csr: CSRMatrix", "csr")),
     ("spgrid_torch.ops.rbh", "spgrid.ops.rbh", ("_block_counts", "_hi_mask"),
      None),
+    # the JAX module binds C at import; the port reads costmodel.C a call
+    ("spgrid_torch.ops.sddmm_plan", "spgrid.ops.sddmm_plan",
+     ("block_occupancy", "reachable_blocks", "_est_time",
+      "choose_sddmm_blocks"), ("C.", "costmodel.C.")),
 ]
 
 
