@@ -93,6 +93,14 @@ exits non-zero and never prints the final ``"ok": true`` line:
    128x512, 256x128, 256x256; ``SDDMM_BLOCKINGS``) on the 4096^2
    band_and_decay mask at sparsity 0.95 and on a 1000^2 mask with pad
    blocks, each printed with its grid, 3xTF32 floor and device ms.
+   The bf16 form of the panel kernel (``panel_spmm_bf16``, ``cv_panel``:
+   bf16 panels, X rounded to bf16 on the card, one mma.sync bf16 product a
+   step) runs on the headline twin (with the device ms at each cluster
+   size), LINE_B, the banded matrix with empty rows at n=200 and the
+   4096^2 case, held to its plain version in f64 on the same bf16
+   operands; its bound counts 2 bytes a panel value and bf16's 989
+   TFLOP/s, its library call is ``torch.sparse.mm`` on the bf16 values as
+   an f32 CSR times X rounded to bf16.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -106,8 +114,10 @@ exits non-zero and never prints the final ``"ok": true`` line:
    wcoo_bands_cuda at n=512, wrow_spmv_cuda and wcoo_spmv_cuda at n=1, and
    the torch-op formats coo, sell, merge, gell, gell16 and cv_gell at
    n=512; then coo, sell, merge and gell on ``LINE_B`` at n=512; each row
-   gated against the host f64 oracle at eps 1e-4, gell16 and cv_gell on
-   the X they gather (their gate class, printed with each row).
+   gated at eps 1e-4, gell16 and cv_gell on the X they gather (their gate
+   class, printed with each row beside where the gate ran: on the card
+   for a result past 32 MB, the harness's ``oracle="auto"``, else on the
+   host).
 5. scattered and block-grid CLI: the CLI on the matrices the JAX package
    ran these kernels on: ``LINE_B`` (8192^2, 316 blocks of 128^2) with
    bsrc_cuda and bsr_cuda at n=512, ``LINE_S`` (100000^2, 2.1M scattered
@@ -123,7 +133,8 @@ exits non-zero and never prints the final ``"ok": true`` line:
    a full WPACK form off its f64 product) fails the run.
 7. dispatch: cost-model dispatch (``ops/costmodel.py``, ``ops/rbh.py``,
    ``dispatch.select_format``/``autotune_spmm``) on the headline's twin,
-   ``LINE_B``, ``MAIN_LINE`` and the mac_econ twin at n=512: rbh's split on each (its SplitStats, residual format and
+   ``LINE_B``, ``MAIN_LINE``, the mac_econ twin and r3_scat_393k at n=512,
+   the big rows gated on the card (``oracle="auto"``): rbh's split on each (its SplitStats, residual format and
    coverage blocks), then ``run_spmm`` for every AUTO candidate the cost
    model finds applicable, auto and autotune (auto_tol on MAIN_LINE,
    gemm_bound on the twin), each row gated and printed with its predicted
@@ -148,13 +159,31 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``--sddmm 4096 --num-cols 512`` and ``--pipeline`` on three twins
    written as .smtx (sparsity 0.9), each with and without ``--xla-only``,
    one gated row each; then the phase's seconds.
+10. the remaining formats (after phase 9): the CLI at n=512 on the JAX
+   CLI's formats no earlier phase runs: ell, csc, cv_bf16, cv_int8, scoo,
+   csr_xla_coo and ell_xla on MAIN_LINE and LINE_B; cv_panel_cuda on the
+   headline twin (written as .smtx) and LINE_B; ldu on an 8192^2 matrix
+   with a symmetric pattern written as .mtx and read through --matrix;
+   bsr_cuda on LINE_B under --reorder rcm, shuffle and degsort; every row
+   gated and printed with its gate class and site. Then one row of each
+   gate class (coo, gell16 and cv_int8 on MAIN_LINE, cv_panel_cuda on
+   LINE_B) gated on the host and on the card, the metrics side by side;
+   the run fails where they differ past ``device_oracle.disagreements``'
+   bounds (1e-12 relative; lnQ_error, mlare and gmare within the card's
+   and numpy's log10 differing in the last place).
+
+Each phase prints its seconds. ``SPGRID_ORACLE=host python3 chip_smoke.py``
+gates every row of phases 4, 5, 7 and 10 on the host (phase 10's pairs
+excepted): the A/B of the device gate's seconds.
 
 The launch counts are set to 0 before phases 2-3 (the headline and
 flagship path), before phase 4 (the CLI path), before phase 5 (the
 scattered and block-grid path), before phase 6 (the probe path), before
 phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
-bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows) and before phase 9
-(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``), and read after each; a
+bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), before phase 9
+(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``) and before phase 10 (the
+remaining formats: ``panel_spmm_bf16`` and ``bsr_spmm``), and read after
+each; a
 kernel of a path that was not launched there fails the run, and a
 kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
@@ -224,6 +253,9 @@ TF32_FLOPS_PER_S = 495e12
 # the tensor cores (three TF32 products a flop, 165 TFLOP/s), above the
 # CUDA cores' 67 TFLOP/s of f32 FMA.
 F32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
+# bf16 on the tensor cores, dense: the bound of the bf16 panel form, whose
+# products are exact bf16 x bf16 in f32 sums (one product a flop)
+BF16_FLOPS_PER_S = 989e12
 
 def card_line() -> str:
     out = subprocess.run(
@@ -338,10 +370,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: float, flops: float):
-    """(least ms the card could take, "bytes" or "operations")."""
+def bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS_PER_S):
+    """(least ms the card could take, "bytes" or "operations"), the
+    operations at ``rate`` a second."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -382,8 +415,10 @@ def phase_kernels() -> dict:
     from spgrid_torch.ops.kernels.pallas_gather import launch as gather_launch
     from spgrid_torch.ops.kernels.spmv_ablate import (
         VARIANTS, spmv_ablate, spmv_ablate_plain)
+    from spgrid_torch.formats.cv import csr_to_cv, cv_to_csr
     from spgrid_torch.ops.kernels.panel_spmm import (
-        DevicePanels, panel_spmm, panel_spmm_plain)
+        DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_plain)
+    from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
     from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
     from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
@@ -486,17 +521,39 @@ def phase_kernels() -> dict:
         x = case[2][1]
         y = torch.empty((a.shape[0], n), device=DEVICE)
 
-        def at_cluster(c):
-            _build.check(_build.library().spgrid_panel_spmm(
-                a.counts.data_ptr(), a.block_cols.data_ptr(),
-                a.panels.data_ptr(), x.data_ptr(), y.data_ptr(), a.bands,
-                a.max_p, a.band_rows, a.bk, *a.shape, n, c,
-                torch.cuda.current_stream().cuda_stream), "panel_spmm")
-
         note = block_note(panel_grid(a, n),
                           2.0 * a.num_panels * a.band_rows * a.bk * n,
-                          at_cluster if sweep else None)
+                          (lambda c: panel_launch(a, x, y, c)) if sweep
+                          else None)
         return case + (REL_TOL, f"R={a.band_rows} bands={a.bands} {note}")
+
+    def panel_bf16_case(csr, n, seed, sweep=False):
+        # the bf16 form (cv_panel): bf16 panels (2 B a value), X read in f32
+        # and rounded on the card; held to the plain version in f64 on the
+        # same bf16 operands; the library yardstick is torch.sparse.mm on
+        # the bf16 values as an f32 CSR, times X rounded to bf16, in f32
+        a = DevicePanels.from_csr(csr, bk=128, device=DEVICE).as_bf16()
+        x = rand((a.shape[1], n), seed)
+        y = torch.empty((a.shape[0], n), device=DEVICE)
+        deq = cv_to_csr(csr_to_cv(csr, "bf16"))
+        xq = x.to(torch.bfloat16).to(torch.float32)
+        flops = 2.0 * a.num_panels * a.band_rows * a.bk * n
+        g = panel_grid(a, n)        # the f32 form's launch; no ring here
+        note = (f"R={a.band_rows} bands={a.bands} grid={g.ctas} CTAs "
+                f"({g.tiles} tiles of {g.rows}x{g.cols} x cluster "
+                f"{g.cluster}) steps of {g.step}, no ring "
+                f"tensor_floor_ms={flops / BF16_FLOPS_PER_S * 1e3:.6f} "
+                f"(bf16, one mma.sync a step)")
+        if sweep:
+            note += " device_ms_by_cluster " + " ".join(
+                f"{c}:{device_ms(lambda c=c: panel_launch(a, x, y, c)):.6f}"
+                for c in (1, 2, 4, 8))
+        return (panel_spmm_bf16, panel_spmm_plain, (a, x), (a, x.double()),
+                torch.sparse.mm, (csr_tensor(deq), xq),
+                csr.nnz * (2 + 4) + nbytes(x) + 4 * a.shape[0] * n,
+                2.0 * csr.nnz * n, REL_TOL, note + " library=torch.sparse.mm"
+                "(f32 CSR of the bf16 values, bf16-rounded X)",
+                BF16_FLOPS_PER_S)
 
     def sddmm_case(m, bm, d, seed, sweep=False, bk=128, pad_multiple=1):
         # reads Q, K and the mask's column indices; writes one value a
@@ -911,6 +968,14 @@ def phase_kernels() -> dict:
          lambda: panel_case(banded, 200, 3)),
         ("panel_spmm", "4096^2 50% n=512", False,
          lambda: panel_case(big, 512, 4)),
+        ("panel_spmm_bf16", "headline 512^2 n=512", True,
+         lambda: panel_bf16_case(head, 512, 1, sweep=True)),
+        ("panel_spmm_bf16", f"{b_label} n=512", False,
+         lambda: panel_bf16_case(line_b, 512, 12)),
+        ("panel_spmm_bf16", "banded 1000^2 empty rows n=200", False,
+         lambda: panel_bf16_case(banded, 200, 3)),
+        ("panel_spmm_bf16", "4096^2 50% n=512", False,
+         lambda: panel_bf16_case(big, 512, 4)),
         ("bsr_sddmm", "pipeline mask 512^2 s=0.9 bm=128 d=512", True,
          lambda: sddmm_case(mask, 128, 512, 5, sweep=True)),
         ("bsr_sddmm", "banded 1000^2 empty block rows bm=8 d=200", False,
@@ -1048,6 +1113,7 @@ def phase_kernels() -> dict:
          flops, *tail) = make()
         tol = tail[0] if tail else REL_TOL
         note = f"{tail[1]} " if len(tail) > 1 else ""
+        rate = tail[2] if len(tail) > 2 else F32_FLOPS_PER_S
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args64)
@@ -1063,7 +1129,7 @@ def phase_kernels() -> dict:
         # can be captured in a graph: the factor rule-2 work is judged by
         lib_dev = (library_device_ms(library, *lib_args)
                    if on_path and library is not None else None)
-        b_ms, b_by = bound(bytes_moved, flops)
+        b_ms, b_by = bound(bytes_moved, flops, rate)
         ok = bool(torch.isfinite(out).all()) and rel <= tol
         print(f"phase 1 kernels: {name} [{label}] max_rel={rel:.3e} "
               f"(tol {tol:g}) max_abs={err:.3e} kernel_ms={k_ms:.6f} "
@@ -1142,28 +1208,41 @@ def phase_flagship() -> None:
         raise RuntimeError("run_pipeline failed gold_pipeline at eps 1e-3")
 
 
+def gate_line(r, config=None) -> str:
+    """A row's gate: its class and where it ran (the config's ``oracle``;
+    the CLI's is the environment's, 'auto' by default)."""
+    from spgrid_torch.bench.harness import gate_site, gold_class
+    from spgrid_torch.core.config import BenchConfig
+    site = gate_site(int(r["csr_m"]), int(r["input_columns"]),
+                     config or BenchConfig.from_env(), torch.device(DEVICE))
+    return f"gate={gold_class(r['fmt'])} on the {site}"
+
+
 def cli_rows(phase: str, runs) -> list:
     """``python -m spgrid_torch.bench`` (its ``main``) once for each
-    (line, kernels, n) of ``runs`` into one CSV; every row must pass its
-    gate. Returns the rows."""
+    (source, kernels, n) of ``runs`` into one CSV; a source is a parameter
+    line or the CLI's arguments that name the matrix (``--matrix``, and
+    ``--generate`` with ``--reorder``). Every row must pass its gate.
+    Returns the rows."""
     from spgrid_torch.bench.cli import main as cli_main
-    from spgrid_torch.bench.harness import gold_class
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rows.csv")
-        for line, kernels, n in runs:
-            code = cli_main(["--generate", line, "--kernels", kernels,
-                             "--num-cols", n, "--out", out,
-                             "--platform", DEVICE])
+        for source, kernels, n in runs:
+            args = (["--generate", source] if isinstance(source, str)
+                    else list(source))
+            code = cli_main(args + ["--kernels", kernels, "--num-cols", n,
+                                    "--out", out, "--platform", DEVICE])
             if code != 0:
                 raise RuntimeError(f"the CLI exited {code} on {kernels}")
         rows = read_csv(out)
     for r in rows:
-        print(f"{phase}: {r['kernel']} n={r['input_columns']} "
+        print(f"{phase}: {r['matrix_name']} {r['kernel']} "
+              f"n={r['input_columns']} "
               f"nnz={r['csr_nnz']} gflops={r['gflops']} time_s={r['time']} "
               f"iters={r['iters']} gbytes_per_s={r['gbytes_per_s']} "
               f"sol_time={r['sol_time']} max_ae={r['max_ae']} "
-              f"fmt={r['fmt']} gate={gold_class(r['fmt'])} "
+              f"fmt={r['fmt']} {gate_line(r)} "
               f"errors_passed={r['errors_passed']}", flush=True)
     want = sum(len(kernels.split(",")) for _, kernels, _ in runs)
     if len(rows) != want or not all(r["errors_passed"] == "1" for r in rows):
@@ -1276,14 +1355,17 @@ def phase_eager_ab() -> None:
 
 
 # The dispatch phase's matrices: the headline's DLMC twin, LINE_B,
-# MAIN_LINE, and the mac_econ twin the JAX package ran rbh on
-# (scripts/exp_reorder.py:61), each at n = 512. The r3_scat_393k twin
-# (scripts/exp_reorder.py:43) is left out: the host's f64 gate of its
-# 393215 x 512 rows took 228 s of the phase on an H100 (PERF.md).
+# MAIN_LINE, the mac_econ twin the JAX package ran rbh on
+# (scripts/exp_reorder.py:61) and its scattered class centrepiece
+# r3_scat_393k (:43), each at n = 512. Rows whose f32 result passes 32 MB
+# are gated on the card (``oracle="auto"``): the host's f64 gates of
+# r3_scat_393k's 393215 x 512 rows took 228 s of the phase (PERF.md).
 MAC_ECON = ("206500 206500 6.16653 4.43586 normal random 0.00191 6.13529 "
             "0.17669 0.33051 14")
+R3_SCAT = "393215 393215 5 1.6667 normal random 0.5 0 0.5 0.75 14"
 DISPATCH_LINES = (("headline", None), ("LINE_B", LINE_B),
-                  ("MAIN_LINE", MAIN_LINE), ("mac_econ_fwd500_twin", MAC_ECON))
+                  ("MAIN_LINE", MAIN_LINE), ("mac_econ_fwd500_twin", MAC_ECON),
+                  ("r3_scat_393k", R3_SCAT))
 DISPATCH_ROWS: list = []     # the dispatch path's rows, for the calibration
 DISPATCH_N = 512
 DISPATCH_TIME_S = 0.1   # the rows' minimum timed seconds
@@ -1337,8 +1419,8 @@ def dispatch_rows() -> list:
     from spgrid_torch.features import matrix_features
     from spgrid_torch.ops import costmodel
 
-    config = BenchConfig(num_cols=DISPATCH_N, min_time_s=DISPATCH_TIME_S,
-                         warmup_iters=3)
+    config = BenchConfig.from_env(num_cols=DISPATCH_N,
+                                  min_time_s=DISPATCH_TIME_S, warmup_iters=3)
     rows = []
     for label, line in DISPATCH_LINES:
         t0 = time.perf_counter()
@@ -1355,6 +1437,7 @@ def dispatch_rows() -> list:
                   f"time_s={row['time']:.9f} predicted_s={pred:.9f} "
                   f"measured/predicted={row['time'] / pred:.3f} "
                   f"gflops={row['gflops']:.3f} max_ae={row['max_ae']:.3e} "
+                  f"{gate_line(row, config)} "
                   f"errors_passed={row['errors_passed']}", flush=True)
             if not row["errors_passed"]:
                 raise RuntimeError(f"dispatch row {label} {kernel} "
@@ -1655,12 +1738,140 @@ def phase_sddmm() -> None:
     print(f"phase 9 sddmm: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 10: the JAX CLI's remaining SpMM formats at n = 512 (the torch-op
+# formats on MAIN_LINE and LINE_B, the bf16 panel kernel on the headline
+# twin and LINE_B, ldu on a symmetric pattern read from .mtx, each order
+# of --reorder on LINE_B with bsr_cuda), timed for at least FORMATS_TIME_S
+TORCH_OPS = "ell,csc,cv_bf16,cv_int8,scoo,csr_xla_coo,ell_xla"
+FORMATS_TIME_S = "0.1"
+LDU_SIDE = 8192          # the symmetric matrix's side: LINE_B's
+LDU_DENSITY = 0.006      # ~50 nnz a row, as LINE_B's
+LOG10_SAMPLE = 1 << 22   # values phase 10 takes log10 of on both sides
+
+
+def symmetric_matrix(m=None, density=LDU_DENSITY, seed=19):
+    """m x m (default ``LDU_SIDE``) with a symmetric pattern and unequal
+    values (entry (i, j) and (j, i) differ), a full diagonal: the LDU
+    format's class."""
+    from spgrid_torch.formats.csr import COOMatrix, coo_to_csr
+    m = LDU_SIDE if m is None else m
+    rng = np.random.default_rng(seed)
+    draws = int(m * m * density)        # about half land above the diagonal
+    i, j = rng.integers(0, m, draws), rng.integers(0, m, draws)
+    keep = i < j
+    i, j = i[keep], j[keep]
+    rows = np.concatenate([i, j, np.arange(m)])
+    cols = np.concatenate([j, i, np.arange(m)])
+    vals = (rng.random(len(rows)) + 0.5).astype(np.float32)
+    return coo_to_csr(COOMatrix(rows, cols, vals, (m, m), "symmetric"),
+                      sum_duplicates=True)
+
+
+def both_gates(label, csr, kernel) -> None:
+    """One row of ``kernel`` on ``csr`` at n = 512, gated on the host and on
+    the card: the metrics side by side; the run fails where they differ by
+    more than ``device_oracle.disagreements``' bounds."""
+    from spgrid_torch.bench import harness
+    from spgrid_torch.core.config import BenchConfig
+    from spgrid_torch.core.device_oracle import disagreements
+    from spgrid_torch.ops import dispatch
+
+    n = 512
+    fmt = harness.KERNELS[kernel]
+    x, xd = harness._cached_x(csr, n, "float32", BenchConfig.seed,
+                              torch.device(DEVICE))
+    test = dispatch.spmm_fn(fmt)(dispatch.build(csr, fmt, device=DEVICE), xd)
+    gates, secs = {}, {}
+    for site in ("host", "device"):
+        t0 = time.perf_counter()
+        gates[site] = harness.gate(csr, fmt, test, x, xd, BenchConfig(
+            num_cols=n, oracle=site), DEVICE)
+        torch.cuda.synchronize()
+        secs[site] = time.perf_counter() - t0
+    h, d = gates["host"], gates["device"]
+    fields = ("mae", "max_ae", "mse", "mape", "smape", "lnQ_error", "mlare",
+              "gmare", "max_rel_diff")
+    side = " ".join(f"{f}={getattr(h, f)!r}/{getattr(d, f)!r}"
+                    for f in fields)
+    bad = disagreements(h, d)
+    print(f"phase 10 gates: {label} {kernel} gate={harness.gold_class(fmt)} "
+          f"host/device {side} passed={h.passed}/{d.passed} "
+          f"host_s={secs['host']:.2f} device_s={secs['device']:.2f} "
+          f"{'AGREE' if not bad else 'DIFFER ' + ','.join(bad)}",
+          flush=True)
+    if bad or not h.passed:
+        raise RuntimeError(f"phase 10: {kernel} on {label}: the gates "
+                           f"differ in {bad} or failed")
+
+
+def phase_formats() -> None:
+    """Phase 10, the remaining formats: the CLI at n = 512 on every format
+    the JAX CLI names that earlier phases do not run, each row gated and
+    printed with its gate class and site; then one row of each gate class
+    (exact, gell16, cv_int8, cv_panel) gated on both sides."""
+    from spgrid_torch.bench.headline import headline_matrix
+    from spgrid_torch.io import write_mtx, write_smtx
+
+    t0 = time.perf_counter()
+    before = os.environ.get("SPGRID_MIN_TIME_S")
+    os.environ["SPGRID_MIN_TIME_S"] = FORMATS_TIME_S
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            head = os.path.join(tmp, "dlmc_twin_512.smtx")
+            write_smtx(head, headline_matrix())
+            sym = os.path.join(tmp, f"symmetric_{LDU_SIDE}.mtx")
+            write_mtx(sym, symmetric_matrix())
+            cli_rows("phase 10 formats", (
+                (MAIN_LINE, TORCH_OPS, "512"),
+                (LINE_B, TORCH_OPS, "512"),
+                (["--matrix", head], "cv_panel_cuda", "512"),
+                (LINE_B, "cv_panel_cuda", "512"),
+                (["--matrix", sym], "ldu", "512"),
+                *((["--generate", LINE_B, "--reorder", order], "bsr_cuda",
+                   "512") for order in ("rcm", "shuffle", "degsort"))))
+    finally:
+        if before is None:
+            del os.environ["SPGRID_MIN_TIME_S"]
+        else:
+            os.environ["SPGRID_MIN_TIME_S"] = before
+    hyper, line_b = line_matrix(MAIN_LINE), line_matrix(LINE_B)
+    for label, csr, kernel in (("MAIN_LINE", hyper, "coo"),
+                               ("MAIN_LINE", hyper, "gell16"),
+                               ("MAIN_LINE", hyper, "cv_int8"),
+                               ("LINE_B", line_b, "cv_panel_cuda")):
+        both_gates(label, csr, kernel)
+    log10_line(hyper)
+    print(f"phase 10 formats: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def log10_line(csr) -> None:
+    """How often the card's f64 log10 and numpy's differ, on the values
+    lnQ_error takes the log of: ``csr``'s gold at n = 512 (the exact class,
+    ``LOG10_SAMPLE`` values) and those values rounded to f32."""
+    from spgrid_torch.bench import harness
+    from spgrid_torch.core.config import BenchConfig
+    gold = harness._cached_device_oracle(csr, "coo", DEVICE).gold(
+        harness._cached_x(csr, 512, "float32", BenchConfig.seed,
+                          torch.device(DEVICE))[1])
+    a = gold.reshape(-1)[:LOG10_SAMPLE].abs().clamp(min=1e-4)
+    parts = []
+    for name, v in (("gold", a), ("f32", a.float().double())):
+        card = torch.log10(v).cpu().numpy()
+        host = np.log10(v.cpu().numpy())
+        parts.append(f"{name} {int((card != host).sum())} of {v.numel()}")
+    print(f"phase 10 log10: card and numpy differ on {', '.join(parts)} "
+          f"values (numpy {np.__version__})", flush=True)
+
+
 # kernel -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
                  "spgrid/ops/pallas/bsr_spmm.py:44"),
     "panel_spmm": ("spgrid_torch/csrc/panel_spmm.cu",
                    "spgrid/ops/pallas/panel_spmm.py:126"),
+    # the same Pallas body with bf16 panels (cv_panel, its :133-138)
+    "panel_spmm_bf16": ("spgrid_torch/csrc/panel_spmm.cu",
+                        "spgrid/ops/pallas/panel_spmm.py:126"),
     "bsr_sddmm": ("spgrid_torch/csrc/sddmm.cu",
                   "spgrid/ops/pallas/sddmm.py:31"),
     "wcoo_spmm": ("spgrid_torch/csrc/wcoo_spmm.cu",
@@ -1702,6 +1913,7 @@ PATHS = (
       "wpack_ablate")),
     ("dispatch", (phase_dispatch,), ("bsr_spmm", "panel_spmm")),
     ("SDDMM and the CLI's modes", (phase_sddmm,), ("bsr_sddmm", "bsr_spmm")),
+    ("remaining formats", (phase_formats,), ("panel_spmm_bf16", "bsr_spmm")),
 )
 
 
@@ -1727,13 +1939,18 @@ def main() -> int:
             entry = line.split("'")[1]
             print(f"phase 0 ptxas: entry {entry}", flush=True)
 
+    t0 = time.perf_counter()
     main_path = phase_kernels()
+    print(f"phase 1 kernels: {time.perf_counter() - t0:.1f} s", flush=True)
 
     launches = {}
     for path, phases, kernels in PATHS:
         reset_launch_counts()
         for phase in phases:
+            t0 = time.perf_counter()
             phase()
+            print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         counts = launch_counts()
         never = [k for k in kernels if counts[k] == 0]
         if never:

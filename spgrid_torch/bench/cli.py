@@ -5,12 +5,20 @@ with the same flags and the same CSV schema. It runs on the CUDA device;
 ``--platform cpu`` runs the kernels' plain versions on the CPU instead.
 Without a CUDA device and without ``--platform cpu`` it exits non-zero. It
 also exits non-zero when a row fails its accuracy gate or its run.
-``--reorder`` and a ``--dtype`` other than float32 are not ported yet.
+``--reorder rcm|shuffle|degsort`` permutes each matrix's rows first
+(``formats.reorder``; the matrix's name gains ``_<order>``). A ``--dtype``
+other than float32 is not ported yet.
 
 Examples:
   # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
   python -m spgrid_torch.bench --generate "65535 65535 5 1.6667 normal \
       random 0.05 0 0.05 0.05 14" --kernel wcoo_cuda --num-cols 512
+
+  # the JAX CLI's torch-op formats and the bf16 panel kernel, on the
+  # rows in reverse Cuthill-McKee order
+  python -m spgrid_torch.bench --generate "8192 8192 50 10 normal random \
+      0.05 0 0.05 0.05 14" --kernels csr_xla_coo,ell_xla,csc,scoo,cv_bf16,\
+cv_int8,cv_panel_cuda --reorder rcm --num-cols 512
 
   # the cost model's pick, the fastest measured format, the hybrid
   python -m spgrid_torch.bench --generate "206500 206500 6.16653 4.43586 \
@@ -43,6 +51,9 @@ import sys
 from spgrid_torch.bench.schema import BenchRow, CSVWriter
 from spgrid_torch.bench.sweep import iter_matrices, run_sweep
 from spgrid_torch.core.config import BenchConfig
+from spgrid_torch.formats.reorder import (
+    degree_sort_order, permute, rcm_order, shuffle_order,
+)
 from spgrid_torch.gen.params import GenParams, read_param_file
 from spgrid_torch.bench.harness import KERNELS
 
@@ -89,7 +100,8 @@ def main(argv=None) -> int:
     ap.add_argument("--band-size", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--reorder", default=None,
-                    choices=["rcm", "shuffle", "degsort"], help=NOT_PORTED)
+                    choices=["rcm", "shuffle", "degsort"],
+                    help="permute each matrix's rows first")
     ap.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default), or cpu for the kernels' plain "
                          "versions")
@@ -99,11 +111,8 @@ def main(argv=None) -> int:
         print(BenchRow.header())
         return 0
 
-    for flag, given in (("--reorder", args.reorder),
-                        ("--dtype " + str(args.dtype),
-                         args.dtype not in (None, "float32"))):
-        if given:
-            ap.error(f"{flag}: {NOT_PORTED}")
+    if args.dtype not in (None, "float32"):
+        ap.error(f"--dtype {args.dtype}: {NOT_PORTED}")
     modes = bool(args.sddmm or args.pipeline)
     if args.xla_only and not modes:
         ap.error("--xla-only needs --sddmm or --pipeline")
@@ -180,9 +189,27 @@ def sweep_rows(ap, args, config: BenchConfig, kernels, num_cols) -> list:
 
     matrices = iter_matrices(params=params, paths=args.matrix,
                              dtype=config.dtype)
+    if args.reorder:
+        matrices = reordered(matrices, args.reorder, config.seed)
     return run_sweep(matrices, kernels=kernels, num_cols_list=num_cols,
                      config=config, out_csv=args.out,
                      check_accuracy=not args.no_check, device=args.platform)
+
+
+def reordered(matrices, order: str, seed: int):
+    """Each matrix with its rows permuted by ``order`` (reverse
+    Cuthill-McKee, a seeded shuffle, or by degree, descending), named
+    ``<name>_<order>``: the JAX CLI's ``--reorder``."""
+    for csr in matrices:
+        if order == "rcm":
+            perm = rcm_order(csr)
+        elif order == "shuffle":
+            perm = shuffle_order(csr, seed=seed)
+        else:
+            perm = degree_sort_order(csr)
+        out = permute(csr, perm)
+        out.name = f"{csr.name}_{order}"
+        yield out
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ that ran (``dispatch.JAX_NAME``), so the CSV joins the JAX package's on
 ``fmt`` and the cost model can fit it; the gate's class is the format's,
 whatever the kernel's name.
 
+The gate (eps 1e-4 at f32) holds a row to the f64 product of its gate class
+(``gold_class``): the exact class on A and X; ``gell16`` and ``cv_gell`` on
+the X they gather; ``cv_bf16`` and ``cv_int8`` on A's dequantized values;
+``cv_panel`` on A's bf16 values and X rounded to bf16 (``gate_csr``,
+``gate_x``). It runs where the config's ``oracle`` says (``gate_site``):
+on the host (``core.metrics``, the definition) or on the result's device
+(``core.device_oracle``, whose gold is the host's bit for bit), the device
+by default on the card once the result passes ``DEVICE_GATE_BYTES``.
+
 On the card a call is timed by the config's ``timing_protocol``: 'graph'
 (the default) replays calls captured in a CUDA graph, so the time is the
 device's, as the JAX harness's fused chained loop measures it; 'eager'
@@ -36,12 +45,14 @@ import torch
 from spgrid_torch.formats.csr import CSRMatrix
 from spgrid_torch.gen.masks import create_mask
 from spgrid_torch.core.config import BenchConfig
+from spgrid_torch.core.device_oracle import DeviceOracle
 from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
 from spgrid_torch.core.roofline import (
     chip_for_name, csr_bytes, gemm_flops, roofline_time, spmm_flops,
 )
 from spgrid_torch.core.timing import time_kernel, time_kernel_graph
 from spgrid_torch.features import matrix_features, value_features
+from spgrid_torch.formats.cv import csr_to_cv, cv_to_csr
 from spgrid_torch.ops import costmodel, dispatch
 from spgrid_torch.ops.gell import gathered_x
 from spgrid_torch.ops.attention import (
@@ -59,10 +70,13 @@ GRAPH_BYTES = 2 << 30       # their outputs' bytes, at most (2 calls apart)
 ROOFLINE_FRAC_CAP = 9.99    # as the JAX harness writes roofline_frac
 VALUE_SAMPLE = 1 << 20      # values the value features read, at most
 GOLD_CACHE = 2              # f64 golds kept a matrix (m n 8 bytes each)
+DEVICE_GATE_BYTES = 32 << 20  # an f32 result past this is gated on the card
 SDDMM_GOLD_BYTES = 1 << 28  # a block of rows' f64 scores in the SDDMM gold
 
 # kernel name -> the port's format it runs; None where dispatch picks it
 KERNELS = {**{fmt: fmt for fmt in dispatch.FORMATS},
+           "csr_xla_coo": "coo",      # the JAX harness's names of coo
+           "ell_xla": "ell",          # and ell
            "bsr_xla": "bsr",          # the batched block product, torch ops
            "gemm_bound": "dense",     # dense GEMM bound (dense flop count)
            "auto": None,              # the cost model's pick
@@ -100,20 +114,52 @@ def _f32_only(config: BenchConfig) -> None:
 
 
 def gold_class(fmt: str) -> str:
-    """The row's gate class, as the JAX harness names it: ``gell16`` and
-    ``cv_gell`` gate on the X they gather; every other format is
+    """The row's gate class, as the JAX harness names it, for a format named
+    as the port or the JAX package names it: ``gell16``, ``cv_gell`` and
+    the ``cv_*`` formats are their own class; every other format is
     ``exact``."""
-    return fmt if fmt in dispatch.GELL_MODE and fmt != "gell" else "exact"
+    name = dispatch.JAX_NAME.get(fmt, fmt)
+    return name if name == "gell16" or name.startswith("cv_") else "exact"
+
+
+def gate_csr(csr, fmt: str):
+    """The matrix a row's gold multiplies: A's dequantized values for the
+    ``cv_*`` classes but ``cv_gell`` (bf16 for ``cv_panel``), else A."""
+    cls = gold_class(fmt)
+    if not cls.startswith("cv_") or cls == "cv_gell":
+        return csr
+    mode = "bf16" if cls == "cv_panel" else cls.split("_")[1]
+    return cv_to_csr(csr_to_cv(csr, mode))
+
+
+def gate_x_tensor(x: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The X a row's gold multiplies, formed by torch where ``x`` lies: X
+    itself; for ``gell16`` and ``cv_gell`` the X they gather; for
+    ``cv_panel`` X rounded to bf16."""
+    cls = gold_class(fmt)
+    if cls == "cv_panel":
+        return gathered_x(x, "bf16")
+    if cls in dispatch.GELL_MODE:
+        return gathered_x(x, dispatch.GELL_MODE[cls])
+    return x
 
 
 def gate_x(x: np.ndarray, fmt: str) -> np.ndarray:
-    """The X a row's f64 gold multiplies: X itself for the exact class;
-    for ``gell16`` and ``cv_gell`` the X their mode gathers (the JAX
-    harness's transformed X), formed by torch on the CPU."""
-    if gold_class(fmt) == "exact":
-        return x
-    return gathered_x(torch.from_numpy(np.ascontiguousarray(x, np.float32)),
-                      dispatch.GELL_MODE[fmt]).numpy()
+    """``gate_x_tensor`` of a host X, formed by torch on the CPU."""
+    return gate_x_tensor(torch.from_numpy(np.ascontiguousarray(
+        x, np.float32)), fmt).numpy()
+
+
+def gate_site(m: int, n: int, config: BenchConfig,
+              device: torch.device) -> str:
+    """'device' or 'host': where a row's gate runs (the config's
+    ``oracle``; 'auto' takes the device on the card once the (m, n) f32
+    result passes ``DEVICE_GATE_BYTES``)."""
+    if config.oracle != "auto":
+        return config.oracle
+    big = m * n * np.dtype(config.dtype).itemsize > DEVICE_GATE_BYTES
+    return "device" if torch.device(device).type == "cuda" and big \
+        else "host"
 
 
 def graph_calls(out_bytes: float) -> int:
@@ -199,10 +245,11 @@ def feature_fields(csr) -> dict:
 
 
 def _cached_gold(csr, fmt: str, x: np.ndarray, key_base) -> np.ndarray:
-    """The f64 gold of ``fmt``'s gate class on ``x`` (``gate_x``), cached on
-    the matrix object a (n, dtype, seed, class): every format of a class
-    on one matrix and X has the same gold. At most ``GOLD_CACHE`` are kept,
-    the oldest dropped first (the JAX harness's ``_cached_gold``)."""
+    """The host f64 gold of ``fmt``'s gate class (``gate_csr`` times
+    ``gate_x``), cached on the matrix object a (n, dtype, seed, class):
+    every format of a class on one matrix and X has the same gold. At most
+    ``GOLD_CACHE`` are kept, the oldest dropped first (the JAX harness's
+    ``_cached_gold``)."""
     cache = getattr(csr, "_spgrid_torch_gold", None)
     if cache is None:
         cache = {}
@@ -210,12 +257,45 @@ def _cached_gold(csr, fmt: str, x: np.ndarray, key_base) -> np.ndarray:
     key = (*key_base, gold_class(fmt))
     gold = cache.get(key)
     if gold is None:
-        gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values,
-                              gate_x(x, fmt))
+        g = gate_csr(csr, fmt)
+        gold = gold_spmm_fast(g.row_ptr, g.col_idx, g.values, gate_x(x, fmt))
         if len(cache) >= GOLD_CACHE:
             cache.pop(next(iter(cache)))
         cache[key] = gold
     return gold
+
+
+def _cached_device_oracle(csr, fmt: str, device) -> DeviceOracle:
+    """The device gate of ``fmt``'s gate class on ``device``, kept on the
+    matrix object: its f64 CSR and its last gold are paid once a class, not
+    a row. At most ``GOLD_CACHE`` are kept, the oldest dropped first (the
+    JAX harness's ``_cached_device_oracle``)."""
+    cache = getattr(csr, "_spgrid_torch_dev_oracle", None)
+    if cache is None:
+        cache = {}
+        csr._spgrid_torch_dev_oracle = cache
+    key = (gold_class(fmt), str(device))
+    orc = cache.get(key)
+    if orc is None:
+        if len(cache) >= GOLD_CACHE:
+            cache.pop(next(iter(cache)))
+        orc = DeviceOracle.from_csr(gate_csr(csr, fmt), device=device)
+        cache[key] = orc
+    return orc
+
+
+def gate(csr, fmt: str, test: torch.Tensor, x: np.ndarray,
+         xd: torch.Tensor, config: BenchConfig, device):
+    """The error vector of ``test`` (the row's result, on ``device``) at
+    eps 1e-4 against its gate class's f64 gold, on the host or the device
+    (``gate_site``)."""
+    n = test.shape[1]
+    key = (n, config.dtype, config.seed)
+    if gate_site(csr.m, n, config, device) == "device":
+        orc = _cached_device_oracle(csr, fmt, device)
+        return orc.check(test, gate_x_tensor(xd, fmt), 1e-4, key=key)
+    gold = _cached_gold(csr, fmt, x, key)
+    return error_metrics(gold, test.cpu().numpy(), epsilon=1e-4)
 
 
 def _cached_x(csr, n: int, dtype: str, seed: int, device: torch.device):
@@ -251,8 +331,8 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
              config: Optional[BenchConfig] = None, *, device,
              check_accuracy: bool = True) -> dict:
     """Time Y = A @ X for one kernel (``KERNELS``) and gate it against the
-    host f64 oracle (eps 1e-4 at f32, as the JAX harness), on the X of the
-    gate class of the format that ran (``gate_x``)."""
+    f64 gold of the gate class of the format that ran (eps 1e-4 at f32, as
+    the JAX harness; ``gate``)."""
     config = config or BenchConfig()
     _f32_only(config)
     device = torch.device(device)
@@ -290,9 +370,7 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
         **feature_fields(csr),
     )
     if check_accuracy:
-        key = (n, config.dtype, config.seed)
-        gold = _cached_gold(csr, fmt, x, key)
-        m = error_metrics(gold, fn(a, xd).cpu().numpy(), epsilon=1e-4)
+        m = gate(csr, fmt, fn(a, xd), x, xd, config, device)
         row.update(_gate_fields(m))
         if not m.passed:
             print(f"Test failed! {csr.name} {kernel} ({fmt}): "

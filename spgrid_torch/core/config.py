@@ -13,6 +13,7 @@ _ENV_ALIASES = {"NUM_COLS": "num_cols", "BAND_SIZE": "band_size",
                 "SPARSITY": "sparsity",
                 "SPARSE_ATTENTION_TYPE": "sparse_attention_type"}
 TIMING_PROTOCOLS = ("graph", "eager")
+ORACLES = ("auto", "host", "device")
 
 
 @dataclasses.dataclass
@@ -38,6 +39,15 @@ class BenchConfig:
                       whatever this says. The JAX field's 'dynamic' and
                       'static' choose how a jitted loop counts its trips,
                       which has no counterpart on the card.
+      oracle        — where a row's f64 gate runs: 'host' (the definition,
+                      ``core.metrics``), 'device' (``core.device_oracle``,
+                      on the result's device) or 'auto' (the device's gate
+                      on the card when the (m, n) f32 result passes 32 MB,
+                      the host's otherwise and on the CPU, as the JAX
+                      harness places its oracle). The JAX fields
+                      ``x_source`` and ``device_x``, which make X on the
+                      TPU, have no counterpart: X is ``make_x``'s, made on
+                      the host and uploaded once.
     """
 
     num_cols: int = 512
@@ -53,12 +63,16 @@ class BenchConfig:
     sparse_attention_type: str = "band_and_random"
 
     seed: int = 14
+    oracle: str = "auto"
 
     def __post_init__(self):
         if self.timing_protocol not in TIMING_PROTOCOLS:
             raise ValueError(f"timing_protocol must be one of "
                              f"{TIMING_PROTOCOLS}, got "
                              f"{self.timing_protocol!r}")
+        if self.oracle not in ORACLES:
+            raise ValueError(f"oracle must be one of {ORACLES}, got "
+                             f"{self.oracle!r}")
 
     @property
     def epsilon(self) -> float:

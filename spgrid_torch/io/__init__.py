@@ -1,12 +1,13 @@
 """Matrix files behind ``--matrix``: the port's own numpy readers of
 ``.mtx`` and ``.smtx`` (the JAX package's ``spgrid.io`` without its native
-fast path)."""
+fast path), and their writers; ``io.openfoam`` reads OpenFOAM meshes as
+LDU or CSR, as the JAX package's does."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from spgrid_torch.io.mtx import read_mtx
+from spgrid_torch.io.mtx import read_mtx, write_mtx
 from spgrid_torch.io.smtx import read_smtx, write_smtx
 
 
@@ -21,4 +22,4 @@ def read_matrix(path: str, dtype="float32"):
     raise ValueError(f"unrecognized matrix file type: {path}")
 
 
-__all__ = ["read_matrix", "read_mtx", "read_smtx", "write_smtx"]
+__all__ = ["read_matrix", "read_mtx", "read_smtx", "write_mtx", "write_smtx"]

@@ -108,3 +108,14 @@ def _basename(path: str) -> str:
         if b.endswith(suf):
             b = b[: -len(suf)]
     return b
+
+
+def write_mtx(path: str, csr: CSRMatrix) -> None:
+    """``csr`` as a general real coordinate MatrixMarket file (the JAX
+    package's ``write_mtx``)."""
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{csr.m} {csr.k} {csr.nnz}\n")
+        rows = np.repeat(np.arange(csr.m), csr.degrees)
+        for r, c, v in zip(rows, csr.col_idx, csr.values):
+            f.write(f"{r + 1} {c + 1} {v:.9g}\n")

@@ -2,10 +2,10 @@
 the H100: the port's copy of ``spgrid/ops/costmodel.py``.
 
 The formulas (``_dense_time`` .. ``_rbh_time``), ``estimate_spmm_time``,
-``AUTO_CANDIDATES``, ``CV_TOLERANCE`` and ``select_format_cost`` are the JAX
-package's, verbatim (pinned by ``tests/test_torch_hostcopy.py``), so a test
+``AUTO_CANDIDATES``, ``CV_TOLERANCE``, ``tolerant_candidates`` and
+``select_format_cost`` are the JAX package's, verbatim (pinned by ``tests/test_torch_hostcopy.py``), so a test
 that installs the JAX package's constants gets the JAX package's estimates.
-Three things differ:
+Two things differ:
 
 - the constants, ``H100Constants``: the JAX fields, each measured on the
   card (``chip_smoke.py``'s dispatch phase), plus ``residual_nnz``, the
@@ -14,9 +14,7 @@ Three things differ:
   ``fit_constants`` over the port's own rows;
 - ``prediction_records`` and ``fit_constants`` take an iterable of row
   dicts (the harness's rows, or ``csv.DictReader`` over a results CSV): the
-  card's machine has no pandas;
-- ``tolerant_candidates`` offers no ``cv_panel``, which the port does not
-  build yet.
+  card's machine has no pandas.
 
 Format names are the JAX package's (``bsr_pallas``, ``panel_pallas``, ...),
 as the CSV's ``fmt`` column writes them; ``ops/dispatch.py`` maps them to
@@ -627,10 +625,7 @@ CV_TOLERANCE = 4e-3
 
 
 def tolerant_candidates(f: MatrixFeatures, n: int) -> tuple:
-    # cv_panel (the JAX package's first tolerant candidate) is left out
-    # until the port builds it (bf16 panels, ROADMAP Queue 1 item 4):
-    # cv_gell is then the only one
-    cands = []
+    cands = ["cv_panel"]
     # cv_gell regime gate (ROADMAP r4 item 4): the giant-m windowed rows
     # (m >= ~200k, bf16-windowable band) mispredict 2.5-4.7x — exclude
     # exactly that regime so the least-validated model cannot steer

@@ -8,11 +8,12 @@ the name the cost model and a row's ``fmt`` column speak; ``PORT_NAME`` maps
 back.
 The three SpMV formats take a (k, 1) operand and return (m, 1), as the JAX
 package's bench adapters do; a wider operand raises. ``coo``, ``sell``,
-``bsr``, ``merge`` and the GELL formats are torch ops (the JAX package's XLA
+``bsr``, ``merge``, ``ell``, ``csc``, ``ldu``, ``cv_bf16``, ``cv_int8``,
+``scoo`` and the GELL formats are torch ops (the JAX package's XLA
 compositions; ``bsr`` is the batched block product of ``xla.spmm_bsr``, not
 an AUTO candidate); the ``_cuda`` formats and ``dense``'s matmul run on
-kernels; ``rbh`` runs ``bsr_spmm`` on its block part and a torch-op format
-on the rest.
+kernels (``cv_panel_cuda`` on the bf16 form of the panel kernel); ``rbh``
+runs ``bsr_spmm`` on its block part and a torch-op format on the rest.
 """
 
 from __future__ import annotations
@@ -42,10 +43,16 @@ from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned, wcoo_spmv
 from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK, wpack_spmv
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
-from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
+from spgrid_torch.ops.layouts import (
+    DeviceBSR, DeviceCOO, DeviceCSC, DeviceCV, DeviceELL, DeviceLDU,
+    DeviceSELL,
+)
 from spgrid_torch.ops.merge import DeviceMerge, merge_spmm
 from spgrid_torch.ops.rbh import DeviceRBH, rbh_spmm
-from spgrid_torch.ops.xla import spmm_bsr, spmm_coo, spmm_sell
+from spgrid_torch.ops.scoo import DeviceSCOO, scoo_spmm
+from spgrid_torch.ops.xla import (
+    spmm_bsr, spmm_coo, spmm_csc, spmm_cv, spmm_ell, spmm_ldu, spmm_sell,
+)
 
 JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "panel_cuda": "panel_pallas", "wcoo_cuda": "wcoo_pallas",
@@ -54,7 +61,9 @@ JAX_NAME = {"dense": "dense", "bsr_cuda": "bsr_pallas",
             "dgell_cuda": "dgell", "wpack_spmv_cuda": "wpack_spmv",
             "coo": "coo", "sell": "sell", "merge": "merge", "gell": "gell",
             "gell16": "gell16", "cv_gell": "cv_gell", "rbh": "rbh",
-            "bsr": "bsr"}
+            "bsr": "bsr", "ell": "ell", "csc": "csc", "ldu": "ldu",
+            "cv_bf16": "cv_bf16", "cv_int8": "cv_int8", "scoo": "scoo",
+            "cv_panel_cuda": "cv_panel"}
 PORT_NAME = {jax: port for port, jax in JAX_NAME.items()}
 FORMATS = tuple(JAX_NAME)
 # the GELL formats' modes (spgrid_torch/ops/gell.py)
@@ -77,6 +86,10 @@ def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
         return DeviceBSRCol.from_csr(csr, bm=bm or 128, bk=bk, device=device)
     if fmt == "panel_cuda":
         return DevicePanels.from_csr(csr, bk=bk, device=device)
+    if fmt == "cv_panel_cuda":
+        return DevicePanels.from_csr(csr, bk=bk, device=device).as_bf16()
+    if fmt in ("cv_bf16", "cv_int8"):
+        return DeviceCV.from_csr(csr, mode=fmt[3:], device=device)
     if fmt in GELL_MODE:
         return DeviceGELL.from_csr(csr, mode=GELL_MODE[fmt], device=device)
     if fmt == "rbh":
@@ -85,7 +98,9 @@ def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
               "wcoo_spmv_cuda": DeviceWCOOAligned,
               "wrow_spmv_cuda": DeviceWROW, "dgell_cuda": DeviceDGELL,
               "wpack_spmv_cuda": DeviceWPACK, "coo": DeviceCOO,
-              "sell": DeviceSELL, "merge": DeviceMerge}.get(fmt)
+              "sell": DeviceSELL, "merge": DeviceMerge, "ell": DeviceELL,
+              "csc": DeviceCSC, "ldu": DeviceLDU,
+              "scoo": DeviceSCOO}.get(fmt)
     if layout is None:
         raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
     return layout.from_csr(csr, device=device)
@@ -112,7 +127,9 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "wpack_spmv_cuda": _spmv_2d(wpack_spmv, "wpack_spmv_cuda"),
          "coo": spmm_coo, "sell": spmm_sell, "merge": merge_spmm,
          "gell": gell_spmm, "gell16": gell_spmm, "cv_gell": gell_spmm,
-         "rbh": rbh_spmm, "bsr": spmm_bsr}
+         "rbh": rbh_spmm, "bsr": spmm_bsr, "ell": spmm_ell,
+         "csc": spmm_csc, "ldu": spmm_ldu, "cv_bf16": spmm_cv,
+         "cv_int8": spmm_cv, "scoo": scoo_spmm, "cv_panel_cuda": panel_spmm}
 
 
 def spmm_fn(fmt: str) -> Callable:

@@ -21,6 +21,7 @@ def _wrappers() -> dict:
     )
     return {"bsr_spmm": bsr_spmm.bsr_spmm,
             "panel_spmm": panel_spmm.panel_spmm,
+            "panel_spmm_bf16": panel_spmm.panel_spmm_bf16,
             "bsr_sddmm": sddmm.bsr_sddmm,
             "wcoo_spmm": wcoo_spmm.wcoo_spmm,
             "wcoo_spmm_aligned": wcoo_spmm_aligned.wcoo_spmm_aligned,

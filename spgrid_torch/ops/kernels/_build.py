@@ -43,6 +43,8 @@ SIGNATURES = {
     # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n,
     # cluster (0: the launch rule), stream
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+    # the same, panels as bf16 bit patterns
+    "spgrid_panel_spmm_bf16": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk

@@ -11,10 +11,15 @@ row is empty it no longer indexes ``blocks``; the JAX kernels never read it.
 It is kept only as the counterpart of the JAX field. Kernels walk
 ``row_ptr``, which is rebuilt from ``block_rows``.
 
-``DeviceCOO`` and ``DeviceSELL`` hold the same arrays as their counterparts
-in ``spgrid/ops/layouts.py``, padding included (COO keeps the row of each
-nnz as ``row_ptr``, the form its row sums read);
-``spgrid_torch/ops/xla.py`` multiplies with them.
+``DeviceCOO``, ``DeviceSELL``, ``DeviceELL``, ``DeviceCSC``, ``DeviceLDU``
+and ``DeviceCV`` hold the same arrays as their counterparts in
+``spgrid/ops/layouts.py``, padding included; ``spgrid_torch/ops/xla.py``
+multiplies with them. Where the JAX op adds into rows with a segment sum or
+a scatter, the port's layout also holds what its fixed-order row sums read:
+COO keeps the row of each nnz as ``row_ptr``; CSC, LDU and CV add
+``row_ptr`` (and CSC and LDU the permutation that takes their entries to
+row order), so every row is summed in one fixed order and a call gives the
+same bits every time.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.bsr import csr_to_bsr
+from spgrid_torch.formats.csc import CSCMatrix, csr_to_csc
 from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.cv import CVMatrix, csr_to_cv
+from spgrid_torch.formats.ell import csr_to_ell
+from spgrid_torch.formats.ldu import LDUMatrix, csr_to_ldu
 from spgrid_torch.formats.sell import csr_to_sell
 
 
@@ -225,3 +234,212 @@ class DeviceSELL:
             bucket_slice_rows=tuple(to_device(b.slice_rows, device)
                                     for b in sell.buckets),
             shape=tuple(csr.shape), nnz=csr.nnz, C=C)
+
+
+def segment_ptr(owner: np.ndarray, segments: int) -> np.ndarray:
+    """int64 pointer of length segments+1 over entries sorted by
+    ``owner``."""
+    counts = np.bincount(np.asarray(owner, np.int64), minlength=segments)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+@dataclasses.dataclass
+class DeviceELL:
+    """Padded ELL on a torch device: (m_pad, w) columns and values, rows
+    padded to a multiple of ``row_multiple`` and the width to one of
+    ``width_multiple``; a pad slot points at column 0 with value 0, so it
+    adds nothing."""
+
+    cols: torch.Tensor      # (m_pad, w) int32
+    values: torch.Tensor    # (m_pad, w)
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.cols, self.values)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, row_multiple: int = 8,
+                 width_multiple: int = 8, max_bytes: int = 4 << 30, *,
+                 device) -> "DeviceELL":
+        """As ``spgrid.ops.layouts.DeviceELL.from_csr``: a matrix whose
+        padding would pass ``max_bytes``, or waste 32x its nnz beyond 64 MB,
+        raises (too skewed for ELL)."""
+        width = int(np.diff(csr.row_ptr).max(initial=1))
+        slots = csr.m * width
+        est = slots * (4 + csr.values.dtype.itemsize)
+        if est > max_bytes or (slots > 32 * max(csr.nnz, 1)
+                               and est > 64 << 20):
+            raise ValueError(
+                f"ELL padding would need {slots} slots for {csr.nnz} nnz "
+                f"(~{est/2**30:.2f} GiB, width={width}); matrix too skewed "
+                f"for ELL — use SELL-C-sigma or WCOO")
+        ell = csr_to_ell(csr, pad_multiple=width_multiple)
+        m_pad = round_up(csr.m, row_multiple)
+        cols = np.zeros((m_pad, ell.width), dtype=np.int32)
+        vals = np.zeros((m_pad, ell.width), dtype=csr.values.dtype)
+        cols[: csr.m] = ell.cols
+        vals[: csr.m] = ell.values
+        return cls(to_device(cols, device), to_device(vals, device),
+                   tuple(csr.shape), csr.nnz)
+
+
+@dataclasses.dataclass
+class DeviceCSC:
+    """Column-major COO on a torch device, the CSC traversal order: ``rows``
+    and ``values`` in column order, ``cols`` non-decreasing, padded to a
+    multiple of ``pad_multiple`` with row m, column 0, value 0 (the JAX
+    arrays); and ``row_order``, the entries' indices in row order (a
+    stable sort: columns ascending within a row), with ``row_ptr`` over
+    them."""
+
+    rows: torch.Tensor       # (nnz_pad,) int32, column-major order
+    cols: torch.Tensor       # (nnz_pad,) int32, non-decreasing
+    values: torch.Tensor     # (nnz_pad,)
+    row_order: torch.Tensor  # (nnz,) int64
+    row_ptr: torch.Tensor    # (m+1,) int64, into row_order
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.rows, self.cols, self.values, self.row_order,
+                      self.row_ptr)
+
+    @classmethod
+    def from_csc(cls, csc: CSCMatrix, pad_multiple: int = 128, *,
+                 device) -> "DeviceCSC":
+        nnz_pad = round_up(max(csc.nnz, 1), pad_multiple)
+        rows = np.full(nnz_pad, csc.m, dtype=np.int32)
+        cols = np.zeros(nnz_pad, dtype=np.int32)
+        vals = np.zeros(nnz_pad, dtype=csc.values.dtype)
+        rows[: csc.nnz] = csc.row_idx
+        cols[: csc.nnz] = np.repeat(
+            np.arange(csc.k, dtype=np.int32), csc.col_degrees)
+        vals[: csc.nnz] = csc.values
+        order = np.argsort(csc.row_idx, kind="stable")
+        return cls(to_device(rows, device), to_device(cols, device),
+                   to_device(vals, device), to_device(order, device, np.int64),
+                   to_device(segment_ptr(csc.row_idx, csc.m), device),
+                   tuple(csc.shape), csc.nnz)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, pad_multiple: int = 128, *,
+                 device) -> "DeviceCSC":
+        return cls.from_csc(csr_to_csc(csr), pad_multiple=pad_multiple,
+                            device=device)
+
+
+@dataclasses.dataclass
+class DeviceLDU:
+    """LDU face lists on a torch device: pad faces carry owner = neigh =
+    n_cells and zero values (the JAX arrays). ``owner_order`` and
+    ``neigh_order`` list the real faces by owner and by neighbour (stable
+    sorts: face order within a cell), with ``owner_ptr`` and ``neigh_ptr``
+    over them."""
+
+    owner: torch.Tensor        # (nf_pad,) int32
+    neigh: torch.Tensor        # (nf_pad,) int32
+    lower: torch.Tensor        # (nf_pad,)
+    upper: torch.Tensor        # (nf_pad,)
+    diag: torch.Tensor         # (n_cells,)
+    owner_order: torch.Tensor  # (n_faces,) int64
+    owner_ptr: torch.Tensor    # (n_cells+1,) int64, into owner_order
+    neigh_order: torch.Tensor  # (n_faces,) int64
+    neigh_ptr: torch.Tensor    # (n_cells+1,) int64, into neigh_order
+    shape: Tuple[int, int]
+    nnz: int
+    n_faces: int
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.owner, self.neigh, self.lower, self.upper,
+                      self.diag, self.owner_order, self.owner_ptr,
+                      self.neigh_order,
+                      self.neigh_ptr)
+
+    @classmethod
+    def from_ldu(cls, ldu: LDUMatrix, pad_multiple: int = 128, *,
+                 device) -> "DeviceLDU":
+        nf = ldu.n_faces
+        nf_pad = round_up(max(nf, 1), pad_multiple)
+        n = ldu.n_cells
+        owner = np.full(nf_pad, n, dtype=np.int32)
+        neigh = np.full(nf_pad, n, dtype=np.int32)
+        lower = np.zeros(nf_pad, dtype=ldu.lower.dtype)
+        upper = np.zeros(nf_pad, dtype=ldu.upper.dtype)
+        owner[:nf] = ldu.owner
+        neigh[:nf] = ldu.neigh
+        lower[:nf] = ldu.lower
+        upper[:nf] = ldu.upper
+        return cls(to_device(owner, device), to_device(neigh, device),
+                   to_device(lower, device), to_device(upper, device),
+                   to_device(ldu.diag, device),
+                   to_device(np.argsort(ldu.owner, kind="stable"), device,
+                             np.int64),
+                   to_device(segment_ptr(ldu.owner, n), device),
+                   to_device(np.argsort(ldu.neigh, kind="stable"), device,
+                             np.int64),
+                   to_device(segment_ptr(ldu.neigh, n), device),
+                   ldu.shape, ldu.nnz, nf)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, pad_multiple: int = 128, *,
+                 device) -> "DeviceLDU":
+        """Raises for a matrix that is not square or whose pattern is not
+        symmetric (``csr_to_ldu``)."""
+        return cls.from_ldu(csr_to_ldu(csr), pad_multiple=pad_multiple,
+                            device=device)
+
+
+@dataclasses.dataclass
+class DeviceCV:
+    """Compressed-value COO on a torch device: int8 values with m+1 f32 row
+    scales (the last 0, the pad entries' row m), or bf16 values with no
+    scales; rows, columns and values padded to a multiple of
+    ``pad_multiple`` with row m, column 0 and value 0 (the JAX arrays), and
+    ``row_ptr``, the CSR pointer of the nnz, for the row sums."""
+
+    rows: torch.Tensor      # (nnz_pad,) int32
+    cols: torch.Tensor      # (nnz_pad,) int32
+    qvalues: torch.Tensor   # (nnz_pad,) int8 | bfloat16
+    scales: torch.Tensor    # (m+1,) f32 (int8) or (0,) (bf16)
+    row_ptr: torch.Tensor   # (m+1,) int64
+    shape: Tuple[int, int]
+    nnz: int
+    mode: str
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.rows, self.cols, self.qvalues, self.scales,
+                      self.row_ptr)
+
+    @classmethod
+    def from_cv(cls, cv: CVMatrix, pad_multiple: int = 128, *,
+                device) -> "DeviceCV":
+        nnz_pad = round_up(max(cv.nnz, 1), pad_multiple)
+        rows = np.full(nnz_pad, cv.m, dtype=np.int32)
+        cols = np.zeros(nnz_pad, dtype=np.int32)
+        q = np.zeros(nnz_pad, dtype=cv.qvalues.dtype)
+        rows[: cv.nnz] = np.repeat(np.arange(cv.m, dtype=np.int32),
+                                   cv.degrees)
+        cols[: cv.nnz] = cv.col_idx
+        q[: cv.nnz] = cv.qvalues
+        if cv.mode == "int8":
+            scales = np.append(cv.scales, 0.0).astype(np.float32)
+            qvalues = to_device(q, device)
+        else:
+            scales = np.zeros(0, dtype=np.float32)
+            qvalues = to_device(q.view(np.int16), device).view(
+                torch.bfloat16)
+        return cls(to_device(rows, device), to_device(cols, device), qvalues,
+                   to_device(scales, device),
+                   to_device(cv.row_ptr, device, np.int64), tuple(cv.shape),
+                   cv.nnz, cv.mode)
+
+    @classmethod
+    def from_csr(cls, csr: CSRMatrix, mode: str = "int8",
+                 pad_multiple: int = 128, *, device) -> "DeviceCV":
+        return cls.from_cv(csr_to_cv(csr, mode), pad_multiple=pad_multiple,
+                           device=device)

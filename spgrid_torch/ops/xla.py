@@ -1,6 +1,8 @@
-"""The JAX package's XLA compositions as torch ops: COO and SELL-C-sigma
-SpMM and SpMV (``spmm_coo``, ``spmv_coo``, ``spmm_sell``, ``spmv_sell``),
-the BSR baseline ``spmm_bsr`` (the ``bsr`` format, the ``--xla-only``
+"""The JAX package's XLA compositions as torch ops: COO, SELL-C-sigma, ELL,
+CSC, LDU and compressed-value SpMM and SpMV (``spmm_coo``, ``spmv_coo``,
+``spmm_sell``, ``spmv_sell``, ``spmm_ell``, ``spmv_ell``, ``spmm_csc``,
+``spmv_csc``, ``spmm_ldu``, ``spmv_ldu``, ``spmm_cv``, ``spmv_cv``), the
+BSR baseline ``spmm_bsr`` (the ``bsr`` format, the ``--xla-only``
 pipeline's SpMM) and the SDDMM baselines ``sddmm_coo`` and ``sddmm_dense``
 (``--sddmm --xla-only``) — the counterparts of the functions of the same
 names in ``spgrid/ops/xla.py``.
@@ -17,10 +19,17 @@ known on the host, so a call can be captured in a CUDA graph.
 under ``SDDMM_CHUNK_BYTES``: unchunked, a 4096^2 mask at sparsity 0.5 (16.8M
 nnz) at d = 512 would gather 34 GB of each.
 
-Bits: COO and SELL write each row once and add no element twice in a
-launch, BSR sums a block row's products in block order, and SDDMM forms
-each value as one dot product, so every op gives the same bits on every
-call.
+CSC and LDU scatter into rows in the JAX package (an unsorted segment
+sum); here their products, formed in the JAX op's order (CSC's column by
+column, LDU's face by face), are taken to row order by the layout's fixed
+permutation and summed by ``segment_sum``. ELL sums a row's slots with
+``torch.sum`` over a chunk of rows at a time (``ELL_CHUNK_BYTES``), and CV
+dequantizes its values each call, as the JAX op does.
+
+Bits: COO, SELL and ELL write each row once and add no element twice in a
+launch, CSC, LDU and CV sum each row in one fixed order, BSR sums a block
+row's products in block order, and SDDMM forms each value as one dot
+product, so every op gives the same bits on every call.
 """
 
 from __future__ import annotations
@@ -28,9 +37,13 @@ from __future__ import annotations
 import torch
 
 from spgrid_torch.ops.dense import full_f32
-from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, DeviceSELL
+from spgrid_torch.ops.layouts import (
+    DeviceBSR, DeviceCOO, DeviceCSC, DeviceCV, DeviceELL, DeviceLDU,
+    DeviceSELL,
+)
 
 SDDMM_CHUNK_BYTES = 1 << 30   # gathered Q and K rows of a sddmm_coo chunk
+ELL_CHUNK_BYTES = 1 << 30     # gathered X rows of a spmm_ell chunk
 
 
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -148,3 +161,88 @@ def sddmm_dense(mask_dense: torch.Tensor, q: torch.Tensor,
     acc = acc_dtype(q)
     scores = q.to(acc) @ k.to(acc).T
     return (mask_dense.to(acc) * scores).to(q.dtype)
+
+
+def ell_chunk_rows(width: int, n: int) -> int:
+    """Rows a ``spmm_ell`` chunk takes: its gathered f32 X rows, 4 n bytes a
+    slot, within ``ELL_CHUNK_BYTES``; a multiple of 8, at least 8."""
+    rows = max(ELL_CHUNK_BYTES // max(4 * width * n, 1), 8)
+    return rows // 8 * 8
+
+
+def spmm_ell(ell: DeviceELL, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X from ELL, a chunk of rows at a time: the X rows of
+    the chunk's slots gathered, weighted by the slots' values and summed
+    over the width (pad slots add 0 x X[0])."""
+    m = ell.shape[0]
+    m_pad, w = ell.cols.shape
+    n = x.shape[1]
+    acc = acc_dtype(x)
+    y = torch.empty((m, n), dtype=acc, device=x.device)
+    step = ell_chunk_rows(w, n)
+    for r0 in range(0, m, step):
+        r1 = min(r0 + step, m)
+        g = x.index_select(0, ell.cols[r0:r1].reshape(-1)).view(
+            r1 - r0, w, n).to(acc)
+        g.mul_(ell.values[r0:r1, :, None].to(acc))
+        torch.sum(g, dim=1, out=y[r0:r1])
+    return y.to(x.dtype)
+
+
+def spmv_ell(ell: DeviceELL, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) = A @ x for x (k,)."""
+    return spmm_ell(ell, x[:, None])[:, 0]
+
+
+def spmm_csc(csc: DeviceCSC, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X walking A column-major: each entry's X row, weighted
+    by its value, in column order; then each row's products summed, in the
+    layout's row order (columns ascending)."""
+    acc = acc_dtype(x)
+    nnz = csc.nnz
+    prods = x.index_select(0, csc.cols[:nnz]).to(acc).mul_(
+        csc.values[:nnz, None].to(acc))
+    return segment_sum(prods.index_select(0, csc.row_order),
+                       csc.row_ptr).to(x.dtype)
+
+
+def spmv_csc(csc: DeviceCSC, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) = A @ x for x (k,)."""
+    return spmm_csc(csc, x[:, None])[:, 0]
+
+
+def spmm_ldu(ldu: DeviceLDU, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X from the LDU face lists: Y = diag X; then for each face f,
+    upper[f] X[neigh[f]] added into row owner[f], and lower[f] X[owner[f]]
+    into row neigh[f], each row's faces in face order."""
+    acc = acc_dtype(x)
+    nf = ldu.n_faces
+    xa = x.to(acc)
+    y = ldu.diag[:, None].to(acc) * xa
+    up = xa.index_select(0, ldu.neigh[:nf]).mul_(ldu.upper[:nf, None].to(acc))
+    y = y + segment_sum(up.index_select(0, ldu.owner_order), ldu.owner_ptr)
+    lo = xa.index_select(0, ldu.owner[:nf]).mul_(ldu.lower[:nf, None].to(acc))
+    y = y + segment_sum(lo.index_select(0, ldu.neigh_order), ldu.neigh_ptr)
+    return y.to(x.dtype)
+
+
+def spmv_ldu(ldu: DeviceLDU, x: torch.Tensor) -> torch.Tensor:
+    """y (n_cells,) = A @ x for x (n_cells,)."""
+    return spmm_ldu(ldu, x[:, None])[:, 0]
+
+
+def spmm_cv(cv: DeviceCV, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X with A's values dequantized on each call (int8
+    times its row's scale, or bf16 widened), in f32."""
+    nnz = cv.nnz
+    vals = cv.qvalues[:nnz].to(torch.float32)
+    if cv.mode == "int8":
+        vals = vals * cv.scales.index_select(0, cv.rows[:nnz])
+    prods = x.index_select(0, cv.cols[:nnz]).to(torch.float32).mul_(
+        vals[:, None])
+    return segment_sum(prods, cv.row_ptr).to(x.dtype)
+
+
+def spmv_cv(cv: DeviceCV, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) = A @ x for x (k,)."""
+    return spmm_cv(cv, x[:, None])[:, 0]

@@ -1,7 +1,8 @@
 """The port's benchmark CLI (``python -m spgrid_torch.bench``) on the CPU:
-the JAX package's CSV schema, the slot, block-grid and scattered formats
-gated on small parameter lines, resume, the ``--sddmm`` and ``--pipeline``
-modes with and without ``--xla-only``, and the refusals."""
+the JAX package's CSV schema, the slot, block-grid, scattered and torch-op
+formats gated on small parameter lines (ldu on a symmetric .mtx file),
+``--reorder``, resume, the ``--sddmm`` and ``--pipeline`` modes with and
+without ``--xla-only``, and the refusals."""
 
 import csv
 import os
@@ -9,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -147,8 +149,7 @@ def test_without_cuda_and_without_platform_cpu_exits_nonzero(monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--reorder", "rcm"], ["--dtype", "bfloat16"],
-    ["--kernel", "wcoo_pallas"], []])
+    ["--dtype", "bfloat16"], ["--kernel", "wcoo_pallas"], []])
 def test_unported_flags_exit_nonzero(flags, capsys):
     args = (["--generate", LINE] if "--kernel" in flags else []) + flags
     with pytest.raises(SystemExit) as e:
@@ -156,6 +157,85 @@ def test_unported_flags_exit_nonzero(flags, capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "ROADMAP" in err or "unknown kernel" in err or "need" in err
+
+
+# the JAX CLI's formats that the port runs as torch ops or, cv_panel_cuda,
+# on the bf16 form of the panel kernel; ldu needs a symmetric pattern
+NEW_KERNELS = ("csr_xla_coo", "ell_xla", "ell", "csc", "cv_bf16", "cv_int8",
+               "scoo", "cv_panel_cuda")
+
+
+@pytest.mark.parametrize("kernel", NEW_KERNELS)
+def test_remaining_formats_on_cpu_pass_the_gate(kernel, tmp_path):
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--generate", LINE_B, "--kernel", kernel, "--num-cols",
+                     "1,24", "--out", str(out), "--platform", "cpu"]) == 0
+    rows = read_rows(out)
+    assert [(r["kernel"], r["input_columns"]) for r in rows] == [
+        (kernel, "1"), (kernel, "24")]
+    fmt = {"csr_xla_coo": "coo", "ell_xla": "ell",
+           "cv_panel_cuda": "cv_panel"}.get(kernel, kernel)
+    for r in rows:
+        assert r["errors_passed"] == "1" and r["fmt"] == fmt
+        assert float(r["max_ae"]) < 1e-4 and float(r["gflops"]) > 0
+
+
+def symmetric_mtx(path):
+    """A 400^2 matrix with a symmetric pattern and unequal values, written
+    as .mtx."""
+    from spgrid.formats.csr import dense_to_csr
+    from spgrid.io.mtx import write_mtx
+    rng = np.random.default_rng(5)
+    upper = np.triu(rng.random((400, 400)) < 0.02, 1)
+    d = np.where(upper | upper.T, rng.random((400, 400)) + 0.5, 0.0)
+    np.fill_diagonal(d, 2.0)
+    write_mtx(str(path), dense_to_csr(d.astype(np.float32), name="sym"))
+    return str(path)
+
+
+def test_ldu_on_a_symmetric_matrix_file(tmp_path):
+    out = tmp_path / "rows.csv"
+    path = symmetric_mtx(tmp_path / "sym.mtx")
+    assert cli.main(["--matrix", path, "--kernels", "ldu,csc", "--num-cols",
+                     "1,8", "--out", str(out), "--platform", "cpu"]) == 0
+    rows = read_rows(out)
+    assert [(r["kernel"], r["fmt"], r["errors_passed"]) for r in rows] == [
+        ("ldu", "ldu", "1")] * 2 + [("csc", "csc", "1")] * 2
+
+
+def test_ldu_on_an_asymmetric_pattern_writes_a_failed_row(tmp_path):
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--generate", LINE, "--kernel", "ldu", "--num-cols",
+                     "4", "--out", str(out), "--platform", "cpu"]) == 1
+    (row,) = read_rows(out)
+    assert row["errors_passed"] == "0"
+
+
+@pytest.mark.parametrize("order", ["rcm", "shuffle", "degsort"])
+def test_reorder_rows_on_cpu(order, tmp_path):
+    """``--reorder``: the rows of the permuted matrix, named
+    ``<name>_<order>``, gated; the same nnz as the matrix's."""
+    out = tmp_path / "rows.csv"
+    assert cli.main(["--generate", LINE_B, "--kernels", "bsr_cuda,coo",
+                     "--num-cols", "8", "--reorder", order, "--out",
+                     str(out), "--platform", "cpu"]) == 0
+    rows = read_rows(out)
+    assert [r["kernel"] for r in rows] == ["bsr_cuda", "coo"]
+    for r in rows:
+        assert r["matrix_name"].endswith(f"_{order}")
+        assert r["errors_passed"] == "1" and r["csr_m"] == "1024"
+
+
+def test_every_jax_cli_kernel_has_a_port_name():
+    """Each name of the JAX harness's KERNELS runs in the port, as itself
+    or under the port's name of its format (``dispatch.PORT_NAME``)."""
+    from spgrid.bench.harness import KERNELS as JAX_KERNELS
+    from spgrid_torch.bench.harness import KERNELS as PORT_KERNELS
+    from spgrid_torch.ops.dispatch import PORT_NAME
+    missing = [k for k in JAX_KERNELS
+               if k not in PORT_KERNELS and PORT_NAME.get(k) not in
+               PORT_KERNELS]
+    assert not missing
 
 
 def test_xla_only_without_a_mode_exits_nonzero(capsys):

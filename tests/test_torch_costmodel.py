@@ -119,15 +119,13 @@ def test_picks_equal_jax(features, jax_c, n):
         got = costmodel.select_format_cost(port, n)
         assert got == jax_costmodel.select_format_cost(jax, n), name
         picks.add(got)
-        # auto_tol: the JAX pick over AUTO + its tolerant candidates but
-        # cv_panel, at tolerance 0
-        tol = [c for c in jax_costmodel.tolerant_candidates(jax, n)
-               if c != "cv_panel"]
-        want = jax_costmodel.select_format_cost(
-            jax, n, candidates=jax_costmodel.AUTO_CANDIDATES + tuple(tol))
-        assert costmodel.select_format_cost(
-            port, n, tolerance=costmodel.CV_TOLERANCE) == want, name
-        assert costmodel.tolerant_candidates(port, n) == tuple(tol)
+        # auto_tol: the JAX pick at the JAX tolerance, cv_panel offered
+        tol = costmodel.CV_TOLERANCE
+        want = jax_costmodel.select_format_cost(jax, n, tolerance=tol)
+        assert costmodel.select_format_cost(port, n, tolerance=tol) == want, \
+            name
+        assert costmodel.tolerant_candidates(port, n) == \
+            jax_costmodel.tolerant_candidates(jax, n)
     assert len(picks) >= 2
 
 

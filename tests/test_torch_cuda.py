@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from spgrid_torch.bench.headline import headline_matrix
 from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
 from spgrid_torch.gen import artificial_matrix_generation, create_mask
@@ -46,8 +47,9 @@ from spgrid_torch.ops.kernels.spmv_ablate import (
     VARIANTS, spmv_ablate, spmv_ablate_plain, spmv_ablate_rows_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import (
-    DevicePanels, panel_spmm, panel_spmm_plain,
+    DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_plain,
 )
+from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
 from spgrid_torch.ops.kernels.wcoo_spmm import (
     DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
@@ -193,6 +195,66 @@ def test_panel_spmm_kernel_4096(cuda):
     a = DevicePanels.from_csr(csr, bk=128, device=cuda)
     x = operand((csr.k, 512), 5, cuda)
     assert_close(panel_spmm(a, x), panel_spmm_plain(a, x.double()))
+
+
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 70, 512])
+@pytest.mark.parametrize("case", sorted(PANELS))
+def test_panel_spmm_bf16_kernel(cuda, case, n, x_layout):
+    """The bf16 form (cv_panel) against its plain version in f64 on the
+    same bf16 panels and bf16-rounded X."""
+    make, band_rows = PANELS[case]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows,
+                              device=cuda).as_bf16()
+    x = (operand if x_layout == "aligned" else misaligned)((csr.k, n), 6,
+                                                           cuda)
+    before = launch_counts()
+    got = panel_spmm(a, x)
+    after = launch_counts()
+    assert after["panel_spmm_bf16"] == before["panel_spmm_bf16"] + 1
+    assert after["panel_spmm"] == before["panel_spmm"]
+    assert_close(got, panel_spmm_plain(a, x.double()))
+
+
+def line_matrix(line):
+    from spgrid_torch.gen import GenParams
+    return artificial_matrix_generation(**GenParams.from_line(line).kwargs())
+
+
+# chip_smoke.py's phase-1 shapes of the bf16 form: the headline twin, LINE_B,
+# a banded edge with empty rows, and the 4096^2 larger case
+PANEL_BF16_SHAPES = {
+    "headline": (headline_matrix, 512),
+    "line_b": (lambda: line_matrix(
+        "8192 8192 50 10 normal random 0.05 0 0.05 0.05 14"), 512),
+    "banded_edge": (lambda: with_empty_rows(1000, 1000, 3), 200),
+    "4096": (lambda: positive(random_csr(4096, 4096, 0.5, seed=7)), 512),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PANEL_BF16_SHAPES))
+def test_panel_spmm_bf16_at_the_smoke_shapes(cuda, shape):
+    make, n = PANEL_BF16_SHAPES[shape]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, device=cuda).as_bf16()
+    x = operand((csr.k, n), 8, cuda)
+    got = panel_spmm_bf16(a, x)
+    assert_close(got, panel_spmm_plain(a, x.double()))
+    assert torch.equal(panel_spmm_bf16(a, x), got)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["one_band", "r104", "r2048"])
+def test_panel_spmm_bf16_at_every_cluster_size(cuda, case, cluster):
+    make, band_rows = PANELS[case]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows,
+                              device=cuda).as_bf16()
+    x = operand((csr.k, 70), 9, cuda)
+    y = torch.full((csr.m, 70), float("nan"), device=cuda)
+    panel_launch(a, x, y, cluster)
+    assert_close(y, panel_spmm_plain(a, x.double()))
 
 
 @pytest.mark.parametrize("qk_layout", ["aligned", "misaligned"])
@@ -968,7 +1030,9 @@ def test_lanegather_path_edges(cuda, case, path):
     assert torch.equal(out.cpu(), want)
 
 
-TORCH_OP_FORMATS = ("coo", "sell", "merge", "gell", "gell16", "cv_gell")
+TORCH_OP_FORMATS = ("coo", "sell", "merge", "gell", "gell16", "cv_gell",
+                    "ell", "csc", "cv_bf16", "cv_int8", "scoo",
+                    "cv_panel_cuda")
 
 
 def captured(fn, *args):
@@ -994,6 +1058,19 @@ TORCH_OP_MATRICES = {
                                          heavy_row=700, heavy_nnz=3000,
                                          seed=31),
 }
+
+
+def symmetric_pattern(m=2000, seed=2):
+    """m x m, a symmetric pattern of ~0.5 % with unequal values, rows 40-49
+    holding only their diagonal, two diagonal entries missing."""
+    rng = np.random.default_rng(seed)
+    upper = np.triu(rng.random((m, m)) < 0.005, 1)
+    upper[40:50] = False
+    upper[:, 40:50] = False
+    d = np.where(upper | upper.T, rng.random((m, m)) + 0.5, 0.0)
+    np.fill_diagonal(d, rng.random(m) + 1.0)
+    d[[3, 17], [3, 17]] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="symmetric")
 
 
 @pytest.mark.parametrize("matrix", TORCH_OP_MATRICES)
@@ -1022,6 +1099,71 @@ def test_torch_op_formats_on_the_card(cuda, fmt, n, matrix):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("n", [1, 24])
+def test_ldu_on_the_card(cuda, n):
+    """LDU's face sums on the card: its CPU result, captured in a graph,
+    the same bits every call."""
+    from spgrid_torch.ops import dispatch
+    csr = symmetric_pattern()
+    x = operand((csr.k, n), 42, cuda)
+    a = dispatch.build(csr, "ldu", device=cuda)
+    fn = dispatch.spmm_fn("ldu")
+    got = fn(a, x)
+    want = fn(dispatch.build(csr, "ldu", device="cpu"), x.cpu())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(fn(a, x), got)
+    graph, out = captured(fn, a, x)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("kernel", ["coo", "gell16", "cv_int8",
+                                    "cv_panel_cuda"])
+def test_device_gate_agrees_with_the_host_gate(cuda, kernel):
+    """One row of each gate class gated on the card and on the host: the
+    metrics within their bounds (``device_oracle.disagreements``), the
+    same verdict."""
+    from spgrid_torch.bench.harness import run_spmm
+    from spgrid_torch.core.config import BenchConfig
+    from spgrid_torch.core.device_oracle import disagreements
+    from spgrid_torch.core.metrics import ErrorMetrics
+    csr = positive(line_matrix(
+        "20000 20000 8 3 normal random 0.05 0 0.05 0.05 14"))
+    kw = dict(num_cols=64, min_time_s=0.01, min_iters=2, warmup_iters=1)
+    gates = {}
+    for site in ("host", "device"):
+        row = run_spmm(csr, kernel, BenchConfig(oracle=site, **kw),
+                       device=cuda)
+        gates[site] = ErrorMetrics(
+            **{f: row[f] for f in ("mae", "max_ae", "mse", "mape", "smape",
+                                   "lnQ_error", "mlare", "gmare")},
+            max_rel_diff=0.0, passed=bool(row["errors_passed"]))
+    assert gates["host"].passed
+    assert disagreements(gates["host"], gates["device"]) == []
+
+
+def test_device_gold_is_the_host_gold_on_the_card(cuda):
+    from spgrid_torch.core.device_oracle import DeviceOracle
+    from spgrid_torch.core.metrics import gold_spmm_fast
+    rng = np.random.default_rng(3)
+    deg = rng.integers(0, 12, 500)
+    deg[5:9] = (9000, 129, 257, 0)
+    k = 20000
+    ptr = np.concatenate([[0], np.cumsum(deg)])
+    cols = np.concatenate([np.sort(rng.choice(k, d, replace=False))
+                           for d in deg]).astype(np.int32)
+    csr = CSRMatrix(ptr, cols, rng.normal(size=ptr[-1]).astype(np.float32),
+                    (500, k), "skewed")
+    x = operand((k, 33), 4, cuda)
+    got = DeviceOracle.from_csr(csr, device=cuda).gold(x).cpu().numpy()
+    want = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values,
+                          x.cpu().numpy())
+    np.testing.assert_array_equal(got, want)
 
 
 def gather_operands(k, n, steps, G, seed, device):

@@ -56,6 +56,25 @@ def features():
             for line in LINES]
 
 
+@pytest.mark.parametrize("n", [64, 512])
+def test_tolerant_candidates_equal_jax(features, n):
+    """cv_panel first, as the JAX package offers it, then cv_gell outside
+    its excluded regime."""
+    for port, jax in features:
+        got = costmodel.tolerant_candidates(port, n)
+        assert got == jax_costmodel.tolerant_candidates(jax, n)
+        assert got[0] == "cv_panel"
+
+
+@pytest.mark.parametrize("n", [64, 512])
+def test_tolerant_select_format_maps_to_the_jax_pick(features, jax_c, n):
+    tol = costmodel.CV_TOLERANCE
+    for port, jax in features:
+        got = dispatch.select_format(port, n, tolerance=tol)
+        want = jax_dispatch.select_format(jax, n, tolerance=tol)
+        assert got == dispatch.PORT_NAME[want], (port.name, got, want)
+
+
 @pytest.fixture
 def quick(monkeypatch):
     monkeypatch.setenv("SPGRID_MIN_TIME_S", "0.005")

@@ -149,21 +149,34 @@ def test_run_pipeline_cpu_passes_gate(given_mask):
 def test_dispatch_formats_and_jax_names():
     assert set(dispatch.FORMATS) == set(dispatch.JAX_NAME)
     assert set(dispatch.JAX_NAME.values()) <= set(jax_dispatch.FORMATS)
-    csr = random_csr(40, 30, 0.3, seed=2)
-    x8 = torch.from_numpy(make_x(30, 8, "float32", 1))
+    from spgrid.formats.cv import csr_to_cv, cv_to_csr
+    rect = random_csr(40, 30, 0.3, seed=2)
+    # ldu takes a square matrix with a symmetric pattern only
+    d = random_csr(30, 30, 0.3, seed=2).to_dense()
+    square = dense_to_csr(np.where(d.T != 0, d.T, d), name="square")
     for fmt in dispatch.FORMATS:
+        csr = square if fmt == "ldu" else rect
+        x8 = torch.from_numpy(make_x(csr.k, 8, "float32", 1))
         # the SpMV formats take a (k, 1) operand only
         x = x8[:, :1] if fmt.endswith("spmv_cuda") else x8
         # gell16 and cv_gell multiply the X the JAX harness gates them on
         # by the values split to 16 bits (hi + lo, as the JAX modes split
-        # their values, and as the JAX harness splits X for gell16)
+        # their values, and as the JAX harness splits X for gell16); the
+        # cv_* formats multiply their compressed values (cv_panel bf16
+        # values by X rounded to bf16, as the JAX harness gates it)
+        jax_fmt = dispatch.JAX_NAME[fmt]
         a = csr.to_dense()
         if fmt in ("gell16", "cv_gell"):
             a = jax_harness._xg_host(a, "gell16")
+        elif jax_fmt.startswith("cv_"):
+            mode = "bf16" if jax_fmt == "cv_panel" else jax_fmt[3:]
+            a = cv_to_csr(csr_to_cv(csr, mode)).to_dense()
         want = (a.astype(np.float64)
-                @ jax_harness._xg_host(x.numpy(), fmt).astype(np.float64))
+                @ jax_harness._xg_host(x.numpy(), jax_fmt).astype(np.float64))
         y = dispatch.spmm_fn(fmt)(dispatch.build(csr, fmt, device="cpu"), x)
-        np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5,
+                                   err_msg=fmt)
+    csr = rect
     with pytest.raises(ValueError):
         dispatch.build(csr, "bsr_pallas", device="cpu")
     with pytest.raises(ValueError):

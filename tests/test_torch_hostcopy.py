@@ -1,6 +1,8 @@
 """The port's own host layer against the JAX package's, element for element:
 generator, masks, CSR/BSR packers, parameter lines, CSV schema and matrix
-readers; and a static check that no module of the port, nor
+readers (the ELL, CSC, LDU, CV and OpenFOAM copies in
+``test_torch_formats_rest.py``), and copied functions source for source;
+and a static check that no module of the port, nor
 ``chip_smoke.py``, imports the JAX package or JAX."""
 
 import ast
@@ -262,8 +264,17 @@ COPIES = [
       "_gather_rate", "_gell_slots_tail", "_gell_time", "_ell_time",
       "_coo_time", "_wcoo_bands_slots", "_wcoo_bands_time", "_scoo_time",
       "_merge_time", "_sell_time", "_rbh_time", "_fudged",
-      "estimate_spmm_time", "_finite_or_zero", "select_format_cost"),
+      "estimate_spmm_time", "_finite_or_zero", "tolerant_candidates",
+      "select_format_cost"),
      ("29e-9", "C.residual_nnz")),
+    ("spgrid_torch.formats.ell", "spgrid.formats.ell",
+     ("csr_to_ell", "ell_to_csr"), None),
+    ("spgrid_torch.formats.csc", "spgrid.formats.csc",
+     ("csr_to_csc", "csc_to_csr"), None),
+    ("spgrid_torch.formats.ldu", "spgrid.formats.ldu",
+     ("csr_to_ldu", "ldu_to_csr"), None),
+    ("spgrid_torch.io.openfoam", "spgrid.io.openfoam",
+     ("_read_openfoam_labels", "read_openfoam_matrix_dir"), None),
     ("spgrid_torch.formats.csr", "spgrid.formats.csr", ("csr_to_coo",),
      None),
     ("spgrid_torch.features.structural", "spgrid.features.structural",
