@@ -94,13 +94,18 @@ exits non-zero and never prints the final ``"ok": true`` line:
    band_and_decay mask at sparsity 0.95 and on a 1000^2 mask with pad
    blocks, each printed with its grid, 3xTF32 floor and device ms.
    The bf16 form of the panel kernel (``panel_spmm_bf16``, ``cv_panel``:
-   bf16 panels, X rounded to bf16 on the card, one mma.sync bf16 product a
-   step) runs on the headline twin (with the device ms at each cluster
+   bf16 panels, X rounded to bf16 on the card; a tile walks only the
+   panels live in its 128-row slice, through a cp.async ring into bf16
+   wgmma) runs on the headline twin (with the device ms at each cluster
    size), LINE_B, the banded matrix with empty rows at n=200 and the
    4096^2 case, held to its plain version in f64 on the same bf16
-   operands; its bound counts 2 bytes a panel value and bf16's 989
+   operands; each line gives the launch with its ring's stages, the live
+   steps against the steps of a walk over every panel of the band, and the
+   live slices' bf16 tensor floor (their dense work at 989 TFLOP/s) beside
+   the byte bound; its bound counts 2 bytes a panel value and bf16's 989
    TFLOP/s, its library call is ``torch.sparse.mm`` on the bf16 values as
-   an f32 CSR times X rounded to bf16.
+   an f32 CSR times X rounded to bf16, timed on the device too on LINE_B
+   and the 4096^2 case.
 2. headline: ``run_spmm`` for dense, panel_cuda and bsr_cuda on the
    headline DLMC twin (512^2, n=512, f32), each gated against the host f64
    oracle at eps 1e-4, then the headline JSON line. The rows of phases 2-5
@@ -537,13 +542,20 @@ def phase_kernels() -> dict:
         y = torch.empty((a.shape[0], n), device=DEVICE)
         deq = cv_to_csr(csr_to_cv(csr, "bf16"))
         xq = x.to(torch.bfloat16).to(torch.float32)
-        flops = 2.0 * a.num_panels * a.band_rows * a.bk * n
-        g = panel_grid(a, n)        # the f32 form's launch; no ring here
-        note = (f"R={a.band_rows} bands={a.bands} grid={g.ctas} CTAs "
-                f"({g.tiles} tiles of {g.rows}x{g.cols} x cluster "
-                f"{g.cluster}) steps of {g.step}, no ring "
-                f"tensor_floor_ms={flops / BF16_FLOPS_PER_S * 1e3:.6f} "
-                f"(bf16, one mma.sync a step)")
+        g = panel_grid(a, n)
+        # the walk: each tile steps through the live (slot, slice) pairs of
+        # its slice, step columns of bk at a time, against a walk of every
+        # real panel of the band in every slice
+        live = int(a.slice_ptr[-1])
+        slices = -(-a.band_rows // g.rows)
+        col_tiles = -(-n // g.cols)
+        per_slot = -(-a.bk // g.step) * col_tiles
+        live_flops = 2.0 * live * g.rows * a.bk * n
+        note = (f"R={a.band_rows} bands={a.bands} {g} live_steps="
+                f"{live * per_slot} of {a.num_panels * slices * per_slot} "
+                f"({live} of {a.num_panels * slices} (panel, slice) pairs) "
+                f"tensor_floor_ms={live_flops / BF16_FLOPS_PER_S * 1e3:.6f} "
+                f"(bf16, the live slices' dense work)")
         if sweep:
             note += " device_ms_by_cluster " + " ".join(
                 f"{c}:{device_ms(lambda c=c: panel_launch(a, x, y, c)):.6f}"
@@ -970,11 +982,11 @@ def phase_kernels() -> dict:
          lambda: panel_case(big, 512, 4)),
         ("panel_spmm_bf16", "headline 512^2 n=512", True,
          lambda: panel_bf16_case(head, 512, 1, sweep=True)),
-        ("panel_spmm_bf16", f"{b_label} n=512", False,
+        ("panel_spmm_bf16", f"{b_label} n=512", LIBRARY_TOO,
          lambda: panel_bf16_case(line_b, 512, 12)),
         ("panel_spmm_bf16", "banded 1000^2 empty rows n=200", False,
          lambda: panel_bf16_case(banded, 200, 3)),
-        ("panel_spmm_bf16", "4096^2 50% n=512", False,
+        ("panel_spmm_bf16", "4096^2 50% n=512", LIBRARY_TOO,
          lambda: panel_bf16_case(big, 512, 4)),
         ("bsr_sddmm", "pipeline mask 512^2 s=0.9 bm=128 d=512", True,
          lambda: sddmm_case(mask, 128, 512, 5, sweep=True)),

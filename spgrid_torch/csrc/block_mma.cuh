@@ -85,18 +85,19 @@ __device__ __forceinline__ void stage_kmajor(float* dst,
   }
 }
 
-// dst[kk][j] (row stride X_LD) = src[kk * ld + j] for kk < depth and j <
-// ncols, 0 elsewhere: 16-byte copies where `vec` (src rows start on 16 B
-// and ncols % 4 == 0), else 4-byte ones.
+// dst[kk][j] (row stride LD) = src[kk * ld + j] for kk < depth and j <
+// ncols, 0 elsewhere, for kk < DEPTH: 16-byte copies where `vec` (src rows
+// start on 16 B and ncols % 4 == 0), else 4-byte ones.
+template <int DEPTH = TK, int LD = X_LD>
 __device__ __forceinline__ void stage_nmajor(float* dst,
                                              const float* __restrict__ src,
                                              size_t ld, int depth, int ncols,
                                              bool vec) {
   if (vec) {
-    for (int e = threadIdx.x; e < TK * (NT / 4); e += THREADS) {
+    for (int e = threadIdx.x; e < DEPTH * (NT / 4); e += THREADS) {
       const int kk = e / (NT / 4);
       const int j = e % (NT / 4) * 4;
-      float* d = dst + kk * X_LD + j;
+      float* d = dst + kk * LD + j;
       if (kk < depth && j < ncols) {
         cp_async16(d, src + kk * ld + j);
       } else {
@@ -104,10 +105,10 @@ __device__ __forceinline__ void stage_nmajor(float* dst,
       }
     }
   } else {
-    for (int e = threadIdx.x; e < TK * NT; e += THREADS) {
+    for (int e = threadIdx.x; e < DEPTH * NT; e += THREADS) {
       const int kk = e / NT;
       const int j = e % NT;
-      float* d = dst + kk * X_LD + j;
+      float* d = dst + kk * LD + j;
       if (kk < depth && j < ncols) {
         cp_async4(d, src + kk * ld + j);
       } else {
@@ -163,23 +164,13 @@ __device__ __forceinline__ void mainloop(float (&acc)[NT / 2], float* ring,
   __syncthreads();  // the ring is free for the partial tile
 }
 
-// Sums the cluster's partial tiles and stores each element of the tile's
-// rows x ncols once: `store(i, j, v)` gets v = the sums of columns j .. j
-// + 3 of row i (j % 4 == 0; columns >= ncols hold garbage).
+// Sums the cluster's partial tiles, each rank's in `part` (ROWS x NT, row
+// stride RED_LD), and stores each element of the tile's rows x ncols once:
+// `store(i, j, v)` gets v = the sums of columns j .. j + 3 of row i (j % 4
+// == 0; columns >= ncols hold garbage).
 template <class Store>
-__device__ __forceinline__ void reduce_store(const float (&acc)[NT / 2],
-                                             float* ring, int rows, int ncols,
-                                             const Frag& f, Store store) {
-  float* part = ring;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 64 * f.wg + 16 * f.w + 8 * h + f.g;
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      *reinterpret_cast<float2*>(part + r * RED_LD + 8 * j + 2 * f.q) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
+__device__ __forceinline__ void sum_store(float* part, int rows, int ncols,
+                                          Store store) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every rank's partial tile is in place
   const int ranks = static_cast<int>(cluster.num_blocks());
@@ -203,6 +194,25 @@ __device__ __forceinline__ void reduce_store(const float (&acc)[NT / 2],
     store(i, j, v);
   }
   cluster.sync();  // no rank leaves while another reads its tile
+}
+
+// sum_store of the tiles whose accumulators `acc` hold in the Frag layout,
+// each rank's partial tile laid out at the start of its ring.
+template <class Store>
+__device__ __forceinline__ void reduce_store(const float (&acc)[NT / 2],
+                                             float* ring, int rows, int ncols,
+                                             const Frag& f, Store store) {
+  float* part = ring;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * f.wg + 16 * f.w + 8 * h + f.g;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      *reinterpret_cast<float2*>(part + r * RED_LD + 8 * j + 2 * f.q) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  sum_store(part, rows, ncols, store);
 }
 
 // A tile of a row-tiled product (bsr_spmm.cu, panel_spmm.cu): row of
@@ -309,9 +319,11 @@ int cluster_for(long long tiles) {
   return cluster;
 }
 
-// out (int[6]) = {tiles, cluster, ROWS, NT, TK, STAGES}: the launch of
-// `tiles` tiles that launch_clusters makes at cluster 0.
-int report_shape(long long tiles, void* out) {
+// out (int[6]) = {tiles, cluster, ROWS, NT, step, stages}: the launch of
+// `tiles` tiles that launch_clusters makes at cluster 0, for a kernel whose
+// steps are `step` deep through a ring of `stages`.
+int report_shape(long long tiles, void* out, int step = TK,
+                 int stages = STAGES) {
   if (tiles < 1 || tiles > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,17 +332,17 @@ int report_shape(long long tiles, void* out) {
   shape[1] = cluster_for(tiles);
   shape[2] = ROWS;
   shape[3] = NT;
-  shape[4] = TK;
-  shape[5] = STAGES;
+  shape[4] = step;
+  shape[5] = stages;
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches `kernel` on tiles x cluster CTAs in clusters of `cluster` along
-// x, SMEM_BYTES of dynamic shared memory each. Cluster 0 takes
+// x, `smem` bytes of dynamic shared memory each. Cluster 0 takes
 // `cluster_for`'s; 1, 2, 4 or 8 forces that size (for tests and sweeps).
 template <class... Params, class... Args>
-int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
-                    void* stream, Args... args) {
+int launch_tiles(void (*kernel)(Params...), long long tiles, int cluster,
+                 size_t smem, void* stream, Args... args) {
   if (cluster == 0 && tiles >= 1) cluster = cluster_for(tiles);
   if (cluster < 1 || cluster > CLUSTER_MAX || (cluster & (cluster - 1)) != 0 ||
       tiles < 1 || tiles * cluster > INT_MAX) {
@@ -338,7 +350,7 @@ int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
   }
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
+      static_cast<int>(smem));
   if (attr != cudaSuccess) {
     cudaGetLastError();  // clear it, so that the next launch's check is clean
     return static_cast<int>(attr);
@@ -351,7 +363,7 @@ int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(tiles * cluster));
   config.blockDim = dim3(THREADS);
-  config.dynamicSmemBytes = SMEM_BYTES;
+  config.dynamicSmemBytes = smem;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = dims;
   config.numAttrs = 1;
@@ -361,6 +373,13 @@ int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
     return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tiles with the 3xTF32 tile's SMEM_BYTES.
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), long long tiles, int cluster,
+                    void* stream, Args... args) {
+  return launch_tiles(kernel, tiles, cluster, SMEM_BYTES, stream, args...);
 }
 
 }  // namespace

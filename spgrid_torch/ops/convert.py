@@ -13,7 +13,7 @@ import torch
 from spgrid_torch.ops.attention import SparseAttention
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import DeviceBSRCol
 from spgrid_torch.ops.kernels.dgell import DeviceDGELL
-from spgrid_torch.ops.kernels.panel_spmm import DevicePanels
+from spgrid_torch.ops.kernels.panel_spmm import DevicePanels, live_slices
 from spgrid_torch.ops.kernels.wcoo_spmm import DeviceWCOO
 from spgrid_torch.ops.kernels.wcoo_spmm_aligned import DeviceWCOOBands
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned
@@ -47,17 +47,24 @@ def panels_from_jax(block_cols, panels, shape, nnz: int, num_panels: int,
                     band_rows: int, bands: int, max_p: int, *,
                     device) -> DevicePanels:
     """``spgrid.ops.pallas.panel_spmm.DevicePanels`` → DevicePanels, with
-    each band's real-panel count recovered from the slots."""
+    each band's real-panel count recovered from the slots and the live-slice
+    index from the panels' nonzero rows (the JAX layout carries no CSR, so
+    a slice that holds only explicit zeros is not live)."""
     # np.array copies: leaves of JAX arrays are read-only views
     cols = np.array(block_cols, dtype=np.int32)
     vals = np.array(panels)
+    slice_ptr, slice_slots = live_slices(
+        *np.nonzero(vals.any(axis=2)), int(bands), int(band_rows),
+        int(max_p))
     return DevicePanels(
         block_cols=torch.from_numpy(cols).to(device),
         panels=torch.from_numpy(vals).to(device),
         counts=torch.from_numpy(
             _band_counts(cols, vals, bands, max_p)).to(device),
         shape=tuple(shape), nnz=int(nnz), num_panels=int(num_panels),
-        band_rows=int(band_rows), bands=int(bands), max_p=int(max_p))
+        band_rows=int(band_rows), bands=int(bands), max_p=int(max_p),
+        slice_ptr=torch.from_numpy(slice_ptr).to(device),
+        slice_slots=torch.from_numpy(slice_slots).to(device))
 
 
 def wcoo_from_jax(cols, rows, values, chunk_window, chunk_rowblock,

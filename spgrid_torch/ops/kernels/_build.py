@@ -43,8 +43,9 @@ SIGNATURES = {
     # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n,
     # cluster (0: the launch rule), stream
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 8 + [_PTR],
-    # the same, panels as bf16 bit patterns
-    "spgrid_panel_spmm_bf16": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+    # slice_ptr, slice_slots, cols, panels (bf16 bit patterns), x, y, bands,
+    # band_rows, bk, m, k, n, cluster (0: the launch rule), stream
+    "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk
@@ -52,6 +53,7 @@ SIGNATURES = {
     # ring stages)
     "spgrid_bsr_spmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_panel_spmm_shape": [_INT] * 3 + [_PTR],
+    "spgrid_panel_spmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],

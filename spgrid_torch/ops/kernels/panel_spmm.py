@@ -8,13 +8,14 @@ precision "default"). ``panel_spmm`` launches the form its panels take for
 CUDA tensors (``panel_spmm_bf16`` counts the bf16 form's launches) and
 takes ``panel_spmm_plain`` only for CPU tensors.
 
-The kernel runs the tensor-core tile of ``csrc/block_mma.cuh`` as
+The f32 form runs the tensor-core tile of ``csrc/block_mma.cuh`` as
 ``bsr_spmm`` does, a band being a row of blocks whose blocks are its panel
 slots: one tile a (band, 128-row slice of it, 64 columns of X), its
 contraction (the band's real panels, 32 columns a step) split across a
 cluster where the tiles alone would leave the card idle (``launch_grid``
-reports the launch). The bf16 form walks and launches the same way, with
-one mma.sync bf16 product a step in place of three TF32 ones.
+reports the launch). The bf16 form launches the same tiles but walks only
+the slots live in its slice (``DevicePanels.slice_ptr``/``slice_slots``),
+64 columns a step through a ``cp.async`` ring into bf16 ``wgmma``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ from spgrid_torch.ops.dense import full_f32
 from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import round_up
 
+# Rows of the kernels' tile (``ROWS`` of ``csrc/block_mma.cuh``): the bf16
+# form's live-slice index lists a band's live slots in slices of this many.
+SLICE_ROWS = 128
+
 
 def panel_arrays(csr: CSRMatrix, bk: int = 128, band_rows: int = 2048,
                  max_bytes: int = 4 << 30):
@@ -38,6 +43,11 @@ def panel_arrays(csr: CSRMatrix, bk: int = 128, band_rows: int = 2048,
     DevicePanels.from_csr`` builds them: (block_cols, panels, counts,
     num_panels, R, bands, max_p). ``counts[band]`` is the band's number of
     real panels; its slots past that are pad slots."""
+    return _panel_layout(csr, bk, band_rows, max_bytes)[:7]
+
+
+def _panel_layout(csr: CSRMatrix, bk: int, band_rows: int, max_bytes: int):
+    """``panel_arrays``' arrays, then each nnz's slot and row in its band."""
     m, k = csr.shape
     R = min(band_rows, round_up(max(m, 8), 8))
     bands = -(-m // R)
@@ -70,7 +80,27 @@ def panel_arrays(csr: CSRMatrix, bk: int = 128, band_rows: int = 2048,
         last = int(u_col[e - 1]) if e > s else 0
         pcols[b * max_p + (e - s): (b + 1) * max_p] = last
     return (pcols, panels, counts.astype(np.int32), num_panels, R, bands,
-            max_p)
+            max_p, slot[inv], rows % R)
+
+
+def live_slices(slots: np.ndarray, rows: np.ndarray, bands: int,
+                band_rows: int, max_p: int):
+    """The live-slice index of the bf16 kernel's walk: (slice_ptr,
+    slice_slots), int32. For entries at panel slot ``slots[e]``, row
+    ``rows[e]`` of its band, slice ``band * slices + row // SLICE_ROWS``
+    (slices = ceil(band_rows / SLICE_ROWS)) lists the slots that hold an
+    entry in it, ascending (in column order), at
+    ``slice_slots[slice_ptr[slice]:slice_ptr[slice + 1]]``."""
+    slices = -(-band_rows // SLICE_ROWS)
+    num_slots = bands * max_p
+    slots = np.asarray(slots, dtype=np.int64)
+    pair = np.unique((slots // max_p * slices
+                      + np.asarray(rows, dtype=np.int64) // SLICE_ROWS)
+                     * num_slots + slots)
+    ptr = np.zeros(bands * slices + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum(np.bincount(pair // num_slots,
+                                    minlength=bands * slices))
+    return ptr, (pair % num_slots).astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -79,7 +109,9 @@ class DevicePanels:
 
     Bands are padded to ``max_p`` panel slots; pad slots repeat the previous
     slot's column and hold zero panels. ``counts`` holds each band's number
-    of real panels, so the kernel skips the pad slots."""
+    of real panels, so the f32 kernel skips the pad slots; ``slice_ptr`` and
+    ``slice_slots`` (``live_slices``) list each 128-row slice's live slots,
+    the bf16 kernel's walk."""
 
     block_cols: torch.Tensor    # (bands*max_p,) int32
     panels: torch.Tensor        # (bands*max_p, R, bk)
@@ -90,6 +122,8 @@ class DevicePanels:
     band_rows: int              # R
     bands: int
     max_p: int
+    slice_ptr: torch.Tensor     # (bands*ceil(R/128) + 1,) int32
+    slice_slots: torch.Tensor   # (slice_ptr[-1],) int32
 
     @property
     def bk(self) -> int:
@@ -98,7 +132,8 @@ class DevicePanels:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
-            self.block_cols, self.panels, self.counts))
+            self.block_cols, self.panels, self.counts, self.slice_ptr,
+            self.slice_slots))
 
     def as_bf16(self) -> "DevicePanels":
         """The same layout with its panels rounded to bf16 (to nearest, ties
@@ -109,14 +144,19 @@ class DevicePanels:
     @classmethod
     def from_csr(cls, csr: CSRMatrix, bk: int = 128, band_rows: int = 2048,
                  max_bytes: int = 4 << 30, *, device) -> "DevicePanels":
-        pcols, panels, counts, num_panels, R, bands, max_p = panel_arrays(
-            csr, bk, band_rows, max_bytes)
+        """The layout of ``csr``; its live-slice index follows the CSR's
+        pattern, so an explicit zero keeps its slice live."""
+        (pcols, panels, counts, num_panels, R, bands, max_p, slots,
+         rows) = _panel_layout(csr, bk, band_rows, max_bytes)
+        slice_ptr, slice_slots = live_slices(slots, rows, bands, R, max_p)
         return cls(
             block_cols=torch.from_numpy(pcols).to(device),
             panels=torch.from_numpy(panels).to(device),
             counts=torch.from_numpy(counts).to(device),
             shape=csr.shape, nnz=csr.nnz, num_panels=num_panels,
-            band_rows=R, bands=bands, max_p=max_p)
+            band_rows=R, bands=bands, max_p=max_p,
+            slice_ptr=torch.from_numpy(slice_ptr).to(device),
+            slice_slots=torch.from_numpy(slice_slots).to(device))
 
 
 def _check(a: DevicePanels, x: torch.Tensor) -> None:
@@ -128,16 +168,19 @@ def _check(a: DevicePanels, x: torch.Tensor) -> None:
     check_operands("panel_spmm", x.device, x=(x, torch.float32),
                    panels=(a.panels, a.panels.dtype),
                    block_cols=(a.block_cols, torch.int32),
-                   counts=(a.counts, torch.int32))
+                   counts=(a.counts, torch.int32),
+                   slice_ptr=(a.slice_ptr, torch.int32),
+                   slice_slots=(a.slice_slots, torch.int32))
 
 
 def launch_grid(a: DevicePanels, n: int) -> LaunchShape:
-    """The kernel's launch for ``a`` at n columns of X on the card ``a`` lies
-    on, as ``spgrid_panel_spmm`` makes it (the cluster depends on the card's
-    SM count)."""
+    """The launch of the form ``a``'s panels take at n columns of X on the
+    card ``a`` lies on, as ``spgrid_panel_spmm`` or ``spgrid_panel_spmm_bf16``
+    makes it (the cluster depends on the card's SM count)."""
+    entry = ("spgrid_panel_spmm_bf16_shape"
+             if a.panels.dtype == torch.bfloat16 else "spgrid_panel_spmm_shape")
     with torch.cuda.device(a.panels.device):
-        return query("spgrid_panel_spmm_shape", "panel_spmm", a.bands,
-                     a.band_rows, n)
+        return query(entry, "panel_spmm", a.bands, a.band_rows, n)
 
 
 def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
@@ -146,14 +189,22 @@ def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
     given cluster (0: the launch rule), uncounted: for sweeps and tests."""
     m, k = a.shape
     n = x.shape[1]
-    entry = ("spgrid_panel_spmm_bf16" if a.panels.dtype == torch.bfloat16
-             else "spgrid_panel_spmm")
+    lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(_build.library(), entry)(
-            a.counts.data_ptr(), a.block_cols.data_ptr(),
-            a.panels.data_ptr(), x.data_ptr(), y.data_ptr(),
-            a.bands, a.max_p, a.band_rows, a.bk, m, k, n, cluster, stream)
+        if a.panels.dtype == torch.bfloat16:
+            entry = "spgrid_panel_spmm_bf16"
+            code = lib.spgrid_panel_spmm_bf16(
+                a.slice_ptr.data_ptr(), a.slice_slots.data_ptr(),
+                a.block_cols.data_ptr(), a.panels.data_ptr(), x.data_ptr(),
+                y.data_ptr(), a.bands, a.band_rows, a.bk, m, k, n, cluster,
+                stream)
+        else:
+            entry = "spgrid_panel_spmm"
+            code = lib.spgrid_panel_spmm(
+                a.counts.data_ptr(), a.block_cols.data_ptr(),
+                a.panels.data_ptr(), x.data_ptr(), y.data_ptr(), a.bands,
+                a.max_p, a.band_rows, a.bk, m, k, n, cluster, stream)
     _build.check(code, entry[len("spgrid_"):])
 
 

@@ -16,6 +16,7 @@ same f32 additions in the same order, so they agree bit for bit.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -253,6 +254,64 @@ def test_panel_spmm_bf16_at_every_cluster_size(cuda, case, cluster):
                               device=cuda).as_bf16()
     x = operand((csr.k, 70), 9, cuda)
     y = torch.full((csr.m, 70), float("nan"), device=cuda)
+    panel_launch(a, x, y, cluster)
+    assert_close(y, panel_spmm_plain(a, x.double()))
+
+
+def dead_slice():
+    """300 x 260 in one band of 304 rows (slices of 128, 128 and 48 rows),
+    rows 128-255 empty: the middle slice of a band with panels has no live
+    slot, and the last slice's live slots are some of the band's."""
+    d = positive(random_csr(300, 260, 0.3, seed=13)).to_dense()
+    d[128:256] = 0.0
+    d[256:, :128] = 0.0
+    return dense_to_csr(d.astype(np.float32), name="dead_slice")
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_panel_spmm_bf16_writes_zeros_where_a_slice_has_no_live_slot(
+        cuda, cluster):
+    csr = dead_slice()
+    a = DevicePanels.from_csr(csr, bk=128, device=cuda).as_bf16()
+    ptr = a.slice_ptr.tolist()
+    assert a.counts.tolist() == [3] and ptr == [0, 3, 3, 5]
+    x = operand((csr.k, 70), 10, cuda)
+    y = torch.full((csr.m, 70), float("nan"), device=cuda)
+    panel_launch(a, x, y, cluster)
+    assert_close(y, panel_spmm_plain(a, x.double()))
+    assert torch.equal(y[128:256], torch.zeros_like(y[128:256]))
+
+
+# bk = 96: a slot's second step is 32 deep; bk = 100: rows of 200 bytes,
+# so the panels come in by 2-byte loads
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 70, 512])
+@pytest.mark.parametrize("bk", [96, 100])
+@pytest.mark.parametrize("case", ["one_band", "r104", "empty_band"])
+def test_panel_spmm_bf16_at_depths_other_than_the_step(cuda, case, bk, n,
+                                                       x_layout):
+    make, band_rows = PANELS[case]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=bk, band_rows=band_rows,
+                              device=cuda).as_bf16()
+    x = (operand if x_layout == "aligned" else misaligned)((csr.k, n), 11,
+                                                           cuda)
+    assert_close(panel_spmm_bf16(a, x), panel_spmm_plain(a, x.double()))
+
+
+@functools.lru_cache(maxsize=1)
+def line_b_bf16_panels():
+    csr = PANEL_BF16_SHAPES["line_b"][0]()
+    return csr, DevicePanels.from_csr(csr, bk=128, device="cuda").as_bf16()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_panel_spmm_bf16_line_b_at_every_cluster_size(cuda, cluster):
+    """LINE_B (four bands of 2048 rows, 316 live (panel, slice) pairs of
+    1,216) at each cluster size, against the plain version in f64."""
+    csr, a = line_b_bf16_panels()
+    x = operand((csr.k, 512), 12, cuda)
+    y = torch.full((csr.m, 512), float("nan"), device=cuda)
     panel_launch(a, x, y, cluster)
     assert_close(y, panel_spmm_plain(a, x.double()))
 
