@@ -176,6 +176,21 @@ exits non-zero and never prints the final ``"ok": true`` line:
    the run fails where they differ past ``device_oracle.disagreements``'
    bounds (1e-12 relative; lnQ_error, mlare and gmare within the card's
    and numpy's log10 differing in the last place).
+11. dtypes: (a) right after phase 1, the four bf16 forms (``bsr_spmm_bf16``
+   and ``panel_spmm_bf16_xy`` on the headline twin and LINE_B,
+   ``bsr_sddmm_bf16`` on a 4096^2 band_and_random mask at sparsity 0.95
+   with d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE; and each form on
+   the leg's matrices that (b) runs it on, ``LEG_SHAPES``; n = 512) against
+   their plain versions on the same bf16 inputs, within 1 bf16 ulp
+   (``BF16_FLOOR`` absolutely below it) and the same bits on two calls,
+   each with its device ms by graph replay (eager in brackets), bound and
+   library time; then, on its own path after phase 10: (b) the bf16 leg
+   (``spgrid_torch.scripts.run_bf16_leg``, its jobs at full width, or
+   ``BF16_LEG_JOBS``, and its pipeline row), every row gated at 3e-2;
+   (c) the f64 sweep (``run_f64_sweep``) on the card, every row gated at
+   1e-10; (d) the CLI at ``--dtype bfloat16`` (dense, bsr_cuda, panel_cuda
+   on the twin; ``--sddmm 4096`` and ``--pipeline``, each with and without
+   ``--xla-only``) and ``--dtype float64`` (csr_xla_coo, n = 1).
 
 Each phase prints its seconds. ``SPGRID_ORACLE=host python3 chip_smoke.py``
 gates every row of phases 4, 5, 7 and 10 on the host (phase 10's pairs
@@ -186,9 +201,9 @@ flagship path), before phase 4 (the CLI path), before phase 5 (the
 scattered and block-grid path), before phase 6 (the probe path), before
 phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
 bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), before phase 9
-(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``) and before phase 10 (the
-remaining formats: ``panel_spmm_bf16`` and ``bsr_spmm``), and read after
-each; a
+(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``), before phase 10 (the
+remaining formats: ``panel_spmm_bf16`` and ``bsr_spmm``) and before phase
+11's (b)-(d) (the dtype path: the four bf16 forms), and read after each; a
 kernel of a path that was not launched there fails the run, and a
 kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
@@ -384,13 +399,14 @@ def bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS_PER_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def csr_tensor(csr):
-    """``csr`` as a ``torch.sparse_csr_tensor`` on the card, for the library
+def csr_tensor(csr, dtype=torch.float32):
+    """``csr`` as a ``torch.sparse_csr_tensor`` on the card, its values in
+    ``dtype`` (a bf16 matrix's f32 values exactly), for the library
     yardsticks."""
     return torch.sparse_csr_tensor(
         torch.from_numpy(csr.row_ptr.astype(np.int64)),
         torch.from_numpy(csr.col_idx.astype(np.int64)),
-        torch.from_numpy(csr.values.astype(np.float32)),
+        torch.from_numpy(csr.values.astype(np.float32)).to(dtype),
         size=csr.shape).to(DEVICE)
 
 
@@ -1222,11 +1238,13 @@ def phase_flagship() -> None:
 
 def gate_line(r, config=None) -> str:
     """A row's gate: its class and where it ran (the config's ``oracle``;
-    the CLI's is the environment's, 'auto' by default)."""
+    the CLI's is the environment's, 'auto' by default, at the row's
+    dtype)."""
     from spgrid_torch.bench.harness import gate_site, gold_class
     from spgrid_torch.core.config import BenchConfig
-    site = gate_site(int(r["csr_m"]), int(r["input_columns"]),
-                     config or BenchConfig.from_env(), torch.device(DEVICE))
+    config = config or BenchConfig.from_env(dtype=r.get("dtype") or "float32")
+    site = gate_site(int(r["csr_m"]), int(r["input_columns"]), config,
+                     torch.device(DEVICE))
     return f"gate={gold_class(r['fmt'])} on the {site}"
 
 
@@ -1701,17 +1719,18 @@ def study_lines(tmp: str) -> None:
     gated("phase 9 study pipeline", pipe, 1e-3)
 
 
-def cli_mode_rows(tmp: str, args, want: dict, eps: float) -> None:
-    """The CLI's ``--sddmm`` or ``--pipeline`` with and without
-    ``--xla-only``: one gated row each, of the kernel and fmt ``want``
-    says (a fmt prefix)."""
+def cli_mode_rows(tmp: str, args, want: dict, eps: float,
+                  phase: str = "phase 9", extra=()) -> None:
+    """The CLI's ``--sddmm`` or ``--pipeline`` (and ``extra`` arguments)
+    with and without ``--xla-only``: one gated row each, of the kernel and
+    fmt ``want`` says (a fmt prefix)."""
     from spgrid_torch.bench.cli import main as cli_main
     from spgrid_torch.scripts.sddmm_study import N
     for xla in (False, True):
         out = os.path.join(tmp, f"cli_{args[0][2:]}_{int(xla)}.csv")
-        code = cli_main(args + ["--num-cols", str(N), "--out", out,
-                                "--platform", DEVICE]
-                        + (["--xla-only"] if xla else []))
+        code = cli_main(args + list(extra) + [
+            "--num-cols", str(N), "--out", out, "--platform", DEVICE]
+            + (["--xla-only"] if xla else []))
         if code != 0:
             raise RuntimeError(f"the CLI exited {code} on {args} xla={xla}")
         rows = read_csv(out)
@@ -1721,7 +1740,7 @@ def cli_mode_rows(tmp: str, args, want: dict, eps: float) -> None:
             got = [(r["kernel"], r["fmt"]) for r in rows]
             raise RuntimeError(f"the CLI wrote {got}, not one {kernel} "
                                f"{fmt} row")
-        gated(f"phase 9 cli {' '.join(args[:1])}"
+        gated(f"{phase} cli {' '.join(args[:1])}"
               f"{' --xla-only' if xla else ''}", rows, eps)
 
 
@@ -1875,6 +1894,269 @@ def log10_line(csr) -> None:
           f"values (numpy {np.__version__})", flush=True)
 
 
+# Phase 11: the dtype axis. The bf16 forms are held to their plain versions
+# (f32 sums rounded once to bf16, on the same bf16 operands) within 1 bf16
+# ulp of the plain value, 2^(e - 7) for a value in [2^e, 2^(e + 1)), where
+# |plain| > BF16_FLOOR; below it within BF16_FLOOR absolutely (the operands
+# are positive, so only empty rows' exact zeros lie there).
+BF16_FLOOR = 1e-6
+HEADLINE_LINE = "512 512 256 32 normal random 1.0 0 0.05 0.05 14"
+DTYPE_SDDMM = (4096, 0.95, 512)   # mask side, sparsity, d of 11a's SDDMM
+# the leg's jobs run here (a comma list of tags; None: all twelve): the
+# matrices that run each of the leg's kernels, the bf16 forms' included
+BF16_LEG_JOBS = ("dlmc_twin_512_0.5,mid_16k_d2pct,band_98k,scat_131k,"
+                 "wideband_196k,dense_2k_d20pct")
+# the leg's matrices on which 11a holds the forms the leg runs there (the
+# twin is the headline case above)
+LEG_SHAPES = (("mid_16k_d2pct", ("bsr", "panel")), ("band_98k", ("bsr",)),
+              ("dense_2k_d20pct", ("bsr", "panel")),
+              ("wideband_196k", ("bands",)))
+# the JAX package's f64 sweep's rows (its CPU run), which 11c must match
+JAX_F64_CSV = "benchmark_results/cpu-f64/f64_correctness.csv"
+
+
+def bf16_compare(out: torch.Tensor, ref: torch.Tensor):
+    """(largest difference in ulps of ref where |ref| > BF16_FLOOR, largest
+    |difference|, whether both bounds hold and out is finite)."""
+    o, r = out.double(), ref.double()
+    diff = (o - r).abs()
+    big = r.abs() > BF16_FLOOR
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(BF16_FLOOR)))
+                     - 7)
+    ulps = torch.where(big, diff / ulp, torch.zeros_like(diff)).max().item()
+    ok = (bool(torch.isfinite(o).all()) and ulps <= 1.0
+          and bool((diff[~big] <= BF16_FLOOR).all()))
+    return ulps, diff.max().item(), ok
+
+
+def library_on(fn, bf16_args, f32_args):
+    """(args, which): the library call's operands in bf16 where the card's
+    torch takes them, else its f32 form on the bf16 values."""
+    try:
+        fn(*bf16_args)
+        torch.cuda.synchronize()
+        return bf16_args, "bf16"
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        torch.cuda.synchronize()
+        return f32_args, f"f32 form on the bf16 values ({str(e)[:60]})"
+
+
+def phase_dtype_kernels() -> dict:
+    """Phase 11a: the four bf16 forms against their plain versions on the
+    card, on the same bf16 inputs (``bsr_spmm_bf16`` and
+    ``panel_spmm_bf16_xy`` on the headline twin and LINE_B at n = 512,
+    ``bsr_sddmm_bf16`` on a 4096^2 band_and_random mask at sparsity 0.95,
+    d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE at n = 512; and each
+    form on the bf16 leg's matrices it runs on in 11b, ``LEG_SHAPES``), each
+    within 1 ulp and the same bits on two calls, with its device ms by
+    graph replay (eager in brackets), the plain version's ms, the library
+    call's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``; bf16 where
+    the card's torch takes it) and its bound: the nnz's bf16 values and
+    indices, the dense operands and the output in bf16, each once, or 2
+    flops a nnz a column at 989 TFLOP/s. Runs before the paths' counts are
+    reset: these launches are not the main path's. Returns, per form, the
+    numbers of its main-path case (the twin for A and B, the leg's
+    ``wideband_196k`` for D)."""
+    from spgrid_torch.bench.harness import make_x, x_tensor
+    from spgrid_torch.core.timing import time_kernel
+    from spgrid_torch.gen import create_mask
+    from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
+    from spgrid_torch.ops.kernels.panel_spmm import (
+        DevicePanels, panel_spmm, panel_spmm_plain)
+    from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
+    from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+    from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
+    from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+        DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
+    from spgrid_torch.ops.layouts import DeviceBSR
+    from spgrid_torch.scripts.run_bf16_leg import JOBS as LEG_JOBS
+    from spgrid_torch.scripts.run_bf16_leg import job_matrix
+
+    def ms(fn, *args):
+        return time_kernel(fn, *args, device=DEVICE, warmup_iters=5,
+                           min_time_s=TIME_S, min_iters=20
+                           ).time_per_iter_s * 1e3
+
+    def xb(k, n, seed):
+        return x_tensor(make_x(k, n, "bfloat16", seed), "bfloat16", DEVICE)
+
+    def spmm_case(kind, csr, n, seed):
+        x = xb(csr.k, n, seed)
+        if kind == "bsr":
+            a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=DEVICE)
+            fn, plain, note = bsr_spmm, bsr_spmm_plain, str(bsr_grid(a, n))
+            index = 4
+        elif kind == "panel":
+            a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
+            fn, plain = panel_spmm, panel_spmm_plain
+            note = (f"R={a.band_rows} bands={a.bands} {panel_grid(a, n)} "
+                    f"live (panel, slice) pairs {int(a.slice_ptr[-1])}")
+            index = 4
+        else:
+            a = DeviceWCOOBands.from_csr(csr, device=DEVICE)
+            fn, plain = wcoo_spmm_aligned, wcoo_spmm_aligned_plain
+            note = (f"live_slots={a.num_slots} "
+                    f"long_rows={len(a.long_rows)}")
+            index = a.cols.element_size()
+        lib, which = library_on(
+            torch.sparse.mm, (csr_tensor(csr, torch.bfloat16), x),
+            (csr_tensor(csr), x.float()))
+        return (fn, plain, (a, x), torch.sparse.mm, lib, which,
+                csr.nnz * (2 + index) + 2 * (csr.k + csr.m) * n,
+                2.0 * csr.nnz * n, note)
+
+    def sddmm_case():
+        length, sparsity, d = DTYPE_SDDMM
+        mask = create_mask("band_and_random", length, sparsity, seed=14,
+                           dtype="bfloat16")
+        a = DeviceBSR.from_csr(mask, bm=128, bk=128, device=DEVICE)
+        q, k = xb(length, d, 41), xb(length, d, 42)
+        lib, which = library_on(
+            lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
+                                                         beta=0.0),
+            (csr_tensor(mask, torch.bfloat16), q, k.t().contiguous()),
+            (csr_tensor(mask), q.float(), k.float().t().contiguous()))
+        return (bsr_sddmm, bsr_sddmm_plain, (a, q, k),
+                lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
+                                                             beta=0.0),
+                lib, which, mask.nnz * (2 + 4) + 2 * 2 * length * d,
+                2.0 * mask.nnz * d,
+                f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}")
+
+    head = line_matrix(HEADLINE_LINE).astype("bfloat16")
+    line_b = line_matrix(LINE_B).astype("bfloat16")
+    hyper = line_matrix(MAIN_LINE).astype("bfloat16")
+    leg = {tag: p for tag, p, _ in LEG_JOBS}
+    cases = [
+        ("bsr_spmm_bf16", "headline 512^2 n=512", True,
+         lambda: spmm_case("bsr", head, 512, 43)),
+        ("bsr_spmm_bf16", "LINE_B n=512", False,
+         lambda: spmm_case("bsr", line_b, 512, 44)),
+        ("panel_spmm_bf16_xy", "headline 512^2 n=512", True,
+         lambda: spmm_case("panel", head, 512, 43)),
+        ("panel_spmm_bf16_xy", "LINE_B n=512", False,
+         lambda: spmm_case("panel", line_b, 512, 44)),
+        ("bsr_sddmm_bf16", "{}^2 band_and_random s={} d={}".format(
+            *DTYPE_SDDMM), True, sddmm_case),
+        ("wcoo_spmm_aligned_bf16", "MAIN_LINE n=512", False,
+         lambda: spmm_case("bands", hyper, 512, 45)),
+    ]
+    # the bf16 leg's own matrices (11b), at the shapes it gives each form
+    for tag, kinds in LEG_SHAPES:
+        for kind in kinds:
+            cases.append((
+                {"bsr": "bsr_spmm_bf16", "panel": "panel_spmm_bf16_xy",
+                 "bands": "wcoo_spmm_aligned_bf16"}[kind],
+                f"bf16 leg {tag} n=512", kind == "bands",
+                lambda tag=tag, kind=kind: spmm_case(
+                    kind, job_matrix(tag, leg[tag]).astype("bfloat16"), 512,
+                    46)))
+    main_path, failed = {}, []
+    for name, label, on_path, make in cases:
+        (kernel, plain, args, library, lib_args, which, bytes_moved, flops,
+         note) = make()
+        out = kernel(*args)
+        again = kernel(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        ulps, err, ok = bf16_compare(out, plain(*args))
+        ok = ok and same and out.dtype == torch.bfloat16
+        dev_ms, k_ms, p_ms = (device_ms(kernel, *args), ms(kernel, *args),
+                              ms(plain, *args))
+        lib_ms = ms(library, *lib_args)
+        lib_dev = library_device_ms(library, *lib_args)
+        b_ms, b_by = bound(bytes_moved, flops, BF16_FLOPS_PER_S)
+        print(f"phase 11 kernels: {name} [{label}] max_ulps={ulps:.3f} "
+              f"(tol 1 ulp; {BF16_FLOOR:g} absolute below it) "
+              f"max_abs={err:.3e} same_bits_twice={same} "
+              f"device_ms={dev_ms:.6f} (eager {k_ms:.6f}) "
+              f"plain_ms={p_ms:.6f} library_ms={lib_ms:.6f} "
+              f"library_device_ms={show_ms(lib_dev)} (library {which}) "
+              f"bound_ms={b_ms:.6f} ({b_by}) {note} "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"{name} [{label}]")
+        if on_path:
+            main_path[name] = {"max_abs_err": err, "ms": k_ms,
+                               "plain_ms": p_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": lib_ms}
+        del out, again, args, lib_args
+    if failed:
+        raise RuntimeError(f"bf16 form disagrees with its plain version: "
+                           f"{failed}")
+    return main_path
+
+
+def phase_dtype_legs() -> None:
+    """Phase 11b and 11c: the bf16 leg (``run_bf16_leg``: ``BF16_LEG_JOBS``
+    at full width, n = 512, every row gated at 3e-2, then its pipeline row)
+    and the f64 sweep (``run_f64_sweep`` on the card, each row gated at
+    1e-10 on the host: the rows of the JAX package's sweep, ``JAX_F64_CSV``,
+    whose ELL layout refuses the skewed matrix as the port's does), with
+    each part's seconds."""
+    from spgrid_torch.scripts import run_bf16_leg, run_f64_sweep
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "bf16_leg.csv")
+        jobs = ([] if BF16_LEG_JOBS is None else ["--jobs", BF16_LEG_JOBS])
+        code = run_bf16_leg.main(["--out", out, "--platform", DEVICE] + jobs)
+        rows = read_csv(out)
+        gated("phase 11 bf16 leg", rows, 3e-2)
+        tags = (BF16_LEG_JOBS.split(",") if BF16_LEG_JOBS
+                else [tag for tag, _, _ in run_bf16_leg.JOBS])
+        want = 1 + sum(len(k) for tag, _, k in run_bf16_leg.JOBS
+                       if tag in tags)
+        if code != 0 or len(rows) != want:
+            raise RuntimeError(f"run_bf16_leg exited {code} with {len(rows)} "
+                               f"rows, not {want}")
+        print(f"phase 11 bf16 leg: {len(rows)} rows, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "f64.csv")
+        code = run_f64_sweep.main(["--out", out, "--platform", DEVICE])
+        rows = read_csv(out)
+        gated("phase 11 f64 sweep", rows, 1e-10)
+        want = {(r["matrix_name"], r["kernel"]) for r in read_csv(
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         JAX_F64_CSV))}
+        got = {(r["matrix_name"], r["kernel"]) for r in rows}
+        if code != 0 or got != want:
+            raise RuntimeError(f"run_f64_sweep exited {code}; rows not the "
+                               f"JAX sweep's: {sorted(got ^ want)}")
+        print(f"phase 11 f64 sweep: {len(rows)} rows, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_dtype_cli() -> None:
+    """Phase 11d: the CLI at bf16 (dense, bsr_cuda and panel_cuda on the
+    headline twin, n = 512; ``--sddmm 4096`` and ``--pipeline`` on three
+    twins written as .smtx, each with and without ``--xla-only``) and at
+    f64 (csr_xla_coo on the twin at n = 1), every row gated."""
+    from spgrid_torch.io import write_smtx
+    from spgrid_torch.scripts.sddmm_study import (
+        LENGTH, PIPELINE_LENGTH, weight)
+    cli_rows("phase 11 cli", (
+        (["--generate", HEADLINE_LINE, "--dtype", "bfloat16"],
+         "dense,bsr_cuda,panel_cuda", "512"),
+        (["--generate", HEADLINE_LINE, "--dtype", "float64"], "csr_xla_coo",
+         "1")))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_mode_rows(tmp, ["--sddmm", str(LENGTH)],
+                      {False: ("sddmm_cuda", "bsr_pallas_"),
+                       True: ("sddmm_xla", "coo")}, 3e-2, "phase 11",
+                      ["--dtype", "bfloat16"])
+        paths = []
+        for seed in (1, 2, 3):
+            paths.append(os.path.join(tmp, f"w{seed}.smtx"))
+            write_smtx(paths[-1], weight(PIPELINE_LENGTH, seed))
+        cli_mode_rows(tmp, ["--pipeline", *paths, "--sparsity",
+                            str(PIPELINE_SPARSITY)],
+                      {False: ("pipeline_cuda", "bsr"),
+                       True: ("pipeline_xla", "bsr")}, 3e-2, "phase 11",
+                      ["--dtype", "bfloat16"])
+
+
 # kernel -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "bsr_spmm": ("spgrid_torch/csrc/bsr_spmm.cu",
@@ -1911,6 +2193,15 @@ SOURCES = {
                     "scripts/exp_spmv_ablate.py:41"),
     "wpack_ablate": ("spgrid_torch/csrc/wpack_spmv.cu",
                      "spgrid/ops/pallas/wpack_spmv.py:272"),
+    # the bf16 forms of the Pallas kernels at dtype bf16
+    "bsr_spmm_bf16": ("spgrid_torch/csrc/bsr_spmm.cu",
+                      "spgrid/ops/pallas/bsr_spmm.py:44"),
+    "panel_spmm_bf16_xy": ("spgrid_torch/csrc/panel_spmm.cu",
+                           "spgrid/ops/pallas/panel_spmm.py:126"),
+    "bsr_sddmm_bf16": ("spgrid_torch/csrc/sddmm.cu",
+                       "spgrid/ops/pallas/sddmm.py:31"),
+    "wcoo_spmm_aligned_bf16": ("spgrid_torch/csrc/wcoo_bands.cu",
+                               "spgrid/ops/pallas/wcoo_spmm_aligned.py:174"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -1926,6 +2217,9 @@ PATHS = (
     ("dispatch", (phase_dispatch,), ("bsr_spmm", "panel_spmm")),
     ("SDDMM and the CLI's modes", (phase_sddmm,), ("bsr_sddmm", "bsr_spmm")),
     ("remaining formats", (phase_formats,), ("panel_spmm_bf16", "bsr_spmm")),
+    ("dtypes", (phase_dtype_legs, phase_dtype_cli),
+     ("bsr_spmm_bf16", "panel_spmm_bf16_xy", "bsr_sddmm_bf16",
+      "wcoo_spmm_aligned_bf16")),
 )
 
 
@@ -1954,6 +2248,9 @@ def main() -> int:
     t0 = time.perf_counter()
     main_path = phase_kernels()
     print(f"phase 1 kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    main_path.update(phase_dtype_kernels())
+    print(f"phase 11 kernels: {time.perf_counter() - t0:.1f} s", flush=True)
 
     launches = {}
     for path, phases, kernels in PATHS:

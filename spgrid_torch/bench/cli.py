@@ -6,8 +6,11 @@ with the same flags and the same CSV schema. It runs on the CUDA device;
 Without a CUDA device and without ``--platform cpu`` it exits non-zero. It
 also exits non-zero when a row fails its accuracy gate or its run.
 ``--reorder rcm|shuffle|degsort`` permutes each matrix's rows first
-(``formats.reorder``; the matrix's name gains ``_<order>``). A ``--dtype``
-other than float32 is not ported yet.
+(``formats.reorder``; the matrix's name gains ``_<order>``). ``--dtype
+bfloat16|float64`` runs A and X in that type (``BenchConfig.dtype``): a
+kernel with no form at the dtype (``ops.dispatch.DTYPE_FORMATS``; at f64 the
+hand-written kernels, so ``--sddmm`` and ``--pipeline`` only with
+``--xla-only``) exits non-zero naming ROADMAP.md before anything runs.
 
 Examples:
   # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
@@ -38,6 +41,13 @@ cv_int8,cv_panel_cuda --reorder rcm --num-cols 512
   python -m spgrid_torch.bench --param-file params.txt \
       --kernels bsr_cuda,dense --num-cols 128,512 --out results.csv
 
+  # bf16 on the kernels' bf16 forms; f64 on the torch ops
+  python -m spgrid_torch.bench --generate "512 512 256 32 normal random \
+      1.0 0 0.05 0.05 14" --kernels dense,bsr_cuda,panel_cuda \
+      --dtype bfloat16
+  python -m spgrid_torch.bench --generate "4000 4000 8 2 normal random \
+      0.1 0 0.05 0.05 14" --kernels csr_xla_coo,merge --dtype float64
+
   # labels only
   python -m spgrid_torch.bench --labels
 """
@@ -56,8 +66,9 @@ from spgrid_torch.formats.reorder import (
 )
 from spgrid_torch.gen.params import GenParams, read_param_file
 from spgrid_torch.bench.harness import KERNELS
+from spgrid_torch.ops.dispatch import DTYPE_FORMATS, runs_at
 
-NOT_PORTED = "not ported to spgrid_torch yet (ROADMAP.md, Queue 1)"
+NO_FORM = "has no {dtype} form in the port (ROADMAP.md, Queue 2)"
 
 
 def main(argv=None) -> int:
@@ -92,7 +103,8 @@ def main(argv=None) -> int:
                     help="dense width(s), comma list (default from env/512)")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16", "float64"],
-                    help="float32 only so far")
+                    help="value type of A, X and Y (default from env/"
+                         "float32)")
     ap.add_argument("--out", help="CSV output path (append + resume)")
     ap.add_argument("--no-check", action="store_true",
                     help="skip the accuracy oracle")
@@ -111,8 +123,6 @@ def main(argv=None) -> int:
         print(BenchRow.header())
         return 0
 
-    if args.dtype not in (None, "float32"):
-        ap.error(f"--dtype {args.dtype}: {NOT_PORTED}")
     modes = bool(args.sddmm or args.pipeline)
     if args.xla_only and not modes:
         ap.error("--xla-only needs --sddmm or --pipeline")
@@ -136,7 +146,21 @@ def main(argv=None) -> int:
         overrides["band_size"] = args.band_size
     if args.seed is not None:
         overrides["seed"] = args.seed
+    if args.dtype is not None:
+        overrides["dtype"] = args.dtype
     config = BenchConfig.from_env(**overrides)
+    dtype = config.dtype
+    if modes:
+        if dtype == "float64" and not args.xla_only:
+            ap.error(f"--sddmm and --pipeline run the CUDA kernels, which "
+                     f"{NO_FORM.format(dtype=dtype)}; add --xla-only")
+    else:
+        missing = [k for k in kernels if KERNELS[k] is not None
+                   and not runs_at(KERNELS[k], dtype)]
+        if missing:
+            ap.error(f"kernel(s) {missing} {NO_FORM.format(dtype=dtype)}; "
+                     f"at {dtype} the port runs "
+                     f"{', '.join(DTYPE_FORMATS[dtype])}")
     num_cols = ([int(v) for v in args.num_cols.split(",")]
                 if args.num_cols else [config.num_cols])
 

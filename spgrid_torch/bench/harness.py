@@ -16,14 +16,23 @@ that ran (``dispatch.JAX_NAME``), so the CSV joins the JAX package's on
 ``fmt`` and the cost model can fit it; the gate's class is the format's,
 whatever the kernel's name.
 
-The gate (eps 1e-4 at f32) holds a row to the f64 product of its gate class
+The gate (eps 1e-4 at f32, the config's ``epsilon`` at bf16, 3e-2, and at
+f64, 1e-10: ``gate_eps``) holds a row to the f64 product of its gate class
 (``gold_class``): the exact class on A and X; ``gell16`` and ``cv_gell`` on
 the X they gather; ``cv_bf16`` and ``cv_int8`` on A's dequantized values;
 ``cv_panel`` on A's bf16 values and X rounded to bf16 (``gate_csr``,
 ``gate_x``). It runs where the config's ``oracle`` says (``gate_site``):
 on the host (``core.metrics``, the definition) or on the result's device
 (``core.device_oracle``, whose gold is the host's bit for bit), the device
-by default on the card once the result passes ``DEVICE_GATE_BYTES``.
+by default on the card once the result passes ``DEVICE_GATE_BYTES``; an f64
+row is gated on the host, as the JAX harness gates it.
+
+A row at bf16 or f64 (``config.dtype``) casts A once (``_as_dtype``:
+``CSRMatrix.astype``, bf16 held as the f32 numbers it is) and makes X in the
+dtype (``make_x``: the same draw rounded, bit for bit the JAX package's),
+so the gold multiplies the values the row's format multiplies. numpy has no
+bf16 without ``ml_dtypes``, so a bf16 result comes to the host widened to
+f32 (``to_host``), exactly.
 
 On the card a call is timed by the config's ``timing_protocol``: 'graph'
 (the default) replays calls captured in a CUDA graph, so the time is the
@@ -42,7 +51,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import (
+    CSRMatrix, cast_values, itemsize, value_dtype,
+)
 from spgrid_torch.gen.masks import create_mask
 from spgrid_torch.core.config import BenchConfig
 from spgrid_torch.core.device_oracle import DeviceOracle
@@ -60,7 +71,7 @@ from spgrid_torch.ops.attention import (
     stage_ops,
 )
 from spgrid_torch.ops.kernels.sddmm import bsr_sddmm
-from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO
+from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO, torch_dtype
 from spgrid_torch.ops.sddmm_plan import choose_sddmm_blocks
 from spgrid_torch.ops.xla import sddmm_coo
 
@@ -87,10 +98,29 @@ KERNELS = {**{fmt: fmt for fmt in dispatch.FORMATS},
 def make_x(k: int, n: int, dtype: str, seed: int) -> np.ndarray:
     """Deterministic dense operand in [0.5, 1.5) — the port's copy of
     ``spgrid.bench.harness.make_x``, so the same seed gives the same X in
-    both packages."""
+    both packages (bf16 as the f32 numbers it is: ``cast_values``)."""
     rng = np.random.default_rng(seed ^ 0x5EED)
     x = rng.random((k, n)) + 0.5
-    return x.astype(dtype)
+    return cast_values(x, dtype)
+
+
+def x_tensor(x: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """A host operand of ``make_x`` (or the like) as a tensor of ``dtype``
+    on ``device`` (bf16 from the f32 numbers it is: exact)."""
+    return torch.from_numpy(x).to(device).to(torch_dtype(dtype))
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A result on the host as numpy, bf16 widened to f32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def gate_eps(config: BenchConfig, f32_eps: float = 1e-4) -> float:
+    """A row's gate epsilon: ``f32_eps`` at f32 (1e-4; the pipeline's 1e-3),
+    the config's ``epsilon`` at bf16 (3e-2) and f64 (1e-10), as the JAX
+    harness gates them."""
+    return f32_eps if config.dtype == "float32" else config.epsilon
 
 
 def _device_fields(device: torch.device):
@@ -106,11 +136,6 @@ def _gate_fields(m) -> dict:
     return dict(mae=m.mae, max_ae=m.max_ae, mse=m.mse, mape=m.mape,
                 smape=m.smape, lnQ_error=m.lnQ_error, mlare=m.mlare,
                 gmare=m.gmare, errors_passed=int(m.passed))
-
-
-def _f32_only(config: BenchConfig) -> None:
-    if config.dtype != "float32":
-        raise ValueError(f"the port's kernels are f32 only, got {config.dtype}")
 
 
 def gold_class(fmt: str) -> str:
@@ -132,20 +157,27 @@ def gate_csr(csr, fmt: str):
     return cv_to_csr(csr_to_cv(csr, mode))
 
 
+# the gate classes whose gold multiplies another X than the row's
+X_CLASSES = ("cv_panel", "gell16", "cv_gell")
+
+
 def gate_x_tensor(x: torch.Tensor, fmt: str) -> torch.Tensor:
     """The X a row's gold multiplies, formed by torch where ``x`` lies: X
     itself; for ``gell16`` and ``cv_gell`` the X they gather; for
-    ``cv_panel`` X rounded to bf16."""
+    ``cv_panel`` X rounded to bf16 (all three from X in f32, as the JAX
+    harness's ``_xg_device``)."""
     cls = gold_class(fmt)
-    if cls == "cv_panel":
-        return gathered_x(x, "bf16")
-    if cls in dispatch.GELL_MODE:
-        return gathered_x(x, dispatch.GELL_MODE[cls])
-    return x
+    if cls not in X_CLASSES:
+        return x
+    mode = "bf16" if cls == "cv_panel" else dispatch.GELL_MODE[cls]
+    return gathered_x(x.to(torch.float32), mode)
 
 
 def gate_x(x: np.ndarray, fmt: str) -> np.ndarray:
-    """``gate_x_tensor`` of a host X, formed by torch on the CPU."""
+    """``gate_x_tensor`` of a host X, formed by torch on the CPU (the JAX
+    harness's ``_xg_host``, without ``ml_dtypes``)."""
+    if gold_class(fmt) not in X_CLASSES:
+        return x
     return gate_x_tensor(torch.from_numpy(np.ascontiguousarray(
         x, np.float32)), fmt).numpy()
 
@@ -153,11 +185,14 @@ def gate_x(x: np.ndarray, fmt: str) -> np.ndarray:
 def gate_site(m: int, n: int, config: BenchConfig,
               device: torch.device) -> str:
     """'device' or 'host': where a row's gate runs (the config's
-    ``oracle``; 'auto' takes the device on the card once the (m, n) f32
-    result passes ``DEVICE_GATE_BYTES``)."""
+    ``oracle``; 'auto' takes the device on the card once the (m, n) result
+    passes ``DEVICE_GATE_BYTES``). An f64 row is gated on the host, as the
+    JAX harness gates it."""
+    if config.dtype == "float64":
+        return "host"
     if config.oracle != "auto":
         return config.oracle
-    big = m * n * np.dtype(config.dtype).itemsize > DEVICE_GATE_BYTES
+    big = m * n * itemsize(config.dtype) > DEVICE_GATE_BYTES
     return "device" if torch.device(device).type == "cuda" and big \
         else "host"
 
@@ -215,7 +250,7 @@ def _as_dtype(csr, dtype: str):
     """``csr`` in ``dtype``. A cast is made once a matrix object and keeps
     the feature caches: the structure does not change, and the value
     features come from the cast's values whichever object computes them."""
-    if csr.values.dtype == np.dtype(dtype):
+    if value_dtype(csr) == dtype:
         return csr
     cached = getattr(csr, "_spgrid_torch_cast", None)
     if cached is not None and cached[0] == dtype:
@@ -287,15 +322,16 @@ def _cached_device_oracle(csr, fmt: str, device) -> DeviceOracle:
 def gate(csr, fmt: str, test: torch.Tensor, x: np.ndarray,
          xd: torch.Tensor, config: BenchConfig, device):
     """The error vector of ``test`` (the row's result, on ``device``) at
-    eps 1e-4 against its gate class's f64 gold, on the host or the device
-    (``gate_site``)."""
+    ``gate_eps`` against its gate class's f64 gold, on the host or the
+    device (``gate_site``)."""
     n = test.shape[1]
     key = (n, config.dtype, config.seed)
+    eps = gate_eps(config)
     if gate_site(csr.m, n, config, device) == "device":
         orc = _cached_device_oracle(csr, fmt, device)
-        return orc.check(test, gate_x_tensor(xd, fmt), 1e-4, key=key)
+        return orc.check(test, gate_x_tensor(xd, fmt), eps, key=key)
     gold = _cached_gold(csr, fmt, x, key)
-    return error_metrics(gold, test.cpu().numpy(), epsilon=1e-4)
+    return error_metrics(gold, to_host(test), epsilon=eps)
 
 
 def _cached_x(csr, n: int, dtype: str, seed: int, device: torch.device):
@@ -307,7 +343,7 @@ def _cached_x(csr, n: int, dtype: str, seed: int, device: torch.device):
     hit = getattr(csr, "_spgrid_torch_x", None)
     if hit is None or hit[0] != key:
         x = make_x(csr.k, n, dtype, seed)
-        hit = (key, x, torch.from_numpy(x).to(device))
+        hit = (key, x, x_tensor(x, dtype, device))
         csr._spgrid_torch_x = hit
     return hit[1], hit[2]
 
@@ -324,7 +360,8 @@ def kernel_format(csr, kernel: str, n: int, xd: torch.Tensor) -> str:
         return dispatch.autotune_spmm(
             csr, xd, features=_cached_features(csr)).best
     tol = costmodel.CV_TOLERANCE if kernel == "auto_tol" else 0.0
-    return dispatch.select_format(_cached_features(csr), n, tolerance=tol)
+    return dispatch.select_format(_cached_features(csr), n, tolerance=tol,
+                                  dtype=value_dtype(csr))
 
 
 def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
@@ -332,9 +369,9 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
              check_accuracy: bool = True) -> dict:
     """Time Y = A @ X for one kernel (``KERNELS``) and gate it against the
     f64 gold of the gate class of the format that ran (eps 1e-4 at f32, as
-    the JAX harness; ``gate``)."""
+    the JAX harness; ``gate``). A and X take ``config.dtype``; a format
+    with no form at that dtype raises (``dispatch.build``)."""
     config = config or BenchConfig()
-    _f32_only(config)
     device = torch.device(device)
     n = config.num_cols
     csr = _as_dtype(csr, config.dtype)
@@ -345,7 +382,7 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
 
     flops = (gemm_flops(csr.m, csr.k, n) if kernel == "gemm_bound"
              else spmm_flops(csr.nnz, n))
-    vb = np.dtype(config.dtype).itemsize
+    vb = itemsize(config.dtype)
     bytes_accessed = (float((csr.m * csr.k + (csr.k + csr.m) * n) * vb)
                       if fmt == "dense"
                       else csr_bytes(csr.nnz, csr.m, n, csr.k, val_bytes=vb))
@@ -388,19 +425,20 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     (eps 1e-3 at f32, as the JAX harness). Without ``mask`` the config's
     mask is made, as in the JAX harness. ``xla_only`` runs the JAX
     package's XLA baselines as torch ops in place of the kernels (kernel
-    ``pipeline_xla``)."""
+    ``pipeline_xla``). At bf16 and f64 the weights, the mask and X take
+    the dtype; the gold multiplies the weights and mask as given, as the
+    JAX harness's does."""
     config = config or BenchConfig()
-    _f32_only(config)
     device = torch.device(device)
     n = config.num_cols
     if mask is None:
         mask = create_mask(config.sparse_attention_type, wk.m,
                            config.sparsity, config.band_size, config.seed,
-                           dtype=np.dtype(config.dtype))
+                           dtype=config.dtype)
     x = make_x(wk.k, n, config.dtype, config.seed)
-    xd = torch.from_numpy(x).to(device)
-    wk, wq, wv, mask = (c.astype(config.dtype) for c in (wk, wq, wv, mask))
-    attn = SparseAttention.from_csr(wk, wq, wv, mask, device=device)
+    xd = x_tensor(x, config.dtype, device)
+    attn = SparseAttention.from_csr(
+        *(c.astype(config.dtype) for c in (wk, wq, wv, mask)), device=device)
     step = make_pipeline_step(attn, xla_only=xla_only)
     spmm, sddmm = stage_ops(xla_only)
 
@@ -414,7 +452,7 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     whole = timed(step, xd, out=sum(out_bytes.values()),
                   flops=attn.flops_per_col * n)
 
-    s_bsr = attn.mask.with_blocks(stages["S"])
+    s_bsr = attn.mask.with_blocks(stages["S"].to(xd.dtype))
     stage_min = min(0.2, config.min_time_s)
     stage_time = {
         "K": timed(spmm, attn.wk, xd, out=out_bytes["K"],
@@ -445,8 +483,8 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     )
     if check_accuracy:
         gold = gold_pipeline(wk, wq, wv, mask, x)
-        test = step(xd).cpu().numpy()
-        m = error_metrics(gold, test, epsilon=1e-3)
+        m = error_metrics(gold, to_host(step(xd)),
+                          epsilon=gate_eps(config, 1e-3))
         row.update(_gate_fields(m))
         if not m.passed:
             print(f"Test failed! pipeline: max_rel_diff={m.max_rel_diff:.3e}")
@@ -517,24 +555,25 @@ def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
     ``xla_only`` runs the COO baseline ``xla.sddmm_coo`` instead (kernel
     ``sddmm_xla``, fmt ``coo``)."""
     config = config or BenchConfig()
-    _f32_only(config)
     device = torch.device(device)
     n = config.num_cols
     if mask is None:
         mask = create_mask(config.sparse_attention_type, length,
                            config.sparsity, config.band_size, config.seed,
-                           dtype=np.dtype(config.dtype))
-    x = np.full((mask.m, n), 0.1, dtype=config.dtype)
-    z = np.full((mask.k, n), 0.1, dtype=config.dtype)
-    xd, zd = torch.from_numpy(x).to(device), torch.from_numpy(z).to(device)
+                           dtype=config.dtype)
+    mask = _as_dtype(mask, config.dtype)
+    x = cast_values(np.full((mask.m, n), 0.1), config.dtype)
+    z = cast_values(np.full((mask.k, n), 0.1), config.dtype)
+    xd = x_tensor(x, config.dtype, device)
+    zd = x_tensor(z, config.dtype, device)
 
     flops = spmm_flops(mask.nnz, n)
-    vb = np.dtype(config.dtype).itemsize
+    vb = itemsize(config.dtype)
     bytes_accessed = float(mask.nnz * (vb + 4) + (mask.m + mask.k) * n * vb)
     if xla_only:
         dev = DeviceCOO.from_csr(mask, device=device)
         fn, kernel, fmt = sddmm_coo, "sddmm_xla", "coo"
-        out_bytes = dev.values.numel() * 4
+        out_bytes = dev.values.numel() * vb
     else:
         if blocks is None:
             plan = choose_sddmm_blocks(mask, n)
@@ -542,7 +581,7 @@ def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
         bm, bk = blocks
         dev = DeviceBSR.from_csr(mask, bm=bm, bk=bk, device=device)
         fn, kernel, fmt = bsr_sddmm, "sddmm_cuda", f"bsr_pallas_{bm}x{bk}"
-        out_bytes = dev.blocks.numel() * 4
+        out_bytes = dev.blocks.numel() * vb
     timed = time_call(fn, dev, xd, zd, config=config, device=device,
                       out_bytes=out_bytes, flops=flops,
                       bytes_accessed=bytes_accessed)
@@ -561,13 +600,14 @@ def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
     )
     if check_accuracy:
         gold = _cached_sddmm_gold(mask, x, z, (n, config.dtype))
-        out = fn(dev, xd, zd).cpu().numpy()
+        out = to_host(fn(dev, xd, zd))
         if xla_only:
             test = out[: mask.nnz]
         else:
             rows_idx = np.repeat(np.arange(mask.m), mask.degrees)
             test = _bsr_blocks_to_nnz(dev, out, mask, rows_idx)
-        m = error_metrics(gold, test.astype(np.float64), epsilon=1e-4)
+        m = error_metrics(gold, test.astype(np.float64),
+                          epsilon=gate_eps(config))
         row.update(_gate_fields(m))
         if not m.passed:
             print(f"Test failed! sddmm {mask.name}: "

@@ -13,8 +13,6 @@ import sys
 import traceback
 from typing import Iterable, List, Optional, Sequence
 
-import numpy as np
-
 from spgrid_torch.bench.harness import run_spmm
 from spgrid_torch.bench.schema import BenchRow, CSVWriter
 from spgrid_torch.core.config import BenchConfig
@@ -26,8 +24,7 @@ def iter_matrices(params=(), paths=(), dtype: str = "float32"):
     """Yield CSR matrices from generator parameter lines, then from matrix
     files, lazily."""
     for p in params:
-        yield artificial_matrix_generation(**p.kwargs(),
-                                           dtype=np.dtype(dtype))
+        yield artificial_matrix_generation(**p.kwargs(), dtype=dtype)
     for path in paths:
         yield read_matrix(path, dtype=dtype)
 

@@ -13,6 +13,7 @@ _ENV_ALIASES = {"NUM_COLS": "num_cols", "BAND_SIZE": "band_size",
                 "SPARSITY": "sparsity",
                 "SPARSE_ATTENTION_TYPE": "sparse_attention_type"}
 TIMING_PROTOCOLS = ("graph", "eager")
+DTYPES = ("float32", "bfloat16", "float64")
 ORACLES = ("auto", "host", "device")
 
 
@@ -21,7 +22,13 @@ class BenchConfig:
     """Configuration of one benchmark run.
 
       num_cols      — dense-operand width ``n`` for SpMM/SDDMM
-      dtype         — 'float32' (the port's kernels are f32 only so far)
+      dtype         — 'float32', 'bfloat16' or 'float64': the values of A
+                      and X, and Y's type. bf16 rows sum in f32 and round
+                      once (the hand-written kernels' bf16 forms, the torch
+                      ops in f32), gated at 3e-2; f64 rows run the torch ops
+                      and ``dense`` in f64 on the card, gated at 1e-10 on the
+                      host. A format with no form at a dtype raises
+                      (``ops.dispatch.DTYPE_FORMATS``).
       warmup_iters  — launches before the timed loop
       min_time_s    — the timed loop runs at least this long on the device
       min_iters     — and at least this many launches
@@ -66,6 +73,9 @@ class BenchConfig:
     oracle: str = "auto"
 
     def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got "
+                             f"{self.dtype!r}")
         if self.timing_protocol not in TIMING_PROTOCOLS:
             raise ValueError(f"timing_protocol must be one of "
                              f"{TIMING_PROTOCOLS}, got "

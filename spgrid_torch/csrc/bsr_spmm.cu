@@ -36,7 +36,15 @@
 // 0.0150 ms at cluster 4 (0.0320 at cluster 1), against 0.0313 for
 // torch.sparse.mm; the f32 CUDA-core tile this design replaced, 64 CTAs of
 // 32 unpipelined steps, took 0.0561 ms on the same card.
-#include "block_mma.cuh"
+//
+// The bf16 form (the Pallas kernel at dtype bf16: bf16 blocks and X, f32
+// sums, Y rounded once to bf16): the bf16 tile of bf16_mma.cuh
+// (`bf16_row_tile`, which the panel kernel's bf16 forms run too), a block
+// row being a band whose blocks are its slots, row_ptr[r] .. row_ptr[r + 1]
+// - 1. Bound on the H100 at the headline twin (16 blocks of 128^2, X and Y
+// 512 x 512): 1,572,864 bytes of bf16 blocks, X and Y, 0.47 us at 3.35
+// TB/s, above the blocks' 0.27 GFLOP at 989 TFLOP/s (0.27 us).
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -48,6 +56,18 @@ bsr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols,
   const RowTile t = row_tile(slices, col_tiles);
   row_tile_spmm(t, row_ptr[t.r], row_ptr[t.r + 1], cols, blocks, x, y, bm,
                 bk, m, k, n, a16, x16, y16);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+bsr_spmm_bf16_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ cols,
+                     const unsigned short* __restrict__ blocks, const void* x,
+                     void* y, int bm, int bk, int m, int k, int n, int slices,
+                     int col_tiles, bool a16, bool x16, bool y16) {
+  const RowTile t = row_tile(slices, col_tiles);
+  const int first = row_ptr[t.r];
+  bf16_row_tile<true>(t, first, row_ptr[t.r + 1] - first, nullptr, cols,
+                      blocks, x, y, bm, bk, m, k, n, a16, x16, y16);
 }
 
 }  // namespace
@@ -76,6 +96,34 @@ extern "C" int spgrid_bsr_spmm(const void* row_ptr, const void* cols,
       static_cast<float*>(y), bm, bk, m, k, n, (bm + ROWS - 1) / ROWS,
       (n + NT - 1) / NT, bk % 4 == 0 && aligned16(blocks),
       n % 4 == 0 && aligned16(x), n % 4 == 0 && aligned16(y));
+}
+
+// out (int[6]) = {tiles, cluster, ROWS, NT, BF_TK, BF_STAGES} of the
+// launch spgrid_bsr_spmm_bf16 makes for these sizes at cluster 0.
+extern "C" int spgrid_bsr_spmm_bf16_shape(int mb, int bm, int n, void* out) {
+  if (mb <= 0 || bm <= 0 || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return report_shape(row_tiles(mb, bm, n), out, BF_TK, BF_STAGES);
+}
+
+// The bf16 form: blocks, X and Y as bf16 bit patterns. cluster: 0 for the
+// launch rule (cluster_for), else 1, 2, 4 or 8.
+extern "C" int spgrid_bsr_spmm_bf16(const void* row_ptr, const void* cols,
+                                    const void* blocks, const void* x,
+                                    void* y, int mb, int bm, int bk, int m,
+                                    int k, int n, int cluster, void* stream) {
+  if (mb <= 0 || bm <= 0 || bk <= 0 || m <= 0 || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tiles(
+      bsr_spmm_bf16_kernel, row_tiles(mb, bm, n), cluster,
+      RowStage<true>::SMEM, stream, static_cast<const int*>(row_ptr),
+      static_cast<const int*>(cols),
+      static_cast<const unsigned short*>(blocks), x, y, bm, bk, m, k, n,
+      (bm + ROWS - 1) / ROWS, (n + NT - 1) / NT,
+      bk % 8 == 0 && aligned16(blocks), n % 8 == 0 && aligned16(x),
+      n % 4 == 0 && aligned8(y));
 }
 
 extern "C" const char* spgrid_error_string(int code) {

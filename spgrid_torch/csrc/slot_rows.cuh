@@ -32,6 +32,13 @@
 // is written as zeros. The walk uses no shared memory, no barrier and no
 // atomics: its occupancy is set by registers alone.
 //
+// The bf16 form (BF; wcoo_bands at dtype bf16, as the Pallas kernel
+// multiplies there): bf16 values and X, each product rounded to bf16 (to
+// nearest, ties to even) before it is added into the f32 sum, and each
+// element of Y rounded once to bf16. Lane l's part of an X row is the same
+// columns, 8 bytes a float4's place (n % 4 == 0, X and Y on 8 B), else
+// 2-byte loads; the stream's values are bf16 too (6 bytes a live slot).
+//
 // Long rows: a warp walks its row's slots in turn, U at a time, so one row
 // of many slots sets the pace of the whole launch (on the H100 the edge
 // matrix's one 250-slot row set its whole time). The walk leaves rows of
@@ -41,10 +48,12 @@
 // sums in warp order through shared memory: no atomics, a fixed order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace spgrid {
 namespace slot_rows {
@@ -58,52 +67,89 @@ constexpr int LONG_WARPS = 16;  // warps that share one long row
 constexpr int LONG_THREADS = 32 * LONG_WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
+// The element type of values, X and Y: f32, or bf16 as its bit pattern.
+template <bool BF>
+using Elem = std::conditional_t<BF, unsigned short, float>;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(unsigned short b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+
+__device__ __forceinline__ unsigned short round_bf16(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
 // Lane `lane`'s part of one X row's slab, xr pointing at the slab's first
-// column, `left` columns of the slab inside X: 4 C floats, 0 past them.
-template <int C, bool VEC>
-__device__ __forceinline__ void load_slab(const float* __restrict__ xr,
+// column, `left` columns of the slab inside X: 4 C values, 0 past them.
+template <int C, bool VEC, bool BF>
+__device__ __forceinline__ void load_slab(const Elem<BF>* __restrict__ xr,
                                           int lane, int left,
                                           float (&v)[4 * C]) {
   if constexpr (VEC) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = SLAB * c + 4 * lane;
-      const float4 t = col < left
-                           ? __ldg(reinterpret_cast<const float4*>(xr + col))
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      v[4 * c] = t.x;
-      v[4 * c + 1] = t.y;
-      v[4 * c + 2] = t.z;
-      v[4 * c + 3] = t.w;
+      if constexpr (BF) {
+        const uint2 t = col < left
+                            ? __ldg(reinterpret_cast<const uint2*>(xr + col))
+                            : make_uint2(0u, 0u);
+        v[4 * c] = __uint_as_float(t.x << 16);
+        v[4 * c + 1] = __uint_as_float(t.x & 0xFFFF0000u);
+        v[4 * c + 2] = __uint_as_float(t.y << 16);
+        v[4 * c + 3] = __uint_as_float(t.y & 0xFFFF0000u);
+      } else {
+        const float4 t = col < left
+                             ? __ldg(reinterpret_cast<const float4*>(xr + col))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v[4 * c] = t.x;
+        v[4 * c + 1] = t.y;
+        v[4 * c + 2] = t.z;
+        v[4 * c + 3] = t.w;
+      }
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 4 * C; ++j) {
       const int col = 32 * j + lane;
-      v[j] = col < left ? __ldg(xr + col) : 0.0f;
+      v[j] = col < left ? widen(__ldg(xr + col)) : 0.0f;
     }
   }
 }
 
-// Lane `lane`'s part of one Y row's slab, the columns inside Y only.
-template <int C, bool VEC>
-__device__ __forceinline__ void store_slab(float* __restrict__ yr, int lane,
-                                           int left,
+// Lane `lane`'s part of one Y row's slab, the columns inside Y only (bf16:
+// each rounded once).
+template <int C, bool VEC, bool BF>
+__device__ __forceinline__ void store_slab(Elem<BF>* __restrict__ yr,
+                                           int lane, int left,
                                            const float (&v)[4 * C]) {
   if constexpr (VEC) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = SLAB * c + 4 * lane;
-      if (col < left)
+      if (col >= left) continue;
+      if constexpr (BF) {
+        *reinterpret_cast<uint2*>(yr + col) = make_uint2(
+            static_cast<uint32_t>(round_bf16(v[4 * c])) |
+                static_cast<uint32_t>(round_bf16(v[4 * c + 1])) << 16,
+            static_cast<uint32_t>(round_bf16(v[4 * c + 2])) |
+                static_cast<uint32_t>(round_bf16(v[4 * c + 3])) << 16);
+      } else {
         __stcs(reinterpret_cast<float4*>(yr + col),
                make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2],
                            v[4 * c + 3]));
+      }
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 4 * C; ++j) {
       const int col = 32 * j + lane;
-      if (col < left) __stcs(yr + col, v[j]);
+      if (col >= left) continue;
+      if constexpr (BF) {
+        yr[col] = round_bf16(v[j]);
+      } else {
+        __stcs(yr + col, v[j]);
+      }
     }
   }
 }
@@ -111,14 +157,14 @@ __device__ __forceinline__ void store_slab(float* __restrict__ yr, int lane,
 // acc += value * X[X row] over the slots [beg, end) of one row, in slot
 // order, by one warp: the slots' (value, X row) 32 at a time, one a lane,
 // handed out by shuffles U at a time. Warp-collective: beg and end are the
-// same in every lane.
-template <int C, bool VEC>
+// same in every lane. bf16: each product rounded to bf16 before the add.
+template <int C, bool VEC, bool BF>
 __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
                                           int end,
-                                          const float* __restrict__ vals,
+                                          const Elem<BF>* __restrict__ vals,
                                           const int* __restrict__ xrows,
-                                          const float* __restrict__ x, int n,
-                                          int n0, int lane) {
+                                          const Elem<BF>* __restrict__ x,
+                                          int n, int n0, int lane) {
   constexpr int U = LOADS / C;
   const int left = n - n0;
   for (int base = beg; base < end; base += 32) {
@@ -126,7 +172,7 @@ __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
     float v = 0.0f;
     int xrow = 0;
     if (lane < count) {
-      v = __ldg(vals + base + lane);
+      v = widen(__ldg(vals + base + lane));
       xrow = __ldg(xrows + base + lane);
     }
     for (int j = 0; j < count; j += U) {
@@ -137,15 +183,20 @@ __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
         vv[u] = __shfl_sync(FULL, v, (j + u) & 31);
         const int r = __shfl_sync(FULL, xrow, (j + u) & 31);
         if (j + u < count)
-          load_slab<C, VEC>(x + static_cast<size_t>(r) * n + n0, lane, left,
-                            xv[u]);
+          load_slab<C, VEC, BF>(x + static_cast<size_t>(r) * n + n0, lane,
+                                left, xv[u]);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (j + u < count) {
 #pragma unroll
-          for (int e = 0; e < 4 * C; ++e)
-            acc[e] = fmaf(vv[u], xv[u][e], acc[e]);
+          for (int e = 0; e < 4 * C; ++e) {
+            if constexpr (BF) {
+              acc[e] += widen(round_bf16(vv[u] * xv[u][e]));
+            } else {
+              acc[e] = fmaf(vv[u], xv[u][e], acc[e]);
+            }
+          }
         }
       }
     }
@@ -154,11 +205,11 @@ __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
 
 // The row walk: a warp a row, every row but the long ones (more than
 // long_row slots), which long_walk writes.
-template <int C, bool VEC>
+template <int C, bool VEC, bool BF>
 __global__ void __launch_bounds__(THREADS, 4)
-walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
-     const int* __restrict__ xrows, const float* __restrict__ x,
-     float* __restrict__ y, int m, int n, int long_row) {
+walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
+     const int* __restrict__ xrows, const Elem<BF>* __restrict__ x,
+     Elem<BF>* __restrict__ y, int m, int n, int long_row) {
   const int lane = threadIdx.x % 32;
   const int n0 = blockIdx.y * SLAB * C;
   const long long row =
@@ -170,19 +221,19 @@ walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
   float acc[4 * C];
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
-  add_slots<C, VEC>(acc, beg, end, vals, xrows, x, n, n0, lane);
-  store_slab<C, VEC>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
-                     acc);
+  add_slots<C, VEC, BF>(acc, beg, end, vals, xrows, x, n, n0, lane);
+  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
+                         acc);
 }
 
 // A long row a CTA (blockIdx.x indexes long_rows): warp w sums the w-th of
 // LONG_WARPS equal runs of the row's slots, then warp 0 adds the runs'
 // sums in warp order and writes the row. No atomics; a fixed order.
-template <int C, bool VEC>
+template <int C, bool VEC, bool BF>
 __global__ void __launch_bounds__(LONG_THREADS)
 long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
-          const float* __restrict__ vals, const int* __restrict__ xrows,
-          const float* __restrict__ x, float* __restrict__ y, int n) {
+          const Elem<BF>* __restrict__ vals, const int* __restrict__ xrows,
+          const Elem<BF>* __restrict__ x, Elem<BF>* __restrict__ y, int n) {
   __shared__ float part[LONG_WARPS][4 * C][32];
   const int lane = threadIdx.x % 32;
   const int w = threadIdx.x / 32;
@@ -195,7 +246,8 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
   float acc[4 * C];
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
-  add_slots<C, VEC>(acc, lo, min(end, lo + run), vals, xrows, x, n, n0, lane);
+  add_slots<C, VEC, BF>(acc, lo, min(end, lo + run), vals, xrows, x, n, n0,
+                        lane);
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) part[w][e][lane] = acc[e];
   __syncthreads();
@@ -206,45 +258,47 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
     for (int v = 1; v < LONG_WARPS; ++v) sum += part[v][e][lane];
     acc[e] = sum;
   }
-  store_slab<C, VEC>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
-                     acc);
+  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
+                         acc);
 }
 
-template <int C, bool VEC>
+template <int C, bool VEC, bool BF>
 int launch_form(cudaStream_t s, const void* row_slot, const void* vals,
                 const void* xrows, const void* long_rows, const void* x,
                 void* y, int m, int n, int long_row, int num_long) {
+  using T = Elem<BF>;
   const dim3 grid(m / WARPS + (m % WARPS != 0),
                   n / (SLAB * C) + (n % (SLAB * C) != 0));
-  walk<C, VEC><<<grid, THREADS, 0, s>>>(
-      static_cast<const int*>(row_slot), static_cast<const float*>(vals),
-      static_cast<const int*>(xrows), static_cast<const float*>(x),
-      static_cast<float*>(y), m, n, long_row);
+  walk<C, VEC, BF><<<grid, THREADS, 0, s>>>(
+      static_cast<const int*>(row_slot), static_cast<const T*>(vals),
+      static_cast<const int*>(xrows), static_cast<const T*>(x),
+      static_cast<T*>(y), m, n, long_row);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_long == 0) return static_cast<int>(err);
-  long_walk<C, VEC><<<dim3(num_long, grid.y), LONG_THREADS, 0, s>>>(
+  long_walk<C, VEC, BF><<<dim3(num_long, grid.y), LONG_THREADS, 0, s>>>(
       static_cast<const int*>(long_rows), static_cast<const int*>(row_slot),
-      static_cast<const float*>(vals), static_cast<const int*>(xrows),
-      static_cast<const float*>(x), static_cast<float*>(y), n);
+      static_cast<const T*>(vals), static_cast<const int*>(xrows),
+      static_cast<const T*>(x), static_cast<T*>(y), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
+template <int C, bool BF>
 int launch_cols(bool vec, cudaStream_t s, const void* row_slot,
                 const void* vals, const void* xrows, const void* long_rows,
                 const void* x, void* y, int m, int n, int long_row,
                 int num_long) {
-  return vec ? launch_form<C, true>(s, row_slot, vals, xrows, long_rows, x, y,
-                                    m, n, long_row, num_long)
-             : launch_form<C, false>(s, row_slot, vals, xrows, long_rows, x,
-                                     y, m, n, long_row, num_long);
+  return vec ? launch_form<C, true, BF>(s, row_slot, vals, xrows, long_rows,
+                                        x, y, m, n, long_row, num_long)
+             : launch_form<C, false, BF>(s, row_slot, vals, xrows, long_rows,
+                                         x, y, m, n, long_row, num_long);
 }
 
 // The walk and, where there are long rows, the long-row walk on `stream`;
 // 0 or the CUDA error. C is 1, 2 or 4 by n (a warp covers 128, 256 or 512
-// columns); the float4 form when n % 4 == 0 and X and Y are 16-byte aligned,
-// else the scalar form. long_rows holds the num_long rows with more than
-// long_row slots.
+// columns); the vector form when n % 4 == 0 and X and Y are aligned to four
+// elements (16 B in f32, 8 B in bf16), else the scalar form. long_rows
+// holds the num_long rows with more than long_row slots. BF: the bf16 form.
+template <bool BF = false>
 int launch(const void* row_slot, const void* vals, const void* xrows,
            const void* long_rows, const void* x, void* y, int m, int n,
            int long_row, int num_long, void* stream) {
@@ -253,16 +307,16 @@ int launch(const void* row_slot, const void* vals, const void* xrows,
   if (m == 0 || n == 0) return 0;
   const std::uintptr_t addr = reinterpret_cast<std::uintptr_t>(x) |
                               reinterpret_cast<std::uintptr_t>(y);
-  const bool vec = n % 4 == 0 && addr % 16 == 0;
+  const bool vec = n % 4 == 0 && addr % (4 * sizeof(Elem<BF>)) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= SLAB)
-    return launch_cols<1>(vec, s, row_slot, vals, xrows, long_rows, x, y, m,
-                          n, long_row, num_long);
+    return launch_cols<1, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y,
+                              m, n, long_row, num_long);
   if (n <= 2 * SLAB)
-    return launch_cols<2>(vec, s, row_slot, vals, xrows, long_rows, x, y, m,
-                          n, long_row, num_long);
-  return launch_cols<4>(vec, s, row_slot, vals, xrows, long_rows, x, y, m, n,
-                        long_row, num_long);
+    return launch_cols<2, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y,
+                              m, n, long_row, num_long);
+  return launch_cols<4, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y, m,
+                            n, long_row, num_long);
 }
 
 }  // namespace

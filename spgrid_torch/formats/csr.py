@@ -7,6 +7,13 @@ JAX package's element for element (pinned by
 through its attributes (``row_ptr``, ``col_idx``, ``values``, ``shape``,
 ``name`` and the properties below), so they also take the JAX package's
 ``CSRMatrix``.
+
+One difference: numpy has no bf16 type without ``ml_dtypes``, which the
+machine with the card lacks, so a bf16 matrix (``astype("bfloat16")``)
+holds its values as f32 numbers that bf16 represents exactly, rounded by
+torch (to nearest, ties to even, through f32 from f64, as ``ml_dtypes``
+rounds), and says so in ``bf16``; ``value_dtype`` names a matrix's value
+type either way.
 """
 
 from __future__ import annotations
@@ -15,8 +22,52 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 IDX_DTYPE = np.int32
+BF16 = "bfloat16"
+
+
+def dtype_name(dtype) -> str:
+    """The name of a value type given as a name or a numpy type: 'bfloat16'
+    is known by its name alone."""
+    if isinstance(dtype, str) and dtype == BF16:
+        return BF16
+    return np.dtype(dtype).name
+
+
+def bf16_bits(values: np.ndarray) -> np.ndarray:
+    """Values rounded to bf16 (to nearest, ties to even; f64 through f32):
+    their bit patterns."""
+    t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_values(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns widened to f32 (exact)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
+def cast_values(values: np.ndarray, dtype) -> np.ndarray:
+    """``values`` in ``dtype``; bf16 as the f32 numbers that bf16 holds
+    (``bf16_bits`` rounding)."""
+    if dtype_name(dtype) == BF16:
+        return bf16_values(bf16_bits(values))
+    return np.asarray(values).astype(dtype)
+
+
+def itemsize(dtype) -> int:
+    """Bytes of one value of a type given as a name or a numpy type."""
+    return 2 if dtype_name(dtype) == BF16 else np.dtype(dtype).itemsize
+
+
+def value_dtype(csr) -> str:
+    """The name of a matrix's value type: 'bfloat16' for a bf16 matrix of
+    the port (f32 numbers, ``bf16``) or of the JAX package."""
+    if getattr(csr, "bf16", False):
+        return BF16
+    return csr.values.dtype.name
 
 
 @dataclasses.dataclass
@@ -31,6 +82,7 @@ class CSRMatrix:
     values: np.ndarray    # (nnz,)  float
     shape: Tuple[int, int]
     name: str = "csr"
+    bf16: bool = False    # values are bf16's, held as f32
 
     def __post_init__(self):
         self.row_ptr = np.ascontiguousarray(self.row_ptr, dtype=IDX_DTYPE)
@@ -63,7 +115,7 @@ class CSRMatrix:
 
     @property
     def mem_footprint(self) -> int:
-        vb = self.values.dtype.itemsize
+        vb = 2 if self.bf16 else self.values.dtype.itemsize
         ib = self.col_idx.dtype.itemsize
         return self.nnz * (vb + ib) + (self.m + 1) * ib
 
@@ -75,7 +127,8 @@ class CSRMatrix:
 
     def astype(self, dtype) -> "CSRMatrix":
         return CSRMatrix(self.row_ptr, self.col_idx,
-                         self.values.astype(dtype), self.shape, self.name)
+                         cast_values(self.values, dtype), self.shape,
+                         self.name, bf16=dtype_name(dtype) == BF16)
 
 
 @dataclasses.dataclass

@@ -5,7 +5,8 @@ The port's own copy of ``spgrid/formats/cv.py`` (pinned to it by
 ``tests/test_torch_hostcopy.py``), with one difference: numpy has no bf16
 type without ``ml_dtypes``, which the machine with the card lacks, so bf16
 values are held as their 16-bit patterns (``np.uint16``), rounded from f32
-by torch (to nearest, ties to even, as ``ml_dtypes`` rounds).
+by torch (to nearest, ties to even, as ``ml_dtypes`` rounds:
+``formats.csr.bf16_bits``, which a bf16 ``CSRMatrix`` shares).
 """
 
 from __future__ import annotations
@@ -14,24 +15,10 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
-import torch
 
-from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import CSRMatrix, bf16_bits, bf16_values
 
 MODES = ("bf16", "int8")
-
-
-def bf16_bits(values: np.ndarray) -> np.ndarray:
-    """f32 values rounded to bf16 (nearest, ties to even): their bit
-    patterns."""
-    t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
-    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
-
-
-def bf16_values(bits: np.ndarray) -> np.ndarray:
-    """bf16 bit patterns widened to f32 (exact)."""
-    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
-        np.float32)
 
 
 @dataclasses.dataclass

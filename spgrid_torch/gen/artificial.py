@@ -13,7 +13,9 @@ import os
 
 import numpy as np
 
-from spgrid_torch.formats.csr import CSRMatrix, IDX_DTYPE
+from spgrid_torch.formats.csr import (
+    BF16, CSRMatrix, IDX_DTYPE, cast_values, dtype_name,
+)
 
 # On-disk cache of generated matrices, keyed by the full parameter tuple
 # without ``name``. It is the port's own, apart from the JAX package's, so a
@@ -59,13 +61,14 @@ def artificial_matrix_generation(
     if cache is not None and m * avg >= _CACHE_MIN_NNZ:
         key = (f"{m}_{n}_{avg:g}_{std:g}_{distribution}_{placement}_"
                f"{bw:g}_{skew:g}_{avg_num_neighbours:g}_"
-               f"{cross_row_similarity:g}_{seed}_{np.dtype(dtype).name}")
+               f"{cross_row_similarity:g}_{seed}_{dtype_name(dtype)}")
         cache_path = os.path.join(cache, key + ".npz")
         if os.path.exists(cache_path):
             try:
                 z = np.load(cache_path)
                 return CSRMatrix(z["row_ptr"], z["col_idx"], z["values"],
-                                 (m, n), name if name is not None else key)
+                                 (m, n), name if name is not None else key,
+                                 bf16=dtype_name(dtype) == BF16)
             except Exception:           # corrupt/partial file: regenerate
                 pass
 
@@ -239,13 +242,21 @@ def artificial_matrix_generation(
     np.add.at(row_ptr, rows + 1, 1)
     row_ptr = np.cumsum(row_ptr)
 
-    values = rng.random(len(cols)).astype(dtype) + np.asarray(0.5, dtype=dtype)
+    if dtype_name(dtype) == BF16:
+        # bf16 arithmetic as numpy's with ml_dtypes: the draw rounded, the
+        # sum formed exactly in f32 and rounded again
+        values = cast_values(cast_values(rng.random(len(cols)), BF16)
+                             + np.float32(0.5), BF16)
+    else:
+        values = (rng.random(len(cols)).astype(dtype)
+                  + np.asarray(0.5, dtype=dtype))
 
     if name is None:
         name = (f"art_{m}_{n}_{avg:g}_{std:g}_{distribution}_{placement}_"
                 f"{bw:g}_{skew:g}_{avg_num_neighbours:g}_"
                 f"{cross_row_similarity:g}_{seed}")
-    out = CSRMatrix(row_ptr.astype(IDX_DTYPE), cols, values, (m, n), name)
+    out = CSRMatrix(row_ptr.astype(IDX_DTYPE), cols, values, (m, n), name,
+                    bf16=dtype_name(dtype) == BF16)
     if cache_path is not None:
         try:
             os.makedirs(cache, exist_ok=True)

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr
+from spgrid_torch.formats.csr import (
+    BF16, CSRMatrix, cast_values, dense_to_csr, dtype_name,
+)
 
 
 def _band_mask(length: int, band_size: int) -> np.ndarray:
@@ -125,7 +127,8 @@ def create_mask(
         mask = band_and_decay(length, sparsity, band_size, seed)
     else:
         raise ValueError(f"unknown attention type {attention_type!r}")
-    csr = dense_to_csr(mask.astype(dtype), name=f"mask_{attention_type}_{length}_{sparsity:g}")
+    csr = dense_to_csr(cast_values(mask, dtype), name=f"mask_{attention_type}_{length}_{sparsity:g}")
+    csr.bf16 = dtype_name(dtype) == BF16
     return csr
 
 

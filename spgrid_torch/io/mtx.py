@@ -1,7 +1,10 @@
 """MatrixMarket (.mtx) reader: the port's own copy of the numpy path of
 ``spgrid/io/mtx.py``, with the same semantics: real, integer, complex
 (magnitude) and pattern fields; general, symmetric, skew-symmetric and
-hermitian symmetry, expanded; coordinate and dense array bodies.
+hermitian symmetry, expanded; coordinate and dense array bodies. A
+``dtype`` of 'bfloat16' reads bf16 values (``formats.csr.cast_values``),
+duplicates summed in f64 and rounded once, as the JAX package's reader
+does.
 """
 
 from __future__ import annotations
@@ -9,7 +12,9 @@ from __future__ import annotations
 import gzip
 import numpy as np
 
-from spgrid_torch.formats.csr import CSRMatrix, COOMatrix, coo_to_csr
+from spgrid_torch.formats.csr import (
+    BF16, CSRMatrix, COOMatrix, cast_values, coo_to_csr, dtype_name,
+)
 
 
 def _open(path: str):
@@ -62,7 +67,7 @@ def read_mtx_coo(
                 sign = -1.0 if symmetry == "skew-symmetric" else 1.0
                 dense = dense + sign * np.tril(dense, -1).T
             rr, cc = np.nonzero(dense)
-            return COOMatrix(rr, cc, dense[rr, cc].astype(dtype), (m, n),
+            return COOMatrix(rr, cc, cast_values(dense[rr, cc], dtype), (m, n),
                              name=_basename(path))
         m, n, nnz = (int(tok) for tok in line.split())
 
@@ -90,15 +95,16 @@ def read_mtx_coo(
         vals = np.concatenate([vals, sign * vals[off]])
         cols = cols2
 
-    return COOMatrix(rows, cols, vals.astype(dtype), (m, n),
+    return COOMatrix(rows, cols, cast_values(vals, dtype), (m, n),
                      name=_basename(path))
 
 
 def read_mtx(path: str, expand_symmetry: bool = True,
              pattern_dummy_value: float = 1.0,
              dtype=np.float32) -> CSRMatrix:
-    return coo_to_csr(read_mtx_coo(path, expand_symmetry,
-                                   pattern_dummy_value, dtype))
+    csr = coo_to_csr(read_mtx_coo(path, expand_symmetry,
+                                  pattern_dummy_value, dtype))
+    return csr.astype(BF16) if dtype_name(dtype) == BF16 else csr
 
 
 def _basename(path: str) -> str:

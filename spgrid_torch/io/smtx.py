@@ -12,7 +12,9 @@ import gzip
 
 import numpy as np
 
-from spgrid_torch.formats.csr import CSRMatrix, IDX_DTYPE
+from spgrid_torch.formats.csr import (
+    BF16, CSRMatrix, IDX_DTYPE, cast_values, dtype_name,
+)
 from spgrid_torch.io.mtx import _basename
 
 
@@ -32,11 +34,11 @@ def read_smtx(path: str, dtype=np.float32, value_fill: str = "random",
                          f"{len(col_idx)})")
     if value_fill == "random":
         rng = np.random.default_rng(seed)
-        vals = (rng.random(nnz) + 0.5).astype(dtype)
+        vals = cast_values(rng.random(nnz) + 0.5, dtype)
     else:
-        vals = np.full(nnz, float(value_fill), dtype=dtype)
+        vals = cast_values(np.full(nnz, float(value_fill)), dtype)
     return CSRMatrix(row_ptr.astype(IDX_DTYPE), col_idx, vals, (m, k),
-                     name=_basename(path))
+                     name=_basename(path), bf16=dtype_name(dtype) == BF16)
 
 
 def write_smtx(path: str, csr: CSRMatrix) -> None:

@@ -7,6 +7,10 @@ With ``xla_only`` (the JAX package's ``use_pallas=False``, the CLI's
 ``--xla-only``) they run the JAX package's XLA baselines as torch ops
 instead: ``xla.spmm_bsr`` and ``sddmm_bsr_xla``. Softmax between SDDMM and
 the final SpMM exists and is off by default, as in the JAX package.
+
+Stage types follow the JAX package's: at bf16 the SpMMs and the SDDMM
+kernel return bf16 (the kernels' bf16 forms), the XLA baseline's SDDMM
+returns f32, and the scores are cast to X's type before the final SpMM.
 """
 
 from __future__ import annotations
@@ -60,8 +64,11 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
     Pad blocks (block_row == mb) fold into segment mb, which is dropped.
     Mask zeros inside stored blocks are excluded through the mask values.
     A block row's sum is ``xla.segment_sum`` over the row-sorted blocks at
-    ``row_ptr``, so the sums give the same bits on every call.
+    ``row_ptr``, so the sums give the same bits on every call. bf16 scores
+    are taken in f32 and the result rounded once to bf16.
     """
+    out_dtype = s_blocks.dtype
+    s_blocks = s_blocks.to(acc_dtype(s_blocks))
     mb, bm = mask.mb, mask.bm
     rows = mask.block_rows.long()
     valid = mask.blocks != 0
@@ -77,7 +84,8 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
     row_sum = torch.zeros((mb + 1, bm), dtype=s_blocks.dtype,
                           device=s_blocks.device)
     row_sum[:mb] = segment_sum(e.sum(dim=2), mask.row_ptr.long())
-    return e / torch.clamp(row_sum[rows], min=1e-30)[:, :, None]
+    return (e / torch.clamp(row_sum[rows], min=1e-30)[:, :, None]).to(
+        out_dtype)
 
 
 def sddmm_bsr_xla(mask: DeviceBSR, q: torch.Tensor,
@@ -113,7 +121,7 @@ def attention_pipeline(attn: SparseAttention, x: torch.Tensor, *,
     s_blocks = sddmm(attn.mask, q, k)
     if softmax:
         s_blocks = blocksparse_softmax(attn.mask, s_blocks)
-    y = spmm(attn.mask.with_blocks(s_blocks), v)
+    y = spmm(attn.mask.with_blocks(s_blocks.to(x.dtype)), v)
     return y, {"K": k, "Q": q, "V": v, "S": s_blocks, "Y": y}
 
 

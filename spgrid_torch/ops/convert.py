@@ -3,6 +3,9 @@
 Each function takes a JAX layout's array leaves as numpy arrays
 (``np.asarray(leaf)``) followed by its static fields, in the order of the
 layout's ``tree_flatten``, and returns the port's layout on ``device``.
+Values a JAX layout holds in bf16 (a bf16 numpy type, which only
+``ml_dtypes`` provides) come over as the port's bf16 tensors, through the
+f32 numbers they are.
 """
 
 from __future__ import annotations
@@ -19,7 +22,17 @@ from spgrid_torch.ops.kernels.wcoo_spmm_aligned import DeviceWCOOBands
 from spgrid_torch.ops.kernels.wcoo_spmv import DeviceWCOOAligned
 from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW
-from spgrid_torch.ops.layouts import DeviceBSR
+from spgrid_torch.formats.csr import BF16
+from spgrid_torch.ops.layouts import DeviceBSR, torch_dtype
+
+
+def host_values(a):
+    """(values, the name of their type): a JAX layout's value leaf as a
+    numpy array, bf16 values as the f32 numbers they are."""
+    a = np.asarray(a)
+    if a.dtype.name == BF16:
+        return a.astype(np.float32), BF16
+    return a, a.dtype.name
 
 
 def bsr_from_jax(block_rows, block_cols, row_starts, blocks, shape,
@@ -27,8 +40,10 @@ def bsr_from_jax(block_rows, block_cols, row_starts, blocks, shape,
     """``spgrid.ops.layouts.DeviceBSR`` → DeviceBSR. ``row_ptr`` is rebuilt
     from ``block_rows``: the JAX ``row_starts`` misses the coverage blocks
     of empty block rows."""
+    blocks, dtype = host_values(blocks)
     return DeviceBSR.from_arrays(block_rows, block_cols, row_starts, blocks,
-                                 shape, nnz, num_blocks, device=device)
+                                 shape, nnz, num_blocks, device=device,
+                                 dtype=dtype)
 
 
 def _band_counts(block_cols: np.ndarray, panels: np.ndarray, bands: int,
@@ -52,13 +67,14 @@ def panels_from_jax(block_cols, panels, shape, nnz: int, num_panels: int,
     a slice that holds only explicit zeros is not live)."""
     # np.array copies: leaves of JAX arrays are read-only views
     cols = np.array(block_cols, dtype=np.int32)
-    vals = np.array(panels)
+    vals, dtype = host_values(panels)
+    vals = np.array(vals)
     slice_ptr, slice_slots = live_slices(
         *np.nonzero(vals.any(axis=2)), int(bands), int(band_rows),
         int(max_p))
     return DevicePanels(
         block_cols=torch.from_numpy(cols).to(device),
-        panels=torch.from_numpy(vals).to(device),
+        panels=torch.from_numpy(vals).to(device).to(torch_dtype(dtype)),
         counts=torch.from_numpy(
             _band_counts(cols, vals, bands, max_p)).to(device),
         shape=tuple(shape), nnz=int(nnz), num_panels=int(num_panels),
@@ -86,9 +102,11 @@ def bands_from_jax(cols, values, g_sw, g_lb, shape, nnz: int,
                    device) -> DeviceWCOOBands:
     """``spgrid.ops.pallas.wcoo_spmm_aligned.DeviceWCOOBands`` →
     DeviceWCOOBands, with the groups of each 128-row block indexed."""
+    values, dtype = host_values(values)
     return DeviceWCOOBands.from_arrays(cols, values, g_sw, g_lb, shape, nnz,
                                        utilization, bands, mbb,
-                                       steps_per_band, name, device=device)
+                                       steps_per_band, name, device=device,
+                                       dtype=torch_dtype(dtype))
 
 
 def wcoo_aligned_from_jax(cols, values, g_sw, g_sub, shape, nnz: int,

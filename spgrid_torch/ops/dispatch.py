@@ -14,6 +14,16 @@ compositions; ``bsr`` is the batched block product of ``xla.spmm_bsr``, not
 an AUTO candidate); the ``_cuda`` formats and ``dense``'s matmul run on
 kernels (``cv_panel_cuda`` on the bf16 form of the panel kernel); ``rbh``
 runs ``bsr_spmm`` on its block part and a torch-op format on the rest.
+
+Every format runs at f32. At bf16 and f64 a format runs only where it has a
+form at that dtype (``DTYPE_FORMATS``): at bf16 the torch ops, ``dense``,
+the kernels with a bf16 form (``bsr_cuda``, ``panel_cuda``,
+``cv_panel_cuda``, ``wcoo_bands_cuda``) and ``rbh``, whose block part runs
+``bsr_spmm``'s; at f64 ``dense`` and the torch ops that sum in f64 (not
+those that sum in f32 whatever X's type, ``F32_SUM_FORMATS``, nor any
+kernel: no format computes in f32 and calls the result f64). ``build``
+raises for any other, naming ROADMAP.md, and ``select_format`` and
+``autotune_spmm`` pick only among those that run.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import numpy as np
 import torch
 
 from spgrid_torch.features import MatrixFeatures, matrix_features
-from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import CSRMatrix, value_dtype
 from spgrid_torch.ops import costmodel
 from spgrid_torch.ops.dense import spmm_dense
 from spgrid_torch.ops.gell import DeviceGELL, gell_spmm
@@ -45,7 +55,7 @@ from spgrid_torch.ops.kernels.wpack_spmv import DeviceWPACK, wpack_spmv
 from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 from spgrid_torch.ops.layouts import (
     DeviceBSR, DeviceCOO, DeviceCSC, DeviceCV, DeviceELL, DeviceLDU,
-    DeviceSELL,
+    DeviceSELL, values_to_device,
 )
 from spgrid_torch.ops.merge import DeviceMerge, merge_spmm
 from spgrid_torch.ops.rbh import DeviceRBH, rbh_spmm
@@ -68,16 +78,46 @@ PORT_NAME = {jax: port for port, jax in JAX_NAME.items()}
 FORMATS = tuple(JAX_NAME)
 # the GELL formats' modes (spgrid_torch/ops/gell.py)
 GELL_MODE = {"gell": "f32", "gell16": "split16", "cv_gell": "bf16"}
+# the formats that run on kernels: the port's CUDA kernels, and rbh's block
+# part; every other format is a torch op or dense's matmul
+KERNEL_FORMATS = ("bsr_cuda", "panel_cuda", "wcoo_cuda", "wcoo_bands_cuda",
+                  "wcoo_spmv_cuda", "wrow_spmv_cuda", "bsrc_cuda",
+                  "dgell_cuda", "wpack_spmv_cuda", "cv_panel_cuda", "rbh")
+# the torch ops that sum in f32 whatever X's type (as the JAX package's):
+# no f64 form
+F32_SUM_FORMATS = ("gell", "gell16", "cv_gell", "cv_bf16", "cv_int8", "scoo")
+# the formats that run at each dtype other than f32: at bf16 the torch ops,
+# dense and the kernels with a bf16 form; at f64 the torch ops that sum in
+# f64 and dense
+DTYPE_FORMATS = {
+    "bfloat16": tuple(f for f in FORMATS if f not in KERNEL_FORMATS) + (
+        "bsr_cuda", "panel_cuda", "cv_panel_cuda", "wcoo_bands_cuda", "rbh"),
+    "float64": tuple(f for f in FORMATS
+                     if f not in KERNEL_FORMATS + F32_SUM_FORMATS),
+}
+
+
+def runs_at(fmt: str, dtype: str) -> bool:
+    """Whether format ``fmt`` has a form at ``dtype``."""
+    return dtype == "float32" or fmt in DTYPE_FORMATS[dtype]
 
 
 def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
           bk: int = 128):
-    """The device operand of ``csr`` for format ``fmt``; bm defaults to 128
-    for the block kernels and to 8 for ``bsr``, as
+    """The device operand of ``csr`` for format ``fmt``, in ``csr``'s value
+    type; bm defaults to 128 for the block kernels and to 8 for ``bsr``, as
     ``spgrid.ops.dispatch.build`` does for ``bsr_pallas``, ``bsrc_pallas``
-    and ``bsr``."""
+    and ``bsr``. A format with no form at that type raises."""
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
+    dtype = value_dtype(csr)
+    if not runs_at(fmt, dtype):
+        raise ValueError(f"format {fmt!r} has no {dtype} form in the port "
+                         f"(ROADMAP.md lists the forms still to port); at "
+                         f"{dtype} the port runs "
+                         f"{', '.join(DTYPE_FORMATS[dtype])}")
     if fmt == "dense":
-        return torch.from_numpy(csr.to_dense()).to(device)
+        return values_to_device(csr.to_dense(), device, dtype)
     if fmt == "bsr_cuda":
         return DeviceBSR.from_csr(csr, bm=bm or 128, bk=bk, device=device)
     if fmt == "bsr":
@@ -100,9 +140,7 @@ def build(csr: CSRMatrix, fmt: str, *, device, bm: Optional[int] = None,
               "wpack_spmv_cuda": DeviceWPACK, "coo": DeviceCOO,
               "sell": DeviceSELL, "merge": DeviceMerge, "ell": DeviceELL,
               "csc": DeviceCSC, "ldu": DeviceLDU,
-              "scoo": DeviceSCOO}.get(fmt)
-    if layout is None:
-        raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
+              "scoo": DeviceSCOO}[fmt]
     return layout.from_csr(csr, device=device)
 
 
@@ -139,17 +177,21 @@ def spmm_fn(fmt: str) -> Callable:
 
 
 def select_format(f: MatrixFeatures, n: int = 512,
-                  tolerance: float = 0.0) -> str:
+                  tolerance: float = 0.0, dtype: str = "float32") -> str:
     """The port's format for ``auto`` dispatch, as
     ``spgrid.ops.dispatch.select_format`` picks it: for an SpMV (n = 1)
     below 5 % density the WROW SpMV; otherwise the cost model's argmin
     (``costmodel.select_format_cost``) under the card's constants. At a
     ``tolerance`` of ``costmodel.CV_TOLERANCE`` or more the value-compressed
-    candidates join."""
-    if n == 1 and f.density < 0.05:
+    candidates join. Only the candidates with a form at ``dtype`` take
+    part (``runs_at``)."""
+    if n == 1 and f.density < 0.05 and runs_at("wrow_spmv_cuda", dtype):
         return "wrow_spmv_cuda"
-    return PORT_NAME[costmodel.select_format_cost(f, n,
-                                                  tolerance=tolerance)]
+    cands = costmodel.AUTO_CANDIDATES
+    if tolerance >= costmodel.CV_TOLERANCE:
+        cands = cands + costmodel.tolerant_candidates(f, n)
+    cands = tuple(c for c in cands if runs_at(PORT_NAME[c], dtype))
+    return PORT_NAME[costmodel.select_format_cost(f, n, candidates=cands)]
 
 
 @dataclasses.dataclass
@@ -173,11 +215,14 @@ def autotune_spmm(csr: CSRMatrix, x: torch.Tensor, candidates=None, *,
     clock on the CPU. A candidate that fails to build or to run raises:
     nothing hides a kernel that did not launch. Only a candidate that
     runs out of device memory is left out (its time inf), and a call
-    raises when no candidate ran."""
+    raises when no candidate ran. At bf16 and f64 the default candidates
+    are those with a form at ``csr``'s value type."""
     from spgrid_torch.bench.harness import time_call
     from spgrid_torch.core.config import BenchConfig
     if candidates is None:
-        candidates = tuple(PORT_NAME[c] for c in costmodel.AUTO_CANDIDATES)
+        candidates = tuple(
+            PORT_NAME[c] for c in costmodel.AUTO_CANDIDATES
+            if runs_at(PORT_NAME[c], value_dtype(csr)))
     feats = features if features is not None else matrix_features(csr)
     n = x.shape[1] if x.dim() == 2 else 1
     config = BenchConfig(warmup_iters=warmup_iters, min_time_s=min_time_s,

@@ -20,11 +20,16 @@ def _wrappers() -> dict:
         wcoo_spmv, wpack_spmv, wrow_spmv,
     )
     return {"bsr_spmm": bsr_spmm.bsr_spmm,
+            "bsr_spmm_bf16": bsr_spmm.bsr_spmm_bf16,
             "panel_spmm": panel_spmm.panel_spmm,
             "panel_spmm_bf16": panel_spmm.panel_spmm_bf16,
+            "panel_spmm_bf16_xy": panel_spmm.panel_spmm_bf16_xy,
             "bsr_sddmm": sddmm.bsr_sddmm,
+            "bsr_sddmm_bf16": sddmm.bsr_sddmm_bf16,
             "wcoo_spmm": wcoo_spmm.wcoo_spmm,
             "wcoo_spmm_aligned": wcoo_spmm_aligned.wcoo_spmm_aligned,
+            "wcoo_spmm_aligned_bf16":
+                wcoo_spmm_aligned.wcoo_spmm_aligned_bf16,
             "wcoo_spmv": wcoo_spmv.wcoo_spmv,
             "wrow_spmv": wrow_spmv.wrow_spmv,
             "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
@@ -46,6 +51,30 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+# the operand types of the kernels that have a bf16 form beside the f32 one
+FORMS = (torch.float32, torch.bfloat16)
+
+
+def check_form(kernel: str, dtype: torch.dtype, forms=FORMS) -> None:
+    """Raise unless the kernel has a form for operands of ``dtype`` (one of
+    ``forms``): no kernel computes in another type and calls the result
+    ``dtype``."""
+    if dtype not in forms:
+        names = ", ".join(str(f).replace("torch.", "") for f in forms)
+        raise TypeError(f"{kernel}: no {str(dtype).replace('torch.', '')} "
+                        f"form (it has {names}; ROADMAP.md lists the forms "
+                        f"still to port)")
+
+
+def runs_plain(kernel: str, device: torch.device) -> bool:
+    """True for operands on the CPU, whose call takes the kernel's plain
+    version; False on the card, whose call launches the kernel; any other
+    device raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: no kernel for device {device}")
+    return device.type == "cpu"
 
 
 def check_operands(kernel: str, device: torch.device, **tensors) -> None:

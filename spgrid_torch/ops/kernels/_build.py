@@ -40,24 +40,32 @@ SIGNATURES = {
     # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, cluster (0: the
     # launch rule), stream
     "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    # the same, blocks, x and y in bf16
+    "spgrid_bsr_spmm_bf16": [_PTR] * 5 + [_INT] * 7 + [_PTR],
     # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n,
     # cluster (0: the launch rule), stream
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     # slice_ptr, slice_slots, cols, panels (bf16 bit patterns), x, y, bands,
-    # band_rows, bk, m, k, n, cluster (0: the launch rule), stream
-    "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # band_rows, bk, m, k, n, xy_bf16 (x and y: 0 f32, 1 bf16), cluster (0:
+    # the launch rule), stream
+    "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # the same, mask, q, k and out in bf16
+    "spgrid_bsr_sddmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk
     # (SDDMM), out (int[6]: tiles, cluster, tile rows, tile columns, step,
     # ring stages)
     "spgrid_bsr_spmm_shape": [_INT] * 3 + [_PTR],
+    "spgrid_bsr_spmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_panel_spmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_panel_spmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
+    "spgrid_bsr_sddmm_bf16_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "spgrid_wcoo_bands_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # row_slot, vals, cols, x, y, blocks, m, stream
     "spgrid_wrow_spmv": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     # tile_row, row_slot, vals, xidx, x, y, tiles, tile_slots, stream

@@ -1,21 +1,25 @@
 """Vertical-panel SpMM: Y = A @ X with A in DevicePanels layout.
 
 Counterpart of ``spgrid/ops/pallas/panel_spmm.py``; the CUDA kernels are
-``spgrid_torch/csrc/panel_spmm.cu``'s two forms: f32 panels (``panel_pallas``)
-and bf16 panels (``cv_panel``: ``DevicePanels.as_bf16``, bf16 panels times
-X rounded to bf16, f32 sums, as the Pallas kernel multiplies bf16 panels at
-precision "default"). ``panel_spmm`` launches the form its panels take for
-CUDA tensors (``panel_spmm_bf16`` counts the bf16 form's launches) and
-takes ``panel_spmm_plain`` only for CPU tensors.
+``spgrid_torch/csrc/panel_spmm.cu``'s three forms: f32 panels
+(``panel_pallas``), bf16 panels with f32 X and Y (``cv_panel``:
+``DevicePanels.as_bf16``, bf16 panels times X rounded to bf16, f32 sums, as
+the Pallas kernel multiplies bf16 panels at precision "default"), and bf16
+panels with bf16 X and Y (``panel_pallas`` at dtype bf16: f32 sums, Y
+rounded once). ``panel_spmm`` launches the form its panels and X take for
+CUDA tensors (``panel_spmm_bf16`` counts the cv_panel form's launches,
+``panel_spmm_bf16_xy`` the bf16 form's) and takes ``panel_spmm_plain``
+only for CPU tensors; an f64 X raises.
 
 The f32 form runs the tensor-core tile of ``csrc/block_mma.cuh`` as
 ``bsr_spmm`` does, a band being a row of blocks whose blocks are its panel
 slots: one tile a (band, 128-row slice of it, 64 columns of X), its
 contraction (the band's real panels, 32 columns a step) split across a
 cluster where the tiles alone would leave the card idle (``launch_grid``
-reports the launch). The bf16 form launches the same tiles but walks only
-the slots live in its slice (``DevicePanels.slice_ptr``/``slice_slots``),
-64 columns a step through a ``cp.async`` ring into bf16 ``wgmma``.
+reports the launch). The bf16 forms launch the same tiles but walk only
+the slots live in their slice (``DevicePanels.slice_ptr``/``slice_slots``),
+64 columns a step through a ``cp.async`` ring into bf16 ``wgmma``
+(``csrc/bf16_mma.cuh``).
 """
 
 from __future__ import annotations
@@ -26,11 +30,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.formats.csr import CSRMatrix
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.formats.csr import CSRMatrix, itemsize, value_dtype
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.dense import full_f32
 from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
-from spgrid_torch.ops.layouts import round_up
+from spgrid_torch.ops.layouts import (
+    LayoutRefused, round_up, values_to_device)
+from spgrid_torch.ops.xla import acc_dtype
 
 # Rows of the kernels' tile (``ROWS`` of ``csrc/block_mma.cuh``): the bf16
 # form's live-slice index lists a band's live slots in slices of this many.
@@ -57,9 +64,9 @@ def _panel_layout(csr: CSRMatrix, bk: int, band_rows: int, max_bytes: int):
     key = (rows // R) * kb + cols // bk
     uniq, inv = np.unique(key, return_inverse=True)
     num_panels = len(uniq)
-    est = num_panels * R * bk * csr.values.dtype.itemsize
+    est = num_panels * R * bk * itemsize(value_dtype(csr))
     if est > max_bytes:
-        raise ValueError(
+        raise LayoutRefused(
             f"panels would need ~{est/2**30:.1f} GiB "
             f"({num_panels} nonempty (R={R}, bk={bk}) panels); "
             f"matrix too scattered for the panel layout")
@@ -151,7 +158,7 @@ class DevicePanels:
         slice_ptr, slice_slots = live_slices(slots, rows, bands, R, max_p)
         return cls(
             block_cols=torch.from_numpy(pcols).to(device),
-            panels=torch.from_numpy(panels).to(device),
+            panels=values_to_device(panels, device, value_dtype(csr)),
             counts=torch.from_numpy(counts).to(device),
             shape=csr.shape, nnz=csr.nnz, num_panels=num_panels,
             band_rows=R, bands=bands, max_p=max_p,
@@ -162,10 +169,14 @@ class DevicePanels:
 def _check(a: DevicePanels, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
+    check_form("panel_spmm", x.dtype)
     if a.panels.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"panel_spmm: panels must be f32 or bf16, got "
                         f"{a.panels.dtype}")
-    check_operands("panel_spmm", x.device, x=(x, torch.float32),
+    if x.dtype == torch.bfloat16 and a.panels.dtype != torch.bfloat16:
+        raise TypeError("panel_spmm: a bf16 X takes bf16 panels "
+                        "(DevicePanels.as_bf16)")
+    check_operands("panel_spmm", x.device, x=(x, x.dtype),
                    panels=(a.panels, a.panels.dtype),
                    block_cols=(a.block_cols, torch.int32),
                    counts=(a.counts, torch.int32),
@@ -185,8 +196,9 @@ def launch_grid(a: DevicePanels, n: int) -> LaunchShape:
 
 def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
            cluster: int = 0) -> None:
-    """One launch of the form ``a``'s panels take into ``y`` (m, n) at a
-    given cluster (0: the launch rule), uncounted: for sweeps and tests."""
+    """One launch of the form ``a``'s panels and ``x`` take into ``y`` (m,
+    n) at a given cluster (0: the launch rule), uncounted: for sweeps and
+    tests."""
     m, k = a.shape
     n = x.shape[1]
     lib = _build.library()
@@ -197,8 +209,8 @@ def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
             code = lib.spgrid_panel_spmm_bf16(
                 a.slice_ptr.data_ptr(), a.slice_slots.data_ptr(),
                 a.block_cols.data_ptr(), a.panels.data_ptr(), x.data_ptr(),
-                y.data_ptr(), a.bands, a.band_rows, a.bk, m, k, n, cluster,
-                stream)
+                y.data_ptr(), a.bands, a.band_rows, a.bk, m, k, n,
+                int(x.dtype == torch.bfloat16), cluster, stream)
         else:
             entry = "spgrid_panel_spmm"
             code = lib.spgrid_panel_spmm(
@@ -208,23 +220,28 @@ def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
     _build.check(code, entry[len("spgrid_"):])
 
 
-def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) f32 = A @ X for f32 X (k, n); bf16 panels go to
-    ``panel_spmm_bf16``."""
-    _check(a, x)
-    if a.panels.dtype == torch.bfloat16:
-        return panel_spmm_bf16(a, x)
-    if x.device.type == "cpu":
+def _run(wrapper, a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
+    """Y in X's dtype by the plain version on the CPU, or by one counted
+    launch on the card."""
+    if runs_plain(wrapper.__name__, x.device):
         return panel_spmm_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"panel_spmm: no kernel for device {x.device}")
-    y = torch.empty((a.shape[0], x.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     launch(a, x, y)
-    panel_spmm.launches += 1
+    wrapper.launches += 1
     return y
+
+
+def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype: f32 X (k, n); bf16 panels go to
+    ``panel_spmm_bf16`` (f32 X) or ``panel_spmm_bf16_xy`` (bf16 X)."""
+    _check(a, x)
+    if x.dtype == torch.bfloat16:
+        return panel_spmm_bf16_xy(a, x)
+    if a.panels.dtype == torch.bfloat16:
+        return panel_spmm_bf16(a, x)
+    return _run(panel_spmm, a, x)
 
 
 panel_spmm.launches = 0
@@ -234,41 +251,45 @@ def panel_spmm_bf16(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
     """Y (m, n) f32 = A @ round_bf16(X) for bf16 panels and f32 X (k, n):
     the bf16 form's kernel (``cv_panel``)."""
     _check(a, x)
-    if a.panels.dtype != torch.bfloat16:
+    if a.panels.dtype != torch.bfloat16 or x.dtype != torch.float32:
         raise TypeError("panel_spmm_bf16: panels must be bf16 "
-                        "(DevicePanels.as_bf16)")
-    if x.device.type == "cpu":
-        return panel_spmm_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"panel_spmm_bf16: no kernel for device {x.device}")
-    y = torch.empty((a.shape[0], x.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    if y.numel() == 0:
-        return y
-    launch(a, x, y)
-    panel_spmm_bf16.launches += 1
-    return y
+                        "(DevicePanels.as_bf16) and X f32")
+    return _run(panel_spmm_bf16, a, x)
 
 
 panel_spmm_bf16.launches = 0
 
 
+def panel_spmm_bf16_xy(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) bf16 = A @ X for bf16 panels and bf16 X (k, n): f32 sums,
+    each element of Y rounded once (``panel_pallas`` at dtype bf16)."""
+    _check(a, x)
+    if x.dtype != torch.bfloat16:
+        raise TypeError("panel_spmm_bf16_xy: X must be bf16")
+    return _run(panel_spmm_bf16_xy, a, x)
+
+
+panel_spmm_bf16_xy.launches = 0
+
+
 def panel_spmm_plain(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
-    """The same product in plain torch, in x's dtype (TF32 off): gather the
+    """The same product in plain torch, in x's dtype (TF32 off; bf16:
+    widened to f32, summed in f32 and rounded once at the end): gather the
     X tile of every slot, one batched matmul over the slots, ``index_add_``
     into the bands (pad slots add zero panels). For bf16 panels X is
-    rounded to bf16 first, and both are widened to x's dtype."""
+    rounded to bf16 first, and both are widened to the sum's type."""
     full_f32()
     m, k = a.shape
     n = x.shape[1]
     bk, R = a.bk, a.band_rows
+    acc = acc_dtype(x)
     kb = -(-k // bk)
-    xp = torch.zeros((kb * bk, n), dtype=x.dtype, device=x.device)
-    xp[:k] = (x.to(torch.bfloat16).to(x.dtype)
+    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
+    xp[:k] = (x.to(torch.bfloat16).to(acc)
               if a.panels.dtype == torch.bfloat16 else x)
     xt = xp.view(kb, bk, n)[a.block_cols.long()]              # (S, bk, n)
-    prod = torch.bmm(a.panels.to(x.dtype), xt)                # (S, R, n)
+    prod = torch.bmm(a.panels.to(acc), xt)                    # (S, R, n)
     band = torch.arange(a.bands, device=x.device).repeat_interleave(a.max_p)
-    out = torch.zeros((a.bands, R, n), dtype=x.dtype, device=x.device)
+    out = torch.zeros((a.bands, R, n), dtype=acc, device=x.device)
     out.index_add_(0, band, prod)
-    return out.reshape(a.bands * R, n)[:m]
+    return out.reshape(a.bands * R, n)[:m].to(x.dtype)

@@ -99,21 +99,22 @@ def walk_shape(m: int, n: int):
     return -(-m // WARPS), -(-n // (SLAB * c)), c, UNROLL_LOADS // c
 
 
-def check_rows(kernel: str, a, x: torch.Tensor) -> None:
+def check_rows(kernel: str, a, x: torch.Tensor,
+               values: torch.dtype = torch.float32) -> None:
     """Raise unless the row stream of ``a`` (its ``stream_fields``) is what
-    the kernel takes: f32 values, int32 otherwise."""
+    the kernel takes: values of type ``values``, int32 otherwise."""
     check_operands(kernel, x.device, **{
-        f: (getattr(a, f), torch.float32 if f == "slot_vals" else torch.int32)
+        f: (getattr(a, f), values if f == "slot_vals" else torch.int32)
         for f in a.stream_fields})
 
 
 def launch_rows(wrapper, symbol: str, a, x: torch.Tensor) -> torch.Tensor:
     """Launch the walk, and the long-row walk where ``a`` has long rows,
-    through the C entry point ``symbol`` into a new Y; count the launch on
-    ``wrapper`` (one, with or without the long-row walk)."""
+    through the C entry point ``symbol`` into a new Y of X's dtype; count
+    the launch on ``wrapper`` (one, with or without the long-row walk)."""
     m = a.shape[0]
     n = x.shape[1]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     num_long = len(a.long_rows)

@@ -3,10 +3,14 @@
 Counterpart of ``spgrid/ops/pallas/wcoo_spmm_aligned.py`` (format
 ``wcoo_bands``); the CUDA kernel is ``spgrid_torch/csrc/wcoo_bands.cu`` over
 the shared walk of ``csrc/slot_rows.cuh``. ``wcoo_spmm_aligned`` takes X
-(k, n) and returns Y (m, n), X unpadded. It launches the kernel for CUDA
-tensors, which reads the layout's row-ordered live-slot stream
-(``ops/kernels/slot_rows.py``), and takes ``wcoo_spmm_aligned_plain``,
-which reads the padded groups, only for CPU tensors.
+(k, n) and returns Y (m, n), X unpadded, in X's dtype: f32, or bf16
+(``wcoo_spmm_aligned_bf16``: a layout built from a bf16 matrix, bf16 values
+and X, each product rounded to bf16 before it is added into the f32 sum,
+as the Pallas kernel's bf16 multiply rounds it, and Y rounded once). It
+launches the kernel for CUDA tensors, which reads the layout's row-ordered
+live-slot stream (``ops/kernels/slot_rows.py``), and takes
+``wcoo_spmm_aligned_plain``, which reads the padded groups, only for CPU
+tensors; an f64 X raises.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.wcoo import LANE, csr_to_wcoo_aligned
-from spgrid_torch.ops.kernels import check_operands
+from spgrid_torch.formats.csr import value_dtype
+from spgrid_torch.ops.kernels import check_form, check_operands, runs_plain
 from spgrid_torch.ops.kernels.slot_rows import (
     RowStream, check_rows, launch_rows, row_stream, stream_tensors)
-from spgrid_torch.ops.layouts import group_ptr, round_up, to_device
+from spgrid_torch.ops.layouts import (
+    group_ptr, round_up, to_device, torch_dtype)
+from spgrid_torch.ops.xla import acc_dtype
 
 G_STEP = 16          # groups of a step; a step's groups share its superwindow
 GROUP_ROWS = 8       # windows of a superwindow == slot rows of a group
@@ -129,14 +136,14 @@ class DeviceWCOOBands(RowStream):
     live-slot stream that the kernel reads (``slot_rows.py``)."""
 
     cols: torch.Tensor          # (T*8, 128) int8, col % 128 of each slot
-    values: torch.Tensor        # (T*8, 128), 0 in empty slots
+    values: torch.Tensor        # (T*8, 128) f32 or bf16, 0 in empty slots
     g_sw: torch.Tensor          # (steps,) int32, superwindow of each step
     g_lb: torch.Tensor          # (steps_pad8, G_STEP) int32, pad -> mbb
     block_ptr: torch.Tensor     # (bands*mbb + 1,) int32
     block_groups: torch.Tensor  # (real groups,) int32
     # the row stream: S live slots by output row, in group and slot order
     row_slot: torch.Tensor      # (m + 1,) int32, row r's live slots
-    slot_vals: torch.Tensor     # (S,) value of each live slot
+    slot_vals: torch.Tensor     # (S,) value of each live slot (as values)
     slot_xrows: torch.Tensor    # (S,) int32, X row of each live slot
     long_rows: torch.Tensor     # (L,) int32, rows of > LONG_ROW slots
     shape: Tuple[int, int]
@@ -161,21 +168,25 @@ class DeviceWCOOBands(RowStream):
     @classmethod
     def from_arrays(cls, cols, values, g_sw, g_lb, shape, nnz: int,
                     utilization: float, bands: int, mbb: int,
-                    steps_per_band: int, name: str = "", *,
-                    device) -> "DeviceWCOOBands":
+                    steps_per_band: int, name: str = "", *, device,
+                    dtype: torch.dtype = torch.float32) -> "DeviceWCOOBands":
+        """The layout of ``bands_arrays``' arrays, its values in ``dtype``
+        (f32, or bf16 for a matrix whose values are bf16)."""
         T = bands * steps_per_band * G_STEP
         lb = np.asarray(g_lb, np.int64).reshape(-1)[:T]
         band = np.arange(T) // (steps_per_band * G_STEP)
         ptr, groups = group_ptr(np.where(lb < mbb, band * mbb + lb, -1),
                                 bands * mbb)
-        stream = bands_row_stream(cols, values, g_sw, ptr, groups, shape)
+        stream = stream_tensors(
+            bands_row_stream(cols, values, g_sw, ptr, groups, shape), device)
+        stream["slot_vals"] = stream["slot_vals"].to(dtype)
         return cls(cols=to_device(cols, device, np.int8),
-                   values=to_device(values, device),
+                   values=to_device(values, device).to(dtype),
                    g_sw=to_device(g_sw, device, np.int32),
                    g_lb=to_device(g_lb, device, np.int32),
                    block_ptr=to_device(ptr, device),
                    block_groups=to_device(groups, device),
-                   **stream_tensors(stream, device), shape=tuple(shape),
+                   **stream, shape=tuple(shape),
                    nnz=int(nnz), utilization=float(utilization),
                    bands=int(bands), mbb=int(mbb),
                    steps_per_band=int(steps_per_band), name=name)
@@ -186,27 +197,52 @@ class DeviceWCOOBands(RowStream):
         (cols, vals, g_sw, g_lb, util, bands, mbb,
          spb) = bands_arrays(csr, band_rows)
         return cls.from_arrays(cols, vals, g_sw, g_lb, csr.shape, csr.nnz,
-                               util, bands, mbb, spb, csr.name, device=device)
+                               util, bands, mbb, spb, csr.name, device=device,
+                               dtype=torch_dtype(value_dtype(csr)))
+
+
+def _check(kernel: str, a: DeviceWCOOBands, x: torch.Tensor,
+           dtype: torch.dtype) -> None:
+    if x.dim() != 2 or x.shape[0] != a.shape[1]:
+        raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
+    check_operands(kernel, x.device, x=(x, dtype), values=(a.values, dtype),
+                   cols=(a.cols, torch.int8), g_sw=(a.g_sw, torch.int32),
+                   block_ptr=(a.block_ptr, torch.int32),
+                   block_groups=(a.block_groups, torch.int32))
+    check_rows(kernel, a, x, dtype)
+
+
+def _run(wrapper, a: DeviceWCOOBands, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    _check(wrapper.__name__, a, x, dtype)
+    if runs_plain(wrapper.__name__, x.device):
+        return wcoo_spmm_aligned_plain(a, x)
+    entry = ("spgrid_wcoo_bands_bf16" if dtype == torch.bfloat16
+             else "spgrid_wcoo_bands")
+    return launch_rows(wrapper, entry, a, x)
 
 
 def wcoo_spmm_aligned(a: DeviceWCOOBands, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) f32 = A @ X for f32 X (k, n)."""
-    if x.dim() != 2 or x.shape[0] != a.shape[1]:
-        raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    check_operands("wcoo_spmm_aligned", x.device, x=(x, torch.float32),
-                   values=(a.values, torch.float32), cols=(a.cols, torch.int8),
-                   g_sw=(a.g_sw, torch.int32),
-                   block_ptr=(a.block_ptr, torch.int32),
-                   block_groups=(a.block_groups, torch.int32))
-    check_rows("wcoo_spmm_aligned", a, x)
-    if x.device.type == "cpu":
-        return wcoo_spmm_aligned_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"wcoo_spmm_aligned: no kernel for device {x.device}")
-    return launch_rows(wcoo_spmm_aligned, "spgrid_wcoo_bands", a, x)
+    """Y (m, n) = A @ X in X's dtype: f32 X (k, n), or bf16 X for a bf16
+    layout (``wcoo_spmm_aligned_bf16``)."""
+    check_form("wcoo_spmm_aligned", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return wcoo_spmm_aligned_bf16(a, x)
+    return _run(wcoo_spmm_aligned, a, x, torch.float32)
 
 
 wcoo_spmm_aligned.launches = 0
+
+
+def wcoo_spmm_aligned_bf16(a: DeviceWCOOBands,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) bf16 = A @ X for a bf16 layout and bf16 X (k, n): each
+    product rounded to bf16, added in f32, each element of Y rounded
+    once."""
+    return _run(wcoo_spmm_aligned_bf16, a, x, torch.bfloat16)
+
+
+wcoo_spmm_aligned_bf16.launches = 0
 
 
 def wcoo_spmm_aligned_plain(a: DeviceWCOOBands,
@@ -214,7 +250,7 @@ def wcoo_spmm_aligned_plain(a: DeviceWCOOBands,
     """The same product in plain torch, in x's dtype: slot (w, lane) of a
     real group adds value · X[1024 sw + 128 w + col] to row 128 block + lane
     (``index_add_``), for slots whose value is not 0 and X row lies inside
-    X."""
+    X. bf16: each product rounded to bf16, added in f32, Y rounded once."""
     m, k = a.shape
     g = a.block_groups.long()
     block = torch.repeat_interleave(
@@ -228,6 +264,8 @@ def wcoo_spmm_aligned_plain(a: DeviceWCOOBands,
             + w * LANE + a.cols.view(-1, *slots)[g].long())
     row = (block[:, None, None] * LANE + lane).expand(-1, *slots)
     live = (vals != 0) & (xrow < k)
-    y = torch.zeros((m, x.shape[1]), dtype=x.dtype, device=x.device)
-    y.index_add_(0, row[live], vals[live].to(x.dtype)[:, None] * x[xrow[live]])
-    return y
+    prods = vals[live].to(x.dtype)[:, None] * x[xrow[live]]
+    acc = acc_dtype(x)
+    y = torch.zeros((m, x.shape[1]), dtype=acc, device=x.device)
+    y.index_add_(0, row[live], prods.to(acc))
+    return y.to(x.dtype)

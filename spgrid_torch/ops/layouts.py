@@ -20,23 +20,33 @@ COO keeps the row of each nnz as ``row_ptr``; CSC, LDU and CV add
 ``row_ptr`` (and CSC and LDU the permutation that takes their entries to
 row order), so every row is summed in one fixed order and a call gives the
 same bits every time.
+
+A layout's values take the matrix's value type (``formats.csr.value_dtype``:
+f32, f64, or bf16 for a bf16 matrix, whose f32 host values bf16 holds
+exactly), as the JAX layouts keep the matrix's dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from spgrid_torch.formats.bsr import csr_to_bsr
 from spgrid_torch.formats.csc import CSCMatrix, csr_to_csc
-from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import CSRMatrix, value_dtype
 from spgrid_torch.formats.cv import CVMatrix, csr_to_cv
 from spgrid_torch.formats.ell import csr_to_ell
 from spgrid_torch.formats.ldu import LDUMatrix, csr_to_ldu
 from spgrid_torch.formats.sell import csr_to_sell
+
+
+class LayoutRefused(ValueError):
+    """A layout does not take this matrix, by the same rule as the JAX
+    package's layout (ELL past its padding limit, panels past their byte
+    limit): the format does not apply to it."""
 
 
 def round_up(x: int, m: int) -> int:
@@ -47,6 +57,23 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     """A host array as a tensor on ``device``. ``np.array`` copies: leaves
     of JAX arrays are read-only views."""
     return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch type of a value type's name."""
+    return TORCH_DTYPES[name]
+
+
+def values_to_device(a, device, dtype: Optional[str]) -> torch.Tensor:
+    """Host values as a tensor of the value type named ``dtype`` on
+    ``device`` (bf16 from f32 numbers that bf16 holds: exact), or of their
+    own type where ``dtype`` is None."""
+    t = to_device(a, device)
+    return t if dtype is None else t.to(torch_dtype(dtype))
 
 
 def group_ptr(owner: np.ndarray, owners: int):
@@ -136,9 +163,10 @@ class DeviceBSR:
 
     @classmethod
     def from_arrays(cls, block_rows, block_cols, row_starts, blocks,
-                    shape, nnz: int, num_blocks: int, *,
-                    device) -> "DeviceBSR":
-        """Host arrays → device layout; ``row_ptr`` is rebuilt from
+                    shape, nnz: int, num_blocks: int, *, device,
+                    dtype: Optional[str] = None) -> "DeviceBSR":
+        """Host arrays → device layout, the blocks of value type ``dtype``
+        (their own where None); ``row_ptr`` is rebuilt from
         ``block_rows``."""
         mb = len(row_starts) - 1
         ptr = block_row_ptr(block_rows, mb)
@@ -147,7 +175,7 @@ class DeviceBSR:
             block_cols=to_device(block_cols, device, np.int32),
             row_starts=to_device(row_starts, device, np.int32),
             row_ptr=to_device(ptr, device),
-            blocks=to_device(blocks, device),
+            blocks=values_to_device(blocks, device, dtype),
             shape=tuple(shape),
             nnz=int(nnz),
             num_blocks=int(num_blocks),
@@ -159,7 +187,8 @@ class DeviceBSR:
         rows, cols, row_starts, blocks, nb = bsr_arrays(
             csr, bm, bk, pad_multiple)
         return cls.from_arrays(rows, cols, row_starts, blocks, csr.shape,
-                               csr.nnz, nb, device=device)
+                               csr.nnz, nb, device=device,
+                               dtype=value_dtype(csr))
 
 
 def nbytes(*tensors) -> int:
@@ -193,7 +222,8 @@ class DeviceCOO:
         cols[: csr.nnz] = csr.col_idx
         vals[: csr.nnz] = csr.values
         return cls(to_device(csr.row_ptr, device, np.int64),
-                   to_device(cols, device), to_device(vals, device),
+                   to_device(cols, device),
+                   values_to_device(vals, device, value_dtype(csr)),
                    tuple(csr.shape), csr.nnz)
 
 
@@ -229,7 +259,8 @@ class DeviceSELL:
             perm=to_device(perm, device),
             bucket_cols=tuple(to_device(b.cols, device)
                               for b in sell.buckets),
-            bucket_vals=tuple(to_device(b.values, device)
+            bucket_vals=tuple(values_to_device(b.values, device,
+                                               value_dtype(csr))
                               for b in sell.buckets),
             bucket_slice_rows=tuple(to_device(b.slice_rows, device)
                                     for b in sell.buckets),
@@ -271,7 +302,7 @@ class DeviceELL:
         est = slots * (4 + csr.values.dtype.itemsize)
         if est > max_bytes or (slots > 32 * max(csr.nnz, 1)
                                and est > 64 << 20):
-            raise ValueError(
+            raise LayoutRefused(
                 f"ELL padding would need {slots} slots for {csr.nnz} nnz "
                 f"(~{est/2**30:.2f} GiB, width={width}); matrix too skewed "
                 f"for ELL — use SELL-C-sigma or WCOO")
@@ -281,7 +312,8 @@ class DeviceELL:
         vals = np.zeros((m_pad, ell.width), dtype=csr.values.dtype)
         cols[: csr.m] = ell.cols
         vals[: csr.m] = ell.values
-        return cls(to_device(cols, device), to_device(vals, device),
+        return cls(to_device(cols, device),
+                   values_to_device(vals, device, value_dtype(csr)),
                    tuple(csr.shape), csr.nnz)
 
 
@@ -309,7 +341,7 @@ class DeviceCSC:
 
     @classmethod
     def from_csc(cls, csc: CSCMatrix, pad_multiple: int = 128, *,
-                 device) -> "DeviceCSC":
+                 device, dtype: Optional[str] = None) -> "DeviceCSC":
         nnz_pad = round_up(max(csc.nnz, 1), pad_multiple)
         rows = np.full(nnz_pad, csc.m, dtype=np.int32)
         cols = np.zeros(nnz_pad, dtype=np.int32)
@@ -320,7 +352,8 @@ class DeviceCSC:
         vals[: csc.nnz] = csc.values
         order = np.argsort(csc.row_idx, kind="stable")
         return cls(to_device(rows, device), to_device(cols, device),
-                   to_device(vals, device), to_device(order, device, np.int64),
+                   values_to_device(vals, device, dtype),
+                   to_device(order, device, np.int64),
                    to_device(segment_ptr(csc.row_idx, csc.m), device),
                    tuple(csc.shape), csc.nnz)
 
@@ -328,7 +361,7 @@ class DeviceCSC:
     def from_csr(cls, csr: CSRMatrix, pad_multiple: int = 128, *,
                  device) -> "DeviceCSC":
         return cls.from_csc(csr_to_csc(csr), pad_multiple=pad_multiple,
-                            device=device)
+                            device=device, dtype=value_dtype(csr))
 
 
 @dataclasses.dataclass
@@ -361,7 +394,7 @@ class DeviceLDU:
 
     @classmethod
     def from_ldu(cls, ldu: LDUMatrix, pad_multiple: int = 128, *,
-                 device) -> "DeviceLDU":
+                 device, dtype: Optional[str] = None) -> "DeviceLDU":
         nf = ldu.n_faces
         nf_pad = round_up(max(nf, 1), pad_multiple)
         n = ldu.n_cells
@@ -374,8 +407,9 @@ class DeviceLDU:
         lower[:nf] = ldu.lower
         upper[:nf] = ldu.upper
         return cls(to_device(owner, device), to_device(neigh, device),
-                   to_device(lower, device), to_device(upper, device),
-                   to_device(ldu.diag, device),
+                   values_to_device(lower, device, dtype),
+                   values_to_device(upper, device, dtype),
+                   values_to_device(ldu.diag, device, dtype),
                    to_device(np.argsort(ldu.owner, kind="stable"), device,
                              np.int64),
                    to_device(segment_ptr(ldu.owner, n), device),
@@ -390,7 +424,7 @@ class DeviceLDU:
         """Raises for a matrix that is not square or whose pattern is not
         symmetric (``csr_to_ldu``)."""
         return cls.from_ldu(csr_to_ldu(csr), pad_multiple=pad_multiple,
-                            device=device)
+                            device=device, dtype=value_dtype(csr))
 
 
 @dataclasses.dataclass

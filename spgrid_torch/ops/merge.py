@@ -33,9 +33,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.formats.csr import CSRMatrix
+from spgrid_torch.formats.csr import CSRMatrix, value_dtype
 from spgrid_torch.ops.dense import full_f32
-from spgrid_torch.ops.layouts import nbytes, to_device
+from spgrid_torch.ops.layouts import nbytes, to_device, values_to_device
 from spgrid_torch.ops.xla import acc_dtype, segment_sum
 
 ROWS_CAP = 128
@@ -117,7 +117,8 @@ class DeviceMerge:
                  - np.repeat(fix_ptr[:-1], reach))
         row_ptr = np.searchsorted(out_rows[strip],
                                   np.arange(csr.m + 1)).astype(np.int64)
-        return cls(to_device(cols, device), to_device(vals, device),
+        return cls(to_device(cols, device),
+                   values_to_device(vals, device, value_dtype(csr)),
                    to_device(local_rows, device), to_device(out_rows, device),
                    tuple(csr.shape), csr.nnz, block_nnz,
                    to_device(strip, device), to_device(row_ptr, device),

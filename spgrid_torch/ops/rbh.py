@@ -29,7 +29,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.formats.csr import COOMatrix, CSRMatrix, coo_to_csr
+from spgrid_torch.formats.csr import (
+    COOMatrix, CSRMatrix, coo_to_csr, value_dtype,
+)
 from spgrid_torch.formats.reorder import (
     centroid_col_order, first_use_col_order,
 )
@@ -176,9 +178,11 @@ class DeviceRBH:
             hi_nnz, nb = 0, 0
 
         def _sub(sel) -> CSRMatrix:
+            # in csr's value type (a bf16 matrix's parts are bf16)
             return coo_to_csr(COOMatrix(
                 rows[sel].astype(np.int32), cnew[sel].astype(np.int32),
-                csr.values[sel], csr.shape, csr.name), sum_duplicates=False)
+                csr.values[sel], csr.shape, csr.name),
+                sum_duplicates=False).astype(value_dtype(csr))
 
         bsr = None
         if hi_nnz:

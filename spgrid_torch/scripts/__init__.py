@@ -6,7 +6,9 @@
     python -m spgrid_torch.scripts.exp_lanegather
     python -m spgrid_torch.scripts.exp_wpack_ablate [m avg bw]
 
-Each runs its CUDA kernels on the card at the JAX script's default sizes;
+and the drivers of the SDDMM study and the dtype legs (``sddmm_study``,
+``run_bf16_leg``, ``run_f64_sweep``), whose docstrings give their output.
+Each probe driver runs its CUDA kernels on the card at the JAX script's default sizes;
 ``--platform cpu`` runs the kernels' plain versions on the CPU instead.
 Without a CUDA device and without that flag each exits non-zero, as
 ``python -m spgrid_torch.bench`` does. Times come from

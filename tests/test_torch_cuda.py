@@ -1641,3 +1641,202 @@ def test_merge_chunks_on_the_card(cuda, matrix, monkeypatch):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, got)
+
+
+# --- the dtype axis: the four bf16 forms (bsr_spmm_bf16, panel_spmm_bf16_xy,
+# bsr_sddmm_bf16, wcoo_spmm_aligned_bf16) against their plain versions on
+# the same bf16 inputs. Both sum in f32 (the plain version in another
+# order, or, for the slot walk, in slot order as well) and round once to
+# bf16, so they differ by at most 1 bf16 ulp of the plain result; the slot
+# walk rounds each product to bf16 first, as its plain version does.
+
+def bf16_operand(shape, seed, device):
+    return operand(shape, seed, device).to(torch.bfloat16)
+
+
+def misaligned_bf16(shape, seed, device):
+    """A contiguous bf16 operand whose data starts 2 bytes past an aligned
+    address: no 8- or 16-byte loads of it."""
+    x = bf16_operand((int(np.prod(shape)) + 1,), seed, device)[1:]
+    return x.view(shape)
+
+
+def assert_within_one_ulp(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    assert torch.isfinite(g).all()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    # an absolute floor of 1e-30: exact zeros (empty rows) compare exactly
+    assert ((g - w).abs() <= torch.maximum(ulp, torch.full_like(ulp, 1e-30))
+            ).all()
+
+
+def bf16_csr(make):
+    return make().astype("bfloat16")
+
+
+BF16_MATRICES = {
+    "twin": lambda: headline_matrix(),
+    "ragged": lambda: positive(random_csr(500, 300, 0.2, seed=6)),
+    "empty_rows": lambda: with_empty_rows(400, 260, 11),
+}
+
+
+def bf16_form(kind, csr, device, bm=128):
+    """(the form's wrapper call, its plain version, its launch counter) of
+    a bf16 SpMM layout of ``csr``."""
+    if kind == "bsr":
+        a = DeviceBSR.from_csr(csr, bm=bm, bk=128, device=device)
+        return (lambda x: bsr_spmm(a, x), lambda x: bsr_spmm_plain(a, x),
+                "bsr_spmm_bf16")
+    if kind == "panel":
+        a = DevicePanels.from_csr(csr, bk=128, device=device)
+        return (lambda x: panel_spmm(a, x), lambda x: panel_spmm_plain(a, x),
+                "panel_spmm_bf16_xy")
+    a = DeviceWCOOBands.from_csr(csr, device=device)
+    return (lambda x: wcoo_spmm_aligned(a, x),
+            lambda x: wcoo_spmm_aligned_plain(a, x), "wcoo_spmm_aligned_bf16")
+
+
+@pytest.mark.parametrize("kind", ["bsr", "panel", "bands"])
+@pytest.mark.parametrize("matrix", sorted(BF16_MATRICES))
+@pytest.mark.parametrize("n,x_layout", [(512, "aligned"), (77, "aligned"),
+                                        (200, "aligned"),
+                                        (64, "misaligned")])
+def test_bf16_spmm_forms(cuda, kind, matrix, n, x_layout):
+    """Within 1 ulp of the plain version, one launch on the form's own
+    counter a call, the same bits twice and by graph replay."""
+    csr = bf16_csr(BF16_MATRICES[matrix])
+    call, plain, counter = bf16_form(kind, csr, cuda)
+    make_x = bf16_operand if x_layout == "aligned" else misaligned_bf16
+    x = make_x((csr.k, n), 31, cuda)
+    before = launch_counts()[counter]
+    got = call(x)
+    assert launch_counts()[counter] == before + 1
+    assert_within_one_ulp(got, plain(x))
+    assert torch.equal(call(x), got)
+    graph, out = captured(call, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("bm", [64, 200, 256])
+def test_bsr_spmm_bf16_at_other_block_heights(cuda, bm):
+    """Block rows below one warpgroup, of two ragged slices, and of two
+    full slices."""
+    csr = bf16_csr(BF16_MATRICES["ragged"])
+    call, plain, _ = bf16_form("bsr", csr, cuda, bm=bm)
+    x = bf16_operand((csr.k, 96), 32, cuda)
+    assert_within_one_ulp(call(x), plain(x))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_bf16_block_forms_at_every_cluster_size(cuda, cluster):
+    """The bf16 C entry points at each cluster size (the ranks' f32 partial
+    tiles summed in rank order, then rounded once) on ragged shapes: bm =
+    200 in two row slices, n = 77, d = 70."""
+    from spgrid_torch.ops.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    csr = bf16_csr(BF16_MATRICES["ragged"])
+    a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3, device=cuda)
+    x = bf16_operand((300, 77), 33, cuda)
+    y = torch.empty((500, 77), dtype=torch.bfloat16, device=cuda)
+    _build.check(lib.spgrid_bsr_spmm_bf16(
+        a.row_ptr.data_ptr(), a.block_cols.data_ptr(), a.blocks.data_ptr(),
+        x.data_ptr(), y.data_ptr(), a.mb, a.bm, a.bk, 500, 300, 77, cluster,
+        stream), "bsr_spmm_bf16")
+    assert_within_one_ulp(y, bsr_spmm_plain(a, x))
+    p = DevicePanels.from_csr(csr, bk=128, band_rows=104, device=cuda)
+    yp = torch.empty((500, 77), dtype=torch.bfloat16, device=cuda)
+    panel_launch(p, x, yp, cluster)
+    assert_within_one_ulp(yp, panel_spmm_plain(p, x))
+    mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14,
+                       dtype="bfloat16")
+    m = DeviceBSR.from_csr(mask, bm=200, bk=128, pad_multiple=4, device=cuda)
+    q = bf16_operand((200, 70), 34, cuda)
+    k = bf16_operand((200, 70), 35, cuda)
+    nb, bm, bk = m.blocks.shape
+    out = torch.empty((nb, bm, bk), dtype=torch.bfloat16, device=cuda)
+    _build.check(lib.spgrid_bsr_sddmm_bf16(
+        m.block_rows.data_ptr(), m.block_cols.data_ptr(), m.blocks.data_ptr(),
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
+        cluster, stream), "bsr_sddmm_bf16")
+    assert_within_one_ulp(out, bsr_sddmm_plain(m, q, k))
+
+
+@pytest.mark.parametrize("kind,length,sparsity,d,blocks", [
+    ("band_and_random", 4096, 0.95, 512, (128, 128)),
+    ("band_and_decay", 1000, 0.9, 77, (128, 128)),
+    ("band_and_random", 1000, 0.8, 64, (64, 256)),
+    ("band_and_decay", 512, 0.9, 130, (256, 128))])
+def test_bsr_sddmm_bf16(cuda, kind, length, sparsity, d, blocks):
+    """Within 1 ulp of the plain version (pad blocks zero), one launch on
+    bsr_sddmm_bf16's counter, the same bits twice and by graph replay."""
+    mask = create_mask(kind, length, sparsity, seed=36, dtype="bfloat16")
+    m = DeviceBSR.from_csr(mask, bm=blocks[0], bk=blocks[1], pad_multiple=4,
+                           device=cuda)
+    q = bf16_operand((length, d), 37, cuda)
+    k = bf16_operand((length, d), 38, cuda)
+    before = launch_counts()["bsr_sddmm_bf16"]
+    got = bsr_sddmm(m, q, k)
+    assert launch_counts()["bsr_sddmm_bf16"] == before + 1
+    assert_within_one_ulp(got, bsr_sddmm_plain(m, q, k))
+    assert torch.equal(bsr_sddmm(m, q, k), got)
+    graph, out = captured(bsr_sddmm, m, q, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_wcoo_bands_bf16_long_rows(cuda):
+    """Rows of more than LONG_ROW slots go to the long-row walk, whose
+    warps' f32 sums are added in warp order before the one rounding."""
+    csr = bf16_csr(lambda: positive(hypersparse_edge()))
+    call, plain, _ = bf16_form("bands", csr, cuda)
+    x = bf16_operand((csr.k, 200), 39, cuda)
+    assert_within_one_ulp(call(x), plain(x))
+
+
+F32_ONLY_FORMATS = ("wcoo_cuda", "wcoo_spmv_cuda", "wrow_spmv_cuda",
+                    "bsrc_cuda", "dgell_cuda", "wpack_spmv_cuda")
+
+
+@pytest.mark.parametrize("fmt", F32_ONLY_FORMATS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_f32_only_formats_refuse_other_dtypes(cuda, fmt, dtype):
+    from spgrid_torch.ops import dispatch
+    csr = BF16_MATRICES["ragged"]().astype(dtype)
+    with pytest.raises(ValueError, match=f"no {dtype} form.*ROADMAP"):
+        dispatch.build(csr, fmt, device=cuda)
+
+
+@pytest.mark.parametrize("kind", ["bsr", "panel", "sddmm", "bands"])
+def test_hand_written_kernels_refuse_f64(cuda, kind):
+    """An f64 operand raises, naming the dtype: no kernel computes in f32
+    and calls the result f64."""
+    csr = BF16_MATRICES["ragged"]()
+    x = operand((csr.k, 8), 40, cuda).double()
+    with pytest.raises(TypeError, match="float64"):
+        if kind == "bsr":
+            bsr_spmm(DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda), x)
+        elif kind == "panel":
+            panel_spmm(DevicePanels.from_csr(csr, device=cuda), x)
+        elif kind == "sddmm":
+            mask = DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda)
+            bsr_sddmm(mask, operand((500, 8), 41, cuda).double(), x)
+        else:
+            wcoo_spmm_aligned(DeviceWCOOBands.from_csr(csr, device=cuda), x)
+
+
+def test_f32_only_kernels_refuse_a_bf16_x(cuda):
+    csr = BF16_MATRICES["ragged"]()
+    x = bf16_operand((csr.k, 8), 42, cuda)
+    with pytest.raises(TypeError):
+        wcoo_spmm(DeviceWCOO.from_csr(csr, device=cuda), x)
+    with pytest.raises(TypeError):
+        dgell_spmm(DeviceDGELL.from_csr(csr, device=cuda), x)
+    with pytest.raises(TypeError):
+        bsr_spmm_cstat(DeviceBSRCol.from_csr(csr, device=cuda), x)
