@@ -176,21 +176,32 @@ exits non-zero and never prints the final ``"ok": true`` line:
    the run fails where they differ past ``device_oracle.disagreements``'
    bounds (1e-12 relative; lnQ_error, mlare and gmare within the card's
    and numpy's log10 differing in the last place).
-11. dtypes: (a) right after phase 1, the four bf16 forms (``bsr_spmm_bf16``
+11. dtypes: (a) right after phase 1, the bf16 forms (``bsr_spmm_bf16``
    and ``panel_spmm_bf16_xy`` on the headline twin and LINE_B,
    ``bsr_sddmm_bf16`` on a 4096^2 band_and_random mask at sparsity 0.95
    with d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE; and each form on
-   the leg's matrices that (b) runs it on, ``LEG_SHAPES``; n = 512) against
-   their plain versions on the same bf16 inputs, within 1 bf16 ulp
-   (``BF16_FLOOR`` absolutely below it) and the same bits on two calls,
+   the leg's matrices that (b) runs it on, ``LEG_SHAPES``; n = 512; the
+   SpMV forms at n = 1: ``wrow_spmv_bf16`` and ``wcoo_spmv_bf16`` on
+   MAIN_LINE, ``wrow_spmv_bf16``, ``wrow_spmv_v2_bf16`` and
+   ``wpack_spmv_bf16`` on LINE_S, ``wpack_spmv_bf16_prefix`` at wsel 1 on
+   the twin, each with the bytes it reads of its layout) against their
+   plain versions on the same bf16 inputs, within 1 bf16 ulp
+   (``BF16_FLOOR`` absolutely below it), bit for bit where a form sums in
+   its plain version's order (``wrow_spmv_bf16``; ``wcoo_spmv_bf16`` on
+   every row of at most a tile), and the same bits on two calls,
    each with its device ms by graph replay (eager in brackets), bound and
    library time; then, on its own path after phase 10: (b) the bf16 leg
    (``spgrid_torch.scripts.run_bf16_leg``, its jobs at full width, or
    ``BF16_LEG_JOBS``, and its pipeline row), every row gated at 3e-2;
    (c) the f64 sweep (``run_f64_sweep``) on the card, every row gated at
    1e-10; (d) the CLI at ``--dtype bfloat16`` (dense, bsr_cuda, panel_cuda
-   on the twin; ``--sddmm 4096`` and ``--pipeline``, each with and without
-   ``--xla-only``) and ``--dtype float64`` (csr_xla_coo, n = 1).
+   on the twin; wrow_spmv_cuda, wcoo_spmv_cuda and auto on MAIN_LINE at
+   n = 1, where auto must run wrow_spmv as the JAX package's
+   ``select_format`` picks; wpack_spmv_cuda and wrow_spmv_cuda on LINE_S at
+   n = 1; wpack_spmv_cuda at wsel 1 on the twin at n = 1; the WROW v1/v2
+   A/B at bf16 on LINE_S; ``--sddmm 4096`` and
+   ``--pipeline``, each with and without ``--xla-only``) and ``--dtype
+   float64`` (csr_xla_coo, n = 1).
 
 Each phase prints its seconds. ``SPGRID_ORACLE=host python3 chip_smoke.py``
 gates every row of phases 4, 5, 7 and 10 on the host (phase 10's pairs
@@ -203,7 +214,7 @@ phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
 bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), before phase 9
 (the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``), before phase 10 (the
 remaining formats: ``panel_spmm_bf16`` and ``bsr_spmm``) and before phase
-11's (b)-(d) (the dtype path: the four bf16 forms), and read after each; a
+11's (b)-(d) (the dtype path: the eight bf16 forms), and read after each; a
 kernel of a path that was not launched there fails the run, and a
 kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
@@ -213,6 +224,7 @@ line of the kernels (launches from their path, errors and times from phase
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -239,7 +251,11 @@ SIGNIFICANT = 1e-4
 # row's slots) * 6e-8 < 1e-4 while the two together stay below ~1,670 (a
 # row holds at most ~60 live slots there).
 ATOMIC_TOL = 1e-4
-TIME_S = 0.2            # minimum timed seconds for each kernel time
+# minimum timed seconds for each eager kernel, plain and library time of
+# phases 1 and 11a: thousands of calls of the microsecond kernels, and at
+# least 20 of every call (0.2 s until the SpMV path at bf16 joined phase
+# 11; cut to keep the run's length)
+TIME_S = 0.05
 DEVICE = "cuda"
 LARGE = 4096            # side of the larger case of each block kernel
 RAGGED = 1000           # side of the SDDMM case no blocking divides
@@ -1773,6 +1789,7 @@ def phase_sddmm() -> None:
 # formats on MAIN_LINE and LINE_B, the bf16 panel kernel on the headline
 # twin and LINE_B, ldu on a symmetric pattern read from .mtx, each order
 # of --reorder on LINE_B with bsr_cuda), timed for at least FORMATS_TIME_S
+# (phase 11d's rows too)
 TORCH_OPS = "ell,csc,cv_bf16,cv_int8,scoo,csr_xla_coo,ell_xla"
 FORMATS_TIME_S = "0.1"
 LDU_SIDE = 8192          # the symmetric matrix's side: LINE_B's
@@ -1835,6 +1852,21 @@ def both_gates(label, csr, kernel) -> None:
                            f"differ in {bad} or failed")
 
 
+@contextlib.contextmanager
+def rows_timed_for(seconds: str):
+    """The CLI's rows timed for at least ``seconds`` (``SPGRID_MIN_TIME_S``)
+    inside the block, the environment restored after it."""
+    before = os.environ.get("SPGRID_MIN_TIME_S")
+    os.environ["SPGRID_MIN_TIME_S"] = seconds
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["SPGRID_MIN_TIME_S"]
+        else:
+            os.environ["SPGRID_MIN_TIME_S"] = before
+
+
 def phase_formats() -> None:
     """Phase 10, the remaining formats: the CLI at n = 512 on every format
     the JAX CLI names that earlier phases do not run, each row gated and
@@ -1844,9 +1876,7 @@ def phase_formats() -> None:
     from spgrid_torch.io import write_mtx, write_smtx
 
     t0 = time.perf_counter()
-    before = os.environ.get("SPGRID_MIN_TIME_S")
-    os.environ["SPGRID_MIN_TIME_S"] = FORMATS_TIME_S
-    try:
+    with rows_timed_for(FORMATS_TIME_S):
         with tempfile.TemporaryDirectory() as tmp:
             head = os.path.join(tmp, "dlmc_twin_512.smtx")
             write_smtx(head, headline_matrix())
@@ -1860,11 +1890,6 @@ def phase_formats() -> None:
                 (["--matrix", sym], "ldu", "512"),
                 *((["--generate", LINE_B, "--reorder", order], "bsr_cuda",
                    "512") for order in ("rcm", "shuffle", "degsort"))))
-    finally:
-        if before is None:
-            del os.environ["SPGRID_MIN_TIME_S"]
-        else:
-            os.environ["SPGRID_MIN_TIME_S"] = before
     hyper, line_b = line_matrix(MAIN_LINE), line_matrix(LINE_B)
     for label, csr, kernel in (("MAIN_LINE", hyper, "coo"),
                                ("MAIN_LINE", hyper, "gell16"),
@@ -1947,8 +1972,10 @@ def phase_dtype_kernels() -> dict:
     ``panel_spmm_bf16_xy`` on the headline twin and LINE_B at n = 512,
     ``bsr_sddmm_bf16`` on a 4096^2 band_and_random mask at sparsity 0.95,
     d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE at n = 512; and each
-    form on the bf16 leg's matrices it runs on in 11b, ``LEG_SHAPES``), each
-    within 1 ulp and the same bits on two calls, with its device ms by
+    form on the bf16 leg's matrices it runs on in 11b, ``LEG_SHAPES``; the
+    SpMV forms at n = 1 as the module says), each within 1 ulp (bit for bit
+    on the rows a form sums in its plain version's order) and the same bits
+    on two calls, with its device ms by
     graph replay (eager in brackets), the plain version's ms, the library
     call's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``; bf16 where
     the card's torch takes it) and its bound: the nnz's bf16 values and
@@ -1969,6 +1996,12 @@ def phase_dtype_kernels() -> dict:
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
+    from spgrid_torch.ops.kernels.wcoo_spmv import (
+        DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.wpack_spmv import (
+        DeviceWPACK, wpack_spmv, wpack_spmv_plain)
+    from spgrid_torch.ops.kernels.wrow_spmv import (
+        DeviceWROW, wrow_spmv, wrow_spmv_plain)
     from spgrid_torch.ops.layouts import DeviceBSR
     from spgrid_torch.scripts.run_bf16_leg import JOBS as LEG_JOBS
     from spgrid_torch.scripts.run_bf16_leg import job_matrix
@@ -2004,7 +2037,7 @@ def phase_dtype_kernels() -> dict:
             (csr_tensor(csr), x.float()))
         return (fn, plain, (a, x), torch.sparse.mm, lib, which,
                 csr.nnz * (2 + index) + 2 * (csr.k + csr.m) * n,
-                2.0 * csr.nnz * n, note)
+                2.0 * csr.nnz * n, note, None)
 
     def sddmm_case():
         length, sparsity, d = DTYPE_SDDMM
@@ -2022,11 +2055,55 @@ def phase_dtype_kernels() -> dict:
                                                              beta=0.0),
                 lib, which, mask.nnz * (2 + 4) + 2 * 2 * length * d,
                 2.0 * mask.nnz * d,
-                f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}")
+                f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}", None)
+
+    def spmv_case(kind, csr, seed):
+        """A bf16 SpMV form's case: its layout, x (k,), what the form reads
+        of the layout (its stream; the wsel-1 form the padded pieces up to
+        their last live lane) beside x and y, and the rows on which it sums
+        in its plain version's order and must give its bits (None: none)."""
+        x = xb(csr.k, 1, seed)[:, 0].contiguous()
+        t0 = time.perf_counter()
+        exact = None
+        if kind == "wcoo":
+            a = DeviceWCOOAligned.from_csr(csr, device=DEVICE)
+            fn, plain = wcoo_spmv, wcoo_spmv_plain
+            read = a.stream_nbytes + nbytes(a.tile_row)
+            # every row but those longer than a tile (a tree of partials)
+            exact = torch.diff(a.row_slot.long()) <= a.tile_slots
+            note = f"tiles={a.tiles} groups={a.num_groups}"
+        elif kind == "wpack":
+            a = DeviceWPACK.from_csr(csr, device=DEVICE)
+            fn, plain = wpack_spmv, wpack_spmv_plain
+            if a.wsel == 1:
+                lanes = a.piece_lanes.long()
+                read = (int(lanes.sum()) * 3 + int((lanes > 0).sum()) * 256
+                        + nbytes(a.piece_lanes, a.piece_w, a.block_ptr))
+            else:
+                read = a.stream_nbytes
+            note = f"wsel={a.wsel} groups={a.num_groups}"
+        else:
+            a = DeviceWROW.from_csr(csr, device=DEVICE)
+            variant = "v2" if kind == "wrow_v2" else "v1"
+            fn = functools.partial(wrow_spmv, variant=variant)
+            plain = functools.partial(wrow_spmv_plain, variant=variant)
+            read = a.stream_nbytes if variant == "v2" else a.row_nbytes
+            note = f"groups={a.num_groups}"
+            if variant == "v1":
+                note += f" group_starts={int((a.row_cols < 0).sum())}"
+                exact = torch.ones(csr.m, dtype=torch.bool, device=DEVICE)
+        note += (f" live_slots={a.num_slots} read_bytes={read} "
+                 f"layout_build_s={time.perf_counter() - t0:.3f}")
+        lib, which = library_on(
+            torch.sparse.mm, (csr_tensor(csr, torch.bfloat16), x[:, None]),
+            (csr_tensor(csr), x.float()[:, None]))
+        return (fn, plain, (a, x), torch.sparse.mm, lib, which,
+                read + 2 * (csr.k + csr.m), 2.0 * csr.nnz, note, exact)
 
     head = line_matrix(HEADLINE_LINE).astype("bfloat16")
     line_b = line_matrix(LINE_B).astype("bfloat16")
     hyper = line_matrix(MAIN_LINE).astype("bfloat16")
+    scattered = line_matrix(LINE_S).astype("bfloat16")
     leg = {tag: p for tag, p, _ in LEG_JOBS}
     cases = [
         ("bsr_spmm_bf16", "headline 512^2 n=512", True,
@@ -2041,6 +2118,20 @@ def phase_dtype_kernels() -> dict:
             *DTYPE_SDDMM), True, sddmm_case),
         ("wcoo_spmm_aligned_bf16", "MAIN_LINE n=512", False,
          lambda: spmm_case("bands", hyper, 512, 45)),
+        # the SpMV path at bf16 (11d's rows): MAIN_LINE and LINE_S, and the
+        # twin, which WPACK packs at wsel 1
+        ("wrow_spmv_bf16", "MAIN_LINE n=1", True,
+         lambda: spmv_case("wrow", hyper, 47)),
+        ("wcoo_spmv_bf16", "MAIN_LINE n=1", True,
+         lambda: spmv_case("wcoo", hyper, 47)),
+        ("wrow_spmv_bf16", "LINE_S n=1", False,
+         lambda: spmv_case("wrow", scattered, 48)),
+        ("wrow_spmv_v2_bf16", "LINE_S n=1", True,
+         lambda: spmv_case("wrow_v2", scattered, 48)),
+        ("wpack_spmv_bf16", "LINE_S n=1", True,
+         lambda: spmv_case("wpack", scattered, 48)),
+        ("wpack_spmv_bf16_prefix", "headline 512^2 n=1 (wsel 1)", True,
+         lambda: spmv_case("wpack", head, 49)),
     ]
     # the bf16 leg's own matrices (11b), at the shapes it gives each form
     for tag, kinds in LEG_SHAPES:
@@ -2055,13 +2146,19 @@ def phase_dtype_kernels() -> dict:
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
         (kernel, plain, args, library, lib_args, which, bytes_moved, flops,
-         note) = make()
+         note, exact) = make()
         out = kernel(*args)
         again = kernel(*args)
         torch.cuda.synchronize()
         same = torch.equal(out, again)
-        ulps, err, ok = bf16_compare(out, plain(*args))
+        ref = plain(*args)
+        ulps, err, ok = bf16_compare(out, ref)
         ok = ok and same and out.dtype == torch.bfloat16
+        if exact is not None:
+            # rows summed in the plain version's order: its bits
+            equal = int((out[exact] == ref[exact]).sum())
+            note += f" bit_equal_rows={equal}/{int(exact.sum())}"
+            ok = ok and equal == int(exact.sum())
         dev_ms, k_ms, p_ms = (device_ms(kernel, *args), ms(kernel, *args),
                               ms(plain, *args))
         lib_ms = ms(library, *lib_args)
@@ -2128,33 +2225,78 @@ def phase_dtype_legs() -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def bf16_wrow_ab() -> None:
+    """Phase 11d's WROW v1/v2 A/B at bf16 on LINE_S (phase 5's at f32):
+    each variant gated at 3e-2 against the host f64 product of the bf16
+    matrix and x, with its device ms; v2 runs on no CLI format."""
+    from spgrid_torch.bench.harness import make_x, x_tensor
+    from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
+    from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
+
+    csr = line_matrix(LINE_S).astype("bfloat16")
+    a = DeviceWROW.from_csr(csr, device=DEVICE)
+    x = make_x(csr.k, 1, "bfloat16", 0)[:, 0]
+    xd = x_tensor(x, "bfloat16", DEVICE)
+    gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values, x)
+    failed = []
+    for variant in ("v1", "v2"):
+        y = wrow_spmv(a, xd, variant=variant).float().cpu().numpy()
+        m = error_metrics(gold, y, epsilon=3e-2)
+        dev = device_ms(lambda v=variant: wrow_spmv(a, xd, variant=v))
+        print(f"phase 11 wrow A/B bf16: {variant} m={csr.m} nnz={csr.nnz} "
+              f"max_ae={m.max_ae:.3e} mape={m.mape:.3e} device_ms={dev:.6f} "
+              f"{'PASS' if m.passed else 'FAIL'}", flush=True)
+        if not m.passed:
+            failed.append(variant)
+    if failed:
+        raise RuntimeError(f"WROW bf16 A/B failed for {failed}")
+
+
 def phase_dtype_cli() -> None:
     """Phase 11d: the CLI at bf16 (dense, bsr_cuda and panel_cuda on the
-    headline twin, n = 512; ``--sddmm 4096`` and ``--pipeline`` on three
-    twins written as .smtx, each with and without ``--xla-only``) and at
-    f64 (csr_xla_coo on the twin at n = 1), every row gated."""
+    headline twin, n = 512; the SpMV path at n = 1: wrow_spmv_cuda,
+    wcoo_spmv_cuda and auto on MAIN_LINE, where auto must run wrow_spmv,
+    and wpack_spmv_cuda and wrow_spmv_cuda on LINE_S, wpack_spmv_cuda at
+    wsel 1 on the twin, then the WROW v1/v2 A/B; ``--sddmm 4096`` and ``--pipeline`` on three twins written as
+    .smtx, each with and without ``--xla-only``) and at f64 (csr_xla_coo on
+    the twin at n = 1), every row gated and timed for at least
+    ``FORMATS_TIME_S``."""
     from spgrid_torch.io import write_smtx
     from spgrid_torch.scripts.sddmm_study import (
         LENGTH, PIPELINE_LENGTH, weight)
-    cli_rows("phase 11 cli", (
-        (["--generate", HEADLINE_LINE, "--dtype", "bfloat16"],
-         "dense,bsr_cuda,panel_cuda", "512"),
-        (["--generate", HEADLINE_LINE, "--dtype", "float64"], "csr_xla_coo",
-         "1")))
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_mode_rows(tmp, ["--sddmm", str(LENGTH)],
-                      {False: ("sddmm_cuda", "bsr_pallas_"),
-                       True: ("sddmm_xla", "coo")}, 3e-2, "phase 11",
-                      ["--dtype", "bfloat16"])
-        paths = []
-        for seed in (1, 2, 3):
-            paths.append(os.path.join(tmp, f"w{seed}.smtx"))
-            write_smtx(paths[-1], weight(PIPELINE_LENGTH, seed))
-        cli_mode_rows(tmp, ["--pipeline", *paths, "--sparsity",
-                            str(PIPELINE_SPARSITY)],
-                      {False: ("pipeline_cuda", "bsr"),
-                       True: ("pipeline_xla", "bsr")}, 3e-2, "phase 11",
-                      ["--dtype", "bfloat16"])
+    with rows_timed_for(FORMATS_TIME_S):
+        rows = cli_rows("phase 11 cli", (
+            (["--generate", HEADLINE_LINE, "--dtype", "bfloat16"],
+             "dense,bsr_cuda,panel_cuda", "512"),
+            (["--generate", HEADLINE_LINE, "--dtype", "float64"],
+             "csr_xla_coo", "1"),
+            (["--generate", MAIN_LINE, "--dtype", "bfloat16"],
+             "wrow_spmv_cuda,wcoo_spmv_cuda,auto", "1"),
+            (["--generate", LINE_S, "--dtype", "bfloat16"],
+             "wpack_spmv_cuda,wrow_spmv_cuda", "1"),
+            # the twin, which WPACK packs at wsel 1
+            (["--generate", HEADLINE_LINE, "--dtype", "bfloat16"],
+             "wpack_spmv_cuda", "1")))
+        auto = [r["fmt"] for r in rows if r["kernel"] == "auto"]
+        if auto != ["wrow_spmv"]:
+            raise RuntimeError(f"auto at bf16 and n = 1 on MAIN_LINE ran "
+                               f"{auto}, not wrow_spmv (the JAX package's "
+                               f"pick)")
+        bf16_wrow_ab()
+        with tempfile.TemporaryDirectory() as tmp:
+            cli_mode_rows(tmp, ["--sddmm", str(LENGTH)],
+                          {False: ("sddmm_cuda", "bsr_pallas_"),
+                           True: ("sddmm_xla", "coo")}, 3e-2, "phase 11",
+                          ["--dtype", "bfloat16"])
+            paths = []
+            for seed in (1, 2, 3):
+                paths.append(os.path.join(tmp, f"w{seed}.smtx"))
+                write_smtx(paths[-1], weight(PIPELINE_LENGTH, seed))
+            cli_mode_rows(tmp, ["--pipeline", *paths, "--sparsity",
+                                str(PIPELINE_SPARSITY)],
+                          {False: ("pipeline_cuda", "bsr"),
+                           True: ("pipeline_xla", "bsr")}, 3e-2, "phase 11",
+                          ["--dtype", "bfloat16"])
 
 
 # kernel -> (source, the Pallas kernel it replaces)
@@ -2202,6 +2344,17 @@ SOURCES = {
                        "spgrid/ops/pallas/sddmm.py:31"),
     "wcoo_spmm_aligned_bf16": ("spgrid_torch/csrc/wcoo_bands.cu",
                                "spgrid/ops/pallas/wcoo_spmm_aligned.py:174"),
+    "wrow_spmv_bf16": ("spgrid_torch/csrc/wrow_spmv.cu",
+                       "spgrid/ops/pallas/wrow_spmv.py:167"),
+    "wrow_spmv_v2_bf16": ("spgrid_torch/csrc/wrow_spmv_v2.cu",
+                          "spgrid/ops/pallas/wrow_spmv.py:226"),
+    "wcoo_spmv_bf16": ("spgrid_torch/csrc/wcoo_spmv.cu",
+                       "spgrid/ops/pallas/wcoo_spmv.py:40"),
+    "wpack_spmv_bf16": ("spgrid_torch/csrc/wpack_spmv.cu",
+                        "spgrid/ops/pallas/wpack_spmv.py:238"),
+    # the same body at wsel 1, where it rounds its bf16 lane prefix
+    "wpack_spmv_bf16_prefix": ("spgrid_torch/csrc/wpack_spmv.cu",
+                               "spgrid/ops/pallas/wpack_spmv.py:238"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -2219,7 +2372,8 @@ PATHS = (
     ("remaining formats", (phase_formats,), ("panel_spmm_bf16", "bsr_spmm")),
     ("dtypes", (phase_dtype_legs, phase_dtype_cli),
      ("bsr_spmm_bf16", "panel_spmm_bf16_xy", "bsr_sddmm_bf16",
-      "wcoo_spmm_aligned_bf16")),
+      "wcoo_spmm_aligned_bf16", "wrow_spmv_bf16", "wrow_spmv_v2_bf16",
+      "wcoo_spmv_bf16", "wpack_spmv_bf16", "wpack_spmv_bf16_prefix")),
 )
 
 

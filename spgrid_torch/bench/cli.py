@@ -45,6 +45,9 @@ cv_int8,cv_panel_cuda --reorder rcm --num-cols 512
   python -m spgrid_torch.bench --generate "512 512 256 32 normal random \
       1.0 0 0.05 0.05 14" --kernels dense,bsr_cuda,panel_cuda \
       --dtype bfloat16
+  python -m spgrid_torch.bench --generate "65535 65535 5 1.6667 normal \
+      random 0.05 0 0.05 0.05 14" --kernels wrow_spmv_cuda,auto \
+      --num-cols 1 --dtype bfloat16
   python -m spgrid_torch.bench --generate "4000 4000 8 2 normal random \
       0.1 0 0.05 0.05 14" --kernels csr_xla_coo,merge --dtype float64
 

@@ -29,9 +29,13 @@
 
 #include <cuda_bf16.h>
 
+#include "bf16_bits.cuh"
 #include "block_mma.cuh"
 
 namespace {
+
+using spgrid::bf16::round_bf16;
+using spgrid::bf16::widen;
 
 constexpr int BF_TK = 64;         // contraction depth a step, in bf16
 constexpr int BF_STAGES = 3;      // steps in the ring: two CTAs an SM
@@ -63,15 +67,6 @@ __device__ __forceinline__ unsigned char* aligned_ring() {
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
   return ring + (SWIZZLE_BYTES - smem_u32(ring) % SWIZZLE_BYTES) %
                     SWIZZLE_BYTES;
-}
-
-__device__ __forceinline__ float bf16_float(unsigned short b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-// v rounded to bf16 (to nearest, ties to even): its bit pattern.
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // Two bf16 bit patterns in one register, lo in the low half.
@@ -251,8 +246,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT / 2], StepFrags& a,
 __device__ __forceinline__ void store_bf16x4(unsigned short* p,
                                              const float4& v, int count,
                                              bool vec) {
-  const unsigned short h[4] = {bf16_bits(v.x), bf16_bits(v.y),
-                               bf16_bits(v.z), bf16_bits(v.w)};
+  const unsigned short h[4] = {round_bf16(v.x), round_bf16(v.y),
+                               round_bf16(v.z), round_bf16(v.w)};
   if (vec) {
     *reinterpret_cast<uint2*>(p) =
         make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));

@@ -240,7 +240,7 @@ bsr_sddmm_bf16_kernel(const int* __restrict__ block_rows,
                    w[3] = __uint_as_float(u.y & 0xFFFF0000u);
                  } else {
                    for (int c = 0; c < 4 && j + c < ncols; ++c) {
-                     w[c] = bf16_float(mask[at + c]);
+                     w[c] = widen(mask[at + c]);
                    }
                  }
                  store_bf16x4(out + at,

@@ -48,12 +48,12 @@
 // sums in warp order through shared memory: no atomics, a fixed order.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
+
+#include "bf16_bits.cuh"
 
 namespace spgrid {
 namespace slot_rows {
@@ -67,18 +67,9 @@ constexpr int LONG_WARPS = 16;  // warps that share one long row
 constexpr int LONG_THREADS = 32 * LONG_WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The element type of values, X and Y: f32, or bf16 as its bit pattern.
-template <bool BF>
-using Elem = std::conditional_t<BF, unsigned short, float>;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(unsigned short b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ unsigned short round_bf16(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
+using bf16::Elem;
+using bf16::round_bf16;
+using bf16::widen;
 
 // Lane `lane`'s part of one X row's slab, xr pointing at the slab's first
 // column, `left` columns of the slab inside X: 4 C values, 0 past them.

@@ -43,6 +43,17 @@
 // Not bit-reproducible from run to run: the shared-memory atomics of one
 // block's slots land in the order the warps reach them. The carry combine
 // is in a fixed order.
+//
+// The bf16 form (BF; WROW v2 and WPACK at wsel 2 and 4, at dtype bf16, whose
+// Pallas bodies keep products and sums in f32 there): bf16 values, x and y,
+// 6 bytes of value and x index a live slot; each product is exact in f32,
+// the sums are f32, and y is rounded once. Its sums take a fixed order, so
+// it gives the same bits every call: each warp has an accumulator of its
+// own, and the lanes of a pass that add to one row (__match_any_sync) sum
+// their terms in lane order, which is slot order, before the lowest of them
+// adds the sum into the warp's row; a flush adds the warps' rows in warp
+// order. (A run of one row is one of these sets, so BF needs no SEGMENT
+// scan.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,9 +61,15 @@
 #include <climits>
 #include <cstddef>
 
+#include "bf16_bits.cuh"
+
 namespace spgrid {
 namespace slot_stream {
 namespace {  // each kernel source gets its own copy of the kernels
+
+using bf16::Elem;
+using bf16::narrow;
+using bf16::widen;
 
 constexpr int LANE = 128;      // rows of a target block
 constexpr int THREADS = 256;   // a CTA
@@ -61,6 +78,7 @@ constexpr int WARP_SLOTS = 32 * RUNS;
 constexpr int TILE = THREADS * RUNS;
 constexpr int PIECE_START = 0x80;  // row byte's flag: a piece's first slot
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = THREADS / 32;
 
 // Warp-collective, the same v in every lane: the largest j in [lo, hi)
 // with a[j] <= v, for a nondecreasing a with a[lo] <= v and the answer
@@ -79,14 +97,40 @@ __device__ __forceinline__ int warp_search(const int* __restrict__ a, int lo,
   return lo;
 }
 
-template <bool SEGMENT>
+// BF: warp-collective. Each lane with `add` adds p to row r of the warp's
+// accumulator; lanes of one row sum their terms in lane order first, and
+// the lowest of them adds the sum: no atomics, a fixed order.
+__device__ __forceinline__ void ordered_add(float* __restrict__ acc, int r,
+                                            float p, bool add) {
+  const int lane = threadIdx.x % 32;
+  const unsigned adding = __ballot_sync(FULL, add);
+  if (adding == 0) return;  // warp-uniform
+  const unsigned same = __match_any_sync(FULL, add ? r : LANE + lane) & adding;
+  const bool shares = (same & (same - 1)) != 0;
+  const unsigned sharing = __ballot_sync(FULL, add && shares);
+  float sum = p;
+  if (sharing != 0) {  // warp-uniform
+    float s = 0.0f;
+    for (unsigned bits = sharing; bits != 0; bits &= bits - 1) {
+      const int i = __ffs(bits) - 1;
+      const float o = __shfl_sync(FULL, p, i);
+      if ((same >> i) & 1u) s += o;
+    }
+    if (shares) sum = s;
+  }
+  if (add && lane == __ffs(same) - 1) acc[r] += sum;
+}
+
+template <bool SEGMENT, bool BF = false>
 __global__ void __launch_bounds__(THREADS)
-walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
+walk(const int* __restrict__ block_slot, const Elem<BF>* __restrict__ vals,
      const int* __restrict__ cols, const unsigned char* __restrict__ rows,
-     const float* __restrict__ x, float* __restrict__ y,
+     const Elem<BF>* __restrict__ x, Elem<BF>* __restrict__ y,
      float* __restrict__ carry, int num_slots, int per_cta, int blocks,
      int m) {
-  __shared__ float acc[LANE];
+  static_assert(!(SEGMENT && BF), "BF sums each row's lanes in order");
+  constexpr int ACCS = BF ? WARPS : 1;  // accumulators: BF's one a warp
+  __shared__ float acc_rows[ACCS][LANE];
   __shared__ int first_block;
   const int t = threadIdx.x;
   const int lane = t % 32;
@@ -106,13 +150,16 @@ walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
     for (int u = 0; u < RUNS; ++u) {
       const int s = base + warp * WARP_SLOTS + 32 * u + lane;
       const bool ok = s < end;
-      v[u] = ok ? vals[s] : 0.0f;
+      v[u] = ok ? widen(vals[s]) : 0.0f;
       xi[u] = ok ? cols[s] : 0;
       row[u] = ok ? static_cast<int>(rows[s]) : 0;
     }
   };
   load_tile(s0);  // in flight while warp 0 finds the range's first block
-  if (t < LANE) acc[t] = 0.0f;
+  for (int i = t; i < ACCS * LANE; i += THREADS) {
+    acc_rows[i / LANE][i % LANE] = 0.0f;
+  }
+  float* const acc = acc_rows[BF ? warp : 0];
   if (warp == 0) {
     const int b = warp_search(block_slot, 0, blocks, s0);
     if (lane == 0) first_block = b;
@@ -125,14 +172,20 @@ walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
     if (t < LANE) {
       const int b0 = __ldg(block_slot + b);
       const int b1 = __ldg(block_slot + b + 1);
+      float sum = acc_rows[0][t];  // BF: the warps' rows in warp order
+      acc_rows[0][t] = 0.0f;
+#pragma unroll
+      for (int w = 1; w < ACCS; ++w) {
+        sum += acc_rows[w][t];
+        acc_rows[w][t] = 0.0f;
+      }
       if (b0 >= s0 && b1 <= s1) {
         const long long r = static_cast<long long>(b) * LANE + t;
-        if (r < m) y[r] = acc[t];
+        if (r < m) y[r] = narrow<BF>(sum);
       } else {
         carry[(static_cast<size_t>(c) * 2 + (b1 > s1 ? 1 : 0)) * LANE + t] =
-            acc[t];
+            sum;
       }
-      acc[t] = 0.0f;
     }
   };
 
@@ -145,7 +198,7 @@ walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
 #pragma unroll
     for (int u = 0; u < RUNS; ++u) {
       pending[u] = w0 + 32 * u + lane < end;
-      prod[u] = pending[u] ? v[u] * __ldg(x + xi[u]) : 0.0f;
+      prod[u] = pending[u] ? v[u] * widen(__ldg(x + xi[u])) : 0.0f;
       r[u] = row[u] & (LANE - 1);
     }
     if (SEGMENT && w0 < end) {  // warp-uniform
@@ -171,10 +224,13 @@ walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
     while (true) {
 #pragma unroll
       for (int u = 0; u < RUNS; ++u) {
-        if (pending[u] && w0 + 32 * u + lane < open_end) {
+        const bool add = pending[u] && w0 + 32 * u + lane < open_end;
+        if constexpr (BF) {
+          ordered_add(acc, r[u], prod[u], add);
+        } else if (add) {
           atomicAdd(&acc[r[u]], prod[u]);
-          pending[u] = false;
         }
+        if (add) pending[u] = false;
       }
       if (open_end >= end) break;  // the tile's other slots are the open block's
       __syncthreads();             // its adds are in
@@ -188,9 +244,10 @@ walk(const int* __restrict__ block_slot, const float* __restrict__ vals,
   flush(open);
 }
 
+template <bool BF>
 __global__ void __launch_bounds__(LANE)
 combine(const int* __restrict__ block_slot, const float* __restrict__ carry,
-        float* __restrict__ y, int per_cta, int m) {
+        Elem<BF>* __restrict__ y, int per_cta, int m) {
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const long long row = static_cast<long long>(b) * LANE + t;
@@ -205,13 +262,13 @@ combine(const int* __restrict__ block_slot, const float* __restrict__ carry,
       acc += carry[(static_cast<size_t>(c) * 2 + 1) * LANE + t];
     acc += carry[static_cast<size_t>(c1) * 2 * LANE + t];
   }
-  if (row < m) y[row] = acc;
+  if (row < m) y[row] = narrow<BF>(acc);
 }
 
 // The walk (where there are slots) and the combine on `stream`; 0 or the
 // CUDA error. carry holds 2 * 128 floats a CTA, ceil(num_slots / per_cta)
-// CTAs.
-template <bool SEGMENT>
+// CTAs. BF: the bf16 form (vals, x and y as bf16 bit patterns).
+template <bool SEGMENT, bool BF = false>
 int launch(const void* block_slot, const void* vals, const void* cols,
            const void* rows, const void* x, void* y, void* carry,
            int num_slots, int per_cta, int blocks, int m, void* stream) {
@@ -221,17 +278,18 @@ int launch(const void* block_slot, const void* vals, const void* cols,
   const long long ctas =
       (static_cast<long long>(num_slots) + per_cta - 1) / per_cta;
   if (ctas > 0) {
-    walk<SEGMENT><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
-        static_cast<const int*>(block_slot), static_cast<const float*>(vals),
-        static_cast<const int*>(cols), static_cast<const unsigned char*>(rows),
-        static_cast<const float*>(x), static_cast<float*>(y),
+    walk<SEGMENT, BF><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
+        static_cast<const int*>(block_slot),
+        static_cast<const Elem<BF>*>(vals), static_cast<const int*>(cols),
+        static_cast<const unsigned char*>(rows),
+        static_cast<const Elem<BF>*>(x), static_cast<Elem<BF>*>(y),
         static_cast<float*>(carry), num_slots, per_cta, blocks, m);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  combine<<<blocks, LANE, 0, s>>>(static_cast<const int*>(block_slot),
-                                  static_cast<const float*>(carry),
-                                  static_cast<float*>(y), per_cta, m);
+  combine<BF><<<blocks, LANE, 0, s>>>(static_cast<const int*>(block_slot),
+                                      static_cast<const float*>(carry),
+                                      static_cast<Elem<BF>*>(y), per_cta, m);
   return static_cast<int>(cudaGetLastError());
 }
 

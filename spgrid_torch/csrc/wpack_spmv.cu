@@ -31,14 +31,29 @@
 // whose x index lies at or past k were dropped when the stream was built:
 // x is not padded. The result is not bit-reproducible from run to run (the
 // order of the shared-memory atomics).
+//
+// The bf16 forms (wpack_spmv at dtype bf16) compute what the Pallas body
+// computes at the layout's wsel, as XLA computes it on the CPU (it rounds a
+// bf16 operation's result unless that result feeds only an f32 sum). At
+// wsel 2 and 4 the body's products start from f32 zeros, so products and
+// sums are f32 and y is rounded once: the stream walk above on bf16 values,
+// x and y, in its fixed order of sums (slot_stream.cuh's BF form). At wsel 1
+// the body's product is a bf16 multiply and the prefix runs in bf16: the
+// FULL/ROLL ablation kernel below in its bf16 form.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "bf16_bits.cuh"
 #include "slot_stream.cuh"
 
 namespace {
+
+using spgrid::bf16::Elem;
+using spgrid::bf16::narrow;
+using spgrid::bf16::rounded;
+using spgrid::bf16::widen;
 
 constexpr int LANE = 128;
 constexpr int GROUP_PIECES = 8;
@@ -100,6 +115,22 @@ constexpr int GROUP_PIECES = 8;
 // the end the W warps' sums go through shared memory and are added in warp
 // order, each row of y written once (zeros for a block with no group, rows
 // past m dropped): no atomics, the same bits every call.
+//
+// The bf16 form at wsel 1 (BF; FULL and ROLL only). Replaces: the same
+// _make_kernel / _spmv at wsel 1 and dtype bf16 (ablate "", the default
+// prefix "roll"). There the product p = value * x is a bf16 multiply, and
+// each bf16 operation whose result feeds another is rounded to bf16: p; the
+// 7 shift-adds of _lane_prefix, P; P - p. The difference P[end] - (P -
+// p)[start] feeds only the f32 sum of the group's 8 pieces for its row, so
+// it stays f32; that sum is rounded to bf16 and added into the f32 row, and
+// y is rounded once. An absent row (start 1, end 0) adds p[0] - (P[1] -
+// p[1]), which is not 0 where P[1] rounds. (At bf16 this body can miss the
+// 3e-2 row gate that wrow_spmv and wcoo_spmv pass on the same matrix; the
+// form computes it as it is.) So the form rounds after each of those
+// operations (step) and a warp takes whole groups, w, w + W, ..., each
+// group's 8 pieces in order, its rows' sums rounded at the group's last
+// piece. It reads bf16 values (2 bytes a lane up to each piece's last live
+// lane, with the column, start and end) and no sel (0 at wsel 1).
 
 enum AblateBody { NOSEG = 0, NOGATHER = 1, FULL = 2 };
 constexpr int WARP = 32;
@@ -114,17 +145,18 @@ constexpr int WARPS_PER_SM = 16;
 // costs registers (one ahead keeps every form at 64 or fewer).
 constexpr int AHEAD = 1;
 
+template <bool BF>
 struct AblateArgs {
   const int* __restrict__ block_ptr;
   const int* __restrict__ piece_w;
   const unsigned char* __restrict__ piece_lanes;
   const unsigned char* __restrict__ cols;
-  const signed char* __restrict__ sel;
+  const signed char* __restrict__ sel;  // not read by the bf16 form
   const signed char* __restrict__ starts;
   const signed char* __restrict__ ends;
-  const float* __restrict__ vals;
-  const float* __restrict__ x;
-  float* __restrict__ y;
+  const Elem<BF>* __restrict__ vals;
+  const Elem<BF>* __restrict__ x;
+  Elem<BF>* __restrict__ y;
   int m, k;
 };
 
@@ -136,8 +168,8 @@ struct Quarters {
   unsigned s, e;            // FULL: starts and ends of rows 4t .. 4t + 3
 };
 
-template <int BODY>
-__device__ __forceinline__ Quarters fetch(const AblateArgs& a,
+template <int BODY, bool BF>
+__device__ __forceinline__ Quarters fetch(const AblateArgs<BF>& a,
                                           long long piece, int lanes,
                                           int window, int t) {
   Quarters f;
@@ -149,8 +181,9 @@ __device__ __forceinline__ Quarters fetch(const AblateArgs& a,
     f.v[q] = 0.0f;
     f.xi[q] = 0;
     if (WARP * q < lanes) {
-      f.v[q] = a.vals[i];
-      f.xi[q] = (window + a.sel[i]) * LANE + a.cols[i];
+      f.v[q] = widen(a.vals[i]);
+      // the bf16 form runs at wsel 1 only, where sel is 0
+      f.xi[q] = (window + (BF ? 0 : a.sel[i])) * LANE + a.cols[i];
     }
   }
   f.s = 0;
@@ -162,23 +195,26 @@ __device__ __forceinline__ Quarters fetch(const AblateArgs& a,
   return f;
 }
 
+// An operation's result: itself at f32; rounded to bf16 in the bf16 form,
+// where each bf16 operation of the body rounds.
+template <bool BF>
+__device__ __forceinline__ float step(float v) {
+  if constexpr (BF) {
+    return rounded(v);
+  } else {
+    return v;
+  }
+}
+
 // The warp's pieces' piece_lanes and piece_w, 32 at a time: lane i holds
-// those of its piece 32 c + i (0 past the block's end).
+// those of its piece 32 c + i (0 past its last).
 struct Meta {
   int lanes, window;
 };
 
-__device__ __forceinline__ Meta meta_chunk(const AblateArgs& a,
-                                           long long first, long long end,
-                                           int W, int c, int t) {
-  const long long p = first + static_cast<long long>(32 * c + t) * W;
-  if (p >= end) return Meta{0, 0};
-  return Meta{static_cast<int>(a.piece_lanes[p]), a.piece_w[p]};
-}
-
-template <int BODY, bool ROLL, int W>
+template <int BODY, bool ROLL, int W, bool BF>
 __global__ void __launch_bounds__(WARP * W)
-wpack_ablate_kernel(const AblateArgs a) {
+wpack_ablate_kernel(const AblateArgs<BF> a) {
   __shared__ float part[W][LANE];     // each warp's sums of the block's rows
   __shared__ float scan[W][2][LANE];  // a warp's PAD shifts; FULL's P, P - p
   const int b = blockIdx.x;
@@ -186,31 +222,51 @@ wpack_ablate_kernel(const AblateArgs a) {
   const int w = threadIdx.x / WARP;
   float* const buf = scan[w][0];
   float* const pex = scan[w][1];
-  const long long end =
-      static_cast<long long>(a.block_ptr[b + 1]) * GROUP_PIECES;
-  const long long first =
-      static_cast<long long>(a.block_ptr[b]) * GROUP_PIECES + w;
-  const int n = first < end ? static_cast<int>((end - first + W - 1) / W) : 0;
-  Meta chunk = meta_chunk(a, first, end, W, 0, t);
+  const long long start =
+      static_cast<long long>(a.block_ptr[b]) * GROUP_PIECES;
+  // the block's pieces (the bf16 form: groups) that the warp takes
+  const long long units =
+      (static_cast<long long>(a.block_ptr[b + 1]) * GROUP_PIECES - start) /
+      (BF ? GROUP_PIECES : 1);
+  const int n = units > w ? static_cast<int>((units - w + W - 1) / W) *
+                                (BF ? GROUP_PIECES : 1)
+                          : 0;
+  // the warp's piece f: the block's pieces w, w + W, ...; in the bf16 form
+  // the 8 pieces, in order, of its groups w, w + W, ...
+  auto piece_of = [&](int f) {
+    if (BF) {
+      return start +
+             (static_cast<long long>(f / GROUP_PIECES) * W + w) *
+                 GROUP_PIECES +
+             f % GROUP_PIECES;
+    }
+    return start + w + static_cast<long long>(f) * W;
+  };
+  auto meta_chunk = [&](int c) {
+    const int f = 32 * c + t;
+    if (f >= n) return Meta{0, 0};
+    const long long p = piece_of(f);
+    return Meta{static_cast<int>(a.piece_lanes[p]), a.piece_w[p]};
+  };
+  Meta chunk = meta_chunk(0);
   // the loads of the warp's piece f
   auto load_piece = [&](int f) {
-    if (f > 0 && (f & 31) == 0) {
-      chunk = meta_chunk(a, first, end, W, f / 32, t);
-    }
+    if (f > 0 && (f & 31) == 0) chunk = meta_chunk(f / 32);
     const int lanes = __shfl_sync(ALL_LANES, chunk.lanes, f & 31);
     const int window = __shfl_sync(ALL_LANES, chunk.window, f & 31);
-    return fetch<BODY>(a, first + static_cast<long long>(f) * W, lanes,
-                       window, t);
+    return fetch<BODY>(a, piece_of(f), lanes, window, t);
   };
-  // rows t + 32q (FULL: rows 4t + q) over the warp's pieces
+  // rows t + 32q (FULL: rows 4t + q) over the warp's pieces; the bf16
+  // form's rows of the open group
   float acc[QUARTERS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float sum[QUARTERS] = {0.0f, 0.0f, 0.0f, 0.0f};
   auto add_piece = [&](const Quarters& cur) {
     if (cur.lanes == 0) return;  // the same for the whole warp
     float p[QUARTERS];
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       p[q] = (cur.v[q] != 0.0f && cur.xi[q] < a.k)
-                 ? __fmul_rn(cur.v[q], __ldg(a.x + cur.xi[q]))
+                 ? step<BF>(__fmul_rn(cur.v[q], widen(__ldg(a.x + cur.xi[q]))))
                  : 0.0f;
     }
     if (BODY == NOSEG) {
@@ -247,7 +303,7 @@ wpack_ablate_kernel(const AblateArgs a) {
         __syncwarp();
       }
 #pragma unroll
-      for (int q = 0; q < QUARTERS; ++q) P[q] += u[q];
+      for (int q = 0; q < QUARTERS; ++q) P[q] = step<BF>(P[q] + u[q]);
     }
     // shifts of 32 and 64 lanes: registers q - 1 and q - 2, added from the
     // last register down so each adds the value before the shift
@@ -255,7 +311,8 @@ wpack_ablate_kernel(const AblateArgs a) {
     for (int sh = 1; sh < QUARTERS; sh *= 2) {
 #pragma unroll
       for (int q = QUARTERS - 1; q >= 0; --q) {
-        P[q] += q >= sh ? P[(q + QUARTERS - sh) % QUARTERS] : 0.0f;
+        P[q] = step<BF>(
+            P[q] + (q >= sh ? P[(q + QUARTERS - sh) % QUARTERS] : 0.0f));
       }
     }
     if (BODY == NOGATHER) {
@@ -266,16 +323,31 @@ wpack_ablate_kernel(const AblateArgs a) {
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       buf[t + WARP * q] = P[q];
-      pex[t + WARP * q] = P[q] - p[q];
+      pex[t + WARP * q] = step<BF>(P[q] - p[q]);
     }
     __syncwarp();
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       const int first_lane = (cur.s >> (8 * q)) & 0x7f;
       const int last_lane = (cur.e >> (8 * q)) & 0x7f;
-      acc[q] += buf[last_lane] - pex[first_lane];
+      const float term = buf[last_lane] - pex[first_lane];
+      if (BF) {
+        sum[q] += term;
+      } else {
+        acc[q] += term;
+      }
     }
     __syncwarp();  // the next piece rewrites buf and pex
+  };
+  // the bf16 form, at a group's last piece: its rows' f32 sums rounded to
+  // bf16 and added into the f32 rows
+  auto close_group = [&](int f) {
+    if (!BF || f % GROUP_PIECES != GROUP_PIECES - 1) return;
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      acc[q] += rounded(sum[q]);
+      sum[q] = 0.0f;
+    }
   };
   // AHEAD + 1 buffers, the loop unrolled by AHEAD + 1 so that a buffer is
   // loaded and read in place (a copy of a buffer would wait for its loads):
@@ -291,6 +363,7 @@ wpack_ablate_kernel(const AblateArgs a) {
       if (i0 + d >= n) break;
       ring[(d + D) % (D + 1)] = load_piece(i0 + d + D);
       add_piece(ring[d]);
+      close_group(i0 + d);
     }
   }
 #pragma unroll
@@ -299,27 +372,29 @@ wpack_ablate_kernel(const AblateArgs a) {
   }
   __syncthreads();
   for (int j = threadIdx.x; j < LANE; j += WARP * W) {
-    float sum = part[0][j];
+    float total = part[0][j];
 #pragma unroll
-    for (int u = 1; u < W; ++u) sum += part[u][j];
+    for (int u = 1; u < W; ++u) total += part[u][j];
     const long long row = static_cast<long long>(b) * LANE + j;
-    if (row < a.m) a.y[row] = sum;
+    if (row < a.m) a.y[row] = narrow<BF>(total);
   }
 }
 
-template <int BODY, bool ROLL>
-cudaError_t launch_ablate(const AblateArgs& a, int warps, int blocks,
+template <int BODY, bool ROLL, bool BF>
+cudaError_t launch_ablate(const AblateArgs<BF>& a, int warps, int blocks,
                           cudaStream_t stream) {
   switch (warps) {
     case 4:
-      wpack_ablate_kernel<BODY, ROLL, 4><<<blocks, WARP * 4, 0, stream>>>(a);
+      wpack_ablate_kernel<BODY, ROLL, 4, BF>
+          <<<blocks, WARP * 4, 0, stream>>>(a);
       break;
     case 8:
-      wpack_ablate_kernel<BODY, ROLL, 8><<<blocks, WARP * 8, 0, stream>>>(a);
+      wpack_ablate_kernel<BODY, ROLL, 8, BF>
+          <<<blocks, WARP * 8, 0, stream>>>(a);
       break;
     case 16:
-      wpack_ablate_kernel<BODY, ROLL, 16><<<blocks, WARP * 16, 0, stream>>>(
-          a);
+      wpack_ablate_kernel<BODY, ROLL, 16, BF>
+          <<<blocks, WARP * 16, 0, stream>>>(a);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -373,7 +448,7 @@ extern "C" int spgrid_wpack_ablate(const void* block_ptr, const void* piece_w,
                                    const void* x, void* y, int variant,
                                    int warps, int blocks, int m, int k,
                                    void* stream) {
-  const AblateArgs a{static_cast<const int*>(block_ptr),
+  const AblateArgs<false> a{static_cast<const int*>(block_ptr),
                      static_cast<const int*>(piece_w),
                      static_cast<const unsigned char*>(piece_lanes),
                      static_cast<const unsigned char*>(cols),
@@ -413,4 +488,44 @@ extern "C" int spgrid_wpack_ablate_warps(int warps, int blocks, void* out) {
   if (W == 0) return static_cast<int>(cudaErrorInvalidValue);
   *static_cast<int*>(out) = W;
   return static_cast<int>(cudaSuccess);
+}
+
+// The bf16 form at wsel 2 and 4: vals, x and y as bf16 bit patterns; the
+// same arguments as spgrid_wpack_spmv.
+extern "C" int spgrid_wpack_spmv_bf16(const void* block_slot,
+                                      const void* vals, const void* cols,
+                                      const void* rows, const void* x,
+                                      void* y, void* carry, int num_slots,
+                                      int slots_per_cta, int blocks, int m,
+                                      void* stream) {
+  return spgrid::slot_stream::launch<false, true>(
+      block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
+      blocks, m, stream);
+}
+
+// The bf16 form at wsel 1: vals, x and y as bf16 bit patterns; warps: W (4,
+// 8 or 16; 0: the rule's); starts and ends 4-byte aligned.
+extern "C" int spgrid_wpack_spmv_bf16_prefix(
+    const void* block_ptr, const void* piece_w, const void* piece_lanes,
+    const void* cols, const void* starts, const void* ends, const void* vals,
+    const void* x, void* y, int warps, int blocks, int m, int k,
+    void* stream) {
+  const AblateArgs<true> a{static_cast<const int*>(block_ptr),
+                           static_cast<const int*>(piece_w),
+                           static_cast<const unsigned char*>(piece_lanes),
+                           static_cast<const unsigned char*>(cols),
+                           nullptr,
+                           static_cast<const signed char*>(starts),
+                           static_cast<const signed char*>(ends),
+                           static_cast<const unsigned short*>(vals),
+                           static_cast<const unsigned short*>(x),
+                           static_cast<unsigned short*>(y),
+                           m,
+                           k};
+  const int W = warps_for(warps, blocks);
+  const bool aligned = (reinterpret_cast<uintptr_t>(starts) |
+                        reinterpret_cast<uintptr_t>(ends)) % 4 == 0;
+  if (W == 0 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_ablate<FULL, true>(
+      a, W, blocks, static_cast<cudaStream_t>(stream)));
 }

@@ -39,13 +39,31 @@
 // everything but streaming the values through the staging. NORMW and EMPTY
 // sum every block into y[0:128], which the caller zeroes, in an order that
 // changes from run to run.
+//
+// The bf16 form (BF, of FULL only; wrow_spmv at dtype bf16): bf16 values, x
+// and y, and each slot's x index marked (bit 31) where the slot opens one of
+// its row's groups of 8 pieces. The Pallas body sums a group's products for
+// a row in f32 (XLA keeps the bf16 product in f32 where it feeds that sum)
+// and rounds the sum to bf16 before adding it into the f32 row; so thread t
+// adds each product (exact in f32) to a group partial, and at each mark, and
+// at the row's end, adds the partial rounded to bf16 into its row, which it
+// rounds once to bf16. The staging holds each slot's product and its mark in
+// place of its value and x.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16_bits.cuh"
+
 namespace spgrid {
 namespace wrow_rows {
 namespace {  // each kernel source gets its own copy of the kernels
+
+using bf16::Elem;
+using bf16::X_INDEX;
+using bf16::narrow;
+using bf16::rounded;
+using bf16::widen;
 
 enum Variant { FULL = 0, NOGATHER = 1, NOLOAD = 2, NORMW = 3, EMPTY = 4 };
 
@@ -56,11 +74,13 @@ constexpr int LD = DEPTH + 1;     // a row's stride in shared memory
 constexpr int UNROLL = 16;        // rows whose loads are in flight together
 static_assert(DEPTH == 32, "a round stages one slot a lane of each row");
 
-template <int V>
+template <int V, bool BF = false>
 __global__ void __launch_bounds__(LANE)
-walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
+walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
      const int* __restrict__ cols, const unsigned char* __restrict__ pieces,
-     const float* __restrict__ x, float* __restrict__ y, int m, int k) {
+     const Elem<BF>* __restrict__ x, Elem<BF>* __restrict__ y, int m,
+     int k) {
+  static_assert(!BF || V == FULL, "the bf16 form is FULL's");
   __shared__ float staged_v[WARPS][32 * LD];
   __shared__ float staged_x[WARPS][32 * LD];
   const int lane = threadIdx.x % 32;
@@ -78,19 +98,24 @@ walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
   const int rounds =
       (__reduce_max_sync(0xffffffffu, len) + DEPTH - 1) / DEPTH;
   float acc = 0.0f;
+  float part = 0.0f;  // BF: the row's open group's partial sum
   for (int i = 0; i < rounds; ++i) {
     const int at = i * DEPTH + lane;  // this lane's slot of each row
     for (int q0 = 0; q0 < 32; q0 += UNROLL) {
       float v[UNROLL] = {}, xv[UNROLL] = {};
       int c[UNROLL] = {};
-      bool live[UNROLL];
+      bool live[UNROLL], opens[UNROLL] = {};
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int q_begin = __shfl_sync(0xffffffffu, begin, q0 + u);
         live[u] = at < __shfl_sync(0xffffffffu, len, q0 + u);
         if (live[u]) {
-          v[u] = __ldg(vals + q_begin + at);
-          if (V == NOLOAD) {
+          v[u] = widen(__ldg(vals + q_begin + at));
+          if (BF) {
+            const int marked = __ldg(cols + q_begin + at);
+            opens[u] = marked < 0;
+            c[u] = marked & X_INDEX;
+          } else if (V == NOLOAD) {
             c[u] = 128 * __ldg(pieces + q_begin + at) +
                    (__ldg(cols + q_begin + at) & 127);
           } else if (V == NOGATHER) {
@@ -105,21 +130,32 @@ walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
         for (int u = 0; u < UNROLL; ++u) {
           // FULL's and NORMW's indices lie inside x by the stream's making
           const bool inside = V == FULL || V == NORMW || c[u] < k;
-          if (live[u] && inside) xv[u] = __ldg(x + c[u]);
+          if (live[u] && inside) xv[u] = widen(__ldg(x + c[u]));
         }
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         if (live[u]) {
-          sv[(q0 + u) * LD + lane] = v[u];
-          if (V != EMPTY) sx[(q0 + u) * LD + lane] = xv[u];
+          if (BF) {  // the product, exact in f32, and the slot's mark
+            sv[(q0 + u) * LD + lane] = v[u] * xv[u];
+            sx[(q0 + u) * LD + lane] = opens[u] ? 1.0f : 0.0f;
+          } else {
+            sv[(q0 + u) * LD + lane] = v[u];
+            if (V != EMPTY) sx[(q0 + u) * LD + lane] = xv[u];
+          }
         }
       }
     }
     __syncwarp();  // the round's slots are in place
     const int here = min(DEPTH, len - i * DEPTH);
     for (int j = 0; j < here; ++j) {
-      if (V == EMPTY) {
+      if (BF) {
+        if (sx[lane * LD + j] != 0.0f) {  // a group of the row opens
+          acc += rounded(part);
+          part = 0.0f;
+        }
+        part += sv[lane * LD + j];
+      } else if (V == EMPTY) {
         acc += sv[lane * LD + j];
       } else {
         acc = fmaf(sv[lane * LD + j], sx[lane * LD + j], acc);
@@ -127,26 +163,27 @@ walk(const int* __restrict__ row_slot, const float* __restrict__ vals,
     }
     __syncwarp();  // every lane has read the round before the next is staged
   }
+  if (BF) acc += rounded(part);
   if (row < m) {
-    if (V == NORMW || V == EMPTY) {
+    if constexpr (V == NORMW || V == EMPTY) {
       atomicAdd(y + threadIdx.x, acc);
     } else {
-      y[row] = acc;
+      y[row] = narrow<BF>(acc);
     }
   }
 }
 
-// The walk of variant V over `blocks` target blocks on `stream`; 0 or the
-// CUDA error.
-template <int V>
+// The walk of variant V (BF: the bf16 form) over `blocks` target blocks on
+// `stream`; 0 or the CUDA error.
+template <int V, bool BF = false>
 int launch(const void* row_slot, const void* vals, const void* cols,
            const void* pieces, const void* x, void* y, int blocks, int m,
            int k, void* stream) {
-  walk<V><<<blocks, LANE, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_slot), static_cast<const float*>(vals),
+  walk<V, BF><<<blocks, LANE, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(row_slot), static_cast<const Elem<BF>*>(vals),
       static_cast<const int*>(cols),
       static_cast<const unsigned char*>(pieces),
-      static_cast<const float*>(x), static_cast<float*>(y), m, k);
+      static_cast<const Elem<BF>*>(x), static_cast<Elem<BF>*>(y), m, k);
   return static_cast<int>(cudaGetLastError());
 }
 

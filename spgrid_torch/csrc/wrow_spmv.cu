@@ -25,6 +25,12 @@
 // in rounds beside the warp's other rows, all 32 lanes loading. Slots whose
 // value is 0 or whose x index lies at or past k (x is not padded to the
 // window) are not in the stream.
+//
+// The bf16 form (wrow_spmv at dtype bf16): the same walk on bf16 values, x
+// and y, 6 bytes a live slot, the x index marked where a slot opens one of
+// its row's groups of 8 pieces: each group's products for a row summed in
+// f32 and rounded to bf16 before they are added into the f32 row, y rounded
+// once, where the Pallas body rounds (wrow_rows.cuh).
 #include "wrow_rows.cuh"
 
 // row_slot, vals, cols, x, y, blocks, m, stream
@@ -32,5 +38,14 @@ extern "C" int spgrid_wrow_spmv(const void* row_slot, const void* vals,
                                 const void* cols, const void* x, void* y,
                                 int blocks, int m, void* stream) {
   return spgrid::wrow_rows::launch<spgrid::wrow_rows::FULL>(
+      row_slot, vals, cols, nullptr, x, y, blocks, m, 0, stream);
+}
+
+// The bf16 form: vals, x and y as bf16 bit patterns, cols marked with the
+// groups' starts (bit 31); the same arguments.
+extern "C" int spgrid_wrow_spmv_bf16(const void* row_slot, const void* vals,
+                                     const void* cols, const void* x, void* y,
+                                     int blocks, int m, void* stream) {
+  return spgrid::wrow_rows::launch<spgrid::wrow_rows::FULL, true>(
       row_slot, vals, cols, nullptr, x, y, blocks, m, 0, stream);
 }

@@ -27,6 +27,13 @@
 // stream was built: x is not padded. The result is not bit-reproducible
 // from run to run (the order of the shared-memory atomics); it agrees with
 // v1 and the plain version to f32 rounding.
+//
+// The bf16 form (wrow_spmv(..., variant="v2") at dtype bf16): the Pallas
+// body adds each product into its f32 accumulator (XLA keeps the bf16
+// product in f32 there), so the form is the same walk on bf16 values, x and
+// y, f32 products and sums and y rounded once, with the walk's fixed order
+// of sums in place of its atomics (slot_stream.cuh): the same bits every
+// call.
 #include "slot_stream.cuh"
 
 // block_slot, vals, cols (int32 x index), rows (uint8), x, y, carry,
@@ -39,4 +46,16 @@ extern "C" int spgrid_wrow_spmv_v2(const void* block_slot, const void* vals,
   return spgrid::slot_stream::launch<false>(block_slot, vals, cols, rows, x, y,
                                             carry, num_slots, slots_per_cta,
                                             blocks, m, stream);
+}
+
+// The bf16 form: vals, x and y as bf16 bit patterns; the same arguments.
+extern "C" int spgrid_wrow_spmv_v2_bf16(const void* block_slot,
+                                        const void* vals, const void* cols,
+                                        const void* rows, const void* x,
+                                        void* y, void* carry, int num_slots,
+                                        int slots_per_cta, int blocks, int m,
+                                        void* stream) {
+  return spgrid::slot_stream::launch<false, true>(
+      block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
+      blocks, m, stream);
 }

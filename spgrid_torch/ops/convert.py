@@ -114,9 +114,11 @@ def wcoo_aligned_from_jax(cols, values, g_sw, g_sub, shape, nnz: int,
                           device) -> DeviceWCOOAligned:
     """``spgrid.ops.pallas.wcoo_spmv.DeviceWCOOAligned`` →
     DeviceWCOOAligned, without the JAX layout's pad groups."""
+    values, dtype = host_values(values)
     return DeviceWCOOAligned.from_arrays(cols, values, g_sw, g_sub, shape,
                                          nnz, utilization, num_groups, name,
-                                         device=device)
+                                         device=device,
+                                         dtype=torch_dtype(dtype))
 
 
 def wrow_from_jax(cols, values, piece_w, group_sub, shape, nnz: int,
@@ -124,9 +126,10 @@ def wrow_from_jax(cols, values, piece_w, group_sub, shape, nnz: int,
                   device) -> DeviceWROW:
     """``spgrid.ops.pallas.wrow_spmv.DeviceWROW`` → DeviceWROW: the
     metadata rows of 8 steps flattened and the pad groups dropped."""
+    values, dtype = host_values(values)
     return DeviceWROW.from_arrays(cols, values, piece_w, group_sub, shape,
                                   nnz, utilization, num_groups, name,
-                                  device=device)
+                                  device=device, dtype=torch_dtype(dtype))
 
 
 def bsrc_from_jax(local_rows, block_cols, blocks, shape, nnz: int,
@@ -160,9 +163,11 @@ def wpack_from_jax(cols, values, ends, starts, sel, piece_w, group_sub,
                    wsel: int, name: str, *, device) -> DeviceWPACK:
     """``spgrid.ops.pallas.wpack_spmv.DeviceWPACK`` → DeviceWPACK: the
     metadata rows of 8 steps flattened and the pad groups dropped."""
+    values, dtype = host_values(values)
     return DeviceWPACK.from_arrays(cols, values, ends, starts, sel, piece_w,
                                    group_sub, shape, nnz, utilization,
-                                   num_groups, wsel, name, device=device)
+                                   num_groups, wsel, name, device=device,
+                                   dtype=torch_dtype(dtype))
 
 
 def attention_from_jax(wk, wq, wv, mask, *, device) -> SparseAttention:

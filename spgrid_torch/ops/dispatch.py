@@ -18,10 +18,12 @@ runs ``bsr_spmm`` on its block part and a torch-op format on the rest.
 Every format runs at f32. At bf16 and f64 a format runs only where it has a
 form at that dtype (``DTYPE_FORMATS``): at bf16 the torch ops, ``dense``,
 the kernels with a bf16 form (``bsr_cuda``, ``panel_cuda``,
-``cv_panel_cuda``, ``wcoo_bands_cuda``) and ``rbh``, whose block part runs
-``bsr_spmm``'s; at f64 ``dense`` and the torch ops that sum in f64 (not
-those that sum in f32 whatever X's type, ``F32_SUM_FORMATS``, nor any
-kernel: no format computes in f32 and calls the result f64). ``build``
+``cv_panel_cuda``, ``wcoo_bands_cuda`` and the three SpMV formats
+``wrow_spmv_cuda``, ``wcoo_spmv_cuda``, ``wpack_spmv_cuda``) and ``rbh``,
+whose block part runs ``bsr_spmm``'s; at f64 ``dense`` and the torch ops
+that sum in f64 (not those that sum in f32 whatever X's type,
+``F32_SUM_FORMATS``, nor any kernel: no format computes in f32 and calls
+the result f64). ``build``
 raises for any other, naming ROADMAP.md, and ``select_format`` and
 ``autotune_spmm`` pick only among those that run.
 """
@@ -91,7 +93,8 @@ F32_SUM_FORMATS = ("gell", "gell16", "cv_gell", "cv_bf16", "cv_int8", "scoo")
 # f64 and dense
 DTYPE_FORMATS = {
     "bfloat16": tuple(f for f in FORMATS if f not in KERNEL_FORMATS) + (
-        "bsr_cuda", "panel_cuda", "cv_panel_cuda", "wcoo_bands_cuda", "rbh"),
+        "bsr_cuda", "panel_cuda", "cv_panel_cuda", "wcoo_bands_cuda", "rbh",
+        "wrow_spmv_cuda", "wcoo_spmv_cuda", "wpack_spmv_cuda"),
     "float64": tuple(f for f in FORMATS
                      if f not in KERNEL_FORMATS + F32_SUM_FORMATS),
 }

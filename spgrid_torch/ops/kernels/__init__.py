@@ -31,11 +31,16 @@ def _wrappers() -> dict:
             "wcoo_spmm_aligned_bf16":
                 wcoo_spmm_aligned.wcoo_spmm_aligned_bf16,
             "wcoo_spmv": wcoo_spmv.wcoo_spmv,
+            "wcoo_spmv_bf16": wcoo_spmv.wcoo_spmv_bf16,
             "wrow_spmv": wrow_spmv.wrow_spmv,
+            "wrow_spmv_bf16": wrow_spmv.wrow_spmv_bf16,
             "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
             "dgell": dgell.dgell_spmm,
             "wpack_spmv": wpack_spmv.wpack_spmv,
+            "wpack_spmv_bf16": wpack_spmv.wpack_spmv_bf16,
+            "wpack_spmv_bf16_prefix": wpack_spmv.wpack_spmv_bf16_prefix,
             "wrow_spmv_v2": wrow_spmv.wrow_spmv_v2,
+            "wrow_spmv_v2_bf16": wrow_spmv.wrow_spmv_v2_bf16,
             "lanegather": lanegather.lanegather,
             "dma_gather": pallas_gather.dma_gather,
             "shuffle_bench": pallas_gather.shuffle_bench,

@@ -68,8 +68,12 @@ SIGNATURES = {
     "spgrid_wcoo_bands_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # row_slot, vals, cols, x, y, blocks, m, stream
     "spgrid_wrow_spmv": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    # the same, vals, x and y in bf16, cols marked with the groups' starts
+    "spgrid_wrow_spmv_bf16": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     # tile_row, row_slot, vals, xidx, x, y, tiles, tile_slots, stream
     "spgrid_wcoo_spmv": [_PTR] * 6 + [_INT] * 2 + [_PTR],
+    # the same, vals, x and y in bf16, xidx marked with the groups' starts
+    "spgrid_wcoo_spmv_bf16": [_PTR] * 6 + [_INT] * 2 + [_PTR],
     # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,
     # m, k, n, stream
     "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
@@ -83,6 +87,11 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # the same, vals, x and y in bf16 (wsel 2 and 4)
+    "spgrid_wpack_spmv_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # block_ptr, piece_w, piece_lanes, cols, starts, ends, vals, x, y (bf16
+    # values, x and y), warps (0: the rule's), blocks, m, k, stream
+    "spgrid_wpack_spmv_bf16_prefix": [_PTR] * 9 + [_INT] * 4 + [_PTR],
     # block_ptr, piece_w, piece_lanes, cols, sel, starts, ends, vals, x, y,
     # variant, warps (0: the rule's), blocks, m, k, stream
     "spgrid_wpack_ablate": [_PTR] * 10 + [_INT] * 5 + [_PTR],
@@ -91,6 +100,8 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # the same, vals, x and y in bf16
+    "spgrid_wrow_spmv_v2_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     # src, idx, out, s0, s1, i0, i1, axis, path (0: the rule's, 1: direct,
     # 2: staged), stream
     "spgrid_lanegather": [_PTR] * 3 + [_INT] * 6 + [_PTR],

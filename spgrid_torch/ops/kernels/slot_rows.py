@@ -14,6 +14,13 @@ the stream in ``from_arrays`` (``wcoo_spmm.wcoo_row_stream``,
 ``wcoo_spmm_aligned.bands_row_stream``, both through ``row_stream``);
 ``wcoo_spmm`` and ``wcoo_spmm_aligned`` read it on the card, their plain
 versions keep reading the padded arrays.
+
+The SpMV row streams of a bf16 layout (WROW v1's, ``wcoo_spmv``'s) also
+mark where each of a row's groups starts (``mark_groups``): their Pallas
+bodies round each group's sum for a row to bf16 before adding it into the
+f32 row, so the bf16 walks must know the groups. The mark is bit 31 of the
+slot's x index (``GROUP_START``; an x index lies below 2^31), so the
+stream keeps its 6 bytes a live slot; ``X_INDEX`` masks it off.
 """
 
 from __future__ import annotations
@@ -53,6 +60,26 @@ def stream_order(rows, xrows, values, m: int, k: int):
     counts = np.bincount(rows, minlength=m)
     return (live[np.argsort(rows, kind="stable")],
             np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+
+
+# bit 31 of a marked stream's x index: the slot opens a group of its row
+GROUP_START = np.int32(-2 ** 31)
+X_INDEX = 0x7FFFFFFF
+
+
+def mark_groups(xidx, groups, row_slot) -> np.ndarray:
+    """The x indices ``xidx`` (S,) of a row stream with ``GROUP_START`` set
+    on each slot that opens one of its row's groups: a row's first slot and
+    each slot whose group (``groups``, (S,), the layout's group of each
+    slot) differs from the slot's before it. A row's slots of one group
+    are consecutive in the stream."""
+    groups = np.asarray(groups).reshape(-1)
+    row_slot = np.asarray(row_slot, np.int64)
+    start = np.ones(len(groups), bool)
+    start[1:] = groups[1:] != groups[:-1]
+    start[row_slot[:-1][np.diff(row_slot) > 0]] = True
+    xidx = np.asarray(xidx, np.int32)
+    return np.where(start, xidx | GROUP_START, xidx).astype(np.int32)
 
 
 def row_stream(rows, xrows, values, m: int, k: int):
@@ -139,4 +166,35 @@ def rows_product(a, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((m, x.shape[1]), dtype=x.dtype, device=x.device)
     y.index_add_(0, row, a.slot_vals.to(x.dtype)[:, None]
                  * x[a.slot_xrows.long()])
+    return y
+
+
+def bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even) and widened back to
+    f32: one bf16 operation of the Pallas bodies, computed in f32 and
+    rounded, as XLA computes it on the CPU."""
+    return t.to(torch.bfloat16).float()
+
+
+def add_groups_in_order(parts: torch.Tensor, owner: torch.Tensor,
+                        owners: int) -> torch.Tensor:
+    """(owners, 128) f32, as the Pallas SpMV bodies sum at bf16: each
+    group's ``parts`` (G, R, 128) summed over R in f32, in order, and
+    rounded to bf16; then row o the f32 sum, from 0 in group order, of the
+    groups whose ``owner`` (G,), sorted, is o."""
+    gsum = parts[:, 0].float()
+    for r in range(1, parts.shape[1]):
+        gsum = gsum + parts[:, r]
+    gsum = bf16_rounded(gsum)
+    owner = owner.long()
+    y = torch.zeros((owners, parts.shape[2]), dtype=torch.float32,
+                    device=parts.device)
+    if owner.numel() == 0:
+        return y
+    counts = torch.bincount(owner, minlength=owners)
+    rank = (torch.arange(owner.numel(), device=owner.device)
+            - (torch.cumsum(counts, 0) - counts)[owner])
+    for r in range(int(counts.max())):
+        at = rank == r      # one group of each owner at most
+        y[owner[at]] += gsum[at]
     return y

@@ -82,14 +82,16 @@ def _sms(device: torch.device) -> int:
 
 
 def check_stream(kernel: str, a, x: torch.Tensor,
-                 slots_per_cta: int | None) -> None:
+                 slots_per_cta: int | None,
+                 values: torch.dtype = torch.float32) -> None:
     """Raise unless the live-slot stream of ``a`` (DeviceWROW or
-    DeviceWPACK) is what the stream kernels take."""
+    DeviceWPACK) is what the stream kernels take: values of type
+    ``values``."""
     if slots_per_cta is not None and slots_per_cta < 1:
         raise ValueError(f"slots_per_cta must be >= 1, got {slots_per_cta}")
     check_operands(kernel, x.device, slot_ptr=(a.slot_ptr, torch.int32),
                    block_slot=(a.block_slot, torch.int32),
-                   slot_vals=(a.slot_vals, torch.float32),
+                   slot_vals=(a.slot_vals, values),
                    slot_cols=(a.slot_cols, torch.int32),
                    slot_rows=(a.slot_rows, torch.uint8))
 
@@ -97,10 +99,11 @@ def check_stream(kernel: str, a, x: torch.Tensor,
 def launch_stream(wrapper, a, x: torch.Tensor,
                   slots_per_cta: int | None) -> torch.Tensor:
     """Launch ``spgrid_<wrapper's name>``, the live-slot stream walk and its
-    carry combine, into a new y and count the launch on ``wrapper``;
-    ``slots_per_cta`` None takes ``default_slots_per_cta`` for x's card."""
+    carry combine, into a new y of x's dtype and count the launch on
+    ``wrapper``; ``slots_per_cta`` None takes ``default_slots_per_cta`` for
+    x's card."""
     m = a.shape[0]
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    y = torch.empty((m,), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
     if slots_per_cta is None:
@@ -125,12 +128,14 @@ def launch_stream(wrapper, a, x: torch.Tensor,
 def stream_product(a, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over the live-slot stream of ``a`` (DeviceWROW or
     DeviceWPACK), in x's dtype: live slot s of target block b adds value ·
-    x[slot_cols[s]] to row 128 b + its row (``index_add_``)."""
+    x[slot_cols[s]] to row 128 b + its row (``index_add_``); bf16: products
+    and sums in f32, y rounded once."""
     block = torch.repeat_interleave(
         torch.arange(a.blocks, device=x.device),
         torch.diff(a.block_slot.long()))
     row = a.slot_rows.long() & (LANE - 1)
-    y = torch.zeros((a.shape[0],), dtype=x.dtype, device=x.device)
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    y = torch.zeros((a.shape[0],), dtype=acc, device=x.device)
     y.index_add_(0, block * LANE + row,
-                 a.slot_vals.to(x.dtype) * x[a.slot_cols.long()])
-    return y
+                 a.slot_vals.to(acc) * x.to(acc)[a.slot_cols.long()])
+    return y.to(x.dtype)

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels import _build, check_operands, runs_plain
 from spgrid_torch.ops.kernels.wrow_spmv import (
     GROUP_PIECES, LANE, DeviceWROW, _check,
 )
@@ -48,12 +48,12 @@ def _variant(variant: str) -> int:
 def spmv_ablate(a: DeviceWROW, x: torch.Tensor, variant: str) -> torch.Tensor:
     """y (m,) f32 of ``variant`` for f32 x (k,)."""
     code_v = _variant(variant)
-    _check("spmv_ablate", a, x)
+    _check("spmv_ablate", a, x, torch.float32)
     check_operands("spmv_ablate", x.device, row_slot=(a.row_slot, torch.int32),
                    row_vals=(a.row_vals, torch.float32),
                    row_cols=(a.row_cols, torch.int32),
                    row_piece=(a.row_piece, torch.uint8))
-    if x.device.type == "cpu":
+    if runs_plain("spmv_ablate", x.device):
         return spmv_ablate_plain(a, x, variant)
     m, k = a.shape
     accumulate = variant in ("normw", "empty")

@@ -11,6 +11,15 @@ tensors.
 A group is (8, 128) slots: row w = window within the group's 1024-column
 superwindow, lane = row within its 128-row target block
 (``formats.wcoo.csr_to_wcoo_aligned``); groups are sorted by target block.
+
+At bf16 (``wcoo_spmv_bf16``: a layout built from a bf16 matrix, bf16
+values, x and y) the form rounds where XLA rounds the Pallas body on the
+CPU: a group's products for a row (its windows) summed in f32 (a bf16
+product that feeds only that sum stays f32, exact) and the sum rounded to
+bf16 before it is added into the f32 row, y rounded once. A row can hold
+several groups of one superwindow (collisions of the aligned layout make
+extra groups), so the row stream marks where each of a row's groups starts
+(bit 31 of ``slot_xrows``, ``slot_rows.mark_groups``).
 """
 
 from __future__ import annotations
@@ -21,12 +30,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from spgrid_torch.formats.csr import value_dtype
 from spgrid_torch.formats.wcoo import LANE, csr_to_wcoo_aligned
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.kernels.slot_rows import (
-    STREAM_FIELDS, RowStream, check_rows, row_stream, rows_product,
-    stream_tensors)
-from spgrid_torch.ops.layouts import group_ptr, to_device
+    LONG_ROW, STREAM_FIELDS, RowStream, add_groups_in_order, check_rows,
+    mark_groups, rows_product, stream_order, stream_tensors)
+from spgrid_torch.ops.layouts import group_ptr, to_device, torch_dtype
 
 GROUP_ROWS = 8       # windows of a superwindow == slot rows of a group
 # The kernel (csrc/wcoo_spmv.cu): a CTA of THREADS threads a row tile, a
@@ -58,11 +69,14 @@ def row_tiles(row_slot, tile_slots: int = TILE_SLOTS) -> np.ndarray:
     return np.asarray(tiles, np.int32)
 
 
-def aligned_row_stream(cols, values, g_sw, g_sub, shape):
+def aligned_row_stream(cols, values, g_sw, g_sub, shape,
+                       marked: bool = False):
     """The stream of an aligned layout: slot (w, lane) of group g adds to
     row 128 g_sub + lane from x index 1024 g_sw + 128 w + col, col read as
     an unsigned byte, in group, window and lane order (the order in which
-    the padded walk summed each row)."""
+    the padded walk summed each row): ``slot_rows.row_stream``'s arrays,
+    the x indices marked with the starts of each row's groups where
+    ``marked`` (``slot_rows.mark_groups``)."""
     slots = (-1, GROUP_ROWS, LANE)
     w = np.arange(GROUP_ROWS)[:, None]
     col = np.asarray(cols, np.int8).view(np.uint8).reshape(slots)
@@ -70,7 +84,13 @@ def aligned_row_stream(cols, values, g_sw, g_sub, shape):
              + w * LANE + col)
     out = np.broadcast_to(np.asarray(g_sub, np.int64)[:, None, None] * LANE
                           + np.arange(LANE), xrows.shape)
-    return row_stream(out, xrows, np.asarray(values).reshape(slots), *shape)
+    values = np.asarray(values).reshape(-1)
+    order, row_slot = stream_order(out, xrows, values, *shape)
+    xidx = xrows.reshape(-1)[order].astype(np.int32)
+    if marked:
+        xidx = mark_groups(xidx, order // (GROUP_ROWS * LANE), row_slot)
+    return (row_slot, values[order], xidx,
+            np.flatnonzero(np.diff(row_slot) > LONG_ROW).astype(np.int32))
 
 
 @dataclasses.dataclass
@@ -86,14 +106,14 @@ class DeviceWCOOAligned(RowStream):
     stream_fields = STREAM_FIELDS[:3]
 
     cols: torch.Tensor        # (G*8, 128) int8, col % 128 of each slot
-    values: torch.Tensor      # (G*8, 128), 0 in empty slots
+    values: torch.Tensor      # (G*8, 128) f32 or bf16, 0 in empty slots
     g_sw: torch.Tensor        # (G,) int32, superwindow of each group
     g_sub: torch.Tensor       # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
     # the row stream: S live slots by output row, in group, window, lane order
     row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
     slot_vals: torch.Tensor   # (S,) value of each live slot
-    slot_xrows: torch.Tensor  # (S,) int32, x index of each live slot
+    slot_xrows: torch.Tensor  # (S,) int32, x index | GROUP_START at bf16
     tile_row: torch.Tensor    # (T + 1,) int32, the kernel's row tiles
     shape: Tuple[int, int]
     nnz: int
@@ -125,9 +145,12 @@ class DeviceWCOOAligned(RowStream):
     @classmethod
     def from_arrays(cls, cols, values, g_sw, g_sub, shape, nnz: int,
                     utilization: float, num_groups: int, name: str = "", *,
-                    device) -> "DeviceWCOOAligned":
-        """Host arrays → device layout; groups past ``num_groups`` (the JAX
-        layout's padding) are dropped. The row stream and its tiles are
+                    device, dtype: torch.dtype = torch.float32
+                    ) -> "DeviceWCOOAligned":
+        """Host arrays → device layout, its values in ``dtype`` (f32, or
+        bf16 for a matrix whose values are bf16); groups past
+        ``num_groups`` (the JAX layout's padding) are dropped. The row
+        stream (marked with the groups' starts at bf16) and its tiles are
         built here, on the host, from the padded groups."""
         G = int(num_groups)
         sub = np.asarray(g_sub, np.int64)[:G]
@@ -139,13 +162,15 @@ class DeviceWCOOAligned(RowStream):
         cols = np.asarray(cols).reshape(-1, LANE)[:rows]
         values = np.asarray(values).reshape(-1, LANE)[:rows]
         sw = np.asarray(g_sw)[:G]
-        stream = aligned_row_stream(cols, values, sw, sub, shape)
+        stream = aligned_row_stream(cols, values, sw, sub, shape,
+                                    marked=dtype == torch.bfloat16)
+        fields = stream_tensors(stream, device, cls.stream_fields)
+        fields["slot_vals"] = fields["slot_vals"].to(dtype)
         return cls(cols=to_device(cols, device, np.int8),
-                   values=to_device(values, device),
+                   values=to_device(values, device).to(dtype),
                    g_sw=to_device(sw, device, np.int32),
                    g_sub=to_device(sub, device, np.int32),
-                   block_ptr=to_device(ptr, device),
-                   **stream_tensors(stream, device, cls.stream_fields),
+                   block_ptr=to_device(ptr, device), **fields,
                    tile_row=to_device(row_tiles(stream[0]), device),
                    shape=tuple(shape), nnz=int(nnz),
                    utilization=float(utilization), num_groups=G, name=name)
@@ -154,52 +179,74 @@ class DeviceWCOOAligned(RowStream):
     def from_csr(cls, csr, *, device) -> "DeviceWCOOAligned":
         cols, vals, g_sw, g_sub, G, util = csr_to_wcoo_aligned(csr)
         return cls.from_arrays(cols, vals, g_sw, g_sub, csr.shape, csr.nnz,
-                               util, G, csr.name, device=device)
+                               util, G, csr.name, device=device,
+                               dtype=torch_dtype(value_dtype(csr)))
 
 
 def launch(a: DeviceWCOOAligned, x: torch.Tensor, y: torch.Tensor) -> None:
-    """One launch of the kernel into ``y`` over ``a``'s row tiles at
-    ``a.tile_slots``, uncounted (``a.tiled(s)`` for sweeps and tests);
-    ``wcoo_spmv`` is the entry point."""
+    """One launch of the kernel (the bf16 form for a bf16 x) into ``y``
+    over ``a``'s row tiles at ``a.tile_slots``, uncounted (``a.tiled(s)``
+    for sweeps and tests); ``wcoo_spmv`` is the entry point."""
+    name = "wcoo_spmv_bf16" if x.dtype == torch.bfloat16 else "wcoo_spmv"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _build.library().spgrid_wcoo_spmv(
+        code = getattr(_build.library(), f"spgrid_{name}")(
             a.tile_row.data_ptr(), a.row_slot.data_ptr(),
             a.slot_vals.data_ptr(), a.slot_xrows.data_ptr(), x.data_ptr(),
             y.data_ptr(), a.tiles, a.tile_slots, stream)
-    _build.check(code, "wcoo_spmv")
+    _build.check(code, name)
 
 
 def wcoo_spmv(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,)."""
-    if x.dim() != 1 or x.shape[0] != a.shape[1]:
-        raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
-    check_operands("wcoo_spmv", x.device, x=(x, torch.float32),
-                   values=(a.values, torch.float32), cols=(a.cols, torch.int8),
-                   g_sw=(a.g_sw, torch.int32),
-                   block_ptr=(a.block_ptr, torch.int32),
-                   tile_row=(a.tile_row, torch.int32))
-    check_rows("wcoo_spmv", a, x)
-    if x.device.type == "cpu":
-        return wcoo_spmv_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"wcoo_spmv: no kernel for device {x.device}")
-    y = torch.empty((a.shape[0],), dtype=torch.float32, device=x.device)
-    if a.shape[0] == 0:
-        return y
-    launch(a, x, y)
-    wcoo_spmv.launches += 1
-    return y
+    """y (m,) = A @ x in x's dtype: f32 x (k,), or bf16 x for a bf16 layout
+    (``wcoo_spmv_bf16``)."""
+    check_form("wcoo_spmv", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return wcoo_spmv_bf16(a, x)
+    return _run(wcoo_spmv, a, x, torch.float32)
 
 
 wcoo_spmv.launches = 0
 
 
+def wcoo_spmv_bf16(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,): each group's
+    f32 sum of products for a row rounded to bf16 before the f32 add, y
+    rounded once."""
+    return _run(wcoo_spmv_bf16, a, x, torch.bfloat16)
+
+
+wcoo_spmv_bf16.launches = 0
+
+
+def _run(wrapper, a: DeviceWCOOAligned, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    name = wrapper.__name__
+    if x.dim() != 1 or x.shape[0] != a.shape[1]:
+        raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
+    check_operands(name, x.device, x=(x, dtype), values=(a.values, dtype),
+                   cols=(a.cols, torch.int8), g_sw=(a.g_sw, torch.int32),
+                   block_ptr=(a.block_ptr, torch.int32),
+                   tile_row=(a.tile_row, torch.int32))
+    check_rows(name, a, x, dtype)
+    if runs_plain(name, x.device):
+        return wcoo_spmv_plain(a, x)
+    y = torch.empty((a.shape[0],), dtype=dtype, device=x.device)
+    if a.shape[0] == 0:
+        return y
+    launch(a, x, y)
+    wrapper.launches += 1
+    return y
+
+
 def wcoo_spmv_plain(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype: slot (w, t) of group g
-    adds value · x[1024 g_sw[g] + 128 w + col] to row 128 g_sub[g] + t
-    (``index_add_``), for slots whose value is not 0 and x index lies
-    inside x."""
+    adds value · x[1024 g_sw[g] + 128 w + col] to row 128 g_sub[g] + t, for
+    slots whose value is not 0 and x index lies inside x: f32 and f64 by
+    ``index_add_``; bf16 as the Pallas body, the products of a group's 8
+    windows summed in f32 in window order and rounded to bf16,
+    the groups of a block added into its f32 rows in group order, y
+    rounded once."""
     m, k = a.shape
     slots = (GROUP_ROWS, LANE)
     vals = a.values.view(-1, *slots)
@@ -207,8 +254,13 @@ def wcoo_spmv_plain(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
     lane = torch.arange(LANE, device=x.device)
     xi = (a.g_sw.long()[:, None, None] * (GROUP_ROWS * LANE) + w * LANE
           + a.cols.view(-1, *slots).long())
-    row = (a.g_sub.long()[:, None, None] * LANE + lane).expand(-1, *slots)
     live = (vals != 0) & (xi < k)
+    if x.dtype == torch.bfloat16:
+        p = torch.zeros(vals.shape, dtype=torch.float32, device=x.device)
+        p[live] = vals[live].float() * x.float()[xi[live]]
+        y2 = add_groups_in_order(p, a.g_sub, a.blocks)
+        return y2.reshape(-1)[:m].to(x.dtype)
+    row = (a.g_sub.long()[:, None, None] * LANE + lane).expand(-1, *slots)
     y = torch.zeros((m,), dtype=x.dtype, device=x.device)
     y.index_add_(0, row[live], vals[live].to(x.dtype) * x[xi[live]])
     return y
@@ -217,5 +269,5 @@ def wcoo_spmv_plain(a: DeviceWCOOAligned, x: torch.Tensor) -> torch.Tensor:
 def wcoo_spmv_rows_plain(a: DeviceWCOOAligned,
                          x: torch.Tensor) -> torch.Tensor:
     """The same product over the row stream, what the kernel reads, in
-    plain torch and x's dtype (for tests)."""
+    plain torch and x's dtype (for tests; an f32 layout)."""
     return rows_product(a, x[:, None])[:, 0]

@@ -31,6 +31,19 @@ start 1, end 0). ``sel`` picks the 128-column sub-window of each lane, so
 slot t of piece p reads x[(piece_w[p] + sel[p, t]) · 128 + cols[p, t]]. A
 group is 8 pieces of one target block, and a block's groups are
 consecutive.
+
+At bf16 (``wpack_spmv_bf16``: a layout built from a bf16 matrix, bf16
+values, x and y; the default knobs only) the form computes what the Pallas
+body computes at the layout's wsel. At wsel 2 or 4 the body's products
+start from f32 zeros, so products and sums are f32 on the bf16 operands
+and y is rounded once: the stream walk on bf16 values. At wsel 1 its
+product is a bf16 multiply, and the lane prefix, P - p and the difference
+of the two takes run in bf16, each operation rounded (an absent row then
+adds p[0] - (P[1] - p[1]), which bf16 need not round to 0), before the f32
+sum of a group's 8 pieces is rounded to bf16 and added into the f32 row:
+``wpack_spmv_bf16_prefix``, the ``full``/``roll`` ablation kernel in a bf16
+form that rounds after each of those operations, a warp a group
+(``csrc/wpack_spmv.cu``).
 """
 
 from __future__ import annotations
@@ -42,11 +55,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.formats.csr import value_dtype
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.kernels.slot_rows import (
+    add_groups_in_order, bf16_rounded)
 from spgrid_torch.ops.kernels.slot_stream import (
     check_stream, launch_stream, live_slot_stream, row_bytes,
     stream_product)
-from spgrid_torch.ops.layouts import group_ptr, to_device
+from spgrid_torch.ops.layouts import group_ptr, to_device, torch_dtype
 
 LANE = 128
 GROUP_PIECES = 8
@@ -161,7 +178,7 @@ class DeviceWPACK:
     the TPU's scalar memory; the port keeps neither.)"""
 
     cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
-    values: torch.Tensor      # (P, 128), 0 in pad slots
+    values: torch.Tensor      # (P, 128) f32 or bf16, 0 in pad slots
     ends: torch.Tensor        # (P, 128) int8, last lane of each row
     starts: torch.Tensor      # (P, 128) int8, first lane of each row
     sel: torch.Tensor         # (P, 128) int8, sub-window of each slot
@@ -208,14 +225,16 @@ class DeviceWPACK:
     @classmethod
     def from_arrays(cls, cols, values, ends, starts, sel, piece_w, group_sub,
                     shape, nnz: int, utilization: float, num_groups: int,
-                    wsel: int, name: str = "", *, device) -> "DeviceWPACK":
-        """Flat host arrays → device layout; groups past ``num_groups`` (the
-        JAX layout's padding) are dropped. The live-slot stream is built
-        here, on the host, from the padded pieces: a live lane's row is the
-        last present row whose first lane is at or before it (rows rise
-        with the lane); and from it ``piece_lanes``, each piece's last live
-        lane + 1 (0 for a piece with none), which bounds what the ablation
-        kernels read."""
+                    wsel: int, name: str = "", *, device,
+                    dtype: torch.dtype = torch.float32) -> "DeviceWPACK":
+        """Flat host arrays → device layout, its values in ``dtype`` (f32,
+        or bf16 for a matrix whose values are bf16); groups past
+        ``num_groups`` (the JAX layout's padding) are dropped. The live-slot
+        stream is built here, on the host, from the padded pieces: a live
+        lane's row is the last present row whose first lane is at or before
+        it (rows rise with the lane); and from it ``piece_lanes``, each
+        piece's last live lane + 1 (0 for a piece with none), which bounds
+        what the ablation kernels read."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
@@ -241,7 +260,8 @@ class DeviceWPACK:
         def slots(a):
             return to_device(a, device, np.int8)
 
-        return cls(cols=slots(cols), values=to_device(values, device),
+        return cls(cols=slots(cols),
+                   values=to_device(values, device).to(dtype),
                    ends=slots(ends), starts=slots(starts), sel=slots(sel),
                    piece_w=to_device(piece_w, device, np.int32),
                    piece_lanes=to_device(piece_lanes, device),
@@ -249,7 +269,7 @@ class DeviceWPACK:
                    block_ptr=to_device(ptr, device),
                    slot_ptr=to_device(slot_ptr, device),
                    block_slot=to_device(block_slot, device),
-                   slot_vals=to_device(values[piece, lane], device),
+                   slot_vals=to_device(values[piece, lane], device).to(dtype),
                    slot_cols=to_device(x_index, device, np.int32),
                    slot_rows=to_device(row_bytes(rows, slot_ptr), device),
                    shape=tuple(shape), nnz=int(nnz),
@@ -263,7 +283,8 @@ class DeviceWPACK:
          wsel) = csr_to_wpack(csr, wsel)
         return cls.from_arrays(cols, vals, ends, starts, sel, pw, gsub,
                                csr.shape, csr.nnz, util, G, wsel, csr.name,
-                               device=device)
+                               device=device,
+                               dtype=torch_dtype(value_dtype(csr)))
 
 
 ABLATE = ("", "noseg", "nogather")
@@ -286,11 +307,12 @@ def _check_knobs(ablate: str, prefix: str) -> None:
                          "prefix; give prefix='pad' or 'roll'")
 
 
-def _check(a: DeviceWPACK, x: torch.Tensor) -> None:
+def _check(a: DeviceWPACK, x: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> None:
     if x.dim() != 1 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
-    check_operands("wpack_spmv", x.device, x=(x, torch.float32),
-                   values=(a.values, torch.float32), cols=(a.cols, torch.int8),
+    check_operands("wpack_spmv", x.device, x=(x, dtype),
+                   values=(a.values, dtype), cols=(a.cols, torch.int8),
                    ends=(a.ends, torch.int8), starts=(a.starts, torch.int8),
                    sel=(a.sel, torch.int8), piece_w=(a.piece_w, torch.int32),
                    piece_lanes=(a.piece_lanes, torch.uint8),
@@ -302,13 +324,20 @@ def _check(a: DeviceWPACK, x: torch.Tensor) -> None:
 def wpack_spmv(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
                prefix: str = "direct",
                slots_per_cta: int | None = None) -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,); other ``ablate``/``prefix`` knobs
-    than the default as the module says (the JAX wrapper's default prefix,
-    "roll", has "direct" in its place here). The default kernel gives each
-    CTA ``slots_per_cta`` consecutive live slots (None: one wave of the
-    card, ``slot_stream.default_slots_per_cta``); the ablation kernels do
-    not read it."""
+    """y (m,) = A @ x in x's dtype: f32 x (k,), or bf16 x for a bf16 layout
+    (``wpack_spmv_bf16``, the default knobs only); other ``ablate``/
+    ``prefix`` knobs than the default as the module says (the JAX wrapper's
+    default prefix, "roll", has "direct" in its place here). The default
+    kernel gives each CTA ``slots_per_cta`` consecutive live slots (None:
+    one wave of the card, ``slot_stream.default_slots_per_cta``); the
+    ablation kernels do not read it."""
     _check_knobs(ablate, prefix)
+    check_form("wpack_spmv", x.dtype)
+    if x.dtype == torch.bfloat16:
+        if (ablate, prefix) != ("", "direct"):
+            raise TypeError("wpack_spmv: the ablation forms have no bfloat16 "
+                            "form (the JAX probe runs them at f32)")
+        return wpack_spmv_bf16(a, x, slots_per_cta)
     _check(a, x)
     check_stream("wpack_spmv", a, x, slots_per_cta)
     if x.device.type == "cpu":
@@ -319,6 +348,63 @@ def wpack_spmv(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
 
 
 wpack_spmv.launches = 0
+
+
+def wpack_spmv_bf16(a: DeviceWPACK, x: torch.Tensor,
+                    slots_per_cta: int | None = None) -> torch.Tensor:
+    """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,), rounded where
+    the Pallas body rounds at the layout's wsel (the module says where):
+    the stream walk at wsel 2 and 4 (``slots_per_cta`` as for f32); at
+    wsel 1 ``wpack_spmv_bf16_prefix``, which takes no ``slots_per_cta``."""
+    if a.wsel == 1:
+        if slots_per_cta is not None:
+            raise ValueError("wpack_spmv_bf16: the wsel-1 form takes no "
+                             "slots_per_cta")
+        return wpack_spmv_bf16_prefix(a, x)
+    _check(a, x, torch.bfloat16)
+    check_stream("wpack_spmv_bf16", a, x, slots_per_cta, torch.bfloat16)
+    if runs_plain("wpack_spmv_bf16", x.device):
+        return wpack_spmv_plain(a, x)
+    return launch_stream(wpack_spmv_bf16, a, x, slots_per_cta)
+
+
+wpack_spmv_bf16.launches = 0
+
+
+def wpack_spmv_bf16_prefix(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) bf16 = A @ x for a bf16 layout at wsel 1 and bf16 x (k,): the
+    TPU body's bf16 lane prefix, a warp a group (the ``full``/``roll``
+    ablation kernel in its bf16 form)."""
+    if a.wsel != 1:
+        raise ValueError(f"wpack_spmv_bf16_prefix: the layout packs at wsel "
+                         f"{a.wsel}, not 1")
+    _check(a, x, torch.bfloat16)
+    if runs_plain("wpack_spmv_bf16_prefix", x.device):
+        return wpack_spmv_plain(a, x)
+    y = torch.empty((a.shape[0],), dtype=torch.bfloat16, device=x.device)
+    if a.shape[0]:
+        launch_prefix_bf16(a, x, y)
+        wpack_spmv_bf16_prefix.launches += 1
+    return y
+
+
+wpack_spmv_bf16_prefix.launches = 0
+
+
+def launch_prefix_bf16(a: DeviceWPACK, x: torch.Tensor, y: torch.Tensor,
+                       warps: int = 0) -> None:
+    """One launch of the bf16 wsel-1 kernel into ``y``, uncounted, at W =
+    ``warps`` warps a CTA (4, 8 or 16; 0: the rule's, as the ablation
+    kernels take it); ``wpack_spmv`` is the entry point."""
+    m, k = a.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_wpack_spmv_bf16_prefix(
+            a.block_ptr.data_ptr(), a.piece_w.data_ptr(),
+            a.piece_lanes.data_ptr(), a.cols.data_ptr(), a.starts.data_ptr(),
+            a.ends.data_ptr(), a.values.data_ptr(), x.data_ptr(),
+            y.data_ptr(), warps, a.blocks, m, k, stream)
+    _build.check(code, "wpack_spmv_bf16_prefix")
 
 
 def wpack_ablate(a: DeviceWPACK, x: torch.Tensor,
@@ -366,7 +452,8 @@ def launch_warps(a: DeviceWPACK, warps: int = 0) -> int:
 
 def wpack_stream_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
     """The product in plain torch over the live-slot stream, which the
-    default kernel reads, in x's dtype."""
+    default kernel reads, in x's dtype (bf16: f32 products and sums, y
+    rounded once, as at wsel 2 and 4)."""
     return stream_product(a, x)
 
 
@@ -393,8 +480,17 @@ def wpack_spmv_plain(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
     body: p, its lane prefix P (``torch.cumsum``), and per piece and lane j
     the term p[j] (noseg), P[j] (nogather) or P[ends[j]] - (P - p)[starts[j]]
     (``take_along_dim``), summed into row 128 b + j of the piece's block b;
-    rows past m are dropped."""
+    rows past m are dropped. bf16 (the default knobs): at wsel 2 and 4 the
+    default product in f32 on the bf16 operands, y rounded once; at wsel 1
+    the TPU body rounded as it rounds (``_prefix_bf16_plain``)."""
     _check_knobs(ablate, prefix)
+    if x.dtype == torch.bfloat16:
+        if (ablate, prefix) != ("", "direct"):
+            raise TypeError("wpack_spmv_plain: the ablation forms have no "
+                            "bfloat16 form")
+        if a.wsel == 1:
+            return _prefix_bf16_plain(a, x)
+        return wpack_spmv_plain(a, x.float()).to(x.dtype)
     m = a.shape[0]
     y = torch.zeros((m,), dtype=x.dtype, device=x.device)
     p, sub = _products(a, x)
@@ -418,3 +514,26 @@ def wpack_spmv_plain(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
     keep = row < m
     y.index_add_(0, row[keep], term[keep])
     return y
+
+
+def _prefix_bf16_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
+    """The Pallas body at wsel 1 and bf16, in plain torch: p, each product
+    rounded to bf16; its lane prefix P by ``_lane_prefix``'s 7 shift-adds,
+    each rounded to bf16; P - p and P[ends] - (P - p)[starts] rounded to
+    bf16; the f32 sum of each group's 8 pieces, in piece order, rounded to
+    bf16; the groups of a block added into its f32 rows in group order; y
+    rounded once."""
+    m = a.shape[0]
+    p, _ = _products(a, x.float())
+    p = bf16_rounded(p)
+    P = p
+    for sh in (1, 2, 4, 8, 16, 32, 64):
+        shifted = torch.zeros_like(P)
+        shifted[:, sh:] = P[:, :-sh]
+        P = bf16_rounded(P + shifted)
+    pex = bf16_rounded(P - p)
+    term = (torch.take_along_dim(P, a.ends.long(), dim=1)
+            - torch.take_along_dim(pex, a.starts.long(), dim=1))
+    y2 = add_groups_in_order(term.view(-1, GROUP_PIECES, LANE), a.group_sub,
+                             a.blocks)
+    return y2.reshape(-1)[:m].to(x.dtype)

@@ -23,6 +23,16 @@ piece order (the order in which the padded pieces sum the row), each with
 its value and its x index, ``row_slot`` pointing at each row's, and
 ``row_piece``, each slot's piece's place in its group (0..7), which only
 the ``spmv_ablate`` probe reads; ``wrow_rows_plain`` is the product over it.
+
+At bf16 (a layout built from a bf16 matrix, bf16 values, x and y) each
+variant rounds where XLA rounds its Pallas body on the CPU: a bf16 product
+that feeds only an f32 sum stays f32 (it is exact there). v1
+(``wrow_spmv_bf16``): a group's products (8 pieces) for a row summed in f32
+and that sum rounded to bf16 before it is added into the f32 row; the row
+stream marks where each of a row's groups starts (bit 31 of ``row_cols``,
+``slot_rows.mark_groups``). v2 (``wrow_spmv_v2_bf16``): products and sums
+in f32. Both round y once, so the two variants give different bits at
+bf16; ``wrow_spmv_plain`` computes either.
 """
 
 from __future__ import annotations
@@ -33,12 +43,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.ops.kernels import _build, check_operands
-from spgrid_torch.ops.kernels.slot_rows import stream_order
+from spgrid_torch.formats.csr import value_dtype
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.kernels.slot_rows import (
+    X_INDEX, add_groups_in_order, mark_groups, stream_order)
 from spgrid_torch.ops.kernels.slot_stream import (
     check_stream, launch_stream, live_slot_stream, row_bytes,
     stream_product)
-from spgrid_torch.ops.layouts import group_ptr, to_device
+from spgrid_torch.ops.layouts import group_ptr, to_device, torch_dtype
 
 LANE = 128
 GROUP_PIECES = 8
@@ -112,7 +125,7 @@ class DeviceWROW:
     neither.)"""
 
     cols: torch.Tensor        # (P, 128) int8, col % 128 of each slot
-    values: torch.Tensor      # (P, 128), 0 in pad slots
+    values: torch.Tensor      # (P, 128) f32 or bf16, 0 in pad slots
     piece_w: torch.Tensor     # (P,) int32, window of each piece
     group_sub: torch.Tensor   # (G,) int32, target block of each group, sorted
     block_ptr: torch.Tensor   # (ceil(m / 128) + 1,) int32
@@ -125,7 +138,7 @@ class DeviceWROW:
     # the row-ordered stream: the same S slots by row, then piece
     row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
     row_vals: torch.Tensor    # (S,) value of each live slot
-    row_cols: torch.Tensor    # (S,) int32, x index of each live slot
+    row_cols: torch.Tensor    # (S,) int32, x index | GROUP_START at bf16
     row_piece: torch.Tensor   # (S,) uint8, its piece's place in its group
     shape: Tuple[int, int]
     nnz: int
@@ -165,11 +178,14 @@ class DeviceWROW:
     @classmethod
     def from_arrays(cls, cols, values, piece_w, group_sub, shape, nnz: int,
                     utilization: float, num_groups: int, name: str = "", *,
-                    device) -> "DeviceWROW":
-        """Flat host arrays → device layout; groups past ``num_groups`` (the
-        JAX layout's padding) are dropped. The live-slot streams are built
-        here, on the host, from the padded pieces: the row stream is the
-        piece-ordered one stably sorted by output row."""
+                    device, dtype: torch.dtype = torch.float32
+                    ) -> "DeviceWROW":
+        """Flat host arrays → device layout, its values in ``dtype`` (f32,
+        or bf16 for a matrix whose values are bf16); groups past
+        ``num_groups`` (the JAX layout's padding) are dropped. The live-slot
+        streams are built here, on the host, from the padded pieces: the
+        row stream is the piece-ordered one stably sorted by output row,
+        its x indices marked with the groups' starts at bf16."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
@@ -185,19 +201,23 @@ class DeviceWROW:
         order, row_slot = stream_order(
             sub[piece // GROUP_PIECES] * LANE + lane, x_index, slot_vals,
             shape[0], shape[1])
+        row_cols = x_index[order].astype(np.int32)
+        if dtype == torch.bfloat16:
+            row_cols = mark_groups(row_cols, piece[order] // GROUP_PIECES,
+                                   row_slot)
         return cls(cols=to_device(cols, device, np.int8),
-                   values=to_device(values, device),
+                   values=to_device(values, device).to(dtype),
                    piece_w=to_device(piece_w, device, np.int32),
                    group_sub=to_device(sub, device, np.int32),
                    block_ptr=to_device(ptr, device),
                    slot_ptr=to_device(slot_ptr, device),
                    block_slot=to_device(block_slot, device),
-                   slot_vals=to_device(slot_vals, device),
+                   slot_vals=to_device(slot_vals, device).to(dtype),
                    slot_cols=to_device(x_index, device, np.int32),
                    slot_rows=to_device(row_bytes(lane, slot_ptr), device),
                    row_slot=to_device(row_slot, device),
-                   row_vals=to_device(slot_vals[order], device),
-                   row_cols=to_device(x_index[order], device, np.int32),
+                   row_vals=to_device(slot_vals[order], device).to(dtype),
+                   row_cols=to_device(row_cols, device),
                    row_piece=to_device(piece[order] % GROUP_PIECES, device,
                                        np.uint8),
                    shape=tuple(shape), nnz=int(nnz),
@@ -207,101 +227,173 @@ class DeviceWROW:
     def from_csr(cls, csr, *, device) -> "DeviceWROW":
         cols, vals, pw, gsub, G, util = csr_to_wrow(csr)
         return cls.from_arrays(cols, vals, pw, gsub, csr.shape, csr.nnz,
-                               util, G, csr.name, device=device)
+                               util, G, csr.name, device=device,
+                               dtype=torch_dtype(value_dtype(csr)))
 
 
-def _check(kernel: str, a: DeviceWROW, x: torch.Tensor) -> None:
+def _check(kernel: str, a: DeviceWROW, x: torch.Tensor,
+           dtype: torch.dtype) -> None:
     if x.dim() != 1 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]},), got {tuple(x.shape)}")
-    check_operands(kernel, x.device, x=(x, torch.float32),
-                   values=(a.values, torch.float32), cols=(a.cols, torch.int8),
+    check_operands(kernel, x.device, x=(x, dtype),
+                   values=(a.values, dtype), cols=(a.cols, torch.int8),
                    piece_w=(a.piece_w, torch.int32),
                    group_sub=(a.group_sub, torch.int32),
                    block_ptr=(a.block_ptr, torch.int32))
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: no kernel for device {x.device}")
 
 
 def wrow_spmv(a: DeviceWROW, x: torch.Tensor,
               variant: str = "v1") -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,); ``variant`` "v1" (the default) or
-    "v2" (``wrow_spmv_v2``), as the JAX ``wrow_spmv`` takes it. v1's
-    kernel reads the row stream, a thread a row."""
-    if variant == "v2":
-        return wrow_spmv_v2(a, x)
-    if variant != "v1":
+    """y (m,) = A @ x in x's dtype: f32 x (k,), or bf16 x for a bf16 layout
+    (``wrow_spmv_bf16``, ``wrow_spmv_v2_bf16``); ``variant`` "v1" (the
+    default) or "v2" (``wrow_spmv_v2``), as the JAX ``wrow_spmv`` takes it.
+    v1's kernel reads the row stream, a thread a row."""
+    if variant not in ("v1", "v2"):
         raise ValueError(f"wrow_spmv: variant must be 'v1' or 'v2', got "
                          f"{variant!r}")
-    _check("wrow_spmv", a, x)
-    check_operands("wrow_spmv", x.device, row_slot=(a.row_slot, torch.int32),
-                   row_vals=(a.row_vals, torch.float32),
+    check_form("wrow_spmv", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return (wrow_spmv_v2_bf16 if variant == "v2" else wrow_spmv_bf16)(
+            a, x)
+    if variant == "v2":
+        return wrow_spmv_v2(a, x)
+    return _rows(wrow_spmv, a, x, torch.float32)
+
+
+wrow_spmv.launches = 0
+
+
+def wrow_spmv_bf16(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
+    """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,), v1: each
+    group's f32 sum of products for a row rounded to bf16 before the f32
+    add, y rounded once."""
+    return _rows(wrow_spmv_bf16, a, x, torch.bfloat16)
+
+
+wrow_spmv_bf16.launches = 0
+
+
+def _rows(wrapper, a: DeviceWROW, x: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """v1 (``wrapper``, the f32 or the bf16 form) on checked operands: the
+    plain version for CPU tensors, else the row walk into a new y."""
+    name = wrapper.__name__
+    _check(name, a, x, dtype)
+    check_operands(name, x.device, row_slot=(a.row_slot, torch.int32),
+                   row_vals=(a.row_vals, dtype),
                    row_cols=(a.row_cols, torch.int32))
-    if x.device.type == "cpu":
+    if runs_plain(name, x.device):
         return wrow_spmv_plain(a, x)
     m = a.shape[0]
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    y = torch.empty((m,), dtype=dtype, device=x.device)
     if m == 0:
         return y
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_wrow_spmv(
+        code = getattr(lib, f"spgrid_{name}")(
             a.row_slot.data_ptr(), a.row_vals.data_ptr(),
             a.row_cols.data_ptr(), x.data_ptr(), y.data_ptr(), a.blocks, m,
             stream)
-    _build.check(code, "wrow_spmv")
-    wrow_spmv.launches += 1
+    _build.check(code, name)
+    wrapper.launches += 1
     return y
 
 
-wrow_spmv.launches = 0
-
 def wrow_spmv_v2(a: DeviceWROW, x: torch.Tensor,
                  slots_per_cta: int | None = None) -> torch.Tensor:
-    """y (m,) f32 = A @ x for f32 x (k,), variant v2: each CTA walks
-    ``slots_per_cta`` consecutive slots of the live-slot stream (None: one
-    wave of the card, ``slot_stream.default_slots_per_cta``); blocks that
-    straddle two CTAs' ranges are combined by a second pass (the same y as
-    v1, to f32 rounding)."""
-    _check("wrow_spmv_v2", a, x)
-    check_stream("wrow_spmv_v2", a, x, slots_per_cta)
-    if x.device.type == "cpu":
-        return wrow_spmv_plain(a, x)
-    return launch_stream(wrow_spmv_v2, a, x, slots_per_cta)
+    """y (m,) = A @ x in x's dtype (f32; bf16 for a bf16 layout,
+    ``wrow_spmv_v2_bf16``), variant v2: each CTA walks ``slots_per_cta``
+    consecutive slots of the live-slot stream (None: one wave of the card,
+    ``slot_stream.default_slots_per_cta``); blocks that straddle two CTAs'
+    ranges are combined by a second pass (the same y as v1, to f32
+    rounding)."""
+    check_form("wrow_spmv_v2", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return wrow_spmv_v2_bf16(a, x, slots_per_cta)
+    return _stream(wrow_spmv_v2, a, x, slots_per_cta, torch.float32)
 
 
 wrow_spmv_v2.launches = 0
 
 
+def wrow_spmv_v2_bf16(a: DeviceWROW, x: torch.Tensor,
+                      slots_per_cta: int | None = None) -> torch.Tensor:
+    """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,), v2: products
+    and sums in f32, y rounded once; the walk's sums are added in a fixed
+    order (the same bits every call)."""
+    return _stream(wrow_spmv_v2_bf16, a, x, slots_per_cta, torch.bfloat16)
+
+
+wrow_spmv_v2_bf16.launches = 0
+
+
+def _stream(wrapper, a: DeviceWROW, x: torch.Tensor,
+            slots_per_cta: int | None, dtype: torch.dtype) -> torch.Tensor:
+    name = wrapper.__name__
+    _check(name, a, x, dtype)
+    check_stream(name, a, x, slots_per_cta, dtype)
+    if runs_plain(name, x.device):
+        return wrow_spmv_plain(a, x, variant="v2")
+    return launch_stream(wrapper, a, x, slots_per_cta)
+
+
 def wrow_stream_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
     """The product in plain torch over the live-slot stream, which v2's
-    kernel reads, in x's dtype."""
+    kernel reads, in x's dtype (bf16: products and sums in f32, y rounded
+    once)."""
     return stream_product(a, x)
 
 
 def wrow_rows_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
     """The product in plain torch over the row stream, which v1's kernel
     reads, in x's dtype: each live slot adds value · x[its x index] to its
-    row (``index_add_``)."""
+    row (``index_add_``); bf16 (for tests of the stream): products and sums
+    in f32, y rounded once, without v1's group rounding."""
     m = a.shape[0]
     row = torch.repeat_interleave(torch.arange(m, device=x.device),
                                   torch.diff(a.row_slot.long()))
-    y = torch.zeros((m,), dtype=x.dtype, device=x.device)
-    y.index_add_(0, row, a.row_vals.to(x.dtype) * x[a.row_cols.long()])
-    return y
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    y = torch.zeros((m,), dtype=acc, device=x.device)
+    y.index_add_(0, row, a.row_vals.to(acc)
+                 * x.to(acc)[a.row_cols.long() & X_INDEX])
+    return y.to(x.dtype)
 
 
-def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:
-    """The same product in plain torch, in x's dtype, for both variants:
-    slot t of piece p adds value · x[128 piece_w[p] + col] to row
-    128 group_sub[p // 8] + t (``index_add_``), for slots whose value is
-    not 0 and x index lies inside x."""
-    m, k = a.shape
+def _piece_products(a: DeviceWROW, x: torch.Tensor):
+    """(live (P, 128), x index (P, 128), each piece's output rows (P, 128)):
+    the slots whose value is not 0 and whose x index lies inside x."""
+    k = a.shape[1]
     lane = torch.arange(LANE, device=x.device)
     sub = a.group_sub.long().repeat_interleave(GROUP_PIECES)
     row = (sub[:, None] * LANE + lane).expand(-1, LANE)
     xi = a.piece_w.long()[:, None] * LANE + a.cols.long()
-    live = (a.values != 0) & (xi < k)
-    y = torch.zeros((m,), dtype=x.dtype, device=x.device)
-    y.index_add_(0, row[live], a.values[live].to(x.dtype) * x[xi[live]])
-    return y
+    return (a.values != 0) & (xi < k), xi, row
+
+
+def wrow_spmv_plain(a: DeviceWROW, x: torch.Tensor,
+                    variant: str = "v1") -> torch.Tensor:
+    """The same product in plain torch over the padded pieces, in x's
+    dtype: slot t of piece p adds value · x[128 piece_w[p] + col] to row
+    128 group_sub[p // 8] + t, for slots whose value is not 0 and x index
+    lies inside x. f32 and f64: one function for both variants
+    (``index_add_``). bf16, where XLA rounds the Pallas body on the CPU:
+    products in f32 (exact); v1 sums each group's 8 pieces in f32 in piece
+    order, rounds that sum to bf16 and adds the groups of a block into its
+    f32 rows in group order; v2 adds the products in f32 (``index_add_``).
+    y rounded once."""
+    m = a.shape[0]
+    live, xi, row = _piece_products(a, x)
+    if x.dtype != torch.bfloat16:
+        y = torch.zeros((m,), dtype=x.dtype, device=x.device)
+        y.index_add_(0, row[live], a.values[live].to(x.dtype) * x[xi[live]])
+        return y
+    p = torch.zeros(a.cols.shape, dtype=torch.float32, device=x.device)
+    p[live] = a.values[live].float() * x.float()[xi[live]]
+    if variant == "v2":
+        y = torch.zeros((m,), dtype=torch.float32, device=x.device)
+        y.index_add_(0, row[live], p[live])
+        return y.to(x.dtype)
+    y2 = add_groups_in_order(p.view(-1, GROUP_PIECES, LANE), a.group_sub,
+                             a.blocks)
+    return y2.reshape(-1)[:m].to(x.dtype)

@@ -65,7 +65,7 @@ from spgrid_torch.ops.kernels.wcoo_spmv import (
 )
 from spgrid_torch.ops.kernels import wpack_spmv as wpack_module
 from spgrid_torch.ops.kernels.wpack_spmv import (
-    DeviceWPACK, wpack_spmv, wpack_spmv_plain,
+    DeviceWPACK, launch_prefix_bf16, wpack_spmv, wpack_spmv_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
     DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
@@ -1800,12 +1800,17 @@ def test_wcoo_bands_bf16_long_rows(cuda):
     assert_within_one_ulp(call(x), plain(x))
 
 
+# the kernel formats with no form at bf16, f64 or either: the three SpMV
+# formats have a bf16 form, and no kernel an f64 one
 F32_ONLY_FORMATS = ("wcoo_cuda", "wcoo_spmv_cuda", "wrow_spmv_cuda",
                     "bsrc_cuda", "dgell_cuda", "wpack_spmv_cuda")
+BF16_SPMV_FORMATS = ("wcoo_spmv_cuda", "wrow_spmv_cuda", "wpack_spmv_cuda")
 
 
-@pytest.mark.parametrize("fmt", F32_ONLY_FORMATS)
-@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+@pytest.mark.parametrize("fmt,dtype", [
+    (fmt, dtype) for fmt in F32_ONLY_FORMATS
+    for dtype in ("bfloat16", "float64")
+    if (fmt, dtype) not in {(f, "bfloat16") for f in BF16_SPMV_FORMATS}])
 def test_f32_only_formats_refuse_other_dtypes(cuda, fmt, dtype):
     from spgrid_torch.ops import dispatch
     csr = BF16_MATRICES["ragged"]().astype(dtype)
@@ -1840,3 +1845,188 @@ def test_f32_only_kernels_refuse_a_bf16_x(cuda):
         dgell_spmm(DeviceDGELL.from_csr(csr, device=cuda), x)
     with pytest.raises(TypeError):
         bsr_spmm_cstat(DeviceBSRCol.from_csr(csr, device=cuda), x)
+
+
+# --- the SpMV path at bf16: wrow_spmv_bf16 (v1), wrow_spmv_v2_bf16,
+# wcoo_spmv_bf16 and wpack_spmv_bf16 (wpack_spmv_bf16_prefix at wsel 1)
+# against their plain versions on the same bf16 inputs, each rounding where
+# the Pallas body rounds. v1 and wcoo_spmv's rows of at most a tile sum in
+# the plain version's order (a row's group partial in slot order, then the
+# groups in group order), so they give its bits. Elsewhere only the order
+# of f32 sums differs (v2's and WPACK's walks add each warp's rows and then
+# the warps in order, the wsel-1 form its warps' groups in warp order, a
+# long wcoo_spmv row its partials in a tree), so they agree within 1 bf16
+# ulp of the plain result.
+
+def spmv_bf16_csr(make):
+    return positive(make()).astype("bfloat16")
+
+
+def dense_pieces():
+    """384 x 1024 at 60 %: every (block, window) run ~9,800 nnz, so WPACK
+    packs it at wsel 1 in pieces of 128 live lanes."""
+    rng = np.random.default_rng(40)
+    d = np.where(rng.random((384, 1024)) < 0.6,
+                 rng.random((384, 1024)) + 0.5, 0.0)
+    return dense_to_csr(d.astype(np.float32), name="dense_pieces")
+
+
+SPMV_BF16_MATRICES = {"edge": hypersparse_edge, "long_row": long_row,
+                      "scattered": scattered_line, "straddle": straddle,
+                      "empty_blocks": empty_blocks,
+                      "dense_pieces": dense_pieces}
+SPMV_BF16_FORMS = {
+    "wrow_v1": (lambda c, d: DeviceWROW.from_csr(c, device=d), wrow_spmv,
+                wrow_spmv_plain, lambda a: "wrow_spmv_bf16"),
+    "wrow_v2": (lambda c, d: DeviceWROW.from_csr(c, device=d),
+                lambda a, x: wrow_spmv(a, x, variant="v2"),
+                lambda a, x: wrow_spmv_plain(a, x, variant="v2"),
+                lambda a: "wrow_spmv_v2_bf16"),
+    "wcoo_spmv": (lambda c, d: DeviceWCOOAligned.from_csr(c, device=d),
+                  wcoo_spmv, wcoo_spmv_plain, lambda a: "wcoo_spmv_bf16"),
+    "wpack": (lambda c, d: DeviceWPACK.from_csr(c, device=d), wpack_spmv,
+              wpack_spmv_plain,
+              lambda a: ("wpack_spmv_bf16_prefix" if a.wsel == 1
+                         else "wpack_spmv_bf16")),
+}
+
+
+def assert_as_plain(form, a, got, want):
+    """Within 1 ulp of the plain version, and its bits on the rows that
+    ``form`` sums in the plain version's order: every row of v1, every row
+    of wcoo_spmv but those longer than a tile."""
+    assert_within_one_ulp(got, want)
+    if form == "wrow_v1":
+        assert torch.equal(got, want)
+    elif form == "wcoo_spmv":
+        short = torch.diff(a.row_slot.long()) <= a.tile_slots
+        assert torch.equal(got[short], want[short])
+
+
+@pytest.mark.parametrize("form", sorted(SPMV_BF16_FORMS))
+@pytest.mark.parametrize("matrix", sorted(SPMV_BF16_MATRICES))
+def test_bf16_spmv_forms(cuda, form, matrix):
+    """As its plain version (``assert_as_plain``), one launch on the form's
+    own counter a call, the same bits twice and by graph replay."""
+    csr = spmv_bf16_csr(SPMV_BF16_MATRICES[matrix])
+    build, call, plain, counter = SPMV_BF16_FORMS[form]
+    a = build(csr, cuda)
+    x = bf16_operand((csr.k,), 43, cuda)
+    before = launch_counts()[counter(a)]
+    got = call(a, x)
+    assert launch_counts()[counter(a)] == before + 1
+    assert_as_plain(form, a, got, plain(a, x))
+    assert torch.equal(call(a, x), got)
+    graph, out = captured(call, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("wsel", [1, 2, 4])
+@pytest.mark.parametrize("matrix", ["edge", "dense_pieces", "straddle"])
+def test_wpack_bf16_at_every_wsel(cuda, matrix, wsel):
+    """The wsel-1 form (the TPU body's bf16 prefix) and the stream walk at
+    wsel 2 and 4, each within 1 ulp of its plain version; a piece of 128
+    live lanes on dense_pieces."""
+    csr = spmv_bf16_csr(SPMV_BF16_MATRICES[matrix])
+    a = DeviceWPACK.from_csr(csr, wsel, device=cuda)
+    if matrix == "dense_pieces":
+        assert int(a.piece_lanes.max()) == 128
+    x = bf16_operand((csr.k,), 44, cuda)
+    got = wpack_spmv(a, x)
+    assert_within_one_ulp(got, wpack_spmv_plain(a, x))
+    assert torch.equal(wpack_spmv(a, x), got)
+
+
+@pytest.mark.parametrize("warps", [4, 8, 16])
+def test_wpack_bf16_prefix_at_every_warp_form(cuda, warps):
+    """The wsel-1 form at each W: its warps' groups summed in warp order."""
+    csr = spmv_bf16_csr(dense_pieces)
+    a = DeviceWPACK.from_csr(csr, 1, device=cuda)
+    x = bf16_operand((csr.k,), 45, cuda)
+    y = torch.empty((csr.m,), dtype=torch.bfloat16, device=cuda)
+    launch_prefix_bf16(a, x, y, warps)
+    assert_within_one_ulp(y, wpack_spmv_plain(a, x))
+
+
+@pytest.mark.parametrize("slots_per_cta", [1, 7, 128, 2048])
+@pytest.mark.parametrize("form", ["wrow_v2", "wpack"])
+def test_bf16_stream_walk_at_every_range(cuda, form, slots_per_cta):
+    """The stream walk's bf16 form with blocks cut by many ranges (the
+    carry combine) and with one range a block: the same bits twice."""
+    csr = spmv_bf16_csr(straddle)
+    if form == "wpack":
+        a = DeviceWPACK.from_csr(csr, 2, device=cuda)
+        call = functools.partial(wpack_spmv, slots_per_cta=slots_per_cta)
+        plain = wpack_spmv_plain
+    else:
+        a = DeviceWROW.from_csr(csr, device=cuda)
+        call = functools.partial(wrow_spmv_v2, slots_per_cta=slots_per_cta)
+        plain = functools.partial(wrow_spmv_plain, variant="v2")
+    x = bf16_operand((csr.k,), 46, cuda)
+    got = call(a, x)
+    assert_within_one_ulp(got, plain(a, x))
+    assert torch.equal(call(a, x), got)
+
+
+@pytest.mark.parametrize("tile_slots", TILE_CHOICES)
+@pytest.mark.parametrize("matrix", ["long_row", "edge", "scattered"])
+def test_wcoo_spmv_bf16_at_every_tile_size(cuda, matrix, tile_slots):
+    """Tiles of rows, and a row longer than a tile (long_row's 3,000
+    slots), whose groups each thread that holds a group's first slot
+    sums."""
+    csr = spmv_bf16_csr(SPMV_BF16_MATRICES[matrix])
+    a = DeviceWCOOAligned.from_csr(csr, device=cuda).tiled(tile_slots)
+    x = bf16_operand((csr.k,), 47, cuda)
+    y = torch.empty((csr.m,), dtype=torch.bfloat16, device=cuda)
+    wcoo_spmv_module.launch(a, x, y)
+    assert_as_plain("wcoo_spmv", a, y, wcoo_spmv_plain(a, x))
+    y2 = torch.empty_like(y)
+    wcoo_spmv_module.launch(a, x, y2)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+
+
+def v1_v2_rows():
+    """2048 x 8192 at 0.4 % (~33 nnz a row over 64 windows, so most rows
+    hold several groups), values and x in [0.5, 1.5): every product of two
+    bf16 numbers has at most 16 significant bits and lies below 2.25, so
+    every row's f32 sum of products is exact in any order."""
+    rng = np.random.default_rng(41)
+    d = np.where(rng.random((2048, 8192)) < 0.004,
+                 rng.random((2048, 8192)) + 0.5, 0.0)
+    return dense_to_csr(d.astype(np.float32), name="v1_v2_rows")
+
+
+def test_wrow_bf16_v1_and_v2_differ_where_their_plain_versions_do(cuda):
+    """v1 rounds each group's sum for a row, v2 does not. Where f32 sums
+    are exact in any order, each kernel gives its plain version's bits, so
+    the two kernels differ on exactly the rows where the plain versions
+    do, and on some rows."""
+    csr = v1_v2_rows().astype("bfloat16")
+    a = DeviceWROW.from_csr(csr, device=cuda)
+    x = bf16_operand((csr.k,), 49, cuda)
+    v1, v2 = wrow_spmv(a, x), wrow_spmv(a, x, variant="v2")
+    p1 = wrow_spmv_plain(a, x)
+    p2 = wrow_spmv_plain(a, x, variant="v2")
+    torch.cuda.synchronize()
+    assert int((p1 != p2).sum()) >= 10
+    assert torch.equal(v1, p1)
+    assert torch.equal(v2, p2)
+    assert torch.equal(v1 != v2, p1 != p2)
+
+
+def test_wpack_bf16_wsel_1_takes_no_slots_per_cta(cuda):
+    csr = spmv_bf16_csr(dense_pieces)
+    a = DeviceWPACK.from_csr(csr, 1, device=cuda)
+    with pytest.raises(ValueError):
+        wpack_spmv(a, bf16_operand((csr.k,), 44, cuda), slots_per_cta=128)
+
+
+def test_bf16_spmv_forms_refuse_an_f32_x(cuda):
+    csr = spmv_bf16_csr(hypersparse_edge)
+    x = bf16_operand((csr.k,), 48, cuda).float()
+    for build, call, _, _ in SPMV_BF16_FORMS.values():
+        with pytest.raises(TypeError):
+            call(build(csr, cuda), x)

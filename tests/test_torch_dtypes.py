@@ -424,7 +424,7 @@ def test_ldu_at_bf16_and_f64():
 
 @pytest.mark.parametrize("fmt,dtype", [
     ("wcoo_cuda", "bfloat16"), ("dgell_cuda", "bfloat16"),
-    ("bsrc_cuda", "bfloat16"), ("wpack_spmv_cuda", "bfloat16"),
+    ("bsrc_cuda", "bfloat16"), ("wcoo_spmv_cuda", "float64"),
     ("bsr_cuda", "float64"), ("rbh", "float64"), ("gell", "float64"),
     ("cv_int8", "float64"), ("scoo", "float64")])
 def test_formats_without_a_form_at_the_dtype_raise(fmt, dtype):
