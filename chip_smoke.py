@@ -159,8 +159,10 @@ exits non-zero and never prints the final ``"ok": true`` line:
    for each point the nnz, the 128^2 occupancy, the plan's blocking, its
    predicted speedup over 128^2 beside the measured one, the device µs of
    bsr_sddmm at all five blockings (graph replay) beside ``_est_time``'s,
-   and whether the plan's was the fastest; its rows gated at 1e-4 and its
-   six pipeline rows (512^2 DLMC twins) at 1e-3; then the CLI's
+   and whether the plan's was the fastest; its rows, at matmul precisions
+   highest and high (the 3-pass bf16 form ``bsr_sddmm_bf16x3``, the JAX
+   study's second arm), gated at 1e-4 and its six pipeline rows (512^2
+   DLMC twins) at 1e-3; then the CLI's
    ``--sddmm 4096 --num-cols 512`` and ``--pipeline`` on three twins
    written as .smtx (sparsity 0.9), each with and without ``--xla-only``,
    one gated row each; then the phase's seconds.
@@ -184,11 +186,16 @@ exits non-zero and never prints the final ``"ok": true`` line:
    SpMV forms at n = 1: ``wrow_spmv_bf16`` and ``wcoo_spmv_bf16`` on
    MAIN_LINE, ``wrow_spmv_bf16``, ``wrow_spmv_v2_bf16`` and
    ``wpack_spmv_bf16`` on LINE_S, ``wpack_spmv_bf16_prefix`` at wsel 1 on
-   the twin, each with the bytes it reads of its layout) against their
-   plain versions on the same bf16 inputs, within 1 bf16 ulp
-   (``BF16_FLOOR`` absolutely below it), bit for bit where a form sums in
-   its plain version's order (``wrow_spmv_bf16``; ``wcoo_spmv_bf16`` on
-   every row of at most a tile), and the same bits on two calls,
+   the twin, each with the bytes it reads of its layout; the last forms:
+   ``bsr_spmm_cstat_bf16`` on LINE_B, ``wcoo_spmm_bf16`` on MAIN_LINE and
+   ``dgell_bf16`` on LINE_S at n = 512, and the 3-pass form
+   ``bsr_sddmm_bf16x3`` on f32 operands on a 4096^2 band_and_decay mask at
+   sparsity 0.95, d = 512) against their plain versions on the same
+   inputs, within 1 bf16 ulp (``BF16_FLOOR`` absolutely below it; the
+   3-pass form within ``HIGH_TOL`` of its f32 result), bit for bit where a
+   form sums in its plain version's order (``wrow_spmv_bf16``;
+   ``wcoo_spmv_bf16`` on every row of at most a tile; ``dgell_bf16``
+   against ``dgell_rows_plain``), and the same bits on two calls,
    each with its device ms by graph replay (eager in brackets), bound and
    library time; then, on its own path after phase 10: (b) the bf16 leg
    (``spgrid_torch.scripts.run_bf16_leg``, its jobs at full width, or
@@ -198,10 +205,14 @@ exits non-zero and never prints the final ``"ok": true`` line:
    on the twin; wrow_spmv_cuda, wcoo_spmv_cuda and auto on MAIN_LINE at
    n = 1, where auto must run wrow_spmv as the JAX package's
    ``select_format`` picks; wpack_spmv_cuda and wrow_spmv_cuda on LINE_S at
-   n = 1; wpack_spmv_cuda at wsel 1 on the twin at n = 1; the WROW v1/v2
-   A/B at bf16 on LINE_S; ``--sddmm 4096`` and
-   ``--pipeline``, each with and without ``--xla-only``) and ``--dtype
-   float64`` (csr_xla_coo, n = 1).
+   n = 1; wpack_spmv_cuda at wsel 1 on the twin at n = 1; bsrc_cuda on
+   LINE_B, wcoo_cuda on MAIN_LINE and dgell_cuda on LINE_S at n = 512; the
+   WROW v1/v2 A/B at bf16 on LINE_S; ``--sddmm 4096`` and
+   ``--pipeline``, each with and without ``--xla-only``), ``--dtype
+   float64`` (csr_xla_coo, n = 1), and at f32 under
+   ``SPGRID_MATMUL_PRECISION=high``: ``--sddmm 4096`` with and without
+   ``--xla-only``, gated at 1e-4, and one SpMM row, which must exit 2
+   naming ROADMAP.md.
 
 Each phase prints its seconds. ``SPGRID_ORACLE=host python3 chip_smoke.py``
 gates every row of phases 4, 5, 7 and 10 on the host (phase 10's pairs
@@ -212,9 +223,10 @@ flagship path), before phase 4 (the CLI path), before phase 5 (the
 scattered and block-grid path), before phase 6 (the probe path), before
 phase 7 (the dispatch path: ``bsr_spmm`` in rbh's block part and the
 bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), before phase 9
-(the SDDMM path: ``bsr_sddmm`` and ``bsr_spmm``), before phase 10 (the
-remaining formats: ``panel_spmm_bf16`` and ``bsr_spmm``) and before phase
-11's (b)-(d) (the dtype path: the eight bf16 forms), and read after each; a
+(the SDDMM path: ``bsr_sddmm``, ``bsr_spmm`` and ``bsr_sddmm_bf16x3``),
+before phase 10 (the remaining formats: ``panel_spmm_bf16`` and
+``bsr_spmm``) and before phase 11's (b)-(d) (the dtype path: the twelve
+bf16 forms and ``bsr_sddmm_bf16x3``), and read after each; a
 kernel of a path that was not launched there fails the run, and a
 kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
@@ -227,6 +239,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
@@ -457,8 +470,19 @@ def phase_kernels() -> dict:
         DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_plain)
     from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
     from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
-    from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        launch_grid as bsrc_grid)
+    from spgrid_torch.ops.kernels.dgell import (
+        DeviceDGELL, dgell_rows_plain, dgell_spmm)
+    from spgrid_torch.ops.kernels.dgell import launch as dgell_launch
+    from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
+    from spgrid_torch.ops.kernels.sddmm import (
+        bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain)
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
+    from spgrid_torch.ops.kernels.wcoo_spmm import (
+        DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
     from spgrid_torch.ops.kernels.wcoo_spmm import (
         DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
@@ -1697,18 +1721,20 @@ def gated(phase: str, rows, eps: float) -> None:
 
 
 def study_lines(tmp: str) -> None:
-    """Phase 9's study: ``sddmm_study.main`` at its full grid into ``tmp``;
-    for each point the nnz, the 128^2 occupancy, the plan, the predicted
-    speedup over 128^2 beside the measured one, and each blocking's device
-    µs (graph replay) beside ``_est_time``'s."""
+    """Phase 9's study: ``sddmm_study.main`` at its full grid into ``tmp``,
+    both precisions (the 'high' arm on the 3-pass bf16 form); for each
+    point the nnz, the 128^2 occupancy, the plan, the predicted speedup
+    over 128^2 beside the measured one at each precision, and each
+    blocking's device µs (graph replay, at highest) beside
+    ``_est_time``'s; every row gated at 1e-4."""
     from spgrid_torch.scripts import sddmm_study
     code = sddmm_study.main(["--out-dir", tmp, "--platform", DEVICE])
     if code != 0:
         raise RuntimeError(f"sddmm_study exited {code}")
     occ = read_csv(os.path.join(tmp, "sddmm_occupancy.csv"))
     sweep = read_csv(os.path.join(tmp, "sddmm_blockings.csv"))
-    ab = {(r["mask_type"], r["sparsity"]): r for r in read_csv(
-        os.path.join(tmp, "sddmm_planner_ab.csv"))}
+    ab = {(r["mask_type"], r["sparsity"], r["precision"]): r
+          for r in read_csv(os.path.join(tmp, "sddmm_planner_ab.csv"))}
     for o in occ:
         point = (o["mask_type"], o["sparsity"])
         times = [r for r in sweep if (r["mask_type"], r["sparsity"]) == point]
@@ -1719,12 +1745,14 @@ def study_lines(tmp: str) -> None:
         print(f"phase 9 study: {o['mask_type']} sp={o['sparsity']} "
               f"nnz={o['nnz']} occupancy_128={o['occupancy_128']} "
               f"plan={o['bm']}x{o['bk']} est_speedup_vs_128="
-              f"{o['est_speedup_vs_128']} measured_speedup="
-              f"{ab[point]['measured_speedup']} device_us(est_us) "
+              f"{o['est_speedup_vs_128']} measured_speedup (highest, high)="
+              f"{ab[point + ('highest',)]['measured_speedup']}, "
+              f"{ab[point + ('high',)]['measured_speedup']} device_us(est_us) "
               f"{blockings} plan_fastest={plan['fastest']} plan_vs_fastest="
               f"{float(plan['vs_fastest']):.4f}", flush=True)
     rows = read_csv(os.path.join(tmp, "sddmm_study.csv"))
-    want = len(occ) + sum(o["bm"] + "x" + o["bk"] != "128x128" for o in occ)
+    want = len(sddmm_study.PRECISIONS) * (
+        len(occ) + sum(o["bm"] + "x" + o["bk"] != "128x128" for o in occ))
     if len(occ) != 8 or len(rows) != want:
         raise RuntimeError(f"the study wrote {len(occ)} points and "
                            f"{len(rows)} rows, not 8 and {want}")
@@ -1853,18 +1881,24 @@ def both_gates(label, csr, kernel) -> None:
 
 
 @contextlib.contextmanager
-def rows_timed_for(seconds: str):
-    """The CLI's rows timed for at least ``seconds`` (``SPGRID_MIN_TIME_S``)
-    inside the block, the environment restored after it."""
-    before = os.environ.get("SPGRID_MIN_TIME_S")
-    os.environ["SPGRID_MIN_TIME_S"] = seconds
+def env_set(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside the block,
+    restored after it."""
+    before = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if before is None:
-            del os.environ["SPGRID_MIN_TIME_S"]
+            del os.environ[name]
         else:
-            os.environ["SPGRID_MIN_TIME_S"] = before
+            os.environ[name] = before
+
+
+def rows_timed_for(seconds: str):
+    """The CLI's rows timed for at least ``seconds`` (``SPGRID_MIN_TIME_S``)
+    inside the block."""
+    return env_set("SPGRID_MIN_TIME_S", seconds)
 
 
 def phase_formats() -> None:
@@ -1927,10 +1961,16 @@ def log10_line(csr) -> None:
 BF16_FLOOR = 1e-6
 HEADLINE_LINE = "512 512 256 32 normal random 1.0 0 0.05 0.05 14"
 DTYPE_SDDMM = (4096, 0.95, 512)   # mask side, sparsity, d of 11a's SDDMM
+# the 3-pass form against its plain version (each pass summed exactly in
+# f64): the tensor cores' truncating accumulate over a step of 64 bf16
+# products, relative to the largest |value|
+HIGH_TOL = 1e-6
 # the leg's jobs run here (a comma list of tags; None: all twelve): the
-# matrices that run each of the leg's kernels, the bf16 forms' included
-BF16_LEG_JOBS = ("dlmc_twin_512_0.5,mid_16k_d2pct,band_98k,scat_131k,"
-                 "wideband_196k,dense_2k_d20pct")
+# matrices that run each of the leg's kernels, the bf16 forms' included,
+# and band_98k (1b's slowest against its library call); mid_16k_d2pct and
+# dense_2k_d20pct, whose kernels the twin's rows repeat, are held by 11a
+# (LEG_SHAPES) and left out here for the run's time
+BF16_LEG_JOBS = "dlmc_twin_512_0.5,band_98k,scat_131k,wideband_196k"
 # the leg's matrices on which 11a holds the forms the leg runs there (the
 # twin is the headline case above)
 LEG_SHAPES = (("mid_16k_d2pct", ("bsr", "panel")), ("band_98k", ("bsr",)),
@@ -1967,20 +2007,22 @@ def library_on(fn, bf16_args, f32_args):
 
 
 def phase_dtype_kernels() -> dict:
-    """Phase 11a: the four bf16 forms against their plain versions on the
-    card, on the same bf16 inputs (``bsr_spmm_bf16`` and
+    """Phase 11a: the bf16 forms and the 3-pass SDDMM form against their
+    plain versions on the card, on the same inputs (``bsr_spmm_bf16`` and
     ``panel_spmm_bf16_xy`` on the headline twin and LINE_B at n = 512,
     ``bsr_sddmm_bf16`` on a 4096^2 band_and_random mask at sparsity 0.95,
-    d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE at n = 512; and each
-    form on the bf16 leg's matrices it runs on in 11b, ``LEG_SHAPES``; the
-    SpMV forms at n = 1 as the module says), each within 1 ulp (bit for bit
-    on the rows a form sums in its plain version's order) and the same bits
-    on two calls, with its device ms by
-    graph replay (eager in brackets), the plain version's ms, the library
-    call's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``; bf16 where
-    the card's torch takes it) and its bound: the nnz's bf16 values and
-    indices, the dense operands and the output in bf16, each once, or 2
-    flops a nnz a column at 989 TFLOP/s. Runs before the paths' counts are
+    d = 512, ``wcoo_spmm_aligned_bf16`` on MAIN_LINE at n = 512; the last
+    forms as the module says; and each form on the bf16 leg's matrices it
+    runs on in 11b, ``LEG_SHAPES``; the SpMV forms at n = 1 as the module
+    says), each within 1 ulp (the 3-pass form within ``HIGH_TOL``; bit for
+    bit on the rows a form sums in its plain version's order) and the same
+    bits on two calls, with its device ms by graph replay (eager in
+    brackets), the plain version's ms, the library call's
+    (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``; bf16 where the
+    card's torch takes it, f32 for dgell's f32 values and the 3-pass form)
+    and its bound: the nnz's values and indices, the dense operands and the
+    output, each once in its type, or 2 flops a nnz a column (three times
+    that for the 3-pass form) at 989 TFLOP/s. Runs before the paths' counts are
     reset: these launches are not the main path's. Returns, per form, the
     numbers of its main-path case (the twin for A and B, the leg's
     ``wideband_196k`` for D)."""
@@ -1992,8 +2034,19 @@ def phase_dtype_kernels() -> dict:
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
     from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
-    from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        launch_grid as bsrc_grid)
+    from spgrid_torch.ops.kernels.dgell import (
+        DeviceDGELL, dgell_rows_plain, dgell_spmm)
+    from spgrid_torch.ops.kernels.dgell import launch as dgell_launch
+    from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
+    from spgrid_torch.ops.kernels.sddmm import (
+        bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain)
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
+    from spgrid_torch.ops.kernels.wcoo_spmm import (
+        DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
@@ -2016,7 +2069,34 @@ def phase_dtype_kernels() -> dict:
 
     def spmm_case(kind, csr, n, seed):
         x = xb(csr.k, n, seed)
-        if kind == "bsr":
+        value = 2       # bytes a value: bf16, but dgell's f32 values
+        exact = None
+        lib_f32 = (csr_tensor(csr), x.float())
+        if kind == "bsrc":
+            a = DeviceBSRCol.from_csr(csr, device=DEVICE)
+            fn, plain = bsr_spmm_cstat, bsr_spmm_cstat_plain
+            note = (f"R={a.band_rows} bands={a.bands} max_nb={a.max_nb} "
+                    f"launch (CTAs, cols, rows)={bsrc_grid(a, n)}")
+            index = 4
+        elif kind == "wcoo":
+            a = DeviceWCOO.from_csr(csr, device=DEVICE)
+            fn, plain = wcoo_spmm, wcoo_spmm_plain
+            note = (f"live_slots={a.num_slots} "
+                    f"long_rows={len(a.long_rows)}")
+            index = 4
+        elif kind == "dgell":
+            a = DeviceDGELL.from_csr(csr, device=DEVICE)
+            # the plain version in the kernel's order: its FMA chain's bits
+            fn, plain = dgell_spmm, dgell_rows_plain
+            exact = torch.ones(csr.m, dtype=torch.bool, device=DEVICE)
+            y = torch.empty((csr.m, n), dtype=torch.bfloat16, device=DEVICE)
+            note = (f"slots={a.slots} tail={a.tail_rows.numel()} "
+                    f"{dgell_shape(csr.k, n, dtype=torch.bfloat16)} "
+                    f"device_ms_by_slab " + " ".join(
+                        f"{c}:{device_ms(dgell_launch, a, x, y, c):.6f}"
+                        for c in (16, 32, 64, 128, 256, 512)))
+            value, index = 4, 4
+        elif kind == "bsr":
             a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=DEVICE)
             fn, plain, note = bsr_spmm, bsr_spmm_plain, str(bsr_grid(a, n))
             index = 4
@@ -2032,12 +2112,15 @@ def phase_dtype_kernels() -> dict:
             note = (f"live_slots={a.num_slots} "
                     f"long_rows={len(a.long_rows)}")
             index = a.cols.element_size()
-        lib, which = library_on(
-            torch.sparse.mm, (csr_tensor(csr, torch.bfloat16), x),
-            (csr_tensor(csr), x.float()))
+        if kind == "dgell":   # the values are f32: the f32 product
+            lib, which = lib_f32, "f32 values, X widened"
+        else:
+            lib, which = library_on(
+                torch.sparse.mm, (csr_tensor(csr, torch.bfloat16), x),
+                lib_f32)
         return (fn, plain, (a, x), torch.sparse.mm, lib, which,
-                csr.nnz * (2 + index) + 2 * (csr.k + csr.m) * n,
-                2.0 * csr.nnz * n, note, None)
+                csr.nnz * (value + index) + 2 * (csr.k + csr.m) * n,
+                2.0 * csr.nnz * n, note, exact)
 
     def sddmm_case():
         length, sparsity, d = DTYPE_SDDMM
@@ -2056,6 +2139,26 @@ def phase_dtype_kernels() -> dict:
                 lib, which, mask.nnz * (2 + 4) + 2 * 2 * length * d,
                 2.0 * mask.nnz * d,
                 f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}", None)
+
+    def sddmm_high_case():
+        """The 3-pass form on f32 operands: a band_and_decay mask, as the
+        f32 form's phase-1 case, at DTYPE_SDDMM's shape. Bound: the f32
+        mask's values in and out and their indices, Q and K once, or three
+        bf16 passes at 989 TFLOP/s."""
+        length, sparsity, d = DTYPE_SDDMM
+        mask = create_mask("band_and_decay", length, sparsity, seed=14)
+        a = DeviceBSR.from_csr(mask, bm=128, bk=128, device=DEVICE)
+        q = x_tensor(make_x(length, d, "float32", 51), "float32", DEVICE)
+        k = x_tensor(make_x(length, d, "float32", 52), "float32", DEVICE)
+        library = (lambda s_, q_, kt: torch.sparse.sampled_addmm(
+            s_, q_, kt, beta=0.0))
+        return (functools.partial(bsr_sddmm, precision="high"),
+                bsr_sddmm_bf16x3_plain, (a, q, k), library,
+                (csr_tensor(mask), q, k.t().contiguous()), "f32",
+                mask.nnz * (4 + 4 + 4) + 2 * 4 * length * d,
+                3 * 2.0 * mask.nnz * d,
+                f"{sddmm_grid(a, 'high')} blocks={a.num_blocks} "
+                f"nnz={mask.nnz}", None)
 
     def spmv_case(kind, csr, seed):
         """A bf16 SpMV form's case: its layout, x (k,), what the form reads
@@ -2118,6 +2221,16 @@ def phase_dtype_kernels() -> dict:
             *DTYPE_SDDMM), True, sddmm_case),
         ("wcoo_spmm_aligned_bf16", "MAIN_LINE n=512", False,
          lambda: spmm_case("bands", hyper, 512, 45)),
+        # the last forms (11d's and phase 9's rows): the 3-pass SDDMM on
+        # f32 operands, and the bf16 forms of rows 4, 5 and 11
+        ("bsr_sddmm_bf16x3", "{}^2 band_and_decay s={} d={} f32".format(
+            *DTYPE_SDDMM), True, sddmm_high_case),
+        ("bsr_spmm_cstat_bf16", "LINE_B n=512", True,
+         lambda: spmm_case("bsrc", line_b, 512, 44)),
+        ("wcoo_spmm_bf16", "MAIN_LINE n=512", True,
+         lambda: spmm_case("wcoo", hyper, 512, 45)),
+        ("dgell_bf16", "LINE_S n=512", True,
+         lambda: spmm_case("dgell", scattered, 512, 48)),
         # the SpMV path at bf16 (11d's rows): MAIN_LINE and LINE_S, and the
         # twin, which WPACK packs at wsel 1
         ("wrow_spmv_bf16", "MAIN_LINE n=1", True,
@@ -2152,11 +2265,23 @@ def phase_dtype_kernels() -> dict:
         torch.cuda.synchronize()
         same = torch.equal(out, again)
         ref = plain(*args)
-        ulps, err, ok = bf16_compare(out, ref)
-        ok = ok and same and out.dtype == torch.bfloat16
+        if out.dtype == torch.float32:
+            # the 3-pass form: within HIGH_TOL of its plain version's f32
+            err = (out - ref).abs().max().item()
+            rel = err / max(ref.abs().max().item(), 1e-30)
+            ok = bool(torch.isfinite(out).all()) and rel <= HIGH_TOL
+            tol = f"max_rel={rel:.3e} (tol {HIGH_TOL:g} of max |plain|)"
+        else:
+            ulps, err, ok = bf16_compare(out, ref)
+            ok = ok and out.dtype == torch.bfloat16
+            tol = (f"max_ulps={ulps:.3f} (tol 1 ulp; {BF16_FLOOR:g} "
+                   f"absolute below it)")
+        ok = ok and same
         if exact is not None:
             # rows summed in the plain version's order: its bits
-            equal = int((out[exact] == ref[exact]).sum())
+            same_rows = (out[exact] == ref[exact]).reshape(
+                int(exact.sum()), -1).all(dim=1)
+            equal = int(same_rows.sum())
             note += f" bit_equal_rows={equal}/{int(exact.sum())}"
             ok = ok and equal == int(exact.sum())
         dev_ms, k_ms, p_ms = (device_ms(kernel, *args), ms(kernel, *args),
@@ -2164,8 +2289,7 @@ def phase_dtype_kernels() -> dict:
         lib_ms = ms(library, *lib_args)
         lib_dev = library_device_ms(library, *lib_args)
         b_ms, b_by = bound(bytes_moved, flops, BF16_FLOPS_PER_S)
-        print(f"phase 11 kernels: {name} [{label}] max_ulps={ulps:.3f} "
-              f"(tol 1 ulp; {BF16_FLOOR:g} absolute below it) "
+        print(f"phase 11 kernels: {name} [{label}] {tol} "
               f"max_abs={err:.3e} same_bits_twice={same} "
               f"device_ms={dev_ms:.6f} (eager {k_ms:.6f}) "
               f"plain_ms={p_ms:.6f} library_ms={lib_ms:.6f} "
@@ -2252,15 +2376,39 @@ def bf16_wrow_ab() -> None:
         raise RuntimeError(f"WROW bf16 A/B failed for {failed}")
 
 
+def high_spmm_refused() -> None:
+    """An SpMM row at matmul precision 'high' (the environment's): the CLI
+    exits 2 naming ROADMAP.md, before anything runs at another
+    precision."""
+    from spgrid_torch.bench.cli import main as cli_main
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            code = cli_main(["--generate", HEADLINE_LINE, "--kernels",
+                             "bsr_cuda", "--num-cols", "512", "--platform",
+                             DEVICE])
+        except SystemExit as e:
+            code = e.code
+    if code != 2 or "ROADMAP" not in err.getvalue():
+        raise RuntimeError(f"an SpMM row at matmul precision 'high' exited "
+                           f"{code}, not 2 naming ROADMAP.md: "
+                           f"{err.getvalue()[-300:]}")
+    print(f"phase 11 high: an SpMM row at 'high' exits {code}: "
+          f"{err.getvalue().strip().splitlines()[-1]}", flush=True)
+
+
 def phase_dtype_cli() -> None:
     """Phase 11d: the CLI at bf16 (dense, bsr_cuda and panel_cuda on the
     headline twin, n = 512; the SpMV path at n = 1: wrow_spmv_cuda,
     wcoo_spmv_cuda and auto on MAIN_LINE, where auto must run wrow_spmv,
     and wpack_spmv_cuda and wrow_spmv_cuda on LINE_S, wpack_spmv_cuda at
-    wsel 1 on the twin, then the WROW v1/v2 A/B; ``--sddmm 4096`` and ``--pipeline`` on three twins written as
-    .smtx, each with and without ``--xla-only``) and at f64 (csr_xla_coo on
-    the twin at n = 1), every row gated and timed for at least
-    ``FORMATS_TIME_S``."""
+    wsel 1 on the twin; bsrc_cuda on LINE_B, wcoo_cuda on MAIN_LINE and
+    dgell_cuda on LINE_S at n = 512; then the WROW v1/v2 A/B; ``--sddmm
+    4096`` and ``--pipeline`` on three twins written as .smtx, each with
+    and without ``--xla-only``), at f64 (csr_xla_coo on the twin at n = 1)
+    and at matmul precision 'high' (``--sddmm 4096`` with and without
+    ``--xla-only``, and an SpMM row that must exit 2), every row gated and
+    timed for at least ``FORMATS_TIME_S``."""
     from spgrid_torch.io import write_smtx
     from spgrid_torch.scripts.sddmm_study import (
         LENGTH, PIPELINE_LENGTH, weight)
@@ -2276,7 +2424,14 @@ def phase_dtype_cli() -> None:
              "wpack_spmv_cuda,wrow_spmv_cuda", "1"),
             # the twin, which WPACK packs at wsel 1
             (["--generate", HEADLINE_LINE, "--dtype", "bfloat16"],
-             "wpack_spmv_cuda", "1")))
+             "wpack_spmv_cuda", "1"),
+            # the last kernel forms at bf16, on the f32 forms' CLI matrices
+            (["--generate", LINE_B, "--dtype", "bfloat16"], "bsrc_cuda",
+             "512"),
+            (["--generate", MAIN_LINE, "--dtype", "bfloat16"], "wcoo_cuda",
+             "512"),
+            (["--generate", LINE_S, "--dtype", "bfloat16"], "dgell_cuda",
+             "512")))
         auto = [r["fmt"] for r in rows if r["kernel"] == "auto"]
         if auto != ["wrow_spmv"]:
             raise RuntimeError(f"auto at bf16 and n = 1 on MAIN_LINE ran "
@@ -2288,6 +2443,14 @@ def phase_dtype_cli() -> None:
                           {False: ("sddmm_cuda", "bsr_pallas_"),
                            True: ("sddmm_xla", "coo")}, 3e-2, "phase 11",
                           ["--dtype", "bfloat16"])
+            with env_set("SPGRID_MATMUL_PRECISION", "high"), \
+                    tempfile.TemporaryDirectory() as tmp_high:
+                # f32 at matmul precision 'high': the 3-pass SDDMM form
+                cli_mode_rows(tmp_high, ["--sddmm", str(LENGTH)],
+                              {False: ("sddmm_cuda", "bsr_pallas_"),
+                               True: ("sddmm_xla", "coo")}, 1e-4,
+                              "phase 11 high")
+                high_spmm_refused()
             paths = []
             for seed in (1, 2, 3):
                 paths.append(os.path.join(tmp, f"w{seed}.smtx"))
@@ -2355,6 +2518,15 @@ SOURCES = {
     # the same body at wsel 1, where it rounds its bf16 lane prefix
     "wpack_spmv_bf16_prefix": ("spgrid_torch/csrc/wpack_spmv.cu",
                                "spgrid/ops/pallas/wpack_spmv.py:238"),
+    # the SDDMM body's dot at matmul precision 'high' (3-pass bf16)
+    "bsr_sddmm_bf16x3": ("spgrid_torch/csrc/sddmm.cu",
+                         "spgrid/ops/pallas/sddmm.py:31"),
+    "bsr_spmm_cstat_bf16": ("spgrid_torch/csrc/bsr_spmm_cstat.cu",
+                            "spgrid/ops/pallas/bsr_spmm_cstat.py:127"),
+    "wcoo_spmm_bf16": ("spgrid_torch/csrc/wcoo_spmm.cu",
+                       "spgrid/ops/pallas/wcoo_spmm.py:39"),
+    "dgell_bf16": ("spgrid_torch/csrc/dgell.cu",
+                   "spgrid/ops/pallas/dgell.py:141"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -2368,12 +2540,15 @@ PATHS = (
      ("lanegather", "dma_gather", "shuffle_bench", "spmv_ablate",
       "wpack_ablate")),
     ("dispatch", (phase_dispatch,), ("bsr_spmm", "panel_spmm")),
-    ("SDDMM and the CLI's modes", (phase_sddmm,), ("bsr_sddmm", "bsr_spmm")),
+    ("SDDMM and the CLI's modes", (phase_sddmm,),
+     ("bsr_sddmm", "bsr_spmm", "bsr_sddmm_bf16x3")),
     ("remaining formats", (phase_formats,), ("panel_spmm_bf16", "bsr_spmm")),
     ("dtypes", (phase_dtype_legs, phase_dtype_cli),
      ("bsr_spmm_bf16", "panel_spmm_bf16_xy", "bsr_sddmm_bf16",
       "wcoo_spmm_aligned_bf16", "wrow_spmv_bf16", "wrow_spmv_v2_bf16",
-      "wcoo_spmv_bf16", "wpack_spmv_bf16", "wpack_spmv_bf16_prefix")),
+      "wcoo_spmv_bf16", "wpack_spmv_bf16", "wpack_spmv_bf16_prefix",
+      "bsr_spmm_cstat_bf16", "wcoo_spmm_bf16", "dgell_bf16",
+      "bsr_sddmm_bf16x3")),
 )
 
 

@@ -10,7 +10,13 @@ also exits non-zero when a row fails its accuracy gate or its run.
 bfloat16|float64`` runs A and X in that type (``BenchConfig.dtype``): a
 kernel with no form at the dtype (``ops.dispatch.DTYPE_FORMATS``; at f64 the
 hand-written kernels, so ``--sddmm`` and ``--pipeline`` only with
-``--xla-only``) exits non-zero naming ROADMAP.md before anything runs.
+``--xla-only``) exits non-zero naming ROADMAP.md before anything runs. The
+matmul precision comes from the environment (``SPGRID_MATMUL_PRECISION``,
+``BenchConfig.matmul_precision``), as the JAX CLI's does: 'high' at f32
+runs ``--sddmm`` on the 3-pass bf16 form of the SDDMM kernel; any other
+row at a precision other than its dtype's own exits non-zero naming
+ROADMAP.md (no SpMM has such a form), except ``--xla-only``'s SDDMM, whose
+COO baseline contracts through no dot.
 
 Examples:
   # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
@@ -29,8 +35,10 @@ cv_int8,cv_panel_cuda --reorder rcm --num-cols 512
       --kernels rbh,auto,autotune --num-cols 512
 
   # standalone SDDMM on a 4096^2 attention mask, at the planner's blocking;
-  # --xla-only runs the COO baseline (torch ops) instead of the kernel
+  # --xla-only runs the COO baseline (torch ops) instead of the kernel;
+  # at matmul precision 'high', the 3-pass bf16 form of the kernel
   python -m spgrid_torch.bench --sddmm 4096 --num-cols 512
+  SPGRID_MATMUL_PRECISION=high python -m spgrid_torch.bench --sddmm 4096
 
   # attention pipeline on DLMC-style weights (.smtx/.mtx), kernels or
   # --xla-only baselines
@@ -63,7 +71,7 @@ import sys
 
 from spgrid_torch.bench.schema import BenchRow, CSVWriter
 from spgrid_torch.bench.sweep import iter_matrices, run_sweep
-from spgrid_torch.core.config import BenchConfig
+from spgrid_torch.core.config import BenchConfig, own_precision
 from spgrid_torch.formats.reorder import (
     degree_sort_order, permute, rcm_order, shuffle_order,
 )
@@ -153,6 +161,12 @@ def main(argv=None) -> int:
         overrides["dtype"] = args.dtype
     config = BenchConfig.from_env(**overrides)
     dtype = config.dtype
+    if config.precision != own_precision(dtype) and not (
+            args.sddmm and (args.xla_only or (dtype == "float32"
+                                              and config.precision == "high"))):
+        ap.error(f"matmul precision {config.precision!r} at {dtype}: only "
+                 f"--sddmm has a form at it (at float32 'high'); the rest "
+                 f"{NO_FORM.format(dtype=config.precision)}")
     if modes:
         if dtype == "float64" and not args.xla_only:
             ap.error(f"--sddmm and --pipeline run the CUDA kernels, which "

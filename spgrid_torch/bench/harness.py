@@ -45,6 +45,7 @@ never fewer than 2. On the CPU calls are timed eagerly on the host clock.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -55,7 +56,7 @@ from spgrid_torch.formats.csr import (
     CSRMatrix, cast_values, itemsize, value_dtype,
 )
 from spgrid_torch.gen.masks import create_mask
-from spgrid_torch.core.config import BenchConfig
+from spgrid_torch.core.config import BenchConfig, own_precision
 from spgrid_torch.core.device_oracle import DeviceOracle
 from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
 from spgrid_torch.core.roofline import (
@@ -121,6 +122,18 @@ def gate_eps(config: BenchConfig, f32_eps: float = 1e-4) -> float:
     the config's ``epsilon`` at bf16 (3e-2) and f64 (1e-10), as the JAX
     harness gates them."""
     return f32_eps if config.dtype == "float32" else config.epsilon
+
+
+def check_spmm_precision(config: BenchConfig, what: str) -> None:
+    """Raise unless ``config`` runs at its dtype's own matmul precision: no
+    SpMM kernel, torch op or ``dense`` has a form at another (on the TPU
+    'high' makes every ambient-precision dot 3-pass bf16; only the SDDMM
+    kernel has that form in the port)."""
+    if config.precision != own_precision(config.dtype):
+        raise ValueError(
+            f"{what}: no form at matmul precision {config.precision!r} for "
+            f"{config.dtype} (the port runs it only for the SDDMM; "
+            f"ROADMAP.md lists the forms still to port)")
 
 
 def _device_fields(device: torch.device):
@@ -370,8 +383,10 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
     """Time Y = A @ X for one kernel (``KERNELS``) and gate it against the
     f64 gold of the gate class of the format that ran (eps 1e-4 at f32, as
     the JAX harness; ``gate``). A and X take ``config.dtype``; a format
-    with no form at that dtype raises (``dispatch.build``)."""
+    with no form at that dtype raises (``dispatch.build``), and so does a
+    matmul precision other than the dtype's own (``check_spmm_precision``)."""
     config = config or BenchConfig()
+    check_spmm_precision(config, f"run_spmm {kernel}")
     device = torch.device(device)
     n = config.num_cols
     csr = _as_dtype(csr, config.dtype)
@@ -427,8 +442,11 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     package's XLA baselines as torch ops in place of the kernels (kernel
     ``pipeline_xla``). At bf16 and f64 the weights, the mask and X take
     the dtype; the gold multiplies the weights and mask as given, as the
-    JAX harness's does."""
+    JAX harness's does. A matmul precision other than the dtype's own
+    raises (``check_spmm_precision``): three of its five stages are
+    SpMMs."""
     config = config or BenchConfig()
+    check_spmm_precision(config, "run_pipeline")
     device = torch.device(device)
     n = config.num_cols
     if mask is None:
@@ -551,9 +569,12 @@ def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
     ``mask``), dense X and Z filled with 0.1 as in the reference, values =
     mask ⊙ (X @ Zᵀ) timed, and the values gated at the mask's nnz against
     the f64 gold (eps 1e-4 at f32, as the JAX harness). The kernel runs at
-    the blocking ``choose_sddmm_blocks`` picks, or at ``blocks`` (bm, bk);
-    ``xla_only`` runs the COO baseline ``xla.sddmm_coo`` instead (kernel
-    ``sddmm_xla``, fmt ``coo``)."""
+    the blocking ``choose_sddmm_blocks`` picks, or at ``blocks`` (bm, bk),
+    at ``config.precision`` (at f32 'high' is the 3-pass bf16 form,
+    ``bsr_sddmm_bf16x3``; a precision without a form raises); ``xla_only``
+    runs the COO baseline ``xla.sddmm_coo`` instead (kernel ``sddmm_xla``,
+    fmt ``coo``), which sums elementwise products as JAX's does, through no
+    dot, so its row is the same at every precision."""
     config = config or BenchConfig()
     device = torch.device(device)
     n = config.num_cols
@@ -580,7 +601,9 @@ def run_sddmm(length: int, config: Optional[BenchConfig] = None, *, device,
             blocks = (plan.bm, plan.bk)
         bm, bk = blocks
         dev = DeviceBSR.from_csr(mask, bm=bm, bk=bk, device=device)
-        fn, kernel, fmt = bsr_sddmm, "sddmm_cuda", f"bsr_pallas_{bm}x{bk}"
+        fn = (bsr_sddmm if config.precision == own_precision(config.dtype)
+              else functools.partial(bsr_sddmm, precision=config.precision))
+        kernel, fmt = "sddmm_cuda", f"bsr_pallas_{bm}x{bk}"
         out_bytes = dev.blocks.numel() * vb
     timed = time_call(fn, dev, xd, zd, config=config, device=device,
                       out_bytes=out_bytes, flops=flops,

@@ -15,6 +15,10 @@ _ENV_ALIASES = {"NUM_COLS": "num_cols", "BAND_SIZE": "band_size",
 TIMING_PROTOCOLS = ("graph", "eager")
 DTYPES = ("float32", "bfloat16", "float64")
 ORACLES = ("auto", "host", "device")
+# the matmul precisions the port runs: 'auto' (the dtype's own), 'highest'
+# (f32 and f64), 'high' (3-pass bf16 on f32 operands: the SDDMM kernel's
+# form) and 'default' (bf16)
+MATMUL_PRECISIONS = ("auto", "highest", "high", "default")
 
 
 @dataclasses.dataclass
@@ -35,6 +39,15 @@ class BenchConfig:
       sparsity      — attention-mask density of kept entries
       band_size     — half-width of the mask's dense diagonal band
       sparse_attention_type — 'band_and_random' | 'band_and_decay'
+      matmul_precision — the JAX field: 'auto' is 'highest' at f32 and
+                      f64 and 'default' at bf16 (``precision``). At f32
+                      'highest' is what the kernels do (3xTF32 tiles, cuBLAS
+                      with TF32 off); 'high' is the TPU's 3-pass bf16 (a =
+                      a_hi + a_lo, each part bf16, a_hi b_hi + a_hi b_lo +
+                      a_lo b_hi summed in f32), which only the SDDMM has a
+                      form at (``bsr_sddmm_bf16x3``): ``run_spmm`` and
+                      ``run_pipeline`` refuse any precision but the dtype's
+                      own, naming ROADMAP.md.
       seed          — seed of the host dense operand (``make_x``)
       timing_protocol — how the harness times a call on the card:
                       'graph' (calls captured in a CUDA graph and replayed,
@@ -69,6 +82,8 @@ class BenchConfig:
     band_size: int = 64
     sparse_attention_type: str = "band_and_random"
 
+    matmul_precision: str = "auto"
+
     seed: int = 14
     oracle: str = "auto"
 
@@ -83,10 +98,22 @@ class BenchConfig:
         if self.oracle not in ORACLES:
             raise ValueError(f"oracle must be one of {ORACLES}, got "
                              f"{self.oracle!r}")
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision must be one of "
+                             f"{MATMUL_PRECISIONS}, got "
+                             f"{self.matmul_precision!r}")
 
     @property
     def epsilon(self) -> float:
         return {"float32": 1e-7, "float64": 1e-10, "bfloat16": 3e-2}[self.dtype]
+
+    @property
+    def precision(self) -> str:
+        """The matmul precision in effect: ``matmul_precision``, or for
+        'auto' the dtype's own ('default' at bf16, 'highest' otherwise)."""
+        if self.matmul_precision != "auto":
+            return self.matmul_precision
+        return own_precision(self.dtype)
 
     @classmethod
     def from_env(cls, **overrides) -> "BenchConfig":
@@ -104,6 +131,12 @@ class BenchConfig:
                 kwargs[field] = os.environ["SPGRID_" + field.upper()]
         kwargs = {f: _coerce(types[f], v) for f, v in kwargs.items()}
         return cls(**{**kwargs, **overrides})
+
+
+def own_precision(dtype: str) -> str:
+    """The precision a dtype's rows run at: 'default' at bf16, 'highest'
+    at f32 and f64."""
+    return "default" if dtype == "bfloat16" else "highest"
 
 
 def _coerce(annotation, value: str):

@@ -66,7 +66,25 @@
 //   or bk off the wgmma shape multiplies by zero. Row strides of TK + 4 and
 //   NT + 8 floats keep the fragment loads and the split's reads on distinct
 //   banks.
-#include "tf32x3.cuh"
+//
+// The bf16 form (the Pallas kernel at dtype bf16, bsr_spmm_cstat.py:127-139:
+// a bf16 block times the bf16 X tile, one dot into f32 a block, added to the
+// band's f32 slab in block order; Y rounded once, :190): the same CTAs and
+// slot walk at NT = 64 on the bf16 step of bf16_mma.cuh, as bsr_spmm.cu's
+// bf16 form runs it: a step is BF_TK = 64 columns of one block, the block's
+// slice staged swizzled (K-major, as it lies) and X's (64 x 64) slice
+// N-major through a cp.async ring of BF_STAGES, and the product runs
+// transposed (Y^T = X^T A^T: X^T from registers, the block from shared
+// memory), each warpgroup 64 rows of the block by the tile's 64 columns.
+// Each block's product goes to its own f32 sum (its steps from fresh
+// accumulators, added in f32), and that sum is added into the slice's f32
+// slab in shared memory at the block's window once the block ends: the
+// slab's every element gets its blocks' sums in the layout's order, as the
+// Pallas kernel's out_ref[win] += acc does. Each element of Y is rounded to
+// bf16 once, from the slab. Bound on the H100: the bytes of the bf16 blocks,
+// X and Y once, or the blocks' dense work at 989 TFLOP/s, whichever is
+// larger.
+#include "bf16_mma.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -74,7 +92,6 @@
 namespace {
 
 constexpr int BM_MAX = 128;    // rows of a block (and of a row slice)
-constexpr int A_FLOATS = BM_MAX * A_LD;
 
 // What depends on the column tile NT (64 or 128, see spgrid_bsr_spmm_cstat).
 template <int NT>
@@ -292,8 +309,135 @@ bsr_spmm_cstat_kernel(const int* __restrict__ counts,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// The bf16 form's slab: the slice's per * bm rows of NT (= 64) f32 sums, in
+// shared memory after the ring; a row stride of NT + 4 floats puts the
+// flushes of a warp's 32 lanes on 32 banks.
+constexpr int BF_S_LD = NT + 4;
+constexpr size_t BF_SMEM_BYTES = BF_STAGES * RowStage<true>::BYTES +
+                                 SWIZZLE_BYTES +
+                                 sizeof(float) * BM_MAX * BF_S_LD;
+
+// slab rows window * bm + r (r < bm) += the block sums v, laid out as the
+// transposed product's accumulators (4 j + 2 h + c: row 64 wg + 8 j + 2 q +
+// c of the block, column 16 w + 8 h + g of the tile); v restarts at zero.
+// Each element of a window belongs to one thread: no barrier, no atomics.
+__device__ __forceinline__ void add_block(float (&v)[NT / 2], float* slab,
+                                          int window, int bm, const Frag& f) {
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 64 * f.wg + 8 * j + 2 * f.q + c;
+        float& e = v[4 * j + 2 * h + c];
+        if (r < bm) {
+          slab[(window * bm + r) * BF_S_LD + 16 * f.w + 8 * h + f.g] += e;
+        }
+        e = 0.0f;
+      }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+bsr_spmm_cstat_bf16_kernel(const int* __restrict__ counts,
+                           const int* __restrict__ lrows,
+                           const int* __restrict__ cols,
+                           const unsigned short* __restrict__ blocks,
+                           const unsigned short* __restrict__ x,
+                           unsigned short* __restrict__ y, int max_nb,
+                           int band_rows, int bm, int bk, int m, int k, int n,
+                           int per, int slices, bool a16, bool x16, bool y8) {
+  using Stage = RowStage<true>;
+  unsigned char* ring = aligned_ring();
+  float* slab = reinterpret_cast<float*>(ring + BF_STAGES * Stage::BYTES);
+  __shared__ int meta[BF_STAGES];   // window of each step's block; -1: none
+  __shared__ int opens[BF_STAGES];  // 1 where the step is its block's first
+  const int band = blockIdx.x / slices;
+  const int r0 = (blockIdx.x % slices) * per;  // first block row of the slice
+  const int n0 = blockIdx.y * NT;
+  const int ncols = min(NT, n - n0);
+  const int t = threadIdx.x;
+  const Frag f = frag();
+  const int fill = bm > 64 ? ROWS : 64;          // block rows wgmma reads
+  const int nq = (bk + BF_TK - 1) / BF_TK;       // steps a block
+  const int end = band * max_nb + counts[band];
+  for (int e = t; e < per * bm * BF_S_LD; e += THREADS) slab[e] = 0.0f;
+
+  // The loads' cursor: slot ls, its step lq. Every thread keeps the same.
+  int ls = next_slot(lrows, band * max_nb, end, r0, per);
+  int lq = 0;
+  auto issue = [&](int stage) {
+    unsigned char* st = ring + stage * Stage::BYTES;
+    if (ls >= end) {
+      if (t == 0) meta[stage] = -1;
+      return;
+    }
+    const int k0 = lq * BF_TK;
+    const int depth = min(BF_TK, bk - k0);
+    const long long xr0 = static_cast<long long>(cols[ls]) * bk + k0;
+    const long long x_left = static_cast<long long>(k) - xr0;
+    const int x_depth = x_left < depth ? static_cast<int>(max(x_left, 0LL))
+                                       : depth;
+    stage_panel(st, blocks + static_cast<size_t>(ls) * bm * bk + k0, bk, bm,
+                depth, fill, a16);
+    stage_nmajor_bf16(reinterpret_cast<unsigned short*>(st + PANEL_BYTES),
+                      x + static_cast<size_t>(xr0) * n + n0, n, x_depth,
+                      ncols, x16);
+    if (t == 0) {
+      meta[stage] = lrows[ls] - r0;
+      opens[stage] = lq == 0;
+    }
+    if (++lq == nq) {
+      lq = 0;
+      ls = next_slot(lrows, ls + 1, end, r0, per);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < BF_STAGES - 1; ++s) {
+    issue(s);
+    cp_async_commit();
+  }
+  float blk[NT / 2] = {};  // the current block's sums
+  int window = -1;         // the block row they belong to
+  for (int it = 0;; ++it) {
+    cp_async_wait<BF_STAGES - 2>();
+    fence_proxy_async();  // the copies land before the tensor cores read
+    __syncthreads();      // step it has landed; step it - 1 is consumed
+    const int stage = it % BF_STAGES;
+    const int w = meta[stage];
+    if (w < 0) break;  // the same for every thread of the CTA
+    const bool first = opens[stage] != 0;
+    issue((it + BF_STAGES - 1) % BF_STAGES);
+    cp_async_commit();
+    if (first && window >= 0) add_block(blk, slab, window, bm, f);
+    window = w;
+    if (64 * f.wg < bm) {
+      const unsigned char* st = ring + stage * Stage::BYTES;
+      StepFrags a;
+      xt_frags(a, reinterpret_cast<const unsigned short*>(st + PANEL_BYTES),
+               f);
+      mma_step(blk, a, descriptor_sw128(st + f.wg * 64 * 128));
+    }
+  }
+  cp_async_wait<0>();
+  if (window >= 0) add_block(blk, slab, window, bm, f);
+  __syncthreads();  // every block's sums are in the slab
+
+  const long long row0 = static_cast<long long>(band) * band_rows +
+                         static_cast<long long>(r0) * bm;
+  const long long left = static_cast<long long>(m) - row0;
+  const int slice_rows = min(per, band_rows / bm - r0) * bm;
+  const int rows = left < slice_rows ? static_cast<int>(left) : slice_rows;
+  for (int e = t; e < rows * (NT / 4); e += THREADS) {
+    const int i = e / (NT / 4);
+    const int j = e % (NT / 4) * 4;
+    if (j < ncols) {
+      store_bf16x4(y + static_cast<size_t>(row0 + i) * n + n0 + j,
+                   *reinterpret_cast<const float4*>(slab + i * BF_S_LD + j),
+                   ncols - j, y8);
+    }
+  }
 }
 
 // The launch's shape: {CTAs, NT, rows of a slice}. NT = 128 where its grid
@@ -342,7 +486,64 @@ int launch(const void* counts, const void* lrows, const void* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_bf16(const void* counts, const void* lrows, const void* cols,
+                const void* blocks, const void* x, void* y, int bands,
+                int max_nb, int band_rows, int bm, int bk, int m, int k,
+                int n, void* stream) {
+  const int per = BM_MAX / bm;
+  const int slices = (band_rows / bm + per - 1) / per;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      bsr_spmm_cstat_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(BF_SMEM_BYTES));
+  if (attr != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch's check is clean
+    return static_cast<int>(attr);
+  }
+  const dim3 grid(bands * slices, (n + NT - 1) / NT);
+  bsr_spmm_cstat_bf16_kernel<<<grid, THREADS, BF_SMEM_BYTES,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), static_cast<const int*>(lrows),
+      static_cast<const int*>(cols),
+      static_cast<const unsigned short*>(blocks),
+      static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y),
+      max_nb, band_rows, bm, bk, m, k, n, per, slices,
+      bk % 8 == 0 && aligned16(blocks), n % 8 == 0 && aligned16(x),
+      n % 4 == 0 && aligned8(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// out (int[3]) = {CTAs, output columns a CTA, rows a CTA's slice} of the
+// launch spgrid_bsr_spmm_cstat_bf16 makes for these sizes: NT = 64.
+extern "C" int spgrid_bsr_spmm_cstat_bf16_shape(int bands, int band_rows,
+                                                int bm, int n, void* out) {
+  if (bm > BM_MAX || bm <= 0 || band_rows % bm != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per = BM_MAX / bm;
+  int* shape = static_cast<int*>(out);
+  shape[0] = bands * ((band_rows / bm + per - 1) / per) * ((n + NT - 1) / NT);
+  shape[1] = NT;
+  shape[2] = per * bm;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: blocks, x and y as bf16 bit patterns; the same arguments.
+extern "C" int spgrid_bsr_spmm_cstat_bf16(const void* counts,
+                                          const void* lrows, const void* cols,
+                                          const void* blocks, const void* x,
+                                          void* y, int bands, int max_nb,
+                                          int band_rows, int bm, int bk,
+                                          int m, int k, int n,
+                                          void* stream) {
+  if (bm > BM_MAX || bm <= 0 || bk <= 0 || band_rows % bm != 0 ||
+      (n + NT - 1) / NT > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_bf16(counts, lrows, cols, blocks, x, y, bands, max_nb,
+                     band_rows, bm, bk, m, k, n, stream);
+}
 
 // out (int[3]) = {CTAs, output columns a CTA, rows a CTA's slice} of the
 // launch spgrid_bsr_spmm_cstat makes for these sizes.

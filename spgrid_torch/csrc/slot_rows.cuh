@@ -1,5 +1,5 @@
 // The row-ordered live-slot walk that the two slot SpMM kernels share
-// (wcoo_spmm.cu, wcoo_bands.cu).
+// (wcoo_spmm.cu, wcoo_bands.cu), each in f32 and bf16.
 //
 // The stream (ops/kernels/slot_rows.py, built on the host with the layout):
 // the live slots of the layout's padded chunks or groups (value not 0, X row
@@ -32,10 +32,10 @@
 // is written as zeros. The walk uses no shared memory, no barrier and no
 // atomics: its occupancy is set by registers alone.
 //
-// The bf16 form (BF; wcoo_bands at dtype bf16, as the Pallas kernel
-// multiplies there): bf16 values and X, each product rounded to bf16 (to
-// nearest, ties to even) before it is added into the f32 sum, and each
-// element of Y rounded once to bf16. Lane l's part of an X row is the same
+// The bf16 form (BF; wcoo_bands and wcoo_pallas at dtype bf16, as the
+// Pallas kernels multiply there): bf16 values and X, each product rounded
+// to bf16 (to nearest, ties to even) before it is added into the f32 sum,
+// and each element of Y rounded once to bf16. Lane l's part of an X row is the same
 // columns, 8 bytes a float4's place (n % 4 == 0, X and Y on 8 B), else
 // 2-byte loads; the stream's values are bf16 too (6 bytes a live slot).
 //

@@ -21,6 +21,13 @@
 // float4 X-row gathers, every element of Y written once, zeros included.
 // Pad slots (value 0) and slots whose X row lies at or past k were dropped
 // when the stream was built: X is not padded to the window.
+//
+// The bf16 form (wcoo_pallas at dtype bf16): the same walk on bf16 values,
+// X and Y, each product rounded to bf16 before it is added into the f32
+// sum (XLA rounds the Pallas body's bf16 product g * vals, wcoo_spmm.py:62,
+// before the one-hot dot sums it in f32 at HIGHEST: found by trying both
+// against the interpret output, which matches this rounding bit for bit),
+// and Y rounded once.
 #include "slot_rows.cuh"
 
 // row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
@@ -30,4 +37,14 @@ extern "C" int spgrid_wcoo_spmm(const void* row_slot, const void* vals,
                                 int long_row, int num_long, void* stream) {
   return spgrid::slot_rows::launch(row_slot, vals, xrows, long_rows, x, y, m,
                                    n, long_row, num_long, stream);
+}
+
+// The bf16 form: vals, x and y as bf16 bit patterns; the same arguments.
+extern "C" int spgrid_wcoo_spmm_bf16(const void* row_slot, const void* vals,
+                                     const void* xrows, const void* long_rows,
+                                     const void* x, void* y, int m, int n,
+                                     int long_row, int num_long,
+                                     void* stream) {
+  return spgrid::slot_rows::launch<true>(row_slot, vals, xrows, long_rows, x,
+                                         y, m, n, long_row, num_long, stream);
 }

@@ -91,9 +91,11 @@ def wcoo_from_jax(cols, rows, values, chunk_window, chunk_rowblock,
     chunks of each 128-row tile indexed (``from_arrays`` refuses W other
     than 128). ``chunk_first``, the TPU tile's zeroing flag, is dropped: a
     CTA writes its whole tile."""
+    values, dtype = host_values(values)
     return DeviceWCOO.from_arrays(cols, rows, values, chunk_window,
                                   chunk_rowblock, chunk_sub, shape, nnz, R,
-                                  utilization, name, device=device)
+                                  utilization, name, device=device,
+                                  dtype=torch_dtype(dtype))
 
 
 def bands_from_jax(cols, values, g_sw, g_lb, shape, nnz: int,
@@ -137,9 +139,10 @@ def bsrc_from_jax(local_rows, block_cols, blocks, shape, nnz: int,
                   device) -> DeviceBSRCol:
     """``spgrid.ops.pallas.bsr_spmm_cstat.DeviceBSRCol`` → DeviceBSRCol,
     with each band's real-slot count recovered from the slots."""
+    blocks, dtype = host_values(blocks)
     return DeviceBSRCol.from_arrays(local_rows, block_cols, blocks, shape,
                                     nnz, num_blocks, band_rows, bands, max_nb,
-                                    device=device)
+                                    device=device, dtype=torch_dtype(dtype))
 
 
 def dgell_from_jax(cols, values, tail_rows, tail_cols, tail_vals, shape,
@@ -147,7 +150,8 @@ def dgell_from_jax(cols, values, tail_rows, tail_cols, tail_vals, shape,
                    device) -> DeviceDGELL:
     """``spgrid.ops.pallas.dgell.DeviceDGELL`` → DeviceDGELL: the columns'
     slot-major steps of ``rb`` rows undone, the 128-lane value padding and
-    the pad rows dropped."""
+    the pad rows dropped. The JAX layout holds its values in f32 at every
+    dtype, as the port's does."""
     m = shape[0]
     steps = -(-max(m, 1) // rb)
     cols = (np.asarray(cols)[:steps].reshape(steps, slots, rb)

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+from spgrid_torch.core.config import own_precision
+
+
 def _wrappers() -> dict:
     """Each kernel's wrapper, which carries its launch count, by name."""
     from spgrid_torch.ops.kernels import (
@@ -26,7 +29,9 @@ def _wrappers() -> dict:
             "panel_spmm_bf16_xy": panel_spmm.panel_spmm_bf16_xy,
             "bsr_sddmm": sddmm.bsr_sddmm,
             "bsr_sddmm_bf16": sddmm.bsr_sddmm_bf16,
+            "bsr_sddmm_bf16x3": sddmm.bsr_sddmm_bf16x3,
             "wcoo_spmm": wcoo_spmm.wcoo_spmm,
+            "wcoo_spmm_bf16": wcoo_spmm.wcoo_spmm_bf16,
             "wcoo_spmm_aligned": wcoo_spmm_aligned.wcoo_spmm_aligned,
             "wcoo_spmm_aligned_bf16":
                 wcoo_spmm_aligned.wcoo_spmm_aligned_bf16,
@@ -35,7 +40,9 @@ def _wrappers() -> dict:
             "wrow_spmv": wrow_spmv.wrow_spmv,
             "wrow_spmv_bf16": wrow_spmv.wrow_spmv_bf16,
             "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
+            "bsr_spmm_cstat_bf16": bsr_spmm_cstat.bsr_spmm_cstat_bf16,
             "dgell": dgell.dgell_spmm,
+            "dgell_bf16": dgell.dgell_spmm_bf16,
             "wpack_spmv": wpack_spmv.wpack_spmv,
             "wpack_spmv_bf16": wpack_spmv.wpack_spmv_bf16,
             "wpack_spmv_bf16_prefix": wpack_spmv.wpack_spmv_bf16_prefix,
@@ -62,15 +69,24 @@ def reset_launch_counts() -> None:
 FORMS = (torch.float32, torch.bfloat16)
 
 
-def check_form(kernel: str, dtype: torch.dtype, forms=FORMS) -> None:
+def check_form(kernel: str, dtype: torch.dtype, forms=FORMS,
+               precision=None, other_precisions=()) -> None:
     """Raise unless the kernel has a form for operands of ``dtype`` (one of
-    ``forms``): no kernel computes in another type and calls the result
-    ``dtype``."""
+    ``forms``) at matmul ``precision`` (None: the type's own; the kernel's
+    forms at other precisions are ``other_precisions``, (type, precision)
+    pairs): no kernel computes in another type or at another precision and
+    calls the result that. A form computes at its type's own precision
+    (``core.config.own_precision``)."""
+    name = str(dtype).replace("torch.", "")
     if dtype not in forms:
         names = ", ".join(str(f).replace("torch.", "") for f in forms)
-        raise TypeError(f"{kernel}: no {str(dtype).replace('torch.', '')} "
-                        f"form (it has {names}; ROADMAP.md lists the forms "
-                        f"still to port)")
+        raise TypeError(f"{kernel}: no {name} form (it has {names}; "
+                        f"ROADMAP.md lists the forms still to port)")
+    if (precision is not None and precision != own_precision(name)
+            and (dtype, precision) not in other_precisions):
+        raise ValueError(f"{kernel}: no form at matmul precision "
+                         f"{precision!r} for {name} operands (ROADMAP.md "
+                         f"lists the forms still to port)")
 
 
 def runs_plain(kernel: str, device: torch.device) -> bool:

@@ -53,6 +53,8 @@ SIGNATURES = {
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # the same, mask, q, k and out in bf16
     "spgrid_bsr_sddmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # the same in f32, three bf16 passes (matmul precision 'high')
+    "spgrid_bsr_sddmm_bf16x3": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk
     # (SDDMM), out (int[6]: tiles, cluster, tile rows, tile columns, step,
     # ring stages)
@@ -62,8 +64,10 @@ SIGNATURES = {
     "spgrid_panel_spmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_bf16_shape": [_INT] * 3 + [_PTR],
+    "spgrid_bsr_sddmm_bf16x3_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "spgrid_wcoo_spmm_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # row_slot, vals, cols, x, y, blocks, m, stream
@@ -77,13 +81,19 @@ SIGNATURES = {
     # counts, lrows, cols, blocks, x, y, bands, max_nb, band_rows, bm, bk,
     # m, k, n, stream
     "spgrid_bsr_spmm_cstat": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # the same, blocks, x and y in bf16
+    "spgrid_bsr_spmm_cstat_bf16": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     # bands, band_rows, bm, n, out (int[3]: CTAs, column tile, slice rows)
     "spgrid_bsr_spmm_cstat_shape": [_INT] * 4 + [_PTR],
+    "spgrid_bsr_spmm_cstat_bf16_shape": [_INT] * 4 + [_PTR],
     # cols, vals, tail_ptr, tail_cols, tail_vals, x, y, m, k, slots, n,
     # slab (0: the slab rule), stream
     "spgrid_dgell": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # the same, x and y in bf16
+    "spgrid_dgell_bf16": [_PTR] * 7 + [_INT] * 5 + [_PTR],
     # k, n, slab, vec, out (int[4]: slab, slabs, rows a CTA, lanes a row)
     "spgrid_dgell_shape": [_INT] * 4 + [_PTR],
+    "spgrid_dgell_bf16_shape": [_INT] * 4 + [_PTR],
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],

@@ -10,7 +10,10 @@ Rows are split into bands of R rows; a band's (bm, bk) blocks are sorted by
 each block adds into a window of the band's output slab. The kernel splits
 each band's slab across CTAs: one CTA a (band, row slice of 128 // bm block
 rows, 64 or 128 output columns), multiplying on the tensor cores in 3xTF32
-(``launch_grid`` gives its grid).
+(``launch_grid`` gives its grid). Its bf16 form (``bsr_spmm_cstat_bf16``:
+bf16 blocks and X, each block's product summed in f32 and added into the
+f32 slab in block order, Y rounded once, as the Pallas kernel runs at dtype
+bf16) multiplies in bf16 on the tensor cores, 64 output columns a CTA.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.bsr import csr_to_bsr
-from spgrid_torch.ops.kernels import _build, check_operands
-from spgrid_torch.ops.layouts import round_up, to_device
+from spgrid_torch.formats.csr import value_dtype
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.layouts import round_up, to_device, torch_dtype
+from spgrid_torch.ops.xla import acc_dtype
 
 BM_MAX = 128  # rows of a block and of a row slice (csrc/bsr_spmm_cstat.cu)
 
@@ -76,7 +82,7 @@ class DeviceBSRCol:
 
     local_rows: torch.Tensor   # (bands*max_nb,) int32, block row in the band
     block_cols: torch.Tensor   # (bands*max_nb,) int32
-    blocks: torch.Tensor       # (bands*max_nb, bm, bk)
+    blocks: torch.Tensor       # (bands*max_nb, bm, bk) f32 or bf16
     counts: torch.Tensor       # (bands,) int32
     shape: Tuple[int, int]
     nnz: int
@@ -101,15 +107,17 @@ class DeviceBSRCol:
     @classmethod
     def from_arrays(cls, local_rows, block_cols, blocks, shape, nnz: int,
                     num_blocks: int, band_rows: int, bands: int, max_nb: int,
-                    *, device) -> "DeviceBSRCol":
-        """Host arrays → device layout; ``counts`` is recovered from the
-        slots (pad slots sit at local block row R/bm)."""
+                    *, device,
+                    dtype: torch.dtype = torch.float32) -> "DeviceBSRCol":
+        """Host arrays → device layout, the blocks in ``dtype`` (f32, or
+        bf16 for a matrix whose values are bf16); ``counts`` is recovered
+        from the slots (pad slots sit at local block row R/bm)."""
         lrows = np.asarray(local_rows, np.int32)
         rows_per_band = int(band_rows) // np.asarray(blocks).shape[1]
         counts = (lrows.reshape(bands, max_nb) < rows_per_band).sum(axis=1)
         return cls(local_rows=to_device(lrows, device),
                    block_cols=to_device(block_cols, device, np.int32),
-                   blocks=to_device(blocks, device),
+                   blocks=to_device(blocks, device).to(dtype),
                    counts=to_device(counts, device, np.int32),
                    shape=tuple(shape), nnz=int(nnz),
                    num_blocks=int(num_blocks), band_rows=int(band_rows),
@@ -121,79 +129,103 @@ class DeviceBSRCol:
         lrows, cols, blocks, nb, R, bands, max_nb = bsrc_arrays(
             csr, bm, bk, band_rows)
         return cls.from_arrays(lrows, cols, blocks, csr.shape, csr.nnz, nb, R,
-                               bands, max_nb, device=device)
+                               bands, max_nb, device=device,
+                               dtype=torch_dtype(value_dtype(csr)))
 
 
-def _check(a: DeviceBSRCol, x: torch.Tensor) -> None:
+def _check(kernel: str, a: DeviceBSRCol, x: torch.Tensor,
+           dtype: torch.dtype) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    check_operands("bsr_spmm_cstat", x.device, x=(x, torch.float32),
-                   blocks=(a.blocks, torch.float32),
+    check_operands(kernel, x.device, x=(x, dtype), blocks=(a.blocks, dtype),
                    block_cols=(a.block_cols, torch.int32),
                    local_rows=(a.local_rows, torch.int32),
                    counts=(a.counts, torch.int32))
 
 
 def launch_grid(a: DeviceBSRCol, n: int) -> Tuple[int, int, int]:
-    """(CTAs, output columns a CTA, rows a CTA's slice) of the kernel's
-    launch for ``a`` at n columns on the current card, as
-    ``spgrid_bsr_spmm_cstat`` sets it (the column tile depends on the card's
-    SM count)."""
+    """(CTAs, output columns a CTA, rows a CTA's slice) of the launch of
+    the form ``a``'s blocks take at n columns on the current card, as
+    ``spgrid_bsr_spmm_cstat`` (the column tile depends on the card's SM
+    count) or ``spgrid_bsr_spmm_cstat_bf16`` (64 columns) sets it."""
     shape = (ctypes.c_int * 3)()
-    _build.check(_build.library().spgrid_bsr_spmm_cstat_shape(
+    entry = ("spgrid_bsr_spmm_cstat_bf16_shape"
+             if a.blocks.dtype == torch.bfloat16
+             else "spgrid_bsr_spmm_cstat_shape")
+    _build.check(getattr(_build.library(), entry)(
         a.bands, a.band_rows, a.bm, n, ctypes.addressof(shape)),
         "bsr_spmm_cstat")
     return tuple(shape)
 
 
-def bsr_spmm_cstat(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) f32 = A @ X for f32 X (k, n)."""
-    _check(a, x)
-    if x.device.type == "cpu":
+def _run(wrapper, a: DeviceBSRCol, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    kernel = wrapper.__name__
+    _check(kernel, a, x, dtype)
+    if runs_plain(kernel, x.device):
         return bsr_spmm_cstat_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"bsr_spmm_cstat: no kernel for device {x.device}")
     if a.bm > BM_MAX:
-        raise ValueError(f"bsr_spmm_cstat: the kernel takes bm <= {BM_MAX}, "
-                         f"got {a.bm}")
+        raise ValueError(f"{kernel}: the kernel takes bm <= {BM_MAX}, got "
+                         f"{a.bm}")
     m, k = a.shape
     n = x.shape[1]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spgrid_bsr_spmm_cstat(
+        code = getattr(lib, "spgrid_" + kernel)(
             a.counts.data_ptr(), a.local_rows.data_ptr(),
             a.block_cols.data_ptr(), a.blocks.data_ptr(), x.data_ptr(),
             y.data_ptr(), a.bands, a.max_nb, a.band_rows, a.bm, a.bk, m, k,
             n, stream)
-    _build.check(code, "bsr_spmm_cstat")
-    bsr_spmm_cstat.launches += 1
+    _build.check(code, kernel)
+    wrapper.launches += 1
     return y
+
+
+def bsr_spmm_cstat(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype: f32 X (k, n), or bf16 X for bf16
+    blocks (``bsr_spmm_cstat_bf16``)."""
+    check_form("bsr_spmm_cstat", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return bsr_spmm_cstat_bf16(a, x)
+    return _run(bsr_spmm_cstat, a, x, torch.float32)
 
 
 bsr_spmm_cstat.launches = 0
 
 
+def bsr_spmm_cstat_bf16(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) bf16 = A @ X for bf16 blocks and bf16 X (k, n): each block's
+    product summed in f32 and added into the f32 slab in block order, each
+    element of Y rounded once."""
+    return _run(bsr_spmm_cstat_bf16, a, x, torch.bfloat16)
+
+
+bsr_spmm_cstat_bf16.launches = 0
+
+
 def bsr_spmm_cstat_plain(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype: gather the X tile of
     every slot, one batched matmul over the slots, ``index_add_`` into the
-    bands' slabs (pad slots land in the window past the band's rows, which
-    is dropped)."""
+    bands' slabs in slot order (pad slots land in the window past the
+    band's rows, which is dropped). bf16: the products and the slabs in
+    f32, Y rounded once."""
     m, k = a.shape
     n = x.shape[1]
     bm, bk, R = a.bm, a.bk, a.band_rows
+    acc = acc_dtype(x)
     kb = -(-k // bk)
-    xp = torch.zeros((kb * bk, n), dtype=x.dtype, device=x.device)
+    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
     xp[:k] = x
     xt = xp.view(kb, bk, n)[a.block_cols.long()]              # (S, bk, n)
-    prod = torch.bmm(a.blocks.to(x.dtype), xt)                # (S, bm, n)
+    prod = torch.bmm(a.blocks.to(acc), xt)                    # (S, bm, n)
     windows = R // bm + 1
     band = torch.arange(a.bands, device=x.device).repeat_interleave(a.max_nb)
-    out = torch.zeros((a.bands * windows, bm, n), dtype=x.dtype,
+    out = torch.zeros((a.bands * windows, bm, n), dtype=acc,
                       device=x.device)
     out.index_add_(0, band * windows + a.local_rows.long(), prod)
     out = out.view(a.bands, windows * bm, n)[:, :R]
-    return out.reshape(a.bands * R, n)[:m]
+    return out.reshape(a.bands * R, n)[:m].to(x.dtype)

@@ -11,7 +11,11 @@ pointing at each row's. The kernel sums a row's slots and then its tail nnz
 in one pass and writes each element of Y once (the JAX package adds the
 tail in XLA outside its Pallas kernel). It walks X in column slabs that
 stay in L2, the slab width C chosen on the card from k, n and its L2 size
-(``launch_shape`` reports it).
+(``launch_shape`` reports it). Its bf16 form (``dgell_spmm_bf16``, the
+Pallas kernel at dtype bf16) reads bf16 X, widening it on load, keeps the
+values f32 (the JAX layout holds them in f32 at every dtype, as
+``DeviceDGELL`` does), sums the slots and the tail in f32 and rounds each
+element of Y once, after the tail.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from spgrid_torch.ops.kernels import _build, check_operands
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.layouts import to_device
+from spgrid_torch.ops.xla import acc_dtype
 
 MAX_SLOTS = 128
 
@@ -63,9 +69,11 @@ def dgell_arrays(csr):
 
 @dataclasses.dataclass
 class DeviceDGELL:
-    """ELL slots and the COO tail on a torch device. (The JAX layout blocks
-    the columns slot-major in steps of rb rows and pads the values to 128
-    lanes for the TPU; the port keeps neither.)"""
+    """ELL slots and the COO tail on a torch device, the values in f32 for
+    a matrix of any value type (those of a bf16 matrix are the f32 numbers
+    bf16 holds). (The JAX layout blocks the columns slot-major in steps of
+    rb rows and pads the values to 128 lanes for the TPU; the port keeps
+    neither.)"""
 
     cols: torch.Tensor        # (m, slots) int32
     values: torch.Tensor      # (m, slots) f32, 0 in empty slots
@@ -115,10 +123,11 @@ class DeviceDGELL:
                                csr.nnz, slots, csr.name, device=device)
 
 
-def _check(a: DeviceDGELL, x: torch.Tensor) -> None:
+def _check(kernel: str, a: DeviceDGELL, x: torch.Tensor,
+           dtype: torch.dtype) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    check_operands("dgell_spmm", x.device, x=(x, torch.float32),
+    check_operands(kernel, x.device, x=(x, dtype),
                    cols=(a.cols, torch.int32), values=(a.values, torch.float32),
                    tail_rows=(a.tail_rows, torch.int32),
                    tail_cols=(a.tail_cols, torch.int32),
@@ -137,50 +146,73 @@ class SlabShape(NamedTuple):
     lanes: int
 
 
-def launch_shape(k: int, n: int, slab: int = 0,
-                 vec: bool = True) -> SlabShape:
-    """The launch the kernel makes on the current card for X (k, n) at
-    ``slab`` (0: its rule from k, n and the card's L2), in the float4 form
+def launch_shape(k: int, n: int, slab: int = 0, vec: bool = True,
+                 dtype: torch.dtype = torch.float32) -> SlabShape:
+    """The launch the kernel's form for X of ``dtype`` (f32 or bf16) makes
+    on the current card for X (k, n) at ``slab`` (0: its rule, from k, n
+    and the card's L2 at f32, the widest slab at bf16), in the vector form
     (``vec``) or the scalar one."""
     shape = (ctypes.c_int * 4)()
-    _build.check(_build.library().spgrid_dgell_shape(
+    entry = ("spgrid_dgell_bf16_shape" if dtype == torch.bfloat16
+             else "spgrid_dgell_shape")
+    _build.check(getattr(_build.library(), entry)(
         k, n, slab, int(vec), ctypes.addressof(shape)), "dgell_spmm")
     return SlabShape(*shape)
 
 
 def launch(a: DeviceDGELL, x: torch.Tensor, y: torch.Tensor,
            slab: int = 0) -> None:
-    """One launch of the kernel into ``y`` at slab width ``slab`` (0: the
-    kernel's rule; a power of two from 8 to 512, or n, for sweeps and
-    tests), uncounted; ``dgell_spmm`` is the entry point."""
+    """One launch of the form of X's dtype (f32, or bf16 X and Y) into
+    ``y`` at slab width ``slab`` (0: the kernel's rule; a power of two from
+    8 to 512, or n, for sweeps and tests), uncounted; ``dgell_spmm`` is the
+    entry point."""
     m, k = a.shape
+    entry = ("spgrid_dgell_bf16" if x.dtype == torch.bfloat16
+             else "spgrid_dgell")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _build.library().spgrid_dgell(
+        code = getattr(_build.library(), entry)(
             a.cols.data_ptr(), a.values.data_ptr(), a.tail_ptr.data_ptr(),
             a.tail_cols.data_ptr(), a.tail_vals.data_ptr(), x.data_ptr(),
             y.data_ptr(), m, k, a.slots, x.shape[1], slab, stream)
     _build.check(code, "dgell_spmm")
 
 
-def dgell_spmm(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) f32 = A @ X for f32 X (k, n): one launch, slots and tail."""
-    _check(a, x)
-    if x.device.type == "cpu":
+def _run(wrapper, a: DeviceDGELL, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    _check(wrapper.__name__, a, x, dtype)
+    if runs_plain(wrapper.__name__, x.device):
         return dgell_spmm_plain(a, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"dgell_spmm: no kernel for device {x.device}")
     m, _ = a.shape
     n = x.shape[1]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     launch(a, x, y)
-    dgell_spmm.launches += 1
+    wrapper.launches += 1
     return y
 
 
+def dgell_spmm(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype, f32 or bf16 (``dgell_spmm_bf16``):
+    one launch, slots and tail."""
+    check_form("dgell_spmm", x.dtype)
+    if x.dtype == torch.bfloat16:
+        return dgell_spmm_bf16(a, x)
+    return _run(dgell_spmm, a, x, torch.float32)
+
+
 dgell_spmm.launches = 0
+
+
+def dgell_spmm_bf16(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) bf16 = A @ X for bf16 X (k, n) and the layout's f32 values:
+    X widened, the slots and then the tail summed in f32, each element of Y
+    rounded once."""
+    return _run(dgell_spmm_bf16, a, x, torch.bfloat16)
+
+
+dgell_spmm_bf16.launches = 0
 
 
 def dgell_spmm_plain(a: DeviceDGELL, x: torch.Tensor,
@@ -188,36 +220,45 @@ def dgell_spmm_plain(a: DeviceDGELL, x: torch.Tensor,
     """The same product in plain torch, in x's dtype: per chunk of rows, the
     X rows of every slot gathered and summed with their values, then the
     tail added with ``index_add_``. Chunks keep the gathered (rows, slots,
-    n) block under ``chunk_elems``."""
+    n) block under ``chunk_elems``. bf16: X widened, the sums in f32, Y
+    rounded once (the JAX function's ``xf`` and ``astype``)."""
     m, _ = a.shape
     n = x.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = x.dtype
+    acc = acc_dtype(x)
+    x = x.to(acc)
+    y = torch.empty((m, n), dtype=acc, device=x.device)
     rows = max(1, chunk_elems // max(a.slots * n, 1))
     for r0 in range(0, m, rows):
         cols = a.cols[r0:r0 + rows].long()
-        vals = a.values[r0:r0 + rows].to(x.dtype)
+        vals = a.values[r0:r0 + rows].to(acc)
         y[r0:r0 + rows] = torch.einsum("rs,rsn->rn", vals, x[cols])
     if a.tail_rows.numel():
         y.index_add_(0, a.tail_rows.long(),
-                     a.tail_vals.to(x.dtype)[:, None]
-                     * x[a.tail_cols.long()])
-    return y
+                     a.tail_vals.to(acc)[:, None] * x[a.tail_cols.long()])
+    return y.to(out)
 
 
 def dgell_rows_plain(a: DeviceDGELL, x: torch.Tensor) -> torch.Tensor:
     """The product in plain torch in the kernel's order, in x's dtype: each
     row's ELL slots in slot order, then its tail nnz in order
-    (``tail_ptr``), one position at a time for every row."""
+    (``tail_ptr``), one position at a time for every row. bf16: X widened,
+    the sums in f32, Y rounded once (each product of a bf16 X element and
+    a value that bf16 holds is exact in f32, so this is the kernel's FMA
+    chain bit for bit)."""
     m, _ = a.shape
-    y = torch.zeros((m, x.shape[1]), dtype=x.dtype, device=x.device)
-    vals = a.values.to(x.dtype)
+    out = x.dtype
+    acc = acc_dtype(x)
+    x = x.to(acc)
+    y = torch.zeros((m, x.shape[1]), dtype=acc, device=x.device)
+    vals = a.values.to(acc)
     for s in range(a.slots):
         y += vals[:, s, None] * x[a.cols[:, s].long()]
     ptr = a.tail_ptr.long()
     count = ptr[1:] - ptr[:-1]
-    tail_vals = a.tail_vals.to(x.dtype)
+    tail_vals = a.tail_vals.to(acc)
     for t in range(int(count.max()) if m else 0):
         rows = torch.nonzero(count > t).squeeze(1)
         at = ptr[rows] + t
         y[rows] += tail_vals[at, None] * x[a.tail_cols[at].long()]
-    return y
+    return y.to(out)

@@ -11,22 +11,24 @@ timed for ``MIN_TIME_S``), with the reference's band table
 
 - ``sddmm_occupancy.csv``: ``sddmm_plan``'s occupancy row of each mask;
 - ``sddmm_study.csv``: for each mask type (band_and_random,
-  band_and_decay) x sparsity (0.5, 0.9, 0.95, 0.98), ``run_sddmm`` at the
-  plan's blocking (row ``mask_{L}_{type}_sp{sp}_highest``) and at 128x128
-  (``..._highest_b128``) unless the plan is 128x128; both arms run on one
-  mask, made once a point;
-- ``sddmm_blockings.csv``: the point's time at every blocking of
-  ``CANDIDATES`` (the arms' rows, ungated ``run_sddmm`` for the rest)
-  beside ``_est_time``'s, over the fastest's, and whether the plan's was
-  the fastest;
+  band_and_decay) x sparsity (0.5, 0.9, 0.95, 0.98) x matmul precision
+  (``PRECISIONS``: highest, high), ``run_sddmm`` at the plan's blocking
+  (row ``mask_{L}_{type}_sp{sp}_{precision}``) and at 128x128
+  (``..._{precision}_b128``) unless the plan is 128x128; every arm of a
+  point runs on one mask, made once a point;
+- ``sddmm_blockings.csv``: the point's time at highest at every blocking
+  of ``CANDIDATES`` (the highest arms' rows, ungated ``run_sddmm`` for the
+  rest) beside ``_est_time``'s, over the fastest's, and whether the plan's
+  was the fastest;
 - ``pipeline.csv``: ``run_pipeline`` on three DLMC-twin weights (the JAX
   study's ``_weight``), both mask types at sparsities 0.9, 0.95 and 0.98;
 - ``sddmm_planner_ab.csv``: ``planner_ab``, the plan's measured speedup
   over 128x128 beside ``est_speedup_vs_128``.
 
-Every arm is f32 on the kernel's 3xTF32 tile, named ``highest`` after the
-JAX study's f32 arm so that its join reads this CSV; the JAX study's
-``high`` arm (3-pass bf16) waits for the port's bf16 path. Each run
+Every arm is f32: ``highest`` on the kernel's 3xTF32 tile, ``high`` on its
+3-pass bf16 form (``bsr_sddmm_bf16x3``), each gated at the JAX harness's
+1e-4, with the JAX study's row names, so that its join reads this CSV (and
+``planner_ab`` joins each precision's arms). Each run
 replaces the files it writes (the JAX study resumed where a lost TPU
 run stopped). A row that raises stops the study; ``main`` returns 1 when a
 row fails its gate.
@@ -60,6 +62,7 @@ MIN_TIME_S = 0.3        # a row's minimum timed seconds
 MASK_TYPES = ("band_and_random", "band_and_decay")
 SPARSITIES = (0.5, 0.9, 0.95, 0.98)
 PIPELINE_SPARSITIES = (0.9, 0.95, 0.98)
+PRECISIONS = ("highest", "high")    # the JAX study's matmul precisions
 
 
 def weight(length: int, seed: int):
@@ -121,30 +124,35 @@ def planner_ab(study_rows, occ_rows) -> list:
 
 def sddmm_point(length: int, mask_type: str, sparsity: float,
                 config: BenchConfig, device, writer: CSVWriter):
-    """The arms and the blocking sweep of one point, on one mask. Returns
-    (occupancy row, gated rows, sweep rows)."""
+    """The arms at each of ``PRECISIONS`` and the blocking sweep (at
+    highest) of one point, on one mask. Returns (occupancy row, gated rows,
+    sweep rows)."""
     mask = create_mask(mask_type, length, sparsity, band_size=None,
                        seed=config.seed)
     n = config.num_cols
     occ = occupancy_row(mask, mask_type, sparsity, length, n)
     plan = (occ["bm"], occ["bk"])
-    name = f"mask_{length}_{mask_type}_sp{sparsity}_highest"
     rows, times = [], {}
     arms = [(None, "")] + ([((128, 128), "_b128")] if plan != (128, 128)
                            else [])
-    for blocks, suffix in arms:
-        row = run_sddmm(length, config, device=device, mask=mask,
-                        blocks=blocks)
-        row["matrix_name"] = name + suffix
-        writer.write(BenchRow(**row))
-        rows.append(row)
-        times[blocks or plan] = row["time"]
-        print(f"{row['matrix_name']} [{row['fmt']}]: "
-              f"{row['gflops']:.0f} GFLOPS passed={row['errors_passed']}",
-              flush=True)
+    for prec in PRECISIONS:
+        cfg = dataclasses.replace(config, matmul_precision=prec)
+        name = f"mask_{length}_{mask_type}_sp{sparsity}_{prec}"
+        for blocks, suffix in arms:
+            row = run_sddmm(length, cfg, device=device, mask=mask,
+                            blocks=blocks)
+            row["matrix_name"] = name + suffix
+            writer.write(BenchRow(**row))
+            rows.append(row)
+            if prec == "highest":
+                times[blocks or plan] = row["time"]
+            print(f"{row['matrix_name']} [{row['fmt']}]: "
+                  f"{row['gflops']:.0f} GFLOPS "
+                  f"passed={row['errors_passed']}", flush=True)
+    highest = dataclasses.replace(config, matmul_precision="highest")
     for blocks in CANDIDATES:
         if blocks not in times:
-            times[blocks] = run_sddmm(length, config, device=device,
+            times[blocks] = run_sddmm(length, highest, device=device,
                                       mask=mask, blocks=blocks,
                                       check_accuracy=False)["time"]
     fastest = min(times, key=times.get)
@@ -199,8 +207,10 @@ def main(argv=None) -> int:
     pipe_rows = []
     for mtype in MASK_TYPES:
         for sp in PIPELINE_SPARSITIES:
+            # the dtype's own precision, as the JAX study's pipeline rows
             cfg = dataclasses.replace(base, sparsity=sp,
-                                      sparse_attention_type=mtype)
+                                      sparse_attention_type=mtype,
+                                      matmul_precision="auto")
             row = run_pipeline(*weights, config=cfg, device=device)
             row["matrix_name"] = (f"pipeline_dlmc{PIPELINE_LENGTH}_{mtype}"
                                   f"_sp{sp}")

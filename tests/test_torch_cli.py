@@ -149,7 +149,7 @@ def test_without_cuda_and_without_platform_cpu_exits_nonzero(monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dtype", "bfloat16", "--kernel", "dgell_cuda"],
+    ["--dtype", "float64", "--kernel", "dgell_cuda"],
     ["--kernel", "wcoo_pallas"], []])
 def test_unported_flags_exit_nonzero(flags, capsys):
     args = (["--generate", LINE] if "--kernel" in flags else []) + flags

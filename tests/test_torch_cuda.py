@@ -31,6 +31,9 @@ from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
     DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain,
 )
+from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+    launch_grid as bsrc_launch_grid,
+)
 from spgrid_torch.ops.kernels.dgell import (
     DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
     dgell_spmm_plain, launch, launch_shape,
@@ -51,7 +54,9 @@ from spgrid_torch.ops.kernels.panel_spmm import (
     DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
-from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+from spgrid_torch.ops.kernels.sddmm import (
+    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+)
 from spgrid_torch.ops.kernels.wcoo_spmm import (
     DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
 )
@@ -1800,17 +1805,14 @@ def test_wcoo_bands_bf16_long_rows(cuda):
     assert_within_one_ulp(call(x), plain(x))
 
 
-# the kernel formats with no form at bf16, f64 or either: the three SpMV
-# formats have a bf16 form, and no kernel an f64 one
+# kernel formats whose f64 refusal is checked here: every kernel has a
+# bf16 form, and none an f64 one
 F32_ONLY_FORMATS = ("wcoo_cuda", "wcoo_spmv_cuda", "wrow_spmv_cuda",
                     "bsrc_cuda", "dgell_cuda", "wpack_spmv_cuda")
-BF16_SPMV_FORMATS = ("wcoo_spmv_cuda", "wrow_spmv_cuda", "wpack_spmv_cuda")
 
 
 @pytest.mark.parametrize("fmt,dtype", [
-    (fmt, dtype) for fmt in F32_ONLY_FORMATS
-    for dtype in ("bfloat16", "float64")
-    if (fmt, dtype) not in {(f, "bfloat16") for f in BF16_SPMV_FORMATS}])
+    (fmt, "float64") for fmt in F32_ONLY_FORMATS])
 def test_f32_only_formats_refuse_other_dtypes(cuda, fmt, dtype):
     from spgrid_torch.ops import dispatch
     csr = BF16_MATRICES["ragged"]().astype(dtype)
@@ -1837,12 +1839,15 @@ def test_hand_written_kernels_refuse_f64(cuda, kind):
 
 
 def test_f32_only_kernels_refuse_a_bf16_x(cuda):
+    """A bf16 X against an f32 layout raises: each form takes operands of
+    its own type only. (A DGELL layout holds f32 values at every dtype, so
+    its bf16 form takes any DGELL layout; it refuses an f64 X.)"""
     csr = BF16_MATRICES["ragged"]()
     x = bf16_operand((csr.k, 8), 42, cuda)
     with pytest.raises(TypeError):
         wcoo_spmm(DeviceWCOO.from_csr(csr, device=cuda), x)
     with pytest.raises(TypeError):
-        dgell_spmm(DeviceDGELL.from_csr(csr, device=cuda), x)
+        dgell_spmm(DeviceDGELL.from_csr(csr, device=cuda), x.double())
     with pytest.raises(TypeError):
         bsr_spmm_cstat(DeviceBSRCol.from_csr(csr, device=cuda), x)
 
@@ -2030,3 +2035,228 @@ def test_bf16_spmv_forms_refuse_an_f32_x(cuda):
     for build, call, _, _ in SPMV_BF16_FORMS.values():
         with pytest.raises(TypeError):
             call(build(csr, cuda), x)
+
+
+# --- the last kernel forms: bsr_sddmm_bf16x3 (matmul precision 'high'),
+# bsr_spmm_cstat_bf16, wcoo_spmm_bf16 and dgell_spmm_bf16 against their
+# plain versions on the same inputs. The 3-pass form sums each pass's 64-deep
+# steps on the tensor cores (products exact, the accumulate truncating) and
+# the plain version each pass exactly in f64: on positive operands within
+# 1e-6 relative. The bf16 forms: within 1 bf16 ulp (f32 sums in another
+# order, one rounding); dgell's FMA chain is its row-order plain version's
+# bit for bit (a product of a bf16 X element and a value that bf16 holds is
+# exact in f32), and wcoo's rows of at most LONG_ROW slots are its plain
+# version's on the CPU bit for bit (the rounded products added in stream
+# order).
+
+def assert_rel_1e6(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want.double(), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("kind,length,sparsity,d,blocks", [
+    ("band_and_decay", 4096, 0.95, 512, (128, 128)),
+    ("band_and_random", 4096, 0.95, 512, (128, 128)),
+    ("band_and_decay", 1000, 0.9, 77, (128, 128)),
+    ("band_and_random", 1000, 0.8, 64, (64, 256)),
+    ("band_and_decay", 512, 0.9, 130, (256, 128))])
+def test_bsr_sddmm_bf16x3(cuda, kind, length, sparsity, d, blocks):
+    """Within 1e-6 of the plain version (pad blocks zero), one launch on
+    bsr_sddmm_bf16x3's counter, the same bits twice and by graph replay."""
+    mask = create_mask(kind, length, sparsity, seed=36)
+    m = DeviceBSR.from_csr(mask, bm=blocks[0], bk=blocks[1], pad_multiple=4,
+                           device=cuda)
+    q = operand((length, d), 43, cuda)
+    k = operand((length, d), 44, cuda)
+    before = launch_counts()["bsr_sddmm_bf16x3"]
+    got = bsr_sddmm(m, q, k, precision="high")
+    assert launch_counts()["bsr_sddmm_bf16x3"] == before + 1
+    assert_rel_1e6(got, bsr_sddmm_bf16x3_plain(m, q, k))
+    assert torch.equal(bsr_sddmm(m, q, k, precision="high"), got)
+    graph, out = captured(lambda *a: bsr_sddmm(*a, precision="high"), m, q,
+                          k)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_bsr_sddmm_bf16x3_is_not_the_f32_form(cuda):
+    """On operands of both signs the 3-pass form lies within 1e-6 of its
+    plain version and farther than that from the f32 product (the dropped
+    lo x lo term)."""
+    mask = create_mask("band_and_decay", 1000, 0.9, seed=36)
+    m = DeviceBSR.from_csr(mask, bm=128, bk=128, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(45)
+    q = torch.randn((1000, 96), generator=g).to(cuda)
+    k = torch.randn((1000, 96), generator=g).to(cuda)
+    high = bsr_sddmm(m, q, k, precision="high")
+    want = bsr_sddmm_bf16x3_plain(m, q, k)
+    torch.cuda.synchronize()
+    scale = want.abs().max()
+    assert (high - want).abs().max() <= 1e-6 * scale
+    f32 = bsr_sddmm_plain(m, q.double(), k.double())
+    assert (want.double() - f32).abs().max() > 1e-6 * scale
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_bsr_sddmm_bf16x3_at_every_cluster_size(cuda, cluster):
+    """The C entry point at each cluster size on ragged shapes: bm = 200 in
+    two row slices, d = 70 (staged by 4-byte loads), pad blocks."""
+    from spgrid_torch.ops.kernels import _build
+    mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14)
+    m = DeviceBSR.from_csr(mask, bm=200, bk=128, pad_multiple=4, device=cuda)
+    q = operand((200, 70), 46, cuda)
+    k = operand((200, 70), 47, cuda)
+    nb, bm, bk = m.blocks.shape
+    out = torch.full((nb, bm, bk), float("nan"), device=cuda)
+    _build.check(_build.library().spgrid_bsr_sddmm_bf16x3(
+        m.block_rows.data_ptr(), m.block_cols.data_ptr(), m.blocks.data_ptr(),
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
+        cluster, torch.cuda.current_stream().cuda_stream),
+        "bsr_sddmm_bf16x3")
+    assert_rel_1e6(out, bsr_sddmm_bf16x3_plain(m, q, k))
+
+
+@pytest.mark.parametrize("case", sorted(BSRC))
+def test_bsr_spmm_cstat_bf16_kernel(cuda, case):
+    """Every band size, block shape, n and X layout of the f32 form's cases:
+    within 1 ulp of the plain version, one launch on its own counter, the
+    same bits twice and by graph replay."""
+    make, bm, bk, band_rows, n, layout = BSRC[case]
+    csr = bf16_csr(make)
+    a = DeviceBSRCol.from_csr(csr, bm=bm, bk=bk, band_rows=band_rows,
+                              device=cuda)
+    assert a.blocks.dtype == torch.bfloat16
+    ctas, cols, rows = bsrc_launch_grid(a, n)
+    assert cols == 64 and rows == 128 // bm * bm
+    x = (bf16_operand((csr.k, n), 48, cuda) if layout == "plain"
+         else misaligned_bf16((csr.k, n), 48, cuda))
+    before = launch_counts()["bsr_spmm_cstat_bf16"]
+    got = bsr_spmm_cstat(a, x)
+    assert launch_counts()["bsr_spmm_cstat_bf16"] == before + 1
+    assert_within_one_ulp(got, bsr_spmm_cstat_plain(a, x))
+    assert torch.equal(bsr_spmm_cstat(a, x), got)
+    graph, out = captured(bsr_spmm_cstat, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+BF16_SLOT_MATRICES = {
+    **BF16_MATRICES, "edge": lambda: positive(hypersparse_edge()),
+    "hypersparse": lambda: positive(SLOT_MATRICES["hypersparse"]())}
+
+
+@pytest.mark.parametrize("matrix", sorted(BF16_SLOT_MATRICES))
+@pytest.mark.parametrize("n,x_layout", [(512, "aligned"), (77, "aligned"),
+                                        (200, "aligned"),
+                                        (64, "misaligned")])
+def test_wcoo_spmm_bf16_kernel(cuda, matrix, n, x_layout):
+    """Within 1 ulp of the plain version on the card, and its CPU plain
+    version's bits where no row takes the long-row walk; one launch, the
+    same bits twice and by graph replay."""
+    csr = bf16_csr(BF16_SLOT_MATRICES[matrix])
+    a = DeviceWCOO.from_csr(csr, R=256, device=cuda)
+    make_x = bf16_operand if x_layout == "aligned" else misaligned_bf16
+    x = make_x((csr.k, n), 49, cuda)
+    before = launch_counts()["wcoo_spmm_bf16"]
+    got = wcoo_spmm(a, x)
+    assert launch_counts()["wcoo_spmm_bf16"] == before + 1
+    assert_within_one_ulp(got, wcoo_spmm_plain(a, x))
+    if a.long_rows.numel() == 0:
+        host = DeviceWCOO.from_csr(csr, R=256, device="cpu")
+        assert torch.equal(got.cpu(), wcoo_spmm_plain(host, x.cpu()))
+    assert torch.equal(wcoo_spmm(a, x), got)
+    graph, out = captured(wcoo_spmm, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def bf16_edge():
+    return bf16_csr(lambda: positive(hypersparse_edge()))
+
+
+# the f32 form's cases (DGELL) on bf16 matrices (their values are the f32
+# numbers bf16 holds, as the layout keeps them); wide_k at n = 600, so that
+# the bf16 rule's slab of 512 columns leaves a second, ragged one
+DGELL_BF16 = {
+    "wide_k_n600": (lambda d: DeviceDGELL.from_csr(
+        bf16_csr(lambda: positive(wide_k())), device=d), 600, "plain"),
+    "edge_n77": (lambda d: DeviceDGELL.from_csr(bf16_edge(), device=d), 77,
+                 "plain"),
+    "edge_misaligned": (lambda d: DeviceDGELL.from_csr(bf16_edge(),
+                                                       device=d), 200,
+                        "misaligned"),
+    "tail_only_n64": (lambda d: tail_only(bf16_edge(), d), 64, "plain"),
+    "tail_only_n13": (lambda d: tail_only(bf16_edge(), d), 13,
+                      "misaligned"),
+    "m5": (lambda d: DeviceDGELL.from_csr(bf16_csr(lambda: positive(
+        random_csr(5, 300, 0.2, seed=2))), device=d), 40, "plain"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DGELL_BF16))
+def test_dgell_bf16_kernel_cases(cuda, case):
+    """The f32 form's cases at bf16 (several slabs, the scalar form, a
+    misaligned X, rows of tail nnz only, fewer rows than a CTA's): the row-
+    order plain version's bits, one launch, the same bits twice and by
+    graph replay."""
+    make, n, layout = DGELL_BF16[case]
+    a = make(cuda)
+    k = a.shape[1]
+    x = (bf16_operand((k, n), 50, cuda) if layout == "plain"
+         else misaligned_bf16((k, n), 50, cuda))
+    if case.startswith("wide_k"):
+        assert launch_shape(k, n, dtype=torch.bfloat16).slabs > 1
+    before = launch_counts()["dgell_bf16"]
+    got = dgell_spmm(a, x)
+    assert launch_counts()["dgell_bf16"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, dgell_rows_plain(a, x))
+    assert_within_one_ulp(got, dgell_spmm_plain(a, x))
+    assert torch.equal(dgell_spmm(a, x), got)
+    graph, out = captured(dgell_spmm, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("slab", [0, 8, 16, 32, 64, 128, 512, "n"])
+@pytest.mark.parametrize("n,layout", [(96, "plain"), (77, "plain"),
+                                      (200, "misaligned")])
+def test_dgell_bf16_kernel_at_every_slab(cuda, slab, n, layout):
+    """The bf16 C entry point at each slab width of the f32 form's sweep on
+    the edge matrix: every slab of Y written (it starts as NaN), the row-
+    order plain version's bits, the same bits on two calls."""
+    csr = bf16_edge()
+    a = DeviceDGELL.from_csr(csr, device=cuda)
+    x = (bf16_operand((csr.k, n), 51, cuda) if layout == "plain"
+         else misaligned_bf16((csr.k, n), 51, cuda))
+    slab = n if slab == "n" else slab
+    y = torch.full((csr.m, n), float("nan"), dtype=torch.bfloat16,
+                   device=cuda)
+    launch(a, x, y, slab)
+    torch.cuda.synchronize()
+    assert torch.equal(y, dgell_rows_plain(a, x))
+    again = torch.full_like(y, float("nan"))
+    launch(a, x, again, slab)
+    assert torch.equal(y, again)
+    shape = launch_shape(csr.k, n, slab, layout == "plain" and n % 4 == 0,
+                         dtype=torch.bfloat16)
+    assert shape.slabs == -(-n // shape.slab)
+    assert shape.slab == (n if slab in (0, 512, n) or slab >= n else slab)
+
+
+def test_dgell_bf16_slab_rule_takes_the_widest_slab(cuda):
+    """At a k whose f32 slab rule stops below n, the bf16 rule takes the
+    widest slab (512 columns, or n)."""
+    assert launch_shape(150000, 512).slab < 512
+    assert launch_shape(150000, 512, dtype=torch.bfloat16).slab == 512
+    assert launch_shape(150000, 96, dtype=torch.bfloat16).slab == 96
+    shape = launch_shape(150000, 600, dtype=torch.bfloat16)
+    assert (shape.slab, shape.slabs) == (512, 2)

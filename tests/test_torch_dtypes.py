@@ -423,8 +423,8 @@ def test_ldu_at_bf16_and_f64():
 
 
 @pytest.mark.parametrize("fmt,dtype", [
-    ("wcoo_cuda", "bfloat16"), ("dgell_cuda", "bfloat16"),
-    ("bsrc_cuda", "bfloat16"), ("wcoo_spmv_cuda", "float64"),
+    ("wcoo_cuda", "float64"), ("dgell_cuda", "float64"),
+    ("bsrc_cuda", "float64"), ("wcoo_spmv_cuda", "float64"),
     ("bsr_cuda", "float64"), ("rbh", "float64"), ("gell", "float64"),
     ("cv_int8", "float64"), ("scoo", "float64")])
 def test_formats_without_a_form_at_the_dtype_raise(fmt, dtype):
@@ -599,7 +599,7 @@ def test_f64_sweep_at_a_small_size(monkeypatch, tmp_path):
 
 def test_cli_exits_nonzero_for_a_kernel_without_the_form(capsys):
     for args in (["--generate", LINE, "--kernel", "wcoo_cuda",
-                  "--dtype", "bfloat16"],
+                  "--dtype", "float64"],
                  ["--generate", LINE, "--kernel", "bsr_cuda",
                   "--dtype", "float64"],
                  ["--sddmm", "128", "--dtype", "float64"]):

@@ -327,8 +327,8 @@ def load_jax_script(name):
 
 def test_study_writes_what_the_jax_join_reads(jax_c, tmp_path, monkeypatch):
     """The study at length 256 (the JAX constants plan 256 x 256 there, so
-    every point has a 128^2 arm too): every row gated, a sweep line for
-    every blocking, and ``planner_ab`` equal to
+    every point has a 128^2 arm too), at both precisions: every row gated,
+    a sweep line for every blocking, and ``planner_ab`` equal to
     ``scripts/analyze_sddmm_ab.py`` run on the study's CSVs."""
     for name, value in (("SPGRID_MIN_ITERS", "2"),
                         ("SPGRID_WARMUP_ITERS", "1")):
@@ -345,7 +345,7 @@ def test_study_writes_what_the_jax_join_reads(jax_c, tmp_path, monkeypatch):
             return list(csv.DictReader(f))
 
     study = rows("sddmm_study.csv")
-    assert len(study) == 16 and all(r["errors_passed"] == "1"
+    assert len(study) == 32 and all(r["errors_passed"] == "1"
                                     for r in study)
     assert {r["fmt"] for r in study} == {"bsr_pallas_256x256",
                                          "bsr_pallas_128x128"}
@@ -356,4 +356,4 @@ def test_study_writes_what_the_jax_join_reads(jax_c, tmp_path, monkeypatch):
     port = rows("sddmm_planner_ab.csv")
     (tmp_path / "sddmm_planner_ab.csv").unlink()
     join.main()
-    assert rows("sddmm_planner_ab.csv") == port and len(port) == 8
+    assert rows("sddmm_planner_ab.csv") == port and len(port) == 16
