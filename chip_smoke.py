@@ -197,7 +197,9 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``wcoo_spmv_bf16`` on every row of at most a tile; ``dgell_bf16``
    against ``dgell_rows_plain``), and the same bits on two calls,
    each with its device ms by graph replay (eager in brackets), bound and
-   library time; then, on its own path after phase 10: (b) the bf16 leg
+   library time; ``bsr_spmm_bf16`` also under each forced route, with its
+   route split, and the route sweep of ``ENTRY_ROUTE_MAX``; then,
+   on its own path after phase 10: (b) the bf16 leg
    (``spgrid_torch.scripts.run_bf16_leg``, its jobs at full width, or
    ``BF16_LEG_JOBS``, and its pipeline row), every row gated at 3e-2;
    (c) the f64 sweep (``run_f64_sweep``) on the card, every row gated at
@@ -448,6 +450,7 @@ def phase_kernels() -> dict:
     from spgrid_torch.entry import flagship_csrs
     from spgrid_torch.ops.kernels import _build
     from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm import launch as bsr_launch
     from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
     from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
         DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain, launch_grid)
@@ -2022,14 +2025,17 @@ def phase_dtype_kernels() -> dict:
     card's torch takes it, f32 for dgell's f32 values and the 3-pass form)
     and its bound: the nnz's values and indices, the dense operands and the
     output, each once in its type, or 2 flops a nnz a column (three times
-    that for the 3-pass form) at 989 TFLOP/s. Runs before the paths' counts are
-    reset: these launches are not the main path's. Returns, per form, the
+    that for the 3-pass form) at 989 TFLOP/s. 1b's cases print its route
+    split and are held again under each forced route; then the route sweep
+    (``route_sweep``). Runs before the paths' counts are reset: these
+    launches are not the main path's. Returns, per form, the
     numbers of its main-path case (the twin for A and B, the leg's
     ``wideband_196k`` for D)."""
     from spgrid_torch.bench.harness import make_x, x_tensor
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.gen import create_mask
     from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm import launch as bsr_launch
     from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
     from spgrid_torch.ops.kernels.panel_spmm import (
         DevicePanels, panel_spmm, panel_spmm_plain)
@@ -2055,7 +2061,8 @@ def phase_dtype_kernels() -> dict:
         DeviceWPACK, wpack_spmv, wpack_spmv_plain)
     from spgrid_torch.ops.kernels.wrow_spmv import (
         DeviceWROW, wrow_spmv, wrow_spmv_plain)
-    from spgrid_torch.ops.layouts import DeviceBSR
+    from spgrid_torch.ops.layouts import (
+        DeviceBSR, block_entries, bsr_arrays)
     from spgrid_torch.scripts.run_bf16_leg import JOBS as LEG_JOBS
     from spgrid_torch.scripts.run_bf16_leg import job_matrix
 
@@ -2071,6 +2078,7 @@ def phase_dtype_kernels() -> dict:
         x = xb(csr.k, n, seed)
         value = 2       # bytes a value: bf16, but dgell's f32 values
         exact = None
+        variants = ()
         lib_f32 = (csr_tensor(csr), x.float())
         if kind == "bsrc":
             a = DeviceBSRCol.from_csr(csr, device=DEVICE)
@@ -2097,13 +2105,32 @@ def phase_dtype_kernels() -> dict:
                         for c in (16, 32, 64, 128, 256, 512)))
             value, index = 4, 4
         elif kind == "bsr":
-            a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=DEVICE)
-            fn, plain, note = bsr_spmm, bsr_spmm_plain, str(bsr_grid(a, n))
+            # the host arrays once; the layout under the chosen route, then
+            # under each forced route (held and timed as variants)
+            t0 = time.perf_counter()
+            arrays = bsr_arrays(csr, 128, 128)
+            entries = block_entries(csr, arrays[0], arrays[1], 128, 128)
+            a = DeviceBSR.from_arrays(*arrays[:4], csr.shape, csr.nnz,
+                                      arrays[4], device=DEVICE,
+                                      dtype="bfloat16", entries=entries)
+            build_s = time.perf_counter() - t0
+            fn, plain = bsr_spmm, bsr_spmm_plain
+            grid = bsr_grid(a, n)
+            note = f"{grid} {a.route} layout_build_s={build_s:.3f}"
+            if 0 < grid.tiles <= 256:
+                # the tile at each cluster size (the rule's PT_SHARE)
+                y = torch.empty((csr.m, n), dtype=x.dtype, device=DEVICE)
+                note += " device_ms_by_cluster " + " ".join(
+                    f"{c}:{device_ms(bsr_launch, a, x, y, c):.6f}"
+                    for c in (1, 2, 4, 8))
+            variants = [(f"route={mode} forced", (rerouted(
+                a, arrays, entries, mode), x)) for mode in ("tile", "entry")]
             index = 4
         elif kind == "panel":
             a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
             fn, plain = panel_spmm, panel_spmm_plain
-            note = (f"R={a.band_rows} bands={a.bands} {panel_grid(a, n)} "
+            note = (f"R={a.band_rows} bands={a.bands} "
+                    f"{panel_grid(a, n, x.dtype)} "
                     f"live (panel, slice) pairs {int(a.slice_ptr[-1])}")
             index = 4
         else:
@@ -2120,7 +2147,7 @@ def phase_dtype_kernels() -> dict:
                 lib_f32)
         return (fn, plain, (a, x), torch.sparse.mm, lib, which,
                 csr.nnz * (value + index) + 2 * (csr.k + csr.m) * n,
-                2.0 * csr.nnz * n, note, exact)
+                2.0 * csr.nnz * n, note, exact, variants)
 
     def sddmm_case():
         length, sparsity, d = DTYPE_SDDMM
@@ -2258,8 +2285,10 @@ def phase_dtype_kernels() -> dict:
                     46)))
     main_path, failed = {}, []
     for name, label, on_path, make in cases:
+        made = make()
         (kernel, plain, args, library, lib_args, which, bytes_moved, flops,
-         note, exact) = make()
+         note, exact) = made[:10]
+        variants = made[10] if len(made) > 10 else ()
         out = kernel(*args)
         again = kernel(*args)
         torch.cuda.synchronize()
@@ -2298,15 +2327,102 @@ def phase_dtype_kernels() -> dict:
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")
+        for tag, v_args in variants:
+            # the same function on another layout of the same matrix (1b
+            # under a forced route): 1 ulp of the plain version on it, the
+            # same bits twice
+            v_out, v_again = kernel(*v_args), kernel(*v_args)
+            torch.cuda.synchronize()
+            v_ulps, v_err, v_ok = bf16_compare(v_out, plain(*v_args))
+            v_ok = v_ok and torch.equal(v_out, v_again)
+            print(f"phase 11 kernels: {name} [{label}] {tag} "
+                  f"max_ulps={v_ulps:.3f} max_abs={v_err:.3e} "
+                  f"same_bits_twice={torch.equal(v_out, v_again)} "
+                  f"device_ms={device_ms(kernel, *v_args):.6f} "
+                  f"{v_args[0].route} {'PASS' if v_ok else 'FAIL'}",
+                  flush=True)
+            if not v_ok:
+                failed.append(f"{name} [{label}] {tag}")
+            del v_out, v_again, v_args
         if on_path:
             main_path[name] = {"max_abs_err": err, "ms": k_ms,
                                "plain_ms": p_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "library_ms": lib_ms}
-        del out, again, args, lib_args
+        del out, again, args, lib_args, variants
+    failed += route_sweep()
     if failed:
         raise RuntimeError(f"bf16 form disagrees with its plain version: "
                            f"{failed}")
     return main_path
+
+
+# 11a's sweep of 1b's two routes: one ROUTE_SWEEP_SIDE^2 matrix at each
+# count of entries a 128^2 block (every block present, uniform random
+# entries), n = 512; ENTRY_ROUTE_MAX in csrc/bsr_spmm.cu comes from it
+ROUTE_SWEEP_SIDE = 8192
+ROUTE_SWEEP = (8, 32, 64, 128, 192, 224, 256, 512)
+
+
+def rerouted(a, arrays, entries, route: str):
+    """The bf16 layout ``a`` (built from the host ``arrays`` of
+    ``bsr_arrays``, ``entries`` its nonzeros) under another route, on the
+    same device blocks: 1b's forced routes, for the A/B."""
+    from spgrid_torch.ops.layouts import route_blocks
+    return dataclasses.replace(a, route=route_blocks(
+        arrays[0], arrays[1], arrays[3], a.mb, a.shape, route,
+        device=a.blocks.device, dtype="bfloat16", entries=entries))
+
+
+def sweep_matrix(side: int, per_block: int, seed: int):
+    """A side^2 bf16 matrix of about ``per_block`` entries in each 128^2
+    block, uniform random, values in [0.5, 1.5)."""
+    from spgrid_torch.formats.csr import COOMatrix, coo_to_csr
+    rng = np.random.default_rng(seed)
+    flat = np.unique(rng.integers(0, side * side,
+                                  side * side * per_block // (128 * 128)))
+    vals = (rng.random(len(flat)) + 0.5).astype(np.float32)
+    return coo_to_csr(COOMatrix(flat // side, flat % side, vals,
+                                (side, side), f"sweep_{per_block}"),
+                      sum_duplicates=False).astype("bfloat16")
+
+
+def route_sweep() -> list:
+    """Phase 11a's route sweep: ``bsr_spmm_bf16`` on ``sweep_matrix`` at
+    each ``ROUTE_SWEEP`` count, n = 512, both routes forced, each held to
+    the plain version (1 ulp) and timed (device ms by graph replay), with
+    the route the threshold picks. Returns the points that failed."""
+    from spgrid_torch.bench.harness import make_x, x_tensor
+    from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.layouts import (
+        ENTRY_ROUTE_MAX, DeviceBSR, block_entries, bsr_arrays)
+    x = x_tensor(make_x(ROUTE_SWEEP_SIDE, 512, "bfloat16", 53), "bfloat16",
+                 DEVICE)
+    failed = []
+    for per_block in ROUTE_SWEEP:
+        csr = sweep_matrix(ROUTE_SWEEP_SIDE, per_block, 54)
+        arrays = bsr_arrays(csr, 128, 128)
+        entries = block_entries(csr, arrays[0], arrays[1], 128, 128)
+        auto = DeviceBSR.from_arrays(*arrays[:4], csr.shape, csr.nnz,
+                                     arrays[4], device=DEVICE,
+                                     dtype="bfloat16", entries=entries)
+        times, oks = {}, []
+        for route in ("entry", "tile", "auto"):
+            a = rerouted(auto, arrays, entries, route)
+            out = bsr_spmm(a, x)
+            _, _, ok = bf16_compare(out, bsr_spmm_plain(a, x))
+            oks.append(ok)
+            times[route] = device_ms(bsr_spmm, a, x)
+            chosen = a.route
+        ok = all(oks)
+        print(f"phase 11 route sweep: {ROUTE_SWEEP_SIDE}^2 n=512 "
+              f"entries_a_block={csr.nnz / (ROUTE_SWEEP_SIDE / 128) ** 2:.1f}"
+              f" nnz={csr.nnz} entry_ms={times['entry']:.6f} "
+              f"tile_ms={times['tile']:.6f} auto_ms={times['auto']:.6f} "
+              f"(threshold {ENTRY_ROUTE_MAX}: {chosen}) "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"route sweep {per_block}")
+    return failed
 
 
 def phase_dtype_legs() -> None:
@@ -2595,6 +2711,12 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the {path} path: "
                                f"{never}")
         print(f"launches on the {path} path: {counts}", flush=True)
+        from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm_bf16
+        if counts["bsr_spmm_bf16"]:
+            # 1b's two kernels: a call runs one or both
+            print(f"bsr_spmm_bf16 kernels on the {path} path: tile "
+                  f"{bsr_spmm_bf16.tile_launches} entry "
+                  f"{bsr_spmm_bf16.entry_launches}", flush=True)
         for k in kernels:
             launches[k] = launches.get(k, 0) + counts[k]
     phase_calibration()

@@ -164,23 +164,25 @@ __device__ __forceinline__ void mainloop(float (&acc)[NT / 2], float* ring,
   __syncthreads();  // the ring is free for the partial tile
 }
 
-// Sums the cluster's partial tiles, each rank's in `part` (ROWS x NT, row
-// stride RED_LD), and stores each element of the tile's rows x ncols once:
-// `store(i, j, v)` gets v = the sums of columns j .. j + 3 of row i (j % 4
-// == 0; columns >= ncols hold garbage).
-template <class Store>
+// Sums the cluster's partial tiles, each rank's in `part` (ROWS x W, row
+// stride LD: NT and RED_LD unless a tile says otherwise), and stores each
+// element of the tile's rows x ncols once, the CTA's CTA_THREADS threads
+// sharing the work: `store(i, j, v)` gets v = the sums of columns j .. j +
+// 3 of row i (j % 4 == 0; columns >= ncols hold garbage).
+template <int W = NT, int LD = RED_LD, int CTA_THREADS = THREADS,
+          class Store>
 __device__ __forceinline__ void sum_store(float* part, int rows, int ncols,
                                           Store store) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every rank's partial tile is in place
   const int ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  for (int e = rank * THREADS + threadIdx.x; e < rows * (NT / 4);
-       e += ranks * THREADS) {
-    const int i = e / (NT / 4);
-    const int j = e % (NT / 4) * 4;
+  for (int e = rank * CTA_THREADS + threadIdx.x; e < rows * (W / 4);
+       e += ranks * CTA_THREADS) {
+    const int i = e / (W / 4);
+    const int j = e % (W / 4) * 4;
     if (j >= ncols) continue;
-    const int at = i * RED_LD + j;
+    const int at = i * LD + j;
     float4 v = *reinterpret_cast<const float4*>(
         cluster.map_shared_rank(part, 0) + at);
     for (int q = 1; q < ranks; ++q) {
@@ -228,6 +230,19 @@ __device__ __forceinline__ RowTile row_tile(int slices, int col_tiles) {
       blockIdx.x / static_cast<int>(cg::this_cluster().num_blocks());
   return RowTile{tile / col_tiles / slices,
                  tile / col_tiles % slices * ROWS, tile % col_tiles * NT};
+}
+
+// The same over a list of slices (slice s = row of blocks s / slices, its
+// rows (s % slices) 128 on), tiles of W columns: the launch's q-th slice is
+// list[q], or q where list is null.
+template <int W>
+__device__ __forceinline__ RowTile listed_tile(const int* __restrict__ list,
+                                               int slices, int col_tiles) {
+  const int tile =
+      blockIdx.x / static_cast<int>(cg::this_cluster().num_blocks());
+  const int q = tile / col_tiles;
+  const int s = list != nullptr ? __ldg(list + q) : q;
+  return RowTile{s / slices, s % slices * ROWS, tile % col_tiles * W};
 }
 
 // The tiles of a row-tiled launch: rows of blocks x 128-row slices of a
@@ -308,42 +323,46 @@ bool aligned16(const void* p) {
 
 // The cluster a launch of `tiles` tiles takes: the largest power of two up
 // to CLUSTER_MAX for which tiles x cluster CTAs still fit on the current
-// card's SMs, one an SM (1 when the tiles alone fill them).
-int cluster_for(long long tiles) {
+// card's SMs / `share`, one an SM (1 when the tiles alone fill them).
+int cluster_for(long long tiles, int share = 1) {
   int device = 0;
   int sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   int cluster = 1;
-  while (cluster < CLUSTER_MAX && tiles * cluster * 2 <= sms) cluster *= 2;
+  while (cluster < CLUSTER_MAX && tiles * cluster * 2 * share <= sms) {
+    cluster *= 2;
+  }
   return cluster;
 }
 
-// out (int[6]) = {tiles, cluster, ROWS, NT, step, stages}: the launch of
-// `tiles` tiles that launch_clusters makes at cluster 0, for a kernel whose
-// steps are `step` deep through a ring of `stages`.
+// out (int[6]) = {tiles, cluster, ROWS, cols, step, stages}: the launch of
+// `tiles` tiles of `cols` columns that launch_clusters makes at cluster 0,
+// for a kernel whose steps are `step` deep through a ring of `stages`.
 int report_shape(long long tiles, void* out, int step = TK,
-                 int stages = STAGES) {
+                 int stages = STAGES, int cols = NT, int share = 1) {
   if (tiles < 1 || tiles > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int* shape = static_cast<int*>(out);
   shape[0] = static_cast<int>(tiles);
-  shape[1] = cluster_for(tiles);
+  shape[1] = cluster_for(tiles, share);
   shape[2] = ROWS;
-  shape[3] = NT;
+  shape[3] = cols;
   shape[4] = step;
   shape[5] = stages;
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches `kernel` on tiles x cluster CTAs in clusters of `cluster` along
-// x, `smem` bytes of dynamic shared memory each. Cluster 0 takes
-// `cluster_for`'s; 1, 2, 4 or 8 forces that size (for tests and sweeps).
+// Launches `kernel` on tiles x cluster CTAs of `threads` threads in
+// clusters of `cluster` along x, `smem` bytes of dynamic shared memory
+// each. Cluster 0 takes `cluster_for`'s at `share`; 1, 2, 4 or 8 forces
+// that size (for tests and sweeps).
 template <class... Params, class... Args>
-int launch_tiles(void (*kernel)(Params...), long long tiles, int cluster,
-                 size_t smem, void* stream, Args... args) {
-  if (cluster == 0 && tiles >= 1) cluster = cluster_for(tiles);
+int launch_cta_tiles(void (*kernel)(Params...), long long tiles, int cluster,
+                     size_t smem, int threads, int share, void* stream,
+                     Args... args) {
+  if (cluster == 0 && tiles >= 1) cluster = cluster_for(tiles, share);
   if (cluster < 1 || cluster > CLUSTER_MAX || (cluster & (cluster - 1)) != 0 ||
       tiles < 1 || tiles * cluster > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -362,7 +381,7 @@ int launch_tiles(void (*kernel)(Params...), long long tiles, int cluster,
   dims[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(tiles * cluster));
-  config.blockDim = dim3(THREADS);
+  config.blockDim = dim3(static_cast<unsigned>(threads));
   config.dynamicSmemBytes = smem;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = dims;
@@ -373,6 +392,14 @@ int launch_tiles(void (*kernel)(Params...), long long tiles, int cluster,
     return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_cta_tiles with CTAs of THREADS threads.
+template <class... Params, class... Args>
+int launch_tiles(void (*kernel)(Params...), long long tiles, int cluster,
+                 size_t smem, void* stream, Args... args) {
+  return launch_cta_tiles(kernel, tiles, cluster, smem, THREADS, 1, stream,
+                          args...);
 }
 
 // launch_tiles with the 3xTF32 tile's SMEM_BYTES.

@@ -65,7 +65,13 @@ panel_spmm_kernel(const int* __restrict__ counts, const int* __restrict__ cols,
 // its fragments are loaded, and writes f32 Y; the bf16 panels' form (the
 // Pallas kernel at dtype bf16: bf16 panels and X, f32 sums, Y rounded once
 // to bf16) copies bf16 X straight into the ring (half the bytes) and
-// writes bf16 Y.
+// writes bf16 Y. The bf16 panels' form runs the pipelined tile of
+// bf16_mma.cuh (`bf16_pipe_tile`: TMA into a 6-stage ring fed by a
+// producer warp, both operands from shared memory, 128 columns of X a
+// tile, overlapped steps) where TMA takes its operands (bk and n multiples
+// of 8, panels and X on 16 bytes), else the cp.async tile. cv_panel's form
+// stays on the cp.async tile: its X is f32, rounded as it is loaded, which
+// TMA cannot do.
 template <bool XH>
 __global__ void __launch_bounds__(THREADS, 2)
 panel_spmm_bf16_kernel(const int* __restrict__ slice_ptr,
@@ -81,6 +87,22 @@ panel_spmm_bf16_kernel(const int* __restrict__ slice_ptr,
   bf16_row_tile<XH>(t, first, slice_ptr[slice + 1] - first, slice_slots,
                     cols, panels, x, y, band_rows, bk, m, k, n, a16, x16,
                     y16);
+}
+
+// The bf16 panels' form on the pipelined tile.
+__global__ void __launch_bounds__(PT_THREADS, 1)
+panel_spmm_bf16_pipe_kernel(const __grid_constant__ CUtensorMap a_map,
+                            const __grid_constant__ CUtensorMap x_map,
+                            const int* __restrict__ slice_ptr,
+                            const int* __restrict__ slice_slots,
+                            const int* __restrict__ cols, unsigned short* y,
+                            int band_rows, int bk, int m, int n, int slices,
+                            int col_tiles, bool y16) {
+  const RowTile t = listed_tile<PT_NT>(nullptr, slices, col_tiles);
+  const int slice = t.r * slices + t.i0 / ROWS;
+  const int first = slice_ptr[slice];
+  bf16_pipe_tile(t, first, slice_ptr[slice + 1] - first, slice_slots, cols,
+                 &a_map, &x_map, y, band_rows, bk, m, n, y16);
 }
 
 }  // namespace
@@ -115,12 +137,20 @@ extern "C" int spgrid_panel_spmm(const void* counts, const void* cols,
       n % 4 == 0 && aligned16(y));
 }
 
-// out (int[6]) = {tiles, cluster, ROWS, NT, BF_TK, BF_STAGES} of the
-// launch spgrid_panel_spmm_bf16 makes for these sizes at cluster 0.
-extern "C" int spgrid_panel_spmm_bf16_shape(int bands, int band_rows, int n,
-                                            void* out) {
-  if (bands <= 0 || band_rows <= 0 || n <= 0) {
+// out (int[6]) = {tiles, cluster, ROWS, cols, BF_TK, stages} of the launch
+// spgrid_panel_spmm_bf16 makes for these sizes at cluster 0: the bf16
+// panels' form (xy_bf16 1) on the pipelined tile where bk % 8 == n % 8 ==
+// 0 (128 columns, PT_STAGES), else the cp.async tile (64, BF_STAGES).
+extern "C" int spgrid_panel_spmm_bf16_shape(int bands, int band_rows, int bk,
+                                            int n, int xy_bf16, void* out) {
+  if (bands <= 0 || band_rows <= 0 || bk <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long slices =
+      static_cast<long long>(bands) * ((band_rows + ROWS - 1) / ROWS);
+  if (xy_bf16 && bk % 8 == 0 && n % 8 == 0) {
+    return report_shape(pipe_tiles(slices, n), out, BF_TK, PT_STAGES, PT_NT,
+                        PT_SHARE);
   }
   return report_shape(row_tiles(bands, band_rows, n), out, BF_TK, BF_STAGES);
 }
@@ -128,21 +158,37 @@ extern "C" int spgrid_panel_spmm_bf16_shape(int bands, int band_rows, int n,
 // The bf16 forms: panels as bf16 bit patterns, walked by the live-slice
 // index (slice_ptr: bands x ceil(band_rows / 128) + 1 offsets into
 // slice_slots); X and Y f32 (xy_bf16 0: cv_panel) or bf16 (xy_bf16 1).
-// cluster: 0 for the launch rule, else 1, 2, 4 or 8.
+// max_p: panel slots a band (the panels hold bands x max_p of band_rows x
+// bk). cluster: 0 for the launch rule, else 1, 2, 4 or 8.
 extern "C" int spgrid_panel_spmm_bf16(const void* slice_ptr,
                                       const void* slice_slots,
                                       const void* cols, const void* panels,
                                       const void* x, void* y, int bands,
-                                      int band_rows, int bk, int m, int k,
-                                      int n, int xy_bf16, int cluster,
+                                      int max_p, int band_rows, int bk, int m,
+                                      int k, int n, int xy_bf16, int cluster,
                                       void* stream) {
-  if (bands <= 0 || band_rows <= 0 || bk <= 0 || m <= 0 || n <= 0) {
+  if (bands <= 0 || max_p <= 0 || band_rows <= 0 || bk <= 0 || m <= 0 ||
+      k <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tiles = row_tiles(bands, band_rows, n);
   const int slices = (band_rows + ROWS - 1) / ROWS;
   const int col_tiles = (n + NT - 1) / NT;
   const bool a16 = bk % 8 == 0 && aligned16(panels);
+  CUtensorMap a_map, x_map;
+  if (xy_bf16 && bk % 8 == 0 && n % 8 == 0 &&
+      pipe_maps(&a_map, &x_map, panels,
+                static_cast<long long>(bands) * max_p * band_rows, bk, x, k,
+                n)) {
+    return launch_cta_tiles(
+        panel_spmm_bf16_pipe_kernel,
+        pipe_tiles(static_cast<long long>(bands) * slices, n), cluster,
+        PT_SMEM, PT_THREADS, PT_SHARE, stream, a_map, x_map,
+        static_cast<const int*>(slice_ptr),
+        static_cast<const int*>(slice_slots), static_cast<const int*>(cols),
+        static_cast<unsigned short*>(y), band_rows, bk, m, n, slices,
+        (n + PT_NT - 1) / PT_NT, n % 4 == 0 && aligned8(y));
+  }
   if (xy_bf16) {
     return launch_tiles(
         panel_spmm_bf16_kernel<true>, tiles, cluster, RowStage<true>::SMEM,

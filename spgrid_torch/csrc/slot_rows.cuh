@@ -32,12 +32,20 @@
 // is written as zeros. The walk uses no shared memory, no barrier and no
 // atomics: its occupancy is set by registers alone.
 //
-// The bf16 form (BF; wcoo_bands and wcoo_pallas at dtype bf16, as the
-// Pallas kernels multiply there): bf16 values and X, each product rounded
-// to bf16 (to nearest, ties to even) before it is added into the f32 sum,
-// and each element of Y rounded once to bf16. Lane l's part of an X row is the same
-// columns, 8 bytes a float4's place (n % 4 == 0, X and Y on 8 B), else
-// 2-byte loads; the stream's values are bf16 too (6 bytes a live slot).
+// The bf16 forms (BF: bf16 storage): bf16 values and X, the sum in f32,
+// each element of Y rounded once to bf16. Lane l's part of an X row is the
+// same columns, 8 bytes a float4's place (n % 4 == 0, X and Y on 8 B), else
+// 2-byte loads; the stream's values are bf16 too (6 bytes a live slot). RP
+// (the product rounded): each product rounded to bf16 (to nearest, ties to
+// even) before it is added into the f32 sum, as wcoo_bands and wcoo_pallas
+// multiply at dtype bf16 (RP = BF, the default); without it the product,
+// exact in f32, is added by one fmaf (bsr_spmm.cu's entry route, the BSR
+// body's f32 dot).
+//
+// Listed rows: where `rows` is given, the walk takes the rows rows[0 ..
+// m - 1] (row_slot still indexed by the row itself), and leaves every
+// other row of Y alone (bsr_spmm.cu's entry route: the rows of its
+// entry-route slices).
 //
 // Long rows: a warp walks its row's slots in turn, U at a time, so one row
 // of many slots sets the pace of the whole launch (on the H100 the edge
@@ -148,8 +156,8 @@ __device__ __forceinline__ void store_slab(Elem<BF>* __restrict__ yr,
 // acc += value * X[X row] over the slots [beg, end) of one row, in slot
 // order, by one warp: the slots' (value, X row) 32 at a time, one a lane,
 // handed out by shuffles U at a time. Warp-collective: beg and end are the
-// same in every lane. bf16: each product rounded to bf16 before the add.
-template <int C, bool VEC, bool BF>
+// same in every lane. RP: each product rounded to bf16 before the add.
+template <int C, bool VEC, bool BF, bool RP>
 __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
                                           int end,
                                           const Elem<BF>* __restrict__ vals,
@@ -182,7 +190,7 @@ __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
         if (j + u < count) {
 #pragma unroll
           for (int e = 0; e < 4 * C; ++e) {
-            if constexpr (BF) {
+            if constexpr (RP) {
               acc[e] += widen(round_bf16(vv[u] * xv[u][e]));
             } else {
               acc[e] = fmaf(vv[u], xv[u][e], acc[e]);
@@ -194,25 +202,28 @@ __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
   }
 }
 
-// The row walk: a warp a row, every row but the long ones (more than
-// long_row slots), which long_walk writes.
-template <int C, bool VEC, bool BF>
+// The row walk: a warp a row (the i-th of m, or rows[i] where rows is
+// given), every row but the long ones (more than long_row slots), which
+// long_walk writes.
+template <int C, bool VEC, bool BF, bool RP>
 __global__ void __launch_bounds__(THREADS, 4)
 walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
      const int* __restrict__ xrows, const Elem<BF>* __restrict__ x,
-     Elem<BF>* __restrict__ y, int m, int n, int long_row) {
+     Elem<BF>* __restrict__ y, int m, int n, int long_row,
+     const int* __restrict__ rows) {
   const int lane = threadIdx.x % 32;
   const int n0 = blockIdx.y * SLAB * C;
-  const long long row =
+  const long long i =
       static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
-  if (row >= m) return;
+  if (i >= m) return;
+  const long long row = rows != nullptr ? __ldg(rows + i) : i;
   const int beg = __ldg(row_slot + row);
   const int end = __ldg(row_slot + row + 1);
   if (end - beg > long_row) return;
   float acc[4 * C];
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
-  add_slots<C, VEC, BF>(acc, beg, end, vals, xrows, x, n, n0, lane);
+  add_slots<C, VEC, BF, RP>(acc, beg, end, vals, xrows, x, n, n0, lane);
   store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
                          acc);
 }
@@ -220,7 +231,7 @@ walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
 // A long row a CTA (blockIdx.x indexes long_rows): warp w sums the w-th of
 // LONG_WARPS equal runs of the row's slots, then warp 0 adds the runs'
 // sums in warp order and writes the row. No atomics; a fixed order.
-template <int C, bool VEC, bool BF>
+template <int C, bool VEC, bool BF, bool RP>
 __global__ void __launch_bounds__(LONG_THREADS)
 long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
           const Elem<BF>* __restrict__ vals, const int* __restrict__ xrows,
@@ -237,8 +248,8 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
   float acc[4 * C];
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
-  add_slots<C, VEC, BF>(acc, lo, min(end, lo + run), vals, xrows, x, n, n0,
-                        lane);
+  add_slots<C, VEC, BF, RP>(acc, lo, min(end, lo + run), vals, xrows, x, n,
+                            n0, lane);
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) part[w][e][lane] = acc[e];
   __syncthreads();
@@ -253,46 +264,52 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
                          acc);
 }
 
-template <int C, bool VEC, bool BF>
+template <int C, bool VEC, bool BF, bool RP>
 int launch_form(cudaStream_t s, const void* row_slot, const void* vals,
                 const void* xrows, const void* long_rows, const void* x,
-                void* y, int m, int n, int long_row, int num_long) {
+                void* y, int m, int n, int long_row, int num_long,
+                const int* rows) {
   using T = Elem<BF>;
   const dim3 grid(m / WARPS + (m % WARPS != 0),
                   n / (SLAB * C) + (n % (SLAB * C) != 0));
-  walk<C, VEC, BF><<<grid, THREADS, 0, s>>>(
+  walk<C, VEC, BF, RP><<<grid, THREADS, 0, s>>>(
       static_cast<const int*>(row_slot), static_cast<const T*>(vals),
       static_cast<const int*>(xrows), static_cast<const T*>(x),
-      static_cast<T*>(y), m, n, long_row);
+      static_cast<T*>(y), m, n, long_row, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_long == 0) return static_cast<int>(err);
-  long_walk<C, VEC, BF><<<dim3(num_long, grid.y), LONG_THREADS, 0, s>>>(
+  long_walk<C, VEC, BF, RP><<<dim3(num_long, grid.y), LONG_THREADS, 0, s>>>(
       static_cast<const int*>(long_rows), static_cast<const int*>(row_slot),
       static_cast<const T*>(vals), static_cast<const int*>(xrows),
       static_cast<const T*>(x), static_cast<T*>(y), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C, bool BF>
+template <int C, bool BF, bool RP>
 int launch_cols(bool vec, cudaStream_t s, const void* row_slot,
                 const void* vals, const void* xrows, const void* long_rows,
                 const void* x, void* y, int m, int n, int long_row,
-                int num_long) {
-  return vec ? launch_form<C, true, BF>(s, row_slot, vals, xrows, long_rows,
-                                        x, y, m, n, long_row, num_long)
-             : launch_form<C, false, BF>(s, row_slot, vals, xrows, long_rows,
-                                         x, y, m, n, long_row, num_long);
+                int num_long, const int* rows) {
+  return vec ? launch_form<C, true, BF, RP>(s, row_slot, vals, xrows,
+                                            long_rows, x, y, m, n, long_row,
+                                            num_long, rows)
+             : launch_form<C, false, BF, RP>(s, row_slot, vals, xrows,
+                                             long_rows, x, y, m, n, long_row,
+                                             num_long, rows);
 }
 
 // The walk and, where there are long rows, the long-row walk on `stream`;
 // 0 or the CUDA error. C is 1, 2 or 4 by n (a warp covers 128, 256 or 512
 // columns); the vector form when n % 4 == 0 and X and Y are aligned to four
 // elements (16 B in f32, 8 B in bf16), else the scalar form. long_rows
-// holds the num_long rows with more than long_row slots. BF: the bf16 form.
-template <bool BF = false>
+// holds the num_long rows with more than long_row slots. BF: the bf16
+// storage; RP: each product rounded to bf16. rows: the m rows to walk (null:
+// rows 0 .. m - 1).
+template <bool BF = false, bool RP = BF>
 int launch(const void* row_slot, const void* vals, const void* xrows,
            const void* long_rows, const void* x, void* y, int m, int n,
-           int long_row, int num_long, void* stream) {
+           int long_row, int num_long, void* stream,
+           const int* rows = nullptr) {
   if (m < 0 || n < 0 || long_row < 0 || num_long < 0 || num_long > m)
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
@@ -301,13 +318,13 @@ int launch(const void* row_slot, const void* vals, const void* xrows,
   const bool vec = n % 4 == 0 && addr % (4 * sizeof(Elem<BF>)) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= SLAB)
-    return launch_cols<1, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y,
-                              m, n, long_row, num_long);
+    return launch_cols<1, BF, RP>(vec, s, row_slot, vals, xrows, long_rows,
+                                  x, y, m, n, long_row, num_long, rows);
   if (n <= 2 * SLAB)
-    return launch_cols<2, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y,
-                              m, n, long_row, num_long);
-  return launch_cols<4, BF>(vec, s, row_slot, vals, xrows, long_rows, x, y, m,
-                            n, long_row, num_long);
+    return launch_cols<2, BF, RP>(vec, s, row_slot, vals, xrows, long_rows,
+                                  x, y, m, n, long_row, num_long, rows);
+  return launch_cols<4, BF, RP>(vec, s, row_slot, vals, xrows, long_rows, x,
+                                y, m, n, long_row, num_long, rows);
 }
 
 }  // namespace

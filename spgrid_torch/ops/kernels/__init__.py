@@ -61,8 +61,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Every wrapper's count to 0, with its counts of the kernels a call
+    may start (``bsr_spmm_bf16.tile_launches``, ``.entry_launches``)."""
     for fn in _wrappers().values():
-        fn.launches = 0
+        for name in list(vars(fn)):
+            if name.endswith("launches"):
+                setattr(fn, name, 0)
 
 
 # the operand types of the kernels that have a bf16 form beside the f32 one

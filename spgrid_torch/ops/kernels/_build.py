@@ -40,28 +40,34 @@ SIGNATURES = {
     # row_ptr, cols, blocks, x, y, mb, bm, bk, m, k, n, cluster (0: the
     # launch rule), stream
     "spgrid_bsr_spmm": [_PTR] * 5 + [_INT] * 7 + [_PTR],
-    # the same, blocks, x and y in bf16
-    "spgrid_bsr_spmm_bf16": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    # row_ptr, cols, blocks, tile_slices, x, y (bf16 blocks, x and y),
+    # num_slices, nb, bm, bk, m, k, n, cluster (0: the launch rule), stream:
+    # the bf16 form's tile route
+    "spgrid_bsr_spmm_bf16": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # row_slot, vals, xrows, rows, long_rows, x, y, num_rows, n, long_row,
+    # num_long, stream: the bf16 form's entry route
+    "spgrid_bsr_spmm_bf16_entries": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     # counts, cols, panels, x, y, bands, max_p, band_rows, bk, m, k, n,
     # cluster (0: the launch rule), stream
     "spgrid_panel_spmm": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     # slice_ptr, slice_slots, cols, panels (bf16 bit patterns), x, y, bands,
-    # band_rows, bk, m, k, n, xy_bf16 (x and y: 0 f32, 1 bf16), cluster (0:
-    # the launch rule), stream
-    "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # max_p, band_rows, bk, m, k, n, xy_bf16 (x and y: 0 f32, 1 bf16),
+    # cluster (0: the launch rule), stream
+    "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 9 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # the same, mask, q, k and out in bf16
     "spgrid_bsr_sddmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # the same in f32, three bf16 passes (matmul precision 'high')
     "spgrid_bsr_sddmm_bf16x3": [_PTR] * 6 + [_INT] * 7 + [_PTR],
-    # mb, bm, n (SpMM), bands, band_rows, n (panels) or nb, bm, bk
-    # (SDDMM), out (int[6]: tiles, cluster, tile rows, tile columns, step,
-    # ring stages)
+    # the launch shapes: mb, bm, n (SpMM); slices, bk, n (bf16 SpMM);
+    # bands, band_rows, n (panels); bands, band_rows, bk, n, xy_bf16 (bf16
+    # panels); nb, bm, bk (SDDMM); then out (int[6]: tiles, cluster, tile
+    # rows, tile columns, step, ring stages)
     "spgrid_bsr_spmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_spmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_panel_spmm_shape": [_INT] * 3 + [_PTR],
-    "spgrid_panel_spmm_bf16_shape": [_INT] * 3 + [_PTR],
+    "spgrid_panel_spmm_bf16_shape": [_INT] * 5 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_bf16_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_bf16x3_shape": [_INT] * 3 + [_PTR],

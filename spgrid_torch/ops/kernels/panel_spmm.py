@@ -18,8 +18,10 @@ contraction (the band's real panels, 32 columns a step) split across a
 cluster where the tiles alone would leave the card idle (``launch_grid``
 reports the launch). The bf16 forms launch the same tiles but walk only
 the slots live in their slice (``DevicePanels.slice_ptr``/``slice_slots``),
-64 columns a step through a ``cp.async`` ring into bf16 ``wgmma``
-(``csrc/bf16_mma.cuh``).
+64 columns a step into bf16 ``wgmma`` (``csrc/bf16_mma.cuh``): the bf16
+panels' form on the pipelined tile (TMA, a producer warpgroup, 128
+columns of X a tile) where TMA takes its operands, cv_panel's through a
+``cp.async`` ring.
 """
 
 from __future__ import annotations
@@ -184,14 +186,19 @@ def _check(a: DevicePanels, x: torch.Tensor) -> None:
                    slice_slots=(a.slice_slots, torch.int32))
 
 
-def launch_grid(a: DevicePanels, n: int) -> LaunchShape:
-    """The launch of the form ``a``'s panels take at n columns of X on the
-    card ``a`` lies on, as ``spgrid_panel_spmm`` or ``spgrid_panel_spmm_bf16``
-    makes it (the cluster depends on the card's SM count)."""
-    entry = ("spgrid_panel_spmm_bf16_shape"
-             if a.panels.dtype == torch.bfloat16 else "spgrid_panel_spmm_shape")
+def launch_grid(a: DevicePanels, n: int,
+                x_dtype: torch.dtype = torch.float32) -> LaunchShape:
+    """The launch of the form ``a``'s panels and an X of ``x_dtype`` take at
+    n columns of X on the card ``a`` lies on, as ``spgrid_panel_spmm`` or
+    ``spgrid_panel_spmm_bf16`` makes it (the cluster depends on the card's
+    SM count; the bf16 form runs the pipelined tile of 128 columns where n
+    and bk are multiples of 8)."""
     with torch.cuda.device(a.panels.device):
-        return query(entry, "panel_spmm", a.bands, a.band_rows, n)
+        if a.panels.dtype != torch.bfloat16:
+            return query("spgrid_panel_spmm_shape", "panel_spmm", a.bands,
+                         a.band_rows, n)
+        return query("spgrid_panel_spmm_bf16_shape", "panel_spmm", a.bands,
+                     a.band_rows, a.bk, n, int(x_dtype == torch.bfloat16))
 
 
 def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
@@ -209,7 +216,7 @@ def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
             code = lib.spgrid_panel_spmm_bf16(
                 a.slice_ptr.data_ptr(), a.slice_slots.data_ptr(),
                 a.block_cols.data_ptr(), a.panels.data_ptr(), x.data_ptr(),
-                y.data_ptr(), a.bands, a.band_rows, a.bk, m, k, n,
+                y.data_ptr(), a.bands, a.max_p, a.band_rows, a.bk, m, k, n,
                 int(x.dtype == torch.bfloat16), cluster, stream)
         else:
             entry = "spgrid_panel_spmm"

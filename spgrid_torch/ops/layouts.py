@@ -121,6 +121,170 @@ def bsr_arrays(csr: CSRMatrix, bm: int, bk: int, pad_multiple: int = 1):
     return rows, cols, row_starts, blocks, nb
 
 
+# The bf16 BSR form's two routes (csrc/bsr_spmm.cu): a block row of (bm,
+# bk) blocks holding at most ENTRY_ROUTE_MAX bm bk / 128^2 nonzero entries a
+# block on average gives its entries to a row stream that a gather walk
+# reads; the other block rows run the tensor-core tile over all their
+# blocks. The same number stands as ENTRY_ROUTE_MAX in the .cu, with the
+# sweep it came from.
+ENTRY_ROUTE_MAX = 224
+ROUTE_SLICE_ROWS = 128   # rows of a tile slice (ROWS of csrc/block_mma.cuh)
+ROUTES = ("auto", "tile", "entry")
+
+
+@dataclasses.dataclass
+class BlockRoute:
+    """The split of a bf16 ``DeviceBSR`` between the entry route and the
+    tile route (``route_blocks``), by block row.
+
+    Tile route: ``tile_slices`` lists the 128-row slices (block row r's
+    s-th: ``r * ceil(bm / 128) + s``) of its block rows, which the tile
+    kernel runs over all their blocks (``DeviceBSR.row_ptr``). Entry route:
+    the nonzero entries of the other block rows' blocks (X row < k, output
+    row < m), as a row stream (``slot_rows.stream_order``): ordered by
+    output row, then block order, then column; row r's are
+    ``row_slot[r]:row_slot[r + 1]``, each its value, its X row and its place
+    in ``blocks`` (``slot_pos``, flat). ``walk_rows`` lists those rows (< m),
+    which the entry kernel walks; ``long_rows`` those of them with more
+    than ``slot_rows.LONG_ROW`` entries.
+    """
+
+    mode: str
+    tile_slices: torch.Tensor   # (tile slices,) int32
+    row_slot: torch.Tensor      # (m+1,) int32
+    slot_vals: torch.Tensor     # (entries,) the blocks' type
+    slot_xrows: torch.Tensor    # (entries,) int32
+    slot_pos: torch.Tensor      # (entries,) int64
+    walk_rows: torch.Tensor     # (walked rows,) int32
+    long_rows: torch.Tensor     # (long rows,) int32
+    tile_blocks: int            # blocks on the tile route
+    entry_blocks: int           # blocks on the entry route
+
+    @property
+    def entries(self) -> int:
+        return self.slot_vals.numel()
+
+    def with_values(self, blocks: torch.Tensor) -> "BlockRoute":
+        """The same split with the entries' values read from ``blocks``
+        (the same sparsity), on the device: no host sync."""
+        return dataclasses.replace(
+            self, slot_vals=blocks.reshape(-1)[self.slot_pos])
+
+    def __str__(self) -> str:
+        return (f"route={self.mode} tile_blocks={self.tile_blocks} "
+                f"tile_slices={self.tile_slices.numel()} "
+                f"entry_blocks={self.entry_blocks} entries={self.entries} "
+                f"walked_rows={self.walk_rows.numel()} "
+                f"long_rows={self.long_rows.numel()}")
+
+
+def entry_route_max(bm: int, bk: int) -> int:
+    """The most nonzero entries a (bm, bk) block may hold on average in a
+    block row on the entry route: ENTRY_ROUTE_MAX scaled to the block's
+    area."""
+    return ENTRY_ROUTE_MAX * bm * bk // (128 * 128)
+
+
+def block_entries(csr: CSRMatrix, block_rows, block_cols, bm: int,
+                  bk: int):
+    """(b, i, j) of each nonzero of ``csr`` in the BSR layout whose (bm, bk)
+    blocks sit at ``block_rows``, ``block_cols``: its block and its place
+    there, in the order ``np.nonzero`` of the blocks gives (block, row,
+    column), found from the CSR in O(nnz log nnz) rather than by a scan of
+    every block's values."""
+    rows = np.asarray(block_rows, np.int64)
+    cols = np.asarray(block_cols, np.int64)
+    kb = -(-csr.k // bk) + 1
+    r = np.repeat(np.arange(csr.m, dtype=np.int64), csr.degrees)
+    c = csr.col_idx.astype(np.int64)
+    live = csr.values != 0
+    r, c = r[live], c[live]
+    keys = rows * kb + cols
+    order = np.argsort(keys, kind="stable")
+    b = order[np.searchsorted(keys[order], (r // bm) * kb + c // bk)]
+    i, j = r % bm, c % bk
+    sort = np.lexsort((j, i, b))
+    return b[sort], i[sort], j[sort]
+
+
+def route_blocks(block_rows, block_cols, blocks, mb: int, shape,
+                 mode: str = "auto", *, device, dtype=None,
+                 entries=None) -> BlockRoute:
+    """The split of host blocks (nb, bm, bk) between the routes: ``mode``
+    "auto" sends each block row whose real blocks (block row < mb) hold at
+    most ``entry_route_max`` nonzero entries a block on average to the
+    entry route, "tile" and "entry" send them all to one route (for tests
+    and the A/B). Entries' values take the value type ``dtype`` on
+    ``device``. ``entries``: the blocks' nonzeros as (b, i, j) in
+    ``np.nonzero``'s order where the caller has them (``block_entries``),
+    else found by a scan."""
+    from spgrid_torch.ops.kernels.slot_rows import LONG_ROW, stream_order
+    if mode not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {mode!r}")
+    m, k = shape
+    blocks = np.asarray(blocks)
+    nb, bm, bk = blocks.shape
+    rows = np.asarray(block_rows, np.int64)
+    cols = np.asarray(block_cols, np.int64)
+    real = rows < mb
+    if mode == "tile":
+        b = i = j = np.zeros(0, np.int64)
+        entry_row = np.zeros(mb, bool)
+    else:
+        b, i, j = np.nonzero(blocks) if entries is None else entries
+        if mode == "entry":
+            entry_row = np.ones(mb, bool)
+        else:
+            counts = np.bincount(b, minlength=nb)[real]
+            entry_row = (np.bincount(rows[real], counts, minlength=mb)
+                         <= entry_route_max(bm, bk)
+                         * np.bincount(rows[real], minlength=mb))
+    entry = real & entry_row[np.minimum(rows, mb - 1)]
+    slices = -(-bm // ROUTE_SLICE_ROWS)
+    tile_slices = (np.flatnonzero(~entry_row)[:, None] * slices
+                   + np.arange(slices)).reshape(-1)
+    keep = entry[b]
+    b, i, j = b[keep], i[keep], j[keep]
+    out_row = rows[b] * bm + i
+    xrow = cols[b] * bk + j
+    inside = (out_row < m) & (xrow < k)
+    b, i, j, out_row, xrow = (t[inside] for t in (b, i, j, out_row, xrow))
+    vals = blocks[b, i, j]
+    order, row_slot = stream_order(out_row, xrow, vals, m, k)
+    walk_rows = np.flatnonzero(entry_row[np.arange(m) // bm])
+    counts = np.diff(row_slot)
+    return BlockRoute(
+        mode=mode,
+        tile_slices=to_device(tile_slices, device, np.int32),
+        row_slot=to_device(row_slot, device, np.int32),
+        slot_vals=values_to_device(vals[order], device, dtype),
+        slot_xrows=to_device(xrow[order], device, np.int32),
+        slot_pos=to_device(((b * bm + i) * bk + j)[order], device, np.int64),
+        walk_rows=to_device(walk_rows, device, np.int32),
+        long_rows=to_device(walk_rows[counts[walk_rows] > LONG_ROW], device,
+                            np.int32),
+        tile_blocks=int((real & ~entry).sum()),
+        entry_blocks=int(entry.sum()))
+
+
+def all_tile_route(a: "DeviceBSR") -> BlockRoute:
+    """Every block row of ``a`` on the tile route, built on ``a``'s device
+    (no host sync): the split of a layout that carries none."""
+    dev = a.blocks.device
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    slices = -(-a.bm // ROUTE_SLICE_ROWS)
+    return BlockRoute(
+        mode="tile",
+        tile_slices=torch.arange(a.mb * slices, dtype=torch.int32,
+                                 device=dev),
+        row_slot=torch.zeros(a.shape[0] + 1, dtype=torch.int32, device=dev),
+        slot_vals=torch.zeros(0, dtype=a.blocks.dtype, device=dev),
+        slot_xrows=none,
+        slot_pos=torch.zeros(0, dtype=torch.int64, device=dev),
+        walk_rows=none, long_rows=none, tile_blocks=a.num_blocks,
+        entry_blocks=0)
+
+
 @dataclasses.dataclass
 class DeviceBSR:
     """Flattened block-sparse rows on a torch device, sorted by block row.
@@ -128,7 +292,9 @@ class DeviceBSR:
     ``block_rows[b]``/``block_cols[b]`` are the block-grid coordinates of the
     dense (bm, bk) block ``blocks[b]``; blocks of row r are
     ``row_ptr[r]:row_ptr[r+1]``. Pad blocks (to ``pad_multiple``) carry
-    row = mb, col = 0 and zero values.
+    row = mb, col = 0 and zero values. A bf16 layout also carries
+    ``route``, the split of its blocks between the bf16 kernel's two
+    routes (``BlockRoute``; None at other types).
     """
 
     block_rows: torch.Tensor   # (nb_pad,) int32
@@ -139,6 +305,7 @@ class DeviceBSR:
     shape: Tuple[int, int]     # logical (m, k)
     nnz: int
     num_blocks: int            # true block count, coverage blocks included
+    route: Optional[BlockRoute] = None   # bf16 only
 
     @property
     def bm(self) -> int:
@@ -158,19 +325,28 @@ class DeviceBSR:
             self.block_rows, self.block_cols, self.row_ptr, self.blocks))
 
     def with_blocks(self, blocks: torch.Tensor) -> "DeviceBSR":
-        """The same sparsity with other block values (the SDDMM output)."""
-        return dataclasses.replace(self, blocks=blocks)
+        """The same sparsity with other block values (the SDDMM output): a
+        bf16 layout's route keeps its split and reads its entries' values
+        from ``blocks`` (zero outside the sparsity, as the SDDMM's are)."""
+        route = self.route
+        if blocks.dtype == torch.bfloat16:
+            route = (all_tile_route(self) if route is None
+                     else route.with_values(blocks))
+        return dataclasses.replace(self, blocks=blocks, route=route)
 
     @classmethod
     def from_arrays(cls, block_rows, block_cols, row_starts, blocks,
                     shape, nnz: int, num_blocks: int, *, device,
-                    dtype: Optional[str] = None) -> "DeviceBSR":
+                    dtype: Optional[str] = None,
+                    route: str = "auto", entries=None) -> "DeviceBSR":
         """Host arrays → device layout, the blocks of value type ``dtype``
         (their own where None); ``row_ptr`` is rebuilt from
-        ``block_rows``."""
+        ``block_rows``. bf16 blocks are split between the bf16 kernel's
+        routes (``route_blocks``, given the blocks' ``entries`` where the
+        caller has them; ``route`` "tile" or "entry" forces one)."""
         mb = len(row_starts) - 1
         ptr = block_row_ptr(block_rows, mb)
-        return cls(
+        a = cls(
             block_rows=to_device(block_rows, device, np.int32),
             block_cols=to_device(block_cols, device, np.int32),
             row_starts=to_device(row_starts, device, np.int32),
@@ -180,15 +356,25 @@ class DeviceBSR:
             nnz=int(nnz),
             num_blocks=int(num_blocks),
         )
+        if a.blocks.dtype == torch.bfloat16:
+            a.route = route_blocks(block_rows, block_cols, blocks, mb, shape,
+                                   route, device=device, dtype="bfloat16",
+                                   entries=entries)
+        return a
 
     @classmethod
     def from_csr(cls, csr: CSRMatrix, bm: int = 8, bk: int = 128,
-                 pad_multiple: int = 1, *, device) -> "DeviceBSR":
+                 pad_multiple: int = 1, *, device,
+                 route: str = "auto") -> "DeviceBSR":
         rows, cols, row_starts, blocks, nb = bsr_arrays(
             csr, bm, bk, pad_multiple)
+        entries = (block_entries(csr, rows, cols, bm, bk)
+                   if value_dtype(csr) == "bfloat16" and route != "tile"
+                   else None)
         return cls.from_arrays(rows, cols, row_starts, blocks, csr.shape,
                                csr.nnz, nb, device=device,
-                               dtype=value_dtype(csr))
+                               dtype=value_dtype(csr), route=route,
+                               entries=entries)
 
 
 def nbytes(*tensors) -> int:

@@ -28,6 +28,7 @@ from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
 from spgrid_torch.gen import artificial_matrix_generation, create_mask
 from spgrid_torch.ops.kernels import launch_counts
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from spgrid_torch.ops.kernels.bsr_spmm import launch as bsr_launch
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
     DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain,
 )
@@ -1746,13 +1747,11 @@ def test_bf16_block_forms_at_every_cluster_size(cuda, cluster):
     lib = _build.library()
     stream = torch.cuda.current_stream().cuda_stream
     csr = bf16_csr(BF16_MATRICES["ragged"])
-    a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3, device=cuda)
+    a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3, device=cuda,
+                           route="tile")
     x = bf16_operand((300, 77), 33, cuda)
     y = torch.empty((500, 77), dtype=torch.bfloat16, device=cuda)
-    _build.check(lib.spgrid_bsr_spmm_bf16(
-        a.row_ptr.data_ptr(), a.block_cols.data_ptr(), a.blocks.data_ptr(),
-        x.data_ptr(), y.data_ptr(), a.mb, a.bm, a.bk, 500, 300, 77, cluster,
-        stream), "bsr_spmm_bf16")
+    bsr_launch(a, x, y, cluster)
     assert_within_one_ulp(y, bsr_spmm_plain(a, x))
     p = DevicePanels.from_csr(csr, bk=128, band_rows=104, device=cuda)
     yp = torch.empty((500, 77), dtype=torch.bfloat16, device=cuda)
@@ -2260,3 +2259,147 @@ def test_dgell_bf16_slab_rule_takes_the_widest_slab(cuda):
     assert launch_shape(150000, 96, dtype=torch.bfloat16).slab == 96
     shape = launch_shape(150000, 600, dtype=torch.bfloat16)
     assert (shape.slab, shape.slabs) == (512, 2)
+
+
+# --- 1b's two routes and the pipelined bf16 tile (1b and 2b): the entry
+# route's walk, the tile route on the pipelined TMA tile (n and bk
+# multiples of 8, operands on 16 bytes) or the cp.async tile, and matrices
+# whose block rows take both
+
+def route_band():
+    """~8 nnz a row over a wide band: every 128^2 block on the entry
+    route."""
+    return artificial_matrix_generation(
+        2048, 2048, 8, 2.6667, "normal", seed=14, placement="random",
+        bw=0.9, skew=0, avg_num_neighbours=0.05, cross_row_similarity=0.5,
+        name="route_band")
+
+
+def route_mixed():
+    """Block rows of a dense block beside sparse ones (the tile), a block
+    row of sparse blocks with a long row, an empty block row (walked)."""
+    rng = np.random.default_rng(3)
+    d = np.zeros((520, 384), np.float32)
+    d[:128, :128] = rng.random((128, 128)) + 0.5
+    d[:128, 256:] = (rng.random((128, 128)) < 0.004) * 1.5
+    d[256:384] = (rng.random((128, 384)) < 0.003) * 1.25
+    d[300, :200] = 0.625                      # a long walked row
+    d[384:, 128:256] = rng.random((136, 128)) + 0.5
+    d[384:, :128] = (rng.random((136, 128)) < 0.002) * 0.75
+    return dense_to_csr(d, name="route_mixed")
+
+
+ROUTE_MATRICES = {"twin": headline_matrix, "band": route_band,
+                  "mixed": route_mixed,
+                  "empty_rows": lambda: with_empty_rows(400, 260, 11)}
+
+
+@pytest.mark.parametrize("route", ["auto", "tile", "entry"])
+@pytest.mark.parametrize("matrix", sorted(ROUTE_MATRICES))
+@pytest.mark.parametrize("n,x_layout", [(512, "aligned"), (136, "aligned"),
+                                        (77, "aligned"),
+                                        (64, "misaligned")])
+def test_bsr_spmm_bf16_under_each_route(cuda, route, matrix, n, x_layout):
+    """Within 1 ulp of the plain version under the chosen and each forced
+    route, one launch a call (and one of each kernel the route runs), the
+    same bits twice and by graph replay."""
+    csr = bf16_csr(ROUTE_MATRICES[matrix])
+    a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda, route=route)
+    make_x = bf16_operand if x_layout == "aligned" else misaligned_bf16
+    x = make_x((csr.k, n), 61, cuda)
+    from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm_bf16
+    before = (launch_counts()["bsr_spmm_bf16"], bsr_spmm_bf16.tile_launches,
+              bsr_spmm_bf16.entry_launches)
+    got = bsr_spmm(a, x)
+    after = (launch_counts()["bsr_spmm_bf16"], bsr_spmm_bf16.tile_launches,
+             bsr_spmm_bf16.entry_launches)
+    assert after[0] == before[0] + 1
+    assert after[1] - before[1] == int(a.route.tile_slices.numel() > 0)
+    assert after[2] - before[2] == int(a.route.walk_rows.numel() > 0)
+    assert_within_one_ulp(got, bsr_spmm_plain(a, x))
+    assert torch.equal(bsr_spmm(a, x), got)
+    graph, out = captured(bsr_spmm, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("n", [512, 77])
+@pytest.mark.parametrize("route", ["auto", "tile"])
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_bsr_spmm_bf16_routes_at_every_cluster_size(cuda, cluster, route, n):
+    """The tile route (pipelined at n = 512, cp.async at n = 77) at each
+    cluster size, beside walked rows or alone: 1 ulp, the same bits
+    twice."""
+    csr = bf16_csr(route_mixed)
+    a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda, route=route)
+    x = bf16_operand((csr.k, n), 62, cuda)
+    y = torch.empty((csr.m, n), dtype=torch.bfloat16, device=cuda)
+    again = torch.empty_like(y)
+    bsr_launch(a, x, y, cluster)
+    bsr_launch(a, x, again, cluster)
+    assert_within_one_ulp(y, bsr_spmm_plain(a, x))
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("bm,n", [(64, 512), (200, 96), (256, 136),
+                                  (8, 64), (200, 77)])
+@pytest.mark.parametrize("route", ["auto", "tile", "entry"])
+def test_bsr_spmm_bf16_routes_at_other_block_heights(cuda, bm, n, route):
+    """Block rows below one warpgroup, of ragged and full slices, and of 8
+    rows (the threshold scaled to the block), on both tiles."""
+    csr = bf16_csr(route_mixed)
+    a = DeviceBSR.from_csr(csr, bm=bm, bk=128, pad_multiple=3, device=cuda,
+                           route=route)
+    x = bf16_operand((csr.k, n), 63, cuda)
+    assert_within_one_ulp(bsr_spmm(a, x), bsr_spmm_plain(a, x))
+
+
+def test_bsr_spmm_bf16_keeps_the_route_through_with_blocks(cuda):
+    """The pipeline's final SpMM: the mask's route, its entries' values read
+    from the SDDMM's blocks."""
+    mask = create_mask("band_and_random", 1024, 0.99, seed=14,
+                       dtype="bfloat16")
+    m = DeviceBSR.from_csr(mask, bm=128, bk=128, device=cuda)
+    assert m.route.entry_blocks and m.route.tile_blocks
+    s = (m.blocks.float() * 0.5).to(torch.bfloat16)
+    a = m.with_blocks(s)
+    v = bf16_operand((1024, 512), 64, cuda)
+    assert_within_one_ulp(bsr_spmm(a, v), bsr_spmm_plain(a, v))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["r104", "r2048", "empty_band"])
+def test_panel_spmm_bf16_xy_pipelined_at_every_cluster_size(cuda, case,
+                                                            cluster):
+    """2b on the pipelined tile (n = 512) at each cluster size: 1 ulp, the
+    same bits twice."""
+    make, band_rows = PANELS[case]
+    csr = bf16_csr(make)
+    p = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows, device=cuda)
+    x = bf16_operand((csr.k, 512), 65, cuda)
+    y = torch.empty((csr.m, 512), dtype=torch.bfloat16, device=cuda)
+    again = torch.empty_like(y)
+    panel_launch(p, x, y, cluster)
+    panel_launch(p, x, again, cluster)
+    assert_within_one_ulp(y, panel_spmm_plain(p, x))
+    assert torch.equal(y, again)
+
+
+def test_pipelined_tile_launch_grid(cuda):
+    """1b's and 2b's launches at n = 512 run the pipelined tile (128
+    columns, PT_STAGES); n = 77 the cp.async tile; 2a stays on it."""
+    from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
+    from spgrid_torch.ops.kernels.panel_spmm import launch_grid as p_grid
+    head = bf16_csr(headline_matrix)
+    a = DeviceBSR.from_csr(head, bm=128, bk=128, device=cuda)
+    p = DevicePanels.from_csr(head, bk=128, device=cuda)
+    g = bsr_grid(a, 512)
+    assert (g.tiles, g.rows, g.cols, g.step, g.stages) == (16, 128, 128, 64,
+                                                            6)
+    assert bsr_grid(a, 77).cols == 64
+    assert p_grid(p, 512, torch.bfloat16) == g
+    assert p_grid(p, 512).cols == 64
+    band = DeviceBSR.from_csr(bf16_csr(route_band), bm=128, bk=128,
+                              device=cuda)
+    assert bsr_grid(band, 512).tiles == 0
