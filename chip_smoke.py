@@ -198,7 +198,12 @@ exits non-zero and never prints the final ``"ok": true`` line:
    against ``dgell_rows_plain``), and the same bits on two calls,
    each with its device ms by graph replay (eager in brackets), bound and
    library time; ``bsr_spmm_bf16`` also under each forced route, with its
-   route split, and the route sweep of ``ENTRY_ROUTE_MAX``; then,
+   route split, and the route sweep of ``ENTRY_ROUTE_MAX``; the redesigned
+   SpMV forms with the device ms of the forms they replaced beside theirs
+   (``BEFORE_DEVICE_MS``), ``wrow_spmv_v2_bf16`` and ``wpack_spmv_bf16`` also
+   at two more ranges of live slots (``SPMV_RANGES``) and
+   ``wpack_spmv_bf16_prefix`` at every count of groups a CTA, each held to
+   1 ulp with the same bits twice; then,
    on its own path after phase 10: (b) the bf16 leg
    (``spgrid_torch.scripts.run_bf16_leg``, its jobs at full width, or
    ``BF16_LEG_JOBS``, and its pipeline row), every row gated at 3e-2;
@@ -1979,6 +1984,17 @@ BF16_LEG_JOBS = "dlmc_twin_512_0.5,band_98k,scat_131k,wideband_196k"
 LEG_SHAPES = (("mid_16k_d2pct", ("bsr", "panel")), ("band_98k", ("bsr",)),
               ("dense_2k_d20pct", ("bsr", "panel")),
               ("wideband_196k", ("bands",)))
+# the redesigned SpMV forms (the bf16 row walk, the wsel-1 form a warp a
+# piece): the device ms of the forms they replaced (the piece-ordered bf16
+# walk, the wsel-1 form a warp a group) on their 11a cases, on an H100 80GB
+# HBM3 at 700 W (PERF.md §6, rows 9b and 10b), printed beside this run's
+BEFORE_DEVICE_MS = {("wrow_spmv_v2_bf16", "LINE_S n=1"): 0.031140,
+                  ("wpack_spmv_bf16", "LINE_S n=1"): 0.030914,
+                  ("wpack_spmv_bf16_prefix", "headline 512^2 n=1 (wsel 1)"):
+                      0.016672}
+# the row walks' other ranges of live slots a CTA in 11a (the rule's is
+# 2,048 on LINE_S)
+SPMV_RANGES = (1024, 4096)
 # the JAX package's f64 sweep's rows (its CPU run), which 11c must match
 JAX_F64_CSV = "benchmark_results/cpu-f64/f64_correctness.csv"
 
@@ -2057,10 +2073,12 @@ def phase_dtype_kernels() -> dict:
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
+    from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
     from spgrid_torch.ops.kernels.wpack_spmv import (
-        DeviceWPACK, wpack_spmv, wpack_spmv_plain)
+        GROUPS_PER_CTA, DeviceWPACK, launch_prefix_bf16,
+        prefix_groups_per_cta, wpack_spmv, wpack_spmv_plain)
     from spgrid_torch.ops.kernels.wrow_spmv import (
-        DeviceWROW, wrow_spmv, wrow_spmv_plain)
+        DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2)
     from spgrid_torch.ops.layouts import (
         DeviceBSR, block_entries, bsr_arrays)
     from spgrid_torch.scripts.run_bf16_leg import JOBS as LEG_JOBS
@@ -2123,8 +2141,11 @@ def phase_dtype_kernels() -> dict:
                 note += " device_ms_by_cluster " + " ".join(
                     f"{c}:{device_ms(bsr_launch, a, x, y, c):.6f}"
                     for c in (1, 2, 4, 8))
-            variants = [(f"route={mode} forced", (rerouted(
-                a, arrays, entries, mode), x)) for mode in ("tile", "entry")]
+            variants = []
+            for mode in ("tile", "entry"):
+                forced = rerouted(a, arrays, entries, mode)
+                variants.append((f"route={mode} forced", fn, (forced, x),
+                                 str(forced.route)))
             index = 4
         elif kind == "panel":
             a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
@@ -2188,13 +2209,17 @@ def phase_dtype_kernels() -> dict:
                 f"nnz={mask.nnz}", None)
 
     def spmv_case(kind, csr, seed):
-        """A bf16 SpMV form's case: its layout, x (k,), what the form reads
-        of the layout (its stream; the wsel-1 form the padded pieces up to
-        their last live lane) beside x and y, and the rows on which it sums
-        in its plain version's order and must give its bits (None: none)."""
+        """A bf16 SpMV form's case: its layout, x (k,), what the form must
+        read of the layout (its stream; at wsel 1 each piece's live lanes,
+        starts and ends) beside x and y, the rows on which it sums
+        in its plain version's order and must give its bits (None: none),
+        and the form at its knobs' other values (the row walks at
+        ``SPMV_RANGES``, the wsel-1 form at every count of groups a
+        CTA)."""
         x = xb(csr.k, 1, seed)[:, 0].contiguous()
         t0 = time.perf_counter()
         exact = None
+        variants = []
         if kind == "wcoo":
             a = DeviceWCOOAligned.from_csr(csr, device=DEVICE)
             fn, plain = wcoo_spmv, wcoo_spmv_plain
@@ -2209,27 +2234,53 @@ def phase_dtype_kernels() -> dict:
                 lanes = a.piece_lanes.long()
                 read = (int(lanes.sum()) * 3 + int((lanes > 0).sum()) * 256
                         + nbytes(a.piece_lanes, a.piece_w, a.block_ptr))
+                rule = prefix_groups_per_cta(a.num_groups, sms)
+                note = f"wsel=1 groups={a.num_groups} groups_per_cta={rule}"
+                variants = [(f"groups_per_cta={g}", prefix_at(g), (a, x), "")
+                            for g in GROUPS_PER_CTA]
             else:
-                read = a.stream_nbytes
-            note = f"wsel={a.wsel} groups={a.num_groups}"
+                read = a.row_nbytes
+                note = (f"wsel={a.wsel} groups={a.num_groups} slots_per_cta="
+                        f"{default_slots_per_cta(a.num_slots, sms)}")
+                variants = [(f"slots_per_cta={r}", functools.partial(
+                    wpack_spmv, slots_per_cta=r), (a, x), "")
+                    for r in SPMV_RANGES]
         else:
             a = DeviceWROW.from_csr(csr, device=DEVICE)
             variant = "v2" if kind == "wrow_v2" else "v1"
             fn = functools.partial(wrow_spmv, variant=variant)
             plain = functools.partial(wrow_spmv_plain, variant=variant)
-            read = a.stream_nbytes if variant == "v2" else a.row_nbytes
+            # both read the row stream (v2 without its group marks)
+            read = a.row_nbytes
             note = f"groups={a.num_groups}"
             if variant == "v1":
                 note += f" group_starts={int((a.row_cols < 0).sum())}"
                 exact = torch.ones(csr.m, dtype=torch.bool, device=DEVICE)
+            else:
+                note += (f" slots_per_cta="
+                         f"{default_slots_per_cta(a.num_slots, sms)}")
+                variants = [(f"slots_per_cta={r}", functools.partial(
+                    wrow_spmv_v2, slots_per_cta=r), (a, x), "")
+                    for r in SPMV_RANGES]
         note += (f" live_slots={a.num_slots} read_bytes={read} "
                  f"layout_build_s={time.perf_counter() - t0:.3f}")
         lib, which = library_on(
             torch.sparse.mm, (csr_tensor(csr, torch.bfloat16), x[:, None]),
             (csr_tensor(csr), x.float()[:, None]))
         return (fn, plain, (a, x), torch.sparse.mm, lib, which,
-                read + 2 * (csr.k + csr.m), 2.0 * csr.nnz, note, exact)
+                read + 2 * (csr.k + csr.m), 2.0 * csr.nnz, note, exact,
+                variants)
 
+    def prefix_at(groups_per_cta):
+        """The wsel-1 form at ``groups_per_cta`` groups a CTA, uncounted."""
+        def call(a, x):
+            y = torch.empty((a.shape[0],), dtype=torch.bfloat16,
+                            device=x.device)
+            launch_prefix_bf16(a, x, y, groups_per_cta)
+            return y
+        return call
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     head = line_matrix(HEADLINE_LINE).astype("bfloat16")
     line_b = line_matrix(LINE_B).astype("bfloat16")
     hyper = line_matrix(MAIN_LINE).astype("bfloat16")
@@ -2318,6 +2369,9 @@ def phase_dtype_kernels() -> dict:
         lib_ms = ms(library, *lib_args)
         lib_dev = library_device_ms(library, *lib_args)
         b_ms, b_by = bound(bytes_moved, flops, BF16_FLOPS_PER_S)
+        if (name, label) in BEFORE_DEVICE_MS:
+            note += (f" before_device_ms="
+                     f"{BEFORE_DEVICE_MS[name, label]:.6f}")
         print(f"phase 11 kernels: {name} [{label}] {tol} "
               f"max_abs={err:.3e} same_bits_twice={same} "
               f"device_ms={dev_ms:.6f} (eager {k_ms:.6f}) "
@@ -2327,19 +2381,20 @@ def phase_dtype_kernels() -> dict:
               f"{'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(f"{name} [{label}]")
-        for tag, v_args in variants:
+        for tag, v_fn, v_args, v_note in variants:
             # the same function on another layout of the same matrix (1b
-            # under a forced route): 1 ulp of the plain version on it, the
-            # same bits twice
-            v_out, v_again = kernel(*v_args), kernel(*v_args)
+            # under a forced route) or at another split of its work (the
+            # SpMV forms' knobs): 1 ulp of the plain version, the same bits
+            # twice
+            v_out, v_again = v_fn(*v_args), v_fn(*v_args)
             torch.cuda.synchronize()
             v_ulps, v_err, v_ok = bf16_compare(v_out, plain(*v_args))
             v_ok = v_ok and torch.equal(v_out, v_again)
             print(f"phase 11 kernels: {name} [{label}] {tag} "
                   f"max_ulps={v_ulps:.3f} max_abs={v_err:.3e} "
                   f"same_bits_twice={torch.equal(v_out, v_again)} "
-                  f"device_ms={device_ms(kernel, *v_args):.6f} "
-                  f"{v_args[0].route} {'PASS' if v_ok else 'FAIL'}",
+                  f"device_ms={device_ms(v_fn, *v_args):.6f} "
+                  f"{v_note} {'PASS' if v_ok else 'FAIL'}",
                   flush=True)
             if not v_ok:
                 failed.append(f"{name} [{label}] {tag}")

@@ -36,10 +36,10 @@
 // computes at the layout's wsel, as XLA computes it on the CPU (it rounds a
 // bf16 operation's result unless that result feeds only an f32 sum). At
 // wsel 2 and 4 the body's products start from f32 zeros, so products and
-// sums are f32 and y is rounded once: the stream walk above on bf16 values,
-// x and y, in its fixed order of sums (slot_stream.cuh's BF form). At wsel 1
-// the body's product is a bf16 multiply and the prefix runs in bf16: the
-// FULL/ROLL ablation kernel below in its bf16 form.
+// sums are f32 and y is rounded once: slot_stream.cuh's bf16 row walk over
+// the layout's row-ordered stream (DeviceWPACK.row_*), in its fixed order of
+// sums. At wsel 1 the body's product is a bf16 multiply and the prefix runs
+// in bf16: the prefix kernel at the end of this file.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -50,7 +50,6 @@
 
 namespace {
 
-using spgrid::bf16::Elem;
 using spgrid::bf16::narrow;
 using spgrid::bf16::rounded;
 using spgrid::bf16::widen;
@@ -116,21 +115,8 @@ constexpr int GROUP_PIECES = 8;
 // order, each row of y written once (zeros for a block with no group, rows
 // past m dropped): no atomics, the same bits every call.
 //
-// The bf16 form at wsel 1 (BF; FULL and ROLL only). Replaces: the same
-// _make_kernel / _spmv at wsel 1 and dtype bf16 (ablate "", the default
-// prefix "roll"). There the product p = value * x is a bf16 multiply, and
-// each bf16 operation whose result feeds another is rounded to bf16: p; the
-// 7 shift-adds of _lane_prefix, P; P - p. The difference P[end] - (P -
-// p)[start] feeds only the f32 sum of the group's 8 pieces for its row, so
-// it stays f32; that sum is rounded to bf16 and added into the f32 row, and
-// y is rounded once. An absent row (start 1, end 0) adds p[0] - (P[1] -
-// p[1]), which is not 0 where P[1] rounds. (At bf16 this body can miss the
-// 3e-2 row gate that wrow_spmv and wcoo_spmv pass on the same matrix; the
-// form computes it as it is.) So the form rounds after each of those
-// operations (step) and a warp takes whole groups, w, w + W, ..., each
-// group's 8 pieces in order, its rows' sums rounded at the group's last
-// piece. It reads bf16 values (2 bytes a lane up to each piece's last live
-// lane, with the column, start and end) and no sel (0 at wsel 1).
+// The bf16 form at wsel 1 has a kernel of its own (below), which shares
+// `fetch`'s layout of a piece and `lane_prefix`.
 
 enum AblateBody { NOSEG = 0, NOGATHER = 1, FULL = 2 };
 constexpr int WARP = 32;
@@ -145,18 +131,17 @@ constexpr int WARPS_PER_SM = 16;
 // costs registers (one ahead keeps every form at 64 or fewer).
 constexpr int AHEAD = 1;
 
-template <bool BF>
 struct AblateArgs {
   const int* __restrict__ block_ptr;
   const int* __restrict__ piece_w;
   const unsigned char* __restrict__ piece_lanes;
   const unsigned char* __restrict__ cols;
-  const signed char* __restrict__ sel;  // not read by the bf16 form
+  const signed char* __restrict__ sel;
   const signed char* __restrict__ starts;
   const signed char* __restrict__ ends;
-  const Elem<BF>* __restrict__ vals;
-  const Elem<BF>* __restrict__ x;
-  Elem<BF>* __restrict__ y;
+  const float* __restrict__ vals;
+  const float* __restrict__ x;
+  float* __restrict__ y;
   int m, k;
 };
 
@@ -168,8 +153,8 @@ struct Quarters {
   unsigned s, e;            // FULL: starts and ends of rows 4t .. 4t + 3
 };
 
-template <int BODY, bool BF>
-__device__ __forceinline__ Quarters fetch(const AblateArgs<BF>& a,
+template <int BODY>
+__device__ __forceinline__ Quarters fetch(const AblateArgs& a,
                                           long long piece, int lanes,
                                           int window, int t) {
   Quarters f;
@@ -181,9 +166,8 @@ __device__ __forceinline__ Quarters fetch(const AblateArgs<BF>& a,
     f.v[q] = 0.0f;
     f.xi[q] = 0;
     if (WARP * q < lanes) {
-      f.v[q] = widen(a.vals[i]);
-      // the bf16 form runs at wsel 1 only, where sel is 0
-      f.xi[q] = (window + (BF ? 0 : a.sel[i])) * LANE + a.cols[i];
+      f.v[q] = a.vals[i];
+      f.xi[q] = (window + a.sel[i]) * LANE + a.cols[i];
     }
   }
   f.s = 0;
@@ -206,15 +190,61 @@ __device__ __forceinline__ float step(float v) {
   }
 }
 
+// _lane_prefix on a piece held as lanes t + 32q in register q of thread t:
+// P += shift(P, sh) for sh = 1, 2, 4, ..., 64, each addition a step (ROLL
+// or PAD, the header says how; `buf` the warp's 128 floats for PAD).
+template <bool ROLL, bool BF>
+__device__ __forceinline__ void lane_prefix(float (&P)[QUARTERS], int t,
+                                            float* buf) {
+#pragma unroll
+  for (int sh = 1; sh < WARP; sh *= 2) {
+    float u[QUARTERS];
+    if (ROLL) {
+      float s[QUARTERS];
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) {
+        s[q] = __shfl_sync(ALL_LANES, P[q], (t - sh) & (WARP - 1));
+      }
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) {
+        const float below = s[(q + QUARTERS - 1) % QUARTERS];
+        u[q] = t >= sh ? s[q] : (q > 0 ? below : 0.0f);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) buf[t + WARP * q] = P[q];
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < QUARTERS; ++q) {
+        const int j = t + WARP * q;
+        u[q] = j >= sh ? buf[j - sh] : 0.0f;
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) P[q] = step<BF>(P[q] + u[q]);
+  }
+  // shifts of 32 and 64 lanes: registers q - 1 and q - 2, added from the
+  // last register down so each adds the value before the shift
+#pragma unroll
+  for (int sh = 1; sh < QUARTERS; sh *= 2) {
+#pragma unroll
+    for (int q = QUARTERS - 1; q >= 0; --q) {
+      P[q] = step<BF>(
+          P[q] + (q >= sh ? P[(q + QUARTERS - sh) % QUARTERS] : 0.0f));
+    }
+  }
+}
+
 // The warp's pieces' piece_lanes and piece_w, 32 at a time: lane i holds
 // those of its piece 32 c + i (0 past its last).
 struct Meta {
   int lanes, window;
 };
 
-template <int BODY, bool ROLL, int W, bool BF>
+template <int BODY, bool ROLL, int W>
 __global__ void __launch_bounds__(WARP * W)
-wpack_ablate_kernel(const AblateArgs<BF> a) {
+wpack_ablate_kernel(const AblateArgs a) {
   __shared__ float part[W][LANE];     // each warp's sums of the block's rows
   __shared__ float scan[W][2][LANE];  // a warp's PAD shifts; FULL's P, P - p
   const int b = blockIdx.x;
@@ -224,22 +254,12 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
   float* const pex = scan[w][1];
   const long long start =
       static_cast<long long>(a.block_ptr[b]) * GROUP_PIECES;
-  // the block's pieces (the bf16 form: groups) that the warp takes
-  const long long units =
-      (static_cast<long long>(a.block_ptr[b + 1]) * GROUP_PIECES - start) /
-      (BF ? GROUP_PIECES : 1);
-  const int n = units > w ? static_cast<int>((units - w + W - 1) / W) *
-                                (BF ? GROUP_PIECES : 1)
-                          : 0;
-  // the warp's piece f: the block's pieces w, w + W, ...; in the bf16 form
-  // the 8 pieces, in order, of its groups w, w + W, ...
+  const long long pieces =
+      static_cast<long long>(a.block_ptr[b + 1]) * GROUP_PIECES - start;
+  // the warp's pieces: the block's pieces w, w + W, ...
+  const int n =
+      pieces > w ? static_cast<int>((pieces - w + W - 1) / W) : 0;
   auto piece_of = [&](int f) {
-    if (BF) {
-      return start +
-             (static_cast<long long>(f / GROUP_PIECES) * W + w) *
-                 GROUP_PIECES +
-             f % GROUP_PIECES;
-    }
     return start + w + static_cast<long long>(f) * W;
   };
   auto meta_chunk = [&](int c) {
@@ -256,17 +276,15 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
     const int window = __shfl_sync(ALL_LANES, chunk.window, f & 31);
     return fetch<BODY>(a, piece_of(f), lanes, window, t);
   };
-  // rows t + 32q (FULL: rows 4t + q) over the warp's pieces; the bf16
-  // form's rows of the open group
+  // rows t + 32q (FULL: rows 4t + q) over the warp's pieces
   float acc[QUARTERS] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float sum[QUARTERS] = {0.0f, 0.0f, 0.0f, 0.0f};
   auto add_piece = [&](const Quarters& cur) {
     if (cur.lanes == 0) return;  // the same for the whole warp
     float p[QUARTERS];
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       p[q] = (cur.v[q] != 0.0f && cur.xi[q] < a.k)
-                 ? step<BF>(__fmul_rn(cur.v[q], widen(__ldg(a.x + cur.xi[q]))))
+                 ? __fmul_rn(cur.v[q], __ldg(a.x + cur.xi[q]))
                  : 0.0f;
     }
     if (BODY == NOSEG) {
@@ -277,44 +295,7 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
     float P[QUARTERS];
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) P[q] = p[q];
-#pragma unroll
-    for (int sh = 1; sh < WARP; sh *= 2) {
-      float u[QUARTERS];
-      if (ROLL) {
-        float s[QUARTERS];
-#pragma unroll
-        for (int q = 0; q < QUARTERS; ++q) {
-          s[q] = __shfl_sync(ALL_LANES, P[q], (t - sh) & (WARP - 1));
-        }
-#pragma unroll
-        for (int q = 0; q < QUARTERS; ++q) {
-          const float below = s[(q + QUARTERS - 1) % QUARTERS];
-          u[q] = t >= sh ? s[q] : (q > 0 ? below : 0.0f);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < QUARTERS; ++q) buf[t + WARP * q] = P[q];
-        __syncwarp();
-#pragma unroll
-        for (int q = 0; q < QUARTERS; ++q) {
-          const int j = t + WARP * q;
-          u[q] = j >= sh ? buf[j - sh] : 0.0f;
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int q = 0; q < QUARTERS; ++q) P[q] = step<BF>(P[q] + u[q]);
-    }
-    // shifts of 32 and 64 lanes: registers q - 1 and q - 2, added from the
-    // last register down so each adds the value before the shift
-#pragma unroll
-    for (int sh = 1; sh < QUARTERS; sh *= 2) {
-#pragma unroll
-      for (int q = QUARTERS - 1; q >= 0; --q) {
-        P[q] = step<BF>(
-            P[q] + (q >= sh ? P[(q + QUARTERS - sh) % QUARTERS] : 0.0f));
-      }
-    }
+    lane_prefix<ROLL, false>(P, t, buf);
     if (BODY == NOGATHER) {
 #pragma unroll
       for (int q = 0; q < QUARTERS; ++q) acc[q] += P[q];
@@ -323,31 +304,16 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       buf[t + WARP * q] = P[q];
-      pex[t + WARP * q] = step<BF>(P[q] - p[q]);
+      pex[t + WARP * q] = P[q] - p[q];
     }
     __syncwarp();
 #pragma unroll
     for (int q = 0; q < QUARTERS; ++q) {
       const int first_lane = (cur.s >> (8 * q)) & 0x7f;
       const int last_lane = (cur.e >> (8 * q)) & 0x7f;
-      const float term = buf[last_lane] - pex[first_lane];
-      if (BF) {
-        sum[q] += term;
-      } else {
-        acc[q] += term;
-      }
+      acc[q] += buf[last_lane] - pex[first_lane];
     }
     __syncwarp();  // the next piece rewrites buf and pex
-  };
-  // the bf16 form, at a group's last piece: its rows' f32 sums rounded to
-  // bf16 and added into the f32 rows
-  auto close_group = [&](int f) {
-    if (!BF || f % GROUP_PIECES != GROUP_PIECES - 1) return;
-#pragma unroll
-    for (int q = 0; q < QUARTERS; ++q) {
-      acc[q] += rounded(sum[q]);
-      sum[q] = 0.0f;
-    }
   };
   // AHEAD + 1 buffers, the loop unrolled by AHEAD + 1 so that a buffer is
   // loaded and read in place (a copy of a buffer would wait for its loads):
@@ -363,7 +329,6 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
       if (i0 + d >= n) break;
       ring[(d + D) % (D + 1)] = load_piece(i0 + d + D);
       add_piece(ring[d]);
-      close_group(i0 + d);
     }
   }
 #pragma unroll
@@ -376,25 +341,23 @@ wpack_ablate_kernel(const AblateArgs<BF> a) {
 #pragma unroll
     for (int u = 1; u < W; ++u) total += part[u][j];
     const long long row = static_cast<long long>(b) * LANE + j;
-    if (row < a.m) a.y[row] = narrow<BF>(total);
+    if (row < a.m) a.y[row] = total;
   }
 }
 
-template <int BODY, bool ROLL, bool BF>
-cudaError_t launch_ablate(const AblateArgs<BF>& a, int warps, int blocks,
+template <int BODY, bool ROLL>
+cudaError_t launch_ablate(const AblateArgs& a, int warps, int blocks,
                           cudaStream_t stream) {
   switch (warps) {
     case 4:
-      wpack_ablate_kernel<BODY, ROLL, 4, BF>
-          <<<blocks, WARP * 4, 0, stream>>>(a);
+      wpack_ablate_kernel<BODY, ROLL, 4><<<blocks, WARP * 4, 0, stream>>>(a);
       break;
     case 8:
-      wpack_ablate_kernel<BODY, ROLL, 8, BF>
-          <<<blocks, WARP * 8, 0, stream>>>(a);
+      wpack_ablate_kernel<BODY, ROLL, 8><<<blocks, WARP * 8, 0, stream>>>(a);
       break;
     case 16:
-      wpack_ablate_kernel<BODY, ROLL, 16, BF>
-          <<<blocks, WARP * 16, 0, stream>>>(a);
+      wpack_ablate_kernel<BODY, ROLL, 16><<<blocks, WARP * 16, 0, stream>>>(
+          a);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -424,6 +387,174 @@ int warps_for(int warps, int blocks) {
   return W;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form at wsel 1.
+//
+// Replaces: the same _make_kernel / _spmv at wsel 1 and dtype bf16 (ablate
+// "", the default prefix "roll"). There the product p = value * x is a bf16
+// multiply, and each bf16 operation whose result feeds another is rounded
+// to bf16: p; the 7 shift-adds of _lane_prefix, P; P - p. The difference
+// P[end] - (P - p)[start] feeds only the f32 sum of the group's 8 pieces
+// for its row, so it stays f32; that sum is rounded to bf16 and added into
+// the f32 row, and y is rounded once. An absent row (start 1, end 0) adds
+// p[0] - (P[1] - p[1]), which is not 0 where P[1] rounds. (At bf16 this
+// body can miss the 3e-2 row gate that wrow_spmv and wcoo_spmv pass on the
+// same matrix; the form computes it as it is.)
+//
+// Bound: bytes, as the f32 forms; but a group is a chain (loads, x
+// gathers, 7 rounded shift-adds, P and P - p through shared memory) and a
+// wsel-1 matrix has few groups (the 512^2 twin: 104 in 4 target blocks),
+// so the time is one chain's latency where the grid spreads the groups
+// over the card, and a chain per group a warp takes in turn where it does
+// not.
+//
+// Design: a warp a piece. A CTA of 8 warps takes `per_cta` consecutive
+// groups (`groups_per_cta`, 1 to 16; the rule in ops/kernels/
+// wpack_spmv.py gives one wave of the card), one group at a time, warp w
+// its piece w: thread t loads lanes t + 32q of it (bf16 values, columns,
+// and the starts and ends of rows 4t .. 4t + 3) with the piece's window,
+// gathers x, rounds each product (__fmul_rn: no FMA), runs lane_prefix in
+// its bf16 form (ROLL), stores P and P - p (rounded) in the warp's shared
+// buffers and leaves the 4 f32 differences of its rows in the group's
+// shared tile. After one barrier thread j < 128 sums row j's 8 terms in
+// piece order (the Pallas body's order, so the rounded group sum is its
+// bits), rounds the sum to bf16 and adds it into its f32 row of the open
+// target block. The group tiles alternate, so a group takes one barrier;
+// the next group's piece loads are in flight while a group is summed. A
+// target block whose groups all lie in the CTA's range is written to y at
+// its last group; one that crosses a range boundary leaves its partial rows
+// in the carry buffer (slot 1 of a range it goes on past, slot 0 of the
+// range it ends in), and slot_stream.cuh's `combine`, a CTA a block, adds
+// them in range order, or writes 0 for a block with no group. No atomics:
+// the same bits every call; only the order of the f32 sums of a block's
+// rounded group sums differs from the Pallas body's (group order), within
+// 1 bf16 ulp.
+
+constexpr int PREFIX_THREADS = WARP * GROUP_PIECES;  // a warp a piece
+constexpr int MAX_GROUPS_PER_CTA = 16;
+
+struct PrefixArgs {
+  const int* __restrict__ block_ptr;  // (blocks + 1,) groups of each block
+  const int* __restrict__ group_sub;  // (G,) target block of each group
+  const int* __restrict__ piece_w;
+  const unsigned char* __restrict__ cols;
+  const signed char* __restrict__ starts;
+  const signed char* __restrict__ ends;
+  const unsigned short* __restrict__ vals;
+  const unsigned short* __restrict__ x;
+  unsigned short* __restrict__ y;
+  float* __restrict__ carry;
+  int groups, per_cta, m, k;
+};
+
+// What thread t loads of its warp's piece: lanes t + 32q, the piece's
+// window, and the starts and ends of rows 4t .. 4t + 3.
+struct PieceLoads {
+  unsigned short v[QUARTERS];
+  unsigned char col[QUARTERS];
+  int window;
+  unsigned s, e;
+};
+
+__device__ __forceinline__ PieceLoads load_piece_bf16(const PrefixArgs& a,
+                                                      long long piece,
+                                                      int t) {
+  PieceLoads f;
+  const size_t base = static_cast<size_t>(piece) * LANE;
+  f.window = __ldg(a.piece_w + piece);
+#pragma unroll
+  for (int q = 0; q < QUARTERS; ++q) {
+    f.v[q] = __ldg(a.vals + base + t + WARP * q);
+    f.col[q] = __ldg(a.cols + base + t + WARP * q);
+  }
+  f.s = __ldg(reinterpret_cast<const unsigned*>(a.starts + base) + t);
+  f.e = __ldg(reinterpret_cast<const unsigned*>(a.ends + base) + t);
+  return f;
+}
+
+__global__ void __launch_bounds__(PREFIX_THREADS)
+wpack_prefix_bf16_kernel(const PrefixArgs a) {
+  __shared__ float scan[GROUP_PIECES][2][LANE];  // each warp's P, P - p
+  __shared__ __align__(16) float term[2][GROUP_PIECES][LANE];  // a group's
+  const int c = blockIdx.x;
+  const int j = threadIdx.x;  // row j of the open block (j < 128)
+  const int t = threadIdx.x % WARP;
+  const int w = threadIdx.x / WARP;
+  float* const buf = scan[w][0];
+  float* const pex = scan[w][1];
+  const int g0 = c * a.per_cta;
+  const int g1 = min(a.groups, g0 + a.per_cta);
+  float acc = 0.0f;  // row j's f32 sum of the open block's rounded groups
+  int open = __ldg(a.group_sub + g0);
+
+  auto flush = [&](int b) {
+    const int b0 = __ldg(a.block_ptr + b);
+    const int b1 = __ldg(a.block_ptr + b + 1);
+    if (b0 >= g0 && b1 <= g1) {
+      const long long row = static_cast<long long>(b) * LANE + j;
+      if (row < a.m) a.y[row] = narrow<true>(acc);
+    } else {
+      a.carry[(static_cast<size_t>(c) * 2 + (b1 > g1 ? 1 : 0)) * LANE + j] =
+          acc;
+    }
+  };
+
+  PieceLoads cur = load_piece_bf16(
+      a, static_cast<long long>(g0) * GROUP_PIECES + w, t);
+  for (int g = g0; g < g1; ++g) {
+    PieceLoads nxt = cur;
+    if (g + 1 < g1) {
+      nxt = load_piece_bf16(
+          a, static_cast<long long>(g + 1) * GROUP_PIECES + w, t);
+    }
+    float p[QUARTERS];
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      const float v = widen(cur.v[q]);
+      const int xi = cur.window * LANE + cur.col[q];
+      p[q] = (v != 0.0f && xi < a.k)
+                 ? rounded(__fmul_rn(v, widen(__ldg(a.x + xi))))
+                 : 0.0f;
+    }
+    float P[QUARTERS];
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) P[q] = p[q];
+    lane_prefix<true, true>(P, t, buf);
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      buf[t + WARP * q] = P[q];
+      pex[t + WARP * q] = rounded(P[q] - p[q]);
+    }
+    __syncwarp();
+    float d[QUARTERS];
+#pragma unroll
+    for (int q = 0; q < QUARTERS; ++q) {
+      const int first_lane = (cur.s >> (8 * q)) & 0x7f;
+      const int last_lane = (cur.e >> (8 * q)) & 0x7f;
+      d[q] = buf[last_lane] - pex[first_lane];
+    }
+    __syncwarp();  // the next group's piece rewrites buf and pex
+    float* const tile = term[g & 1][w];
+    *reinterpret_cast<float4*>(tile + QUARTERS * t) =
+        make_float4(d[0], d[1], d[2], d[3]);
+    __syncthreads();  // the group's 8 pieces are in its tile
+    if (j < LANE) {
+      float sum = term[g & 1][0][j];
+#pragma unroll
+      for (int r = 1; r < GROUP_PIECES; ++r) sum += term[g & 1][r][j];
+      const int b = __ldg(a.group_sub + g);
+      if (b != open) {
+        flush(open);
+        acc = 0.0f;
+        open = b;
+      }
+      acc += rounded(sum);
+    }
+    cur = nxt;
+  }
+  if (j < LANE) flush(open);
+}
+
 }  // namespace
 
 // block_slot, vals, cols (int32 x index), rows (uint8), x, y, carry,
@@ -448,7 +579,7 @@ extern "C" int spgrid_wpack_ablate(const void* block_ptr, const void* piece_w,
                                    const void* x, void* y, int variant,
                                    int warps, int blocks, int m, int k,
                                    void* stream) {
-  const AblateArgs<false> a{static_cast<const int*>(block_ptr),
+  const AblateArgs a{static_cast<const int*>(block_ptr),
                      static_cast<const int*>(piece_w),
                      static_cast<const unsigned char*>(piece_lanes),
                      static_cast<const unsigned char*>(cols),
@@ -490,42 +621,54 @@ extern "C" int spgrid_wpack_ablate_warps(int warps, int blocks, void* out) {
   return static_cast<int>(cudaSuccess);
 }
 
-// The bf16 form at wsel 2 and 4: vals, x and y as bf16 bit patterns; the
-// same arguments as spgrid_wpack_spmv.
-extern "C" int spgrid_wpack_spmv_bf16(const void* block_slot,
-                                      const void* vals, const void* cols,
-                                      const void* rows, const void* x,
-                                      void* y, void* carry, int num_slots,
-                                      int slots_per_cta, int blocks, int m,
-                                      void* stream) {
-  return spgrid::slot_stream::launch<false, true>(
-      block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
-      blocks, m, stream);
+// The bf16 form at wsel 2 and 4: the row walk over the layout's row-ordered
+// stream. row_slot, vals, cols (int32 x index), x, y (vals, x and y as bf16
+// bit patterns), carry (2 floats a CTA), carry_row (an int a CTA),
+// num_slots, slots_per_cta, m, stream
+extern "C" int spgrid_wpack_spmv_bf16(const void* row_slot, const void* vals,
+                                      const void* cols, const void* x,
+                                      void* y, void* carry, void* carry_row,
+                                      int num_slots, int slots_per_cta,
+                                      int m, void* stream) {
+  return spgrid::slot_stream::launch_rows(row_slot, vals, cols, x, y, carry,
+                                          carry_row, num_slots,
+                                          slots_per_cta, m, stream);
 }
 
-// The bf16 form at wsel 1: vals, x and y as bf16 bit patterns; warps: W (4,
-// 8 or 16; 0: the rule's); starts and ends 4-byte aligned.
+// The bf16 form at wsel 1: vals, x and y as bf16 bit patterns; carry holds
+// 2 * 128 floats a CTA, ceil(groups / groups_per_cta) CTAs; groups_per_cta
+// 1 to 16; starts and ends 4-byte aligned.
 extern "C" int spgrid_wpack_spmv_bf16_prefix(
-    const void* block_ptr, const void* piece_w, const void* piece_lanes,
+    const void* block_ptr, const void* group_sub, const void* piece_w,
     const void* cols, const void* starts, const void* ends, const void* vals,
-    const void* x, void* y, int warps, int blocks, int m, int k,
-    void* stream) {
-  const AblateArgs<true> a{static_cast<const int*>(block_ptr),
-                           static_cast<const int*>(piece_w),
-                           static_cast<const unsigned char*>(piece_lanes),
-                           static_cast<const unsigned char*>(cols),
-                           nullptr,
-                           static_cast<const signed char*>(starts),
-                           static_cast<const signed char*>(ends),
-                           static_cast<const unsigned short*>(vals),
-                           static_cast<const unsigned short*>(x),
-                           static_cast<unsigned short*>(y),
-                           m,
-                           k};
-  const int W = warps_for(warps, blocks);
+    const void* x, void* y, void* carry, int groups_per_cta, int groups,
+    int blocks, int m, int k, void* stream) {
   const bool aligned = (reinterpret_cast<uintptr_t>(starts) |
                         reinterpret_cast<uintptr_t>(ends)) % 4 == 0;
-  if (W == 0 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_ablate<FULL, true>(
-      a, W, blocks, static_cast<cudaStream_t>(stream)));
+  if (groups_per_cta < 1 || groups_per_cta > MAX_GROUPS_PER_CTA ||
+      groups < 1 || blocks < 1 || !aligned)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PrefixArgs a{static_cast<const int*>(block_ptr),
+                     static_cast<const int*>(group_sub),
+                     static_cast<const int*>(piece_w),
+                     static_cast<const unsigned char*>(cols),
+                     static_cast<const signed char*>(starts),
+                     static_cast<const signed char*>(ends),
+                     static_cast<const unsigned short*>(vals),
+                     static_cast<const unsigned short*>(x),
+                     static_cast<unsigned short*>(y),
+                     static_cast<float*>(carry),
+                     groups,
+                     groups_per_cta,
+                     m,
+                     k};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ctas = (groups + groups_per_cta - 1) / groups_per_cta;
+  wpack_prefix_bf16_kernel<<<ctas, PREFIX_THREADS, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spgrid::slot_stream::combine<true><<<blocks, LANE, 0, s>>>(
+      static_cast<const int*>(block_ptr), static_cast<const float*>(carry),
+      static_cast<unsigned short*>(y), groups_per_cta, m);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -30,10 +30,14 @@
 //
 // The bf16 form (wrow_spmv(..., variant="v2") at dtype bf16): the Pallas
 // body adds each product into its f32 accumulator (XLA keeps the bf16
-// product in f32 there), so the form is the same walk on bf16 values, x and
-// y, f32 products and sums and y rounded once, with the walk's fixed order
-// of sums in place of its atomics (slot_stream.cuh): the same bits every
-// call.
+// product in f32 there), so the form keeps v2's split (equal ranges of live
+// slots a CTA, carried partials combined in range order) on bf16 values, x
+// and y, f32 products and sums, y rounded once, and takes a fixed order of
+// sums so that it gives the same bits every call: slot_stream.cuh's row
+// walk, which reads v1's row-ordered stream (DeviceWROW.row_*; bit 31 of
+// row_cols, v1's group mark, masked off), so a pass of 32 slots holds a
+// few whole runs of one row, each summed by a segmented shuffle scan and
+// written to y by its last lane once the row ends.
 #include "slot_stream.cuh"
 
 // block_slot, vals, cols (int32 x index), rows (uint8), x, y, carry,
@@ -48,14 +52,16 @@ extern "C" int spgrid_wrow_spmv_v2(const void* block_slot, const void* vals,
                                             blocks, m, stream);
 }
 
-// The bf16 form: vals, x and y as bf16 bit patterns; the same arguments.
-extern "C" int spgrid_wrow_spmv_v2_bf16(const void* block_slot,
+// The bf16 form: row_slot, vals, cols (int32 x index, bit 31 ignored), x, y
+// (vals, x and y as bf16 bit patterns), carry (2 floats a CTA), carry_row
+// (an int a CTA), num_slots, slots_per_cta, m, stream
+extern "C" int spgrid_wrow_spmv_v2_bf16(const void* row_slot,
                                         const void* vals, const void* cols,
-                                        const void* rows, const void* x,
-                                        void* y, void* carry, int num_slots,
-                                        int slots_per_cta, int blocks, int m,
+                                        const void* x, void* y, void* carry,
+                                        void* carry_row, int num_slots,
+                                        int slots_per_cta, int m,
                                         void* stream) {
-  return spgrid::slot_stream::launch<false, true>(
-      block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
-      blocks, m, stream);
+  return spgrid::slot_stream::launch_rows(row_slot, vals, cols, x, y, carry,
+                                          carry_row, num_slots,
+                                          slots_per_cta, m, stream);
 }

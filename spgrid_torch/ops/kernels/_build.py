@@ -103,11 +103,12 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wpack_spmv": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # the same, vals, x and y in bf16 (wsel 2 and 4)
-    "spgrid_wpack_spmv_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # block_ptr, piece_w, piece_lanes, cols, starts, ends, vals, x, y (bf16
-    # values, x and y), warps (0: the rule's), blocks, m, k, stream
-    "spgrid_wpack_spmv_bf16_prefix": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    # row_slot, vals, cols, x, y (bf16 values, x and y), carry, carry_row,
+    # num_slots, slots_per_cta, m, stream: the row walk (wsel 2 and 4)
+    "spgrid_wpack_spmv_bf16": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+    # block_ptr, group_sub, piece_w, cols, starts, ends, vals, x, y (bf16
+    # values, x and y), carry, groups_per_cta, groups, blocks, m, k, stream
+    "spgrid_wpack_spmv_bf16_prefix": [_PTR] * 10 + [_INT] * 5 + [_PTR],
     # block_ptr, piece_w, piece_lanes, cols, sel, starts, ends, vals, x, y,
     # variant, warps (0: the rule's), blocks, m, k, stream
     "spgrid_wpack_ablate": [_PTR] * 10 + [_INT] * 5 + [_PTR],
@@ -116,8 +117,9 @@ SIGNATURES = {
     # block_slot, vals, cols, rows, x, y, carry, num_slots, slots_per_cta,
     # blocks, m, stream
     "spgrid_wrow_spmv_v2": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # the same, vals, x and y in bf16
-    "spgrid_wrow_spmv_v2_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # row_slot, vals, cols, x, y (bf16 values, x and y), carry, carry_row,
+    # num_slots, slots_per_cta, m, stream: the row walk
+    "spgrid_wrow_spmv_v2_bf16": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     # src, idx, out, s0, s1, i0, i1, axis, path (0: the rule's, 1: direct,
     # 2: staged), stream
     "spgrid_lanegather": [_PTR] * 3 + [_INT] * 6 + [_PTR],

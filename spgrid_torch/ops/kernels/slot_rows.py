@@ -176,16 +176,23 @@ def bf16_rounded(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def add_groups_in_order(parts: torch.Tensor, owner: torch.Tensor,
-                        owners: int) -> torch.Tensor:
-    """(owners, 128) f32, as the Pallas SpMV bodies sum at bf16: each
-    group's ``parts`` (G, R, 128) summed over R in f32, in order, and
-    rounded to bf16; then row o the f32 sum, from 0 in group order, of the
-    groups whose ``owner`` (G,), sorted, is o."""
+def group_sums(parts: torch.Tensor) -> torch.Tensor:
+    """(G, 128) f32: each group's ``parts`` (G, R, 128) summed over R in
+    f32, in order, and rounded to bf16, as the Pallas SpMV bodies round a
+    group's sum at bf16."""
     gsum = parts[:, 0].float()
     for r in range(1, parts.shape[1]):
         gsum = gsum + parts[:, r]
-    gsum = bf16_rounded(gsum)
+    return bf16_rounded(gsum)
+
+
+def add_groups_in_order(parts: torch.Tensor, owner: torch.Tensor,
+                        owners: int) -> torch.Tensor:
+    """(owners, 128) f32, as the Pallas SpMV bodies sum at bf16: each
+    group's ``group_sums`` of ``parts`` (G, R, 128); then row o the f32
+    sum, from 0 in group order, of the groups whose ``owner`` (G,), sorted,
+    is o."""
+    gsum = group_sums(parts)
     owner = owner.long()
     y = torch.zeros((owners, parts.shape[2]), dtype=torch.float32,
                     device=parts.device)

@@ -12,6 +12,12 @@ set on each piece's first slot), with ``slot_ptr`` (P + 1) and
 slots. WROW v2 (``wrow_spmv.wrow_spmv_v2``) and the default WPACK product
 (``wpack_spmv.wpack_spmv``) read the values, x indices, rows and
 ``block_slot``; layouts build the stream in ``from_arrays``.
+
+Their bf16 forms (``wrow_spmv_v2_bf16``, ``wpack_spmv_bf16`` at wsel 2 and
+4) read the layouts' row-ordered stream instead (``row_slot``, ``row_vals``,
+``row_cols``: the same live slots by output row and, within a row, in piece
+and lane order): ``launch_row_walk`` launches its walk, equal ranges of
+live slots a CTA as above, a fixed order of sums (``csrc/slot_stream.cuh``).
 """
 
 from __future__ import annotations
@@ -77,23 +83,69 @@ def default_slots_per_cta(num_slots: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card that holds ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_stream(kernel: str, a, x: torch.Tensor,
-                 slots_per_cta: int | None,
-                 values: torch.dtype = torch.float32) -> None:
-    """Raise unless the live-slot stream of ``a`` (DeviceWROW or
-    DeviceWPACK) is what the stream kernels take: values of type
-    ``values``."""
+def check_range(slots_per_cta: int | None) -> None:
     if slots_per_cta is not None and slots_per_cta < 1:
         raise ValueError(f"slots_per_cta must be >= 1, got {slots_per_cta}")
+
+
+def check_stream(kernel: str, a, x: torch.Tensor,
+                 slots_per_cta: int | None) -> None:
+    """Raise unless the live-slot stream of ``a`` (DeviceWROW or
+    DeviceWPACK) is what the f32 stream kernels take."""
+    check_range(slots_per_cta)
     check_operands(kernel, x.device, slot_ptr=(a.slot_ptr, torch.int32),
                    block_slot=(a.block_slot, torch.int32),
-                   slot_vals=(a.slot_vals, values),
+                   slot_vals=(a.slot_vals, torch.float32),
                    slot_cols=(a.slot_cols, torch.int32),
                    slot_rows=(a.slot_rows, torch.uint8))
+
+
+def check_row_stream(kernel: str, a, x: torch.Tensor,
+                     slots_per_cta: int | None) -> None:
+    """Raise unless the row-ordered stream of ``a`` (DeviceWROW, or a bf16
+    DeviceWPACK) is what the bf16 row walk takes: bf16 values, int32 row
+    pointers and x indices, ``slots_per_cta`` None or at least 1."""
+    check_range(slots_per_cta)
+    if a.row_slot.numel() != a.shape[0] + 1:
+        raise ValueError(f"{kernel}: the layout has no row-ordered stream "
+                         f"(built for bf16 layouts only)")
+    check_operands(kernel, x.device, row_slot=(a.row_slot, torch.int32),
+                   row_vals=(a.row_vals, torch.bfloat16),
+                   row_cols=(a.row_cols, torch.int32))
+
+
+def launch_row_walk(wrapper, a, x: torch.Tensor,
+                    slots_per_cta: int | None) -> torch.Tensor:
+    """Launch ``spgrid_<wrapper's name>``, the bf16 row walk and its carry
+    combine, over the row-ordered stream of ``a`` into a new bf16 y, and
+    count the launch on ``wrapper``; ``slots_per_cta`` None takes
+    ``default_slots_per_cta`` for x's card."""
+    m = a.shape[0]
+    y = torch.empty((m,), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    num_slots = a.row_vals.numel()
+    if slots_per_cta is None:
+        slots_per_cta = default_slots_per_cta(num_slots, sm_count(x.device))
+    ctas = max(-(-num_slots // slots_per_cta), 1)
+    carry = torch.empty((ctas, 2), dtype=torch.float32, device=x.device)
+    carry_row = torch.empty((ctas,), dtype=torch.int32, device=x.device)
+    name = wrapper.__name__
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(_build.library(), f"spgrid_{name}")(
+            a.row_slot.data_ptr(), a.row_vals.data_ptr(),
+            a.row_cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            carry.data_ptr(), carry_row.data_ptr(), num_slots,
+            slots_per_cta, m, stream)
+    _build.check(code, name)
+    wrapper.launches += 1
+    return y
 
 
 def launch_stream(wrapper, a, x: torch.Tensor,
@@ -107,7 +159,7 @@ def launch_stream(wrapper, a, x: torch.Tensor,
     if m == 0:
         return y
     if slots_per_cta is None:
-        slots_per_cta = default_slots_per_cta(a.num_slots, _sms(x.device))
+        slots_per_cta = default_slots_per_cta(a.num_slots, sm_count(x.device))
     ctas = -(-a.num_slots // slots_per_cta)
     carry = torch.empty((max(ctas, 1), 2, LANE), dtype=torch.float32,
                         device=x.device)

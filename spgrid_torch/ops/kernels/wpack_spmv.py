@@ -36,14 +36,17 @@ At bf16 (``wpack_spmv_bf16``: a layout built from a bf16 matrix, bf16
 values, x and y; the default knobs only) the form computes what the Pallas
 body computes at the layout's wsel. At wsel 2 or 4 the body's products
 start from f32 zeros, so products and sums are f32 on the bf16 operands
-and y is rounded once: the stream walk on bf16 values. At wsel 1 its
-product is a bf16 multiply, and the lane prefix, P - p and the difference
-of the two takes run in bf16, each operation rounded (an absent row then
-adds p[0] - (P[1] - p[1]), which bf16 need not round to 0), before the f32
-sum of a group's 8 pieces is rounded to bf16 and added into the f32 row:
-``wpack_spmv_bf16_prefix``, the ``full``/``roll`` ablation kernel in a bf16
-form that rounds after each of those operations, a warp a group
-(``csrc/wpack_spmv.cu``).
+and y is rounded once: the bf16 row walk (``slot_stream.launch_row_walk``)
+over the layout's row-ordered stream (``DeviceWPACK.row_*``, built for a
+bf16 layout only: the live slots by output row and, within a row, in piece
+and lane order). At wsel 1 its product is a bf16 multiply, and the lane
+prefix and P - p run in bf16, each operation rounded (an absent row then
+adds p[0] - (P[1] - p[1]), which bf16 need not round to 0), the difference
+of the two takes stays f32, and the f32 sum of a group's 8 pieces is
+rounded to bf16 and added into the f32 row: ``wpack_spmv_bf16_prefix``, a
+kernel of its own, a warp a piece and a CTA ``groups_per_cta`` groups in
+turn (``prefix_groups_per_cta``: the rule), the blocks that cross CTAs
+combined by a second kernel (``csrc/wpack_spmv.cu``).
 """
 
 from __future__ import annotations
@@ -59,10 +62,10 @@ from spgrid_torch.formats.csr import value_dtype
 from spgrid_torch.ops.kernels import (
     _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.kernels.slot_rows import (
-    add_groups_in_order, bf16_rounded)
+    add_groups_in_order, bf16_rounded, stream_order)
 from spgrid_torch.ops.kernels.slot_stream import (
-    check_stream, launch_stream, live_slot_stream, row_bytes,
-    stream_product)
+    check_row_stream, check_stream, launch_row_walk, launch_stream,
+    live_slot_stream, row_bytes, sm_count, stream_product)
 from spgrid_torch.ops.layouts import group_ptr, to_device, torch_dtype
 
 LANE = 128
@@ -192,6 +195,11 @@ class DeviceWPACK:
     slot_vals: torch.Tensor   # (S,) value of each live slot
     slot_cols: torch.Tensor   # (S,) int32, x index of each live slot
     slot_rows: torch.Tensor   # (S,) uint8, row in the block | PIECE_START
+    # a bf16 layout's row-ordered stream: the same S slots by row, then
+    # piece and lane (empty for an f32 layout)
+    row_slot: torch.Tensor    # (m + 1,) int32, row r's live slots
+    row_vals: torch.Tensor    # (S,) bf16, value of each live slot
+    row_cols: torch.Tensor    # (S,) int32, x index of each live slot
     shape: Tuple[int, int]
     nnz: int
     utilization: float
@@ -215,8 +223,15 @@ class DeviceWPACK:
             self.block_slot, self.slot_vals, self.slot_cols, self.slot_rows))
 
     @property
+    def row_nbytes(self) -> int:
+        """Bytes of what the bf16 row walk reads of the layout: the row
+        stream's values, x indices and row pointer."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.row_slot, self.row_vals, self.row_cols))
+
+    @property
     def nbytes(self) -> int:
-        return self.stream_nbytes + sum(
+        return self.stream_nbytes + self.row_nbytes + sum(
             t.numel() * t.element_size() for t in (
                 self.cols, self.values, self.ends, self.starts, self.sel,
                 self.piece_w, self.piece_lanes, self.block_ptr,
@@ -234,7 +249,9 @@ class DeviceWPACK:
         lane's row is the last present row whose first lane is at or before
         it (rows rise with the lane); and from it ``piece_lanes``, each
         piece's last live lane + 1 (0 for a piece with none), which bounds
-        what the ablation kernels read."""
+        what the ablation kernels read; for a bf16 layout also the
+        row-ordered stream, the live-slot stream stably sorted by output
+        row (``slot_rows.stream_order``), which the bf16 row walk reads."""
         G = int(num_groups)
         sub = np.asarray(group_sub, np.int64).reshape(-1)[:G]
         if np.any(np.diff(sub) < 0):
@@ -257,6 +274,14 @@ class DeviceWPACK:
         piece_lanes = np.zeros(P, np.uint8)
         piece_lanes[filled] = lane[slot_ptr[1:][filled] - 1] + 1
 
+        slot_vals = values[piece, lane]
+        if dtype == torch.bfloat16:
+            order, row_slot = stream_order(
+                sub[piece // GROUP_PIECES] * LANE + rows, x_index, slot_vals,
+                shape[0], shape[1])
+        else:
+            order, row_slot = np.zeros(0, np.int64), np.zeros(0, np.int32)
+
         def slots(a):
             return to_device(a, device, np.int8)
 
@@ -269,9 +294,12 @@ class DeviceWPACK:
                    block_ptr=to_device(ptr, device),
                    slot_ptr=to_device(slot_ptr, device),
                    block_slot=to_device(block_slot, device),
-                   slot_vals=to_device(values[piece, lane], device).to(dtype),
+                   slot_vals=to_device(slot_vals, device).to(dtype),
                    slot_cols=to_device(x_index, device, np.int32),
                    slot_rows=to_device(row_bytes(rows, slot_ptr), device),
+                   row_slot=to_device(row_slot, device),
+                   row_vals=to_device(slot_vals[order], device).to(dtype),
+                   row_cols=to_device(x_index[order], device, np.int32),
                    shape=tuple(shape), nnz=int(nnz),
                    utilization=float(utilization), num_groups=G,
                    wsel=int(wsel), name=name)
@@ -354,18 +382,18 @@ def wpack_spmv_bf16(a: DeviceWPACK, x: torch.Tensor,
                     slots_per_cta: int | None = None) -> torch.Tensor:
     """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,), rounded where
     the Pallas body rounds at the layout's wsel (the module says where):
-    the stream walk at wsel 2 and 4 (``slots_per_cta`` as for f32); at
-    wsel 1 ``wpack_spmv_bf16_prefix``, which takes no ``slots_per_cta``."""
+    the row walk at wsel 2 and 4 (``slots_per_cta`` as for f32); at wsel 1
+    ``wpack_spmv_bf16_prefix``, which takes no ``slots_per_cta``."""
     if a.wsel == 1:
         if slots_per_cta is not None:
             raise ValueError("wpack_spmv_bf16: the wsel-1 form takes no "
                              "slots_per_cta")
         return wpack_spmv_bf16_prefix(a, x)
     _check(a, x, torch.bfloat16)
-    check_stream("wpack_spmv_bf16", a, x, slots_per_cta, torch.bfloat16)
+    check_row_stream("wpack_spmv_bf16", a, x, slots_per_cta)
     if runs_plain("wpack_spmv_bf16", x.device):
         return wpack_spmv_plain(a, x)
-    return launch_stream(wpack_spmv_bf16, a, x, slots_per_cta)
+    return launch_row_walk(wpack_spmv_bf16, a, x, slots_per_cta)
 
 
 wpack_spmv_bf16.launches = 0
@@ -373,12 +401,14 @@ wpack_spmv_bf16.launches = 0
 
 def wpack_spmv_bf16_prefix(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
     """y (m,) bf16 = A @ x for a bf16 layout at wsel 1 and bf16 x (k,): the
-    TPU body's bf16 lane prefix, a warp a group (the ``full``/``roll``
-    ablation kernel in its bf16 form)."""
+    TPU body's bf16 lane prefix, a warp a piece, ``prefix_groups_per_cta``
+    groups a CTA."""
     if a.wsel != 1:
         raise ValueError(f"wpack_spmv_bf16_prefix: the layout packs at wsel "
                          f"{a.wsel}, not 1")
     _check(a, x, torch.bfloat16)
+    check_operands("wpack_spmv_bf16_prefix", x.device,
+                   group_sub=(a.group_sub, torch.int32))
     if runs_plain("wpack_spmv_bf16_prefix", x.device):
         return wpack_spmv_plain(a, x)
     y = torch.empty((a.shape[0],), dtype=torch.bfloat16, device=x.device)
@@ -390,20 +420,49 @@ def wpack_spmv_bf16_prefix(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
 
 wpack_spmv_bf16_prefix.launches = 0
 
+# groups a CTA of the wsel-1 form: 1 to MAX_GROUPS_PER_CTA, a power of 2
+GROUPS_PER_CTA = (1, 2, 4, 8, 16)
+# CTAs of 8 warps an SM that the rule's grid aims at
+PREFIX_CTAS_PER_SM = 4
+
+
+def prefix_groups_per_cta(groups: int, sms: int) -> int:
+    """The wsel-1 form's rule: the fewest groups a CTA (``GROUPS_PER_CTA``)
+    that keep its grid of ceil(groups / groups a CTA) CTAs within one wave
+    of ``PREFIX_CTAS_PER_SM`` CTAs on each of ``sms`` SMs (the largest
+    where none does): every group runs at once where the card holds them,
+    so the time is one group's chain, and the blocks' partials the combine
+    adds stay few where it does not (the 512^2 twin's 104 groups: 1)."""
+    for g in GROUPS_PER_CTA:
+        if -(-groups // g) <= PREFIX_CTAS_PER_SM * max(sms, 1):
+            return g
+    return GROUPS_PER_CTA[-1]
+
 
 def launch_prefix_bf16(a: DeviceWPACK, x: torch.Tensor, y: torch.Tensor,
-                       warps: int = 0) -> None:
-    """One launch of the bf16 wsel-1 kernel into ``y``, uncounted, at W =
-    ``warps`` warps a CTA (4, 8 or 16; 0: the rule's, as the ablation
-    kernels take it); ``wpack_spmv`` is the entry point."""
+                       groups_per_cta: int = 0) -> None:
+    """One launch of the bf16 wsel-1 kernel and its combine into ``y``,
+    uncounted, at ``groups_per_cta`` groups a CTA (``GROUPS_PER_CTA``; 0:
+    ``prefix_groups_per_cta``'s for x's card); ``wpack_spmv`` is the entry
+    point."""
     m, k = a.shape
+    groups = a.num_groups
+    if groups_per_cta == 0:
+        groups_per_cta = prefix_groups_per_cta(groups, sm_count(x.device))
+    if groups_per_cta not in GROUPS_PER_CTA:
+        raise ValueError(f"wpack_spmv_bf16_prefix: groups_per_cta must be "
+                         f"one of {GROUPS_PER_CTA}, got {groups_per_cta}")
+    ctas = -(-groups // groups_per_cta)
+    carry = torch.empty((ctas, 2, LANE), dtype=torch.float32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.library().spgrid_wpack_spmv_bf16_prefix(
-            a.block_ptr.data_ptr(), a.piece_w.data_ptr(),
-            a.piece_lanes.data_ptr(), a.cols.data_ptr(), a.starts.data_ptr(),
+            a.block_ptr.data_ptr(), a.group_sub.data_ptr(),
+            a.piece_w.data_ptr(), a.cols.data_ptr(), a.starts.data_ptr(),
             a.ends.data_ptr(), a.values.data_ptr(), x.data_ptr(),
-            y.data_ptr(), warps, a.blocks, m, k, stream)
+            y.data_ptr(), carry.data_ptr(), groups_per_cta, groups,
+            a.blocks, m, k, stream)
     _build.check(code, "wpack_spmv_bf16_prefix")
 
 
@@ -516,14 +575,12 @@ def wpack_spmv_plain(a: DeviceWPACK, x: torch.Tensor, *, ablate: str = "",
     return y
 
 
-def _prefix_bf16_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
-    """The Pallas body at wsel 1 and bf16, in plain torch: p, each product
-    rounded to bf16; its lane prefix P by ``_lane_prefix``'s 7 shift-adds,
-    each rounded to bf16; P - p and P[ends] - (P - p)[starts] rounded to
-    bf16; the f32 sum of each group's 8 pieces, in piece order, rounded to
-    bf16; the groups of a block added into its f32 rows in group order; y
-    rounded once."""
-    m = a.shape[0]
+def prefix_bf16_terms(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
+    """(P, 128) f32: the Pallas body's row terms at wsel 1 and bf16, in
+    plain torch: p, each product rounded to bf16; its lane prefix P by
+    ``_lane_prefix``'s 7 shift-adds, each rounded to bf16; P - p rounded to
+    bf16; and for row j of each piece P[ends[j]] - (P - p)[starts[j]],
+    kept f32."""
     p, _ = _products(a, x.float())
     p = bf16_rounded(p)
     P = p
@@ -532,8 +589,16 @@ def _prefix_bf16_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
         shifted[:, sh:] = P[:, :-sh]
         P = bf16_rounded(P + shifted)
     pex = bf16_rounded(P - p)
-    term = (torch.take_along_dim(P, a.ends.long(), dim=1)
+    return (torch.take_along_dim(P, a.ends.long(), dim=1)
             - torch.take_along_dim(pex, a.starts.long(), dim=1))
-    y2 = add_groups_in_order(term.view(-1, GROUP_PIECES, LANE), a.group_sub,
-                             a.blocks)
-    return y2.reshape(-1)[:m].to(x.dtype)
+
+
+def _prefix_bf16_plain(a: DeviceWPACK, x: torch.Tensor) -> torch.Tensor:
+    """The Pallas body at wsel 1 and bf16, in plain torch: the f32 sum of
+    each group's 8 pieces' ``prefix_bf16_terms``, in piece order, rounded
+    to bf16; the groups of a block added into its f32 rows in group order;
+    y rounded once."""
+    y2 = add_groups_in_order(
+        prefix_bf16_terms(a, x).view(-1, GROUP_PIECES, LANE), a.group_sub,
+        a.blocks)
+    return y2.reshape(-1)[:a.shape[0]].to(x.dtype)

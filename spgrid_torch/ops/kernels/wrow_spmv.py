@@ -31,8 +31,10 @@ that feeds only an f32 sum stays f32 (it is exact there). v1
 and that sum rounded to bf16 before it is added into the f32 row; the row
 stream marks where each of a row's groups starts (bit 31 of ``row_cols``,
 ``slot_rows.mark_groups``). v2 (``wrow_spmv_v2_bf16``): products and sums
-in f32. Both round y once, so the two variants give different bits at
-bf16; ``wrow_spmv_plain`` computes either.
+in f32; its kernel walks v1's row stream (the mark masked off) in v2's
+equal ranges of live slots, a fixed order of sums. Both round y once, so
+the two variants give different bits at bf16; ``wrow_spmv_plain`` computes
+either.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ from spgrid_torch.ops.kernels import (
 from spgrid_torch.ops.kernels.slot_rows import (
     X_INDEX, add_groups_in_order, mark_groups, stream_order)
 from spgrid_torch.ops.kernels.slot_stream import (
-    check_stream, launch_stream, live_slot_stream, row_bytes,
-    stream_product)
+    check_row_stream, check_stream, launch_row_walk, launch_stream,
+    live_slot_stream, row_bytes, stream_product)
 from spgrid_torch.ops.layouts import group_ptr, to_device, torch_dtype
 
 LANE = 128
@@ -311,7 +313,12 @@ def wrow_spmv_v2(a: DeviceWROW, x: torch.Tensor,
     check_form("wrow_spmv_v2", x.dtype)
     if x.dtype == torch.bfloat16:
         return wrow_spmv_v2_bf16(a, x, slots_per_cta)
-    return _stream(wrow_spmv_v2, a, x, slots_per_cta, torch.float32)
+    name = wrow_spmv_v2.__name__
+    _check(name, a, x, torch.float32)
+    check_stream(name, a, x, slots_per_cta)
+    if runs_plain(name, x.device):
+        return wrow_spmv_plain(a, x, variant="v2")
+    return launch_stream(wrow_spmv_v2, a, x, slots_per_cta)
 
 
 wrow_spmv_v2.launches = 0
@@ -320,22 +327,18 @@ wrow_spmv_v2.launches = 0
 def wrow_spmv_v2_bf16(a: DeviceWROW, x: torch.Tensor,
                       slots_per_cta: int | None = None) -> torch.Tensor:
     """y (m,) bf16 = A @ x for a bf16 layout and bf16 x (k,), v2: products
-    and sums in f32, y rounded once; the walk's sums are added in a fixed
-    order (the same bits every call)."""
-    return _stream(wrow_spmv_v2_bf16, a, x, slots_per_cta, torch.bfloat16)
+    and sums in f32, y rounded once; the kernel walks the row stream in
+    ranges of ``slots_per_cta`` live slots, its sums in a fixed order (the
+    same bits every call)."""
+    name = wrow_spmv_v2_bf16.__name__
+    _check(name, a, x, torch.bfloat16)
+    check_row_stream(name, a, x, slots_per_cta)
+    if runs_plain(name, x.device):
+        return wrow_spmv_plain(a, x, variant="v2")
+    return launch_row_walk(wrow_spmv_v2_bf16, a, x, slots_per_cta)
 
 
 wrow_spmv_v2_bf16.launches = 0
-
-
-def _stream(wrapper, a: DeviceWROW, x: torch.Tensor,
-            slots_per_cta: int | None, dtype: torch.dtype) -> torch.Tensor:
-    name = wrapper.__name__
-    _check(name, a, x, dtype)
-    check_stream(name, a, x, slots_per_cta, dtype)
-    if runs_plain(name, x.device):
-        return wrow_spmv_plain(a, x, variant="v2")
-    return launch_stream(wrapper, a, x, slots_per_cta)
 
 
 def wrow_stream_plain(a: DeviceWROW, x: torch.Tensor) -> torch.Tensor:

@@ -71,7 +71,8 @@ from spgrid_torch.ops.kernels.wcoo_spmv import (
 )
 from spgrid_torch.ops.kernels import wpack_spmv as wpack_module
 from spgrid_torch.ops.kernels.wpack_spmv import (
-    DeviceWPACK, launch_prefix_bf16, wpack_spmv, wpack_spmv_plain,
+    GROUPS_PER_CTA, DeviceWPACK, launch_prefix_bf16, wpack_spmv,
+    wpack_spmv_plain,
 )
 from spgrid_torch.ops.kernels.wrow_spmv import (
     DeviceWROW, wrow_spmv, wrow_spmv_plain, wrow_spmv_v2,
@@ -1857,10 +1858,13 @@ def test_f32_only_kernels_refuse_a_bf16_x(cuda):
 # the Pallas body rounds. v1 and wcoo_spmv's rows of at most a tile sum in
 # the plain version's order (a row's group partial in slot order, then the
 # groups in group order), so they give its bits. Elsewhere only the order
-# of f32 sums differs (v2's and WPACK's walks add each warp's rows and then
-# the warps in order, the wsel-1 form its warps' groups in warp order, a
-# long wcoo_spmv row its partials in a tree), so they agree within 1 bf16
-# ulp of the plain result.
+# of f32 sums differs, so they agree within 1 bf16 ulp of the plain result:
+# v2 and WPACK at wsel 2 and 4 walk the row-ordered stream, each run of a
+# row in a 32-slot pass summed by a segmented scan, then the passes, the
+# warps' stretches and the ranges in order; the wsel-1 form sums each
+# group's 8 pieces in piece order (the plain version's bits), then a
+# block's rounded group sums in each CTA's order and the CTAs' partials in
+# CTA order; a long wcoo_spmv row its partials in a tree.
 
 def spmv_bf16_csr(make):
     return positive(make()).astype("bfloat16")
@@ -1943,22 +1947,35 @@ def test_wpack_bf16_at_every_wsel(cuda, matrix, wsel):
     assert torch.equal(wpack_spmv(a, x), got)
 
 
-@pytest.mark.parametrize("warps", [4, 8, 16])
-def test_wpack_bf16_prefix_at_every_warp_form(cuda, warps):
-    """The wsel-1 form at each W: its warps' groups summed in warp order."""
+@pytest.mark.parametrize("groups_per_cta", GROUPS_PER_CTA)
+def test_wpack_bf16_prefix_at_every_warp_form(cuda, groups_per_cta):
+    """The wsel-1 form (a warp a piece) at each count of groups a CTA: a
+    block's groups summed in each CTA's order, then the CTAs' partials in
+    order; 1 ulp, the same bits twice and by graph replay."""
     csr = spmv_bf16_csr(dense_pieces)
     a = DeviceWPACK.from_csr(csr, 1, device=cuda)
     x = bf16_operand((csr.k,), 45, cuda)
-    y = torch.empty((csr.m,), dtype=torch.bfloat16, device=cuda)
-    launch_prefix_bf16(a, x, y, warps)
-    assert_within_one_ulp(y, wpack_spmv_plain(a, x))
+
+    def call(a, x):
+        y = torch.empty((csr.m,), dtype=torch.bfloat16, device=cuda)
+        launch_prefix_bf16(a, x, y, groups_per_cta)
+        return y
+
+    got = call(a, x)
+    assert_within_one_ulp(got, wpack_spmv_plain(a, x))
+    assert torch.equal(call(a, x), got)
+    graph, out = captured(call, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
-@pytest.mark.parametrize("slots_per_cta", [1, 7, 128, 2048])
+@pytest.mark.parametrize("slots_per_cta", [1, 7, 100, 128, 1000, 2048])
 @pytest.mark.parametrize("form", ["wrow_v2", "wpack"])
 def test_bf16_stream_walk_at_every_range(cuda, form, slots_per_cta):
-    """The stream walk's bf16 form with blocks cut by many ranges (the
-    carry combine) and with one range a block: the same bits twice."""
+    """The bf16 row walk with rows cut by many ranges (the carry combine),
+    rows and warps' stretches cut mid-run (100, 1000) and with ranges of
+    whole rows: 1 ulp, the same bits twice and by graph replay."""
     csr = spmv_bf16_csr(straddle)
     if form == "wpack":
         a = DeviceWPACK.from_csr(csr, 2, device=cuda)
@@ -1972,6 +1989,10 @@ def test_bf16_stream_walk_at_every_range(cuda, form, slots_per_cta):
     got = call(a, x)
     assert_within_one_ulp(got, plain(a, x))
     assert torch.equal(call(a, x), got)
+    graph, out = captured(call, a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("tile_slots", TILE_CHOICES)
