@@ -1984,14 +1984,22 @@ BF16_LEG_JOBS = "dlmc_twin_512_0.5,band_98k,scat_131k,wideband_196k"
 LEG_SHAPES = (("mid_16k_d2pct", ("bsr", "panel")), ("band_98k", ("bsr",)),
               ("dense_2k_d20pct", ("bsr", "panel")),
               ("wideband_196k", ("bands",)))
-# the redesigned SpMV forms (the bf16 row walk, the wsel-1 form a warp a
-# piece): the device ms of the forms they replaced (the piece-ordered bf16
-# walk, the wsel-1 form a warp a group) on their 11a cases, on an H100 80GB
-# HBM3 at 700 W (PERF.md §6, rows 9b and 10b), printed beside this run's
+# the redesigned forms (the bf16 row walk, the wsel-1 form a warp a piece;
+# the 3-pass SDDMM on split planes and a TMA-fed tile; dgell's 16-byte bf16
+# vector): the device ms of the forms they replaced on their 11a cases, on
+# an H100 80GB HBM3 at 700 W (PERF.md §6, rows 9b, 10b, 3c and 11b),
+# printed beside this run's
 BEFORE_DEVICE_MS = {("wrow_spmv_v2_bf16", "LINE_S n=1"): 0.031140,
-                  ("wpack_spmv_bf16", "LINE_S n=1"): 0.030914,
-                  ("wpack_spmv_bf16_prefix", "headline 512^2 n=1 (wsel 1)"):
-                      0.016672}
+                    ("wpack_spmv_bf16", "LINE_S n=1"): 0.030914,
+                    ("wpack_spmv_bf16_prefix",
+                     "headline 512^2 n=1 (wsel 1)"): 0.016672,
+                    ("bsr_sddmm_bf16x3",
+                     "{}^2 band_and_decay s={} d={} f32".format(
+                         *DTYPE_SDDMM)): 0.257578,
+                    ("dgell_bf16", "LINE_S n=512"): 0.625249}
+# 11b's slab sweep on its 11a case (LINE_S, n = 512): each slab in the
+# 16-byte and the 8-byte vector form
+DGELL_SWEEP = (64, 128, 256, 512)
 # the row walks' other ranges of live slots a CTA in 11a (the rule's is
 # 2,048 on LINE_S)
 SPMV_RANGES = (1024, 4096)
@@ -2011,6 +2019,33 @@ def bf16_compare(out: torch.Tensor, ref: torch.Tensor):
     ok = (bool(torch.isfinite(o).all()) and ulps <= 1.0
           and bool((diff[~big] <= BF16_FLOOR).all()))
     return ulps, diff.max().item(), ok
+
+
+def ptxas_report(kernel: str) -> str:
+    """ptxas's registers and spills (the build's nvcc.log) for the first
+    kernel whose mangled name holds ``kernel``."""
+    from spgrid_torch.ops.kernels import _build
+    log = _build.build_dir() / "nvcc.log"
+    if not log.exists():
+        return "not built"
+    found, report = False, []
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            if found:
+                break
+            found = kernel in line
+        elif found and ("registers" in line or "spill" in line):
+            report.append(line.split(":", 1)[-1].strip())
+    return "; ".join(report) or f"no entry {kernel}"
+
+
+def offset8(t: torch.Tensor) -> torch.Tensor:
+    """A copy of bf16 ``t`` whose data lies 8 bytes past a 16-byte
+    boundary (the allocator's blocks start on 512 bytes)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[4:4 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def library_on(fn, bf16_args, f32_args):
@@ -2063,9 +2098,11 @@ def phase_dtype_kernels() -> dict:
     from spgrid_torch.ops.kernels.dgell import (
         DeviceDGELL, dgell_rows_plain, dgell_spmm)
     from spgrid_torch.ops.kernels.dgell import launch as dgell_launch
+    from spgrid_torch.ops.kernels.dgell import launch_plan as dgell_plan
     from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
     from spgrid_torch.ops.kernels.sddmm import (
-        bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain)
+        bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain, split_launch,
+        split_planes, split_planes_plain, x3_shape)
     from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
     from spgrid_torch.ops.kernels.wcoo_spmm import (
         DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
@@ -2115,12 +2152,13 @@ def phase_dtype_kernels() -> dict:
             # the plain version in the kernel's order: its FMA chain's bits
             fn, plain = dgell_spmm, dgell_rows_plain
             exact = torch.ones(csr.m, dtype=torch.bool, device=DEVICE)
-            y = torch.empty((csr.m, n), dtype=torch.bfloat16, device=DEVICE)
-            note = (f"slots={a.slots} tail={a.tail_rows.numel()} "
-                    f"{dgell_shape(csr.k, n, dtype=torch.bfloat16)} "
-                    f"device_ms_by_slab " + " ".join(
-                        f"{c}:{device_ms(dgell_launch, a, x, y, c):.6f}"
-                        for c in (16, 32, 64, 128, 256, 512)))
+            shape = dgell_shape(csr.k, n, vec=2, dtype=torch.bfloat16)
+            per_lane = -(-shape.slab // 8) // shape.lanes or 1
+            u = dgell_plan(csr.k, n, l2_bytes, 8)[1]
+            note = (f"slots={a.slots} tail={a.tail_rows.numel()} {shape} "
+                    f"U={u} ptxas=[" + ptxas_report(
+                        f"dgell_kernelILi{shape.lanes}ELi{per_lane}ELi8E")
+                    + "] " + dgell_sweep(a, x))
             value, index = 4, 4
         elif kind == "bsr":
             # the host arrays once; the layout under the chosen route, then
@@ -2188,11 +2226,39 @@ def phase_dtype_kernels() -> dict:
                 2.0 * mask.nnz * d,
                 f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}", None)
 
+    def dgell_sweep(a, x):
+        """11b at each slab of DGELL_SWEEP in its 16-byte form (X and Y on
+        16 bytes) and its 8-byte form (copies of them 8 bytes off): device
+        ms, each held bit for bit against the row-order plain version into
+        a Y filled with NaN, the same bits twice."""
+        ref = dgell_rows_plain(a, x)
+        points = []
+        for form, xf in (("16B", x), ("8B", offset8(x))):
+            y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype,
+                            device=DEVICE)
+            y = y if form == "16B" else offset8(y)
+            again = torch.full_like(y, float("nan"))
+            for c in DGELL_SWEEP:
+                y.fill_(float("nan"))
+                again.fill_(float("nan"))
+                dgell_launch(a, xf, y, c)
+                dgell_launch(a, xf, again, c)
+                torch.cuda.synchronize()
+                ok = torch.equal(y, ref) and torch.equal(y, again)
+                points.append(f"{form}:{c}:"
+                              f"{device_ms(dgell_launch, a, xf, y, c):.6f}"
+                              f":{'bits' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"dgell_bf16 [{form} slab {c}]")
+        return "device_ms_by_form_slab " + " ".join(points)
+
     def sddmm_high_case():
         """The 3-pass form on f32 operands: a band_and_decay mask, as the
-        f32 form's phase-1 case, at DTYPE_SDDMM's shape. Bound: the f32
-        mask's values in and out and their indices, Q and K once, or three
-        bf16 passes at 989 TFLOP/s."""
+        f32 form's phase-1 case, at DTYPE_SDDMM's shape; its split pass
+        alone too (its planes held element for element against the plain
+        split), and the tile's registers. Bound: the f32 mask's values in
+        and out and their indices, Q and K once, or three bf16 passes at
+        989 TFLOP/s."""
         length, sparsity, d = DTYPE_SDDMM
         mask = create_mask("band_and_decay", length, sparsity, seed=14)
         a = DeviceBSR.from_csr(mask, bm=128, bk=128, device=DEVICE)
@@ -2200,13 +2266,28 @@ def phase_dtype_kernels() -> dict:
         k = x_tensor(make_x(length, d, "float32", 52), "float32", DEVICE)
         library = (lambda s_, q_, kt: torch.sparse.sampled_addmm(
             s_, q_, kt, beta=0.0))
-        return (functools.partial(bsr_sddmm, precision="high"),
-                bsr_sddmm_bf16x3_plain, (a, q, k), library,
+        kernel = functools.partial(bsr_sddmm, precision="high")
+        shape, scratch_bytes = x3_shape(a, length, length, d)
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8,
+                              device=DEVICE)
+        split_launch(q, k, scratch)
+        planes_equal = all(
+            torch.equal(got, want) for got, want in zip(
+                split_planes(scratch, length, length, d),
+                split_planes_plain(q, k)))
+        if not planes_equal:
+            failed.append("bsr_sddmm_bf16x3 [split planes]")
+        split_ms = device_ms(split_launch, q, k, scratch)
+        whole_ms = device_ms(kernel, a, q, k)
+        return (kernel, bsr_sddmm_bf16x3_plain, (a, q, k), library,
                 (csr_tensor(mask), q, k.t().contiguous()), "f32",
                 mask.nnz * (4 + 4 + 4) + 2 * 4 * length * d,
                 3 * 2.0 * mask.nnz * d,
-                f"{sddmm_grid(a, 'high')} blocks={a.num_blocks} "
-                f"nnz={mask.nnz}", None)
+                f"{shape} blocks={a.num_blocks} nnz={mask.nnz} "
+                f"scratch_bytes={scratch_bytes} split_planes_equal="
+                f"{planes_equal} split_device_ms={split_ms:.6f} (share "
+                f"{split_ms / whole_ms:.3f} of {whole_ms:.6f}) tile_ptxas=["
+                f"{ptxas_report('bsr_sddmm_bf16x3_kernel')}]", None)
 
     def spmv_case(kind, csr, seed):
         """A bf16 SpMV form's case: its layout, x (k,), what the form must
@@ -2281,6 +2362,8 @@ def phase_dtype_kernels() -> dict:
         return call
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    failed = []
     head = line_matrix(HEADLINE_LINE).astype("bfloat16")
     line_b = line_matrix(LINE_B).astype("bfloat16")
     hyper = line_matrix(MAIN_LINE).astype("bfloat16")
@@ -2334,7 +2417,7 @@ def phase_dtype_kernels() -> dict:
                 lambda tag=tag, kind=kind: spmm_case(
                     kind, job_matrix(tag, leg[tag]).astype("bfloat16"), 512,
                     46)))
-    main_path, failed = {}, []
+    main_path = {}
     for name, label, on_path, make in cases:
         made = make()
         (kernel, plain, args, library, lib_args, which, bytes_moved, flops,

@@ -1,9 +1,10 @@
 // The bf16 tensor-core tiles that the bf16 forms of the block kernels
 // share: panel_spmm.cu (cv_panel's form, f32 X and Y, and the bf16 panels'
 // form, bf16 X and Y), bsr_spmm.cu (the bf16 BSR form) and sddmm.cu (the
-// bf16 SDDMM).
+// bf16 SDDMM, 3b, and the 3-pass one, 3c, which runs the pipelined tile's
+// ring, barriers, TMA loads and wgmma with both operands K-major).
 //
-// The step (`mma_step`, which the SDDMM forms, 3b and 3c, and 4b's
+// The step (`mma_step`, which the bf16 SDDMM form, 3b, and 4b's
 // bsr_spmm_cstat.cu run, and `bf16_row_tile` below): BF_TK = 64 of the
 // contraction, one 128-byte line of bf16: four wgmma m64n64k16 with bf16
 // operands, A (64 x 16) in registers and B (16 x 64) in shared memory,
@@ -497,8 +498,10 @@ __device__ __forceinline__ uint64_t descriptor_mn128(const void* p) {
 }
 
 // d (64 x 128, f32) = a (64 x 16, bf16 K-major, descriptor a) * b (16 x
-// 128, bf16 MN-major, descriptor b, transposed) + (accumulate ? d : 0);
+// 128, bf16, descriptor b: MN-major, read through wgmma's transpose bit,
+// where TRANS_B is 1; K-major where it is 0) + (accumulate ? d : 0);
 // warpgroup-collective and asynchronous until wgmma_wait.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[PT_NT / 2],
                                               uint64_t a, uint64_t b,
                                               int accumulate) {
@@ -510,7 +513,7 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[PT_NT / 2],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -524,7 +527,7 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[PT_NT / 2],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B)
       : "memory");
 }
 

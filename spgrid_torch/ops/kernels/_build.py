@@ -58,8 +58,12 @@ SIGNATURES = {
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     # the same, mask, q, k and out in bf16
     "spgrid_bsr_sddmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
-    # the same in f32, three bf16 passes (matmul precision 'high')
-    "spgrid_bsr_sddmm_bf16x3": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # rows, cols, mask, q, k, out, scratch (the split planes), nb, bm, bk,
+    # mq, mk, d, cluster, stream: f32, three bf16 passes (matmul precision
+    # 'high')
+    "spgrid_bsr_sddmm_bf16x3": [_PTR] * 7 + [_INT] * 7 + [_PTR],
+    # q, k, scratch, mq, mk, d, stream: its split pass alone
+    "spgrid_bsr_sddmm_bf16x3_split": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     # the launch shapes: mb, bm, n (SpMM); slices, bk, n (bf16 SpMM);
     # bands, band_rows, n (panels); bands, band_rows, bk, n, xy_bf16 (bf16
     # panels); nb, bm, bk (SDDMM); then out (int[6]: tiles, cluster, tile
@@ -70,7 +74,9 @@ SIGNATURES = {
     "spgrid_panel_spmm_bf16_shape": [_INT] * 5 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_bsr_sddmm_bf16_shape": [_INT] * 3 + [_PTR],
-    "spgrid_bsr_sddmm_bf16x3_shape": [_INT] * 3 + [_PTR],
+    # nb, bm, bk, mq, mk, d, out (int[6]), scratch (long long[1]: the
+    # split planes' bytes): the 3-pass SDDMM's
+    "spgrid_bsr_sddmm_bf16x3_shape": [_INT] * 6 + [_PTR] * 2,
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_spmm_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],

@@ -11,11 +11,13 @@ pointing at each row's. The kernel sums a row's slots and then its tail nnz
 in one pass and writes each element of Y once (the JAX package adds the
 tail in XLA outside its Pallas kernel). It walks X in column slabs that
 stay in L2, the slab width C chosen on the card from k, n and its L2 size
-(``launch_shape`` reports it). Its bf16 form (``dgell_spmm_bf16``, the
-Pallas kernel at dtype bf16) reads bf16 X, widening it on load, keeps the
-values f32 (the JAX layout holds them in f32 at every dtype, as
-``DeviceDGELL`` does), sums the slots and the tail in f32 and rounds each
-element of Y once, after the tail.
+(``launch_shape`` reports it; ``launch_plan`` is the same rule in Python,
+with the gathers a lane keeps in flight). Its bf16
+form (``dgell_spmm_bf16``, the Pallas kernel at dtype bf16) reads bf16 X,
+8 elements (16 bytes) a lane a load where n % 8 == 0 and X and Y lie on 16
+bytes, widening it on load, keeps the values f32 (the JAX layout holds
+them in f32 at every dtype, as ``DeviceDGELL`` does), sums the slots and
+the tail in f32 and rounds each element of Y once, after the tail.
 """
 
 from __future__ import annotations
@@ -135,6 +137,14 @@ def _check(kernel: str, a: DeviceDGELL, x: torch.Tensor,
                    tail_ptr=(a.tail_ptr, torch.int32))
 
 
+# csrc/dgell.cu's launch constants: slab widths, gathers in flight a lane,
+# warps a CTA, and the registers of X a lane holds ahead of its FMAs at each
+# vector width (elements a vector: widened floats, but the 16-byte form's
+# raw bf16 pairs, two elements a register)
+MIN_SLAB, MAX_SLAB, MAX_U, WARPS = 8, 512, 8, 8
+BUDGET = {1: 16, 4: 32, 8: 32}
+
+
 class SlabShape(NamedTuple):
     """A launch of the kernel: X's columns in ``slabs`` slabs of ``slab``
     (the last may be narrower), CTAs of ``rows`` rows, ``lanes`` lanes a
@@ -146,12 +156,41 @@ class SlabShape(NamedTuple):
     lanes: int
 
 
-def launch_shape(k: int, n: int, slab: int = 0, vec: bool = True,
+def launch_plan(k: int, n: int, l2_bytes: int, width: int, slab: int = 0):
+    """(the launch, U): what ``csrc/dgell.cu`` launches for X (k, n) on a
+    card of ``l2_bytes`` of L2 at ``slab`` (0: the rule, the widest power
+    of two from 8 to 512 whose k x C floats fit in half of L2, at f32 and
+    bf16 alike; one slab of n where that covers n) in vectors of ``width``
+    elements (8: bf16's 16 bytes, 4, 1), and U, the gathers a lane keeps in
+    flight (its registers of X within ``BUDGET``). The kernel's rule in
+    Python; ``launch_shape`` asks the card."""
+    if slab == 0:
+        slab = MIN_SLAB
+        while slab < MAX_SLAB and 4 * k * 2 * slab <= l2_bytes // 2:
+            slab *= 2
+    if slab >= n and n <= MAX_SLAB:
+        slab = n
+    vectors = -(-slab // width)
+    p = 1
+    while p < vectors:
+        p *= 2
+    lanes = min(p, 32)
+    ne = p // lanes * width
+    held = ne // 2 if width == 8 else ne
+    u = MAX_U
+    while u > 1 and (u > lanes or u * held > BUDGET[width]
+                     or u * held + ne > BUDGET[width] + 8):
+        u //= 2
+    return SlabShape(slab, -(-n // slab), WARPS * 32 // lanes, lanes), u
+
+
+def launch_shape(k: int, n: int, slab: int = 0, vec=True,
                  dtype: torch.dtype = torch.float32) -> SlabShape:
     """The launch the kernel's form for X of ``dtype`` (f32 or bf16) makes
     on the current card for X (k, n) at ``slab`` (0: its rule, from k, n
-    and the card's L2 at f32, the widest slab at bf16), in the vector form
-    (``vec``) or the scalar one."""
+    and the card's L2), in the vector form ``vec`` (True or 1: four
+    elements a vector; 2: eight, bf16's 16 bytes) or the scalar one (False
+    or 0)."""
     shape = (ctypes.c_int * 4)()
     entry = ("spgrid_dgell_bf16_shape" if dtype == torch.bfloat16
              else "spgrid_dgell_shape")

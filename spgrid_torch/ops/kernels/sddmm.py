@@ -13,15 +13,20 @@ precision for CUDA tensors and takes its plain version
 (``bsr_sddmm_plain``, ``bsr_sddmm_bf16x3_plain``) only for CPU tensors; an
 f64 Q, or a precision without a form, raises.
 
-The kernel runs the tensor-core tile of ``csrc/block_mma.cuh``: one
+The f32 form runs the tensor-core tile of ``csrc/block_mma.cuh``: one
 tile a (mask block, 128-row slice of it, 64 of its columns), its
 contraction (d, 32 a step) split across a cluster where the tiles alone
 would leave the card idle (``launch_grid`` reports the launch); the mask
-multiplies the summed tile once. The bf16 and 3-pass forms run the bf16
-step of ``csrc/bf16_mma.cuh``, 64 of d a step.
+multiplies the summed tile once. The bf16 form runs the bf16 step of
+``csrc/bf16_mma.cuh``, 64 of d a step. The 3-pass form first splits Q and
+K once into bf16 hi and lo planes (``split_planes_plain`` is that pass in
+plain torch) in scratch the wrapper allocates (``x3_shape`` reports its
+bytes), then runs tiles of 128 columns fed from the planes by TMA.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,39 +48,59 @@ def _check(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
                    block_cols=(mask.block_cols, torch.int32))
 
 
-def launch_grid(mask: DeviceBSR, precision: str = "highest") -> LaunchShape:
+def launch_grid(mask: DeviceBSR, precision: str = "highest",
+                q: torch.Tensor = None, k: torch.Tensor = None
+                ) -> LaunchShape:
     """The launch of the form ``mask``'s blocks take for its stored blocks
     (pad blocks included) on the card ``mask`` lies on, as
     ``spgrid_bsr_sddmm``, ``spgrid_bsr_sddmm_bf16`` or, for f32 blocks at
-    ``precision`` 'high', ``spgrid_bsr_sddmm_bf16x3`` makes it (the
-    cluster depends on the card's SM count)."""
+    ``precision`` 'high', ``spgrid_bsr_sddmm_bf16x3`` makes it (its tiles,
+    for Q ``q`` and K ``k``; the cluster depends on the card's SM count)."""
     nb, bm, bk = mask.blocks.shape
-    if mask.blocks.dtype == torch.bfloat16:
-        entry = "spgrid_bsr_sddmm_bf16_shape"
-    elif precision == "high":
-        entry = "spgrid_bsr_sddmm_bf16x3_shape"
-    else:
-        entry = "spgrid_bsr_sddmm_shape"
+    if mask.blocks.dtype != torch.bfloat16 and precision == "high":
+        return x3_shape(mask, q.shape[0], k.shape[0], q.shape[1])[0]
+    entry = ("spgrid_bsr_sddmm_bf16_shape"
+             if mask.blocks.dtype == torch.bfloat16
+             else "spgrid_bsr_sddmm_shape")
     with torch.cuda.device(mask.blocks.device):
         return query(entry, "bsr_sddmm", nb, bm, bk)
 
 
+def x3_shape(mask: DeviceBSR, mq: int, mk: int, d: int):
+    """(the 3-pass form's tile launch, the bytes of its split planes) for
+    Q (mq, d) and K (mk, d) on the card ``mask`` lies on, as
+    ``spgrid_bsr_sddmm_bf16x3_shape`` reports them."""
+    nb, bm, bk = mask.blocks.shape
+    shape = (ctypes.c_int * 6)()
+    scratch = ctypes.c_longlong()
+    with torch.cuda.device(mask.blocks.device):
+        _build.check(_build.library().spgrid_bsr_sddmm_bf16x3_shape(
+            nb, bm, bk, mq, mk, d, ctypes.addressof(shape),
+            ctypes.addressof(scratch)), "bsr_sddmm_bf16x3")
+    return LaunchShape(*shape), scratch.value
+
+
 def _launch(wrapper, mask: DeviceBSR, q: torch.Tensor,
             k: torch.Tensor) -> torch.Tensor:
-    """The block values by the form of Q's dtype into a new output; count
-    the launch on ``wrapper``."""
+    """The block values by the form of Q's dtype into a new output (the
+    3-pass form with its split planes in new scratch); count the launch on
+    ``wrapper``."""
     nb, bm, bk = mask.blocks.shape
     out = torch.empty((nb, bm, bk), dtype=q.dtype, device=q.device)
     if nb == 0:
         return out
-    lib = _build.library()
-    entry = getattr(lib, "spgrid_" + wrapper.__name__)
+    mq, mk, d = q.shape[0], k.shape[0], q.shape[1]
+    entry = getattr(_build.library(), "spgrid_" + wrapper.__name__)
+    args = ()
+    if wrapper is bsr_sddmm_bf16x3:
+        scratch = torch.empty(x3_shape(mask, mq, mk, d)[1],
+                              dtype=torch.uint8, device=q.device)
+        args = (scratch.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = entry(mask.block_rows.data_ptr(), mask.block_cols.data_ptr(),
                      mask.blocks.data_ptr(), q.data_ptr(), k.data_ptr(),
-                     out.data_ptr(), nb, bm, bk, q.shape[0], k.shape[0],
-                     q.shape[1], 0, stream)
+                     out.data_ptr(), *args, nb, bm, bk, mq, mk, d, 0, stream)
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -157,6 +182,49 @@ def split_bf16(t: torch.Tensor):
     as f32 tensors."""
     hi = t.to(torch.bfloat16).float()
     return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def plane_shape(mq: int, mk: int, d: int):
+    """(Q's plane rows, K's plane rows, plane columns) of the 3-pass form's
+    split planes: each operand's rows (at least one) by d rounded up to
+    whole 64-deep steps (at least one), as ``csrc/sddmm.cu`` lays them."""
+    return max(mq, 1), max(mk, 1), max(1, -(-d // 64)) * 64
+
+
+def split_planes(scratch: torch.Tensor, mq: int, mk: int, d: int):
+    """(Q_hi, Q_lo, K_hi, K_lo): the split planes in the 3-pass form's
+    scratch (bytes), as bf16 views."""
+    rq, rk, dp = plane_shape(mq, mk, d)
+    flat = scratch.view(torch.bfloat16)
+    q_planes = flat[:2 * rq * dp].view(2, rq, dp)
+    k_planes = flat[2 * rq * dp:2 * (rq + rk) * dp].view(2, rk, dp)
+    return q_planes[0], q_planes[1], k_planes[0], k_planes[1]
+
+
+def split_planes_plain(q: torch.Tensor, k: torch.Tensor):
+    """(Q_hi, Q_lo, K_hi, K_lo) in plain torch, bf16: the split pass's
+    planes (``plane_shape``), each value's parts by ``split_bf16`` and
+    zeros past d and past the operand's rows."""
+    rq, rk, dp = plane_shape(q.shape[0], k.shape[0], q.shape[1])
+    planes = []
+    for t, rows in ((q, rq), (k, rk)):
+        padded = torch.zeros((rows, dp), dtype=torch.float32,
+                             device=t.device)
+        padded[:t.shape[0], :t.shape[1]] = t
+        planes += [p.to(torch.bfloat16) for p in split_bf16(padded)]
+    return tuple(planes)
+
+
+def split_launch(q: torch.Tensor, k: torch.Tensor,
+                 scratch: torch.Tensor) -> None:
+    """The 3-pass form's split pass alone on the card, into ``scratch``
+    (the bytes ``x3_shape`` reports), uncounted: for tests and timing."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_bsr_sddmm_bf16x3_split(
+            q.data_ptr(), k.data_ptr(), scratch.data_ptr(), q.shape[0],
+            k.shape[0], q.shape[1], stream)
+    _build.check(code, "bsr_sddmm_bf16x3")
 
 
 def bsr_sddmm_bf16x3_plain(mask: DeviceBSR, q: torch.Tensor,

@@ -37,7 +37,7 @@ from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
 )
 from spgrid_torch.ops.kernels.dgell import (
     DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
-    dgell_spmm_plain, launch, launch_shape,
+    dgell_spmm_plain, launch, launch_plan, launch_shape,
 )
 from spgrid_torch.ops.kernels import lanegather as lanegather_module
 from spgrid_torch.ops.kernels.lanegather import (
@@ -56,7 +56,8 @@ from spgrid_torch.ops.kernels.panel_spmm import (
 )
 from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
 from spgrid_torch.ops.kernels.sddmm import (
-    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain, plane_shape,
+    split_launch, split_planes, split_planes_plain, x3_shape,
 )
 from spgrid_torch.ops.kernels.wcoo_spmm import (
     DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
@@ -2077,20 +2078,50 @@ def assert_rel_1e6(got, want):
                                atol=0)
 
 
-@pytest.mark.parametrize("kind,length,sparsity,d,blocks", [
-    ("band_and_decay", 4096, 0.95, 512, (128, 128)),
-    ("band_and_random", 4096, 0.95, 512, (128, 128)),
-    ("band_and_decay", 1000, 0.9, 77, (128, 128)),
-    ("band_and_random", 1000, 0.8, 64, (64, 256)),
-    ("band_and_decay", 512, 0.9, 130, (256, 128))])
-def test_bsr_sddmm_bf16x3(cuda, kind, length, sparsity, d, blocks):
+# 3c's cases: (mask kind, side, sparsity, mask kwargs, (bm, bk), mq, mk, d).
+# The masks of the first five are the form's first cases (Q and K as many
+# rows as the mask); then d neither a multiple of 8 nor of 64 (70) or of 64
+# (96), Q and K of other row counts than each other and the mask (Q fewer
+# rows than the mask's, K more than its columns: the plain version reads a
+# block column of K past mk as an index error), pad blocks (pad_multiple 4
+# below), bm = 200 in two row slices, bk = 64 (a tile of 128 columns past
+# the block's)
+X3_CASES = {
+    "4096_decay_d512": ("band_and_decay", 4096, 0.95, {}, (128, 128), 4096,
+                        4096, 512),
+    "4096_random_d512": ("band_and_random", 4096, 0.95, {}, (128, 128),
+                         4096, 4096, 512),
+    "1000_decay_d77": ("band_and_decay", 1000, 0.9, {}, (128, 128), 1000,
+                       1000, 77),
+    "1000_random_d64_bk256": ("band_and_random", 1000, 0.8, {}, (64, 256),
+                              1000, 1000, 64),
+    "512_decay_d130_bm256": ("band_and_decay", 512, 0.9, {}, (256, 128), 512,
+                             512, 130),
+    "200_d70_bm200": ("band_and_random", 200, 0.8, {"band_size": 4},
+                      (200, 128), 200, 200, 70),
+    "1000_d96_mq_below_mk": ("band_and_decay", 1000, 0.9, {}, (128, 128),
+                             900, 1000, 96),
+    "1000_d70_mk_above_mq_bk64": ("band_and_random", 1000, 0.8, {},
+                                  (128, 64), 1000, 1030, 70),
+    "600_d96_bm200": ("band_and_decay", 600, 0.8, {}, (200, 128), 560, 600,
+                      96),
+}
+
+
+def x3_case(name, device):
+    """(mask layout, Q, K) of X3_CASES[name]."""
+    kind, side, sparsity, kwargs, (bm, bk), mq, mk, d = X3_CASES[name]
+    mask = create_mask(kind, side, sparsity, seed=36, **kwargs)
+    m = DeviceBSR.from_csr(mask, bm=bm, bk=bk, pad_multiple=4, device=device)
+    return m, operand((mq, d), 43, device), operand((mk, d), 44, device)
+
+
+@pytest.mark.parametrize("case", sorted(X3_CASES))
+def test_bsr_sddmm_bf16x3(cuda, case):
     """Within 1e-6 of the plain version (pad blocks zero), one launch on
     bsr_sddmm_bf16x3's counter, the same bits twice and by graph replay."""
-    mask = create_mask(kind, length, sparsity, seed=36)
-    m = DeviceBSR.from_csr(mask, bm=blocks[0], bk=blocks[1], pad_multiple=4,
-                           device=cuda)
-    q = operand((length, d), 43, cuda)
-    k = operand((length, d), 44, cuda)
+    m, q, k = x3_case(case, cuda)
+    assert int((m.block_rows == m.mb).sum()) > 0   # pad blocks
     before = launch_counts()["bsr_sddmm_bf16x3"]
     got = bsr_sddmm(m, q, k, precision="high")
     assert launch_counts()["bsr_sddmm_bf16x3"] == before + 1
@@ -2122,22 +2153,60 @@ def test_bsr_sddmm_bf16x3_is_not_the_f32_form(cuda):
 
 
 @pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
-def test_bsr_sddmm_bf16x3_at_every_cluster_size(cuda, cluster):
-    """The C entry point at each cluster size on ragged shapes: bm = 200 in
-    two row slices, d = 70 (staged by 4-byte loads), pad blocks."""
+@pytest.mark.parametrize("case", [c for c in sorted(X3_CASES)
+                                  if not c.startswith("4096")])
+def test_bsr_sddmm_bf16x3_at_every_cluster_size(cuda, case, cluster):
+    """The C entry point (split pass, then the tiles, into scratch of the
+    bytes its shape entry reports) at each cluster size on the ragged
+    cases: every output element written (it starts as NaN), within 1e-6 of
+    the plain version, the same bits on two calls."""
     from spgrid_torch.ops.kernels import _build
-    mask = create_mask("band_and_random", 200, 0.8, band_size=4, seed=14)
-    m = DeviceBSR.from_csr(mask, bm=200, bk=128, pad_multiple=4, device=cuda)
-    q = operand((200, 70), 46, cuda)
-    k = operand((200, 70), 47, cuda)
+    m, q, k = x3_case(case, cuda)
     nb, bm, bk = m.blocks.shape
-    out = torch.full((nb, bm, bk), float("nan"), device=cuda)
-    _build.check(_build.library().spgrid_bsr_sddmm_bf16x3(
-        m.block_rows.data_ptr(), m.block_cols.data_ptr(), m.blocks.data_ptr(),
-        q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
-        cluster, torch.cuda.current_stream().cuda_stream),
-        "bsr_sddmm_bf16x3")
+    (mq, d), mk = q.shape, k.shape[0]
+    scratch = torch.empty(x3_shape(m, mq, mk, d)[1], dtype=torch.uint8,
+                          device=cuda)
+
+    def call():
+        out = torch.full((nb, bm, bk), float("nan"), device=cuda)
+        _build.check(_build.library().spgrid_bsr_sddmm_bf16x3(
+            m.block_rows.data_ptr(), m.block_cols.data_ptr(),
+            m.blocks.data_ptr(), q.data_ptr(), k.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), nb, bm, bk, mq, mk, d, cluster,
+            torch.cuda.current_stream().cuda_stream), "bsr_sddmm_bf16x3")
+        return out
+
+    out = call()
     assert_rel_1e6(out, bsr_sddmm_bf16x3_plain(m, q, k))
+    assert torch.equal(call(), out)
+
+
+@pytest.mark.parametrize("mq,mk,d", [(200, 200, 70), (900, 1000, 96),
+                                     (5, 3, 130), (1, 7, 1), (64, 0, 512),
+                                     (3, 2, 0)])
+def test_bsr_sddmm_bf16x3_split_planes_equal_the_plain_split(cuda, mq, mk,
+                                                             d):
+    """The split pass's planes element for element against the plain split
+    (``split_bf16`` of Q and K of both signs, zero-padded to whole steps
+    and to at least one row), every byte of the scratch written (it starts
+    as 0xFF), and the scratch bytes its shape entry reports those of
+    ``plane_shape``."""
+    g = torch.Generator(device="cpu").manual_seed(47)
+    q = (torch.randn((mq, d), generator=g) * 3).to(cuda)
+    k = (torch.randn((mk, d), generator=g) / 3).to(cuda)
+    m = DeviceBSR.from_csr(create_mask("band_and_decay", 256, 0.5, seed=3),
+                           bm=128, bk=128, device=cuda)
+    rq, rk, dp = plane_shape(mq, mk, d)
+    assert dp % 64 == 0 and dp >= max(d, 1)
+    nbytes = x3_shape(m, mq, mk, d)[1]
+    assert nbytes == 2 * 2 * (rq + rk) * dp
+    scratch = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=cuda)
+    split_launch(q, k, scratch)
+    torch.cuda.synchronize()
+    for got, want in zip(split_planes(scratch, mq, mk, d),
+                         split_planes_plain(q, k)):
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("case", sorted(BSRC))
@@ -2201,8 +2270,9 @@ def bf16_edge():
 
 
 # the f32 form's cases (DGELL) on bf16 matrices (their values are the f32
-# numbers bf16 holds, as the layout keeps them); wide_k at n = 600, so that
-# the bf16 rule's slab of 512 columns leaves a second, ragged one
+# numbers bf16 holds, as the layout keeps them); wide_k at n = 600 (the
+# 16-byte form), whose 150,000 rows take the slab rule to several slabs,
+# the last a ragged one
 DGELL_BF16 = {
     "wide_k_n600": (lambda d: DeviceDGELL.from_csr(
         bf16_csr(lambda: positive(wide_k())), device=d), 600, "plain"),
@@ -2246,40 +2316,68 @@ def test_dgell_bf16_kernel_cases(cuda, case):
     assert torch.equal(out, got)
 
 
+def offset8_bf16(shape, seed, device):
+    """A contiguous bf16 operand whose data starts 8 bytes past a 16-byte
+    boundary: 8-byte loads of it, no 16-byte ones."""
+    x = bf16_operand((int(np.prod(shape)) + 4,), seed, device)[4:]
+    return x.view(shape)
+
+
+# X and Y of the bf16 form's vector forms: (make, the form a launch takes
+# where n % 8 == 0: 2 the 16-byte vector, 1 the 8-byte one, 0 the scalar)
+BF16_LAYOUTS = {"plain": (bf16_operand, 2), "offset8": (offset8_bf16, 1),
+                "misaligned": (misaligned_bf16, 0)}
+
+
 @pytest.mark.parametrize("slab", [0, 8, 16, 32, 64, 128, 512, "n"])
 @pytest.mark.parametrize("n,layout", [(96, "plain"), (77, "plain"),
-                                      (200, "misaligned")])
+                                      (200, "misaligned"), (200, "plain"),
+                                      (512, "plain"), (96, "offset8")])
 def test_dgell_bf16_kernel_at_every_slab(cuda, slab, n, layout):
     """The bf16 C entry point at each slab width of the f32 form's sweep on
-    the edge matrix: every slab of Y written (it starts as NaN), the row-
-    order plain version's bits, the same bits on two calls."""
+    the edge matrix, in each vector form (the 16-byte one where n % 8 == 0
+    and X and Y lie on 16 bytes; 8 bytes off, the 8-byte one): every slab
+    of Y written (it starts as NaN), the row-order plain version's bits,
+    the same bits on two calls."""
     csr = bf16_edge()
     a = DeviceDGELL.from_csr(csr, device=cuda)
-    x = (bf16_operand((csr.k, n), 51, cuda) if layout == "plain"
-         else misaligned_bf16((csr.k, n), 51, cuda))
+    make, vec = BF16_LAYOUTS[layout]
+    x = make((csr.k, n), 51, cuda)
     slab = n if slab == "n" else slab
-    y = torch.full((csr.m, n), float("nan"), dtype=torch.bfloat16,
-                   device=cuda)
+    y = make((csr.m, n), 52, cuda).fill_(float("nan"))
     launch(a, x, y, slab)
     torch.cuda.synchronize()
     assert torch.equal(y, dgell_rows_plain(a, x))
-    again = torch.full_like(y, float("nan"))
+    again = make((csr.m, n), 53, cuda).fill_(float("nan"))
     launch(a, x, again, slab)
     assert torch.equal(y, again)
-    shape = launch_shape(csr.k, n, slab, layout == "plain" and n % 4 == 0,
-                         dtype=torch.bfloat16)
+    vec = vec if n % 8 == 0 else min(vec, 1) if n % 4 == 0 else 0
+    shape = launch_shape(csr.k, n, slab, vec, dtype=torch.bfloat16)
     assert shape.slabs == -(-n // shape.slab)
     assert shape.slab == (n if slab in (0, 512, n) or slab >= n else slab)
 
 
-def test_dgell_bf16_slab_rule_takes_the_widest_slab(cuda):
+def test_dgell_bf16_slab_rule_takes_the_f32_rules_slab(cuda):
     """At a k whose f32 slab rule stops below n, the bf16 rule takes the
-    widest slab (512 columns, or n)."""
-    assert launch_shape(150000, 512).slab < 512
-    assert launch_shape(150000, 512, dtype=torch.bfloat16).slab == 512
-    assert launch_shape(150000, 96, dtype=torch.bfloat16).slab == 96
+    same columns, the widest slab whose k x C floats fit in half of the
+    card's L2 (its bf16 X a quarter); and the launch that ``launch_plan``
+    (the rule in Python) predicts, at every vector form and at slabs given,
+    on the card's L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    f32 = launch_shape(150000, 512).slab
+    assert f32 < 512
+    assert launch_shape(150000, 512, dtype=torch.bfloat16).slab == f32
+    assert 4 * 150000 * f32 <= l2 // 2 < 4 * 150000 * (2 * f32)
     shape = launch_shape(150000, 600, dtype=torch.bfloat16)
-    assert (shape.slab, shape.slabs) == (512, 2)
+    assert (shape.slab, shape.slabs) == (f32, -(-600 // f32))
+    for k in (150000, 100000, 5000):
+        for n in (512, 96, 600, 77):
+            for slab in (0, 64, 128, 512):
+                for vec, width in ((2, 8), (1, 4), (0, 1)):
+                    assert launch_shape(k, n, slab, vec, torch.bfloat16) == \
+                        launch_plan(k, n, l2, width, slab)[0]
+                assert launch_shape(k, n, slab, True) == \
+                    launch_plan(k, n, l2, 4, slab)[0]
 
 
 # --- 1b's two routes and the pipelined bf16 tile (1b and 2b): the entry

@@ -10,6 +10,8 @@ hold positive values, so no sum cancels below its terms' rounding.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +23,10 @@ from spgrid.ops.pallas import dgell as jax_dgell
 from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.ops import convert, dispatch
 from spgrid_torch.ops.kernels import launch_counts
+from spgrid_torch.ops.kernels import dgell as dgell_module
 from spgrid_torch.ops.kernels.dgell import (
     DeviceDGELL, dgell_arrays, dgell_rows_plain, dgell_spmm,
-    dgell_spmm_plain, pick_slots,
+    dgell_spmm_plain, launch_plan, pick_slots,
 )
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
@@ -272,3 +275,55 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
               "ndim": (x[:, 0], ValueError)}[bad]
     with pytest.raises(err):
         dgell_spmm(a, x)
+
+
+# --- the kernel's launch rule (``launch_plan``, the rule of csrc/dgell.cu in
+# Python; the card tests hold it to the kernel's own report) -----------------
+
+H100_L2 = 50 * 1024 * 1024
+CSRC_DGELL = (Path(__file__).resolve().parents[1] / "spgrid_torch" / "csrc"
+              / "dgell.cu")
+
+
+def test_launch_constants_are_the_kernels():
+    src = CSRC_DGELL.read_text()
+    for name in ("MIN_SLAB", "MAX_SLAB", "MAX_U", "WARPS"):
+        value = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(value) == getattr(dgell_module, name)
+    budgets = dict(re.findall(
+        r"struct Form<(\d+)> \{[^}]*BUDGET = (\d+);", src))
+    assert {int(w): int(b) for w, b in budgets.items()} == dgell_module.BUDGET
+
+
+@pytest.mark.parametrize("k,n,width,slab", [
+    (100000, 512, 8, 64),    # LINE_S: 25.6 MB as floats, 12.8 MB of bf16
+    (100000, 512, 4, 64),
+    (150000, 512, 8, 32),
+    (150000, 600, 8, 32),
+    (1100, 200, 8, 200),     # one slab of n
+    (10 ** 7, 64, 8, 8),     # never below the narrowest
+])
+def test_slab_rule_fits_x_floats_in_half_of_l2(k, n, width, slab):
+    """The widest slab whose k x C floats fit in half of L2, whatever the
+    vector form (bf16 X takes the same columns: a quarter of L2)."""
+    shape, _ = launch_plan(k, n, H100_L2, width)
+    assert shape.slab == slab and shape.slabs == -(-n // slab)
+    assert 4 * k * slab <= H100_L2 // 2 or slab in (8, n)
+
+
+@pytest.mark.parametrize("slab,width,lanes,u", [
+    (128, 8, 16, 8),    # the bf16 rule's slab on LINE_S: two rows a warp
+    (128, 4, 32, 8),    # the 8-byte form there: one row a warp
+    (64, 8, 8, 8), (256, 8, 32, 8), (512, 8, 32, 2),
+    (512, 4, 32, 1), (128, 1, 32, 4)])
+def test_lanes_and_gathers_by_vector_width(slab, width, lanes, u):
+    """L lanes a row (the slab's vectors, at most 32) and U gathers in
+    flight a lane (the registers it holds them in within the budget, the
+    accumulators within the budget plus 8): the 16-byte form holds its 8
+    bf16 raw in 4 registers, so at the same lanes it keeps as many gathers
+    of twice the bytes in flight as the 8-byte form."""
+    shape, got_u = launch_plan(100000, 512, H100_L2, width, slab)
+    assert (shape.lanes, shape.rows, got_u) == (lanes, 256 // lanes, u)
+    if width == 8 and lanes < 32:
+        four = launch_plan(100000, 512, H100_L2, 4, slab // 2)
+        assert four[0].lanes == lanes and four[1] == u

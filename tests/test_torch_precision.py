@@ -9,6 +9,12 @@
   each pass's sum in f64, rounded once to f32, the cross passes added, then
   the hi pass, times the mask, in f32), on a case where it differs from the
   f32 product: the form is not f32 under another name.
+- The kernel's split pass emulated in numpy (Q and K as bf16 hi and lo
+  planes of d rounded up to whole 64-deep steps, zeros past d and past the
+  operand's rows) and the passes read from those planes as the tiles read
+  them, bit for bit against the plain version; the plain split
+  (``split_planes_plain``, which the card tests hold the kernel's planes
+  to) equal to the emulation's planes.
 - The same plain version against ``spgrid``'s ``bsr_sddmm`` in interpret
   mode. XLA on the CPU ignores 'high' and computes in f32, so that output
   is a reference within a tolerance only: per entry ``2^-14 * sum_d |q_d
@@ -46,7 +52,8 @@ from spgrid_torch.formats.csr import random_csr
 from spgrid_torch.gen.masks import create_mask
 from spgrid_torch.ops.kernels import launch_counts
 from spgrid_torch.ops.kernels.sddmm import (
-    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain, plane_shape,
+    split_planes_plain,
 )
 from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO
 from spgrid_torch.ops.xla import sddmm_coo
@@ -166,6 +173,89 @@ def test_bf16x3_plain_within_its_tolerance_of_pallas(high_case):
                  * np.abs(dev.blocks[b].numpy()))
         assert (np.abs(got[b] - jax_out[b]) <= bound).all()
     assert (got != jax_out).any()   # XLA on the CPU computes in f32
+
+
+# --- the split planes ---------------------------------------------------------
+
+def emulate_planes(q: np.ndarray, k: np.ndarray):
+    """The split pass in numpy: (Q_hi, Q_lo, K_hi, K_lo) in bf16, each of
+    d rounded up to whole 64-deep steps (at least one) and of the operand's
+    rows (at least one), zeros past d and past the rows."""
+    dp = max(1, -(-q.shape[1] // 64)) * 64
+    planes = []
+    for a in (q, k):
+        p = np.zeros((max(len(a), 1), dp), np.float32)
+        p[:len(a), :a.shape[1]] = a
+        hi = p.astype(BF16)
+        planes += [hi, (p - hi.astype(np.float32)).astype(BF16)]
+    return planes
+
+
+def passes_from_planes(dev: DeviceBSR, planes, mq: int, mk: int):
+    """The three passes read from the planes as the tiles read them: block
+    b's rows from the Q planes' rows at rows[b] bm on (rows past mq zeros,
+    as TMA fills them), its columns from the K planes' rows at cols[b] bk on
+    (past mk zeros), every column of the planes; each pass's sum in f64
+    rounded once to f32, the cross passes added, then the hi pass, times
+    the mask."""
+    qh, ql, kh, kl = (p.astype(np.float64) for p in planes)
+    nb, bm, bk = dev.blocks.shape
+    rows = dev.block_rows.numpy().astype(np.int64)
+    cols = dev.block_cols.numpy().astype(np.int64)
+    out = np.zeros((nb, bm, bk), np.float32)
+
+    def take(plane, first, count, m):
+        at = first + np.arange(count)
+        got = np.zeros((count, plane.shape[1]))
+        got[at < m] = plane[at[at < m]]
+        return got
+
+    for b in range(nb):
+        qb = [take(p, rows[b] * bm, bm, mq) for p in (qh, ql)]
+        kb = [take(p, cols[b] * bk, bk, mk) for p in (kh, kl)]
+        cross = ((qb[0] @ kb[1].T).astype(np.float32)
+                 + (qb[1] @ kb[0].T).astype(np.float32))
+        out[b] = (cross + (qb[0] @ kb[0].T).astype(np.float32)) \
+            * dev.blocks[b].numpy()
+    return out
+
+
+@pytest.mark.parametrize("bm,bk,mq,mk,d", [
+    (128, 128, 256, 256, 40), (200, 128, 256, 230, 70),
+    (128, 64, 240, 256, 96), (64, 256, 256, 250, 130),
+    (128, 128, 256, 256, 64)])
+def test_split_planes_give_the_plain_passes(bm, bk, mq, mk, d):
+    """A plane of round_up(d, 64) columns and zero rows past mq and mk
+    changes no pass: the passes read from the emulated planes are the plain
+    version's bit for bit (pad blocks included)."""
+    mask = create_mask("band_and_decay", 256, 0.6, band_size=16, seed=3)
+    dev = DeviceBSR.from_csr(mask, bm=bm, bk=bk, pad_multiple=3,
+                             device="cpu")
+    assert int((dev.block_rows == dev.mb).sum()) > 0
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((mq, d)).astype(np.float32)
+    k = (rng.standard_normal((mk, d)) / 7).astype(np.float32)
+    planes = emulate_planes(q, k)
+    assert all(p.shape[1] % 64 == 0 and p.shape[1] >= d for p in planes)
+    want = bsr_sddmm_bf16x3_plain(dev, torch.from_numpy(q),
+                                  torch.from_numpy(k)).numpy()
+    got = passes_from_planes(dev, planes, mq, mk)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("mq,mk,d", [(256, 230, 70), (5, 3, 130), (1, 7, 1),
+                                     (64, 0, 512), (3, 2, 0)])
+def test_plain_split_equals_the_emulated_planes(mq, mk, d):
+    rng = np.random.default_rng(17)
+    q = (rng.standard_normal((mq, d)) * 3).astype(np.float32)
+    k = (rng.standard_normal((mk, d)) / 3).astype(np.float32)
+    got = split_planes_plain(torch.from_numpy(q), torch.from_numpy(k))
+    want = emulate_planes(q, k)
+    rq, rk, dp = plane_shape(mq, mk, d)
+    assert [tuple(p.shape) for p in got] == [(rq, dp)] * 2 + [(rk, dp)] * 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                      w.view(np.int16))
 
 
 def test_sddmm_refuses_a_precision_without_a_form(high_case):
