@@ -199,8 +199,16 @@ exits non-zero and never prints the final ``"ok": true`` line:
    each with its device ms by graph replay (eager in brackets), bound and
    library time; ``bsr_spmm_bf16`` also under each forced route, with its
    route split, and the route sweep of ``ENTRY_ROUTE_MAX``; the redesigned
-   SpMV forms with the device ms of the forms they replaced beside theirs
-   (``BEFORE_DEVICE_MS``), ``wrow_spmv_v2_bf16`` and ``wpack_spmv_bf16`` also
+   forms with the device ms of the forms they replaced beside theirs
+   (``BEFORE_DEVICE_MS``); ``bsr_sddmm_bf16`` with its launch (the
+   128 x 128 tile, its stages, the persistent walk or the cluster a tile),
+   ptxas's registers, the dense-block floor beside the nnz bound, and
+   again on Q and K 2 bytes off 16, where its copy pass runs (timed alone
+   too); ``wcoo_spmm_aligned_bf16`` bit for bit (its plain version sums
+   as the walk does) with its slab rule's launch and its slab sweep
+   (``BANDS_SWEEP``, the 16-byte and the 8-byte form, each bit for bit
+   and the same bits twice) on MAIN_LINE and the leg's wideband_196k;
+   ``wrow_spmv_v2_bf16`` and ``wpack_spmv_bf16`` also
    at two more ranges of live slots (``SPMV_RANGES``) and
    ``wpack_spmv_bf16_prefix`` at every count of groups a CTA, each held to
    1 ulp with the same bits twice; then,
@@ -631,12 +639,15 @@ def phase_kernels() -> dict:
                 "(f32 CSR of the bf16 values, bf16-rounded X)",
                 BF16_FLOPS_PER_S)
 
-    def sddmm_case(m, bm, d, seed, sweep=False, bk=128, pad_multiple=1):
+    def sddmm_case(m, bm, d, seed, sweep=False, bk=128, pad_multiple=1,
+                   mk=None):
         # reads Q, K and the mask's column indices; writes one value a
-        # mask nnz
+        # mask nnz; K of mk rows where given (fewer than the mask's
+        # columns: zeros past them)
         a = DeviceBSR.from_csr(m, bm=bm, bk=bk, pad_multiple=pad_multiple,
                                device=DEVICE)
-        q, k = rand((m.shape[0], d), seed), rand((m.shape[1], d), seed + 1)
+        q = rand((m.shape[0], d), seed)
+        k = rand((m.shape[1] if mk is None else mk, d), seed + 1)
         nb, bm, bk = a.blocks.shape
         out = torch.empty((nb, bm, bk), device=DEVICE)
 
@@ -647,11 +658,14 @@ def phase_kernels() -> dict:
                 out.data_ptr(), nb, bm, bk, q.shape[0], k.shape[0], d, c,
                 torch.cuda.current_stream().cuda_stream), "bsr_sddmm")
 
+        # the library call takes K of the mask's columns: zeros past mk
+        k_lib = torch.zeros((m.shape[1], d), device=DEVICE)
+        k_lib[:k.shape[0]] = k
         return (bsr_sddmm, bsr_sddmm_plain, (a, q, k),
                 (a, q.double(), k.double()),
                 lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
                                                              beta=0.0),
-                (csr_tensor(m), q, k.t().contiguous()),
+                (csr_tensor(m), q, k_lib.t().contiguous()),
                 m.nnz * (4 + 4) + nbytes(q, k), 2.0 * m.nnz * d, REL_TOL,
                 block_note(sddmm_grid(a),
                            2.0 * a.num_blocks * bm * bk * d,
@@ -1058,6 +1072,9 @@ def phase_kernels() -> dict:
          lambda: sddmm_case(banded, 8, 200, 6)),
         ("bsr_sddmm", "4096^2 band_and_random s=0.95 bm=128 d=512", False,
          lambda: sddmm_case(big_mask, 128, 512, 7)),
+        ("bsr_sddmm", "banded 1000^2 K of 900 rows (fewer than the mask's "
+         "columns) bm=128 d=96", False,
+         lambda: sddmm_case(banded, 128, 96, 30, mk=900)),
     ]
     # the planner's other blockings (ops/sddmm_plan.py CANDIDATES): a ragged
     # mask with empty far-band blocks, and one whose m and k are no
@@ -1303,16 +1320,24 @@ def cli_rows(phase: str, runs) -> list:
     ``--generate`` with ``--reorder``). Every row must pass its gate.
     Returns the rows."""
     from spgrid_torch.bench.cli import main as cli_main
+    from spgrid_torch.ops.kernels import launch_counts
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rows.csv")
         for source, kernels, n in runs:
             args = (["--generate", source] if isinstance(source, str)
                     else list(source))
+            before = launch_counts()
             code = cli_main(args + ["--kernels", kernels, "--num-cols", n,
                                     "--out", out, "--platform", DEVICE])
             if code != 0:
                 raise RuntimeError(f"the CLI exited {code} on {kernels}")
+            # each run's launches by kernel: the split of a kernel's count
+            # over its cases
+            moved = {k: c - before[k] for k, c in launch_counts().items()
+                     if c != before[k]}
+            print(f"{phase} launches: {' '.join(args[:2])[:60]} "
+                  f"{kernels} n={n}: {moved}", flush=True)
         rows = read_csv(out)
     for r in rows:
         print(f"{phase}: {r['matrix_name']} {r['kernel']} "
@@ -1986,9 +2011,10 @@ LEG_SHAPES = (("mid_16k_d2pct", ("bsr", "panel")), ("band_98k", ("bsr",)),
               ("wideband_196k", ("bands",)))
 # the redesigned forms (the bf16 row walk, the wsel-1 form a warp a piece;
 # the 3-pass SDDMM on split planes and a TMA-fed tile; dgell's 16-byte bf16
-# vector): the device ms of the forms they replaced on their 11a cases, on
-# an H100 80GB HBM3 at 700 W (PERF.md §6, rows 9b, 10b, 3c and 11b),
-# printed beside this run's
+# vector; the bf16 SDDMM's persistent TMA-fed tile; the bands' 16-byte bf16
+# walk over L2-resident slabs): the device ms of the forms they replaced on
+# their 11a cases, on an H100 80GB HBM3 at 700 W (PERF.md §6, rows 9b,
+# 10b, 3c, 11b, 3b and 6b), printed beside this run's
 BEFORE_DEVICE_MS = {("wrow_spmv_v2_bf16", "LINE_S n=1"): 0.031140,
                     ("wpack_spmv_bf16", "LINE_S n=1"): 0.030914,
                     ("wpack_spmv_bf16_prefix",
@@ -1996,10 +2022,19 @@ BEFORE_DEVICE_MS = {("wrow_spmv_v2_bf16", "LINE_S n=1"): 0.031140,
                     ("bsr_sddmm_bf16x3",
                      "{}^2 band_and_decay s={} d={} f32".format(
                          *DTYPE_SDDMM)): 0.257578,
-                    ("dgell_bf16", "LINE_S n=512"): 0.625249}
+                    ("dgell_bf16", "LINE_S n=512"): 0.625249,
+                    ("bsr_sddmm_bf16",
+                     "{}^2 band_and_random s={} d={}".format(
+                         *DTYPE_SDDMM)): 0.083276,
+                    ("wcoo_spmm_aligned_bf16",
+                     "bf16 leg wideband_196k n=512"): 0.345944,
+                    ("wcoo_spmm_aligned_bf16", "MAIN_LINE n=512"): 0.088678}
 # 11b's slab sweep on its 11a case (LINE_S, n = 512): each slab in the
 # 16-byte and the 8-byte vector form
 DGELL_SWEEP = (64, 128, 256, 512)
+# 6b's slab sweep on its 11a cases (MAIN_LINE and the leg's wideband_196k,
+# n = 512): each slab in the 16-byte and the 8-byte form
+BANDS_SWEEP = (64, 128, 256, 512)
 # the row walks' other ranges of live slots a CTA in 11a (the rule's is
 # 2,048 on LINE_S)
 SPMV_RANGES = (1024, 4096)
@@ -2037,6 +2072,15 @@ def ptxas_report(kernel: str) -> str:
         elif found and ("registers" in line or "spill" in line):
             report.append(line.split(":", 1)[-1].strip())
     return "; ".join(report) or f"no entry {kernel}"
+
+
+def misaligned2(t: torch.Tensor) -> torch.Tensor:
+    """A copy of bf16 ``t`` whose data lies 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def offset8(t: torch.Tensor) -> torch.Tensor:
@@ -2101,13 +2145,18 @@ def phase_dtype_kernels() -> dict:
     from spgrid_torch.ops.kernels.dgell import launch_plan as dgell_plan
     from spgrid_torch.ops.kernels.dgell import launch_shape as dgell_shape
     from spgrid_torch.ops.kernels.sddmm import (
-        bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain, split_launch,
-        split_planes, split_planes_plain, x3_shape)
-    from spgrid_torch.ops.kernels.sddmm import launch_grid as sddmm_grid
+        bf16_shape, bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+        split_launch, split_planes, split_planes_plain, x3_shape)
+    from spgrid_torch.ops.kernels.sddmm import (
+        copy_launch as sddmm_copy_launch)
     from spgrid_torch.ops.kernels.wcoo_spmm import (
         DeviceWCOO, wcoo_spmm, wcoo_spmm_plain)
     from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
         DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain)
+    from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+        launch as bands_launch)
+    from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+        launch_shape as bands_shape)
     from spgrid_torch.ops.kernels.wcoo_spmv import (
         DeviceWCOOAligned, wcoo_spmv, wcoo_spmv_plain)
     from spgrid_torch.ops.kernels.slot_stream import default_slots_per_cta
@@ -2195,8 +2244,14 @@ def phase_dtype_kernels() -> dict:
         else:
             a = DeviceWCOOBands.from_csr(csr, device=DEVICE)
             fn, plain = wcoo_spmm_aligned, wcoo_spmm_aligned_plain
-            note = (f"live_slots={a.num_slots} "
-                    f"long_rows={len(a.long_rows)}")
+            # the plain version sums as the walk does: its bits, every row
+            exact = torch.ones(csr.m, dtype=torch.bool, device=DEVICE)
+            rule = bands_shape(n, 2)
+            note = (f"live_slots={a.num_slots} long_rows={len(a.long_rows)} "
+                    f"rule={rule} ptxas=[" + ptxas_report(
+                        f"walk16ILi{rule.lanes}ELi"
+                        f"{max(1, -(-rule.slab // 8) // rule.lanes)}E")
+                    + "] " + bands_sweep(a, x))
             index = a.cols.element_size()
         if kind == "dgell":   # the values are f32: the f32 product
             lib, which = lib_f32, "f32 values, X widened"
@@ -2219,12 +2274,36 @@ def phase_dtype_kernels() -> dict:
                                                          beta=0.0),
             (csr_tensor(mask, torch.bfloat16), q, k.t().contiguous()),
             (csr_tensor(mask), q.float(), k.float().t().contiguous()))
+        shape, _ = bf16_shape(a, q, k)
+        nb, bm, bk = a.blocks.shape
+        # the dense blocks' floor: the bf16 mask blocks in and out, Q and K
+        # once; and their dense work at 989 TFLOP/s
+        dense_ms = (2 * 2 * nb * bm * bk + 2 * 2 * length * d) / (
+            HBM_BYTES_PER_S) * 1e3
+        work_ms = 2.0 * a.num_blocks * bm * bk * d / BF16_FLOPS_PER_S * 1e3
+        # Q and K 2 bytes off 16: the copy pass writes them padded into
+        # scratch before the tile, timed alone too
+        qo, ko = misaligned2(q), misaligned2(k)
+        _, copy_bytes = bf16_shape(a, qo, ko)
+        scratch = torch.empty(copy_bytes, dtype=torch.uint8, device=DEVICE)
+        copy_ms = device_ms(sddmm_copy_launch, qo, ko, scratch)
+        walk = (f"persistent walk: {shape.ctas} CTAs, one an SM"
+                if shape.persistent else
+                f"a cluster of {shape.cluster} a tile")
+        note = (f"{shape} ({walk}) tile=128x128 stages={shape.stages} "
+                f"ptxas=[{ptxas_report('bsr_sddmm_bf16_kernel')}] "
+                f"copy_pass=none (TMA reads Q and K as they lie) "
+                f"dense_block_floor_ms={dense_ms:.6f} "
+                f"dense_work_floor_ms={work_ms:.6f} "
+                f"blocks={a.num_blocks} nnz={mask.nnz}")
+        variants = [("Q and K 2 bytes off 16 (the copy pass)", bsr_sddmm,
+                     (a, qo, ko), f"copy_pass_bytes={copy_bytes} "
+                     f"copy_pass_device_ms={copy_ms:.6f}")]
         return (bsr_sddmm, bsr_sddmm_plain, (a, q, k),
                 lambda s, q_, kt: torch.sparse.sampled_addmm(s, q_, kt,
                                                              beta=0.0),
                 lib, which, mask.nnz * (2 + 4) + 2 * 2 * length * d,
-                2.0 * mask.nnz * d,
-                f"{sddmm_grid(a)} blocks={a.num_blocks} nnz={mask.nnz}", None)
+                2.0 * mask.nnz * d, note, None, variants)
 
     def dgell_sweep(a, x):
         """11b at each slab of DGELL_SWEEP in its 16-byte form (X and Y on
@@ -2250,6 +2329,33 @@ def phase_dtype_kernels() -> dict:
                               f":{'bits' if ok else 'FAIL'}")
                 if not ok:
                     failed.append(f"dgell_bf16 [{form} slab {c}]")
+        return "device_ms_by_form_slab " + " ".join(points)
+
+    def bands_sweep(a, x):
+        """6b at each slab of BANDS_SWEEP in its 16-byte form (X and Y on
+        16 bytes) and its 8-byte form (copies 8 bytes off): device ms, each
+        held bit for bit against the plain version (which sums as the walk
+        does) into a Y filled with NaN, the same bits twice."""
+        ref = wcoo_spmm_aligned_plain(a, x)
+        points = []
+        for form, xf in (("16B", x), ("8B", offset8(x))):
+            y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype,
+                            device=DEVICE)
+            y = y if form == "16B" else offset8(y)
+            again = torch.full_like(y, float("nan"))
+            for c in BANDS_SWEEP:
+                y.fill_(float("nan"))
+                again.fill_(float("nan"))
+                bands_launch(a, xf, y, c)
+                bands_launch(a, xf, again, c)
+                torch.cuda.synchronize()
+                ok = torch.equal(y, ref) and torch.equal(y, again)
+                points.append(f"{form}:{c}:"
+                              f"{device_ms(bands_launch, a, xf, y, c):.6f}"
+                              f":{'bits' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"wcoo_spmm_aligned_bf16 [{form} slab "
+                                  f"{c}]")
         return "device_ms_by_form_slab " + " ".join(points)
 
     def sddmm_high_case():
@@ -2611,12 +2717,15 @@ def bf16_wrow_ab() -> None:
     from spgrid_torch.core.metrics import error_metrics, gold_spmm_fast
     from spgrid_torch.ops.kernels.wrow_spmv import DeviceWROW, wrow_spmv
 
+    from spgrid_torch.ops.kernels import launch_counts
+
     csr = line_matrix(LINE_S).astype("bfloat16")
     a = DeviceWROW.from_csr(csr, device=DEVICE)
     x = make_x(csr.k, 1, "bfloat16", 0)[:, 0]
     xd = x_tensor(x, "bfloat16", DEVICE)
     gold = gold_spmm_fast(csr.row_ptr, csr.col_idx, csr.values, x)
     failed = []
+    before = launch_counts()
     for variant in ("v1", "v2"):
         y = wrow_spmv(a, xd, variant=variant).float().cpu().numpy()
         m = error_metrics(gold, y, epsilon=3e-2)
@@ -2626,6 +2735,9 @@ def bf16_wrow_ab() -> None:
               f"{'PASS' if m.passed else 'FAIL'}", flush=True)
         if not m.passed:
             failed.append(variant)
+    print("phase 11 wrow A/B bf16 launches: " + str(
+        {k: c - before[k] for k, c in launch_counts().items()
+         if c != before[k]}), flush=True)
     if failed:
         raise RuntimeError(f"WROW bf16 A/B failed for {failed}")
 

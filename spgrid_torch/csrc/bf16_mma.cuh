@@ -1,11 +1,11 @@
 // The bf16 tensor-core tiles that the bf16 forms of the block kernels
 // share: panel_spmm.cu (cv_panel's form, f32 X and Y, and the bf16 panels'
 // form, bf16 X and Y), bsr_spmm.cu (the bf16 BSR form) and sddmm.cu (the
-// bf16 SDDMM, 3b, and the 3-pass one, 3c, which runs the pipelined tile's
+// bf16 SDDMM, 3b, and the 3-pass one, 3c, which run the pipelined tile's
 // ring, barriers, TMA loads and wgmma with both operands K-major).
 //
-// The step (`mma_step`, which the bf16 SDDMM form, 3b, and 4b's
-// bsr_spmm_cstat.cu run, and `bf16_row_tile` below): BF_TK = 64 of the
+// The step (`mma_step`, which 4b's bsr_spmm_cstat.cu runs, and
+// `bf16_row_tile` below): BF_TK = 64 of the
 // contraction, one 128-byte line of bf16: four wgmma m64n64k16 with bf16
 // operands, A (64 x 16) in registers and B (16 x 64) in shared memory,
 // K-major with the 128-byte swizzle (a row a 128-byte line, its 16-byte

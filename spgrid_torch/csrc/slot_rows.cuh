@@ -42,6 +42,22 @@
 // exact in f32, is added by one fmaf (bsr_spmm.cu's entry route, the BSR
 // body's f32 dot).
 //
+// The 16-byte bf16 walk (walk16; wcoo_bands' bf16 form only, RP, where n
+// % 8 == 0 and X and Y lie on 16 bytes; wcoo_bands.cu selects it): a group
+// of L lanes a row, each lane 8 bf16 (one uint4) of the X row a vector,
+// L = the slab's vectors rounded up to a power of two, at most 32 (E
+// vectors a lane past 32), so 32 / L rows share a warp; each row's slots
+// are still added in slot order by its own lanes, so the bits do not
+// change. The raw uint4 of U slots are held until their products
+// (v16_gathers: U = 8 at one vector a lane, 2 at two), the products
+// formed two at a time by mul.rn.bf16x2 (mul_add8), widened and added in
+// f32. A warp walks V16_SETS sets of rows in turn, loading the next set's
+// slot pointers and first (value, X row) while this set's gathers are in
+// flight. The grid runs every row of slab 0 before slab 1 (grid.y), and
+// the long-row walk takes the same slabs. Every launch of the walk and the
+// long-row walk in slabs gets its slab as an argument; the other walks'
+// is 128 C.
+//
 // Listed rows: where `rows` is given, the walk takes the rows rows[0 ..
 // m - 1] (row_slot still indexed by the row itself), and leaves every
 // other row of Y alone (bsr_spmm.cu's entry route: the rows of its
@@ -154,18 +170,18 @@ __device__ __forceinline__ void store_slab(Elem<BF>* __restrict__ yr,
 }
 
 // acc += value * X[X row] over the slots [beg, end) of one row, in slot
-// order, by one warp: the slots' (value, X row) 32 at a time, one a lane,
-// handed out by shuffles U at a time. Warp-collective: beg and end are the
-// same in every lane. RP: each product rounded to bf16 before the add.
+// order, by one warp, `left` columns of the slab from n0 inside it: the
+// slots' (value, X row) 32 at a time, one a lane, handed out by shuffles U
+// at a time. Warp-collective: beg and end are the same in every lane. RP:
+// each product rounded to bf16 before the add.
 template <int C, bool VEC, bool BF, bool RP>
 __device__ __forceinline__ void add_slots(float (&acc)[4 * C], int beg,
                                           int end,
                                           const Elem<BF>* __restrict__ vals,
                                           const int* __restrict__ xrows,
                                           const Elem<BF>* __restrict__ x,
-                                          int n, int n0, int lane) {
+                                          int n, int n0, int left, int lane) {
   constexpr int U = LOADS / C;
-  const int left = n - n0;
   for (int base = beg; base < end; base += 32) {
     const int count = min(32, end - base);
     float v = 0.0f;
@@ -209,10 +225,11 @@ template <int C, bool VEC, bool BF, bool RP>
 __global__ void __launch_bounds__(THREADS, 4)
 walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
      const int* __restrict__ xrows, const Elem<BF>* __restrict__ x,
-     Elem<BF>* __restrict__ y, int m, int n, int long_row,
+     Elem<BF>* __restrict__ y, int m, int n, int slab, int long_row,
      const int* __restrict__ rows) {
   const int lane = threadIdx.x % 32;
-  const int n0 = blockIdx.y * SLAB * C;
+  const int n0 = blockIdx.y * slab;
+  const int left = min(slab, n - n0);
   const long long i =
       static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
   if (i >= m) return;
@@ -223,8 +240,9 @@ walk(const int* __restrict__ row_slot, const Elem<BF>* __restrict__ vals,
   float acc[4 * C];
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
-  add_slots<C, VEC, BF, RP>(acc, beg, end, vals, xrows, x, n, n0, lane);
-  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
+  add_slots<C, VEC, BF, RP>(acc, beg, end, vals, xrows, x, n, n0, left,
+                            lane);
+  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, left,
                          acc);
 }
 
@@ -235,11 +253,13 @@ template <int C, bool VEC, bool BF, bool RP>
 __global__ void __launch_bounds__(LONG_THREADS)
 long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
           const Elem<BF>* __restrict__ vals, const int* __restrict__ xrows,
-          const Elem<BF>* __restrict__ x, Elem<BF>* __restrict__ y, int n) {
+          const Elem<BF>* __restrict__ x, Elem<BF>* __restrict__ y, int n,
+          int slab) {
   __shared__ float part[LONG_WARPS][4 * C][32];
   const int lane = threadIdx.x % 32;
   const int w = threadIdx.x / 32;
-  const int n0 = blockIdx.y * SLAB * C;
+  const int n0 = blockIdx.y * slab;
+  const int left = min(slab, n - n0);
   const int row = __ldg(long_rows + blockIdx.x);
   const int beg = __ldg(row_slot + row);
   const int end = __ldg(row_slot + row + 1);
@@ -249,7 +269,7 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) acc[e] = 0.0f;
   add_slots<C, VEC, BF, RP>(acc, lo, min(end, lo + run), vals, xrows, x, n,
-                            n0, lane);
+                            n0, left, lane);
 #pragma unroll
   for (int e = 0; e < 4 * C; ++e) part[w][e][lane] = acc[e];
   __syncthreads();
@@ -260,42 +280,57 @@ long_walk(const int* __restrict__ long_rows, const int* __restrict__ row_slot,
     for (int v = 1; v < LONG_WARPS; ++v) sum += part[v][e][lane];
     acc[e] = sum;
   }
-  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, n - n0,
+  store_slab<C, VEC, BF>(y + static_cast<size_t>(row) * n + n0, lane, left,
                          acc);
 }
 
+// The long-row walk of the rows long_rows[0 .. num_long - 1], slabs of
+// `slab` <= 128 C columns.
+template <int C, bool VEC, bool BF, bool RP>
+int launch_long(cudaStream_t s, const void* row_slot, const void* vals,
+                const void* xrows, const void* long_rows, const void* x,
+                void* y, int n, int slab, int num_long) {
+  using T = Elem<BF>;
+  if (num_long == 0) return 0;
+  long_walk<C, VEC, BF, RP>
+      <<<dim3(num_long, (n + slab - 1) / slab), LONG_THREADS, 0, s>>>(
+          static_cast<const int*>(long_rows),
+          static_cast<const int*>(row_slot), static_cast<const T*>(vals),
+          static_cast<const int*>(xrows), static_cast<const T*>(x),
+          static_cast<T*>(y), n, slab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk and the long-row walk in column slabs of `slab` <= 128 C
+// columns (slab 0 of them before slab 1: the grid's slow index).
 template <int C, bool VEC, bool BF, bool RP>
 int launch_form(cudaStream_t s, const void* row_slot, const void* vals,
                 const void* xrows, const void* long_rows, const void* x,
-                void* y, int m, int n, int long_row, int num_long,
+                void* y, int m, int n, int slab, int long_row, int num_long,
                 const int* rows) {
   using T = Elem<BF>;
-  const dim3 grid(m / WARPS + (m % WARPS != 0),
-                  n / (SLAB * C) + (n % (SLAB * C) != 0));
+  const dim3 grid(m / WARPS + (m % WARPS != 0), (n + slab - 1) / slab);
   walk<C, VEC, BF, RP><<<grid, THREADS, 0, s>>>(
       static_cast<const int*>(row_slot), static_cast<const T*>(vals),
       static_cast<const int*>(xrows), static_cast<const T*>(x),
-      static_cast<T*>(y), m, n, long_row, rows);
+      static_cast<T*>(y), m, n, slab, long_row, rows);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || num_long == 0) return static_cast<int>(err);
-  long_walk<C, VEC, BF, RP><<<dim3(num_long, grid.y), LONG_THREADS, 0, s>>>(
-      static_cast<const int*>(long_rows), static_cast<const int*>(row_slot),
-      static_cast<const T*>(vals), static_cast<const int*>(xrows),
-      static_cast<const T*>(x), static_cast<T*>(y), n);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_long<C, VEC, BF, RP>(s, row_slot, vals, xrows, long_rows, x,
+                                     y, n, slab, num_long);
 }
 
 template <int C, bool BF, bool RP>
 int launch_cols(bool vec, cudaStream_t s, const void* row_slot,
                 const void* vals, const void* xrows, const void* long_rows,
-                const void* x, void* y, int m, int n, int long_row,
+                const void* x, void* y, int m, int n, int slab, int long_row,
                 int num_long, const int* rows) {
   return vec ? launch_form<C, true, BF, RP>(s, row_slot, vals, xrows,
-                                            long_rows, x, y, m, n, long_row,
-                                            num_long, rows)
+                                            long_rows, x, y, m, n, slab,
+                                            long_row, num_long, rows)
              : launch_form<C, false, BF, RP>(s, row_slot, vals, xrows,
-                                             long_rows, x, y, m, n, long_row,
-                                             num_long, rows);
+                                             long_rows, x, y, m, n, slab,
+                                             long_row, num_long, rows);
 }
 
 // The walk and, where there are long rows, the long-row walk on `stream`;
@@ -319,12 +354,214 @@ int launch(const void* row_slot, const void* vals, const void* xrows,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= SLAB)
     return launch_cols<1, BF, RP>(vec, s, row_slot, vals, xrows, long_rows,
-                                  x, y, m, n, long_row, num_long, rows);
+                                  x, y, m, n, SLAB, long_row, num_long, rows);
   if (n <= 2 * SLAB)
     return launch_cols<2, BF, RP>(vec, s, row_slot, vals, xrows, long_rows,
-                                  x, y, m, n, long_row, num_long, rows);
+                                  x, y, m, n, 2 * SLAB, long_row, num_long,
+                                  rows);
   return launch_cols<4, BF, RP>(vec, s, row_slot, vals, xrows, long_rows, x,
-                                y, m, n, long_row, num_long, rows);
+                                y, m, n, 4 * SLAB, long_row, num_long, rows);
+}
+
+// ---- The 16-byte bf16 walk (wcoo_bands' bf16 form, RP; see the top of
+// this file).
+
+constexpr int V16_MIN_SLAB = 64;    // columns of the narrowest slab
+constexpr int V16_MAX_SLAB = 512;   // ... of the widest
+constexpr int V16_BUDGET = 32;      // raw registers of X held a lane
+constexpr int V16_MAX_U = 8;        // slots in flight a lane, at most
+constexpr int V16_SETS = 2;         // sets of rows a warp walks in turn
+
+// U, the slots a group of L lanes has in flight, E uint4 (4 E registers)
+// each held raw until its products: at most V16_MAX_U, their registers at
+// most V16_BUDGET, and with the 8 E accumulators at most V16_BUDGET + 8
+// (at 64 registers a thread, U = 4 at E = 2 spilled); a power of two, so
+// that it divides L.
+__host__ __device__ constexpr int v16_gathers(int L, int E) {
+  int u = V16_MAX_U;
+  while (u > 1 && (u > L || 4 * E * u > V16_BUDGET ||
+                   4 * E * u + 8 * E > V16_BUDGET + 8))
+    u /= 2;
+  return u;
+}
+
+// acc[i] += round_bf16(v x_i) for the 8 bf16 x_i of t, v2 = v in both
+// halves: the products by sm_90's mul.rn.bf16x2, two a time. The product
+// of two bf16 is exact in f32 and rounded once here, as round_bf16 rounds
+// the f32 product wherever that product lies in f32's normal range; below
+// it (|v x| < 2^-126) the f32 product is itself rounded to f32's subnormal
+// grid before round_bf16, and the two may then differ by an ulp of the
+// subnormal result (the plain version computes in f32).
+__device__ __forceinline__ void mul_add8(float* acc, uint32_t v2,
+                                         const uint4& t) {
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t p;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(v2), "r"(w[i]));
+    acc[2 * i] += __uint_as_float(p << 16);
+    acc[2 * i + 1] += __uint_as_float(p & 0xFFFF0000u);
+  }
+}
+
+// Lane j's 16-byte vectors j + L e (e < E) of one bf16 X row's slab, xr
+// pointing at the slab's first column, `left` columns of it inside X: 8
+// bf16 a uint4, raw; zeros past them.
+template <int L, int E>
+__device__ __forceinline__ void raw16(const unsigned short* __restrict__ xr,
+                                      int j, int left, uint4 (&v)[E]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int col = (j + L * e) * 8;
+    v[e] = col < left ? __ldg(reinterpret_cast<const uint4*>(xr + col))
+                      : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// acc += round(value X[X row]) over the `count` slots of one row from
+// beg, in slot order, by a group of L lanes (j the lane's place in it):
+// the slots' (value, X row) L at a time, one a lane (the first L, v and r,
+// loaded by the caller; each next L loaded ahead), handed out by shuffles
+// U at a time, each slot's U E 16-byte X loads in flight before the
+// products use them. `most` is the largest count of the warp's groups:
+// every lane runs the same rounds, as the shuffles need.
+template <int L, int E>
+__device__ __forceinline__ void add_slots16(
+    float (&acc)[8 * E], int beg, int count, int most, uint32_t v, int r,
+    const unsigned short* __restrict__ vals, const int* __restrict__ xrows,
+    const unsigned short* __restrict__ x, int n, int n0, int left, int j) {
+  constexpr int U = v16_gathers(L, E);
+  for (int base = 0; base < most; base += L) {
+    uint32_t v_next = 0;
+    int r_next = 0;
+    if (base + L + j < count) {
+      v_next = __ldg(vals + beg + base + L + j);
+      r_next = __ldg(xrows + beg + base + L + j);
+    }
+#pragma unroll
+    for (int u0 = 0; u0 < L; u0 += U) {
+      if (base + u0 >= most) break;  // the same in every lane
+      uint4 xr[U][E];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int ru = __shfl_sync(FULL, r, u0 + u, L);
+        if (base + u0 + u < count)
+          raw16<L, E>(x + static_cast<size_t>(ru) * n + n0, j, left, xr[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint32_t vu = __shfl_sync(FULL, v, u0 + u, L);
+        if (base + u0 + u < count) {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            mul_add8(acc + 8 * e, vu | vu << 16, xr[u][e]);
+        }
+      }
+    }
+    v = v_next;
+    r = r_next;
+  }
+}
+
+// A row set's place in the 16-byte walk: this lane's row's first slot and
+// slot count (0 for a row past m or a long row, which long_walk writes).
+struct Rows16 {
+  int beg, count;
+  bool writes;
+};
+
+// The 16-byte walk: CTA (bx, by) takes V16_SETS sets of rows a warp, a
+// set R = 32 / L rows, a group of L lanes a row, and the slab of columns
+// [by slab, (by + 1) slab). Each warp walks its sets in turn, the next
+// set's slot pointers and the one after's first (value, X row) loaded
+// while this set's gathers are in flight. Y's slab of a row is written
+// once, 8 rounded values a 16-byte streaming store.
+template <int L, int E>
+__global__ void __launch_bounds__(THREADS, 4)
+walk16(const int* __restrict__ row_slot,
+       const unsigned short* __restrict__ vals,
+       const int* __restrict__ xrows, const unsigned short* __restrict__ x,
+       unsigned short* __restrict__ y, int m, int n, int slab, int long_row) {
+  constexpr int ROWS_A_WARP = 32 / L;
+  const int lane = threadIdx.x % 32;
+  const int j = lane % L;
+  const long long set0 =
+      (static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32) *
+      V16_SETS;
+  if (set0 * ROWS_A_WARP >= m) return;  // the whole warp leaves together
+  const int n0 = blockIdx.y * slab;
+  const int left = min(slab, n - n0);
+  auto rows_of = [&](int i) {
+    Rows16 s{0, 0, false};
+    const long long row = (set0 + i) * ROWS_A_WARP + lane / L;
+    if (i < V16_SETS && row < m) {
+      s.beg = __ldg(row_slot + row);
+      s.count = __ldg(row_slot + row + 1) - s.beg;
+      s.writes = s.count <= long_row;
+      if (!s.writes) s.count = 0;
+    }
+    return s;
+  };
+  Rows16 cur = rows_of(0);
+  Rows16 next = rows_of(1);
+  uint32_t v = 0;
+  int r = 0;
+  if (j < cur.count) {
+    v = __ldg(vals + cur.beg + j);
+    r = __ldg(xrows + cur.beg + j);
+  }
+#pragma unroll
+  for (int i = 0; i < V16_SETS; ++i) {
+    const Rows16 after = rows_of(i + 2);
+    uint32_t v_next = 0;
+    int r_next = 0;
+    if (j < next.count) {
+      v_next = __ldg(vals + next.beg + j);
+      r_next = __ldg(xrows + next.beg + j);
+    }
+    const int most = __reduce_max_sync(FULL, cur.count);
+    float acc[8 * E];
+#pragma unroll
+    for (int e = 0; e < 8 * E; ++e) acc[e] = 0.0f;
+    add_slots16<L, E>(acc, cur.beg, cur.count, most, v, r, vals, xrows, x, n,
+                      n0, left, j);
+    const long long row = (set0 + i) * ROWS_A_WARP + lane / L;
+    if (cur.writes) {
+      unsigned short* yr = y + static_cast<size_t>(row) * n + n0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int col = (j + L * e) * 8;
+        if (col >= left) continue;
+        const float* u = acc + 8 * e;
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = static_cast<uint32_t>(round_bf16(u[2 * k])) |
+                 static_cast<uint32_t>(round_bf16(u[2 * k + 1])) << 16;
+        }
+        __stcs(reinterpret_cast<uint4*>(yr + col),
+               make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
+    cur = next;
+    next = after;
+    v = v_next;
+    r = r_next;
+  }
+}
+
+template <int L, int E>
+int launch16(cudaStream_t s, const void* row_slot, const void* vals,
+             const void* xrows, const void* x, void* y, int m, int n,
+             int slab, int long_row) {
+  constexpr int rows = WARPS * V16_SETS * 32 / L;  // rows a CTA
+  const dim3 grid((m + rows - 1) / rows, (n + slab - 1) / slab);
+  walk16<L, E><<<grid, THREADS, 0, s>>>(
+      static_cast<const int*>(row_slot),
+      static_cast<const unsigned short*>(vals),
+      static_cast<const int*>(xrows), static_cast<const unsigned short*>(x),
+      static_cast<unsigned short*>(y), m, n, slab, long_row);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -56,14 +56,17 @@ SIGNATURES = {
     "spgrid_panel_spmm_bf16": [_PTR] * 6 + [_INT] * 9 + [_PTR],
     # rows, cols, mask, q, k, out, nb, bm, bk, mq, mk, d, cluster, stream
     "spgrid_bsr_sddmm": [_PTR] * 6 + [_INT] * 7 + [_PTR],
-    # the same, mask, q, k and out in bf16
-    "spgrid_bsr_sddmm_bf16": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    # the same, mask, q, k and out in bf16, and scratch (the copy pass's
+    # planes, null where TMA reads Q and K) after out
+    "spgrid_bsr_sddmm_bf16": [_PTR] * 7 + [_INT] * 7 + [_PTR],
     # rows, cols, mask, q, k, out, scratch (the split planes), nb, bm, bk,
     # mq, mk, d, cluster, stream: f32, three bf16 passes (matmul precision
     # 'high')
     "spgrid_bsr_sddmm_bf16x3": [_PTR] * 7 + [_INT] * 7 + [_PTR],
     # q, k, scratch, mq, mk, d, stream: its split pass alone
     "spgrid_bsr_sddmm_bf16x3_split": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    # the same: the bf16 form's copy pass alone
+    "spgrid_bsr_sddmm_bf16_copy": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     # the launch shapes: mb, bm, n (SpMM); slices, bk, n (bf16 SpMM);
     # bands, band_rows, n (panels); bands, band_rows, bk, n, xy_bf16 (bf16
     # panels); nb, bm, bk (SDDMM); then out (int[6]: tiles, cluster, tile
@@ -73,15 +76,21 @@ SIGNATURES = {
     "spgrid_panel_spmm_shape": [_INT] * 3 + [_PTR],
     "spgrid_panel_spmm_bf16_shape": [_INT] * 5 + [_PTR],
     "spgrid_bsr_sddmm_shape": [_INT] * 3 + [_PTR],
-    "spgrid_bsr_sddmm_bf16_shape": [_INT] * 3 + [_PTR],
+    # nb, bm, bk, mq, mk, d, q, k, out (int[7]: the six, then CTAs),
+    # scratch (long long[1]: the copy pass's bytes): the bf16 SDDMM's
+    "spgrid_bsr_sddmm_bf16_shape": [_INT] * 6 + [_PTR] * 4,
     # nb, bm, bk, mq, mk, d, out (int[6]), scratch (long long[1]: the
     # split planes' bytes): the 3-pass SDDMM's
     "spgrid_bsr_sddmm_bf16x3_shape": [_INT] * 6 + [_PTR] * 2,
+    # n, slab, vec, out (int[5]: slab, slabs, rows a CTA, lanes a row,
+    # slots in flight a lane): the bf16 bands walk's
+    "spgrid_wcoo_bands_bf16_shape": [_INT] * 3 + [_PTR],
     # row_slot, vals, xrows, long_rows, x, y, m, n, long_row, num_long, stream
     "spgrid_wcoo_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_spmm_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "spgrid_wcoo_bands": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    "spgrid_wcoo_bands_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    # the same, then slab (0: the rule), stream
+    "spgrid_wcoo_bands_bf16": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     # row_slot, vals, cols, x, y, blocks, m, stream
     "spgrid_wrow_spmv": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     # the same, vals, x and y in bf16, cols marked with the groups' starts

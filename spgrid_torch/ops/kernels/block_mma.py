@@ -23,7 +23,8 @@ from spgrid_torch.ops.kernels import _build
 class LaunchShape:
     """A launch of the tile: ``tiles`` output tiles of ``rows`` x ``cols``,
     each computed by a cluster of ``cluster`` CTAs, ``step`` of the
-    contraction a step through a ring of ``stages`` steps."""
+    contraction a step through a ring of ``stages`` steps; ``grid``, where
+    not 0, the CTAs of a persistent launch, each walking several tiles."""
 
     tiles: int
     cluster: int
@@ -31,15 +32,22 @@ class LaunchShape:
     cols: int
     step: int
     stages: int
+    grid: int = 0
 
     @property
     def ctas(self) -> int:
-        return self.tiles * self.cluster
+        return self.grid or self.tiles * self.cluster
+
+    @property
+    def persistent(self) -> bool:
+        return self.ctas < self.tiles * self.cluster
 
     def __str__(self) -> str:
+        walk = (f", persistent: {self.tiles / self.ctas:.2f} tiles a CTA"
+                if self.persistent else "")
         return (f"grid={self.ctas} CTAs ({self.tiles} tiles of {self.rows}x"
-                f"{self.cols} x cluster {self.cluster}) ring={self.stages} "
-                f"steps of {self.step}")
+                f"{self.cols} x cluster {self.cluster}{walk}) ring="
+                f"{self.stages} steps of {self.step}")
 
 
 def query(entry: str, kernel: str, *sizes: int) -> LaunchShape:

@@ -17,8 +17,11 @@ The f32 form runs the tensor-core tile of ``csrc/block_mma.cuh``: one
 tile a (mask block, 128-row slice of it, 64 of its columns), its
 contraction (d, 32 a step) split across a cluster where the tiles alone
 would leave the card idle (``launch_grid`` reports the launch); the mask
-multiplies the summed tile once. The bf16 form runs the bf16 step of
-``csrc/bf16_mma.cuh``, 64 of d a step. The 3-pass form first splits Q and
+multiplies the summed tile once. The bf16 form runs a persistent tile of
+128 x 128 fed by TMA (one CTA an SM walking tiles where the grid is long,
+a cluster a tile where it is short; ``bf16_shape`` reports the launch and
+the bytes of the copy pass that pads Q and K where TMA cannot read them as
+they lie). The 3-pass form first splits Q and
 K once into bf16 hi and lo planes (``split_planes_plain`` is that pass in
 plain torch) in scratch the wrapper allocates (``x3_shape`` reports its
 bytes), then runs tiles of 128 columns fed from the planes by TMA.
@@ -53,17 +56,33 @@ def launch_grid(mask: DeviceBSR, precision: str = "highest",
                 ) -> LaunchShape:
     """The launch of the form ``mask``'s blocks take for its stored blocks
     (pad blocks included) on the card ``mask`` lies on, as
-    ``spgrid_bsr_sddmm``, ``spgrid_bsr_sddmm_bf16`` or, for f32 blocks at
-    ``precision`` 'high', ``spgrid_bsr_sddmm_bf16x3`` makes it (its tiles,
-    for Q ``q`` and K ``k``; the cluster depends on the card's SM count)."""
+    ``spgrid_bsr_sddmm``, ``spgrid_bsr_sddmm_bf16`` (for Q ``q`` and K
+    ``k``) or, for f32 blocks at ``precision`` 'high',
+    ``spgrid_bsr_sddmm_bf16x3`` makes it (its tiles, for Q ``q`` and K
+    ``k``; the cluster depends on the card's SM count)."""
     nb, bm, bk = mask.blocks.shape
-    if mask.blocks.dtype != torch.bfloat16 and precision == "high":
+    if mask.blocks.dtype == torch.bfloat16:
+        return bf16_shape(mask, q, k)[0]
+    if precision == "high":
         return x3_shape(mask, q.shape[0], k.shape[0], q.shape[1])[0]
-    entry = ("spgrid_bsr_sddmm_bf16_shape"
-             if mask.blocks.dtype == torch.bfloat16
-             else "spgrid_bsr_sddmm_shape")
     with torch.cuda.device(mask.blocks.device):
-        return query(entry, "bsr_sddmm", nb, bm, bk)
+        return query("spgrid_bsr_sddmm_shape", "bsr_sddmm", nb, bm, bk)
+
+
+def bf16_shape(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor):
+    """(the bf16 form's launch, the bytes of its copy pass's planes: 0 where
+    TMA reads Q and K as they lie) for Q ``q`` and K ``k`` on the card
+    ``mask`` lies on, as ``spgrid_bsr_sddmm_bf16_shape`` reports them; its
+    ``grid`` is the CTAs of the persistent walk where the cluster is 1."""
+    nb, bm, bk = mask.blocks.shape
+    shape = (ctypes.c_int * 7)()
+    scratch = ctypes.c_longlong()
+    with torch.cuda.device(mask.blocks.device):
+        _build.check(_build.library().spgrid_bsr_sddmm_bf16_shape(
+            nb, bm, bk, q.shape[0], k.shape[0], q.shape[1], q.data_ptr(),
+            k.data_ptr(), ctypes.addressof(shape),
+            ctypes.addressof(scratch)), "bsr_sddmm_bf16")
+    return LaunchShape(*shape), scratch.value
 
 
 def x3_shape(mask: DeviceBSR, mq: int, mk: int, d: int):
@@ -80,30 +99,45 @@ def x3_shape(mask: DeviceBSR, mq: int, mk: int, d: int):
     return LaunchShape(*shape), scratch.value
 
 
-def _launch(wrapper, mask: DeviceBSR, q: torch.Tensor,
-            k: torch.Tensor) -> torch.Tensor:
-    """The block values by the form of Q's dtype into a new output (the
-    3-pass form with its split planes in new scratch); count the launch on
-    ``wrapper``."""
+def _launch(wrapper, mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
+            out: torch.Tensor = None, cluster: int = 0) -> torch.Tensor:
+    """The block values by the form of Q's dtype into ``out`` (a new
+    output where None; the 3-pass form's split planes and the bf16 form's
+    copied planes in new scratch) at ``cluster`` (0: the launch rule)."""
     nb, bm, bk = mask.blocks.shape
-    out = torch.empty((nb, bm, bk), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((nb, bm, bk), dtype=q.dtype, device=q.device)
     if nb == 0:
         return out
     mq, mk, d = q.shape[0], k.shape[0], q.shape[1]
     entry = getattr(_build.library(), "spgrid_" + wrapper.__name__)
     args = ()
+    nbytes = 0
     if wrapper is bsr_sddmm_bf16x3:
-        scratch = torch.empty(x3_shape(mask, mq, mk, d)[1],
-                              dtype=torch.uint8, device=q.device)
+        nbytes = x3_shape(mask, mq, mk, d)[1]
+    elif wrapper is bsr_sddmm_bf16:
+        nbytes = bf16_shape(mask, q, k)[1]
+        args = (None,)
+    if nbytes:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
         args = (scratch.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = entry(mask.block_rows.data_ptr(), mask.block_cols.data_ptr(),
                      mask.blocks.data_ptr(), q.data_ptr(), k.data_ptr(),
-                     out.data_ptr(), *args, nb, bm, bk, mq, mk, d, 0, stream)
+                     out.data_ptr(), *args, nb, bm, bk, mq, mk, d, cluster,
+                     stream)
     _build.check(code, wrapper.__name__)
-    wrapper.launches += 1
     return out
+
+
+def launch(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
+           out: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+    """The form of Q's dtype into ``out`` at ``cluster`` (0 the launch
+    rule; 1, 2, 4 or 8), uncounted: for tests and sweeps."""
+    wrapper = {torch.bfloat16: bsr_sddmm_bf16}.get(q.dtype, bsr_sddmm)
+    _check(mask, q, k, q.dtype)
+    return _launch(wrapper, mask, q, k, out, cluster)
 
 
 def _run(wrapper, mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
@@ -111,7 +145,9 @@ def _run(wrapper, mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
     _check(mask, q, k, dtype)
     if runs_plain(wrapper.__name__, q.device):
         return (plain or bsr_sddmm_plain)(mask, q, k)
-    return _launch(wrapper, mask, q, k)
+    out = _launch(wrapper, mask, q, k)
+    wrapper.launches += 1
+    return out
 
 
 # the forms at a precision other than the operand type's own
@@ -163,10 +199,12 @@ def _panels(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
     """(Q panels (nb, bm, d), K panels (nb, bk, d)) of every block in
     ``dtype``: the gather of ``spgrid.ops.attention._sddmm_bsr_xla`` (Q
     and K row panels by block coordinates, a zero Q panel for the pad row
-    mb)."""
+    mb), zeros past Q's and K's rows as that gather's ``take(...,
+    fill_value=0)`` reads them: each operand padded to the block count the
+    mask's shape reaches where it is shorter."""
     nb, bm, bk = mask.blocks.shape
-    mbq = -(-q.shape[0] // bm) + 1
-    mbk = -(-k.shape[0] // bk)
+    mbq = max(-(-q.shape[0] // bm), mask.mb) + 1
+    mbk = max(-(-k.shape[0] // bk), -(-mask.shape[1] // bk))
     d = q.shape[1]
     qp = torch.zeros((mbq * bm, d), dtype=dtype, device=q.device)
     qp[:q.shape[0]] = q
@@ -225,6 +263,19 @@ def split_launch(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), scratch.data_ptr(), q.shape[0],
             k.shape[0], q.shape[1], stream)
     _build.check(code, "bsr_sddmm_bf16x3")
+
+
+def copy_launch(q: torch.Tensor, k: torch.Tensor,
+                scratch: torch.Tensor) -> None:
+    """The bf16 form's copy pass alone on the card (Q and K, zero-padded to
+    whole 64-deep steps, into ``scratch`` of the bytes ``bf16_shape``
+    reports), uncounted: for timing."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_bsr_sddmm_bf16_copy(
+            q.data_ptr(), k.data_ptr(), scratch.data_ptr(), q.shape[0],
+            k.shape[0], q.shape[1], stream)
+    _build.check(code, "bsr_sddmm_bf16")
 
 
 def bsr_sddmm_bf16x3_plain(mask: DeviceBSR, q: torch.Tensor,

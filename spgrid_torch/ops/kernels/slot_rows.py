@@ -30,6 +30,7 @@ import torch
 
 from spgrid_torch.ops.kernels import _build, check_operands
 from spgrid_torch.ops.layouts import to_device
+from spgrid_torch.ops.xla import segment_sum
 
 SLAB = 128           # columns of a warp's slab for each C
 MAX_SLOTS = 2 ** 31 - 1024
@@ -40,6 +41,7 @@ MAX_SLOTS = 2 ** 31 - 1024
 WARPS = 8
 UNROLL_LOADS = 4     # U C 16-byte X loads in flight a lane: U = 4 / C
 LONG_ROW = 128       # rows of more slots go to the long-row walk
+LONG_WARPS = 16      # warps of the long-row walk, each summing a run
 
 
 def stream_order(rows, xrows, values, m: int, k: int):
@@ -166,6 +168,28 @@ def rows_product(a, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((m, x.shape[1]), dtype=x.dtype, device=x.device)
     y.index_add_(0, row, a.slot_vals.to(x.dtype)[:, None]
                  * x[a.slot_xrows.long()])
+    return y
+
+
+def walk_sums(terms: torch.Tensor, row_slot: torch.Tensor) -> torch.Tensor:
+    """(m, ...) sums of a row stream's ``terms`` (in stream order, row r's
+    at ``row_slot[r]:row_slot[r + 1]``) as the walk adds them: a row of at
+    most ``LONG_ROW`` terms from 0 in order; a longer row's ``LONG_WARPS``
+    runs of ceil(count / LONG_WARPS) terms each from 0 in order, then the
+    runs' sums added in run order (the long-row walk)."""
+    y = segment_sum(terms, row_slot)
+    counts = torch.diff(row_slot)
+    for r in torch.nonzero(counts > LONG_ROW).flatten().tolist():
+        beg, end = int(row_slot[r]), int(row_slot[r + 1])
+        run = -(-(end - beg) // LONG_WARPS)
+        bounds = torch.tensor([min(end, beg + w * run)
+                               for w in range(LONG_WARPS)] + [end],
+                              device=terms.device) - beg
+        parts = segment_sum(terms[beg:end], bounds)
+        total = parts[0]
+        for w in range(1, LONG_WARPS):
+            total = total + parts[w]
+        y[r] = total
     return y
 
 

@@ -11,21 +11,29 @@ launches the kernel for CUDA tensors, which reads the layout's row-ordered
 live-slot stream (``ops/kernels/slot_rows.py``), and takes
 ``wcoo_spmm_aligned_plain``, which reads the padded groups, only for CPU
 tensors; an f64 X raises.
+
+The bf16 form walks X in column slabs (``launch_plan``: the slab rule in
+Python, the widest slab, which measured fastest; ``launch_shape`` asks the
+card), a lane 16 bytes of an X row where n % 8 == 0 and X and Y lie on 16
+bytes; ``launch`` runs it at any slab, uncounted, for sweeps and tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from spgrid_torch.formats.wcoo import LANE, csr_to_wcoo_aligned
 from spgrid_torch.formats.csr import value_dtype
-from spgrid_torch.ops.kernels import check_form, check_operands, runs_plain
+from spgrid_torch.ops.kernels import (
+    _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.kernels.slot_rows import (
-    RowStream, check_rows, launch_rows, row_stream, stream_tensors)
+    LONG_ROW, SLAB, UNROLL_LOADS, WARPS, RowStream, check_rows, launch_rows,
+    row_stream, stream_tensors, walk_sums)
 from spgrid_torch.ops.layouts import (
     group_ptr, round_up, to_device, torch_dtype)
 from spgrid_torch.ops.xla import acc_dtype
@@ -212,14 +220,98 @@ def _check(kernel: str, a: DeviceWCOOBands, x: torch.Tensor,
     check_rows(kernel, a, x, dtype)
 
 
+# The bf16 walk's slabs (csrc/wcoo_bands.cu, bands_slab): powers of two
+# from 64 to MAX_SLAB columns, the rule's the widest (one slab of n where n
+# is no wider); SETS sets of rows a warp, BUDGET raw registers of X a lane,
+# at most MAX_U slots in flight (csrc/slot_rows.cuh).
+MAX_SLAB = 512
+SETS = 2
+BUDGET = 32
+MAX_U = 8
+
+
+class BandsShape(NamedTuple):
+    """The bf16 walk's launch: ``slab`` columns a slab, ``slabs`` of them,
+    ``rows`` rows a CTA, ``lanes`` lanes a row, ``u`` slots in flight a
+    lane."""
+
+    slab: int
+    slabs: int
+    rows: int
+    lanes: int
+    u: int
+
+
+def launch_plan(n: int, vec: int, slab: int = 0) -> BandsShape:
+    """What ``csrc/wcoo_bands.cu``'s ``launch_bands`` launches for X (k, n)
+    at ``slab`` (0: the rule) in form ``vec`` (2: 16 bytes a lane, 1: 8, 0:
+    an element): the kernel's rule in Python; ``launch_shape`` asks the
+    card."""
+    slab = min(slab or MAX_SLAB, n)
+    slabs = -(-n // slab)
+    if vec != 2:
+        c = 1 if slab <= SLAB else 2 if slab <= 2 * SLAB else 4
+        return BandsShape(slab, slabs, WARPS, 32, UNROLL_LOADS // c)
+    vectors = -(-slab // 8)
+    p = 1
+    while p < vectors:
+        p *= 2
+    lanes = min(p, 32)
+    per_lane = p // lanes
+    u = MAX_U
+    while u > 1 and (u > lanes or 4 * per_lane * u > BUDGET
+                     or 4 * per_lane * u + 8 * per_lane > BUDGET + 8):
+        u //= 2
+    return BandsShape(slab, slabs, WARPS * SETS * 32 // lanes, lanes, u)
+
+
+def launch_shape(n: int, vec: int, slab: int = 0) -> BandsShape:
+    """The launch the bf16 walk makes on the current card for X (k, n) at
+    ``slab`` (0: its rule) in form ``vec`` (as ``launch_plan``)."""
+    shape = (ctypes.c_int * 5)()
+    _build.check(_build.library().spgrid_wcoo_bands_bf16_shape(
+        n, slab, vec, ctypes.addressof(shape)), "wcoo_spmm_aligned_bf16")
+    return BandsShape(*shape)
+
+
+def vector_form(x: torch.Tensor, y: torch.Tensor) -> int:
+    """The bf16 walk's form for X and Y (as ``bands_vec``): 2 where n % 8 ==
+    0 and both lie on 16 bytes, 1 where n % 4 == 0 and on 8, else 0."""
+    n = x.shape[1]
+    at = x.data_ptr() | y.data_ptr()
+    return 2 if n % 8 == 0 and at % 16 == 0 else (
+        1 if n % 4 == 0 and at % 8 == 0 else 0)
+
+
+def launch(a: DeviceWCOOBands, x: torch.Tensor, y: torch.Tensor,
+           slab: int = 0) -> None:
+    """One launch of the bf16 walk (and the long-row walk) into ``y`` at
+    ``slab`` (0: the rule; a power of two from 64 to 512), uncounted;
+    ``wcoo_spmm_aligned_bf16`` is the entry point."""
+    m = a.shape[0]
+    n = x.shape[1]
+    if m == 0 or n == 0:
+        return
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.library().spgrid_wcoo_bands_bf16(
+            a.row_slot.data_ptr(), a.slot_vals.data_ptr(),
+            a.slot_xrows.data_ptr(), a.long_rows.data_ptr(), x.data_ptr(),
+            y.data_ptr(), m, n, LONG_ROW, len(a.long_rows), slab, stream)
+    _build.check(code, "wcoo_spmm_aligned_bf16")
+
+
 def _run(wrapper, a: DeviceWCOOBands, x: torch.Tensor,
          dtype: torch.dtype) -> torch.Tensor:
     _check(wrapper.__name__, a, x, dtype)
     if runs_plain(wrapper.__name__, x.device):
         return wcoo_spmm_aligned_plain(a, x)
-    entry = ("spgrid_wcoo_bands_bf16" if dtype == torch.bfloat16
-             else "spgrid_wcoo_bands")
-    return launch_rows(wrapper, entry, a, x)
+    if dtype != torch.bfloat16:
+        return launch_rows(wrapper, "spgrid_wcoo_bands", a, x)
+    y = torch.empty((a.shape[0], x.shape[1]), dtype=dtype, device=x.device)
+    launch(a, x, y)
+    wrapper.launches += 1
+    return y
 
 
 def wcoo_spmm_aligned(a: DeviceWCOOBands, x: torch.Tensor) -> torch.Tensor:
@@ -248,9 +340,11 @@ wcoo_spmm_aligned_bf16.launches = 0
 def wcoo_spmm_aligned_plain(a: DeviceWCOOBands,
                             x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype: slot (w, lane) of a
-    real group adds value · X[1024 sw + 128 w + col] to row 128 block + lane
-    (``index_add_``), for slots whose value is not 0 and X row lies inside
-    X. bf16: each product rounded to bf16, added in f32, Y rounded once."""
+    real group adds value · X[1024 sw + 128 w + col] to row 128 block + lane,
+    for slots whose value is not 0 and X row lies inside X, each row's
+    products summed in slot order as the walk sums them
+    (``slot_rows.walk_sums``: the same bits on the card and on the CPU).
+    bf16: each product rounded to bf16, added in f32, Y rounded once."""
     m, k = a.shape
     g = a.block_groups.long()
     block = torch.repeat_interleave(
@@ -266,6 +360,10 @@ def wcoo_spmm_aligned_plain(a: DeviceWCOOBands,
     live = (vals != 0) & (xrow < k)
     prods = vals[live].to(x.dtype)[:, None] * x[xrow[live]]
     acc = acc_dtype(x)
-    y = torch.zeros((m, x.shape[1]), dtype=acc, device=x.device)
-    y.index_add_(0, row[live], prods.to(acc))
-    return y.to(x.dtype)
+    # each row's products in slot order (the stream's), summed as the walk
+    # sums them: one fixed order on the card as on the CPU
+    row = row[live]
+    order = torch.sort(row, stable=True).indices
+    offsets = torch.zeros(m + 1, dtype=torch.int64, device=x.device)
+    offsets[1:] = torch.cumsum(torch.bincount(row, minlength=m), 0)
+    return walk_sums(prods.to(acc)[order], offsets).to(x.dtype)

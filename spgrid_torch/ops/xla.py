@@ -9,7 +9,10 @@ names in ``spgrid/ops/xla.py``.
 
 The JAX package leaves these to XLA (a gather, a weighted sum and a segment
 sum), outside any Pallas kernel, so the port leaves them to torch ops:
-``index_select`` for ``take``; for COO's and BSR's ``segment_sum``,
+``index_select`` for ``take`` (the JAX ``take``s fill with zeros past
+the operand's rows, so an operand shorter than the layout's column count
+is first padded with zero rows, ``zero_rows``, decided from shapes
+alone); for COO's and BSR's ``segment_sum``,
 ``segment_sum`` below over the row-sorted products at the layout's
 ``row_ptr``; the pad entries take no part. The products and sums run in
 f32 (f64 for an f64 X), the matrix products with TF32 off. Every size is
@@ -51,6 +54,19 @@ def acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def zero_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``, so that a gather of
+    any index below ``rows`` reads zeros past ``x``'s own rows, as the JAX
+    ops' ``take(..., fill_value=0)`` does; ``x`` itself, with no copy, when
+    it has ``rows`` rows or more. Decided from shapes alone: no sync, so a
+    call can be captured in a CUDA graph."""
+    if x.shape[0] >= rows:
+        return x
+    xp = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    xp[:x.shape[0]] = x
+    return xp
+
+
 def segment_sum(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """(len(offsets) - 1, ...) sums of the runs ``data[offsets[i]:
     offsets[i + 1]]`` along dim 0, an empty run 0. ``torch.segment_reduce``
@@ -68,8 +84,8 @@ def spmm_coo(coo: DeviceCOO, x: torch.Tensor) -> torch.Tensor:
     into its row."""
     acc = acc_dtype(x)
     nnz = coo.nnz
-    prods = x.index_select(0, coo.cols[:nnz]).to(acc).mul_(
-        coo.values[:nnz, None].to(acc))
+    g = zero_rows(x, coo.shape[1]).index_select(0, coo.cols[:nnz])
+    prods = g.to(acc).mul_(coo.values[:nnz, None].to(acc))
     return segment_sum(prods, coo.row_ptr).to(x.dtype)
 
 
@@ -90,10 +106,11 @@ def spmm_sell(sell: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
     # the buckets' slices cover every slot once, and perm every row once
     y_perm = torch.empty((m_pad, n), dtype=acc, device=x.device)
     lane = torch.arange(sell.C, device=x.device)
+    xz = zero_rows(x, sell.shape[1])
     for cols, vals, srows in zip(sell.bucket_cols, sell.bucket_vals,
                                  sell.bucket_slice_rows):
         s, C, w = cols.shape
-        g = x.index_select(0, cols.reshape(-1)).reshape(s, C, w, n).to(acc)
+        g = xz.index_select(0, cols.reshape(-1)).reshape(s, C, w, n).to(acc)
         part = g.mul_(vals[..., None].to(acc)).sum(dim=2)   # (s, C, n)
         slots = (srows[:, None] + lane[None, :]).reshape(-1)
         y_perm.index_copy_(0, slots, part.reshape(s * C, n))
@@ -116,7 +133,7 @@ def spmm_bsr(bsr: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     bk, mb = bsr.bk, bsr.mb
     n = x.shape[1]
     acc = acc_dtype(x)
-    kb = -(-x.shape[0] // bk)
+    kb = -(-max(x.shape[0], bsr.shape[1]) // bk)
     xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
     xp[:x.shape[0]] = x
     tiles = xp.view(kb, bk, n).index_select(0, bsr.block_cols[:nb])
@@ -141,6 +158,8 @@ def sddmm_coo(mask: DeviceCOO, q: torch.Tensor,
     acc = acc_dtype(q)
     out = torch.zeros(mask.values.shape[0], dtype=acc, device=q.device)
     step = sddmm_chunk(q.shape[1])
+    q = zero_rows(q, mask.shape[0])
+    k = zero_rows(k, mask.shape[1])
     for s in range(0, mask.nnz, step):
         e = min(s + step, mask.nnz)
         rows = torch.searchsorted(
@@ -180,6 +199,7 @@ def spmm_ell(ell: DeviceELL, x: torch.Tensor) -> torch.Tensor:
     acc = acc_dtype(x)
     y = torch.empty((m, n), dtype=acc, device=x.device)
     step = ell_chunk_rows(w, n)
+    x = zero_rows(x, ell.shape[1])
     for r0 in range(0, m, step):
         r1 = min(r0 + step, m)
         g = x.index_select(0, ell.cols[r0:r1].reshape(-1)).view(
@@ -200,8 +220,8 @@ def spmm_csc(csc: DeviceCSC, x: torch.Tensor) -> torch.Tensor:
     layout's row order (columns ascending)."""
     acc = acc_dtype(x)
     nnz = csc.nnz
-    prods = x.index_select(0, csc.cols[:nnz]).to(acc).mul_(
-        csc.values[:nnz, None].to(acc))
+    g = zero_rows(x, csc.shape[1]).index_select(0, csc.cols[:nnz])
+    prods = g.to(acc).mul_(csc.values[:nnz, None].to(acc))
     return segment_sum(prods.index_select(0, csc.row_order),
                        csc.row_ptr).to(x.dtype)
 
@@ -219,6 +239,7 @@ def spmm_ldu(ldu: DeviceLDU, x: torch.Tensor) -> torch.Tensor:
     nf = ldu.n_faces
     xa = x.to(acc)
     y = ldu.diag[:, None].to(acc) * xa
+    xa = zero_rows(xa, ldu.shape[1])
     up = xa.index_select(0, ldu.neigh[:nf]).mul_(ldu.upper[:nf, None].to(acc))
     y = y + segment_sum(up.index_select(0, ldu.owner_order), ldu.owner_ptr)
     lo = xa.index_select(0, ldu.owner[:nf]).mul_(ldu.lower[:nf, None].to(acc))
@@ -238,8 +259,8 @@ def spmm_cv(cv: DeviceCV, x: torch.Tensor) -> torch.Tensor:
     vals = cv.qvalues[:nnz].to(torch.float32)
     if cv.mode == "int8":
         vals = vals * cv.scales.index_select(0, cv.rows[:nnz])
-    prods = x.index_select(0, cv.cols[:nnz]).to(torch.float32).mul_(
-        vals[:, None])
+    g = zero_rows(x, cv.shape[1]).index_select(0, cv.cols[:nnz])
+    prods = g.to(torch.float32).mul_(vals[:, None])
     return segment_sum(prods, cv.row_ptr).to(x.dtype)
 
 

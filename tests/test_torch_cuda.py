@@ -56,12 +56,14 @@ from spgrid_torch.ops.kernels.panel_spmm import (
 )
 from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
 from spgrid_torch.ops.kernels.sddmm import (
-    bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain, plane_shape,
-    split_launch, split_planes, split_planes_plain, x3_shape,
+    bf16_shape, bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+    plane_shape, split_launch, split_planes, split_planes_plain, x3_shape,
 )
+from spgrid_torch.ops.kernels.sddmm import launch as sddmm_launch
 from spgrid_torch.ops.kernels.wcoo_spmm import (
     DeviceWCOO, wcoo_spmm, wcoo_spmm_plain,
 )
+from spgrid_torch.ops.kernels import wcoo_spmm_aligned as bands_module
 from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
     DeviceWCOOBands, wcoo_spmm_aligned, wcoo_spmm_aligned_plain,
 )
@@ -576,6 +578,12 @@ SLOT_SPMM = {
         lambda c, d: DeviceWCOOBands.from_csr(c, band_rows=256, device=d),
         wcoo_spmm_aligned, wcoo_spmm_aligned_plain),
 }
+# the bf16 form of the bands kernel, a case of test_slot_spmm_kernel
+BANDS_BF16 = {"wcoo_spmm_aligned_bf16": (
+    lambda c, d: DeviceWCOOBands.from_csr(c.astype("bfloat16"),
+                                          band_rows=256, device=d),
+    wcoo_spmm_aligned, wcoo_spmm_aligned_plain)}
+BANDS_SLABS = (0, 64, 128, 256, 512)
 SLOT_SPMV = {
     "wcoo_spmv": (lambda c, d: DeviceWCOOAligned.from_csr(c, device=d),
                   wcoo_spmv, wcoo_spmv_plain),
@@ -584,18 +592,56 @@ SLOT_SPMV = {
 }
 
 
-@pytest.mark.parametrize("n", [1, 70])
+@pytest.mark.parametrize("n", [1, 70, 96, 200, 512])
 @pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
-@pytest.mark.parametrize("kernel", sorted(SLOT_SPMM))
+@pytest.mark.parametrize("kernel", sorted(SLOT_SPMM) + sorted(BANDS_BF16))
 def test_slot_spmm_kernel(cuda, kernel, matrix, n):
-    layout, fn, plain = SLOT_SPMM[kernel]
+    """f32: within 1e-5 of the f64 plain product. The bf16 bands form: bit
+    for bit with its plain version through the wrapper and, into Y that
+    starts as NaN, at every slab in the form X and Y take (the 16-byte walk
+    where n % 8 == 0), in the 8-byte form on copies 8 bytes off, each the
+    same bits twice."""
+    layout, fn, plain = {**SLOT_SPMM, **BANDS_BF16}[kernel]
     csr = SLOT_MATRICES[matrix]()
     a = layout(csr, cuda)
-    x = operand((csr.k, n), 9, cuda)
+    bf16 = kernel in BANDS_BF16
+    x = (bf16_operand if bf16 else operand)((csr.k, n), 9, cuda)
     before = launch_counts()[kernel]
     got = fn(a, x)
     assert launch_counts()[kernel] == before + 1
-    assert_close(got, plain(a, x.double()))
+    if not bf16:
+        assert_close(got, plain(a, x.double()))
+        return
+    want = plain(a, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    base = torch.empty((csr.k * n + 8,), dtype=torch.bfloat16, device=cuda)
+    for off in (0, 4):    # 4 bf16: 8 bytes off 16
+        xo = base[off:off + csr.k * n].view(csr.k, n)
+        xo.copy_(x)
+        for slab in BANDS_SLABS:
+            ys = []
+            for _ in range(2):
+                yb = torch.full((csr.m * n + 8,), float("nan"),
+                                dtype=torch.bfloat16, device=cuda)
+                y = yb[off:off + csr.m * n].view(csr.m, n)
+                assert bands_module.vector_form(xo, y) == (
+                    2 if n % 8 == 0 and off == 0 else 1 if n % 4 == 0
+                    else 0)
+                bands_module.launch(a, xo, y, slab)
+                ys.append(y)
+            torch.cuda.synchronize()
+            assert torch.equal(ys[0], want) and torch.equal(ys[1], want)
+
+
+@pytest.mark.parametrize("vec", [0, 1, 2])
+def test_wcoo_bands_bf16_slab_rule(cuda, vec):
+    """The bf16 walk's launch, asked of the card, is ``launch_plan``'s (the
+    rule in Python) at every slab and the rule, at n from 8 to 1,024."""
+    for n in (8, 64, 96, 200, 512, 1024):
+        for slab in BANDS_SLABS:
+            assert (bands_module.launch_shape(n, vec, slab)
+                    == bands_module.launch_plan(n, vec, slab))
 
 
 @pytest.mark.parametrize("matrix", sorted(SLOT_MATRICES))
@@ -1745,9 +1791,6 @@ def test_bf16_block_forms_at_every_cluster_size(cuda, cluster):
     """The bf16 C entry points at each cluster size (the ranks' f32 partial
     tiles summed in rank order, then rounded once) on ragged shapes: bm =
     200 in two row slices, n = 77, d = 70."""
-    from spgrid_torch.ops.kernels import _build
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
     csr = bf16_csr(BF16_MATRICES["ragged"])
     a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3, device=cuda,
                            route="tile")
@@ -1764,46 +1807,109 @@ def test_bf16_block_forms_at_every_cluster_size(cuda, cluster):
     m = DeviceBSR.from_csr(mask, bm=200, bk=128, pad_multiple=4, device=cuda)
     q = bf16_operand((200, 70), 34, cuda)
     k = bf16_operand((200, 70), 35, cuda)
-    nb, bm, bk = m.blocks.shape
-    out = torch.empty((nb, bm, bk), dtype=torch.bfloat16, device=cuda)
-    _build.check(lib.spgrid_bsr_sddmm_bf16(
-        m.block_rows.data_ptr(), m.block_cols.data_ptr(), m.blocks.data_ptr(),
-        q.data_ptr(), k.data_ptr(), out.data_ptr(), nb, bm, bk, 200, 200, 70,
-        cluster, stream), "bsr_sddmm_bf16")
+    out = torch.full(m.blocks.shape, float("nan"), dtype=torch.bfloat16,
+                     device=cuda)
+    sddmm_launch(m, q, k, out, cluster)
     assert_within_one_ulp(out, bsr_sddmm_plain(m, q, k))
 
 
-@pytest.mark.parametrize("kind,length,sparsity,d,blocks", [
-    ("band_and_random", 4096, 0.95, 512, (128, 128)),
-    ("band_and_decay", 1000, 0.9, 77, (128, 128)),
-    ("band_and_random", 1000, 0.8, 64, (64, 256)),
-    ("band_and_decay", 512, 0.9, 130, (256, 128))])
-def test_bsr_sddmm_bf16(cuda, kind, length, sparsity, d, blocks):
-    """Within 1 ulp of the plain version (pad blocks zero), one launch on
-    bsr_sddmm_bf16's counter, the same bits twice and by graph replay."""
-    mask = create_mask(kind, length, sparsity, seed=36, dtype="bfloat16")
-    m = DeviceBSR.from_csr(mask, bm=blocks[0], bk=blocks[1], pad_multiple=4,
-                           device=cuda)
-    q = bf16_operand((length, d), 37, cuda)
-    k = bf16_operand((length, d), 38, cuda)
-    before = launch_counts()["bsr_sddmm_bf16"]
-    got = bsr_sddmm(m, q, k)
-    assert launch_counts()["bsr_sddmm_bf16"] == before + 1
+# 3b's cases: (mask kind, side, sparsity, mask kwargs, (bm, bk), mq, mk,
+# d, Q and K 2 bytes off 16); 4096^2 walks 559 tiles on one CTA an SM
+SDDMM_BF16 = {
+    "4096_random_d512": ("band_and_random", 4096, 0.95, {}, (128, 128),
+                         4096, 4096, 512, False),
+    "1000_decay_d77": ("band_and_decay", 1000, 0.9, {}, (128, 128), 1000,
+                       1000, 77, False),
+    "1000_random_d64_bk256": ("band_and_random", 1000, 0.8, {}, (64, 256),
+                              1000, 1000, 64, False),
+    "512_decay_d130_bm256": ("band_and_decay", 512, 0.9, {}, (256, 128),
+                             512, 512, 130, False),
+    "200_d70_bm200": ("band_and_random", 200, 0.8, {"band_size": 4},
+                      (200, 128), 200, 200, 70, False),
+    "1000_d96_mq_below_mk": ("band_and_decay", 1000, 0.9, {}, (128, 128),
+                             900, 1000, 96, False),
+    "1000_d96_k_below_cols": ("band_and_random", 1000, 0.8, {}, (128, 128),
+                              1000, 900, 96, False),
+    "600_d96_bm200": ("band_and_decay", 600, 0.8, {}, (200, 128), 560, 600,
+                      96, False),
+    "500_d64_bk100": ("band_and_random", 500, 0.8, {}, (128, 100), 500, 500,
+                      64, False),
+    "1000_d512_misaligned": ("band_and_random", 1000, 0.8, {}, (128, 128),
+                             1000, 1000, 512, True),
+}
+
+
+def sddmm_bf16_case(name, device):
+    """(bf16 mask layout, Q, K) of SDDMM_BF16[name]."""
+    kind, side, sparsity, kwargs, (bm, bk), mq, mk, d, off = SDDMM_BF16[name]
+    mask = create_mask(kind, side, sparsity, seed=36, dtype="bfloat16",
+                       **kwargs)
+    m = DeviceBSR.from_csr(mask, bm=bm, bk=bk, pad_multiple=4, device=device)
+    make = misaligned_bf16 if off else bf16_operand
+    return m, make((mq, d), 37, device), make((mk, d), 38, device)
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(SDDMM_BF16))
+def test_bsr_sddmm_bf16(cuda, case, cluster):
+    """At each cluster size (0 the rule: the persistent walk where it gives
+    1), into an output that starts as NaN: within 1 ulp of the plain
+    version (pad blocks zero), the same bits twice; through the wrapper
+    (cluster 0), one launch on bsr_sddmm_bf16's counter and the same bits
+    by graph replay."""
+    m, q, k = sddmm_bf16_case(case, cuda)
+
+    def call():
+        out = torch.full(m.blocks.shape, float("nan"), dtype=torch.bfloat16,
+                         device=cuda)
+        return sddmm_launch(m, q, k, out, cluster)
+
+    got = call()
     assert_within_one_ulp(got, bsr_sddmm_plain(m, q, k))
+    assert torch.equal(call(), got)
+    if cluster != 0:
+        return
+    before = launch_counts()["bsr_sddmm_bf16"]
     assert torch.equal(bsr_sddmm(m, q, k), got)
+    assert launch_counts()["bsr_sddmm_bf16"] == before + 1
     graph, out = captured(bsr_sddmm, m, q, k)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, got)
 
 
-def test_wcoo_bands_bf16_long_rows(cuda):
+def test_bsr_sddmm_bf16_launch(cuda):
+    """The persistent walk on a mask of more tiles than 2 x SMs (one CTA
+    an SM), a cluster a tile on a short grid, and the copy pass's scratch
+    only where TMA cannot read Q and K as they lie."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    m, q, k = sddmm_bf16_case("4096_random_d512", cuda)
+    shape, scratch = bf16_shape(m, q, k)
+    assert shape.tiles == m.blocks.shape[0] > 2 * sms
+    assert (shape.cluster, shape.ctas, shape.cols) == (1, sms, 128)
+    assert shape.persistent and scratch == 0
+    m, q, k = sddmm_bf16_case("200_d70_bm200", cuda)
+    shape, scratch = bf16_shape(m, q, k)
+    assert shape.cluster > 1 and shape.ctas == shape.tiles * shape.cluster
+    assert scratch == 2 * (200 + 200) * 128
+    m, q, k = sddmm_bf16_case("1000_d512_misaligned", cuda)
+    assert bf16_shape(m, q, k)[1] == 2 * (1000 + 1000) * 512
+
+
+@pytest.mark.parametrize("slab", [0, 64, 128, 256, 512])
+def test_wcoo_bands_bf16_long_rows(cuda, slab):
     """Rows of more than LONG_ROW slots go to the long-row walk, whose
-    warps' f32 sums are added in warp order before the one rounding."""
+    warps' f32 sums are added in warp order before the one rounding, at
+    each slab: bit for bit with the plain version, which sums so."""
     csr = bf16_csr(lambda: positive(hypersparse_edge()))
-    call, plain, _ = bf16_form("bands", csr, cuda)
+    a = DeviceWCOOBands.from_csr(csr, device=cuda)
+    assert len(a.long_rows) > 0
     x = bf16_operand((csr.k, 200), 39, cuda)
-    assert_within_one_ulp(call(x), plain(x))
+    y = torch.full((csr.m, 200), float("nan"), dtype=torch.bfloat16,
+                   device=cuda)
+    bands_module.launch(a, x, y, slab)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wcoo_spmm_aligned_plain(a, x))
 
 
 # kernel formats whose f64 refusal is checked here: every kernel has a
@@ -2105,6 +2211,8 @@ X3_CASES = {
                                   (128, 64), 1000, 1030, 70),
     "600_d96_bm200": ("band_and_decay", 600, 0.8, {}, (200, 128), 560, 600,
                       96),
+    "1000_d96_k_below_cols": ("band_and_random", 1000, 0.8, {}, (128, 128),
+                              1000, 900, 96),
 }
 
 

@@ -4,7 +4,9 @@ port), the XLA baselines as torch ops (``sddmm_coo``, ``sddmm_dense``,
 ``spmm_bsr``, ``sddmm_bsr_xla``), the kernel's plain version at every
 planner blocking, the harness's ``run_sddmm`` and its helpers, the
 pipeline's ``xla_only`` path, and the SDDMM study with the JAX package's
-join reading its CSVs.
+join reading its CSVs; and the gathers on Q and K shorter than the mask's
+rows and columns (zeros past them, as the JAX ``take(...,
+fill_value=0)`` reads them).
 
 Tolerance: the torch ops sum the same f32 products as XLA in another
 order, within 1e-6 relative here (positive operands, d <= 96).
@@ -23,6 +25,7 @@ import spgrid.ops.costmodel as jax_costmodel
 import spgrid.ops.sddmm_plan as jax_plan
 from spgrid.bench.harness import _bsr_blocks_to_nnz as jax_blocks_to_nnz
 from spgrid.formats import CSRMatrix, random_csr
+from spgrid.formats.csr import dense_to_csr
 from spgrid.gen import create_mask
 from spgrid.ops import xla as jax_xla
 from spgrid.ops.attention import SparseAttention as JaxAttention
@@ -37,7 +40,9 @@ from spgrid_torch.ops import costmodel, sddmm_plan, xla
 from spgrid_torch.ops.attention import (
     SparseAttention, attention_pipeline, make_pipeline_step, sddmm_bsr_xla,
 )
-from spgrid_torch.ops.kernels.sddmm import bsr_sddmm_plain
+from spgrid_torch.ops.kernels.sddmm import (
+    bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
+)
 from spgrid_torch.ops.layouts import DeviceBSR, DeviceCOO
 from spgrid_torch.scripts import sddmm_study
 
@@ -181,6 +186,73 @@ def test_sddmm_bsr_xla_and_plain_equal_jax_at_every_blocking(sddmm_problem,
     qt, kt = torch.from_numpy(q), torch.from_numpy(k)
     assert_rel(sddmm_bsr_xla(port, qt, kt), want)
     assert_rel(bsr_sddmm_plain(port, qt, kt), want)
+
+
+def short_mask(kind):
+    """8 x 8 masks: entries in columns 1, 2, 6 and 7 (rows 0, 6, 3, 5), or
+    one 4 x 4 block at block row 1 and block column 1."""
+    d = np.zeros((8, 8), np.float32)
+    if kind == "columns":
+        d[0, 1], d[6, 2], d[3, 6], d[5, 7] = 1.0, 0.5, 2.0, 1.5
+    else:
+        d[4:, 4:] = np.arange(1, 17, dtype=np.float32).reshape(4, 4) / 8
+    return dense_to_csr(d, name=kind)
+
+
+def bf16_values(a):
+    """``a`` rounded to bf16 values (held in f32): the 3-pass form's lo
+    parts are then zero and its passes exact."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def sddmm_bsr_case(fn):
+    def run(mask, q, k):
+        return fn(DeviceBSR.from_csr(mask, bm=4, bk=4, device="cpu"), q, k)
+    return run
+
+
+def jax_bsr_case(mask, q, k):
+    return jax_sddmm_bsr_xla(JaxBSR.from_csr(mask, bm=4, bk=4), q, k)
+
+
+def sddmm_coo_case(mask, q, k):
+    return xla.sddmm_coo(DeviceCOO.from_csr(mask, device="cpu"), q, k)
+
+
+def jax_coo_case(mask, q, k):
+    return jax_xla.sddmm_coo(JaxCOO.from_csr(mask), q, k)
+
+
+SHORT_QK = {
+    "plain": (sddmm_bsr_case(bsr_sddmm_plain), jax_bsr_case),
+    "bf16x3_plain": (sddmm_bsr_case(bsr_sddmm_bf16x3_plain), jax_bsr_case),
+    "sddmm_coo": (sddmm_coo_case, jax_coo_case),
+}
+
+
+@pytest.mark.parametrize("mq,mk", [(8, 4), (4, 8), (3, 4), (8, 8)])
+@pytest.mark.parametrize("kind", ["columns", "block_1_1"])
+@pytest.mark.parametrize("name", sorted(SHORT_QK))
+def test_short_q_and_k_read_zeros_past_their_rows(name, kind, mq, mk):
+    """The block SDDMM's plain versions (through ``_panels``) and
+    ``sddmm_coo`` on Q of mq and K of mk rows under an 8 x 8 mask equal the
+    JAX functions, and equal bit for bit themselves on Q and K padded with
+    zero rows to the mask's 8; operands of full length go through
+    uncopied."""
+    port, jax_fn = SHORT_QK[name]
+    mask = short_mask(kind)
+    rng = np.random.default_rng(12)
+    q = bf16_values((rng.random((mq, 16)) + 0.5).astype(np.float32))
+    k = bf16_values((rng.random((mk, 16)) + 0.5).astype(np.float32))
+    got = port(mask, torch.from_numpy(q), torch.from_numpy(k))
+    assert_rel(got, jax_fn(mask, jnp.asarray(q), jnp.asarray(k)))
+    qf, kf = np.zeros((8, 16), np.float32), np.zeros((8, 16), np.float32)
+    qf[:mq], kf[:mk] = q, k
+    qt, kt = torch.from_numpy(qf), torch.from_numpy(kf)
+    assert xla.zero_rows(qt, 8) is qt and xla.zero_rows(kt, 8) is kt
+    assert torch.equal(port(mask, qt, kt), got)
+    assert_rel(port(mask, qt, kt), jax_fn(mask, jnp.asarray(qf),
+                                          jnp.asarray(kf)))
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,10 @@ added in warp order.
 Y starts as NaN and every write is counted, so an element written never or
 twice shows. Tolerance: rtol 1e-5, atol 1e-6 (f32 sums in slot order
 against the f64 dense product).
+
+The bands' 16-byte bf16 walk (``walk16``) is emulated the same way, at the
+launch ``wcoo_spmm_aligned.launch_plan`` gives: each product rounded to
+bf16, the f32 sums in slot order, bit for bit against the plain version.
 """
 
 import numpy as np
@@ -24,7 +28,8 @@ from spgrid_torch.gen import artificial_matrix_generation
 from spgrid_torch.ops.kernels.slot_rows import (
     LONG_ROW, UNROLL_LOADS, WARPS, rows_product, walk_shape)
 from spgrid_torch.ops.kernels.wcoo_spmm import DeviceWCOO
-from spgrid_torch.ops.kernels.wcoo_spmm_aligned import DeviceWCOOBands
+from spgrid_torch.ops.kernels.wcoo_spmm_aligned import (
+    SETS, DeviceWCOOBands, launch_plan, wcoo_spmm_aligned_plain)
 
 torch.set_num_threads(1)
 
@@ -161,3 +166,86 @@ def test_walk_emulation_gives_the_dense_product(kind, name, n, vec,
 def test_walk_shape(n, shape):
     """(CTAs, slabs, C, U) for 50 rows, 8 a CTA."""
     assert walk_shape(50, n) == shape
+
+
+def bf16_round(v: np.ndarray) -> np.ndarray:
+    """f32 ``v`` rounded to bf16 (to nearest, ties to even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def emulate_walk16(a, x, slab):
+    """Y of the 16-byte walk at ``slab`` (0: the rule) as its launch takes
+    the rows and columns: CTA (bx, by) of WARPS warps, warp w the SETS
+    sets of R = 32 / L rows from (bx WARPS + w) SETS, a group of L lanes a
+    row, lane j the columns (j + L e) 8 .. + 7 of the slab where the first
+    lies inside it; long rows by runs, as the long-row walk sums them."""
+    m, n = a.shape[0], x.shape[1]
+    plan = launch_plan(n, 2, slab)
+    lanes = plan.lanes
+    per_lane = max(1, -(-plan.slab // 8) // lanes)
+    rows_a_warp = 32 // lanes
+    assert plan.rows == WARPS * SETS * rows_a_warp
+    row_slot = a.row_slot.numpy().astype(np.int64)
+    vals = a.slot_vals.float().numpy()
+    xrows = a.slot_xrows.numpy().astype(np.int64)
+    xf = x.float().numpy()
+    y = np.full((m, n), np.nan, np.float32)
+    writes = np.zeros((m, n), np.int64)
+
+    def row_sum(beg, end, cols):
+        acc = np.zeros(len(cols), np.float32)
+        for s in range(beg, end):
+            acc = (acc + bf16_round(vals[s] * xf[xrows[s], cols])).astype(
+                np.float32)
+        return acc
+
+    counts = np.diff(row_slot)
+    for by in range(plan.slabs):
+        n0 = by * plan.slab
+        left = min(plan.slab, n - n0)
+        firsts = [(j + lanes * e) * 8 for j in range(lanes)
+                  for e in range(per_lane) if (j + lanes * e) * 8 < left]
+        cols = n0 + np.asarray([f + t for f in firsts for t in range(8)],
+                               np.int64)
+        for bx in range(-(-m // plan.rows)):
+            for w in range(WARPS):
+                set0 = (bx * WARPS + w) * SETS
+                for i in range(SETS):
+                    for g in range(rows_a_warp):
+                        row = (set0 + i) * rows_a_warp + g
+                        if row >= m or counts[row] > LONG_ROW:
+                            continue
+                        y[row, cols] = bf16_round(row_sum(
+                            row_slot[row], row_slot[row + 1], cols))
+                        writes[row, cols] += 1
+        for row in np.flatnonzero(counts > LONG_ROW):
+            beg, end = row_slot[row], row_slot[row + 1]
+            run = -(-(end - beg) // LONG_WARPS)
+            cols_all = np.arange(n0, n0 + left)
+            parts = [row_sum(min(end, beg + w * run),
+                             min(end, min(end, beg + w * run) + run),
+                             cols_all) for w in range(LONG_WARPS)]
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = (acc + p).astype(np.float32)
+            y[row, cols_all] = bf16_round(acc)
+            writes[row, cols_all] += 1
+    assert (writes == 1).all(), "an element of Y written never or twice"
+    return y
+
+
+@pytest.mark.parametrize("n,slab", [(8, 0), (64, 0), (96, 0), (200, 64),
+                                    (512, 0), (512, 128), (1024, 0)])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_walk16_emulation_gives_the_plain_bits(name, n, slab):
+    """The 16-byte bf16 walk, emulated, writes every element of Y once and
+    gives the bits of ``wcoo_spmm_aligned_plain``, which sums as the walk
+    does."""
+    csr = MATRICES[name]().astype("bfloat16")
+    a = DeviceWCOOBands.from_csr(csr, band_rows=256, device="cpu")
+    x = torch.from_numpy((np.random.default_rng(n).random((csr.k, n))
+                          + 0.5).astype(np.float32)).to(torch.bfloat16)
+    got = emulate_walk16(a, x, slab)
+    want = wcoo_spmm_aligned_plain(a, x).float().numpy()
+    np.testing.assert_array_equal(got, want)

@@ -3,7 +3,9 @@
 for array, and ``spmm_coo``, ``spmv_coo``, ``spmm_sell`` and ``spmv_sell``
 against the JAX functions (XLA on the CPU) and the f64 product; and
 ``xla.segment_sum``, the run sum of COO, GELL's tail, merge's fix-up and
-the softmax, against the f64 and the in-order f32 sums.
+the softmax, against the f64 and the in-order f32 sums; and every
+torch-op format of ``xla`` on an X shorter than its layout's column count
+(zeros past X's rows, as the JAX ``take(..., fill_value=0)`` reads them).
 
 Tolerance: 1e-5 relative (f32 sums in another order); the matrices hold
 positive values and X lies in [0.5, 1.5), so no sum cancels below its
@@ -15,14 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+import spgrid.formats.ldu as jax_ldu
 from spgrid.formats.csr import CSRMatrix, dense_to_csr
 from spgrid.gen.artificial import artificial_matrix_generation
+from spgrid.ops import layouts as jax_layouts
 from spgrid.ops import xla as jax_xla
 from spgrid.ops.layouts import DeviceCOO as JaxCOO
 from spgrid.ops.layouts import DeviceSELL as JaxSELL
 from spgrid_torch.core.metrics import gold_spmm_fast
 from spgrid_torch.ops import xla
-from spgrid_torch.ops.layouts import DeviceCOO, DeviceSELL
+from spgrid_torch.ops.layouts import (
+    DeviceBSR, DeviceCOO, DeviceCSC, DeviceCV, DeviceELL, DeviceLDU,
+    DeviceSELL,
+)
 
 # The suite runs in parallel workers on shared cores: one intra-op thread
 # a worker keeps these small CPU tensors from oversubscribing them.
@@ -207,3 +214,120 @@ def test_segment_sum_adds_each_run_in_order(name):
         for row in vals[a:b]:
             ordered[i] += row
     np.testing.assert_array_equal(got.numpy(), ordered)
+
+
+def columns_past_x():
+    """8 x 8, entries in columns 1, 2, 6 and 7 (rows 0, 6, 3, 5): with an X
+    of 4 rows of ones, y[:, 0] = [1, 0, 0, 0, 0, 0, 1, 0]."""
+    d = np.zeros((8, 8), np.float32)
+    d[0, 1] = d[6, 2] = d[3, 6] = d[5, 7] = 1.0
+    return dense_to_csr(d, name="columns_past_x")
+
+
+def block_column_1():
+    """8 x 8 with one 4 x 4 block, at block row 0 and block column 1."""
+    d = np.zeros((8, 8), np.float32)
+    d[:4, 4:] = np.arange(1, 17, dtype=np.float32).reshape(4, 4) / 8
+    return dense_to_csr(d, name="block_column_1")
+
+
+def symmetric_8():
+    """8 x 8, a diagonal and the symmetric pairs (1, 6) and (2, 7)."""
+    d = np.diag(np.arange(1, 9, dtype=np.float32))
+    d[1, 6], d[6, 1], d[2, 7], d[7, 2] = 0.5, 0.25, 0.75, 1.5
+    return dense_to_csr(d, name="symmetric_8")
+
+
+def jax_spmv(fn):
+    return lambda a, x: fn(a, x[:, 0])[:, None]
+
+
+def torch_spmv(fn):
+    return lambda a, x: fn(a, x[:, 0])[:, None]
+
+
+# (matrix, X rows, port layout, port op, JAX layout, JAX op); LDU's
+# ``diag * x`` needs X of n rows or of one (broadcast), so its short X has
+# one row
+SHORT_X = {
+    "coo": (columns_past_x, 4, DeviceCOO.from_csr, xla.spmm_coo,
+            JaxCOO.from_csr, jax_xla.spmm_coo),
+    "coo_spmv": (columns_past_x, 4, DeviceCOO.from_csr,
+                 torch_spmv(xla.spmv_coo), JaxCOO.from_csr,
+                 jax_spmv(jax_xla.spmv_coo)),
+    "sell": (columns_past_x, 4, DeviceSELL.from_csr, xla.spmm_sell,
+             JaxSELL.from_csr, jax_xla.spmm_sell),
+    "sell_spmv": (columns_past_x, 4, DeviceSELL.from_csr,
+                  torch_spmv(xla.spmv_sell), JaxSELL.from_csr,
+                  jax_spmv(jax_xla.spmv_sell)),
+    "ell": (columns_past_x, 4, DeviceELL.from_csr, xla.spmm_ell,
+            jax_layouts.DeviceELL.from_csr, jax_xla.spmm_ell),
+    "ell_spmv": (columns_past_x, 4, DeviceELL.from_csr,
+                 torch_spmv(xla.spmv_ell), jax_layouts.DeviceELL.from_csr,
+                 jax_spmv(jax_xla.spmv_ell)),
+    "csc": (columns_past_x, 4, DeviceCSC.from_csr, xla.spmm_csc,
+            jax_layouts.DeviceCSC.from_csr, jax_xla.spmm_csc),
+    "csc_spmv": (columns_past_x, 4, DeviceCSC.from_csr,
+                 torch_spmv(xla.spmv_csc), jax_layouts.DeviceCSC.from_csr,
+                 jax_spmv(jax_xla.spmv_csc)),
+    "cv_int8": (columns_past_x, 4,
+                lambda a, **kw: DeviceCV.from_csr(a, "int8", **kw),
+                xla.spmm_cv,
+                lambda a: jax_layouts.DeviceCV.from_csr(a, "int8"),
+                jax_xla.spmm_cv),
+    "cv_bf16_spmv": (columns_past_x, 4,
+                     lambda a, **kw: DeviceCV.from_csr(a, "bf16", **kw),
+                     torch_spmv(xla.spmv_cv),
+                     lambda a: jax_layouts.DeviceCV.from_csr(a, "bf16"),
+                     jax_spmv(jax_xla.spmv_cv)),
+    "ldu": (symmetric_8, 1, DeviceLDU.from_csr, xla.spmm_ldu,
+            lambda a: jax_layouts.DeviceLDU.from_ldu(jax_ldu.csr_to_ldu(a)),
+            jax_xla.spmm_ldu),
+    "ldu_spmv": (symmetric_8, 1, DeviceLDU.from_csr,
+                 torch_spmv(xla.spmv_ldu),
+                 lambda a: jax_layouts.DeviceLDU.from_ldu(
+                     jax_ldu.csr_to_ldu(a)),
+                 jax_spmv(jax_xla.spmv_ldu)),
+    "bsr": (columns_past_x, 4,
+            lambda a, **kw: DeviceBSR.from_csr(a, bm=4, bk=4, **kw),
+            xla.spmm_bsr,
+            lambda a: jax_layouts.DeviceBSR.from_csr(a, bm=4, bk=4),
+            jax_xla.spmm_bsr),
+    "bsr_block_column_1": (
+        block_column_1, 4,
+        lambda a, **kw: DeviceBSR.from_csr(a, bm=4, bk=4, **kw),
+        xla.spmm_bsr,
+        lambda a: jax_layouts.DeviceBSR.from_csr(a, bm=4, bk=4),
+        jax_xla.spmm_bsr),
+}
+
+
+@pytest.mark.parametrize("name", SHORT_X)
+def test_short_x_reads_zeros_past_its_rows(name):
+    """Each op on an X shorter than its layout's column count equals the
+    JAX op (whose gathers fill with zeros past X's rows), and equals
+    bit for bit itself on that X padded with zero rows to full length
+    (LDU, whose short X of one row broadcasts over its diagonal, against
+    the JAX op there); an X of full length goes through uncopied."""
+    make, rows, layout, op, jax_layout, jax_op = SHORT_X[name]
+    csr = make()
+    a = layout(csr, device="cpu")
+    n = 1 if name.endswith("spmv") else 3
+    x = (np.random.default_rng(11).random((rows, n)) + 0.5).astype(
+        np.float32)
+    got = op(a, torch.from_numpy(x))
+    want = np.asarray(jax_op(jax_layout(csr), jnp.asarray(x)))
+    assert got.shape == want.shape == (csr.m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    if make is columns_past_x:
+        np.testing.assert_array_equal(
+            op(a, torch.ones((4, 1)))[:, 0].numpy(), [1, 0, 0, 0, 0, 0, 1, 0])
+    full = np.zeros((csr.k, n), np.float32)
+    full[:rows] = x
+    full_t = torch.from_numpy(full)
+    assert xla.zero_rows(full_t, csr.k) is full_t
+    if rows > 1:   # LDU broadcasts a one-row X over the diagonal
+        assert torch.equal(op(a, full_t), got)
+    np.testing.assert_allclose(
+        op(a, full_t).numpy(),
+        np.asarray(jax_op(jax_layout(csr), jnp.asarray(full))), rtol=RTOL)
