@@ -190,9 +190,13 @@ exits non-zero and never prints the final ``"ok": true`` line:
    ``bsr_spmm_cstat_bf16`` on LINE_B, ``wcoo_spmm_bf16`` on MAIN_LINE and
    ``dgell_bf16`` on LINE_S at n = 512, and the 3-pass form
    ``bsr_sddmm_bf16x3`` on f32 operands on a 4096^2 band_and_decay mask at
-   sparsity 0.95, d = 512) against their plain versions on the same
+   sparsity 0.95, d = 512; the SpMMs' 3-pass forms ``bsr_spmm_bf16x3``,
+   ``panel_spmm_bf16x3`` and ``bsr_spmm_cstat_bf16x3`` on f32 operands on
+   the twin and LINE_B at n = 512, each with its launch, its split planes'
+   bytes, ptxas's registers and the f32 form's device ms on the same
+   inputs) against their plain versions on the same
    inputs, within 1 bf16 ulp (``BF16_FLOOR`` absolutely below it; the
-   3-pass form within ``HIGH_TOL`` of its f32 result), bit for bit where a
+   3-pass forms within ``HIGH_TOL`` of their f32 result), bit for bit where a
    form sums in its plain version's order (``wrow_spmv_bf16``;
    ``wcoo_spmv_bf16`` on every row of at most a tile; ``dgell_bf16``
    against ``dgell_rows_plain``), and the same bits on two calls,
@@ -225,9 +229,12 @@ exits non-zero and never prints the final ``"ok": true`` line:
    WROW v1/v2 A/B at bf16 on LINE_S; ``--sddmm 4096`` and
    ``--pipeline``, each with and without ``--xla-only``), ``--dtype
    float64`` (csr_xla_coo, n = 1), and at f32 under
-   ``SPGRID_MATMUL_PRECISION=high``: ``--sddmm 4096`` with and without
-   ``--xla-only``, gated at 1e-4, and one SpMM row, which must exit 2
-   naming ROADMAP.md.
+   ``SPGRID_MATMUL_PRECISION=high``: ``--sddmm 4096`` and ``--pipeline``,
+   each with and without ``--xla-only``, dense, bsr_cuda, panel_cuda and
+   rbh on the twin, bsrc_cuda, bsr, ell and merge on LINE_B and coo on
+   MAIN_LINE at n = 512 (``HIGH_RUNS``), gated at 1e-4 (the pipeline at
+   1e-3); and under ``SPGRID_MATMUL_PRECISION=default`` one f32 SpMM row,
+   which must exit 2 naming ROADMAP.md.
 
 Each phase prints its seconds. ``SPGRID_ORACLE=host python3 chip_smoke.py``
 gates every row of phases 4, 5, 7 and 10 on the host (phase 10's pairs
@@ -241,7 +248,7 @@ bsr_cuda rows, ``panel_spmm`` in the panel_cuda rows), before phase 9
 (the SDDMM path: ``bsr_sddmm``, ``bsr_spmm`` and ``bsr_sddmm_bf16x3``),
 before phase 10 (the remaining formats: ``panel_spmm_bf16`` and
 ``bsr_spmm``) and before phase 11's (b)-(d) (the dtype path: the twelve
-bf16 forms and ``bsr_sddmm_bf16x3``), and read after each; a
+bf16 forms and the four 3-pass forms), and read after each; a
 kernel of a path that was not launched there fails the run, and a
 kernel's launches are summed over its paths. Then one JSON
 line of the kernels (launches from their path, errors and times from phase
@@ -2129,14 +2136,23 @@ def phase_dtype_kernels() -> dict:
     from spgrid_torch.bench.harness import make_x, x_tensor
     from spgrid_torch.core.timing import time_kernel
     from spgrid_torch.gen import create_mask
-    from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from spgrid_torch.ops.kernels.bsr_spmm import (
+        bsr_spmm, bsr_spmm_bf16x3_plain, bsr_spmm_plain)
     from spgrid_torch.ops.kernels.bsr_spmm import launch as bsr_launch
     from spgrid_torch.ops.kernels.bsr_spmm import launch_grid as bsr_grid
+    from spgrid_torch.ops.kernels.bsr_spmm import x3_shape as bsr_x3_shape
     from spgrid_torch.ops.kernels.panel_spmm import (
-        DevicePanels, panel_spmm, panel_spmm_plain)
+        DevicePanels, panel_spmm, panel_spmm_bf16x3_plain, panel_spmm_plain)
     from spgrid_torch.ops.kernels.panel_spmm import launch_grid as panel_grid
+    from spgrid_torch.ops.kernels.panel_spmm import (
+        x3_shape as panel_x3_shape)
+    from spgrid_torch.ops.kernels.panel_spmm import (
+        x3_split_launch as panel_x3_split)
     from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
-        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain)
+        DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_bf16x3_plain,
+        bsr_spmm_cstat_plain)
+    from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+        x3_shape as bsrc_x3_shape)
     from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
         launch_grid as bsrc_grid)
     from spgrid_torch.ops.kernels.dgell import (
@@ -2395,6 +2411,52 @@ def phase_dtype_kernels() -> dict:
                 f"{split_ms / whole_ms:.3f} of {whole_ms:.6f}) tile_ptxas=["
                 f"{ptxas_report('bsr_sddmm_bf16x3_kernel')}]", None)
 
+    def spmm_high_case(kind, csr, n, seed):
+        """A 3-pass SpMM form's case (1c, 2c, 4c) on f32 operands at n
+        columns: its launch, its split planes' bytes (scratch of the
+        design) and its split pass's device ms alone, with its share of the
+        call, the f32 form's device ms on the same inputs, the tile's
+        registers. Bound: the function's bytes, the f32 blocks (2c: the
+        live slices' panel rows) and X read once and Y written once (as
+        rows 1, 2 and 4 count them), or three bf16 passes over the blocks
+        at 989 TFLOP/s."""
+        x = x_tensor(make_x(csr.k, n, "float32", seed), "float32", DEVICE)
+        if kind == "bsr":
+            a = DeviceBSR.from_csr(csr, bm=128, bk=128, device=DEVICE)
+            fn, plain, launch_x3 = bsr_spmm, bsr_spmm_bf16x3_plain, (
+                bsr_x3_shape(a, n))
+            blocks, tile = a.num_blocks * a.bm * a.bk, "bsr_spmm_bf16x3"
+        elif kind == "panel":
+            a = DevicePanels.from_csr(csr, bk=128, device=DEVICE)
+            fn, plain, launch_x3 = panel_spmm, panel_spmm_bf16x3_plain, (
+                panel_x3_shape(a, n))
+            blocks = int(a.slice_ptr[-1]) * 128 * a.bk
+            tile = "panel_spmm_bf16x3"
+        else:
+            a = DeviceBSRCol.from_csr(csr, device=DEVICE)
+            fn, plain, launch_x3 = (
+                bsr_spmm_cstat, bsr_spmm_cstat_bf16x3_plain,
+                bsrc_x3_shape(a, n))
+            blocks, tile = a.num_blocks * a.bm * a.bk, "bsr_spmm_cstat_bf16x3"
+        scratch = torch.empty(launch_x3[1], dtype=torch.uint8, device=DEVICE)
+        if kind == "panel":
+            split_ms = device_ms(panel_x3_split, a, x, scratch)
+        else:
+            split_ms = device_ms(split_launch, a.blocks.reshape(-1, a.bk),
+                                 x, scratch)
+        whole_ms = device_ms(functools.partial(fn, precision="high"), a, x)
+        f32_ms = device_ms(fn, a, x)
+        note = (f"launch={launch_x3[0]} scratch_bytes={launch_x3[1]} "
+                f"split_device_ms={split_ms:.6f} (share "
+                f"{split_ms / whole_ms:.3f} of {whole_ms:.6f}) "
+                f"f32_form_device_ms={f32_ms:.6f} ptxas=["
+                f"{ptxas_report(tile + '_kernel')}] blocks_or_live_slices="
+                f"{blocks // (128 * 128)}")
+        return (functools.partial(fn, precision="high"), plain, (a, x),
+                torch.sparse.mm, (csr_tensor(csr), x), "f32",
+                4 * (blocks + csr.k * n) + 4 * csr.m * n,
+                3 * 2.0 * blocks * n, note, None)
+
     def spmv_case(kind, csr, seed):
         """A bf16 SpMV form's case: its layout, x (k,), what the form must
         read of the layout (its stream; at wsel 1 each piece's live lanes,
@@ -2470,8 +2532,10 @@ def phase_dtype_kernels() -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
     failed = []
-    head = line_matrix(HEADLINE_LINE).astype("bfloat16")
-    line_b = line_matrix(LINE_B).astype("bfloat16")
+    head32 = line_matrix(HEADLINE_LINE)
+    line_b32 = line_matrix(LINE_B)
+    head = head32.astype("bfloat16")
+    line_b = line_b32.astype("bfloat16")
     hyper = line_matrix(MAIN_LINE).astype("bfloat16")
     scattered = line_matrix(LINE_S).astype("bfloat16")
     leg = {tag: p for tag, p, _ in LEG_JOBS}
@@ -2498,6 +2562,20 @@ def phase_dtype_kernels() -> dict:
          lambda: spmm_case("wcoo", hyper, 512, 45)),
         ("dgell_bf16", "LINE_S n=512", True,
          lambda: spmm_case("dgell", scattered, 512, 48)),
+        # the SpMMs' 3-pass forms on f32 operands (11d's rows at 'high'):
+        # 1c and 2c on the twin, 4c on LINE_B on the main path
+        ("bsr_spmm_bf16x3", "headline 512^2 n=512 f32", True,
+         lambda: spmm_high_case("bsr", head32, 512, 53)),
+        ("bsr_spmm_bf16x3", "LINE_B n=512 f32", False,
+         lambda: spmm_high_case("bsr", line_b32, 512, 54)),
+        ("panel_spmm_bf16x3", "headline 512^2 n=512 f32", True,
+         lambda: spmm_high_case("panel", head32, 512, 53)),
+        ("panel_spmm_bf16x3", "LINE_B n=512 f32", False,
+         lambda: spmm_high_case("panel", line_b32, 512, 54)),
+        ("bsr_spmm_cstat_bf16x3", "headline 512^2 n=512 f32", False,
+         lambda: spmm_high_case("bsrc", head32, 512, 53)),
+        ("bsr_spmm_cstat_bf16x3", "LINE_B n=512 f32", True,
+         lambda: spmm_high_case("bsrc", line_b32, 512, 54)),
         # the SpMV path at bf16 (11d's rows): MAIN_LINE and LINE_S, and the
         # twin, which WPACK packs at wsel 1
         ("wrow_spmv_bf16", "MAIN_LINE n=1", True,
@@ -2535,7 +2613,7 @@ def phase_dtype_kernels() -> dict:
         same = torch.equal(out, again)
         ref = plain(*args)
         if out.dtype == torch.float32:
-            # the 3-pass form: within HIGH_TOL of its plain version's f32
+            # a 3-pass form: within HIGH_TOL of its plain version's f32
             err = (out - ref).abs().max().item()
             rel = err / max(ref.abs().max().item(), 1e-30)
             ok = bool(torch.isfinite(out).all()) and rel <= HIGH_TOL
@@ -2742,9 +2820,10 @@ def bf16_wrow_ab() -> None:
         raise RuntimeError(f"WROW bf16 A/B failed for {failed}")
 
 
-def high_spmm_refused() -> None:
-    """An SpMM row at matmul precision 'high' (the environment's): the CLI
-    exits 2 naming ROADMAP.md, before anything runs at another
+def default_spmm_refused() -> None:
+    """An f32 SpMM row at matmul precision 'default' (the environment's;
+    the TPU's one bf16 pass, which no form of the port computes yet): the
+    CLI exits 2 naming ROADMAP.md, before anything runs at another
     precision."""
     from spgrid_torch.bench.cli import main as cli_main
     err = io.StringIO()
@@ -2756,11 +2835,19 @@ def high_spmm_refused() -> None:
         except SystemExit as e:
             code = e.code
     if code != 2 or "ROADMAP" not in err.getvalue():
-        raise RuntimeError(f"an SpMM row at matmul precision 'high' exited "
-                           f"{code}, not 2 naming ROADMAP.md: "
+        raise RuntimeError(f"an f32 SpMM row at matmul precision 'default' "
+                           f"exited {code}, not 2 naming ROADMAP.md: "
                            f"{err.getvalue()[-300:]}")
-    print(f"phase 11 high: an SpMM row at 'high' exits {code}: "
+    print(f"phase 11 default: an f32 SpMM row at 'default' exits {code}: "
           f"{err.getvalue().strip().splitlines()[-1]}", flush=True)
+
+
+# 11d's SpMM rows at matmul precision 'high' (f32, n = 512): the formats
+# whose dot takes the ambient precision on their 3-pass forms, and one
+# that needs none
+HIGH_RUNS = ((HEADLINE_LINE, "dense,bsr_cuda,panel_cuda,rbh", "512"),
+             (LINE_B, "bsrc_cuda,bsr,ell,merge", "512"),
+             (MAIN_LINE, "coo", "512"))
 
 
 def phase_dtype_cli() -> None:
@@ -2772,9 +2859,11 @@ def phase_dtype_cli() -> None:
     dgell_cuda on LINE_S at n = 512; then the WROW v1/v2 A/B; ``--sddmm
     4096`` and ``--pipeline`` on three twins written as .smtx, each with
     and without ``--xla-only``), at f64 (csr_xla_coo on the twin at n = 1)
-    and at matmul precision 'high' (``--sddmm 4096`` with and without
-    ``--xla-only``, and an SpMM row that must exit 2), every row gated and
-    timed for at least ``FORMATS_TIME_S``."""
+    and at f32 at matmul precision 'high' (``--sddmm 4096`` and
+    ``--pipeline``, each with and without ``--xla-only``, and the SpMM rows
+    of ``HIGH_RUNS``, gated at 1e-4, the pipeline at 1e-3), and at
+    'default' an SpMM row that must exit 2, every row gated and timed for
+    at least ``FORMATS_TIME_S``."""
     from spgrid_torch.io import write_smtx
     from spgrid_torch.scripts.sddmm_study import (
         LENGTH, PIPELINE_LENGTH, weight)
@@ -2809,23 +2898,28 @@ def phase_dtype_cli() -> None:
                           {False: ("sddmm_cuda", "bsr_pallas_"),
                            True: ("sddmm_xla", "coo")}, 3e-2, "phase 11",
                           ["--dtype", "bfloat16"])
-            with env_set("SPGRID_MATMUL_PRECISION", "high"), \
-                    tempfile.TemporaryDirectory() as tmp_high:
-                # f32 at matmul precision 'high': the 3-pass SDDMM form
-                cli_mode_rows(tmp_high, ["--sddmm", str(LENGTH)],
-                              {False: ("sddmm_cuda", "bsr_pallas_"),
-                               True: ("sddmm_xla", "coo")}, 1e-4,
-                              "phase 11 high")
-                high_spmm_refused()
             paths = []
             for seed in (1, 2, 3):
                 paths.append(os.path.join(tmp, f"w{seed}.smtx"))
                 write_smtx(paths[-1], weight(PIPELINE_LENGTH, seed))
-            cli_mode_rows(tmp, ["--pipeline", *paths, "--sparsity",
-                                str(PIPELINE_SPARSITY)],
-                          {False: ("pipeline_cuda", "bsr"),
-                           True: ("pipeline_xla", "bsr")}, 3e-2, "phase 11",
+            pipeline = ["--pipeline", *paths, "--sparsity",
+                        str(PIPELINE_SPARSITY)]
+            pipeline_want = {False: ("pipeline_cuda", "bsr"),
+                             True: ("pipeline_xla", "bsr")}
+            cli_mode_rows(tmp, pipeline, pipeline_want, 3e-2, "phase 11",
                           ["--dtype", "bfloat16"])
+            with env_set("SPGRID_MATMUL_PRECISION", "high"), \
+                    tempfile.TemporaryDirectory() as tmp_high:
+                # f32 at matmul precision 'high': the 3-pass forms
+                cli_mode_rows(tmp_high, ["--sddmm", str(LENGTH)],
+                              {False: ("sddmm_cuda", "bsr_pallas_"),
+                               True: ("sddmm_xla", "coo")}, 1e-4,
+                              "phase 11 high")
+                cli_mode_rows(tmp_high, pipeline, pipeline_want, 1e-3,
+                              "phase 11 high")
+                cli_rows("phase 11 high", HIGH_RUNS)
+            with env_set("SPGRID_MATMUL_PRECISION", "default"):
+                default_spmm_refused()
 
 
 # kernel -> (source, the Pallas kernel it replaces)
@@ -2893,6 +2987,14 @@ SOURCES = {
                        "spgrid/ops/pallas/wcoo_spmm.py:39"),
     "dgell_bf16": ("spgrid_torch/csrc/dgell.cu",
                    "spgrid/ops/pallas/dgell.py:141"),
+    # the SpMM bodies' dots at matmul precision 'high' (3-pass bf16 on f32
+    # operands): bsr_spmm.py:54, panel_spmm.py:138, bsr_spmm_cstat.py:136
+    "bsr_spmm_bf16x3": ("spgrid_torch/csrc/bsr_spmm.cu",
+                        "spgrid/ops/pallas/bsr_spmm.py:44"),
+    "panel_spmm_bf16x3": ("spgrid_torch/csrc/panel_spmm.cu",
+                          "spgrid/ops/pallas/panel_spmm.py:126"),
+    "bsr_spmm_cstat_bf16x3": ("spgrid_torch/csrc/bsr_spmm_cstat.cu",
+                              "spgrid/ops/pallas/bsr_spmm_cstat.py:127"),
 }
 # each path, with the kernels it must launch
 PATHS = (
@@ -2914,7 +3016,8 @@ PATHS = (
       "wcoo_spmm_aligned_bf16", "wrow_spmv_bf16", "wrow_spmv_v2_bf16",
       "wcoo_spmv_bf16", "wpack_spmv_bf16", "wpack_spmv_bf16_prefix",
       "bsr_spmm_cstat_bf16", "wcoo_spmm_bf16", "dgell_bf16",
-      "bsr_sddmm_bf16x3")),
+      "bsr_sddmm_bf16x3", "bsr_spmm_bf16x3", "panel_spmm_bf16x3",
+      "bsr_spmm_cstat_bf16x3")),
 )
 
 

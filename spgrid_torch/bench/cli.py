@@ -13,10 +13,16 @@ hand-written kernels, so ``--sddmm`` and ``--pipeline`` only with
 ``--xla-only``) exits non-zero naming ROADMAP.md before anything runs. The
 matmul precision comes from the environment (``SPGRID_MATMUL_PRECISION``,
 ``BenchConfig.matmul_precision``), as the JAX CLI's does: 'high' at f32
-runs ``--sddmm`` on the 3-pass bf16 form of the SDDMM kernel; any other
-row at a precision other than its dtype's own exits non-zero naming
-ROADMAP.md (no SpMM has such a form), except ``--xla-only``'s SDDMM, whose
-COO baseline contracts through no dot.
+runs every format, ``--sddmm`` and ``--pipeline`` (the formats whose JAX
+dot takes the ambient precision, the SDDMM and the pipeline's stages on
+their 3-pass bf16 forms; ``ops.dispatch.runs_at``). A row with no form at
+the precision exits 2 naming ROADMAP.md before anything runs: at f32
+'default' (the TPU's one bf16 pass) the formats of
+``dispatch.AMBIENT_FORMATS``, the dispatch kernels (``auto``, ``auto_tol``,
+``autotune``: JAX's choose among every format), ``--sddmm`` and
+``--pipeline``; at bf16 and
+f64 any precision but the dtype's own; except ``--xla-only``'s SDDMM,
+whose COO baseline contracts through no dot.
 
 Examples:
   # the minimum end-to-end slice: artificial matrix -> kernel -> CSV row
@@ -39,6 +45,11 @@ cv_int8,cv_panel_cuda --reorder rcm --num-cols 512
   # at matmul precision 'high', the 3-pass bf16 form of the kernel
   python -m spgrid_torch.bench --sddmm 4096 --num-cols 512
   SPGRID_MATMUL_PRECISION=high python -m spgrid_torch.bench --sddmm 4096
+
+  # SpMM rows at matmul precision 'high': the 3-pass bf16 forms
+  SPGRID_MATMUL_PRECISION=high python -m spgrid_torch.bench --generate \
+      "512 512 256 32 normal random 1.0 0 0.05 0.05 14" \
+      --kernels dense,bsr_cuda,panel_cuda,rbh --num-cols 512
 
   # attention pipeline on DLMC-style weights (.smtx/.mtx), kernels or
   # --xla-only baselines
@@ -76,7 +87,8 @@ from spgrid_torch.formats.reorder import (
     degree_sort_order, permute, rcm_order, shuffle_order,
 )
 from spgrid_torch.gen.params import GenParams, read_param_file
-from spgrid_torch.bench.harness import KERNELS
+from spgrid_torch.bench.harness import (
+    KERNELS, formats_run_at, kernel_formats)
 from spgrid_torch.ops.dispatch import DTYPE_FORMATS, runs_at
 
 NO_FORM = "has no {dtype} form in the port (ROADMAP.md, Queue 2)"
@@ -161,16 +173,22 @@ def main(argv=None) -> int:
         overrides["dtype"] = args.dtype
     config = BenchConfig.from_env(**overrides)
     dtype = config.dtype
-    if config.precision != own_precision(dtype) and not (
-            args.sddmm and (args.xla_only or (dtype == "float32"
-                                              and config.precision == "high"))):
-        ap.error(f"matmul precision {config.precision!r} at {dtype}: only "
-                 f"--sddmm has a form at it (at float32 'high'); the rest "
-                 f"{NO_FORM.format(dtype=config.precision)}")
+    precision = config.precision
+    at_precision = NO_FORM.format(dtype=f"{precision!r} ({dtype})")
     if modes:
         if dtype == "float64" and not args.xla_only:
             ap.error(f"--sddmm and --pipeline run the CUDA kernels, which "
                      f"{NO_FORM.format(dtype=dtype)}; add --xla-only")
+        if args.sddmm:
+            runs = (precision == own_precision(dtype) or args.xla_only
+                    or (dtype == "float32" and precision == "high"))
+        else:
+            runs = runs_at("bsr" if args.xla_only else "bsr_cuda", dtype,
+                           precision)
+        if not runs:
+            ap.error(f"matmul precision {precision!r} at {dtype}: "
+                     f"{'--sddmm' if args.sddmm else '--pipeline'} "
+                     f"{at_precision}")
     else:
         missing = [k for k in kernels if KERNELS[k] is not None
                    and not runs_at(KERNELS[k], dtype)]
@@ -178,6 +196,11 @@ def main(argv=None) -> int:
             ap.error(f"kernel(s) {missing} {NO_FORM.format(dtype=dtype)}; "
                      f"at {dtype} the port runs "
                      f"{', '.join(DTYPE_FORMATS[dtype])}")
+        off = [k for k in kernels if not formats_run_at(
+            kernel_formats(k), dtype, precision)]
+        if off:
+            ap.error(f"kernel(s) {off} at matmul precision {precision!r}: "
+                     f"{at_precision}")
     num_cols = ([int(v) for v in args.num_cols.split(",")]
                 if args.num_cols else [config.num_cols])
 

@@ -124,16 +124,30 @@ def gate_eps(config: BenchConfig, f32_eps: float = 1e-4) -> float:
     return f32_eps if config.dtype == "float32" else config.epsilon
 
 
-def check_spmm_precision(config: BenchConfig, what: str) -> None:
-    """Raise unless ``config`` runs at its dtype's own matmul precision: no
-    SpMM kernel, torch op or ``dense`` has a form at another (on the TPU
-    'high' makes every ambient-precision dot 3-pass bf16; only the SDDMM
-    kernel has that form in the port)."""
-    if config.precision != own_precision(config.dtype):
+def formats_run_at(formats, dtype: str, precision) -> bool:
+    """Whether a row over ``formats`` (``kernel_formats``) computes the
+    JAX function at ``dtype`` and matmul ``precision``: some format has a
+    form there (``dispatch.runs_at``), and so has every one that has a
+    form at the dtype's own precision. A dispatch kernel (every format)
+    runs only where all of them do: JAX's ``auto`` at f32 'default' may
+    choose ``bsr`` or ``dense`` at one bf16 pass, which the port has no
+    form of, and choosing among the rest would make neither JAX's choice
+    nor compute its function."""
+    return (any(dispatch.runs_at(f, dtype, precision) for f in formats)
+            and all(dispatch.runs_at(f, dtype, precision) for f in formats
+                    if dispatch.runs_at(f, dtype)))
+
+
+def check_spmm_precision(config: BenchConfig, what: str, formats) -> None:
+    """Raise unless ``formats`` run at ``config``'s dtype and matmul
+    precision (``formats_run_at``): at f32 'high' every format (the TPU's
+    three bf16 passes); at f32 'default' (the TPU's one bf16 pass) only
+    those that contract through no ambient-precision dot, and no dispatch
+    kernel; at bf16 and f64 only the dtype's own precision."""
+    if not formats_run_at(formats, config.dtype, config.precision):
         raise ValueError(
             f"{what}: no form at matmul precision {config.precision!r} for "
-            f"{config.dtype} (the port runs it only for the SDDMM; "
-            f"ROADMAP.md lists the forms still to port)")
+            f"{config.dtype} (ROADMAP.md lists the forms still to port)")
 
 
 def _device_fields(device: torch.device):
@@ -361,20 +375,31 @@ def _cached_x(csr, n: int, dtype: str, seed: int, device: torch.device):
     return hit[1], hit[2]
 
 
-def kernel_format(csr, kernel: str, n: int, xd: torch.Tensor) -> str:
-    """The port's format that ``kernel`` runs on ``csr`` at n columns."""
+def kernel_formats(kernel: str) -> tuple:
+    """The port's formats ``kernel`` may run: its own, or every format for
+    the dispatch kernels."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; the port has "
                          f"{tuple(KERNELS)}")
     fmt = KERNELS[kernel]
-    if fmt is not None:
-        return fmt
+    return dispatch.FORMATS if fmt is None else (fmt,)
+
+
+def kernel_format(csr, kernel: str, n: int, xd: torch.Tensor,
+                  precision: Optional[str] = None) -> str:
+    """The port's format that ``kernel`` runs on ``csr`` at n columns and
+    matmul ``precision`` (None: the dtype's own)."""
+    fmt = kernel_formats(kernel)
+    if len(fmt) == 1:
+        return fmt[0]
     if kernel == "autotune":
         return dispatch.autotune_spmm(
-            csr, xd, features=_cached_features(csr)).best
+            csr, xd, precision=precision,
+            features=_cached_features(csr)).best
     tol = costmodel.CV_TOLERANCE if kernel == "auto_tol" else 0.0
     return dispatch.select_format(_cached_features(csr), n, tolerance=tol,
-                                  dtype=value_dtype(csr))
+                                  dtype=value_dtype(csr),
+                                  precision=precision)
 
 
 def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
@@ -382,18 +407,23 @@ def run_spmm(csr: CSRMatrix, kernel: str = "bsr_cuda",
              check_accuracy: bool = True) -> dict:
     """Time Y = A @ X for one kernel (``KERNELS``) and gate it against the
     f64 gold of the gate class of the format that ran (eps 1e-4 at f32, as
-    the JAX harness; ``gate``). A and X take ``config.dtype``; a format
-    with no form at that dtype raises (``dispatch.build``), and so does a
-    matmul precision other than the dtype's own (``check_spmm_precision``)."""
+    the JAX harness, at every precision; ``gate``). A and X take
+    ``config.dtype``; a format with no form at that dtype raises
+    (``dispatch.build``), and so does one with no form at the matmul
+    precision (``check_spmm_precision``); at f32 'high' the formats whose
+    JAX dot takes the ambient precision run their 3-pass forms, and
+    the dispatch kernels pick among every format, as JAX's do; they
+    raise at f32 'default', where some formats have no form."""
     config = config or BenchConfig()
-    check_spmm_precision(config, f"run_spmm {kernel}")
+    check_spmm_precision(config, f"run_spmm {kernel}",
+                         kernel_formats(kernel))
     device = torch.device(device)
     n = config.num_cols
     csr = _as_dtype(csr, config.dtype)
     x, xd = _cached_x(csr, n, config.dtype, config.seed, device)
-    fmt = kernel_format(csr, kernel, n, xd)
+    fmt = kernel_format(csr, kernel, n, xd, config.precision)
     a = dispatch.build(csr, fmt, device=device)
-    fn = dispatch.spmm_fn(fmt)
+    fn = dispatch.spmm_fn(fmt, config.precision)
 
     flops = (gemm_flops(csr.m, csr.k, n) if kernel == "gemm_bound"
              else spmm_flops(csr.nnz, n))
@@ -442,11 +472,13 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     package's XLA baselines as torch ops in place of the kernels (kernel
     ``pipeline_xla``). At bf16 and f64 the weights, the mask and X take
     the dtype; the gold multiplies the weights and mask as given, as the
-    JAX harness's does. A matmul precision other than the dtype's own
-    raises (``check_spmm_precision``): three of its five stages are
-    SpMMs."""
+    JAX harness's does. At f32 'high' every stage runs its 3-pass form
+    (``attention_pipeline``'s ``precision``); a matmul precision at which
+    its SpMMs have no form raises (``check_spmm_precision``)."""
     config = config or BenchConfig()
-    check_spmm_precision(config, "run_pipeline")
+    check_spmm_precision(config, "run_pipeline",
+                         ("bsr" if xla_only else "bsr_cuda",))
+    precision = config.precision
     device = torch.device(device)
     n = config.num_cols
     if mask is None:
@@ -457,10 +489,11 @@ def run_pipeline(wk: CSRMatrix, wq: CSRMatrix, wv: CSRMatrix,
     xd = x_tensor(x, config.dtype, device)
     attn = SparseAttention.from_csr(
         *(c.astype(config.dtype) for c in (wk, wq, wv, mask)), device=device)
-    step = make_pipeline_step(attn, xla_only=xla_only)
-    spmm, sddmm = stage_ops(xla_only)
+    step = make_pipeline_step(attn, xla_only=xla_only, precision=precision)
+    spmm, sddmm = stage_ops(xla_only, precision)
 
-    _, stages = attention_pipeline(attn, xd, xla_only=xla_only)
+    _, stages = attention_pipeline(attn, xd, xla_only=xla_only,
+                                   precision=precision)
     out_bytes = {s: t.numel() * t.element_size() for s, t in stages.items()}
 
     def timed(fn, *args, out, min_time_s=None, flops=None):

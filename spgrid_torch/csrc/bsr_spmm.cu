@@ -74,7 +74,23 @@
 // the entries and passes it between 222.5 and 254, where the rows (64
 // blocks wide) pass the walk's LONG_ROW (128 entries) and go to the
 // long-row walk. T = 224, past the last point at which the walk won.
-#include "bf16_mma.cuh"
+//
+// The 3-pass form, 1c (the Pallas kernel's jnp.dot, bsr_spmm.py:54, at
+// matmul precision 'high', which the TPU computes as three bf16 passes): f32
+// blocks, X and Y; each block times its X tile as A_hi X_hi + A_hi X_lo +
+// A_lo X_hi, summed in f32 over the block row. Bound on the H100: the
+// bytes of the function (the f32 blocks and X read once, Y written once)
+// at 3.35 TB/s, or three times the blocks' dense work at 989 TFLOP/s (2 bm
+// bk n flops a block), whichever is larger; the split planes are scratch
+// of this design, written and read on top of that. Design: a split pass
+// (bf16x3.cuh's `split_pair`) writes the blocks and X once as bf16 hi and
+// lo planes into scratch the wrapper allocates; then every block row's
+// slices run bf16x3.cuh's TMA-fed tile (`x3_pipe_tile`, 3c's step on
+// 1b's pipelined walk): a tile a (block row, 128-row slice, 128 columns),
+// its steps split across a cluster where the grid is short, an empty block
+// row's tiles writing zeros (the walk is row_ptr's, rebuilt from
+// block_rows, so pad blocks are never visited).
+#include "bf16x3.cuh"
 #include "slot_rows.cuh"
 
 namespace {
@@ -123,6 +139,21 @@ bsr_spmm_bf16_pipe_kernel(const __grid_constant__ CUtensorMap a_map,
   const int first = row_ptr[t.r];
   bf16_pipe_tile(t, first, row_ptr[t.r + 1] - first, nullptr, cols, &a_map,
                  &x_map, y, bm, bk, m, n, y16);
+}
+
+// 1c, the 3-pass form: every block row's slices on bf16x3.cuh's tile (a
+// tile a (block row, 128-row slice, 128 columns)), an empty block row's
+// tiles writing zeros.
+__global__ void __launch_bounds__(PT_THREADS, 1)
+bsr_spmm_bf16x3_kernel(const __grid_constant__ X3Maps maps,
+                       const int* __restrict__ row_ptr,
+                       const int* __restrict__ cols, float* y, int bm,
+                       int bk, int m, int n, int slices, int col_tiles,
+                       bool y16) {
+  const RowTile t = listed_tile<PT_NT>(nullptr, slices, col_tiles);
+  const int first = row_ptr[t.r];
+  x3_pipe_tile(t, first, row_ptr[t.r + 1] - first, nullptr, cols, maps.m, y,
+               bm, bk, m, n, bm, t.i0, y16);
 }
 
 }  // namespace
@@ -226,6 +257,67 @@ extern "C" int spgrid_bsr_spmm_bf16_entries(
   return spgrid::slot_rows::launch<true, false>(
       row_slot, vals, xrows, long_rows, x, y, num_rows, n, long_row, num_long,
       stream, static_cast<const int*>(rows));
+}
+
+// out (int[6]) = {tiles, cluster, ROWS, PT_NT, BF_TK, X3_STAGES} of the
+// tile launch spgrid_bsr_spmm_bf16x3 makes for these sizes at cluster 0;
+// scratch (long long[1]) = the bytes of its split planes: the nb blocks'
+// (nb bm rows of bk), then X's (k rows of n).
+extern "C" int spgrid_bsr_spmm_bf16x3_shape(int nb, int mb, int bm, int bk,
+                                            int k, int n, void* out,
+                                            void* scratch) {
+  if (nb <= 0 || mb <= 0 || bm <= 0 || bk <= 0 || k < 0 || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *static_cast<long long*>(scratch) =
+      plane_pair_bytes(static_cast<long long>(nb) * bm, bk) +
+      plane_pair_bytes(plane_rows(k), n);
+  return report_shape(
+      pipe_tiles(static_cast<long long>(mb) * ((bm + ROWS - 1) / ROWS), n),
+      out, BF_TK, X3_STAGES, PT_NT, PT_SHARE);
+}
+
+// 1c: blocks, X and Y in f32 at matmul precision 'high'; scratch (on 16 B)
+// the bytes spgrid_bsr_spmm_bf16x3_shape reports. Two launches: the split
+// pass (the blocks and X), then the tiles. cluster: 0 for the launch rule
+// (cluster_for at PT_SHARE), else 1, 2, 4 or 8.
+extern "C" int spgrid_bsr_spmm_bf16x3(const void* row_ptr, const void* cols,
+                                      const void* blocks, const void* x,
+                                      void* y, void* scratch, int nb, int mb,
+                                      int bm, int bk, int m, int k, int n,
+                                      int cluster, void* stream) {
+  const long long rows = static_cast<long long>(nb) * bm;
+  if (nb <= 0 || mb <= 0 || bm <= 0 || bk <= 0 || m <= 0 || k < 0 ||
+      n <= 0 || rows > INT_MAX || !aligned16(scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int split = split_pair(blocks, static_cast<int>(rows), bk, x, k, n,
+                               scratch, stream);
+  if (split != 0) return split;
+  const unsigned short* planes = static_cast<const unsigned short*>(scratch);
+  X3Maps maps;
+  if (!x3_maps(maps, planes, rows, bk, planes + 2 * rows * plane_cols(bk), k,
+               n)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const int slices = (bm + ROWS - 1) / ROWS;
+  return launch_cta_tiles(
+      bsr_spmm_bf16x3_kernel, pipe_tiles(static_cast<long long>(mb) * slices,
+                                         n),
+      cluster, X3_SMEM, PT_THREADS, PT_SHARE, stream, maps,
+      static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
+      static_cast<float*>(y), bm, bk, m, n, slices, (n + PT_NT - 1) / PT_NT,
+      n % 4 == 0 && aligned16(y));
+}
+
+// The 3-pass forms' split pass alone (bf16x3.cuh's split_pair, as 1c and
+// 4c run it on their blocks and X): a (ma x da) and b (mb x db; none where
+// mb < 0) in f32 into the bf16 planes at scratch (on 16 B), A_hi, A_lo,
+// then B_hi, B_lo (for tests and timing; the forms run it themselves).
+extern "C" int spgrid_bf16x3_split(const void* a, const void* b,
+                                   void* scratch, int ma, int da, int mb,
+                                   int db, void* stream) {
+  return split_pair(a, ma, da, b, mb, db, scratch, stream);
 }
 
 extern "C" const char* spgrid_error_string(int code) {

@@ -84,7 +84,25 @@
 // bf16 once, from the slab. Bound on the H100: the bytes of the bf16 blocks,
 // X and Y once, or the blocks' dense work at 989 TFLOP/s, whichever is
 // larger.
-#include "bf16_mma.cuh"
+//
+// The 3-pass form, 4c (the Pallas body's dot, bsr_spmm_cstat.py:136, at
+// matmul precision 'high': each f32 block times its X tile as A_hi X_hi +
+// A_hi X_lo + A_lo X_hi, added into the band's f32 slab in block order).
+// Bound on the H100: the bytes of the function (the f32 blocks and X read
+// once, Y written once) at 3.35 TB/s, or three times the blocks' dense
+// work at 989 TFLOP/s, whichever is larger; the split planes are scratch
+// of this design, written and read on top of that. Design: a split pass
+// (bf16x3.cuh's `split_pair`) writes the blocks and X once as bf16 hi and
+// lo planes, zero past bk and n; then 4b's walk (`slab_walk`: its CTAs,
+// slot walk by the slots' band-local block rows, ring and slab), each
+// stage holding the block's hi and lo slices and X's hi and lo slices. A step
+// runs the transposed product three times (`mma_step_x3`): X_hi^T A_hi^T
+// into fresh accumulators added to the block's hi sum, X_hi^T A_lo^T and
+// X_lo^T A_hi^T straight into its cross sum (as 3c's cross sum); at the
+// block's end cross + hi goes into the slab at its window. Y in f32 from
+// the slab, each element once. One CTA an SM (the ring of 50 KB stages and
+// the slab: 189,440 bytes).
+#include "bf16x3.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -338,6 +356,104 @@ __device__ __forceinline__ void add_block(float (&v)[NT / 2], float* slab,
       }
 }
 
+// A CTA of the bf16 forms' launch: band `band`, its block rows r0 .. r0 +
+// per - 1 (a slice), Y's columns n0 .. n0 + ncols - 1.
+struct SlabCta {
+  int band, r0, n0, ncols;
+};
+
+__device__ __forceinline__ SlabCta slab_cta(int n, int per, int slices) {
+  const int n0 = blockIdx.y * NT;
+  return SlabCta{static_cast<int>(blockIdx.x) / slices,
+                 static_cast<int>(blockIdx.x) % slices * per, n0,
+                 min(NT, n - n0)};
+}
+
+// The bf16 forms' walk, 4b's and 4c's (see the top of this file): the
+// slice's slab zeroed; the band's slots whose local block rows lie in the
+// slice, a block BF_TK columns a step, through a cp.async ring of
+// BF_STAGES stages of STAGE_BYTES; then Y from the slab, each element
+// once. The form supplies a step's copies, load(st, slot, k0, xr0) (block
+// `slot`'s columns k0 on and X's rows xr0 on into stage st), its product,
+// step(st) (the warpgroups that hold block rows), the close of a block,
+// close(window) (its sums into the slab at block row `window` of the
+// slice, restarting them), and Y's store, store(row, j, v) (Y row `row`,
+// the tile's columns j .. j + 3 from v, j < ncols).
+template <int STAGE_BYTES, class Load, class Step, class Close, class Store>
+__device__ __forceinline__ void slab_walk(
+    const SlabCta& c, const int* __restrict__ counts,
+    const int* __restrict__ lrows, const int* __restrict__ cols,
+    unsigned char* ring, float* slab, int max_nb, int band_rows, int bm,
+    int bk, int m, int per, const Frag& f, Load load, Step step, Close close,
+    Store store) {
+  __shared__ int meta[BF_STAGES];   // window of each step's block; -1: none
+  __shared__ int opens[BF_STAGES];  // 1 where the step is its block's first
+  const int t = threadIdx.x;
+  const int nq = (bk + BF_TK - 1) / BF_TK;  // steps a block
+  const int end = c.band * max_nb + counts[c.band];
+  for (int e = t; e < per * bm * BF_S_LD; e += THREADS) slab[e] = 0.0f;
+
+  // The loads' cursor: slot ls, its step lq. Every thread keeps the same.
+  int ls = next_slot(lrows, c.band * max_nb, end, c.r0, per);
+  int lq = 0;
+  auto issue = [&](int stage) {
+    unsigned char* st = ring + stage * STAGE_BYTES;
+    if (ls >= end) {
+      if (t == 0) meta[stage] = -1;
+      return;
+    }
+    const int k0 = lq * BF_TK;
+    load(st, ls, k0, static_cast<long long>(cols[ls]) * bk + k0);
+    if (t == 0) {
+      meta[stage] = lrows[ls] - c.r0;
+      opens[stage] = lq == 0;
+    }
+    if (++lq == nq) {
+      lq = 0;
+      ls = next_slot(lrows, ls + 1, end, c.r0, per);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < BF_STAGES - 1; ++s) {
+    issue(s);
+    cp_async_commit();
+  }
+  int window = -1;  // the block row of the current block's sums
+  for (int it = 0;; ++it) {
+    cp_async_wait<BF_STAGES - 2>();
+    fence_proxy_async();  // the copies land before the tensor cores read
+    __syncthreads();      // step it has landed; step it - 1 is consumed
+    const int stage = it % BF_STAGES;
+    const int w = meta[stage];
+    if (w < 0) break;  // the same for every thread of the CTA
+    const bool first = opens[stage] != 0;
+    issue((it + BF_STAGES - 1) % BF_STAGES);
+    cp_async_commit();
+    if (first && window >= 0) close(window);
+    window = w;
+    if (64 * f.wg < bm) step(ring + stage * STAGE_BYTES);
+  }
+  cp_async_wait<0>();
+  if (window >= 0) close(window);
+  __syncthreads();  // every block's sums are in the slab
+
+  const long long row0 = static_cast<long long>(c.band) * band_rows +
+                         static_cast<long long>(c.r0) * bm;
+  const long long left = static_cast<long long>(m) - row0;
+  const int slice_rows = min(per, band_rows / bm - c.r0) * bm;
+  const int rows = left < slice_rows ? static_cast<int>(left) : slice_rows;
+  for (int e = t; e < rows * (NT / 4); e += THREADS) {
+    const int i = e / (NT / 4);
+    const int j = e % (NT / 4) * 4;
+    if (j < c.ncols) {
+      store(static_cast<size_t>(row0 + i), j,
+            *reinterpret_cast<const float4*>(slab + i * BF_S_LD + j));
+    }
+  }
+}
+
+// 4b: bf16 blocks and X, Y rounded once from the slab.
 __global__ void __launch_bounds__(THREADS, 2)
 bsr_spmm_cstat_bf16_kernel(const int* __restrict__ counts,
                            const int* __restrict__ lrows,
@@ -350,94 +466,159 @@ bsr_spmm_cstat_bf16_kernel(const int* __restrict__ counts,
   using Stage = RowStage<true>;
   unsigned char* ring = aligned_ring();
   float* slab = reinterpret_cast<float*>(ring + BF_STAGES * Stage::BYTES);
-  __shared__ int meta[BF_STAGES];   // window of each step's block; -1: none
-  __shared__ int opens[BF_STAGES];  // 1 where the step is its block's first
-  const int band = blockIdx.x / slices;
-  const int r0 = (blockIdx.x % slices) * per;  // first block row of the slice
-  const int n0 = blockIdx.y * NT;
-  const int ncols = min(NT, n - n0);
-  const int t = threadIdx.x;
+  const SlabCta c = slab_cta(n, per, slices);
   const Frag f = frag();
-  const int fill = bm > 64 ? ROWS : 64;          // block rows wgmma reads
-  const int nq = (bk + BF_TK - 1) / BF_TK;       // steps a block
-  const int end = band * max_nb + counts[band];
-  for (int e = t; e < per * bm * BF_S_LD; e += THREADS) slab[e] = 0.0f;
+  const int fill = bm > 64 ? ROWS : 64;  // block rows wgmma reads
+  float blk[NT / 2] = {};                // the current block's sums
+  slab_walk<Stage::BYTES>(
+      c, counts, lrows, cols, ring, slab, max_nb, band_rows, bm, bk, m, per,
+      f,
+      [&](unsigned char* st, int ls, int k0, long long xr0) {
+        const int depth = min(BF_TK, bk - k0);
+        const long long x_left = static_cast<long long>(k) - xr0;
+        const int x_depth = x_left < depth
+                                ? static_cast<int>(max(x_left, 0LL))
+                                : depth;
+        stage_panel(st, blocks + static_cast<size_t>(ls) * bm * bk + k0, bk,
+                    bm, depth, fill, a16);
+        stage_nmajor_bf16(reinterpret_cast<unsigned short*>(st + PANEL_BYTES),
+                          x + static_cast<size_t>(xr0) * n + c.n0, n, x_depth,
+                          c.ncols, x16);
+      },
+      [&](const unsigned char* st) {
+        StepFrags a;
+        xt_frags(a, reinterpret_cast<const unsigned short*>(st + PANEL_BYTES),
+                 f);
+        mma_step(blk, a, descriptor_sw128(st + f.wg * 64 * 128));
+      },
+      [&](int window) { add_block(blk, slab, window, bm, f); },
+      [&](size_t row, int j, const float4& v) {
+        store_bf16x4(y + row * n + c.n0 + j, v, c.ncols - j, y8);
+      });
+}
 
-  // The loads' cursor: slot ls, its step lq. Every thread keeps the same.
-  int ls = next_slot(lrows, band * max_nb, end, r0, per);
-  int lq = 0;
-  auto issue = [&](int stage) {
-    unsigned char* st = ring + stage * Stage::BYTES;
-    if (ls >= end) {
-      if (t == 0) meta[stage] = -1;
-      return;
-    }
-    const int k0 = lq * BF_TK;
-    const int depth = min(BF_TK, bk - k0);
-    const long long xr0 = static_cast<long long>(cols[ls]) * bk + k0;
-    const long long x_left = static_cast<long long>(k) - xr0;
-    const int x_depth = x_left < depth ? static_cast<int>(max(x_left, 0LL))
-                                       : depth;
-    stage_panel(st, blocks + static_cast<size_t>(ls) * bm * bk + k0, bk, bm,
-                depth, fill, a16);
-    stage_nmajor_bf16(reinterpret_cast<unsigned short*>(st + PANEL_BYTES),
-                      x + static_cast<size_t>(xr0) * n + n0, n, x_depth,
-                      ncols, x16);
-    if (t == 0) {
-      meta[stage] = lrows[ls] - r0;
-      opens[stage] = lq == 0;
-    }
-    if (++lq == nq) {
-      lq = 0;
-      ls = next_slot(lrows, ls + 1, end, r0, per);
-    }
-  };
+// ---- The 3-pass form, 4c (see the top of this file).
 
+// A stage: the block's hi and lo (128 x 64) slices, swizzled, then X's hi
+// and lo (64 x 64) slices, N-major (row stride XH_LD).
+constexpr int X3C_X_BYTES = BF_TK * XH_LD * 2;
+constexpr int X3C_STAGE_BYTES = 2 * PANEL_BYTES + 2 * X3C_X_BYTES;
+constexpr size_t X3C_SMEM = BF_STAGES * X3C_STAGE_BYTES + SWIZZLE_BYTES +
+                            sizeof(float) * BM_MAX * BF_S_LD;
+static_assert(X3C_STAGE_BYTES % SWIZZLE_BYTES == 0,
+              "every stage's block slices start on a swizzle atom");
+static_assert(X3C_SMEM <= 232448, "one CTA an SM");
+
+// A step of the transposed product in three bf16 passes: hi += X_hi^T
+// A_hi^T (four wgmma m64n64k16 into fresh accumulators, added in f32) and
+// cross += X_hi^T A_lo^T + X_lo^T A_hi^T (straight into the cross sum).
+__device__ __forceinline__ void mma_step_x3(float (&hi)[NT / 2],
+                                            float (&cross)[NT / 2],
+                                            StepFrags& xh, StepFrags& xl,
+                                            uint64_t bh, uint64_t bl) {
+  float d[NT / 2];
+  wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < BF_STAGES - 1; ++s) {
-    issue(s);
-    cp_async_commit();
+  for (int s = 0; s < BF_TK / 16; ++s) {
+    wgmma_bf16(d, xh[s], bh + 32 / 16 * s, s > 0);
   }
-  float blk[NT / 2] = {};  // the current block's sums
-  int window = -1;         // the block row they belong to
-  for (int it = 0;; ++it) {
-    cp_async_wait<BF_STAGES - 2>();
-    fence_proxy_async();  // the copies land before the tensor cores read
-    __syncthreads();      // step it has landed; step it - 1 is consumed
-    const int stage = it % BF_STAGES;
-    const int w = meta[stage];
-    if (w < 0) break;  // the same for every thread of the CTA
-    const bool first = opens[stage] != 0;
-    issue((it + BF_STAGES - 1) % BF_STAGES);
-    cp_async_commit();
-    if (first && window >= 0) add_block(blk, slab, window, bm, f);
-    window = w;
-    if (64 * f.wg < bm) {
-      const unsigned char* st = ring + stage * Stage::BYTES;
-      StepFrags a;
-      xt_frags(a, reinterpret_cast<const unsigned short*>(st + PANEL_BYTES),
-               f);
-      mma_step(blk, a, descriptor_sw128(st + f.wg * 64 * 128));
+#pragma unroll
+  for (int s = 0; s < BF_TK / 16; ++s) {
+    wgmma_bf16(cross, xh[s], bl + 32 / 16 * s, 1);
+    wgmma_bf16(cross, xl[s], bh + 32 / 16 * s, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int s = 0; s < BF_TK / 16; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(xh[s][e]);
+      fence_operand(xl[s][e]);
     }
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) {
+    fence_operand(d[e]);
+    fence_operand(cross[e]);
+    hi[e] += d[e];
   }
-  cp_async_wait<0>();
-  if (window >= 0) add_block(blk, slab, window, bm, f);
-  __syncthreads();  // every block's sums are in the slab
+}
 
-  const long long row0 = static_cast<long long>(band) * band_rows +
-                         static_cast<long long>(r0) * bm;
-  const long long left = static_cast<long long>(m) - row0;
-  const int slice_rows = min(per, band_rows / bm - r0) * bm;
-  const int rows = left < slice_rows ? static_cast<int>(left) : slice_rows;
-  for (int e = t; e < rows * (NT / 4); e += THREADS) {
-    const int i = e / (NT / 4);
-    const int j = e % (NT / 4) * 4;
-    if (j < ncols) {
-      store_bf16x4(y + static_cast<size_t>(row0 + i) * n + n0 + j,
-                   *reinterpret_cast<const float4*>(slab + i * BF_S_LD + j),
-                   ncols - j, y8);
-    }
+// The block's sum, cross + hi as the plain version adds them, into its
+// window of the slab (add_block); both restart at zero.
+__device__ __forceinline__ void add_block_x3(float (&hi)[NT / 2],
+                                             float (&cross)[NT / 2],
+                                             float* slab, int window, int bm,
+                                             const Frag& f) {
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) {
+    cross[e] += hi[e];
+    hi[e] = 0.0f;
   }
+  add_block(cross, slab, window, bm, f);
+}
+
+// 4c: slab_walk on split planes, the blocks' hi and lo planes (a_hi,
+// a_lo: slot s's row i at row s bm + i, dpa columns) and X's (x_hi, x_lo:
+// dpx columns), both zero past their widths; Y in f32.
+__global__ void __launch_bounds__(THREADS, 1)
+bsr_spmm_cstat_bf16x3_kernel(const int* __restrict__ counts,
+                             const int* __restrict__ lrows,
+                             const int* __restrict__ cols,
+                             const unsigned short* __restrict__ a_hi,
+                             const unsigned short* __restrict__ a_lo,
+                             const unsigned short* __restrict__ x_hi,
+                             const unsigned short* __restrict__ x_lo,
+                             float* __restrict__ y, int max_nb,
+                             int band_rows, int bm, int bk, int dpa, int dpx,
+                             int m, int k, int n, int per, int slices,
+                             bool y16) {
+  unsigned char* ring = aligned_ring();
+  float* slab = reinterpret_cast<float*>(ring + BF_STAGES * X3C_STAGE_BYTES);
+  const SlabCta c = slab_cta(n, per, slices);
+  const Frag f = frag();
+  const int fill = bm > 64 ? ROWS : 64;  // block rows wgmma reads
+  float hi[NT / 2] = {};                 // the current block's hi sums
+  float cross[NT / 2] = {};              // and its cross sums
+  slab_walk<X3C_STAGE_BYTES>(
+      c, counts, lrows, cols, ring, slab, max_nb, band_rows, bm, bk, m, per,
+      f,
+      [&](unsigned char* st, int ls, int k0, long long xr0) {
+        const long long x_left = static_cast<long long>(k) - xr0;
+        const int x_depth = x_left < BF_TK
+                                ? static_cast<int>(max(x_left, 0LL))
+                                : BF_TK;
+        // the planes are zero past bk and n: whole 16-byte lines throughout
+        const size_t a_at = static_cast<size_t>(ls) * bm * dpa + k0;
+        stage_panel(st, a_hi + a_at, dpa, bm, BF_TK, fill, true);
+        stage_panel(st + PANEL_BYTES, a_lo + a_at, dpa, bm, BF_TK, fill,
+                    true);
+        const size_t x_at = static_cast<size_t>(xr0) * dpx + c.n0;
+        unsigned short* xs =
+            reinterpret_cast<unsigned short*>(st + 2 * PANEL_BYTES);
+        stage_nmajor_bf16(xs, x_hi + x_at, dpx, x_depth, NT, true);
+        stage_nmajor_bf16(xs + BF_TK * XH_LD, x_lo + x_at, dpx, x_depth, NT,
+                          true);
+      },
+      [&](const unsigned char* st) {
+        const unsigned short* xs =
+            reinterpret_cast<const unsigned short*>(st + 2 * PANEL_BYTES);
+        StepFrags xh, xl;
+        xt_frags(xh, xs, f);
+        xt_frags(xl, xs + BF_TK * XH_LD, f);
+        mma_step_x3(hi, cross, xh, xl, descriptor_sw128(st + f.wg * 64 * 128),
+                    descriptor_sw128(st + PANEL_BYTES + f.wg * 64 * 128));
+      },
+      [&](int window) { add_block_x3(hi, cross, slab, window, bm, f); },
+      [&](size_t row, int j, const float4& v) {
+        float* p = y + row * n + c.n0 + j;
+        if (y16) {  // ncols % 4 == 0
+          *reinterpret_cast<float4*>(p) = v;
+          return;
+        }
+        const float w[4] = {v.x, v.y, v.z, v.w};
+        for (int i = 0; i < 4 && j + i < c.ncols; ++i) p[i] = w[i];
+      });
 }
 
 // The launch's shape: {CTAs, NT, rows of a slice}. NT = 128 where its grid
@@ -543,6 +724,70 @@ extern "C" int spgrid_bsr_spmm_cstat_bf16(const void* counts,
   }
   return launch_bf16(counts, lrows, cols, blocks, x, y, bands, max_nb,
                      band_rows, bm, bk, m, k, n, stream);
+}
+
+// out (int[3]) = {CTAs, output columns a CTA, rows a CTA's slice} of the
+// launch spgrid_bsr_spmm_cstat_bf16x3 makes for these sizes (NT = 64);
+// scratch (long long[1]) = the bytes of its split planes: the slots'
+// blocks (bands max_nb bm rows of bk), then X's (k rows of n).
+extern "C" int spgrid_bsr_spmm_cstat_bf16x3_shape(int bands, int max_nb,
+                                                  int band_rows, int bm,
+                                                  int bk, int k, int n,
+                                                  void* out, void* scratch) {
+  if (bm > BM_MAX || bm <= 0 || bk <= 0 || band_rows % bm != 0 ||
+      bands <= 0 || max_nb <= 0 || k < 0 || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *static_cast<long long*>(scratch) =
+      plane_pair_bytes(static_cast<long long>(bands) * max_nb * bm, bk) +
+      plane_pair_bytes(plane_rows(k), n);
+  return spgrid_bsr_spmm_cstat_bf16_shape(bands, band_rows, bm, n, out);
+}
+
+// 4c: blocks, x and y in f32 at matmul precision 'high', the same
+// arguments as spgrid_bsr_spmm_cstat and scratch (on 16 B) the bytes
+// spgrid_bsr_spmm_cstat_bf16x3_shape reports. Two launches: the split pass
+// (the blocks and X), then the slab kernel.
+extern "C" int spgrid_bsr_spmm_cstat_bf16x3(const void* counts,
+                                            const void* lrows,
+                                            const void* cols,
+                                            const void* blocks, const void* x,
+                                            void* y, void* scratch, int bands,
+                                            int max_nb, int band_rows, int bm,
+                                            int bk, int m, int k, int n,
+                                            void* stream) {
+  const long long rows = static_cast<long long>(bands) * max_nb * bm;
+  if (bm > BM_MAX || bm <= 0 || bk <= 0 || band_rows % bm != 0 ||
+      bands <= 0 || max_nb <= 0 || k < 0 || n <= 0 || rows > INT_MAX ||
+      (n + NT - 1) / NT > 65535 || !aligned16(scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int split = split_pair(blocks, static_cast<int>(rows), bk, x, k, n,
+                               scratch, stream);
+  if (split != 0) return split;
+  const long long dpa = plane_cols(bk);
+  const long long dpx = plane_cols(n);
+  const unsigned short* a_hi = static_cast<const unsigned short*>(scratch);
+  const unsigned short* x_hi = a_hi + 2 * rows * dpa;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      bsr_spmm_cstat_bf16x3_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(X3C_SMEM));
+  if (attr != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch's check is clean
+    return static_cast<int>(attr);
+  }
+  const int per = BM_MAX / bm;
+  const int slices = (band_rows / bm + per - 1) / per;
+  const dim3 grid(bands * slices, (n + NT - 1) / NT);
+  bsr_spmm_cstat_bf16x3_kernel<<<grid, THREADS, X3C_SMEM,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), static_cast<const int*>(lrows),
+      static_cast<const int*>(cols), a_hi, a_hi + rows * dpa, x_hi,
+      x_hi + plane_rows(k) * dpx, static_cast<float*>(y), max_nb, band_rows,
+      bm, bk, static_cast<int>(dpa), static_cast<int>(dpx), m, k, n, per,
+      slices, n % 4 == 0 && aligned16(y));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (int[3]) = {CTAs, output columns a CTA, rows a CTA's slice} of the

@@ -29,7 +29,7 @@
 // never visited. Every element of Y is written once, zeros included (a
 // band with no panel writes zeros), with no atomics; rows >= m are never
 // written and X rows >= k read as zero.
-#include "bf16_mma.cuh"
+#include "bf16x3.cuh"
 
 namespace {
 
@@ -103,6 +103,66 @@ panel_spmm_bf16_pipe_kernel(const __grid_constant__ CUtensorMap a_map,
   const int first = slice_ptr[slice];
   bf16_pipe_tile(t, first, slice_ptr[slice + 1] - first, slice_slots, cols,
                  &a_map, &x_map, y, band_rows, bk, m, n, y16);
+}
+
+// 2c, the 3-pass form (the Pallas body's dot at matmul precision 'high' on
+// f32 panels, panel_spmm.py:138): the bf16 panels' launch and live-slice
+// walk on bf16x3.cuh's tile, from split planes. Bound on the H100: the
+// bytes of the function (the live slices' f32 panel rows and X read once,
+// Y written once) at 3.35 TB/s, or three times the live slices' dense work
+// at 989 TFLOP/s, whichever is larger; the split planes are scratch of
+// this design, written and read on top of that. The split writes only
+// what the walk reads, packed: live (panel, slice) pair p, the p-th of
+// slice_slots, has plane rows p 128 .. p 128 + 127 (split_slices_kernel;
+// on LINE_B 316 of the 1,216 pairs), then X (split_pair). A slice shorter
+// than 128 rows leaves its pair's last rows unwritten; TMA reads them, and
+// their products land only in the tile's rows past the slice, which are
+// never stored.
+constexpr int SPLIT_SLICE_CTAS = 16;  // CTAs a slice in the panels' split
+
+// Slice s = band s / slices, its rows (s % slices) 128 on: each of its live
+// pairs' rows split into hi and lo planes of dp columns (pair p's row i at
+// plane row p ROWS + i), SPLIT_SLICE_CTAS CTAs a slice.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_slices_kernel(const float* __restrict__ panels,
+                    const int* __restrict__ slice_ptr,
+                    const int* __restrict__ slice_slots,
+                    unsigned short* __restrict__ hi,
+                    unsigned short* __restrict__ lo, int band_rows, int bk,
+                    int dp, int slices, bool a16) {
+  const int s = blockIdx.x;
+  const int i0 = s % slices * ROWS;
+  const int rows = min(ROWS, band_rows - i0);
+  const int first = slice_ptr[s];
+  const int chunks = dp / 8;
+  const long long work =
+      static_cast<long long>(slice_ptr[s + 1] - first) * rows * chunks;
+  for (long long e = static_cast<long long>(blockIdx.y) * SPLIT_THREADS +
+                     threadIdx.x;
+       e < work; e += static_cast<long long>(gridDim.y) * SPLIT_THREADS) {
+    const int c = static_cast<int>(e % chunks) * 8;
+    const long long pair_row = e / chunks;
+    const int p = first + static_cast<int>(pair_row / rows);
+    const int i = static_cast<int>(pair_row % rows);
+    const size_t row = static_cast<size_t>(__ldg(slice_slots + p)) *
+                           band_rows + i0 + i;
+    const size_t at = (static_cast<size_t>(p) * ROWS + i) * dp + c;
+    split_chunk(panels + row * bk, bk, c, a16, hi + at, lo + at);
+  }
+}
+
+__global__ void __launch_bounds__(PT_THREADS, 1)
+panel_spmm_bf16x3_kernel(const __grid_constant__ X3Maps maps,
+                         const int* __restrict__ slice_ptr,
+                         const int* __restrict__ slice_slots,
+                         const int* __restrict__ cols, float* y,
+                         int band_rows, int bk, int m, int n, int slices,
+                         int col_tiles, bool y16) {
+  const RowTile t = listed_tile<PT_NT>(nullptr, slices, col_tiles);
+  const int slice = t.r * slices + t.i0 / ROWS;
+  const int first = slice_ptr[slice];
+  x3_pipe_tile(t, first, slice_ptr[slice + 1] - first, slice_slots, cols,
+               maps.m, y, band_rows, bk, m, n, ROWS, 0, y16);
 }
 
 }  // namespace
@@ -205,4 +265,93 @@ extern "C" int spgrid_panel_spmm_bf16(const void* slice_ptr,
       static_cast<const unsigned short*>(panels), x, y, band_rows, bk, m, k,
       n, slices, col_tiles, a16, n % 4 == 0 && aligned16(x),
       n % 4 == 0 && aligned16(y));
+}
+
+// The plane rows of 2c's packed panel planes: ROWS a live pair, at least
+// one pair's (TMA takes no empty tensor).
+long long x3_panel_rows(int pairs) {
+  return static_cast<long long>(pairs > 1 ? pairs : 1) * ROWS;
+}
+
+// out (int[6]) = {tiles, cluster, ROWS, PT_NT, BF_TK, X3_STAGES} of the
+// tile launch spgrid_panel_spmm_bf16x3 makes for these sizes at cluster 0;
+// scratch (long long[1]) = the bytes of its split planes: the live pairs'
+// (x3_panel_rows(pairs) rows of bk; pairs = slice_ptr's last entry), then
+// X's (k rows of n).
+extern "C" int spgrid_panel_spmm_bf16x3_shape(int bands, int pairs,
+                                              int band_rows, int bk, int k,
+                                              int n, void* out,
+                                              void* scratch) {
+  if (bands <= 0 || pairs < 0 || band_rows <= 0 || bk <= 0 || k < 0 ||
+      n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *static_cast<long long*>(scratch) =
+      plane_pair_bytes(x3_panel_rows(pairs), bk) +
+      plane_pair_bytes(plane_rows(k), n);
+  return report_shape(
+      pipe_tiles(static_cast<long long>(bands) *
+                     ((band_rows + ROWS - 1) / ROWS), n),
+      out, BF_TK, X3_STAGES, PT_NT, PT_SHARE);
+}
+
+// 2c's split: the live pairs' panel rows (packed, as x3_panel_rows lays
+// them), then X's, into scratch (on 16 B) of the bytes
+// spgrid_panel_spmm_bf16x3_shape reports. Two launches.
+extern "C" int spgrid_panel_spmm_bf16x3_split(
+    const void* slice_ptr, const void* slice_slots, const void* panels,
+    const void* x, void* scratch, int bands, int pairs, int band_rows,
+    int bk, int k, int n, void* stream) {
+  const long long rows = x3_panel_rows(pairs);
+  if (bands <= 0 || pairs < 0 || band_rows <= 0 || bk <= 0 || k < 0 ||
+      n <= 0 || rows > INT_MAX || !aligned16(scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int slices = (band_rows + ROWS - 1) / ROWS;
+  const long long dp = plane_cols(bk);
+  unsigned short* planes = static_cast<unsigned short*>(scratch);
+  split_slices_kernel<<<dim3(static_cast<unsigned>(bands * slices),
+                             SPLIT_SLICE_CTAS),
+                        SPLIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(panels), static_cast<const int*>(slice_ptr),
+      static_cast<const int*>(slice_slots), planes, planes + rows * dp,
+      band_rows, bk, static_cast<int>(dp), slices,
+      bk % 4 == 0 && aligned16(panels));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return split_pair(x, k, n, nullptr, -1, 0, planes + 2 * rows * dp, stream);
+}
+
+// 2c: f32 panels, X and Y at matmul precision 'high', walked by the
+// live-slice index as the bf16 forms (pairs = slice_ptr's last entry);
+// scratch (on 16 B) the bytes spgrid_panel_spmm_bf16x3_shape reports.
+// Three launches: the live pairs' split, X's split, then the tiles.
+// cluster: 0 for the launch rule, else 1, 2, 4 or 8.
+extern "C" int spgrid_panel_spmm_bf16x3(const void* slice_ptr,
+                                        const void* slice_slots,
+                                        const void* cols, const void* panels,
+                                        const void* x, void* y, void* scratch,
+                                        int bands, int pairs, int band_rows,
+                                        int bk, int m, int k, int n,
+                                        int cluster, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int split = spgrid_panel_spmm_bf16x3_split(
+      slice_ptr, slice_slots, panels, x, scratch, bands, pairs, band_rows,
+      bk, k, n, stream);
+  if (split != 0) return split;
+  const long long rows = x3_panel_rows(pairs);
+  const unsigned short* planes = static_cast<const unsigned short*>(scratch);
+  X3Maps maps;
+  if (!x3_maps(maps, planes, rows, bk, planes + 2 * rows * plane_cols(bk),
+               k, n)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const int slices = (band_rows + ROWS - 1) / ROWS;
+  return launch_cta_tiles(
+      panel_spmm_bf16x3_kernel,
+      pipe_tiles(static_cast<long long>(bands) * slices, n), cluster,
+      X3_SMEM, PT_THREADS, PT_SHARE, stream, maps,
+      static_cast<const int*>(slice_ptr), static_cast<const int*>(slice_slots),
+      static_cast<const int*>(cols), static_cast<float*>(y), band_rows, bk, m,
+      n, slices, (n + PT_NT - 1) / PT_NT, n % 4 == 0 && aligned16(y));
 }

@@ -104,11 +104,12 @@
 // one buffer and no ring, so no step's loads overlapped the previous
 // step's products.
 // The design now:
-// - Split once. A pass of its own (`split_planes_kernel`, a thread 8
-//   columns of a row) writes Q and K as bf16 hi and lo planes into scratch
-//   that the wrapper allocates: rows of plane_cols(d) (d rounded up to whole
-//   64-deep steps, zeros past d), so every row lies on 16 bytes and every
-//   step is a whole TMA box; rows past mq and mk are read as zeros by TMA.
+// - Split once. A pass of its own (`split_pair` of bf16x3.cuh, which the
+//   SpMMs' 3-pass forms share; a thread 8 columns of a row) writes Q and K
+//   as bf16 hi and lo planes into scratch that the wrapper allocates: rows
+//   of plane_cols(d) (d rounded up to whole 64-deep steps, zeros past d),
+//   so every row lies on 16 bytes and every step is a whole TMA box; rows
+//   past mq and mk are read as zeros by TMA.
 // - A TMA-fed tile of 128 x 128 outputs (a mask block's 128-row slice by
 //   128 of its columns: each Q slice feeds twice the columns of the first
 //   form's 64), on bf16_mma.cuh's pipelined machinery: a ring of X3_STAGES
@@ -143,7 +144,7 @@
 // first loads and epilogue overlap no other tile's steps.
 #include <algorithm>
 
-#include "bf16_mma.cuh"
+#include "bf16x3.cuh"
 
 namespace {
 
@@ -205,122 +206,30 @@ bsr_sddmm_kernel(const int* __restrict__ block_rows,
   });
 }
 
-// ---- The 3-pass form (see the top of this file).
+// ---- The 3-pass form (see the top of this file). Its ring, its constants
+// and the split pass are bf16x3.cuh's, which the SpMMs' 3-pass forms share.
 
-constexpr int X3_STAGES = 3;                      // steps in the ring
-constexpr int X3_BOX_BYTES = ROWS * BF_TK * 2;    // a 128 x 64 bf16 box
-// a step's Q_hi, Q_lo, K_hi and K_lo boxes (K's PT_NT rows as Q's ROWS)
-constexpr int X3_STAGE_BYTES = 4 * X3_BOX_BYTES;
-constexpr int X3_RING_BYTES = X3_STAGES * X3_STAGE_BYTES;
-constexpr size_t X3_SMEM =
-    X3_RING_BYTES + SWIZZLE_BYTES + 2 * X3_STAGES * sizeof(uint64_t);
-constexpr int SPLIT_THREADS = 256;
-static_assert(PT_NT == ROWS, "a K box has as many rows as a Q box");
-static_assert(X3_BOX_BYTES % SWIZZLE_BYTES == 0,
-              "every box starts on a swizzle atom");
-static_assert(ROWS * PT_RED_LD * sizeof(float) <= X3_RING_BYTES,
-              "the partial tile fits in the ring");
-
-// A split plane: plane_rows(m) rows of plane_cols(d) bf16, d rounded up to
-// whole steps (at least one), so that every row lies on 16 bytes and every
-// step is a whole TMA box. The scratch holds Q_hi, Q_lo, K_hi, K_lo in that
-// order.
-int plane_rows(int m) { return m > 1 ? m : 1; }
-
-long long plane_cols(int d) {
-  return d > BF_TK ? (d + BF_TK - 1LL) / BF_TK * BF_TK : BF_TK;
-}
-
+// The split planes' bytes: Q's plane_rows(mq), then K's plane_rows(mk),
+// each hi and lo, of plane_cols(d).
 long long x3_scratch_bytes(int mq, int mk, int d) {
-  return 2LL * 2 * (plane_rows(mq) + plane_rows(mk)) * plane_cols(d);
-}
-
-// The bf16 parts of v: hi = v rounded, lo = (v - hi) rounded.
-__device__ __forceinline__ void split_bf16(float v, unsigned short& hi,
-                                           unsigned short& lo) {
-  hi = round_bf16(v);
-  lo = round_bf16(v - widen(hi));
-}
-
-// The split pass: a thread the 8 columns c .. c + 7 of one plane row, the
-// Q rows first, then the K rows. Row r < m of an operand (row stride d):
-// hi and lo of each value, zeros past d; rows >= m zeros. float4 loads
-// where `vec` (d % 4 == 0, the operand on 16 B), else 4-byte ones; one
-// 16-byte store a plane.
-__global__ void __launch_bounds__(SPLIT_THREADS)
-split_planes_kernel(const float* __restrict__ q,
-                    const float* __restrict__ kmat,
-                    unsigned short* __restrict__ planes, int mq, int mk,
-                    int d, int rq, int rk, int dp, bool q16, bool k16) {
-  const int chunks = dp / 8;
-  const long long e =
-      static_cast<long long>(blockIdx.x) * SPLIT_THREADS + threadIdx.x;
-  if (e >= (static_cast<long long>(rq) + rk) * chunks) return;
-  long long r = e / chunks;
-  const int c = static_cast<int>(e % chunks) * 8;
-  const float* src = q;
-  int m = mq;
-  bool vec = q16;
-  size_t plane = static_cast<size_t>(rq) * dp;
-  unsigned short* hi = planes;
-  if (r >= rq) {
-    r -= rq;
-    src = kmat;
-    m = mk;
-    vec = k16;
-    hi = planes + 2 * plane;
-    plane = static_cast<size_t>(rk) * dp;
-  }
-  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (r < m) {
-    const float* p = src + static_cast<size_t>(r) * d;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int cc = c + 4 * h;
-      if (vec && cc + 4 <= d) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p + cc));
-        v[4 * h] = t.x;
-        v[4 * h + 1] = t.y;
-        v[4 * h + 2] = t.z;
-        v[4 * h + 3] = t.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (cc + i < d) v[4 * h + i] = __ldg(p + cc + i);
-        }
-      }
-    }
-  }
-  unsigned short h[8], l[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) split_bf16(v[i], h[i], l[i]);
-  const size_t at = static_cast<size_t>(r) * dp + c;
-  *reinterpret_cast<uint4*>(hi + at) =
-      make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]),
-                 pack_bf16(h[4], h[5]), pack_bf16(h[6], h[7]));
-  *reinterpret_cast<uint4*>(hi + plane + at) =
-      make_uint4(pack_bf16(l[0], l[1]), pack_bf16(l[2], l[3]),
-                 pack_bf16(l[4], l[5]), pack_bf16(l[6], l[7]));
+  return plane_pair_bytes(plane_rows(mq), d) +
+         plane_pair_bytes(plane_rows(mk), d);
 }
 
 // Tile (block b, its rows i0 .. i0 + 127, its columns j0 .. j0 + 127): rank
 // r of the cluster takes the steps [S r / C, S (r + 1) / C) of the tile's
-// S = ceil(d / 64). The maps are the four planes in boxes of 128 rows x 64
-// columns with the 128-byte swizzle; TMA fills the rows past mq or mk with
-// zeros.
+// S = ceil(d / 64). The maps are the four planes (Q_hi, Q_lo, K_hi, K_lo)
+// in boxes of 128 rows x 64 columns with the 128-byte swizzle; TMA fills
+// the rows past mq or mk with zeros. The ring and the 3-pass step are
+// bf16x3.cuh's (`x3_consume<0>`: K's boxes K-major).
 __global__ void __launch_bounds__(PT_THREADS, 1)
-bsr_sddmm_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
-                        const __grid_constant__ CUtensorMap ql_map,
-                        const __grid_constant__ CUtensorMap kh_map,
-                        const __grid_constant__ CUtensorMap kl_map,
+bsr_sddmm_bf16x3_kernel(const __grid_constant__ X3Maps maps,
                         const int* __restrict__ block_rows,
                         const int* __restrict__ block_cols,
                         const float* __restrict__ mask,
                         float* __restrict__ out, int bm, int bk, int mq,
                         int mk, int d, int slices, int col_tiles, bool o16) {
-  unsigned char* ring = aligned_ring();
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + X3_RING_BYTES);
-  uint64_t* empty = full + X3_STAGES;
+  const X3Ring ring = x3_ring(maps.m);
   const int ranks = static_cast<int>(cg::this_cluster().num_blocks());
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int tile = blockIdx.x / ranks;
@@ -335,20 +244,6 @@ bsr_sddmm_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
   const int nq = q0 < mq && k0 < mk ? (d + BF_TK - 1) / BF_TK : 0;
   const int s0 = nq * rank / ranks;
   const int steps = nq * (rank + 1) / ranks - s0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < X3_STAGES; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, THREADS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  } else if (threadIdx.x == THREADS) {
-    // the four descriptors' fetch, under the barriers' set-up
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&qh_map) : "memory");
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&ql_map) : "memory");
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&kh_map) : "memory");
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&kl_map) : "memory");
-  }
-  __syncthreads();
 
   if (threadIdx.x >= THREADS) {
     // the producer warpgroup gives up registers; one thread keeps the ring
@@ -364,81 +259,25 @@ bsr_sddmm_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
             m + static_cast<size_t>(e / lines) * bk + e % lines * 32));
       }
     } else if (threadIdx.x == THREADS) {
-      for (int it = 0; it < steps; ++it) {
-        const int s = it % X3_STAGES;
-        if (it >= X3_STAGES) mbar_wait(empty + s, (it / X3_STAGES - 1) & 1);
+      x3_produce(ring, steps, [&](unsigned char* stage, uint64_t* bar,
+                                  int it) {
         const int c0 = (s0 + it) * BF_TK;
-        unsigned char* stage = ring + s * X3_STAGE_BYTES;
-        mbar_arrive_expect_tx(full + s, X3_STAGE_BYTES);
-        tma_load(stage, &qh_map, c0, static_cast<int>(q0), full + s);
-        tma_load(stage + X3_BOX_BYTES, &ql_map, c0, static_cast<int>(q0),
-                 full + s);
-        tma_load(stage + 2 * X3_BOX_BYTES, &kh_map, c0, static_cast<int>(k0),
-                 full + s);
-        tma_load(stage + 3 * X3_BOX_BYTES, &kl_map, c0, static_cast<int>(k0),
-                 full + s);
-      }
+        for (int i = 0; i < 4; ++i) {
+          tma_load(stage + i * X3_BOX_BYTES, maps.m + i, c0,
+                   static_cast<int>(i < 2 ? q0 : k0), bar);
+        }
+      });
     }
     cg::this_cluster().sync();
     cg::this_cluster().sync();
     return;
   }
-  // the consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63
+  // the consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63; cross
+  // + hi, as bsr_sddmm_bf16x3_plain adds them
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(PT_CONSUMER_REGS));
   const Frag f = frag();
-  float hi[PT_NT / 2], cross[PT_NT / 2];
-#pragma unroll
-  for (int e = 0; e < PT_NT / 2; ++e) {
-    hi[e] = 0.0f;
-    cross[e] = 0.0f;
-  }
-  {
-    // step it: Q_hi K_hi into the fresh accumulator dd (one commit group),
-    // then Q_hi K_lo and Q_lo K_hi straight into the cross sum (a second
-    // group); wgmma_wait<1> retires the first, and dd is added to the hi
-    // sum while the cross products run. Groups retire in order, so that
-    // wait also retires step it - 1's cross products: its stage is free.
-    const bool multiplies = 64 * f.wg < rows;
-    float dd[PT_NT / 2];
-    for (int it = 0; it < steps; ++it) {
-      const int s = it % X3_STAGES;
-      mbar_wait(full + s, (it / X3_STAGES) & 1);
-      if (multiplies) {
-        const unsigned char* stage = ring + s * X3_STAGE_BYTES;
-        const uint64_t qh = descriptor_sw128(stage + f.wg * 64 * 128);
-        const uint64_t ql =
-            descriptor_sw128(stage + X3_BOX_BYTES + f.wg * 64 * 128);
-        const uint64_t kh = descriptor_sw128(stage + 2 * X3_BOX_BYTES);
-        const uint64_t kl = descriptor_sw128(stage + 3 * X3_BOX_BYTES);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < BF_TK / 16; ++ks) {
-          wgmma_bf16_ss<0>(dd, qh + 32 / 16 * ks, kh + 32 / 16 * ks, ks > 0);
-        }
-        wgmma_commit();
-#pragma unroll
-        for (int ks = 0; ks < BF_TK / 16; ++ks) {
-          wgmma_bf16_ss<0>(cross, qh + 32 / 16 * ks, kl + 32 / 16 * ks, 1);
-          wgmma_bf16_ss<0>(cross, ql + 32 / 16 * ks, kh + 32 / 16 * ks, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();
-#pragma unroll
-        for (int e = 0; e < PT_NT / 2; ++e) {
-          fence_operand(dd[e]);
-          hi[e] += dd[e];
-        }
-      }
-      if (it > 0) mbar_arrive(empty + (it - 1) % X3_STAGES);
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int e = 0; e < PT_NT / 2; ++e) fence_operand(cross[e]);
-    if (steps > 0) mbar_arrive(empty + (steps - 1) % X3_STAGES);
-  }
-  // the cross sum plus the hi sum, as bsr_sddmm_bf16x3_plain adds them
-#pragma unroll
-  for (int e = 0; e < PT_NT / 2; ++e) cross[e] += hi[e];
+  float cross[PT_NT / 2];
+  x3_consume<0>(ring, steps, 64 * f.wg < rows, f, cross);
 
   // The epilogue: this thread's elements of the tile (four columns each,
   // every ranks * THREADS-th of the tile's rows x PT_NT / 4, as sum_store
@@ -470,7 +309,7 @@ bsr_sddmm_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
 
   // accumulator 4 j + 2 h + c: row 64 wg + 16 w + 8 h + g, column 8 j +
   // 2 q + c of the tile
-  float* part = reinterpret_cast<float*>(ring);
+  float* part = reinterpret_cast<float*>(ring.stages);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 64 * f.wg + 16 * f.w + 8 * h + f.g;
@@ -953,26 +792,6 @@ copy_planes_kernel(const unsigned short* __restrict__ q,
                  pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-// The split pass into `scratch` (x3_scratch_bytes(mq, mk, d) bytes).
-int split_planes(const void* q, const void* kmat, void* scratch, int mq,
-                 int mk, int d, void* stream) {
-  const int rq = plane_rows(mq);
-  const int rk = plane_rows(mk);
-  const long long dp = plane_cols(d);
-  const long long threads = (static_cast<long long>(rq) + rk) * (dp / 8);
-  const long long grid = (threads + SPLIT_THREADS - 1) / SPLIT_THREADS;
-  if (dp > INT_MAX || grid > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  split_planes_kernel<<<static_cast<unsigned>(grid), SPLIT_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kmat),
-      static_cast<unsigned short*>(scratch), mq, mk, d, rq, rk,
-      static_cast<int>(dp), d % 4 == 0 && aligned16(q),
-      d % 4 == 0 && aligned16(kmat));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The 3-pass form's tiles: mask blocks x 128-row slices x 128-column tiles.
 long long x3_tiles(int nb, int bm, int bk) {
   return static_cast<long long>(nb) * ((bm + ROWS - 1) / ROWS) *
@@ -1101,18 +920,6 @@ extern "C" int spgrid_bsr_sddmm_bf16x3_shape(int nb, int bm, int bk, int mq,
                       PT_SHARE);
 }
 
-// The 3-pass form's split pass alone: q (mq x d) and k (mk x d) in f32
-// into the bf16 planes at scratch (for tests and timing; the form runs it
-// itself).
-extern "C" int spgrid_bsr_sddmm_bf16x3_split(const void* q, const void* kmat,
-                                             void* scratch, int mq, int mk,
-                                             int d, void* stream) {
-  if (mq < 0 || mk < 0 || d < 0 || !aligned16(scratch)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return split_planes(q, kmat, scratch, mq, mk, d, stream);
-}
-
 // The 3-pass bf16 form: mask, q, k and out in f32; scratch (on 16 B) the
 // split planes' bytes that spgrid_bsr_sddmm_bf16x3_shape reports. Two
 // launches: the split pass, then the tiles. cluster: 0 for the launch rule
@@ -1127,23 +934,23 @@ extern "C" int spgrid_bsr_sddmm_bf16x3(const void* rows, const void* cols,
       !aligned16(scratch)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int split = split_planes(q, kmat, scratch, mq, mk, d, stream);
+  const int split = split_pair(q, mq, d, kmat, mk, d, scratch, stream);
   if (split != 0) return split;
   const long long rq = plane_rows(mq);
   const long long rk = plane_rows(mk);
   const long long dp = plane_cols(d);
   const unsigned short* planes = static_cast<const unsigned short*>(scratch);
   const unsigned short* k_planes = planes + 2 * rq * dp;
-  CUtensorMap qh_map, ql_map, kh_map, kl_map;
-  if (!bf16_tensor_map(&qh_map, planes, dp, rq, ROWS) ||
-      !bf16_tensor_map(&ql_map, planes + rq * dp, dp, rq, ROWS) ||
-      !bf16_tensor_map(&kh_map, k_planes, dp, rk, PT_NT) ||
-      !bf16_tensor_map(&kl_map, k_planes + rk * dp, dp, rk, PT_NT)) {
+  X3Maps maps;
+  if (!bf16_tensor_map(&maps.m[0], planes, dp, rq, ROWS) ||
+      !bf16_tensor_map(&maps.m[1], planes + rq * dp, dp, rq, ROWS) ||
+      !bf16_tensor_map(&maps.m[2], k_planes, dp, rk, PT_NT) ||
+      !bf16_tensor_map(&maps.m[3], k_planes + rk * dp, dp, rk, PT_NT)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   return launch_cta_tiles(
       bsr_sddmm_bf16x3_kernel, x3_tiles(nb, bm, bk), cluster, X3_SMEM,
-      PT_THREADS, PT_SHARE, stream, qh_map, ql_map, kh_map, kl_map,
+      PT_THREADS, PT_SHARE, stream, maps,
       static_cast<const int*>(rows), static_cast<const int*>(cols),
       static_cast<const float*>(mask), static_cast<float*>(out), bm, bk, mq,
       mk, d, (bm + ROWS - 1) / ROWS, (bk + PT_NT - 1) / PT_NT,

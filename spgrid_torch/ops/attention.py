@@ -8,6 +8,11 @@ With ``xla_only`` (the JAX package's ``use_pallas=False``, the CLI's
 instead: ``xla.spmm_bsr`` and ``sddmm_bsr_xla``. Softmax between SDDMM and
 the final SpMM exists and is off by default, as in the JAX package.
 
+At matmul precision 'high' (``precision="high"``, f32) every stage runs its
+3-pass form: the kernels' ``bsr_spmm_bf16x3`` and ``bsr_sddmm_bf16x3``, or
+the torch ops' ``dense.at_high``, as the JAX pipeline's dots compute under
+``jax.default_matmul_precision("high")`` on the TPU.
+
 Stage types follow the JAX package's: at bf16 the SpMMs and the SDDMM
 kernel return bf16 (the kernels' bf16 forms), the XLA baseline's SDDMM
 returns f32, and the scores are cast to X's type before the final SpMM.
@@ -16,14 +21,16 @@ returns f32, and the scores are cast to X's type before the final SpMM.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from spgrid_torch.formats.csr import CSRMatrix
-from spgrid_torch.ops.dense import full_f32
+from spgrid_torch.ops.dense import at_high, full_f32
 from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm
-from spgrid_torch.ops.kernels.sddmm import bsr_sddmm, bsr_sddmm_plain
+from spgrid_torch.ops.kernels.sddmm import (
+    bsr_sddmm, bsr_sddmm_plain, gather_panels)
 from spgrid_torch.ops.layouts import DeviceBSR
 from spgrid_torch.ops.xla import acc_dtype, segment_sum, spmm_bsr
 
@@ -88,33 +95,47 @@ def blocksparse_softmax(mask: DeviceBSR, s_blocks: torch.Tensor) -> torch.Tensor
         out_dtype)
 
 
-def sddmm_bsr_xla(mask: DeviceBSR, q: torch.Tensor,
-                  k: torch.Tensor) -> torch.Tensor:
+def _bmm_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(a, b.transpose(1, 2))
+
+
+def sddmm_bsr_xla(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
+                  precision=None) -> torch.Tensor:
     """The JAX package's XLA baseline SDDMM on the mask's blocks
     (``_sddmm_bsr_xla``): the Q and K row panels gathered by block
     coordinates (a zero Q panel for the pad row mb), one batched product and
     the mask, in f32 with TF32 off. It is the gather and product of the
-    SDDMM kernel's plain version, so the two are one function."""
+    SDDMM kernel's plain version, so the two are one function; at matmul
+    ``precision`` 'high' the product is ``dense.at_high``'s."""
     full_f32()
     acc = acc_dtype(q)
-    return bsr_sddmm_plain(mask, q.to(acc), k.to(acc))
+    if precision != "high":
+        return bsr_sddmm_plain(mask, q.to(acc), k.to(acc))
+    qg, kg = gather_panels(mask, q, k, acc)
+    return at_high(_bmm_t, qg, kg) * mask.blocks.to(acc)
 
 
-def stage_ops(xla_only: bool = False):
-    """(SpMM, SDDMM) of the pipeline: the kernels, or the JAX package's XLA
-    baselines as torch ops."""
-    return (spmm_bsr, sddmm_bsr_xla) if xla_only else (bsr_spmm, bsr_sddmm)
+def stage_ops(xla_only: bool = False, precision=None):
+    """(SpMM, SDDMM) of the pipeline at matmul ``precision`` (None: the
+    dtype's own): the kernels, or the JAX package's XLA baselines as torch
+    ops."""
+    ops = (spmm_bsr, sddmm_bsr_xla) if xla_only else (bsr_spmm, bsr_sddmm)
+    if precision is None:
+        return ops
+    return tuple(functools.partial(op, precision=precision) for op in ops)
 
 
 def attention_pipeline(attn: SparseAttention, x: torch.Tensor, *,
-                       xla_only: bool = False, softmax: bool = False):
-    """Run the 5-stage pipeline; returns (y, stages dict).
+                       xla_only: bool = False, softmax: bool = False,
+                       precision=None):
+    """Run the 5-stage pipeline at matmul ``precision`` (None: the dtype's
+    own); returns (y, stages dict).
 
       K = W_K @ X ; Q = W_Q @ X ; V = W_V @ X          (3x weight SpMM)
       S = mask ⊙ (Q @ K^T)                              (SDDMM)
       Y = S @ V                                         (final SpMM)
     """
-    spmm, sddmm = stage_ops(xla_only)
+    spmm, sddmm = stage_ops(xla_only, precision)
     k = spmm(attn.wk, x)
     q = spmm(attn.wq, x)
     v = spmm(attn.wv, x)
@@ -125,12 +146,14 @@ def attention_pipeline(attn: SparseAttention, x: torch.Tensor, *,
     return y, {"K": k, "Q": q, "V": v, "S": s_blocks, "Y": y}
 
 
-def make_pipeline_step(attn: SparseAttention, *, xla_only: bool = False):
+def make_pipeline_step(attn: SparseAttention, *, xla_only: bool = False,
+                       precision=None):
     """The pipeline as one X -> Y callable: the step ``run_pipeline`` times
     and gates."""
 
     def step(x: torch.Tensor) -> torch.Tensor:
-        return attention_pipeline(attn, x, xla_only=xla_only)[0]
+        return attention_pipeline(attn, x, xla_only=xla_only,
+                                  precision=precision)[0]
 
     return step
 

@@ -24,17 +24,31 @@ that sum in f64 (not those that sum in f32 whatever X's type,
 the result f64). ``build``
 raises for any other, naming ROADMAP.md, and ``select_format`` and
 ``autotune_spmm`` pick only among those that run.
+
+Matmul precision (``runs_at``'s ``precision``): at its dtype's own every
+such format runs. At f32 'high' every format runs: those whose JAX dot
+takes the ambient precision (``AMBIENT_FORMATS``) on their 3-pass form
+(``spmm_fn(fmt, "high")``: the kernels' ``*_bf16x3`` forms, the torch ops'
+``dense.at_high``), the rest as they are, since they contract through no
+such dot (wcoo pins HIGHEST, cv_panel 'default', GELL multiplies bf16
+planes, the others sum elementwise products) and compute the same at every
+precision. At f32 'default' only the rest run (and the harness refuses
+the dispatch kernels there: JAX's ``auto`` chooses among every format); at
+bf16 and f64 only the dtype's own precision. ROADMAP.md lists the forms
+still to port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from spgrid_torch.core.config import own_precision
 from spgrid_torch.features import MatrixFeatures, matrix_features
 from spgrid_torch.formats.csr import CSRMatrix, value_dtype
 from spgrid_torch.ops import costmodel
@@ -96,8 +110,18 @@ DTYPE_FORMATS = {
 }
 
 
-def runs_at(fmt: str, dtype: str) -> bool:
-    """Whether format ``fmt`` has a form at ``dtype``."""
+# the formats whose JAX dot takes the ambient matmul precision on f32
+# operands: each has a form at 'high' (spmm_fn's precision)
+AMBIENT_FORMATS = ("dense", "bsr_cuda", "panel_cuda", "bsrc_cuda", "rbh",
+                   "bsr", "ell", "merge")
+
+
+def runs_at(fmt: str, dtype: str, precision: Optional[str] = None) -> bool:
+    """Whether format ``fmt`` has a form at ``dtype`` and matmul
+    ``precision`` (None: the dtype's own)."""
+    if precision is not None and precision != own_precision(dtype):
+        return dtype == "float32" and (precision == "high"
+                                       or fmt not in AMBIENT_FORMATS)
     return dtype == "float32" or fmt in DTYPE_FORMATS[dtype]
 
 
@@ -169,27 +193,35 @@ _SPMM = {"dense": spmm_dense, "bsr_cuda": bsr_spmm,
          "cv_int8": spmm_cv, "scoo": scoo_spmm, "cv_panel_cuda": panel_spmm}
 
 
-def spmm_fn(fmt: str) -> Callable:
+def spmm_fn(fmt: str, precision: Optional[str] = None) -> Callable:
+    """The SpMM of format ``fmt`` at matmul ``precision`` (None: the
+    operands' own): a format of ``AMBIENT_FORMATS`` takes the precision,
+    every other computes the same at every precision."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; the port has {FORMATS}")
+    if precision is not None and fmt in AMBIENT_FORMATS:
+        return functools.partial(_SPMM[fmt], precision=precision)
     return _SPMM[fmt]
 
 
 def select_format(f: MatrixFeatures, n: int = 512,
-                  tolerance: float = 0.0, dtype: str = "float32") -> str:
+                  tolerance: float = 0.0, dtype: str = "float32",
+                  precision: Optional[str] = None) -> str:
     """The port's format for ``auto`` dispatch, as
     ``spgrid.ops.dispatch.select_format`` picks it: for an SpMV (n = 1)
     below 5 % density the WROW SpMV; otherwise the cost model's argmin
     (``costmodel.select_format_cost``) under the card's constants. At a
     ``tolerance`` of ``costmodel.CV_TOLERANCE`` or more the value-compressed
-    candidates join. Only the candidates with a form at ``dtype`` take
-    part (``runs_at``)."""
-    if n == 1 and f.density < 0.05 and runs_at("wrow_spmv_cuda", dtype):
+    candidates join. Only the candidates with a form at ``dtype`` and
+    ``precision`` take part (``runs_at``)."""
+    if (n == 1 and f.density < 0.05
+            and runs_at("wrow_spmv_cuda", dtype, precision)):
         return "wrow_spmv_cuda"
     cands = costmodel.AUTO_CANDIDATES
     if tolerance >= costmodel.CV_TOLERANCE:
         cands = cands + costmodel.tolerant_candidates(f, n)
-    cands = tuple(c for c in cands if runs_at(PORT_NAME[c], dtype))
+    cands = tuple(c for c in cands
+                  if runs_at(PORT_NAME[c], dtype, precision))
     return PORT_NAME[costmodel.select_format_cost(f, n, candidates=cands)]
 
 
@@ -201,6 +233,7 @@ class AutotuneResult:
 
 
 def autotune_spmm(csr: CSRMatrix, x: torch.Tensor, candidates=None, *,
+                  precision: Optional[str] = None,
                   features: Optional[MatrixFeatures] = None,
                   warmup_iters: int = 3, min_time_s: float = 0.05,
                   min_iters: int = 5,
@@ -214,14 +247,15 @@ def autotune_spmm(csr: CSRMatrix, x: torch.Tensor, candidates=None, *,
     clock on the CPU. A candidate that fails to build or to run raises:
     nothing hides a kernel that did not launch. Only a candidate that
     runs out of device memory is left out (its time inf), and a call
-    raises when no candidate ran. At bf16 and f64 the default candidates
-    are those with a form at ``csr``'s value type."""
+    raises when no candidate ran. The default candidates are those with a
+    form at ``csr``'s value type and matmul ``precision`` (None: the type's
+    own), each timed at that precision (``spmm_fn``)."""
     from spgrid_torch.bench.harness import time_call
     from spgrid_torch.core.config import BenchConfig
     if candidates is None:
         candidates = tuple(
             PORT_NAME[c] for c in costmodel.AUTO_CANDIDATES
-            if runs_at(PORT_NAME[c], value_dtype(csr)))
+            if runs_at(PORT_NAME[c], value_dtype(csr), precision))
     feats = features if features is not None else matrix_features(csr)
     n = x.shape[1] if x.dim() == 2 else 1
     config = BenchConfig(warmup_iters=warmup_iters, min_time_s=min_time_s,
@@ -237,7 +271,8 @@ def autotune_spmm(csr: CSRMatrix, x: torch.Tensor, candidates=None, *,
             continue
         try:
             a = build(csr, fmt, device=x.device)
-            times[fmt] = time_call(spmm_fn(fmt), a, x, config=config,
+            times[fmt] = time_call(spmm_fn(fmt, precision), a, x,
+                                   config=config,
                                    device=x.device,
                                    out_bytes=csr.m * n * x.element_size()
                                    ).time_per_iter_s

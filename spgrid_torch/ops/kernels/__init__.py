@@ -24,9 +24,11 @@ def _wrappers() -> dict:
     )
     return {"bsr_spmm": bsr_spmm.bsr_spmm,
             "bsr_spmm_bf16": bsr_spmm.bsr_spmm_bf16,
+            "bsr_spmm_bf16x3": bsr_spmm.bsr_spmm_bf16x3,
             "panel_spmm": panel_spmm.panel_spmm,
             "panel_spmm_bf16": panel_spmm.panel_spmm_bf16,
             "panel_spmm_bf16_xy": panel_spmm.panel_spmm_bf16_xy,
+            "panel_spmm_bf16x3": panel_spmm.panel_spmm_bf16x3,
             "bsr_sddmm": sddmm.bsr_sddmm,
             "bsr_sddmm_bf16": sddmm.bsr_sddmm_bf16,
             "bsr_sddmm_bf16x3": sddmm.bsr_sddmm_bf16x3,
@@ -41,6 +43,7 @@ def _wrappers() -> dict:
             "wrow_spmv_bf16": wrow_spmv.wrow_spmv_bf16,
             "bsr_spmm_cstat": bsr_spmm_cstat.bsr_spmm_cstat,
             "bsr_spmm_cstat_bf16": bsr_spmm_cstat.bsr_spmm_cstat_bf16,
+            "bsr_spmm_cstat_bf16x3": bsr_spmm_cstat.bsr_spmm_cstat_bf16x3,
             "dgell": dgell.dgell_spmm,
             "dgell_bf16": dgell.dgell_spmm_bf16,
             "wpack_spmv": wpack_spmv.wpack_spmv,
@@ -71,6 +74,9 @@ def reset_launch_counts() -> None:
 
 # the operand types of the kernels that have a bf16 form beside the f32 one
 FORMS = (torch.float32, torch.bfloat16)
+# the forms at a precision other than the operand type's own: the 3-pass
+# bf16 forms of f32 operands at matmul precision 'high' (3c, 1c, 2c, 4c)
+OTHER_PRECISIONS = ((torch.float32, "high"),)
 
 
 def check_form(kernel: str, dtype: torch.dtype, forms=FORMS,

@@ -63,9 +63,30 @@ SIGNATURES = {
     # mq, mk, d, cluster, stream: f32, three bf16 passes (matmul precision
     # 'high')
     "spgrid_bsr_sddmm_bf16x3": [_PTR] * 7 + [_INT] * 7 + [_PTR],
-    # q, k, scratch, mq, mk, d, stream: its split pass alone
-    "spgrid_bsr_sddmm_bf16x3_split": [_PTR] * 3 + [_INT] * 3 + [_PTR],
-    # the same: the bf16 form's copy pass alone
+    # row_ptr, cols, blocks, x, y, scratch (the split planes), nb, mb, bm,
+    # bk, m, k, n, cluster, stream: f32, three bf16 passes (1c)
+    "spgrid_bsr_spmm_bf16x3": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    # slice_ptr, slice_slots, cols, panels, x, y, scratch, bands, pairs
+    # (live (panel, slice) pairs: slice_slots' length), band_rows, bk, m,
+    # k, n, cluster, stream: f32, three bf16 passes (2c)
+    "spgrid_panel_spmm_bf16x3": [_PTR] * 7 + [_INT] * 8 + [_PTR],
+    # slice_ptr, slice_slots, panels, x, scratch, bands, pairs, band_rows,
+    # bk, k, n, stream: 2c's split alone
+    "spgrid_panel_spmm_bf16x3_split": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    # a, b, scratch, ma, da, mb (< 0: no b), db, stream: the split pass
+    # alone, as 1c and 4c run it on their blocks and X
+    "spgrid_bf16x3_split": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    # counts, lrows, cols, blocks, x, y, scratch, bands, max_nb, band_rows,
+    # bm, bk, m, k, n, stream: f32, three bf16 passes (4c)
+    "spgrid_bsr_spmm_cstat_bf16x3": [_PTR] * 7 + [_INT] * 8 + [_PTR],
+    # nb, mb, bm, bk, k, n (1c); bands, pairs, band_rows, bk, k, n (2c);
+    # then out (int[6]) and scratch (long long[1]: the split planes' bytes)
+    "spgrid_bsr_spmm_bf16x3_shape": [_INT] * 6 + [_PTR] * 2,
+    "spgrid_panel_spmm_bf16x3_shape": [_INT] * 6 + [_PTR] * 2,
+    # bands, max_nb, band_rows, bm, bk, k, n, out (int[3]: CTAs, column
+    # tile, slice rows), scratch (long long[1]): 4c's
+    "spgrid_bsr_spmm_cstat_bf16x3_shape": [_INT] * 7 + [_PTR] * 2,
+    # q, k, scratch, mq, mk, d, stream: the bf16 SDDMM's copy pass alone
     "spgrid_bsr_sddmm_bf16_copy": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     # the launch shapes: mb, bm, n (SpMM); slices, bk, n (bf16 SpMM);
     # bands, band_rows, n (panels); bands, band_rows, bk, n, xy_bf16 (bf16

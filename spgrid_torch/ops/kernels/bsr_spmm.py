@@ -1,11 +1,15 @@
 """Block-sparse-row SpMM: Y = A @ X with A in DeviceBSR layout.
 
 Counterpart of ``spgrid/ops/pallas/bsr_spmm.py``; the CUDA kernels are
-``spgrid_torch/csrc/bsr_spmm.cu``'s, in two forms: f32 (blocks, X and Y)
-and bf16 (``bsr_spmm_bf16``: bf16 blocks and X, f32 sums, Y rounded once
-to bf16, as the Pallas kernel runs at dtype bf16). ``bsr_spmm`` launches
-the form of X's dtype for CUDA tensors and takes ``bsr_spmm_plain`` only
-for CPU tensors; an f64 X raises.
+``spgrid_torch/csrc/bsr_spmm.cu``'s, in three forms: f32 (blocks, X and
+Y), bf16 (``bsr_spmm_bf16``: bf16 blocks and X, f32 sums, Y rounded once
+to bf16, as the Pallas kernel runs at dtype bf16) and the 3-pass bf16 form
+of f32 operands (``bsr_spmm_bf16x3``: the Pallas kernel's dot at matmul
+precision 'high', blocks and X split into bf16 hi and lo parts, A_hi X_hi +
+A_hi X_lo + A_lo X_hi summed in f32). ``bsr_spmm(..., precision=)``
+launches the form of X's dtype and the precision for CUDA tensors and takes
+its plain version (``bsr_spmm_plain``, ``bsr_spmm_bf16x3_plain``) only for
+CPU tensors; an f64 X, or a precision without a form, raises.
 
 The f32 kernel runs the tensor-core tile of ``csrc/block_mma.cuh``: one
 tile a (block row, 128-row slice of it, 64 columns of X), its contraction
@@ -19,17 +23,22 @@ run the bf16 tile of ``csrc/bf16_mma.cuh`` (the pipelined TMA tile, 128
 columns of X, where TMA takes the operands, else the ``cp.async`` tile);
 the other rows are walked entry by entry (``slot_rows.cuh``). A call
 counts one launch of ``bsr_spmm_bf16``, and one of each kernel it ran on
-``tile_launches`` and ``entry_launches``.
+``tile_launches`` and ``entry_launches``. The 3-pass form splits the
+blocks and X once into bf16 planes (in scratch the wrapper allocates:
+``x3_shape``), then runs the TMA-fed 3-pass tile of ``csrc/bf16x3.cuh``
+over every block row's slices, 128 columns of X a tile.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from spgrid_torch.ops.kernels import (
-    _build, check_form, check_operands, runs_plain)
+    OTHER_PRECISIONS, _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.kernels.bf16x3 import bmm_bf16x3
 from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.kernels.slot_rows import LONG_ROW
 from spgrid_torch.ops.layouts import BlockRoute, DeviceBSR, all_tile_route
@@ -113,6 +122,38 @@ def launch(a: DeviceBSR, x: torch.Tensor, y: torch.Tensor,
         return tuple(ran)
 
 
+def x3_shape(a: DeviceBSR, n: int):
+    """(the 3-pass form's tile launch, the bytes of its split planes) for
+    ``a`` at n columns of X on the card ``a`` lies on, as
+    ``spgrid_bsr_spmm_bf16x3_shape`` reports them."""
+    shape = (ctypes.c_int * 6)()
+    scratch = ctypes.c_longlong()
+    with torch.cuda.device(a.blocks.device):
+        _build.check(_build.library().spgrid_bsr_spmm_bf16x3_shape(
+            a.blocks.shape[0], a.mb, a.bm, a.bk, a.shape[1], n,
+            ctypes.addressof(shape), ctypes.addressof(scratch)),
+            "bsr_spmm_bf16x3")
+    return LaunchShape(*shape), scratch.value
+
+
+def x3_launch(a: DeviceBSR, x: torch.Tensor, y: torch.Tensor,
+              cluster: int = 0) -> None:
+    """Y (m, n) = A @ X at matmul precision 'high' into ``y`` (its split
+    planes in new scratch), the tile's cluster given (0: the launch rule),
+    uncounted: for sweeps and tests."""
+    m, k = a.shape
+    n = x.shape[1]
+    scratch = torch.empty(x3_shape(a, n)[1], dtype=torch.uint8,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        _build.check(_build.library().spgrid_bsr_spmm_bf16x3(
+            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+            a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
+            scratch.data_ptr(), a.blocks.shape[0], a.mb, a.bm, a.bk, m, k, n,
+            cluster, torch.cuda.current_stream().cuda_stream),
+            "bsr_spmm_bf16x3")
+
+
 def _launch(wrapper, a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X by the form of X's dtype into a new Y; count the launch on
     ``wrapper`` (the bf16 form: also each kernel it ran)."""
@@ -120,6 +161,10 @@ def _launch(wrapper, a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
+        return y
+    if wrapper is bsr_spmm_bf16x3:
+        x3_launch(a, x, y)
+        wrapper.launches += 1
         return y
     ran = launch(a, x, y)
     wrapper.launches += 1
@@ -129,20 +174,24 @@ def _launch(wrapper, a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _run(wrapper, a: DeviceBSR, x: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
+def _run(wrapper, a: DeviceBSR, x: torch.Tensor, dtype: torch.dtype,
+         plain=None) -> torch.Tensor:
     _check(a, x, dtype)
     if runs_plain(wrapper.__name__, x.device):
-        return bsr_spmm_plain(a, x)
+        return (plain or bsr_spmm_plain)(a, x)
     return _launch(wrapper, a, x)
 
 
-def bsr_spmm(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) = A @ X in X's dtype: f32 X (k, n) with f32 blocks, or bf16
-    X with bf16 blocks (``bsr_spmm_bf16``)."""
-    check_form("bsr_spmm", x.dtype)
+def bsr_spmm(a: DeviceBSR, x: torch.Tensor, precision=None) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype at matmul ``precision`` (None: the
+    dtype's own): f32 X (k, n) with f32 blocks ('high': ``bsr_spmm_bf16x3``),
+    or bf16 X with bf16 blocks (``bsr_spmm_bf16``)."""
+    check_form("bsr_spmm", x.dtype, precision=precision,
+               other_precisions=OTHER_PRECISIONS)
     if x.dtype == torch.bfloat16:
         return bsr_spmm_bf16(a, x)
+    if precision == "high":
+        return bsr_spmm_bf16x3(a, x)
     return _run(bsr_spmm, a, x, torch.float32)
 
 
@@ -160,20 +209,50 @@ bsr_spmm_bf16.tile_launches = 0
 bsr_spmm_bf16.entry_launches = 0
 
 
+def bsr_spmm_bf16x3(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) f32 = A @ X for f32 blocks and X (k, n) at matmul precision
+    'high': three bf16 passes summed in f32 (``bsr_spmm_bf16x3_plain`` says
+    in what order)."""
+    return _run(bsr_spmm_bf16x3, a, x, torch.float32, bsr_spmm_bf16x3_plain)
+
+
+bsr_spmm_bf16x3.launches = 0
+
+
+def _x_tiles(a: DeviceBSR, x: torch.Tensor, dtype: torch.dtype):
+    """The X tile of every block, (nb, bk, n) in ``dtype``: X padded with
+    zero rows to whole block columns."""
+    k, n = x.shape
+    kb = -(-k // a.bk)
+    xp = torch.zeros((kb * a.bk, n), dtype=dtype, device=x.device)
+    xp[:k] = x
+    return xp.view(kb, a.bk, n)[a.block_cols.long()]
+
+
+def _block_rows_sum(a: DeviceBSR, prod: torch.Tensor) -> torch.Tensor:
+    """The blocks' products (nb, bm, n) added into their block rows in block
+    order (``index_add_``; pad blocks land in a dropped row block ``mb``),
+    as Y (m, n)."""
+    out = torch.zeros((a.mb + 1, a.bm, prod.shape[2]), dtype=prod.dtype,
+                      device=prod.device)
+    out.index_add_(0, a.block_rows.long(), prod)
+    return out[:a.mb].reshape(a.mb * a.bm, prod.shape[2])[:a.shape[0]]
+
+
+def bsr_spmm_bf16x3_plain(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
+    """The 3-pass form's product in plain torch, f32: each block times its
+    X tile by ``bmm_bf16x3`` (each pass's sum in f64 rounded once to f32,
+    the cross passes added, then the hi pass), added into its block row in
+    block order, as the Pallas kernel's ``o_ref +=`` does."""
+    return _block_rows_sum(a, bmm_bf16x3(a.blocks, _x_tiles(
+        a, x, torch.float32)))
+
+
 def bsr_spmm_plain(a: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype (bf16: widened to f32,
     summed in f32 and rounded once at the end): gather the X tile of every
     block, one batched matmul over the blocks, ``index_add_`` into the
     block rows (pad blocks land in a dropped row block ``mb``)."""
-    m, k = a.shape
-    n = x.shape[1]
-    bm, bk, mb = a.bm, a.bk, a.mb
     acc = acc_dtype(x)
-    kb = -(-k // bk)
-    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
-    xp[:k] = x
-    xt = xp.view(kb, bk, n)[a.block_cols.long()]              # (nb, bk, n)
-    prod = torch.bmm(a.blocks.to(acc), xt)                    # (nb, bm, n)
-    out = torch.zeros((mb + 1, bm, n), dtype=acc, device=x.device)
-    out.index_add_(0, a.block_rows.long(), prod)
-    return out[:mb].reshape(mb * bm, n)[:m].to(x.dtype)
+    prod = torch.bmm(a.blocks.to(acc), _x_tiles(a, x, acc))  # (nb, bm, n)
+    return _block_rows_sum(a, prod).to(x.dtype)

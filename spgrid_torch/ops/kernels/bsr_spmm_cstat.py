@@ -2,8 +2,10 @@
 
 Counterpart of ``spgrid/ops/pallas/bsr_spmm_cstat.py`` (format
 ``bsrc_pallas``); the CUDA kernel is ``spgrid_torch/csrc/bsr_spmm_cstat.cu``.
-``bsr_spmm_cstat`` launches it for CUDA tensors and takes
-``bsr_spmm_cstat_plain`` only for CPU tensors.
+``bsr_spmm_cstat(..., precision=)`` launches the form of X's dtype and
+the precision for CUDA tensors and takes its plain version
+(``bsr_spmm_cstat_plain``, ``bsr_spmm_cstat_bf16x3_plain``) only for CPU
+tensors; an f64 X, or a precision without a form, raises.
 
 Rows are split into bands of R rows; a band's (bm, bk) blocks are sorted by
 (block column, block row), so consecutive blocks share their X tile, and
@@ -14,6 +16,13 @@ rows, 64 or 128 output columns), multiplying on the tensor cores in 3xTF32
 bf16 blocks and X, each block's product summed in f32 and added into the
 f32 slab in block order, Y rounded once, as the Pallas kernel runs at dtype
 bf16) multiplies in bf16 on the tensor cores, 64 output columns a CTA.
+Its 3-pass form of f32 operands (``bsr_spmm_cstat_bf16x3``: the Pallas
+kernel's dot at matmul precision 'high', blocks and X split into bf16 hi
+and lo parts, A_hi X_hi + A_hi X_lo + A_lo X_hi summed in f32, each
+block's product added into the f32 slab in block order) splits the blocks
+and X once into bf16 planes (in scratch the wrapper allocates:
+``x3_shape``), then runs the bf16 form's CTAs and slab on them, three
+products a step.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch
 from spgrid_torch.formats.bsr import csr_to_bsr
 from spgrid_torch.formats.csr import value_dtype
 from spgrid_torch.ops.kernels import (
-    _build, check_form, check_operands, runs_plain)
+    OTHER_PRECISIONS, _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.kernels.bf16x3 import bmm_bf16x3
 from spgrid_torch.ops.layouts import round_up, to_device, torch_dtype
 from spgrid_torch.ops.xla import acc_dtype
 
@@ -158,12 +168,26 @@ def launch_grid(a: DeviceBSRCol, n: int) -> Tuple[int, int, int]:
     return tuple(shape)
 
 
-def _run(wrapper, a: DeviceBSRCol, x: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
+def x3_shape(a: DeviceBSRCol, n: int):
+    """((CTAs, output columns a CTA, rows a CTA's slice) of the 3-pass
+    form's launch, the bytes of its split planes) for ``a`` at n columns of
+    X, as ``spgrid_bsr_spmm_cstat_bf16x3_shape`` reports them."""
+    shape = (ctypes.c_int * 3)()
+    scratch = ctypes.c_longlong()
+    with torch.cuda.device(a.blocks.device):
+        _build.check(_build.library().spgrid_bsr_spmm_cstat_bf16x3_shape(
+            a.bands, a.max_nb, a.band_rows, a.bm, a.bk, a.shape[1], n,
+            ctypes.addressof(shape), ctypes.addressof(scratch)),
+            "bsr_spmm_cstat_bf16x3")
+    return tuple(shape), scratch.value
+
+
+def _run(wrapper, a: DeviceBSRCol, x: torch.Tensor, dtype: torch.dtype,
+         plain=None) -> torch.Tensor:
     kernel = wrapper.__name__
     _check(kernel, a, x, dtype)
     if runs_plain(kernel, x.device):
-        return bsr_spmm_cstat_plain(a, x)
+        return (plain or bsr_spmm_cstat_plain)(a, x)
     if a.bm > BM_MAX:
         raise ValueError(f"{kernel}: the kernel takes bm <= {BM_MAX}, got "
                          f"{a.bm}")
@@ -173,24 +197,34 @@ def _run(wrapper, a: DeviceBSRCol, x: torch.Tensor,
     if m == 0 or n == 0:
         return y
     lib = _build.library()
+    scratch = ()
+    if wrapper is bsr_spmm_cstat_bf16x3:
+        planes = torch.empty(x3_shape(a, n)[1], dtype=torch.uint8,
+                             device=x.device)
+        scratch = (planes.data_ptr(),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, "spgrid_" + kernel)(
             a.counts.data_ptr(), a.local_rows.data_ptr(),
             a.block_cols.data_ptr(), a.blocks.data_ptr(), x.data_ptr(),
-            y.data_ptr(), a.bands, a.max_nb, a.band_rows, a.bm, a.bk, m, k,
-            n, stream)
+            y.data_ptr(), *scratch, a.bands, a.max_nb, a.band_rows, a.bm,
+            a.bk, m, k, n, stream)
     _build.check(code, kernel)
     wrapper.launches += 1
     return y
 
 
-def bsr_spmm_cstat(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) = A @ X in X's dtype: f32 X (k, n), or bf16 X for bf16
-    blocks (``bsr_spmm_cstat_bf16``)."""
-    check_form("bsr_spmm_cstat", x.dtype)
+def bsr_spmm_cstat(a: DeviceBSRCol, x: torch.Tensor,
+                   precision=None) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype at matmul ``precision`` (None: the
+    dtype's own): f32 X (k, n) ('high': ``bsr_spmm_cstat_bf16x3``), or bf16
+    X for bf16 blocks (``bsr_spmm_cstat_bf16``)."""
+    check_form("bsr_spmm_cstat", x.dtype, precision=precision,
+               other_precisions=OTHER_PRECISIONS)
     if x.dtype == torch.bfloat16:
         return bsr_spmm_cstat_bf16(a, x)
+    if precision == "high":
+        return bsr_spmm_cstat_bf16x3(a, x)
     return _run(bsr_spmm_cstat, a, x, torch.float32)
 
 
@@ -207,25 +241,60 @@ def bsr_spmm_cstat_bf16(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm_cstat_bf16.launches = 0
 
 
+def bsr_spmm_cstat_bf16x3(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) f32 = A @ X for f32 blocks and X (k, n) at matmul precision
+    'high': three bf16 passes summed in f32 (``bsr_spmm_cstat_bf16x3_plain``
+    says in what order)."""
+    return _run(bsr_spmm_cstat_bf16x3, a, x, torch.float32,
+                bsr_spmm_cstat_bf16x3_plain)
+
+
+bsr_spmm_cstat_bf16x3.launches = 0
+
+
+def _slot_tiles(a: DeviceBSRCol, x: torch.Tensor, dtype: torch.dtype):
+    """The X tile of every slot, (S, bk, n) in ``dtype``: X padded with
+    zero rows to whole block columns."""
+    k, n = x.shape
+    kb = -(-k // a.bk)
+    xp = torch.zeros((kb * a.bk, n), dtype=dtype, device=x.device)
+    xp[:k] = x
+    return xp.view(kb, a.bk, n)[a.block_cols.long()]
+
+
+def _slabs_sum(a: DeviceBSRCol, prod: torch.Tensor) -> torch.Tensor:
+    """The slots' products (S, bm, n) added into their bands' slabs in slot
+    order (``index_add_``; pad slots land in the window past the band's
+    rows, which is dropped), as Y (m, n)."""
+    n = prod.shape[2]
+    bm, R = a.bm, a.band_rows
+    windows = R // bm + 1
+    band = torch.arange(a.bands, device=prod.device).repeat_interleave(
+        a.max_nb)
+    out = torch.zeros((a.bands * windows, bm, n), dtype=prod.dtype,
+                      device=prod.device)
+    out.index_add_(0, band * windows + a.local_rows.long(), prod)
+    out = out.view(a.bands, windows * bm, n)[:, :R]
+    return out.reshape(a.bands * R, n)[:a.shape[0]]
+
+
+def bsr_spmm_cstat_bf16x3_plain(a: DeviceBSRCol,
+                                x: torch.Tensor) -> torch.Tensor:
+    """The 3-pass form's product in plain torch, f32: each slot's block
+    times its X tile by ``bmm_bf16x3`` (each pass's sum in f64 rounded once
+    to f32, the cross passes added, then the hi pass), added into its
+    band's slab in slot order, as the Pallas kernel's ``out_ref[win] +=``
+    does."""
+    return _slabs_sum(a, bmm_bf16x3(a.blocks, _slot_tiles(
+        a, x, torch.float32)))
+
+
 def bsr_spmm_cstat_plain(a: DeviceBSRCol, x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype: gather the X tile of
     every slot, one batched matmul over the slots, ``index_add_`` into the
     bands' slabs in slot order (pad slots land in the window past the
     band's rows, which is dropped). bf16: the products and the slabs in
     f32, Y rounded once."""
-    m, k = a.shape
-    n = x.shape[1]
-    bm, bk, R = a.bm, a.bk, a.band_rows
     acc = acc_dtype(x)
-    kb = -(-k // bk)
-    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
-    xp[:k] = x
-    xt = xp.view(kb, bk, n)[a.block_cols.long()]              # (S, bk, n)
-    prod = torch.bmm(a.blocks.to(acc), xt)                    # (S, bm, n)
-    windows = R // bm + 1
-    band = torch.arange(a.bands, device=x.device).repeat_interleave(a.max_nb)
-    out = torch.zeros((a.bands * windows, bm, n), dtype=acc,
-                      device=x.device)
-    out.index_add_(0, band * windows + a.local_rows.long(), prod)
-    out = out.view(a.bands, windows * bm, n)[:, :R]
-    return out.reshape(a.bands * R, n)[:m].to(x.dtype)
+    prod = torch.bmm(a.blocks.to(acc), _slot_tiles(a, x, acc))  # (S, bm, n)
+    return _slabs_sum(a, prod).to(x.dtype)

@@ -1,15 +1,19 @@
 """Vertical-panel SpMM: Y = A @ X with A in DevicePanels layout.
 
 Counterpart of ``spgrid/ops/pallas/panel_spmm.py``; the CUDA kernels are
-``spgrid_torch/csrc/panel_spmm.cu``'s three forms: f32 panels
+``spgrid_torch/csrc/panel_spmm.cu``'s four forms: f32 panels
 (``panel_pallas``), bf16 panels with f32 X and Y (``cv_panel``:
 ``DevicePanels.as_bf16``, bf16 panels times X rounded to bf16, f32 sums, as
-the Pallas kernel multiplies bf16 panels at precision "default"), and bf16
-panels with bf16 X and Y (``panel_pallas`` at dtype bf16: f32 sums, Y
-rounded once). ``panel_spmm`` launches the form its panels and X take for
+the Pallas kernel multiplies bf16 panels at precision "default", whatever
+the ambient precision), bf16 panels with bf16 X and Y (``panel_pallas`` at
+dtype bf16: f32 sums, Y rounded once), and f32 panels at matmul precision
+'high' (``panel_spmm_bf16x3``: the panels and X split into bf16 hi and lo
+parts, P_hi X_hi + P_hi X_lo + P_lo X_hi summed in f32). ``panel_spmm(...,
+precision=)`` launches the form its panels, X and the precision take for
 CUDA tensors (``panel_spmm_bf16`` counts the cv_panel form's launches,
-``panel_spmm_bf16_xy`` the bf16 form's) and takes ``panel_spmm_plain``
-only for CPU tensors; an f64 X raises.
+``panel_spmm_bf16_xy`` the bf16 form's) and takes its plain version
+(``panel_spmm_plain``, ``panel_spmm_bf16x3_plain``) only for CPU tensors;
+an f64 X, or a precision without a form, raises.
 
 The f32 form runs the tensor-core tile of ``csrc/block_mma.cuh`` as
 ``bsr_spmm`` does, a band being a row of blocks whose blocks are its panel
@@ -21,11 +25,16 @@ the slots live in their slice (``DevicePanels.slice_ptr``/``slice_slots``),
 64 columns a step into bf16 ``wgmma`` (``csrc/bf16_mma.cuh``): the bf16
 panels' form on the pipelined tile (TMA, a producer warpgroup, 128
 columns of X a tile) where TMA takes its operands, cv_panel's through a
-``cp.async`` ring.
+``cp.async`` ring. The 3-pass form splits the live slices' panel rows and
+X once into bf16 planes (in scratch the wrapper allocates: ``x3_shape``;
+the panel rows packed, 128 rows a live (panel, slice) pair),
+then walks the live slots on the TMA-fed 3-pass tile of
+``csrc/bf16x3.cuh``, 128 columns of X a tile.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -34,8 +43,9 @@ import torch
 
 from spgrid_torch.formats.csr import CSRMatrix, itemsize, value_dtype
 from spgrid_torch.ops.kernels import (
-    _build, check_form, check_operands, runs_plain)
+    OTHER_PRECISIONS, _build, check_form, check_operands, runs_plain)
 from spgrid_torch.ops.dense import full_f32
+from spgrid_torch.ops.kernels.bf16x3 import bmm_bf16x3
 from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import (
     LayoutRefused, round_up, values_to_device)
@@ -168,10 +178,11 @@ class DevicePanels:
             slice_slots=torch.from_numpy(slice_slots).to(device))
 
 
-def _check(a: DevicePanels, x: torch.Tensor) -> None:
+def _check(a: DevicePanels, x: torch.Tensor, precision=None) -> None:
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"x must be ({a.shape[1]}, n), got {tuple(x.shape)}")
-    check_form("panel_spmm", x.dtype)
+    check_form("panel_spmm", x.dtype, precision=precision,
+               other_precisions=OTHER_PRECISIONS)
     if a.panels.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"panel_spmm: panels must be f32 or bf16, got "
                         f"{a.panels.dtype}")
@@ -227,27 +238,81 @@ def launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
     _build.check(code, entry[len("spgrid_"):])
 
 
-def _run(wrapper, a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
+def x3_shape(a: DevicePanels, n: int):
+    """(the 3-pass form's tile launch, the bytes of its split planes) for
+    ``a`` at n columns of X on the card ``a`` lies on, as
+    ``spgrid_panel_spmm_bf16x3_shape`` reports them."""
+    shape = (ctypes.c_int * 6)()
+    scratch = ctypes.c_longlong()
+    with torch.cuda.device(a.panels.device):
+        _build.check(_build.library().spgrid_panel_spmm_bf16x3_shape(
+            a.bands, a.slice_slots.numel(), a.band_rows, a.bk, a.shape[1], n,
+            ctypes.addressof(shape), ctypes.addressof(scratch)),
+            "panel_spmm_bf16x3")
+    return LaunchShape(*shape), scratch.value
+
+
+def x3_launch(a: DevicePanels, x: torch.Tensor, y: torch.Tensor,
+              cluster: int = 0) -> None:
+    """Y (m, n) = A @ X at matmul precision 'high' into ``y`` (its split
+    planes in new scratch), the tile's cluster given (0: the launch rule),
+    uncounted: for sweeps and tests."""
+    m, k = a.shape
+    n = x.shape[1]
+    scratch = torch.empty(x3_shape(a, n)[1], dtype=torch.uint8,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        _build.check(_build.library().spgrid_panel_spmm_bf16x3(
+            a.slice_ptr.data_ptr(), a.slice_slots.data_ptr(),
+            a.block_cols.data_ptr(), a.panels.data_ptr(), x.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), a.bands, a.slice_slots.numel(),
+            a.band_rows, a.bk, m, k, n, cluster,
+            torch.cuda.current_stream().cuda_stream), "panel_spmm_bf16x3")
+
+
+def x3_split_launch(a: DevicePanels, x: torch.Tensor,
+                    scratch: torch.Tensor) -> None:
+    """The 3-pass form's split alone on the card (the live pairs' panel
+    rows, packed 128 rows a pair, then X) into ``scratch`` of the bytes
+    ``x3_shape`` reports, uncounted: for tests and timing."""
+    with torch.cuda.device(x.device):
+        _build.check(_build.library().spgrid_panel_spmm_bf16x3_split(
+            a.slice_ptr.data_ptr(), a.slice_slots.data_ptr(),
+            a.panels.data_ptr(), x.data_ptr(), scratch.data_ptr(), a.bands,
+            a.slice_slots.numel(), a.band_rows, a.bk, x.shape[0], x.shape[1],
+            torch.cuda.current_stream().cuda_stream), "panel_spmm_bf16x3")
+
+
+def _run(wrapper, a: DevicePanels, x: torch.Tensor,
+         plain=None) -> torch.Tensor:
     """Y in X's dtype by the plain version on the CPU, or by one counted
     launch on the card."""
     if runs_plain(wrapper.__name__, x.device):
-        return panel_spmm_plain(a, x)
+        return (plain or panel_spmm_plain)(a, x)
     y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    launch(a, x, y)
+    if wrapper is panel_spmm_bf16x3:
+        x3_launch(a, x, y)
+    else:
+        launch(a, x, y)
     wrapper.launches += 1
     return y
 
 
-def panel_spmm(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, n) = A @ X in X's dtype: f32 X (k, n); bf16 panels go to
-    ``panel_spmm_bf16`` (f32 X) or ``panel_spmm_bf16_xy`` (bf16 X)."""
-    _check(a, x)
+def panel_spmm(a: DevicePanels, x: torch.Tensor,
+               precision=None) -> torch.Tensor:
+    """Y (m, n) = A @ X in X's dtype at matmul ``precision`` (None: the
+    dtype's own): f32 X (k, n) ('high': ``panel_spmm_bf16x3``); bf16
+    panels go to ``panel_spmm_bf16`` (f32 X, at any precision: cv_panel's
+    body pins its own) or ``panel_spmm_bf16_xy`` (bf16 X)."""
+    _check(a, x, precision)
     if x.dtype == torch.bfloat16:
         return panel_spmm_bf16_xy(a, x)
     if a.panels.dtype == torch.bfloat16:
         return panel_spmm_bf16(a, x)
+    if precision == "high":
+        return panel_spmm_bf16x3(a, x)
     return _run(panel_spmm, a, x)
 
 
@@ -279,6 +344,56 @@ def panel_spmm_bf16_xy(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
 panel_spmm_bf16_xy.launches = 0
 
 
+def panel_spmm_bf16x3(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, n) f32 = A @ X for f32 panels and X (k, n) at matmul precision
+    'high': three bf16 passes summed in f32 (``panel_spmm_bf16x3_plain``
+    says in what order)."""
+    _check(a, x, "high")
+    if a.panels.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError("panel_spmm_bf16x3: panels and X must be f32")
+    return _run(panel_spmm_bf16x3, a, x, panel_spmm_bf16x3_plain)
+
+
+panel_spmm_bf16x3.launches = 0
+
+
+def _slot_tiles(a: DevicePanels, xp: torch.Tensor, n: int) -> torch.Tensor:
+    """The X tile of every slot, (S, bk, n), from X padded with zero rows
+    to whole block columns (``xp``)."""
+    return xp.view(xp.shape[0] // a.bk, a.bk, n)[a.block_cols.long()]
+
+
+def _bands_sum(a: DevicePanels, prod: torch.Tensor) -> torch.Tensor:
+    """The slots' products (S, R, n) added into their bands in slot order
+    (``index_add_``; pad slots add zero panels), as Y (m, n)."""
+    n = prod.shape[2]
+    band = torch.arange(a.bands, device=prod.device).repeat_interleave(
+        a.max_p)
+    out = torch.zeros((a.bands, a.band_rows, n), dtype=prod.dtype,
+                      device=prod.device)
+    out.index_add_(0, band, prod)
+    return out.reshape(a.bands * a.band_rows, n)[:a.shape[0]]
+
+
+def _padded_x(a: DevicePanels, x: torch.Tensor, dtype: torch.dtype):
+    """X in ``dtype``, zero rows appended to whole block columns."""
+    k, n = x.shape
+    xp = torch.zeros((-(-k // a.bk) * a.bk, n), dtype=dtype, device=x.device)
+    xp[:k] = x
+    return xp
+
+
+def panel_spmm_bf16x3_plain(a: DevicePanels,
+                            x: torch.Tensor) -> torch.Tensor:
+    """The 3-pass form's product in plain torch, f32: each slot's panel
+    times its X tile by ``bmm_bf16x3`` (each pass's sum in f64 rounded once
+    to f32, the cross passes added, then the hi pass), added into its band
+    in slot order, as the Pallas kernel's ``o_ref +=`` does."""
+    n = x.shape[1]
+    xt = _slot_tiles(a, _padded_x(a, x, torch.float32), n)
+    return _bands_sum(a, bmm_bf16x3(a.panels, xt))
+
+
 def panel_spmm_plain(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
     """The same product in plain torch, in x's dtype (TF32 off; bf16:
     widened to f32, summed in f32 and rounded once at the end): gather the
@@ -286,17 +401,9 @@ def panel_spmm_plain(a: DevicePanels, x: torch.Tensor) -> torch.Tensor:
     into the bands (pad slots add zero panels). For bf16 panels X is
     rounded to bf16 first, and both are widened to the sum's type."""
     full_f32()
-    m, k = a.shape
     n = x.shape[1]
-    bk, R = a.bk, a.band_rows
     acc = acc_dtype(x)
-    kb = -(-k // bk)
-    xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
-    xp[:k] = (x.to(torch.bfloat16).to(acc)
-              if a.panels.dtype == torch.bfloat16 else x)
-    xt = xp.view(kb, bk, n)[a.block_cols.long()]              # (S, bk, n)
-    prod = torch.bmm(a.panels.to(acc), xt)                    # (S, R, n)
-    band = torch.arange(a.bands, device=x.device).repeat_interleave(a.max_p)
-    out = torch.zeros((a.bands, R, n), dtype=acc, device=x.device)
-    out.index_add_(0, band, prod)
-    return out.reshape(a.bands * R, n)[:m].to(x.dtype)
+    xp = _padded_x(a, (x.to(torch.bfloat16).to(acc)
+                       if a.panels.dtype == torch.bfloat16 else x), acc)
+    prod = torch.bmm(a.panels.to(acc), _slot_tiles(a, xp, n))  # (S, R, n)
+    return _bands_sum(a, prod).to(x.dtype)

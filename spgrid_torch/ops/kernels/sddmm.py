@@ -22,9 +22,11 @@ multiplies the summed tile once. The bf16 form runs a persistent tile of
 a cluster a tile where it is short; ``bf16_shape`` reports the launch and
 the bytes of the copy pass that pads Q and K where TMA cannot read them as
 they lie). The 3-pass form first splits Q and
-K once into bf16 hi and lo planes (``split_planes_plain`` is that pass in
-plain torch) in scratch the wrapper allocates (``x3_shape`` reports its
-bytes), then runs tiles of 128 columns fed from the planes by TMA.
+K once into bf16 hi and lo planes (the split pass of ``csrc/bf16x3.cuh``
+that the SpMMs' 3-pass forms share; ``bf16x3.split_planes_plain`` is that
+pass in plain torch) in scratch the wrapper allocates (``x3_shape``
+reports its bytes), then runs tiles of 128 columns fed from the planes by
+TMA.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ import ctypes
 import torch
 
 from spgrid_torch.ops.kernels import (
-    _build, check_form, check_operands, runs_plain)
+    OTHER_PRECISIONS, _build, check_form, check_operands, runs_plain)
+from spgrid_torch.ops.kernels.bf16x3 import (  # noqa: F401 (3c's names)
+    bmm_bf16x3, plane_shape, split_launch, split_planes_plain)
 from spgrid_torch.ops.kernels.block_mma import LaunchShape, query
 from spgrid_torch.ops.layouts import DeviceBSR
 from spgrid_torch.ops.xla import acc_dtype
@@ -150,10 +154,6 @@ def _run(wrapper, mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-# the forms at a precision other than the operand type's own
-OTHER_PRECISIONS = ((torch.float32, "high"),)
-
-
 def bsr_sddmm(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
               precision=None) -> torch.Tensor:
     """(nb, bm, bk) block values aligned with ``mask.blocks``, in Q's dtype
@@ -194,7 +194,7 @@ def bsr_sddmm_bf16x3(mask: DeviceBSR, q: torch.Tensor,
 bsr_sddmm_bf16x3.launches = 0
 
 
-def _panels(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
+def gather_panels(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
             dtype: torch.dtype):
     """(Q panels (nb, bm, d), K panels (nb, bk, d)) of every block in
     ``dtype``: the gather of ``spgrid.ops.attention._sddmm_bsr_xla`` (Q
@@ -214,21 +214,6 @@ def _panels(mask: DeviceBSR, q: torch.Tensor, k: torch.Tensor,
             kp.view(mbk, bk, d)[mask.block_cols.long()])
 
 
-def split_bf16(t: torch.Tensor):
-    """(hi, lo): the bf16 parts of f32 ``t``, hi = t rounded to bf16 and lo
-    = (t - hi) rounded (to nearest, ties to even; t - hi is exact in f32),
-    as f32 tensors."""
-    hi = t.to(torch.bfloat16).float()
-    return hi, (t - hi).to(torch.bfloat16).float()
-
-
-def plane_shape(mq: int, mk: int, d: int):
-    """(Q's plane rows, K's plane rows, plane columns) of the 3-pass form's
-    split planes: each operand's rows (at least one) by d rounded up to
-    whole 64-deep steps (at least one), as ``csrc/sddmm.cu`` lays them."""
-    return max(mq, 1), max(mk, 1), max(1, -(-d // 64)) * 64
-
-
 def split_planes(scratch: torch.Tensor, mq: int, mk: int, d: int):
     """(Q_hi, Q_lo, K_hi, K_lo): the split planes in the 3-pass form's
     scratch (bytes), as bf16 views."""
@@ -237,32 +222,6 @@ def split_planes(scratch: torch.Tensor, mq: int, mk: int, d: int):
     q_planes = flat[:2 * rq * dp].view(2, rq, dp)
     k_planes = flat[2 * rq * dp:2 * (rq + rk) * dp].view(2, rk, dp)
     return q_planes[0], q_planes[1], k_planes[0], k_planes[1]
-
-
-def split_planes_plain(q: torch.Tensor, k: torch.Tensor):
-    """(Q_hi, Q_lo, K_hi, K_lo) in plain torch, bf16: the split pass's
-    planes (``plane_shape``), each value's parts by ``split_bf16`` and
-    zeros past d and past the operand's rows."""
-    rq, rk, dp = plane_shape(q.shape[0], k.shape[0], q.shape[1])
-    planes = []
-    for t, rows in ((q, rq), (k, rk)):
-        padded = torch.zeros((rows, dp), dtype=torch.float32,
-                             device=t.device)
-        padded[:t.shape[0], :t.shape[1]] = t
-        planes += [p.to(torch.bfloat16) for p in split_bf16(padded)]
-    return tuple(planes)
-
-
-def split_launch(q: torch.Tensor, k: torch.Tensor,
-                 scratch: torch.Tensor) -> None:
-    """The 3-pass form's split pass alone on the card, into ``scratch``
-    (the bytes ``x3_shape`` reports), uncounted: for tests and timing."""
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.library().spgrid_bsr_sddmm_bf16x3_split(
-            q.data_ptr(), k.data_ptr(), scratch.data_ptr(), q.shape[0],
-            k.shape[0], q.shape[1], stream)
-    _build.check(code, "bsr_sddmm_bf16x3")
 
 
 def copy_launch(q: torch.Tensor, k: torch.Tensor,
@@ -280,22 +239,12 @@ def copy_launch(q: torch.Tensor, k: torch.Tensor,
 
 def bsr_sddmm_bf16x3_plain(mask: DeviceBSR, q: torch.Tensor,
                            k: torch.Tensor) -> torch.Tensor:
-    """The 3-pass form's block values in plain torch, f32: Q and K split
-    (``split_bf16``), each pass's sum over d formed in f64 and rounded once
-    to f32 (a bf16 x bf16 product is exact in f64, and so is the sum of up
-    to d of them whose magnitudes lie within 2^37 of each other, so the
-    order of the sum does not matter), then in f32 the cross passes
-    Q_hi K_lo + Q_lo K_hi, then that plus Q_hi K_hi, times the mask value.
-    The dropped Q_lo K_lo term is what sets it apart from the f32 product."""
-    qg, kg = _panels(mask, q.float(), k.float(), torch.float32)
-    qh, ql = split_bf16(qg)
-    kh, kl = split_bf16(kg)
-
-    def dot(a, b):
-        return torch.bmm(a.double(), b.double().transpose(1, 2)).float()
-
-    cross = dot(qh, kl) + dot(ql, kh)
-    return (cross + dot(qh, kh)) * mask.blocks.float()
+    """The 3-pass form's block values in plain torch, f32: each block's Q
+    and K panels' 3-pass product (``bmm_bf16x3``: each pass's sum over d in
+    f64, rounded once to f32, the cross passes Q_hi K_lo + Q_lo K_hi, then
+    that plus Q_hi K_hi), times the mask value."""
+    qg, kg = gather_panels(mask, q.float(), k.float(), torch.float32)
+    return bmm_bf16x3(qg, kg.transpose(1, 2)) * mask.blocks.float()
 
 
 def bsr_sddmm_plain(mask: DeviceBSR, q: torch.Tensor,
@@ -306,6 +255,6 @@ def bsr_sddmm_plain(mask: DeviceBSR, q: torch.Tensor,
     block coordinates, a zero Q panel for the pad row mb) and one batched
     product."""
     acc = acc_dtype(q)
-    qg, kg = _panels(mask, q, k, acc)
+    qg, kg = gather_panels(mask, q, k, acc)
     return (torch.bmm(qg, kg.transpose(1, 2))
             * mask.blocks.to(acc)).to(q.dtype)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from spgrid_torch.formats.csr import CSRMatrix, value_dtype
-from spgrid_torch.ops.dense import full_f32
+from spgrid_torch.ops.dense import at_high, full_f32
 from spgrid_torch.ops.layouts import nbytes, to_device, values_to_device
 from spgrid_torch.ops.xla import acc_dtype, segment_sum
 
@@ -125,8 +125,10 @@ class DeviceMerge:
                    fix_ptr, row_ptr, csr.name)
 
 
-def merge_spmm(a: DeviceMerge, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X with the layout's nnz balance; x may be (k,) or (k, n)."""
+def merge_spmm(a: DeviceMerge, x: torch.Tensor,
+               precision=None) -> torch.Tensor:
+    """Y = A @ X with the layout's nnz balance; x may be (k,) or (k, n). At
+    matmul ``precision`` 'high' the one-hot product by ``dense.at_high``."""
     squeeze = x.dim() == 1
     x2 = x[:, None] if squeeze else x
     B, T = a.cols.shape
@@ -151,7 +153,8 @@ def merge_spmm(a: DeviceMerge, x: torch.Tensor) -> torch.Tensor:
                              device=x.device).scatter_(
             1, a.local_rows[b0:b1, None, :].long(),
             a.values[b0:b1, None, :].to(acc))
-        strips = torch.bmm(onehot, g).view(-1, n)
+        strips = (at_high(torch.bmm, onehot, g) if precision == "high"
+                  else torch.bmm(onehot, g)).view(-1, n)
         del g, onehot
         lo, hi = int(a.fix_ptr[b0]), int(a.fix_ptr[b1])
         reached = strips.index_select(0, a.fix_rows[lo:hi] - b0 * ROWS_CAP)

@@ -213,15 +213,20 @@ class DeviceRBH:
                    stats, csr.name)
 
 
-def rbh_spmm(a: DeviceRBH, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X. The column-perm gather on X is part of the call, so a
-    measured time holds its whole cost."""
+def rbh_spmm(a: DeviceRBH, x: torch.Tensor, precision=None) -> torch.Tensor:
+    """Y = A @ X at matmul ``precision`` (None: the dtype's own; 'high': the
+    block part on ``bsr_spmm``'s 3-pass form and a merge remainder on
+    ``merge_spmm``'s; coo and sell contract through no dot). The
+    column-perm gather on X is part of the call, so a measured time holds
+    its whole cost."""
     xp = x if a.perm is None else x.index_select(0, a.perm)
     y = None
     if a.bsr is not None:
-        y = bsr_spmm(a.bsr, xp)
+        y = bsr_spmm(a.bsr, xp, precision=precision)
     if a.res is not None:
-        yr = RESIDUALS[a.res_fmt][1](a.res, xp)
+        spmm = RESIDUALS[a.res_fmt][1]
+        yr = (spmm(a.res, xp, precision=precision) if a.res_fmt == "merge"
+              else spmm(a.res, xp))
         y = yr if y is None else (y + yr.to(y.dtype))
     if y is None:
         y = torch.zeros((a.shape[0], x.shape[1]), dtype=x.dtype,

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from spgrid_torch.ops.dense import full_f32
+from spgrid_torch.ops.dense import at_high, full_f32
 from spgrid_torch.ops.layouts import (
     DeviceBSR, DeviceCOO, DeviceCSC, DeviceCV, DeviceELL, DeviceLDU,
     DeviceSELL,
@@ -124,10 +124,12 @@ def spmv_sell(sell: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
     return spmm_sell(sell, x[:, None])[:, 0]
 
 
-def spmm_bsr(bsr: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
+def spmm_bsr(bsr: DeviceBSR, x: torch.Tensor,
+             precision=None) -> torch.Tensor:
     """Y (m, n) = A @ X from the BSR blocks: each block's tile of X
-    gathered, one batched product, the products summed a block row
-    (``segment_sum`` at ``row_ptr``; the pad blocks lie past it)."""
+    gathered, one batched product (at matmul ``precision`` 'high' by
+    ``dense.at_high``), the products summed a block row (``segment_sum`` at
+    ``row_ptr``; the pad blocks lie past it)."""
     full_f32()
     nb = bsr.num_blocks
     bk, mb = bsr.bk, bsr.mb
@@ -137,7 +139,9 @@ def spmm_bsr(bsr: DeviceBSR, x: torch.Tensor) -> torch.Tensor:
     xp = torch.zeros((kb * bk, n), dtype=acc, device=x.device)
     xp[:x.shape[0]] = x
     tiles = xp.view(kb, bk, n).index_select(0, bsr.block_cols[:nb])
-    prods = torch.bmm(bsr.blocks[:nb].to(acc), tiles)       # (nb, bm, n)
+    blocks = bsr.blocks[:nb].to(acc)
+    prods = (at_high(torch.bmm, blocks, tiles) if precision == "high"
+             else torch.bmm(blocks, tiles))                 # (nb, bm, n)
     out = segment_sum(prods, bsr.row_ptr.long())             # (mb, bm, n)
     return out.reshape(mb * bsr.bm, n)[:bsr.shape[0]].to(x.dtype)
 
@@ -189,10 +193,18 @@ def ell_chunk_rows(width: int, n: int) -> int:
     return rows // 8 * 8
 
 
-def spmm_ell(ell: DeviceELL, x: torch.Tensor) -> torch.Tensor:
+def _ell_rows(vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(rows, n): each row's slots' values (rows, w) times their gathered
+    X rows (rows, w, n), summed over w: the JAX op's einsum."""
+    return torch.einsum("rw,rwn->rn", vals, g)
+
+
+def spmm_ell(ell: DeviceELL, x: torch.Tensor,
+             precision=None) -> torch.Tensor:
     """Y (m, n) = A @ X from ELL, a chunk of rows at a time: the X rows of
     the chunk's slots gathered, weighted by the slots' values and summed
-    over the width (pad slots add 0 x X[0])."""
+    over the width (pad slots add 0 x X[0]); at matmul ``precision`` 'high'
+    the JAX op's einsum by ``dense.at_high``."""
     m = ell.shape[0]
     m_pad, w = ell.cols.shape
     n = x.shape[1]
@@ -204,6 +216,9 @@ def spmm_ell(ell: DeviceELL, x: torch.Tensor) -> torch.Tensor:
         r1 = min(r0 + step, m)
         g = x.index_select(0, ell.cols[r0:r1].reshape(-1)).view(
             r1 - r0, w, n).to(acc)
+        if precision == "high":
+            y[r0:r1] = at_high(_ell_rows, ell.values[r0:r1].to(acc), g)
+            continue
         g.mul_(ell.values[r0:r1, :, None].to(acc))
         torch.sum(g, dim=1, out=y[r0:r1])
     return y.to(x.dtype)

@@ -27,10 +27,14 @@ from spgrid_torch.entry import hypersparse_edge
 from spgrid_torch.formats.csr import CSRMatrix, dense_to_csr, random_csr
 from spgrid_torch.gen import artificial_matrix_generation, create_mask
 from spgrid_torch.ops.kernels import launch_counts
-from spgrid_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from spgrid_torch.ops.kernels.bsr_spmm import (
+    bsr_spmm, bsr_spmm_bf16x3_plain, bsr_spmm_plain,
+)
 from spgrid_torch.ops.kernels.bsr_spmm import launch as bsr_launch
+from spgrid_torch.ops.kernels.bsr_spmm import x3_launch as bsr_x3_launch
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
-    DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_plain,
+    DeviceBSRCol, bsr_spmm_cstat, bsr_spmm_cstat_bf16x3_plain,
+    bsr_spmm_cstat_plain,
 )
 from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
     launch_grid as bsrc_launch_grid,
@@ -52,9 +56,21 @@ from spgrid_torch.ops.kernels.spmv_ablate import (
     VARIANTS, spmv_ablate, spmv_ablate_plain, spmv_ablate_rows_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import (
-    DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_plain,
+    DevicePanels, panel_spmm, panel_spmm_bf16, panel_spmm_bf16x3_plain,
+    panel_spmm_plain,
 )
 from spgrid_torch.ops.kernels.panel_spmm import launch as panel_launch
+from spgrid_torch.ops.kernels.panel_spmm import (
+    x3_launch as panel_x3_launch,
+)
+from spgrid_torch.ops.kernels.panel_spmm import (
+    x3_shape as panel_x3_shape, x3_split_launch as panel_x3_split,
+)
+from spgrid_torch.ops.kernels.bf16x3 import plane_cols
+from spgrid_torch.ops.kernels.bsr_spmm import x3_shape as bsr_x3_shape
+from spgrid_torch.ops.kernels.bsr_spmm_cstat import (
+    x3_shape as bsrc_x3_shape,
+)
 from spgrid_torch.ops.kernels.sddmm import (
     bf16_shape, bsr_sddmm, bsr_sddmm_bf16x3_plain, bsr_sddmm_plain,
     plane_shape, split_launch, split_planes, split_planes_plain, x3_shape,
@@ -2315,6 +2331,197 @@ def test_bsr_sddmm_bf16x3_split_planes_equal_the_plain_split(cuda, mq, mk,
                          split_planes_plain(q, k)):
         assert got.shape == want.shape
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# --- the SpMMs' 3-pass forms (matmul precision 'high'): 1c, 2c and 4c on
+# the f32 forms' cases against their plain versions on the same inputs, as
+# 3c's: positive operands, within 1e-6 relative (the plain version sums
+# each pass exactly in f64, the tiles 64-deep steps on the tensor cores);
+# one launch on the form's counter, the same bits twice and by graph
+# replay. python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+# -k bf16x3
+
+def x3_checked(fn, counter, plain, *args):
+    """fn(*args): one launch on ``counter``, within 1e-6 of ``plain``, the
+    same bits on a second call and by graph replay."""
+    before = launch_counts()[counter]
+    got = fn(*args)
+    assert launch_counts()[counter] == before + 1
+    assert_rel_1e6(got, plain(*args))
+    assert torch.equal(fn(*args), got)
+    graph, out = captured(fn, *args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    return got
+
+
+def high(fn):
+    return functools.partial(fn, precision="high")
+
+
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 77, 512])
+@pytest.mark.parametrize("case", sorted(SPMM))
+def test_bsr_spmm_bf16x3(cuda, case, n, x_layout):
+    make, bm, pad = SPMM[case]
+    csr = make()
+    a = DeviceBSR.from_csr(csr, bm=bm, bk=128, pad_multiple=pad, device=cuda)
+    x = (operand if x_layout == "aligned" else misaligned)((csr.k, n), 5,
+                                                           cuda)
+    x3_checked(high(bsr_spmm), "bsr_spmm_bf16x3", bsr_spmm_bf16x3_plain, a,
+               x)
+
+
+@pytest.mark.parametrize("x_layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 70, 512])
+@pytest.mark.parametrize("case", sorted(PANELS))
+def test_panel_spmm_bf16x3(cuda, case, n, x_layout):
+    make, band_rows = PANELS[case]
+    csr = make()
+    a = DevicePanels.from_csr(csr, bk=128, band_rows=band_rows, device=cuda)
+    x = (operand if x_layout == "aligned" else misaligned)((csr.k, n), 6,
+                                                           cuda)
+    x3_checked(high(panel_spmm), "panel_spmm_bf16x3",
+               panel_spmm_bf16x3_plain, a, x)
+
+
+@pytest.mark.parametrize("case", sorted(BSRC))
+def test_bsr_spmm_cstat_bf16x3(cuda, case):
+    make, bm, bk, band_rows, n, layout = BSRC[case]
+    csr = make()
+    a = DeviceBSRCol.from_csr(csr, bm=bm, bk=bk, band_rows=band_rows,
+                              device=cuda)
+    x = (operand((csr.k, n), 12, cuda) if layout == "plain"
+         else misaligned((csr.k, n), 12, cuda))
+    x3_checked(high(bsr_spmm_cstat), "bsr_spmm_cstat_bf16x3",
+               bsr_spmm_cstat_bf16x3_plain, a, x)
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("form", ["bsr", "panel"])
+def test_spmm_bf16x3_at_every_cluster_size(cuda, form, cluster):
+    """1c and 2c's C entry points at each cluster size into a Y that starts
+    as NaN: every element written, within 1e-6 of the plain version, the
+    same bits on two calls."""
+    csr = positive(random_csr(500, 300, 0.2, seed=6))
+    if form == "bsr":
+        a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3,
+                               device=cuda)
+        launch_x3, plain = bsr_x3_launch, bsr_spmm_bf16x3_plain
+    else:
+        a = DevicePanels.from_csr(csr, bk=128, band_rows=300, device=cuda)
+        launch_x3, plain = panel_x3_launch, panel_spmm_bf16x3_plain
+    x = operand((csr.k, 200), 5, cuda)
+
+    def call():
+        y = torch.full((csr.m, 200), float("nan"), device=cuda)
+        launch_x3(a, x, y, cluster)
+        return y
+
+    y = call()
+    assert_rel_1e6(y, plain(a, x))
+    assert torch.equal(call(), y)
+
+
+def test_spmm_bf16x3_is_not_the_f32_form(cuda):
+    """On operands of both signs each 3-pass form lies within 1e-6 (of the
+    largest magnitude) of its plain version and farther than that from the
+    f32 product (the dropped lo x lo term)."""
+    g = torch.Generator(device="cpu").manual_seed(45)
+    csr = random_csr(600, 500, 0.3, seed=9)
+    x = torch.randn((500, 256), generator=g).to(cuda)
+    f32 = torch.from_numpy(csr.to_dense()).double().to(cuda) @ x.double()
+    for layout, fn, plain in (
+            (DeviceBSR.from_csr(csr, bm=128, bk=128, device=cuda), bsr_spmm,
+             bsr_spmm_bf16x3_plain),
+            (DevicePanels.from_csr(csr, device=cuda), panel_spmm,
+             panel_spmm_bf16x3_plain),
+            (DeviceBSRCol.from_csr(csr, device=cuda), bsr_spmm_cstat,
+             bsr_spmm_cstat_bf16x3_plain)):
+        got = fn(layout, x, precision="high")
+        want = plain(layout, x)
+        torch.cuda.synchronize()
+        scale = want.abs().max()
+        assert (got - want).abs().max() <= 1e-6 * scale
+        assert (want.double() - f32).abs().max() > 1e-6 * scale
+
+
+def packed_panel_rows(a):
+    """2c's packed panel rows: for live pair p (the p-th of slice_slots),
+    ((its plane rows p 128 .. p 128 + rows - 1), the panel rows they hold)
+    as (plane row, slot, panel row) index tensors."""
+    ptr = a.slice_ptr.cpu().tolist()
+    slots = a.slice_slots.cpu().tolist()
+    per = -(-a.band_rows // 128)
+    plane, slot, row = [], [], []
+    for s in range(len(ptr) - 1):
+        i0 = s % per * 128
+        rows = min(128, a.band_rows - i0)
+        for p in range(ptr[s], ptr[s + 1]):
+            plane += range(p * 128, p * 128 + rows)
+            slot += [slots[p]] * rows
+            row += range(i0, i0 + rows)
+    return (torch.tensor(plane), torch.tensor(slot), torch.tensor(row))
+
+
+@pytest.mark.parametrize("form", ["bsr", "bsrc", "panel"])
+def test_spmm_bf16x3_split_planes_equal_the_plain_split(cuda, form):
+    """The SpMMs' split alone against the plain split of operands of both
+    signs, element for element: 1c's and 4c's (``split_pair`` over their
+    blocks, pad blocks included, and X) every byte of the scratch written
+    (it starts as 0xFF); 2c's the live pairs' panel rows packed 128 rows a
+    pair, then X, its scratch only the live pairs' (fewer than the
+    panels' on a matrix with dead slices)."""
+    g = torch.Generator(device="cpu").manual_seed(48)
+    csr = random_csr(700, 300, 0.004, seed=10)
+    n = 96
+    x = (torch.randn((300, n), generator=g) * 3).to(cuda)
+    if form == "bsr":
+        a = DeviceBSR.from_csr(csr, bm=200, bk=128, pad_multiple=3,
+                               device=cuda)
+        nbytes = bsr_x3_shape(a, n)[1]
+    elif form == "bsrc":
+        a = DeviceBSRCol.from_csr(csr, device=cuda)
+        nbytes = bsrc_x3_shape(a, n)[1]
+    else:
+        a = DevicePanels.from_csr(csr, bk=128, band_rows=300, device=cuda)
+        nbytes = panel_x3_shape(a, n)[1]
+    g2 = torch.Generator(device="cpu").manual_seed(49)
+    blocks = (torch.randn(a.panels.shape if form == "panel"
+                          else a.blocks.shape, generator=g2) / 3).to(cuda)
+    if form == "panel":
+        a = dataclasses.replace(a, panels=blocks)
+        pairs = a.slice_slots.numel()
+        assert pairs < a.bands * a.max_p * -(-a.band_rows // 128)
+        rows = 128 * max(pairs, 1)
+    else:
+        a = dataclasses.replace(a, blocks=blocks)
+        rows = blocks.shape[0] * blocks.shape[1]
+    dp, dx = plane_cols(a.bk), plane_cols(n)
+    assert nbytes == 2 * 2 * (rows * dp + 300 * dx)
+    scratch = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=cuda)
+    if form == "panel":
+        panel_x3_split(a, x, scratch)
+        plane, slot, row = packed_panel_rows(a)
+        a_rows = torch.zeros((rows, a.bk), device=cuda)
+        a_rows[plane] = blocks[slot, row]
+    else:
+        split_launch(blocks.reshape(-1, a.bk), x, scratch)
+        a_rows = blocks.reshape(-1, a.bk)
+        plane = torch.arange(rows)
+    torch.cuda.synchronize()
+    flat = scratch.view(torch.bfloat16)
+    got = (flat[:rows * dp].view(rows, dp),
+           flat[rows * dp:2 * rows * dp].view(rows, dp),
+           flat[2 * rows * dp:2 * rows * dp + 300 * dx].view(300, dx),
+           flat[2 * rows * dp + 300 * dx:].view(300, dx))
+    want = split_planes_plain(a_rows, x)
+    plane = plane.to(cuda)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        if i < 2:
+            g_, w_ = g_[plane], w_[plane]
+        assert torch.equal(g_.view(torch.int16), w_.view(torch.int16))
 
 
 @pytest.mark.parametrize("case", sorted(BSRC))

@@ -129,7 +129,7 @@ def test_auto_tol_row_gates_on_the_chosen_format(quick, monkeypatch):
     fails there), and the gold is made once a class on one matrix."""
     monkeypatch.setattr(
         dispatch, "select_format",
-        lambda f, n, tolerance=0.0, dtype="float32":
+        lambda f, n, tolerance=0.0, dtype="float32", precision=None:
         "cv_gell" if tolerance else "gell")
     seen = []
     real = harness.gate_x

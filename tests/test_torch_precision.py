@@ -25,8 +25,12 @@
   dot (its product at 'high' is its product at 'highest', bit for bit).
 - The SDDMM study's 'high' rows at a tiny size, with the JAX study's row
   names.
-- ``run_spmm``, ``run_pipeline`` and an SpMM row of the CLI at 'high'
-  refused, naming ROADMAP.md: no SpMM has a 3-pass form.
+- ``run_spmm`` and ``run_pipeline`` at f32 'high' run (every SpMM and the
+  pipeline have 3-pass forms: ``tests/test_torch_spmm_high.py``), while a
+  precision with no form is refused naming ROADMAP.md, by the harness and
+  by the CLI (exit 2): f32 at 'default' (the TPU's one bf16 pass) for a
+  format whose dot takes the ambient precision and for the pipeline, and
+  bf16 at any precision but 'default'.
 """
 
 import dataclasses
@@ -326,28 +330,56 @@ def test_study_writes_the_high_arm(tmp_path):
     assert [r["precision"] for r in ab] == ["high", "highest"]
 
 
-def test_run_spmm_and_run_pipeline_refuse_high():
+def test_run_spmm_and_run_pipeline_refuse_a_precision_without_a_form():
+    """At f32 'high' the SpMM and the pipeline run (their 3-pass forms); f32
+    at 'default' and bf16 at 'highest' have no form and raise."""
     csr = random_csr(64, 64, 0.2, seed=1)
     cfg = dataclasses.replace(FAST, num_cols=8, matmul_precision="high")
+    assert harness.run_spmm(csr, "bsr_cuda", cfg, device="cpu",
+                            check_accuracy=False)["dtype"] == "float32"
+    assert harness.run_pipeline(csr, csr, csr, config=cfg, device="cpu",
+                                check_accuracy=False)["time"] > 0
+    default = dataclasses.replace(cfg, matmul_precision="default")
     with pytest.raises(ValueError, match="ROADMAP"):
-        harness.run_spmm(csr, "bsr_cuda", cfg, device="cpu")
+        harness.run_spmm(csr, "bsr_cuda", default, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
-        harness.run_pipeline(csr, csr, csr, config=cfg, device="cpu")
+        harness.run_pipeline(csr, csr, csr, config=default, device="cpu")
     # nor a bf16 row at a precision other than bf16's own
     with pytest.raises(ValueError, match="ROADMAP"):
         harness.run_spmm(csr, "dense", dataclasses.replace(
             cfg, dtype="bfloat16", matmul_precision="highest"), device="cpu")
 
 
-@pytest.mark.parametrize("args", [
-    ["--generate", LINE, "--kernel", "bsr_cuda"],
-    ["--generate", LINE, "--kernel", "dense", "--dtype", "bfloat16"]])
-def test_cli_spmm_row_at_high_exits_2(args, monkeypatch, capsys):
-    monkeypatch.setenv("SPGRID_MATMUL_PRECISION", "high")
+@pytest.mark.parametrize("precision,args", [
+    ("default", ["--generate", LINE, "--kernel", "bsr_cuda"]),
+    ("default", ["--pipeline", "w.smtx", "w.smtx", "w.smtx"]),
+    ("high", ["--generate", LINE, "--kernel", "dense", "--dtype",
+              "bfloat16"]),
+    ("default", ["--generate", LINE, "--kernel", "auto"])])
+def test_cli_spmm_row_without_a_form_exits_2(precision, args, monkeypatch,
+                                             capsys):
+    monkeypatch.setenv("SPGRID_MATMUL_PRECISION", precision)
     with pytest.raises(SystemExit) as e:
         cli.main(args + ["--platform", "cpu"])
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kernel", ["auto", "auto_tol", "autotune"])
+def test_dispatch_kernels_refuse_f32_at_default(kernel):
+    """JAX's auto at f32 'default' chooses among every format, some of
+    which the port has no one-pass form of: the dispatch kernels raise
+    there, and a format that contracts through no dot still runs."""
+    csr = random_csr(64, 64, 0.2, seed=1)
+    cfg = dataclasses.replace(FAST, num_cols=8, matmul_precision="default")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        harness.run_spmm(csr, kernel, cfg, device="cpu")
+    assert not harness.formats_run_at(harness.kernel_formats(kernel),
+                                      "float32", "default")
+    assert harness.formats_run_at(harness.kernel_formats(kernel),
+                                  "float32", "high")
+    assert harness.run_spmm(csr, "coo", cfg, device="cpu",
+                            check_accuracy=False)["fmt"] == "coo"
 
 
 def test_cli_sddmm_at_high(monkeypatch, tmp_path):
